@@ -1,0 +1,169 @@
+"""A seeded mixed RFC5424 corpus and its scalar-path expectation.
+
+Used by ``chip_smoke.py`` and the differential tests to drive every
+branch of the device path: well-formed lines with 0-6 SD pairs, rows for
+the 16-pair rescue decode, rows beyond it and beyond four SD elements
+(scalar oracle), escaped quotes including backslash runs past the
+kernel's escape cap, malformed lines (stderr), over-length lines, CRLF
+endings and non-ASCII messages.  :func:`scalar_expectation` runs the
+port's scalar decoder and GELF encoder over the same bytes with the line
+splitter's semantics — what the batched path must reproduce byte for
+byte.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+from .config import Config
+from .decoders import DecodeError, RFC5424Decoder
+from .encoders import EncodeError, GelfEncoder
+from .mergers import NulMerger
+
+# (kind, share) — the line mix
+MIX = (
+    ("plain", 0.70), ("rescue", 0.08), ("over", 0.04), ("escape", 0.04),
+    ("malformed", 0.05), ("long", 0.03), ("crlf", 0.03), ("high", 0.03),
+)
+
+_WORDS = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
+          "theta", "iota", "kappa", "lambda", "mu", "request", "served",
+          "GET", "/index.html", "200", "user=42", "timeout", "retry")
+_VALUES = ("v", "a b", "x=y", "[8]", "path/to/x", "42", "", "tab\tsep",
+           "semi;colon", "end]")
+_MALFORMED = (
+    "13>1 2015-08-05T15:53:45Z h a p m - no bracket",
+    "<13>2 2015-08-05T15:53:45Z h a p m - version",
+    "<999>1 2015-08-05T15:53:45Z h a p m - pri",
+    "<>1 2015-08-05T15:53:45Z h a p m - empty pri",
+    "<13>1 - h a p m - nil timestamp",
+    "<13>1 2015-08-05T15:53:45Z h a p m x not dash",
+    "<13>1 2015-08-05T15:53:45Z h a p",
+    "<13>1 2016-12-31T23:59:60Z h a p m - leap second",
+    "<13>1 2015-02-30T15:53:45Z h a p m - bad day",
+    "<13>1 2015-08-05T15:53:45.0123456789Z h a p m - ten digits",
+    '<13>1 2015-08-05T15:53:45Z h a p m [id k="v"]',
+    '<13>1 2015-08-05T15:53:45Z h a p m [id  spaced = bogus',
+    '<13>1 2015-08-05T15:53:45Z h a p m [id una="unterminated',
+    "<13>1 2015-08-05T15:53:45Z h a p m [id] m",
+    "",
+)
+
+
+def _ts(rng) -> str:
+    frac = ("", f".{int(rng.integers(1, 999999999)):d}"[:int(rng.integers(2, 11))],
+            ".5", ".637824")[int(rng.integers(0, 4))]
+    off = ("Z", "z", "+02:00", "-07:30", "+00:00", "-11:45")[int(rng.integers(0, 6))]
+    return (f"20{int(rng.integers(10, 38)):02d}-{int(rng.integers(1, 13)):02d}-"
+            f"{int(rng.integers(1, 29)):02d}T{int(rng.integers(0, 24)):02d}:"
+            f"{int(rng.integers(0, 60)):02d}:{int(rng.integers(0, 60)):02d}"
+            f"{frac}{off}")
+
+
+def _msg(rng, words: int) -> str:
+    return " ".join(_WORDS[int(i)] for i in rng.integers(0, len(_WORDS), words))
+
+
+def _sd(rng, n_elems: int, n_pairs: int, value_fn=None) -> str:
+    """``n_elems`` SD elements carrying ``n_pairs`` pairs in total."""
+    per = [0] * n_elems
+    for i in range(n_pairs):
+        per[int(rng.integers(0, n_elems))] += 1
+    out = []
+    k = 0
+    for e in range(n_elems):
+        pairs = []
+        for _ in range(per[e]):
+            v = value_fn(k) if value_fn else _VALUES[int(rng.integers(0, len(_VALUES)))]
+            pairs.append(f'k{k:02d}="{v}"')
+            k += 1
+        body = " " + " ".join(pairs) if pairs else " "
+        out.append(f"[id{e}@{int(rng.integers(1, 99999))}{body}]")
+    return "".join(out)
+
+
+def _head(rng) -> str:
+    return (f"<{int(rng.integers(0, 192))}>1 {_ts(rng)} host-{int(rng.integers(0, 50))} "
+            f"app{int(rng.integers(0, 9))} {int(rng.integers(1, 65535))} "
+            f"ID{int(rng.integers(0, 99))}")
+
+
+def make_line(rng, kind: str) -> bytes:
+    if kind == "malformed":
+        return _MALFORMED[int(rng.integers(0, len(_MALFORMED)))].encode()
+    head = _head(rng)
+    if kind == "plain":
+        if rng.random() < 0.2:
+            sd = "-"
+        else:
+            sd = _sd(rng, int(rng.integers(1, 5)), int(rng.integers(0, 7)))
+        return f"{head} {sd} {_msg(rng, int(rng.integers(1, 12)))}".encode()
+    if kind == "rescue":
+        sd = _sd(rng, int(rng.integers(1, 5)), int(rng.integers(7, 17)),
+                 lambda k: str(k))
+        return f"{head} {sd} {_msg(rng, 3)}".encode()
+    if kind == "over":
+        if rng.random() < 0.5:
+            sd = _sd(rng, 2, int(rng.integers(17, 24)), lambda k: str(k))
+        else:
+            sd = _sd(rng, int(rng.integers(5, 8)), 5, lambda k: "x")
+        return f"{head} {sd} {_msg(rng, 2)}".encode()
+    if kind == "escape":
+        run = int(rng.choice([1, 2, 3, 14, 15, 16, 17, 24]))
+        quote = "\\" * run + ('"' if run % 2 else '\\"')
+        sd = f'[esc@1 q="a{quote}b" r="c\\]d"]'
+        return f"{head} {sd} {_msg(rng, 2)}".encode()
+    if kind == "long":
+        sd = _sd(rng, 1, 2)
+        return f"{head} {sd} {_msg(rng, 120)}".encode()
+    if kind == "crlf":
+        return f"{head} - {_msg(rng, 4)}\r".encode()
+    if kind == "high":
+        return f"{head} - {_msg(rng, 3)} ünïcødé ✓ 日本".encode()
+    raise ValueError(kind)
+
+
+def make_corpus(n_lines: int, seed: int) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` lines (without separators) and their kinds, drawn from
+    :data:`MIX` with ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    kinds, shares = zip(*MIX)
+    picks = rng.choice(len(kinds), size=n_lines, p=np.asarray(shares) / sum(shares))
+    lines = [make_line(rng, kinds[int(k)]) for k in picks]
+    return lines, [kinds[int(k)] for k in picks]
+
+
+def scalar_expectation(data: bytes, framing: str = "line",
+                       config: Config = None,
+                       merger=NulMerger()) -> Tuple[bytes, List[str]]:
+    """Output bytes (GELF, NUL-framed unless another merger is given;
+    None = no framing) and stderr error lines of the reference's
+    per-line path over ``data``: split on the separator, one trailing CR
+    stripped for line framing, the trailing partial frame included, then
+    decode → encode → frame (line_splitter.rs:17-54)."""
+    sep = b"\0" if framing == "nul" else b"\n"
+    decoder = RFC5424Decoder()
+    encoder = GelfEncoder(config or Config.from_string(""))
+    parts = data.split(sep)
+    if parts and parts[-1] == b"":
+        parts.pop()
+    out, errs = [], []
+    for raw in parts:
+        if framing == "line" and raw.endswith(b"\r"):
+            raw = raw[:-1]
+        try:
+            line = raw.decode("utf-8")
+        except UnicodeDecodeError:
+            errs.append("Invalid UTF-8 input")
+            continue
+        try:
+            payload = encoder.encode(decoder.decode(line))
+            out.append(merger.frame(payload) if merger is not None
+                       else payload)
+        except (DecodeError, EncodeError) as e:
+            stripped = line.strip()
+            if not (framing == "nul" and not stripped):
+                errs.append(f"{e}: [{stripped}]")
+    return b"".join(out), errs

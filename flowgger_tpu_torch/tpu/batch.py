@@ -1,0 +1,208 @@
+"""BatchHandler: the port's batched RFC5424 → GELF path.
+
+Raw transport chunks reach the handler through one :class:`_RawSession`
+per stream.  At flush — when ``input.tpu_batch_size`` records are
+pending, when ``input.tpu_flush_ms`` elapses with data pending, or at end
+of stream — each session's region is cut at its last separator (the
+tail stays as carry for the next flush) and goes through:
+
+1. device framing (``framing.device_frame_region``: span and gather
+   kernels), or the host splitter when the span kernel declines;
+2. the RFC5424 decode kernel (``rfc5424.decode_rfc5424_submit``) and its
+   fetch, which re-decodes 7-16-pair rows with the 16-pair kernel;
+3. the host block encoder (``encode_gelf_block``), which runs the scalar
+   oracle for rows the kernel flagged and for over-length lines;
+4. the merger framing (pre-applied) and the output queue.
+
+Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
+the reference (line_splitter.rs:37-54).  Batches are processed in order
+under one decode lock, so a timer flush racing a size flush cannot
+reorder output.  A device or kernel failure raises: there is no scalar
+fallback for a whole batch on this path.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+from typing import List
+
+import torch
+
+from ..config import Config
+from ..splitters import Handler
+from . import framing as _framing
+from . import pack as _pack
+from .encode_gelf_block import encode_rfc5424_gelf_block
+from .rfc5424 import decode_rfc5424_fetch, decode_rfc5424_submit
+
+DEFAULT_BATCH_SIZE = 16384
+DEFAULT_FLUSH_MS = 50
+DEFAULT_MAX_LINE_LEN = 512
+
+
+class BatchHandler(Handler):
+    def __init__(self, tx, encoder, config: Config, merger,
+                 device: torch.device, start_timer: bool = True):
+        self.tx = tx
+        self.encoder = encoder
+        self.merger = merger
+        self.device = device
+        self.batch_size = config.lookup_int(
+            "input.tpu_batch_size", "input.tpu_batch_size must be an integer",
+            DEFAULT_BATCH_SIZE)
+        self.flush_ms = config.lookup_int(
+            "input.tpu_flush_ms", "input.tpu_flush_ms must be an integer",
+            DEFAULT_FLUSH_MS)
+        self.max_len = config.lookup_int(
+            "input.tpu_max_line_len",
+            "input.tpu_max_line_len must be an integer", DEFAULT_MAX_LINE_LEN)
+        self._start_timer = start_timer
+        self._lines: List[bytes] = []
+        self._raw_sessions: List["_RawSession"] = []
+        self._raw_est = 0
+        self._lock = threading.Lock()
+        # serializes flushes so a timer flush racing a size flush cannot
+        # reorder output
+        self._decode_lock = threading.Lock()
+        self._timer = None
+
+    # -- ingest --------------------------------------------------------------
+    def open_raw(self, framing: str) -> "_RawSession":
+        sess = _RawSession(self, framing)
+        with self._lock:
+            self._raw_sessions.append(sess)
+        return sess
+
+    def handle_bytes(self, raw: bytes) -> None:
+        """One already-framed record (the end-of-stream partial frame)."""
+        with self._lock:
+            self._lines.append(raw)
+            full = self._pending_locked() >= self.batch_size
+            if not full:
+                self._arm_timer_locked()
+        if full:
+            self.flush()
+
+    def _pending_locked(self) -> int:
+        return len(self._lines) + self._raw_est
+
+    def _arm_timer_locked(self) -> None:
+        if self._timer is None and self._start_timer:
+            self._timer = threading.Timer(self.flush_ms / 1000.0, self.flush)
+            self._timer.daemon = True
+            self._timer.start()
+
+    # -- flush ---------------------------------------------------------------
+    def flush(self) -> None:
+        """Decode, encode and enqueue everything pending, in order."""
+        with self._lock:
+            lines, self._lines = self._lines, []
+            if self._timer is not None:
+                self._timer.cancel()
+                self._timer = None
+        with self._decode_lock:
+            # raw sessions snapshot inside the decode lock: each session's
+            # carry chains across flushes, so snapshot order must equal
+            # processing order whichever thread flushes
+            with self._lock:
+                raw = [(s, s.chunks) for s in self._raw_sessions if s.chunks]
+                for s, _ in raw:
+                    s.chunks = []
+                    self._raw_est -= s.est
+                    s.est = 0
+            for s, chunks in raw:
+                self._decode_raw(s, chunks)
+            if lines:
+                self._dispatch(_pack.pack_lines_2d(lines, self.max_len))
+
+    def _decode_raw(self, sess: "_RawSession", chunks: List[bytes]) -> None:
+        region = sess.carry + b"".join(chunks)
+        sess.carry = b""
+        cut = region.rfind(sess.sep)
+        if cut < 0:
+            sess.carry = region
+            return
+        framed, sess.carry = region[:cut + 1], region[cut + 1:]
+        n = framed.count(sess.sep)
+        try:
+            packed, _consumed = _framing.device_frame_region(
+                framed, sess.framing, self.max_len, n_records=n,
+                device=self.device)
+        except _framing.FramingDeclined:
+            # more records than the separator count sized the spans
+            # for: the same bytes framed on the host
+            packed = _pack.pack_region_2d(framed, self.max_len,
+                                          sep=sess.sep[0],
+                                          strip_cr=sess.framing == "line")
+        self._dispatch(packed)
+
+    def _dispatch(self, packed) -> None:
+        """Decode → fetch (+ 16-pair rescue) → block encode → enqueue."""
+        batch, lens, chunk, starts, orig_lens, n_real = packed
+        if not isinstance(batch, torch.Tensor):
+            batch = torch.from_numpy(batch).to(self.device)
+            lens = torch.from_numpy(lens).to(self.device)
+        host_out = decode_rfc5424_fetch(decode_rfc5424_submit(batch, lens))
+        res = encode_rfc5424_gelf_block(chunk, starts, orig_lens, host_out,
+                                        n_real, batch.shape[1], self.encoder,
+                                        self.merger)
+        self._emit_block(res)
+
+    def _emit_block(self, res) -> None:
+        for error, line in res.errors:
+            if error == "__utf8__":
+                print("Invalid UTF-8 input", file=sys.stderr)
+                continue
+            if self.bare_errors:
+                print(error, file=sys.stderr)
+            else:
+                stripped = line.strip()
+                if not (self.quiet_empty and not stripped):
+                    print(f"{error}: [{stripped}]", file=sys.stderr)
+        if len(res.block):
+            self.tx.put(res.block)
+
+
+class _RawSession:
+    """Per-stream region buffer for device framing: raw chunks accumulate
+    untouched, the handler frames them at flush, and the carry-over tail
+    — a record split across a chunk or flush boundary — stays here
+    between flushes.  ``est`` (one separator count per chunk) drives the
+    batch-size flush trigger."""
+
+    def __init__(self, handler: BatchHandler, framing: str):
+        self.handler = handler
+        self.framing = framing
+        self.sep = b"\0" if framing == "nul" else b"\n"
+        self.carry = b""
+        self.chunks: List[bytes] = []
+        self.est = 0
+
+    def push(self, chunk: bytes) -> None:
+        h = self.handler
+        est = chunk.count(self.sep)
+        with h._lock:
+            self.chunks.append(chunk)
+            self.est += est
+            h._raw_est += est
+            full = h._pending_locked() >= h.batch_size
+            if not full:
+                h._arm_timer_locked()
+        if full:
+            h.flush()
+
+    def finish(self) -> None:
+        """End of stream: flush pending data, then emit the carry as a
+        trailing partial frame (BufRead::lines parity), one trailing CR
+        stripped for line framing."""
+        h = self.handler
+        h.flush()
+        with h._lock:
+            carry, self.carry = self.carry, b""
+            if self in h._raw_sessions:
+                h._raw_sessions.remove(self)
+        if carry:
+            if self.framing == "line" and carry.endswith(b"\r"):
+                carry = carry[:-1]
+            h.handle_bytes(carry)

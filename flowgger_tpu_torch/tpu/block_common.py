@@ -1,0 +1,249 @@
+"""Shared machinery for the columnar block encoder: framing specs, the
+scalar-oracle fallback loop, and the splice that interleaves vectorized
+tier runs with per-row fallback output in input order.
+
+The block encoder produces a contiguous ``final_buf`` for its fast-tier
+rows plus ``row_off`` boundaries; this module turns that into an
+EncodedBlock with the reference's observable semantics — per-line errors
+in order (line_splitter.rs:37-54), framing pre-applied with the
+pipeline's merger (merger/mod.rs:30-32).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..block import EncodedBlock
+from ..encoders import EncodeError
+from ..mergers import LineMerger, Merger, NulMerger, SyslenMerger
+from .assemble import (
+    build_source,
+    concat_segments,
+    exclusive_cumsum,
+    syslen_prefix_segments,
+)
+from .materialize import _scalar_line, compute_ts
+
+
+def vals_scratch(vals: np.ndarray, fmt_fn):
+    """Deduplicated formatted values: repetitive streams share few
+    distinct stamps, and ``fmt_fn`` (json_f64) is the only per-value
+    Python.  Returns
+    (scratch bytes, per-row offsets, per-row lengths)."""
+    uniq, inv = np.unique(vals, return_inverse=True)
+    strs = [fmt_fn(float(u)).encode("ascii") for u in uniq]
+    scratch = b"".join(strs)
+    ulen = np.fromiter((len(s) for s in strs), dtype=np.int64,
+                       count=len(strs))
+    uoff = exclusive_cumsum(ulen)[:-1]
+    return scratch, uoff[inv], ulen[inv]
+
+
+def ts_scratch(out, n: int, ridx: np.ndarray, fmt_fn):
+    """vals_scratch over the calendar-channel timestamps."""
+    ts = compute_ts({k: np.asarray(v)[:n][ridx]
+                     for k, v in out.items()
+                     if k in ("days", "sod", "off", "nanos")})
+    return vals_scratch(ts, fmt_fn)
+
+
+def sorted_pair_order(chunk_arr: np.ndarray, rop: np.ndarray,
+                      ns_abs: np.ndarray, ne_abs: np.ndarray, cap: int):
+    """Sort a flat pair table by (row, name bytes) and detect duplicate
+    names within a row.
+
+    Sort keys are the name bytes packed big-endian into uint64 words via
+    a contiguous view, width adapting to the batch's longest name (the
+    caller guarantees names <= ``cap`` bytes).  Returns (order indices,
+    duplicate-row ids) — callers drop duplicate rows to the scalar
+    oracle for dict last-wins semantics."""
+    max_name = int((ne_abs - ns_abs).max(initial=0))
+    K = max(8, min(cap, -(-max_name // 8) * 8))
+    gidx = (ns_abs[:, None]
+            + np.arange(K, dtype=np.int64)[None, :]).astype(np.int32)
+    nm = np.where(gidx < ne_abs[:, None].astype(np.int32),
+                  chunk_arr[np.minimum(gidx, chunk_arr.size - 1)],
+                  np.uint8(0))
+    words = np.ascontiguousarray(nm).view(">u8")
+    order = np.lexsort(tuple(words[:, w] for w in range(K // 8 - 1, -1, -1))
+                       + (rop,))
+    srop = rop[order]
+    swords = words[order]
+    dup = (srop[1:] == srop[:-1]) & (swords[1:] == swords[:-1]).all(axis=1)
+    dup_rows = np.unique(srop[1:][dup]) if dup.any() else np.zeros(
+        0, dtype=rop.dtype)
+    return order, dup_rows
+
+
+def apply_syslen_prefix(body: np.ndarray, row_off: np.ndarray,
+                        tier_lens: np.ndarray):
+    """Prepend the syslen length prefix per row via one more segment
+    gather.  The rows in ``body`` must already carry their trailing
+    newline (the framed length value counts payload + '\\n',
+    syslen_merger.rs:14-31).  Returns (final_buf bytes, new row_off,
+    prefix_lens)."""
+    deco, _ = build_source(b"0123456789 ")
+    src2 = np.concatenate([body, deco])
+    psrc, plen, prefix_lens = syslen_prefix_segments(tier_lens,
+                                                     int(body.size))
+    seg_src = np.concatenate([psrc, row_off[:-1, None]], axis=1).ravel()
+    seg_len = np.concatenate([plen, tier_lens[:, None]], axis=1).ravel()
+    out = concat_segments(src2, seg_src, seg_len)
+    return out.tobytes(), exclusive_cumsum(tier_lens + prefix_lens), prefix_lens
+
+
+class BlockResult:
+    """The block plus per-row errors, in input order.
+
+    ``emit`` marks which input rows produced a message (the block's
+    bounds align with ``emit``'s True positions) and ``error_rows``
+    carries the input-row index of each error."""
+
+    __slots__ = ("block", "errors", "fallback_rows", "emit", "error_rows")
+
+    def __init__(self, block: EncodedBlock, errors: List[Tuple[str, str]],
+                 fallback_rows: int, emit=None, error_rows=None):
+        self.block = block
+        self.errors = errors
+        self.fallback_rows = fallback_rows
+        self.emit = emit
+        self.error_rows = error_rows
+
+
+def extra_forms(k: str, v: str) -> Tuple[bytes, bytes, bytes]:
+    """The three boundary renderings of one gelf_extra pair, used by the
+    slot folder in encode_gelf_block:
+    ``self`` (before a key: fully quoted + trailing comma),
+    ``string-close`` (after an unclosed string value: leading ``",``
+    closes it, own closing quote supplied by the next constant), and
+    ``after-number`` (after a bare number or self-closed value:
+    self-contained with a leading comma)."""
+    from json.encoder import encode_basestring as _quote
+
+    kq = _quote(k).encode("utf-8")
+    vq = _quote(v).encode("utf-8")
+    return (kq + b":" + vq + b",",
+            b'",' + kq + b":" + vq[:-1],
+            b"," + kq + b":" + vq)
+
+
+def extra_tail(default: bytes, tv: bytes, vz: bytes) -> bytes:
+    """Rebuild the ``,"version":"1.1"}`` tail with extras before/after
+    the version key (tv: after-number form, vz: string-close form)."""
+    if not (tv or vz):
+        return default
+    return tv + b',"version":"1.1' + vz + b'"}'
+
+
+def merger_suffix(merger: Optional[Merger]) -> Optional[Tuple[bytes, bool]]:
+    """(suffix bytes, needs syslen prefix) or None if the merger type is
+    not block-encodable."""
+    if merger is None:
+        return b"", False
+    t = type(merger)
+    if t is LineMerger:
+        return b"\n", False
+    if t is NulMerger:
+        return b"\0", False
+    if t is SyslenMerger:
+        return b"\n", True
+    return None
+
+
+def finish_block(
+    chunk_bytes: bytes,
+    starts64: np.ndarray,
+    lens64: np.ndarray,
+    n: int,
+    cand: np.ndarray,
+    ridx: np.ndarray,
+    final_buf: bytes,
+    row_off: np.ndarray,
+    prefix_lens_tier: Optional[np.ndarray],
+    suffix: bytes,
+    syslen: bool,
+    merger: Optional[Merger],
+    encoder,
+    scalar_fn=_scalar_line,
+) -> BlockResult:
+    """Fallback rows through the scalar oracle (``scalar_fn``, the
+    rfc5424 one by default), splice in input order, compute message
+    bounds; returns the BlockResult."""
+    errors: List[Tuple[str, str]] = []
+    row_bytes_len = np.zeros(n, dtype=np.int64)
+    emit = np.zeros(n, dtype=bool)
+    if ridx.size:
+        row_bytes_len[ridx] = np.diff(row_off)
+        emit[ridx] = True
+
+    fb_idx = np.flatnonzero(~cand)
+    fallback_payload: Dict[int, bytes] = {}
+    fb_prefix: Dict[int, int] = {}
+    fallback_rows = 0  # parity with the per-row path: utf8 errors excluded
+    error_rows: List[int] = []
+    for i in fb_idx.tolist():
+        s = int(starts64[i])
+        ln = int(lens64[i])
+        raw = chunk_bytes[s:s + ln]
+        try:
+            line = raw.decode("utf-8")
+        except UnicodeDecodeError:
+            errors.append(("__utf8__", ""))
+            error_rows.append(i)
+            continue
+        fallback_rows += 1
+        res = scalar_fn(line)
+        if res.record is None:
+            errors.append((res.error, line))
+            error_rows.append(i)
+            continue
+        try:
+            payload = encoder.encode(res.record)
+        except EncodeError as e:
+            errors.append((str(e), line))
+            error_rows.append(i)
+            continue
+        framed_b = merger.frame(payload) if merger is not None else payload
+        fallback_payload[i] = framed_b
+        fb_prefix[i] = len(framed_b) - len(payload) - len(suffix)
+        row_bytes_len[i] = len(framed_b)
+        emit[i] = True
+
+    # splice tier runs and fallback rows in input order: fb_idx is
+    # exactly the non-tier rows, so every gap between consecutive
+    # fallback rows is a contiguous run of tier rows whose bytes are
+    # already contiguous in final_buf — one slice per run.
+    if fb_idx.size:
+        pieces: List[bytes] = []
+        tpos = np.cumsum(cand) - 1  # tier ordinal per row
+        prev = 0
+        for i in fb_idx.tolist():
+            if i > prev:
+                pieces.append(
+                    final_buf[int(row_off[tpos[prev]]):
+                              int(row_off[tpos[i - 1] + 1])])
+            fp = fallback_payload.get(i)
+            if fp is not None:
+                pieces.append(fp)
+            prev = i + 1
+        if prev < n:
+            pieces.append(final_buf[int(row_off[tpos[prev]]):])
+        data = b"".join(pieces)
+    else:
+        data = final_buf
+
+    bounds = exclusive_cumsum(row_bytes_len[emit])
+    prefix_lens = None
+    if syslen:
+        prefix_lens = np.zeros(n, dtype=np.int64)
+        if prefix_lens_tier is not None:
+            prefix_lens[ridx] = prefix_lens_tier
+        for i, v in fb_prefix.items():
+            prefix_lens[i] = v
+        prefix_lens = prefix_lens[emit]
+
+    block = EncodedBlock(data, bounds, prefix_lens, len(suffix))
+    return BlockResult(block, errors, fallback_rows, emit=emit,
+                       error_rows=error_rows)

@@ -1,0 +1,275 @@
+"""The hand-written CUDA kernels of the main path, their loader, and the
+chained framing→decode entry.
+
+Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
+
+- ``frame_sep_spans`` — line/NUL record spans over a raw region
+  (replaces ``pallas_kernels.frame_sep_spans_pallas``);
+- ``frame_gather`` — the dense ``[rows, max_len]`` batch from the spans
+  (replaces ``pallas_kernels.frame_gather_pallas``);
+- ``decode_rfc5424`` — the per-row RFC5424 channels at 6 and 16 pairs
+  (replaces ``rfc5424.decode_rfc5424_pallas``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use, into ``build/cuda`` next to the
+package (listed in ``.gitignore``), keyed by a hash of the source and the
+flags so an edited source rebuilds.  :func:`build` compiles every
+missing library in parallel — one ``nvcc`` per source, all started
+together.  The libraries are loaded with ``ctypes``; a wrapper checks its
+tensors, launches on PyTorch's current stream, raises on any CUDA error
+the launch reports, and counts its launches in :data:`LAUNCHES`.
+Nothing here falls back: no ``nvcc``, a failed build, or a refused launch
+raises.  The plain PyTorch versions live beside the dispatchers that
+choose between them by the tensor's device (``framing.sep_spans``,
+``framing.gather``, ``rfc5424.decode_rfc5424_submit``).
+
+``nvcc`` and the card are only touched inside the functions below,
+never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = {
+    "frame_sep_spans": "frame_sep_spans.cu",
+    "frame_gather": "frame_gather.cu",
+    "decode_rfc5424": "decode_rfc5424.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+
+# launches per kernel since the last reset_launch_counts(); a wrapper
+# adds one exactly where it launches its kernel (the decode kernel counts
+# its 6-pair and 16-pair instantiations apart)
+LAUNCHES: Dict[str, int] = {"frame_sep_spans": 0, "frame_gather": 0,
+                            "decode_rfc5424_p6": 0, "decode_rfc5424_p16": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "frame_sep_spans": {
+        "fg_frame_sep_spans": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    },
+    "frame_gather": {
+        "fg_frame_gather": (_P, ctypes.c_longlong, _P, _P, _I, _I, _P, _P,
+                            _P),
+    },
+    "decode_rfc5424": {
+        "fg_decode_rfc5424_sd4_p6": (_P, _P, _P, _I, _I, _P),
+        "fg_decode_rfc5424_sd4_p16": (_P, _P, _P, _I, _I, _P),
+    },
+}
+_TILE_BYTES = 4096   # kTile in frame_sep_spans.cu
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build_dir() -> Path:
+    return _CSRC.parent.parent / "build" / "cuda"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of flowgger_tpu_torch "
+                       "are built from source at first use and need the CUDA "
+                       "toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / _SOURCES[name]).read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"{name}-{h}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every missing kernel library, one ``nvcc`` per source,
+    all started together.  Returns ``{name: {"seconds", "log",
+    "cached"}}``; raises RuntimeError naming the source if any build
+    fails."""
+    names = list(names or _SOURCES)
+    out: Dict[str, dict] = {}
+    procs = {}
+    build_dir().mkdir(parents=True, exist_ok=True)
+    for name in names:
+        dst = _lib_path(name)
+        if dst.exists():
+            out[name] = {"seconds": 0.0, "log": "", "cached": True}
+            continue
+        tmp = dst.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / _SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       time.perf_counter(), tmp, dst)
+    failed = []
+    for name, (proc, t0, tmp, dst) in procs.items():
+        log = proc.communicate()[0].decode("utf-8", "replace")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{_SOURCES[name]} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, dst)
+        out[name] = {"seconds": secs, "log": log, "cached": False}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    # builds publish atomically (os.replace), so two callers racing here
+    # at first use at worst both compile; the load itself is locked
+    build([name])
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, args in _SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(args)
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch "
+                           f"(cudaError {rc})")
+
+
+def _need(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-d {dtype} "
+                         f"tensor (got {t.dtype}, shape {tuple(t.shape)})")
+
+
+# ---------------------------------------------------------------------------
+# wrappers (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def frame_sep_spans_cuda(region: torch.Tensor, rlen: int, sep: int = 10,
+                         strip_cr: bool = True, ncap: int = 256):
+    """Record spans over ``region[:rlen]`` (u8 [B] on a CUDA device):
+    ``{"starts", "lens"}`` int32 [ncap] and ``"meta"`` int32 [4] =
+    (n, consumed, overflow, 0), all on the device."""
+    _need(region, "region", torch.uint8, 1)
+    if not 0 <= rlen <= region.shape[0] or ncap < 1:
+        raise ValueError(f"bad span geometry rlen={rlen} B={region.shape[0]} "
+                         f"ncap={ncap}")
+    dev = region.device
+    ntiles = max(1, -(-rlen // _TILE_BYTES))
+    scratch = torch.empty(2 * ntiles, dtype=torch.int32, device=dev)
+    starts = torch.empty(ncap, dtype=torch.int32, device=dev)
+    lens = torch.empty(ncap, dtype=torch.int32, device=dev)
+    meta = torch.empty(4, dtype=torch.int32, device=dev)
+    rc = _lib("frame_sep_spans").fg_frame_sep_spans(
+        region.data_ptr(), rlen, sep, int(bool(strip_cr)), ncap,
+        scratch.data_ptr(), scratch[ntiles:].data_ptr(), starts.data_ptr(),
+        lens.data_ptr(), meta.data_ptr(), _stream())
+    _check(rc, "frame_sep_spans")
+    LAUNCHES["frame_sep_spans"] += 1
+    return {"starts": starts, "lens": lens, "meta": meta}
+
+
+def frame_gather_cuda(region: torch.Tensor, starts: torch.Tensor,
+                      lens: torch.Tensor, max_len: int = 512):
+    """``(batch u8 [rows, max_len], lens_c int32 [rows])`` on the
+    device: each row holds ``region[starts[r]:][:min(lens[r], max_len)]``
+    and zeros after it."""
+    _need(region, "region", torch.uint8, 1)
+    _need(starts, "starts", torch.int32, 1)
+    _need(lens, "lens", torch.int32, 1)
+    rows = starts.shape[0]
+    if lens.shape[0] != rows or max_len < 1:
+        raise ValueError("starts/lens must have one entry per row")
+    out = torch.empty((rows, max_len), dtype=torch.uint8, device=region.device)
+    lens_c = torch.empty(rows, dtype=torch.int32, device=region.device)
+    rc = _lib("frame_gather").fg_frame_gather(
+        region.data_ptr(), region.shape[0], starts.data_ptr(),
+        lens.data_ptr(), rows, max_len, out.data_ptr(), lens_c.data_ptr(),
+        _stream())
+    _check(rc, "frame_gather")
+    LAUNCHES["frame_gather"] += 1
+    return out, lens_c
+
+
+def decode_rfc5424_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                        max_sd: int = 4, max_pairs: int = 6) -> torch.Tensor:
+    """The RFC5424 channels of ``batch`` (u8 [N, L]) as one int32
+    ``[C, N]`` tensor on the device (``rfc5424.unpack_channels`` splits
+    it).  Instantiated for max_sd = 4 with 6 or 16 pairs."""
+    from .rfc5424 import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or L < 4:
+        raise ValueError("lens must have one entry per row and rows at "
+                         "least 4 bytes")
+    if max_sd != 4 or max_pairs not in (6, 16):
+        raise ValueError(f"no decode_rfc5424 kernel for max_sd={max_sd} "
+                         f"max_pairs={max_pairs}")
+    if 32 * ((((L + 3) // 4) | 1) * 4) > 227 * 1024:
+        raise ValueError(f"rows of {L} bytes exceed the decode kernel's "
+                         "shared-memory staging")
+    out = torch.empty((n_channels(max_sd, max_pairs), N), dtype=torch.int32,
+                      device=batch.device)
+    fn = getattr(_lib("decode_rfc5424"), f"fg_decode_rfc5424_sd4_p{max_pairs}")
+    rc = fn(batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, L, _stream())
+    _check(rc, "decode_rfc5424")
+    LAUNCHES[f"decode_rfc5424_p{max_pairs}"] += 1
+    return out
+
+
+def fused_frame_decode_rfc5424(region: torch.Tensor, rlen: int,
+                               sep: int = 10, strip_cr: bool = False,
+                               ncap: int = 256, max_len: int = 512,
+                               max_sd: int = 4):
+    """Raw region → spans → gather → RFC5424 channels, the three kernels
+    chained on one stream with the dense batch internal (the CPU takes
+    the plain versions).  Returns ``(spans, channels)`` with
+    ``spans = {"starts", "lens", "n", "consumed", "overflow"}``; rows
+    past ``spans["n"]`` decode padding and must be masked by the
+    caller."""
+    from .framing import gather, sep_spans
+    from .rfc5424 import (DEFAULT_MAX_PAIRS, decode_rfc5424_submit,
+                          unpack_channels)
+
+    spans = sep_spans(region, rlen, sep=sep, strip_cr=strip_cr, ncap=ncap)
+    batch, lens_c = gather(region, spans["starts"], spans["lens"], max_len)
+    out = decode_rfc5424_submit(batch, lens_c, max_sd=max_sd)[0]
+    if isinstance(out, torch.Tensor):
+        out = unpack_channels(out, max_sd, DEFAULT_MAX_PAIRS)
+    return spans, out

@@ -1,0 +1,116 @@
+"""Calendar math and RFC3339 parsing for the scalar RFC5424 oracle.
+
+Behavioral model: the reference's use of the ``time`` crate — RFC3339 →
+unix f64 with nanosecond precision (rfc5424_decoder.rs:94-103,
+``PreciseTimestamp::from_offset_datetime`` utils/mod.rs:23-27: integer
+nanos divided by 1e9 as f64).
+
+Everything integer-sized here is kept as exact int math until the single
+final float division, so results are bit-identical with the reference,
+and the RFC5424 kernel (tpu/rfc5424.py) runs the identical civil-days
+formula in int32 and emits the same (days, secs, nanos) decomposition.
+"""
+
+from __future__ import annotations
+
+_DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
+
+
+def is_leap(year: int) -> bool:
+    return year % 4 == 0 and (year % 100 != 0 or year % 400 == 0)
+
+
+def days_in_month(year: int, month: int) -> int:
+    if month == 2 and is_leap(year):
+        return 29
+    return _DAYS_IN_MONTH[month - 1]
+
+
+def days_from_civil(y: int, m: int, d: int) -> int:
+    """Days since 1970-01-01 (Howard Hinnant's civil-days algorithm —
+    branch-free, so the TPU kernel runs the identical formula in int32)."""
+    y -= m <= 2
+    era = (y if y >= 0 else y - 399) // 400
+    yoe = y - era * 400
+    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _ascii_digits(s: str) -> bool:
+    """Rust-style digit check: ASCII 0-9 only (str.isdigit alone accepts
+    Unicode digits the reference rejects)."""
+    return bool(s) and s.isascii() and s.isdigit()
+
+
+def _parse_fixed_digits(s: str, start: int, n: int) -> int:
+    chunk = s[start:start + n]
+    if len(chunk) != n or not _ascii_digits(chunk):
+        raise ValueError(f"expected {n} digits at {start}")
+    return int(chunk)
+
+
+def rfc3339_to_unix(s: str) -> float:
+    """Parse an RFC3339 timestamp into unix seconds as f64.
+
+    Matches ``OffsetDateTime::parse(s, &Rfc3339)`` followed by
+    ``unix_timestamp_nanos() as f64 / 1e9``: date components validated,
+    subseconds capped at 9 digits, offset ``Z``/``z`` or ``±hh:mm``.
+    Raises ValueError on any malformation.
+    """
+    n = len(s)
+    if n < 20:
+        raise ValueError("too short")
+    year = _parse_fixed_digits(s, 0, 4)
+    if s[4] != "-":
+        raise ValueError("bad date separator")
+    month = _parse_fixed_digits(s, 5, 2)
+    if s[7] != "-":
+        raise ValueError("bad date separator")
+    day = _parse_fixed_digits(s, 8, 2)
+    if s[10] not in "Tt":
+        raise ValueError("bad time separator")
+    hour = _parse_fixed_digits(s, 11, 2)
+    if s[13] != ":":
+        raise ValueError("bad time separator")
+    minute = _parse_fixed_digits(s, 14, 2)
+    if s[16] != ":":
+        raise ValueError("bad time separator")
+    sec = _parse_fixed_digits(s, 17, 2)
+    if not (1 <= month <= 12 and 1 <= day <= days_in_month(year, month)):
+        raise ValueError("bad date")
+    if not (hour <= 23 and minute <= 59 and sec <= 59):
+        raise ValueError("bad time")
+    pos = 19
+    nanos = 0
+    if pos < n and s[pos] == ".":
+        pos += 1
+        frac_start = pos
+        while pos < n and "0" <= s[pos] <= "9":
+            pos += 1
+        ndigits = pos - frac_start
+        if ndigits == 0 or ndigits > 9:
+            raise ValueError("bad subsecond")
+        nanos = int(s[frac_start:pos]) * 10 ** (9 - ndigits)
+    if pos >= n:
+        raise ValueError("missing offset")
+    offset_secs = 0
+    c = s[pos]
+    if c in "Zz":
+        if pos + 1 != n:
+            raise ValueError("trailing data")
+    elif c in "+-":
+        if pos + 6 != n or s[pos + 3] != ":":
+            raise ValueError("bad offset")
+        oh = _parse_fixed_digits(s, pos + 1, 2)
+        om = _parse_fixed_digits(s, pos + 4, 2)
+        if oh > 23 or om > 59:
+            raise ValueError("bad offset")
+        offset_secs = oh * 3600 + om * 60
+        if c == "-":
+            offset_secs = -offset_secs
+    else:
+        raise ValueError("bad offset")
+    days = days_from_civil(year, month, day)
+    total = days * 86400 + hour * 3600 + minute * 60 + sec - offset_secs
+    return (total * 1_000_000_000 + nanos) / 1e9

@@ -1,0 +1,41 @@
+"""Build a kernel source of ``flowgger_tpu_torch/csrc`` for the CPU with
+g++ and the host emulation header beside this file (cuda_runtime.h).
+
+The launch syntax and the dynamic shared-memory declaration are the only
+CUDA-only constructs the sources use; they are rewritten here, and every
+other line compiles as written.  Returns the path of a shared library
+with the source's ``extern "C"`` entry points, called through ctypes with
+host pointers exactly as ``flowgger_tpu_torch.tpu.kernels`` calls the
+device build.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+CSRC = HERE.parent.parent / "flowgger_tpu_torch" / "csrc"
+
+
+def host_source(text: str) -> str:
+    text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                  r"\1* \2 = reinterpret_cast<\1*>(g_dyn_smem.data());", text)
+    return re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", text,
+                  flags=re.S)
+
+
+def gxx_available() -> bool:
+    return shutil.which("g++") is not None
+
+
+def build(name: str, out_dir: Path) -> Path:
+    src = out_dir / f"{name}.cpp"
+    src.write_text(host_source((CSRC / f"{name}.cu").read_text()))
+    lib = out_dir / f"lib{name}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", "-I", str(HERE), "-o", str(lib), str(src)],
+                   check=True, capture_output=True, text=True)
+    return lib

@@ -1,0 +1,205 @@
+"""The port end to end on the CPU: ``python -m flowgger_tpu_torch
+cfg.toml --device cpu`` against ``python -m flowgger_tpu cfg.toml`` on
+one config file and one input (output bytes and stderr error lines), the
+batch handler against the scalar oracle across chunk and flush
+boundaries, the slice's config surface, and the import rule (no JAX, no
+flowgger_tpu)."""
+
+import io
+import os
+import queue
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from flowgger_tpu_torch import pipeline
+from flowgger_tpu_torch.config import Config, ConfigError
+from flowgger_tpu_torch.corpus import make_corpus, scalar_expectation
+from flowgger_tpu_torch.encoders import GelfEncoder
+from flowgger_tpu_torch.mergers import LineMerger, NulMerger, SyslenMerger
+from flowgger_tpu_torch.splitters import LineSplitter, NulSplitter
+from flowgger_tpu_torch.tpu import pack
+from flowgger_tpu_torch.tpu.batch import BatchHandler
+from flowgger_tpu_torch.tpu.encode_gelf_block import encode_rfc5424_gelf_block
+from flowgger_tpu_torch.tpu.rfc5424 import decode_rfc5424_host
+
+ROOT = Path(__file__).resolve().parent.parent
+TAIL = b"<13>1 2015-08-05T15:53:45Z h a p m - partial frame at EOF"
+
+
+def _input(framing, n_lines=600, seed=21):
+    """The mixed corpus plus a partial frame at EOF (600 lines are
+    ~100 KiB, so stdin's 64 KiB reads cut records across chunks)."""
+    lines, _ = make_corpus(n_lines, seed)
+    sep = b"\0" if framing == "nul" else b"\n"
+    return sep.join(lines) + sep + TAIL
+
+
+def _run(pkg, cfg, data, extra=()):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", FLOWGGER_DEVICE_ENCODE="0",
+               PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-m", pkg, str(cfg), *extra],
+                          input=data, capture_output=True, env=env,
+                          cwd=str(ROOT), timeout=300)
+
+
+@pytest.mark.parametrize("framing,out_type,out_framing", [
+    ("line", "file", None), ("nul", "stdout", "line")])
+def test_cli_matches_jax_package(tmp_path, framing, out_type, out_framing):
+    data = _input(framing)
+    assert len(data) > 1 << 16
+    outs = {}
+    for pkg in ("flowgger_tpu_torch", "flowgger_tpu"):
+        out = tmp_path / f"{pkg}.out"
+        cfg = tmp_path / f"{pkg}.toml"
+        cfg.write_text(
+            '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+            f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
+            'tpu_fuse = "off"\n'
+            f'[output]\ntype = "{out_type}"\nformat = "gelf"\n'
+            f'file_path = "{out}"\n'
+            + (f'framing = "{out_framing}"\n' if out_framing else ""))
+        extra = ("--device", "cpu") if pkg == "flowgger_tpu_torch" else ()
+        proc = _run(pkg, cfg, data, extra)
+        assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+        body = out.read_bytes() if out_type == "file" else proc.stdout
+        outs[pkg] = (body, proc.stderr.decode().splitlines())
+    port, ref = outs["flowgger_tpu_torch"], outs["flowgger_tpu"]
+    assert port[0] == ref[0]
+    assert port[1] == ref[1]
+    merger = LineMerger() if out_framing == "line" else NulMerger()
+    exp, errs = scalar_expectation(data, framing, merger=merger)
+    if out_type == "file":
+        assert port[0] == exp
+    assert port[1] == errs and errs
+
+
+@pytest.mark.parametrize("merger", [NulMerger(), LineMerger(),
+                                    SyslenMerger(), None],
+                         ids=["nul", "line", "syslen", "none"])
+def test_block_encoder_matches_scalar_oracle(merger):
+    """encode_rfc5424_gelf_block over the port's decode channels equals
+    the scalar decoder + GelfEncoder + merger row for row, with the
+    oracle rows spliced in input order and errors in order."""
+    lines, _ = make_corpus(700, seed=4)
+    packed = pack.pack_lines_2d(lines, 512)
+    batch, lens, chunk, starts, orig_lens, n = packed
+    host = decode_rfc5424_host(torch.from_numpy(batch), torch.from_numpy(lens))
+    enc = GelfEncoder(Config.from_string(""))
+    res = encode_rfc5424_gelf_block(chunk, starts, orig_lens, host, n, 512,
+                                    enc, merger)
+    exp, errs = scalar_expectation(b"\n".join(lines) + b"\n", merger=merger)
+    assert res.block.data == exp
+    got_errs = [f"{e}: [{ln.strip()}]" for e, ln in res.errors]
+    assert got_errs == errs
+    assert res.fallback_rows > 0 and len(res.block) == int(res.emit.sum())
+
+
+class _Chunks:
+    """A stream whose reads return at most ``size`` bytes."""
+
+    def __init__(self, data, size):
+        self.buf = io.BytesIO(data)
+        self.size = size
+
+    def read(self, n):
+        return self.buf.read(min(n, self.size))
+
+
+@pytest.mark.parametrize("framing,chunk", [("line", 97), ("nul", 4093),
+                                           ("line", 1 << 16)])
+def test_batch_handler_across_chunk_and_flush_boundaries(capsys, framing,
+                                                         chunk):
+    """Small reads split records across chunks and a small batch size
+    forces flushes mid-stream, so the session carry crosses both."""
+    data = _input(framing, n_lines=400, seed=8)
+    cfg = Config.from_string("[input]\ntpu_batch_size = 64\n")
+    tx = queue.Queue()
+    handler = BatchHandler(tx, GelfEncoder(cfg), cfg, NulMerger(),
+                           torch.device("cpu"), start_timer=False)
+    splitter = NulSplitter() if framing == "nul" else LineSplitter()
+    splitter.run(_Chunks(data, chunk), handler)
+    got = b"".join(tx.get_nowait().data for _ in range(tx.qsize()))
+    exp, errs = scalar_expectation(data, framing)
+    assert got == exp
+    assert capsys.readouterr().err.splitlines() == errs
+
+
+def test_gelf_extra_static_keys_honored(tmp_path, monkeypatch, capsys):
+    cfg_path = tmp_path / "cfg.toml"
+    out = tmp_path / "out.gelf"
+    cfg_path.write_text(
+        '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+        '[output]\ntype = "file"\nformat = "gelf"\n'
+        f'file_path = "{out}"\n[output.gelf_extra]\nx-origin = "port"\n'
+        'zzz = "last"\n')
+    data = _input("line", n_lines=300, seed=2)
+    monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(io.BytesIO(data)))
+    pipeline.start(str(cfg_path), device="cpu")
+    exp, errs = scalar_expectation(data, config=Config.from_path(
+        str(cfg_path)))
+    assert out.read_bytes() == exp and b'"x-origin":"port"' in exp
+    assert capsys.readouterr().err.splitlines() == errs
+
+
+BAD_CONFIGS = [
+    ('[input]\ntype = "tcp"\nformat = "rfc5424_tpu"\n', "input.type"),
+    ('[input]\ntype = "stdin"\nformat = "rfc5424"\n', "input.format"),
+    ('[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n', "input.format"),
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "syslen"\n',
+     "input.framing"),
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+     'type = "stdout"\nformat = "ltsv"\n', "output.format"),
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+     'type = "kafka"\n', "output.type"),
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+     'type = "stdout"\n[output.gelf_extra]\n_dyn = "x"\n', "gelf_extra"),
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+     'type = "file"\nfile_path = "x"\nfile_rotation_size = 10\n',
+     "file_rotation_size"),
+]
+
+
+@pytest.mark.parametrize("text,key", BAD_CONFIGS,
+                         ids=[k for _, k in BAD_CONFIGS])
+def test_later_slice_configs_raise(text, key):
+    with pytest.raises(ConfigError, match="later slice") as exc:
+        pipeline.Pipeline(Config.from_string(text), device="cpu")
+    assert key in str(exc.value)
+
+
+def test_cuda_is_the_default_and_raises_without_a_gpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pipeline.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.resolve_device(None)
+    cfg = tmp_path / "cfg.toml"
+    cfg.write_text('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+                   '[output]\ntype = "stdout"\n')
+    from flowgger_tpu_torch.__main__ import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([str(cfg)])
+
+
+def test_import_rule():
+    """Every module of the port imports without JAX and without any
+    module of the JAX package."""
+    code = (
+        "import pkgutil, sys\n"
+        "import flowgger_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    __import__(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'flowgger_tpu' or m.startswith('flowgger_tpu.')]\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(ROOT), timeout=120,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
