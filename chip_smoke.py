@@ -2,24 +2,34 @@
 
     python3 chip_smoke.py [--seed N] [--lines N]
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device — ``nvidia-smi`` name and power limit, torch's device name;
-2. build  — the three CUDA kernels compiled from ``flowgger_tpu_torch/csrc``
+2. build  — the five CUDA kernels compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel);
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (16 384-line region → spans → [16384, 512]
-   batch → RFC5424 channels at 6 and 16 pairs), with CUDA-event times
-   and the bound of each; the chained framing → decode entry against
-   the kernels called one by one; then the host-clock wall of each stage of the main path over eight
-   such regions (framing, decode, block encode, sink write);
-4. e2e    — a seeded mixed corpus (default 262 144 lines) through the
-   port's entry points on ``cuda``: once in process through
-   ``flowgger_tpu_torch.start`` with every kernel launch count reset just
-   before and read just after, and once as ``python -m flowgger_tpu_torch
-   cfg.toml`` in a subprocess.  Both runs' GELF bytes and stderr error
-   lines must equal the port's scalar path over the same bytes
-   (``corpus.scalar_expectation``).
+   the main paths' shapes, on every element of every row, with CUDA-event
+   times and the bound of each: line framing of a 16 384-line region →
+   spans → [16384, 512] batch → RFC5424 channels at 6 and 16 pairs; the
+   octet-counted framing of the syslen path's flush region (and of a
+   whole 16 384-frame region); the JSON-lines structural index at 8 and
+   24 fields on a gathered [16384, 512] JSON-lines batch; the gather and
+   decodes at the e2e runs' other shapes (the syslen flush batch, the
+   rescue sub-batches); and both chained framing → decode entries
+   against the kernels called one by one;
+4. breakdown — the host-clock wall of each stage of the RFC5424 and the
+   JSON-lines paths over eight full regions each (framing, decode, block
+   encode, sink write);
+5. e2e    — three configurations through the port's entry points on
+   ``cuda``: stdin → rfc5424_tpu → GELF (line framing), stdin →
+   jsonl_tpu → GELF (line framing) and stdin → rfc5424_tpu → GELF
+   (syslen framing).  Each runs once in process through
+   ``flowgger_tpu_torch.start`` with every kernel launch count reset
+   just before and read just after (the run must launch each kernel of
+   its path; the syslen run must decline no region), and once as
+   ``python -m flowgger_tpu_torch cfg.toml`` in a subprocess.  Both
+   runs' GELF bytes and stderr lines must equal the port's scalar path
+   over the same bytes (``corpus.scalar_expectation``).
 
 It then prints the kernel table, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -47,6 +58,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH = 16384
 MAX_LEN = 512
+SYSLEN_LINES = 4 * BATCH    # lines of the syslen-framed e2e run
+WORK = ROOT / "build" / "chip_smoke"
 
 
 def emit(obj) -> None:
@@ -79,7 +92,8 @@ def bound(nbytes: int, nops: int) -> dict:
     o_ms = nops / INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "bytes_ms": b_ms, "ops_ms": o_ms}
+            "bytes_ms": b_ms, "ops_ms": o_ms, "bound_bytes": nbytes,
+            "bound_ops": nops}
 
 
 def max_abs_err(a, b) -> float:
@@ -90,6 +104,33 @@ def max_abs_err(a, b) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def channels_err(what: str, got: dict, ref: dict) -> float:
+    """Max abs error over every channel of every row; raises on any
+    difference or dtype mismatch."""
+    err = 0.0
+    for k, v in ref.items():
+        g = got[k]
+        if g.dtype != v.dtype or g.shape != v.shape:
+            raise AssertionError(f"{what}: {k} is {g.dtype} {tuple(g.shape)}"
+                                 f", plain {v.dtype} {tuple(v.shape)}")
+        err = max(err, max_abs_err(g, v))
+    if err:
+        raise AssertionError(f"{what}: channels differ from the plain "
+                             f"version (max_abs_err {err} over all rows)")
+    return err
+
+
+def upload(data: bytes):
+    """A raw region padded to its bucket, on the card."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import framing
+
+    buf = torch.zeros(framing.region_bucket(len(data)), dtype=torch.uint8)
+    buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    return buf.to("cuda")
 
 
 def phase_device():
@@ -111,32 +152,170 @@ def phase_build():
     t0 = time.perf_counter()
     res = kernels.build()
     wall = time.perf_counter() - t0
-    out = ROOT / "build" / "chip_smoke"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "build_log.txt").write_text("\n".join(
+    WORK.mkdir(parents=True, exist_ok=True)
+    (WORK / "build_log.txt").write_text("\n".join(
         f"== {k} ({v['seconds']:.2f}s, cached={v['cached']})\n{v['log']}"
         for k, v in res.items()))
     emit({"phase": "build", "wall_s": wall,
           "seconds": {k: v["seconds"] for k, v in res.items()}})
 
 
-def phase_kernels(seed: int):
-    """Each kernel vs its plain version on the card; returns the table
-    rows without launch counts (phase 4 fills them in)."""
+def gather_case(region, starts, lens):
+    """K3 against its plain version on every byte of every row:
+    ``(row, (batch, lens_c))``."""
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    def k3():
+        return kernels.frame_gather_cuda(region, starts, lens, MAX_LEN)
+
+    def p3():
+        return framing.frame_gather(region, starts, lens, MAX_LEN)
+
+    (gb, gl), (pb, pl) = k3(), p3()
+    err = max(max_abs_err(gb, pb), max_abs_err(gl, pl))
+    if err:
+        raise AssertionError(f"frame_gather disagrees: max_abs_err {err}")
+    n = starts.shape[0]
+    return {
+        "name": "frame_gather", "route": "cuda",
+        "source": "flowgger_tpu_torch/csrc/frame_gather.cu",
+        "replaces": "flowgger_tpu/tpu/pallas_kernels.py:399",
+        "max_abs_err": err, "ms": cuda_ms(k3), "plain_ms": cuda_ms(p3),
+        # one select per output byte
+        **bound(int(gl.sum()) + 8 * n + n * MAX_LEN + 4 * n, n * MAX_LEN),
+        "library_ms": None, "shape": f"[{n}, {MAX_LEN}]"}, (gb, gl)
+
+
+def decode_case(kind: str, width: int, batch, lens_c):
+    """K1 at ``width`` pairs (``kind`` rfc5424) or K5 at ``width``
+    fields (``kind`` jsonl) against its plain version on every channel
+    of every row, rejected and padding rows included:
+    ``(row, plain channels)``."""
+    from flowgger_tpu_torch.tpu import jsonidx, jsonl, kernels, rfc5424
+
+    if kind == "rfc5424":
+        kern = functools.partial(kernels.decode_rfc5424_cuda, batch, lens_c,
+                                 4, width)
+        plain = functools.partial(rfc5424.decode_rfc5424, batch, lens_c, 4,
+                                  width)
+        unpack = functools.partial(rfc5424.unpack_channels, max_sd=4,
+                                   max_pairs=width)
+        name, C, passes = (f"decode_rfc5424_p{width}",
+                           rfc5424.n_channels(4, width), 6)
+        source, replaces = ("flowgger_tpu_torch/csrc/decode_rfc5424.cu",
+                            "flowgger_tpu/tpu/rfc5424.py:1095")
+    else:
+        kern = functools.partial(kernels.structural_index_cuda, batch, lens_c,
+                                 width, jsonl.NESTED_DEPTH)
+        plain = functools.partial(jsonidx.structural_index, batch, lens_c,
+                                  width, nested=jsonl.NESTED_DEPTH)
+        unpack = functools.partial(jsonidx.unpack_channels, max_fields=width)
+        name, C, passes = (f"structural_index_f{width}",
+                           jsonidx.n_channels(width), 1)
+        source, replaces = ("flowgger_tpu_torch/csrc/structural_index.cu",
+                            "flowgger_tpu/tpu/pallas_kernels.py:439")
+    ref = plain()
+    err = channels_err(name, unpack(kern()), ref)
+    n, valid = batch.shape[0], int(lens_c.sum())
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "max_abs_err": err, "ms": cuda_ms(kern),
+        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        # bytes: each row's valid bytes (the definitions mask everything
+        # past its length), the lengths and the int32 channels written;
+        # operations: one per valid byte for each pass the definitions
+        # need over a row (K1 six, K5 one)
+        **bound(valid + 4 * n + 4 * C * n, passes * valid),
+        "library_ms": None,
+        "shape": f"[{n}, {batch.shape[1]}], {valid} valid bytes, "
+                 f"{int(ref['ok'].sum())} ok rows"}, ref
+
+
+def rescue_batch(batch, lens_c, idx):
+    """The sub-batch ``rescue_refetch`` dispatches for rows ``idx``."""
+    import torch
+
+    rows = 256
+    while rows < idx.numel():
+        rows <<= 1
+    sub_b = torch.zeros((rows, batch.shape[1]), dtype=torch.uint8,
+                        device=batch.device)
+    sub_l = torch.zeros(rows, dtype=lens_c.dtype, device=batch.device)
+    sub_b[:idx.numel()] = batch.index_select(0, idx)
+    sub_l[:idx.numel()] = lens_c.index_select(0, idx)
+    return sub_b, sub_l
+
+
+def syslen_case(data: bytes, ncap: int, frames: int = 0):
+    """K4 against its plain version over one region (``frames``, when
+    given, is the frame count it must find): ``(row, region, spans,
+    n)``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    rlen = len(data)
+    region = upload(data)
+
+    def k4():
+        return kernels.frame_syslen_spans_cuda(region, rlen, ncap)
+
+    def p4():
+        return framing.frame_syslen_spans(region, rlen, ncap)
+
+    got, ref = k4(), p4()
+    meta = got["meta"].cpu().tolist()
+    errs = [max_abs_err(got["starts"], ref["starts"]),
+            max_abs_err(got["lens"], ref["lens"]),
+            abs(meta[0] - int(ref["n"])), abs(meta[1] - int(ref["consumed"])),
+            abs(meta[2] - int(ref["err"])), abs(meta[3] - int(ref["decline"]))]
+    if (any(errs) or meta[2] or meta[3] or not meta[0]
+            or (frames and meta[0] != frames)):
+        raise AssertionError(f"frame_syslen_spans disagrees with its plain "
+                             f"version: {errs}, meta={meta}")
+    rest = torch.cat([got["starts"][meta[0]:], got["lens"][meta[0]:]])
+    if rest.any():
+        raise AssertionError("frame_syslen_spans left slots past n unset")
+    return {
+        "name": "frame_syslen_spans", "route": "cuda",
+        "source": "flowgger_tpu_torch/csrc/frame_syslen_spans.cu",
+        "replaces": "flowgger_tpu/tpu/pallas_kernels.py:343",
+        "max_abs_err": max(errs), "ms": cuda_ms(k4),
+        "plain_ms": cuda_ms(p4, iters=5, warmup=1),
+        # one classify per region byte
+        **bound(rlen + 8 * ncap + 16, rlen), "library_ms": None,
+        "shape": f"region {rlen} B, ncap {ncap}, {meta[0]} frames"}, \
+        region, got, meta[0]
+
+
+def syslen_flush_region(data: bytes):
+    """The region of the syslen path's first flush over ``data`` and its
+    space count: the splitter's reads, taken until their spaces reach
+    the batch size (``_RawSession.push``'s trigger).  The spaces size
+    the spans (``ncap``)."""
+    from flowgger_tpu_torch.splitters import _CHUNK
+
+    end = spaces = 0
+    while spaces < BATCH and end < len(data):
+        spaces += data.count(b" ", end, end + _CHUNK)
+        end = min(end + _CHUNK, len(data))
+    return data[:end], spaces
+
+
+def kernels_line_path(seed: int, rows: list, shapes: list):
+    """K2 spans, K3 gather, K1 decode at 6 and 16 pairs and at the
+    rescue's sub-batch, and the chained RFC5424 entry, on one 16 384-line
+    region."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_corpus
     from flowgger_tpu_torch.tpu import framing, kernels, pack, rfc5424
 
-    dev = torch.device("cuda")
     lines, _ = make_corpus(BATCH, seed)
     region_b = b"\n".join(lines) + b"\n"
     rlen = len(region_b)
-    buf = torch.zeros(framing.region_bucket(rlen), dtype=torch.uint8)
-    buf[:rlen] = torch.frombuffer(bytearray(region_b), dtype=torch.uint8)
-    region = buf.to(dev)
+    region = upload(region_b)
     ncap = pack.bucket_rows(BATCH)
-    rows = []
 
     # K2: spans over one flush region
     def k2():
@@ -165,127 +344,153 @@ def phase_kernels(seed: int):
 
     # K3: gather to [16384, 512]
     starts, lens = got["starts"], got["lens"]
+    row, (batch, lens_c) = gather_case(region, starts, lens)
+    rows.append(row)
 
-    def k3():
-        return kernels.frame_gather_cuda(region, starts, lens, MAX_LEN)
-
-    def p3():
-        return framing.frame_gather(region, starts, lens, MAX_LEN)
-
-    (gb, gl), (pb, pl) = k3(), p3()
-    err = max(max_abs_err(gb, pb), max_abs_err(gl, pl))
-    if err:
-        raise AssertionError(f"frame_gather disagrees: max_abs_err {err}")
-    rows.append({
-        "name": "frame_gather", "route": "cuda",
-        "source": "flowgger_tpu_torch/csrc/frame_gather.cu",
-        "replaces": "flowgger_tpu/tpu/pallas_kernels.py:399",
-        "max_abs_err": err, "ms": cuda_ms(k3), "plain_ms": cuda_ms(p3),
-        # one select per output byte
-        **bound(int(gl.sum()) + 8 * ncap + ncap * MAX_LEN + 4 * ncap,
-                ncap * MAX_LEN),
-        "library_ms": None,
-        "shape": f"[{ncap}, {MAX_LEN}]"})
-
-    # K1: decode at 6 pairs (main batch) and 16 pairs (rescue width)
-    batch, lens_c = gb, gl
+    # K1 at 6 pairs (main batch) and 16 pairs (rescue width), then at
+    # the sub-batch the rescue really dispatches
+    lo, hi = rfc5424.DEFAULT_MAX_PAIRS, rfc5424.RESCUE_MAX_PAIRS
     refs = {}
-    for mp in (rfc5424.DEFAULT_MAX_PAIRS, rfc5424.RESCUE_MAX_PAIRS):
-        def k1():
-            return kernels.decode_rfc5424_cuda(batch, lens_c, 4, mp)
-
-        def p1():
-            return rfc5424.decode_rfc5424(batch, lens_c, 4, mp)
-
-        got1 = rfc5424.unpack_channels(k1(), 4, mp)
-        ref1 = refs[mp] = p1()
-        ok = ref1["ok"]
-        if not torch.equal(got1["ok"], ok):
-            raise AssertionError(f"decode_rfc5424 p{mp}: ok differs on "
-                                 f"{int((got1['ok'] != ok).sum())} rows")
-        over = ref1["pair_count"] > rfc5424.DEFAULT_MAX_PAIRS
-        if not torch.equal(got1["pair_count"][over], ref1["pair_count"][over]):
-            raise AssertionError(f"decode_rfc5424 p{mp}: pair_count differs")
-        err = 0.0
-        strict = 0.0
-        for k, v in ref1.items():
-            g = got1[k]
-            if g.dtype != v.dtype:
-                raise AssertionError(f"decode_rfc5424 p{mp}: {k} dtype")
-            err = max(err, max_abs_err(g[ok], v[ok]))
-            strict = max(strict, max_abs_err(g, v))
-        if err:
-            raise AssertionError(f"decode_rfc5424 p{mp}: channels differ on "
-                                 f"ok rows (max_abs_err {err})")
-        C = rfc5424.n_channels(4, mp)
-        rows.append({
-            "name": f"decode_rfc5424_p{mp}", "route": "cuda",
-            "source": "flowgger_tpu_torch/csrc/decode_rfc5424.cu",
-            "replaces": "flowgger_tpu/tpu/rfc5424.py:1095",
-            "max_abs_err": err, "max_abs_err_all_rows": strict,
-            "ms": cuda_ms(k1), "plain_ms": cuda_ms(p1, iters=10, warmup=1),
-            # operations: one per valid byte for each of the six
-            # passes the reference's definitions need over a row
-            **bound(batch.numel() + 4 * batch.shape[0]
-                    + 4 * C * batch.shape[0], 6 * int(lens_c.sum())),
-            "library_ms": None,
-            "shape": f"[{batch.shape[0]}, {batch.shape[1]}], "
-                     f"{int(ok.sum())} ok rows"})
+    for mp in (lo, hi):
+        row, refs[mp] = decode_case("rfc5424", mp, batch, lens_c)
+        rows.append(row)
+    pc = refs[lo]["pair_count"]
+    row, _ = decode_case("rfc5424", hi, *rescue_batch(
+        batch, lens_c, torch.nonzero((pc > lo) & (pc <= hi)).flatten()))
+    shapes.append({**row, "where": "rfc5424 line path, rescue sub-batch"})
 
     # the chained entry (spans -> gather -> decode on one stream) gives
     # the same spans and 6-pair channels as the kernels called one by one
     spans_f, ch_f = kernels.fused_frame_decode_rfc5424(
         region, rlen, sep=10, strip_cr=True, ncap=ncap, max_len=MAX_LEN)
-    ref6 = refs[rfc5424.DEFAULT_MAX_PAIRS]
     if not (torch.equal(spans_f["starts"], starts)
             and torch.equal(spans_f["lens"], lens)
-            and all(torch.equal(ch_f[k], v) for k, v in ref6.items())):
+            and all(torch.equal(ch_f[k], v) for k, v in refs[lo].items())):
         raise AssertionError("fused_frame_decode_rfc5424 disagrees with the "
                              "kernels called one by one")
+
+
+def kernels_syslen(seed: int, rows: list, shapes: list):
+    """K4 over the syslen path's flush region (the shape its e2e run
+    launches it at) and over a whole 16 384-frame region; K3 and K1 at
+    the flush's batch and rescue shapes."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_corpus, syslen_stream
+    from flowgger_tpu_torch.tpu import pack, rfc5424
+
+    lines, _ = make_corpus(BATCH, seed + 2)
+    data = syslen_stream(lines, cut=0)
+    flush, spaces = syslen_flush_region(data)
+    row, region, spans, n = syslen_case(flush, pack.bucket_rows(spaces))
+    rows.append(row)
+    row = syslen_case(data, pack.bucket_rows(data.count(b" ")),
+                      frames=BATCH)[0]
+    shapes.append({**row, "where": "whole 16 384-frame syslen region"})
+
+    # the flush's batch: bucket_rows(n) rows, as device_frame_region
+    # gathers it
+    r = pack.bucket_rows(n)
+    row, (batch, lens_c) = gather_case(region, spans["starts"][:r],
+                                       spans["lens"][:r])
+    shapes.append({**row, "where": "syslen path, flush batch"})
+    lo, hi = rfc5424.DEFAULT_MAX_PAIRS, rfc5424.RESCUE_MAX_PAIRS
+    row, ref = decode_case("rfc5424", lo, batch, lens_c)
+    shapes.append({**row, "where": "syslen path, flush batch"})
+    pc = ref["pair_count"]
+    row, _ = decode_case("rfc5424", hi, *rescue_batch(
+        batch, lens_c, torch.nonzero((pc > lo) & (pc <= hi)).flatten()))
+    shapes.append({**row, "where": "syslen path, rescue sub-batch"})
+
+
+def kernels_jsonl(seed: int, rows: list, shapes: list):
+    """K5 at 8 and 24 fields on a gathered [16384, 512] JSON-lines batch
+    and at 24 fields on the rescue's sub-batch, and the chained
+    JSON-lines entry."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_jsonl_corpus
+    from flowgger_tpu_torch.tpu import framing, jsonl, kernels, pack
+
+    lines, _ = make_jsonl_corpus(BATCH, seed + 3)
+    region_b = b"\n".join(lines) + b"\n"
+    rlen = len(region_b)
+    region = upload(region_b)
+    ncap = pack.bucket_rows(BATCH)
+    spans = framing.sep_spans(region, rlen, 10, True, ncap)
+    batch, lens_c = framing.gather(region, spans["starts"], spans["lens"],
+                                   MAX_LEN)
+    lo, hi = jsonl.DEFAULT_MAX_FIELDS, jsonl.RESCUE_MAX_FIELDS
+    refs = {}
+    for F in (lo, hi):
+        row, refs[F] = decode_case("jsonl", F, batch, lens_c)
+        rows.append(row)
+    nf = refs[lo]["n_fields"]
+    row, _ = decode_case("jsonl", hi, *rescue_batch(batch, lens_c, torch.nonzero(
+        ~refs[lo]["ok"] & (nf > lo) & (nf <= hi)).flatten()))
+    shapes.append({**row, "where": "jsonl path, rescue sub-batch"})
+
+    spans_f, ch_f = kernels.fused_frame_decode_jsonl(
+        region, rlen, sep=10, strip_cr=True, ncap=ncap, max_len=MAX_LEN)
+    if not (torch.equal(spans_f["starts"], spans["starts"])
+            and torch.equal(spans_f["lens"], spans["lens"])
+            and all(torch.equal(ch_f[k], v) for k, v in refs[lo].items())):
+        raise AssertionError("fused_frame_decode_jsonl disagrees with the "
+                             "kernels called one by one")
+
+
+def phase_kernels(seed: int):
+    """Each kernel vs its plain version on the card; returns the table
+    rows without launch counts (the e2e phase fills them in).  The
+    table row of each kernel is taken at its line-framed main path's
+    shape (K4: the syslen path's flush region); the ``kernel_shape``
+    lines time the kernels at the e2e runs' other shapes."""
+    rows, shapes = [], []
+    kernels_line_path(seed, rows, shapes)
+    kernels_syslen(seed, rows, shapes)
+    kernels_jsonl(seed, rows, shapes)
     for r in rows:
         emit({"phase": "kernel", **r})
+    for r in shapes:
+        emit({"phase": "kernel_shape", **r})
     return rows
 
 
-def phase_breakdown(seed: int, n_batches: int = 8):
-    """Host-clock walls of the main path's stages, each ending in a
+def phase_breakdown(seed: int, fmt: str, n_batches: int = 8):
+    """Host-clock walls of one path's stages, each ending in a
     synchronize, over ``n_batches`` full line regions: device framing
-    (upload, span and gather kernels, span metadata back), decode (kernel,
-    fetch, 16-pair rescue), block encode (numpy engine plus the scalar
-    oracle rows), and the sink write."""
+    (upload, span and gather kernels, span metadata back), decode
+    (kernel, fetch, wider rescue), block encode (numpy engine plus the
+    scalar oracle rows), and the sink write."""
     import torch
 
     from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.corpus import make_corpus
+    from flowgger_tpu_torch.corpus import make_corpus, make_jsonl_corpus
     from flowgger_tpu_torch.encoders import GelfEncoder
     from flowgger_tpu_torch.mergers import NulMerger
     from flowgger_tpu_torch.tpu import framing
-    from flowgger_tpu_torch.tpu.encode_gelf_block import (
-        encode_rfc5424_gelf_block)
-    from flowgger_tpu_torch.tpu.rfc5424 import (decode_rfc5424_fetch,
-                                                decode_rfc5424_submit)
+    from flowgger_tpu_torch.tpu.batch import _ROUTES
 
     dev = torch.device("cuda")
-    lines, _ = make_corpus(n_batches * BATCH, seed + 1)
+    make = make_jsonl_corpus if fmt == "jsonl" else make_corpus
+    lines, _ = make(n_batches * BATCH, seed + 1)
+    submit, fetch, encode = _ROUTES[fmt]
     encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
     walls = {"frame": 0.0, "decode": 0.0, "encode": 0.0, "write": 0.0}
     fallback = 0
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
-    with open(work / "breakdown.out", "wb", buffering=0) as sink:
+    WORK.mkdir(parents=True, exist_ok=True)
+    with open(WORK / f"breakdown_{fmt}.out", "wb", buffering=0) as sink:
         for b in range(n_batches):
             region = b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
             t0 = time.perf_counter()
-            packed, _ = framing.device_frame_region(region, "line", MAX_LEN,
-                                                    BATCH, dev)
+            packed, _, _ = framing.device_frame_region(region, "line",
+                                                       MAX_LEN, BATCH, dev)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            host = decode_rfc5424_fetch(decode_rfc5424_submit(packed[0],
-                                                              packed[1]))
+            host = fetch(submit(packed[0], packed[1]))
             t2 = time.perf_counter()
-            res = encode_rfc5424_gelf_block(packed[2], packed[3], packed[4],
-                                            host, packed[5], MAX_LEN,
-                                            encoder, merger)
+            res = encode(packed[2], packed[3], packed[4], host, packed[5],
+                         MAX_LEN, encoder, merger)
             t3 = time.perf_counter()
             sink.write(res.block.data)
             t4 = time.perf_counter()
@@ -295,56 +500,83 @@ def phase_breakdown(seed: int, n_batches: int = 8):
             walls["write"] += t4 - t3
             fallback += res.fallback_rows
     total = sum(walls.values())
-    emit({"phase": "breakdown", "lines": n_batches * BATCH,
+    emit({"phase": "breakdown", "format": fmt, "lines": n_batches * BATCH,
           "wall_s": walls, "share": {k: v / total for k, v in walls.items()},
           "oracle_rows": fallback,
           "lines_per_s": n_batches * BATCH / total})
 
 
-def _write_inputs(n_lines: int, seed: int, work: Path):
-    from flowgger_tpu_torch.corpus import make_corpus, scalar_expectation
+# e2e configurations: name -> (input.format, input.framing, the scalar
+# expectation's fmt, the kernels its run must launch)
+PATHS = {
+    "rfc5424_line": ("rfc5424_tpu", "line", "rfc5424",
+                     ("frame_sep_spans", "frame_gather", "decode_rfc5424_p6",
+                      "decode_rfc5424_p16")),
+    "jsonl_line": ("jsonl_tpu", "line", "jsonl",
+                   ("frame_sep_spans", "frame_gather", "structural_index_f8",
+                    "structural_index_f24")),
+    "rfc5424_syslen": ("rfc5424_tpu", "syslen", "rfc5424",
+                       ("frame_syslen_spans", "frame_gather",
+                        "decode_rfc5424_p6")),
+}
 
-    lines, kinds = make_corpus(n_lines, seed)
-    # the last record has no newline: the end-of-stream partial frame
-    data = b"\n".join(lines)
-    (work / "input.log").write_bytes(data)
-    exp_out, exp_err = scalar_expectation(data)
+
+def _write_input(name: str, n_lines: int, seed: int):
+    from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                           scalar_expectation, syslen_stream)
+
+    fmt, framing, kind, _ = PATHS[name]
+    if kind == "jsonl":
+        lines, kinds = make_jsonl_corpus(n_lines, seed)
+    else:
+        lines, kinds = make_corpus(n_lines, seed)
+    if framing == "syslen":
+        # the last frame is cut short: a short read at EOF
+        data = syslen_stream(lines)
+    else:
+        # the last record has no newline: the end-of-stream partial frame
+        data = b"\n".join(lines)
+    path = WORK / f"{name}.in"
+    path.write_bytes(data)
+    exp_out, exp_err = scalar_expectation(data, framing, fmt=kind)
     mix = {k: kinds.count(k) for k in sorted(set(kinds))}
-    return data, exp_out, exp_err, mix
+    return path, data, exp_out, exp_err, mix
 
 
-def _config(work: Path, name: str) -> Path:
-    cfg = work / f"{name}.toml"
+def _config(name: str, tag: str) -> Path:
+    fmt, framing, _, _ = PATHS[name]
+    out = WORK / f"{name}_{tag}.out"
+    cfg = WORK / f"{name}_{tag}.toml"
     cfg.write_text(
-        '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "line"\n'
-        '[output]\ntype = "file"\nformat = "gelf"\n'
-        f'file_path = "{work / (name + ".out")}"\n')
-    out = work / f"{name}.out"
+        f'[input]\ntype = "stdin"\nformat = "{fmt}"\nframing = "{framing}"\n'
+        f'[output]\ntype = "file"\nformat = "gelf"\nfile_path = "{out}"\n')
     if out.exists():
         out.unlink()
     return cfg
 
 
-def phase_e2e(n_lines: int, seed: int):
+def phase_e2e(name: str, n_lines: int, seed: int):
+    """One configuration in process (counts reset just before, read just
+    after) and through the CLI; returns the in-process launch counts."""
     import torch
 
     import flowgger_tpu_torch
-    from flowgger_tpu_torch.tpu import kernels
+    from flowgger_tpu_torch.tpu import framing, kernels
 
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
-    data, exp_out, exp_err, mix = _write_inputs(n_lines, seed, work)
+    WORK.mkdir(parents=True, exist_ok=True)
+    path, data, exp_out, exp_err, mix = _write_input(name, n_lines, seed)
 
     # (a) in process, through the library entry point, counts reset
-    cfg = _config(work, "inproc")
+    cfg = _config(name, "inproc")
     err_buf = io.StringIO()
     saved_stdin = sys.stdin
+    for k in framing.DECLINES:
+        framing.DECLINES[k] = 0
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with open(work / "input.log", "rb") as raw, \
-                contextlib.redirect_stderr(err_buf):
+        with open(path, "rb") as raw, contextlib.redirect_stderr(err_buf):
             sys.stdin = io.TextIOWrapper(io.BufferedReader(raw))
             flowgger_tpu_torch.start(str(cfg), device="cuda")
     finally:
@@ -352,39 +584,43 @@ def phase_e2e(n_lines: int, seed: int):
     torch.cuda.synchronize()
     wall_in = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    got = (work / "inproc.out").read_bytes()
+    declines = dict(framing.DECLINES)
+    got = (WORK / f"{name}_inproc.out").read_bytes()
     errs = err_buf.getvalue().splitlines()
     if got != exp_out or errs != exp_err:
         raise AssertionError(
-            f"in-process e2e differs from the scalar path: bytes "
+            f"{name}: in-process e2e differs from the scalar path: bytes "
             f"{len(got)} vs {len(exp_out)}, equal={got == exp_out}; "
             f"stderr lines {len(errs)} vs {len(exp_err)}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PATHS[name][3] if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing} kernel")
+        raise AssertionError(f"{name}: the run launched no {missing} kernel")
+    if any(declines.values()):
+        raise AssertionError(f"{name}: device framing declined {declines}")
 
     # (b) the CLI in a subprocess
-    cfg = _config(work, "cli")
+    cfg = _config(name, "cli")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
-    with open(work / "input.log", "rb") as stdin:
+    with open(path, "rb") as stdin:
         proc = subprocess.run(
             [sys.executable, "-m", "flowgger_tpu_torch", str(cfg)],
             stdin=stdin, capture_output=True, env=env, cwd=str(ROOT),
             timeout=600)
     wall_cli = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError("CLI run failed:\n"
+        raise AssertionError(f"{name}: CLI run failed:\n"
                              + proc.stderr.decode()[-4000:])
-    got = (work / "cli.out").read_bytes()
+    got = (WORK / f"{name}_cli.out").read_bytes()
     errs = proc.stderr.decode().splitlines()
     if got != exp_out or errs != exp_err:
         raise AssertionError(
-            f"CLI e2e differs from the scalar path: bytes equal="
+            f"{name}: CLI e2e differs from the scalar path: bytes equal="
             f"{got == exp_out}; stderr lines {len(errs)} vs {len(exp_err)}")
-    emit({"phase": "e2e", "lines": n_lines, "input_bytes": len(data),
-          "output_bytes": len(exp_out), "error_lines": len(exp_err),
-          "mix": mix, "launches": launches,
+    emit({"phase": "e2e", "path": name, "lines": n_lines,
+          "input_bytes": len(data), "output_bytes": len(exp_out),
+          "error_lines": len(exp_err), "mix": mix, "launches": launches,
+          "framing_declines": declines,
           "inproc_wall_s": wall_in, "inproc_lines_per_s": n_lines / wall_in,
           "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
           "identical_to_scalar_path": True})
@@ -394,7 +630,8 @@ def phase_e2e(n_lines: int, seed: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
-    ap.add_argument("--lines", type=int, default=16 * BATCH)
+    ap.add_argument("--lines", type=int, default=16 * BATCH,
+                    help="lines of each line-framed e2e run")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -414,10 +651,15 @@ def main(argv=None) -> int:
     smi_line = phase_device()
     phase_build()
     rows = phase_kernels(args.seed)
-    phase_breakdown(args.seed)
-    launches = phase_e2e(args.lines, args.seed)
+    phase_breakdown(args.seed, "rfc5424")
+    phase_breakdown(args.seed, "jsonl")
+    total = {}
+    for name in PATHS:
+        n = SYSLEN_LINES if name == "rfc5424_syslen" else args.lines
+        for k, v in phase_e2e(name, n, args.seed).items():
+            total[k] = total.get(k, 0) + v
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = total[r["name"]]
     emit({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",

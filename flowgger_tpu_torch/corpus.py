@@ -1,14 +1,25 @@
-"""A seeded mixed RFC5424 corpus and its scalar-path expectation.
+"""Seeded mixed corpora and their scalar-path expectation.
 
 Used by ``chip_smoke.py`` and the differential tests to drive every
-branch of the device path: well-formed lines with 0-6 SD pairs, rows for
-the 16-pair rescue decode, rows beyond it and beyond four SD elements
-(scalar oracle), escaped quotes including backslash runs past the
-kernel's escape cap, malformed lines (stderr), over-length lines, CRLF
-endings and non-ASCII messages.  :func:`scalar_expectation` runs the
-port's scalar decoder and GELF encoder over the same bytes with the line
-splitter's semantics — what the batched path must reproduce byte for
-byte.
+branch of the device paths:
+
+- :func:`make_corpus` — RFC5424 lines: well-formed with 0-6 SD pairs,
+  rows for the 16-pair rescue decode, rows beyond it and beyond four SD
+  elements (scalar oracle), escaped quotes including backslash runs past
+  the kernel's escape cap, malformed lines (stderr), over-length lines,
+  CRLF endings and non-ASCII messages;
+- :func:`make_jsonl_corpus` — JSON-lines rows (:data:`JSONL_MIX`), every
+  one with a numeric ``timestamp``: flat objects, rows for the 24-field
+  rescue and beyond it, nested containers within and past the depth cap,
+  escaped strings with backslash runs up to 24, malformed rows,
+  whitespace runs past the lookaround window, over-length, CRLF and
+  non-ASCII rows;
+- :func:`syslen_stream` — any line list as octet-counted frames
+  (``<len> <line>`` back to back), the last frame cut short.
+
+:func:`scalar_expectation` runs the port's scalar decoder and GELF
+encoder over the same bytes with the splitters' semantics — what the
+batched path must reproduce byte for byte, stderr lines included.
 """
 
 from __future__ import annotations
@@ -18,7 +29,7 @@ from typing import List, Tuple
 import numpy as np
 
 from .config import Config
-from .decoders import DecodeError, RFC5424Decoder
+from .decoders import DecodeError, JSONLDecoder, RFC5424Decoder
 from .encoders import EncodeError, GelfEncoder
 from .mergers import NulMerger
 
@@ -135,24 +146,161 @@ def make_corpus(n_lines: int, seed: int) -> Tuple[List[bytes], List[str]]:
     return lines, [kinds[int(k)] for k in picks]
 
 
-def scalar_expectation(data: bytes, framing: str = "line",
-                       config: Config = None,
-                       merger=NulMerger()) -> Tuple[bytes, List[str]]:
-    """Output bytes (GELF, NUL-framed unless another merger is given;
-    None = no framing) and stderr error lines of the reference's
-    per-line path over ``data``: split on the separator, one trailing CR
-    stripped for line framing, the trailing partial frame included, then
-    decode → encode → frame (line_splitter.rs:17-54)."""
+# (kind, share) — the JSON-lines mix
+JSONL_MIX = (
+    ("flat", 0.60), ("wide", 0.10), ("over", 0.03), ("nested", 0.05),
+    ("deep", 0.02), ("escape", 0.04), ("malformed", 0.05), ("ws", 0.02),
+    ("long", 0.03), ("crlf", 0.03), ("high", 0.03),
+)
+_JSON_MALFORMED = (
+    '{"timestamp":20,"host":"h",}',            # trailing comma
+    '{"timestamp":21,"k":}',                   # missing value
+    '{"timestamp":22,"k":01}',                 # leading zero
+    '{"timestamp":23,"k":truex}',              # bad literal
+    '{"timestamp":24,"k":[1,2}',               # mismatched brackets
+    '{"timestamp":25 "k":1}',                  # missing comma
+    '{"timestamp":26,"k":"unterminated}',
+    '[1,2,3]',
+    'not json at all',
+    '',
+    '{"timestamp":"a string","host":"h"}',
+    '{"timestamp":27,"level":9}',
+    '{"timestamp":28,"host":42}',
+)
+
+
+def _json_value(rng) -> str:
+    r = int(rng.integers(0, 12))
+    if r == 0:
+        return str(int(rng.integers(-10**6, 10**6)))
+    if r == 1:
+        return ("true", "false", "null")[int(rng.integers(0, 3))]
+    if r == 2:
+        return f"{float(rng.integers(0, 10**6)) / 100:.2f}"
+    return '"' + _msg(rng, int(rng.integers(0, 4))) + '"'
+
+
+def _jts(rng) -> str:
+    base = int(rng.integers(10**9, 2 * 10**9))
+    return (str(base), f"{base}.{int(rng.integers(0, 1000)):03d}",
+            f"{base}.5")[int(rng.integers(0, 3))]
+
+
+def _json_obj(rng, n_other: int, msg: str = None, extra=()) -> str:
+    """An object with timestamp/host/message/level, ``n_other`` more
+    pairs and the ``extra`` pre-rendered pairs, in a shuffled key order
+    with a little whitespace."""
+    pairs = [f'"timestamp":{_jts(rng)}',
+             f'"host":"host-{int(rng.integers(0, 50))}"',
+             '"message":"' + (msg if msg is not None
+                              else _msg(rng, int(rng.integers(1, 9)))) + '"',
+             f'"level":{int(rng.integers(0, 8))}']
+    pairs += [f'"f{k:02d}":{_json_value(rng)}' for k in range(n_other)]
+    pairs += list(extra)
+    order = rng.permutation(len(pairs))
+    sep = (",", ", ", " , ")[int(rng.integers(0, 3))]
+    return "{" + sep.join(pairs[int(i)] for i in order) + "}"
+
+
+def make_jsonl_line(rng, kind: str) -> bytes:
+    if kind == "malformed":
+        return _JSON_MALFORMED[int(rng.integers(0, len(_JSON_MALFORMED)))
+                               ].encode()
+    if kind == "flat":
+        return _json_obj(rng, int(rng.integers(1, 5))).encode()
+    if kind == "wide":
+        return _json_obj(rng, int(rng.integers(5, 21))).encode()
+    if kind == "over":
+        return _json_obj(rng, int(rng.integers(21, 30))).encode()
+    if kind in ("nested", "deep"):
+        depth = int(rng.integers(1, 5)) if kind == "nested" \
+            else int(rng.integers(5, 8))
+        inner = _json_value(rng)
+        for d in range(depth):
+            inner = (f'{{"d{d}":{inner},"n":1}}' if d % 2
+                     else f'[{inner},"}}",null]')
+        return _json_obj(rng, 1, extra=(f'"ctx":{inner}',)).encode()
+    if kind == "escape":
+        run = int(rng.choice([1, 2, 3, 14, 15, 16, 17, 24]))
+        q = "a" + "\\" * run + ('"' if run % 2 else "") + "b"
+        esc = ('"path":"' + q + '"', '"e":"tab\\tnew\\nu\\u00e9"')
+        return _json_obj(rng, 1, extra=esc[:int(rng.integers(1, 3))]
+                         ).encode()
+    if kind == "ws":
+        return _json_obj(rng, 2, extra=(
+            '"pad":' + " " * int(rng.integers(9, 20)) + "1",)).encode()
+    if kind == "long":
+        return _json_obj(rng, 2, msg=_msg(rng, 100)).encode()
+    if kind == "crlf":
+        return _json_obj(rng, 2).encode() + b"\r"
+    if kind == "high":
+        return _json_obj(rng, 1, msg=_msg(rng, 3) + " ünïcødé ✓ 日本"
+                         ).encode()
+    raise ValueError(kind)
+
+
+def make_jsonl_corpus(n_lines: int, seed: int
+                      ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` JSON-lines rows (without separators) and their kinds,
+    drawn from :data:`JSONL_MIX` with ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    kinds, shares = zip(*JSONL_MIX)
+    picks = rng.choice(len(kinds), size=n_lines,
+                       p=np.asarray(shares) / sum(shares))
+    lines = [make_jsonl_line(rng, kinds[int(k)]) for k in picks]
+    return lines, [kinds[int(k)] for k in picks]
+
+
+def syslen_stream(lines: List[bytes], cut: int = 3) -> bytes:
+    """``lines`` as octet-counted frames, back to back; the last frame
+    loses its final ``cut`` bytes (a short read at EOF)."""
+    data = b"".join(b"%d %s" % (len(ln), ln) for ln in lines)
+    return data[:len(data) - cut] if cut else data
+
+
+def _frames(data: bytes, framing: str):
+    """``(records, trailing stderr lines)`` of a stream under the
+    splitters' semantics."""
+    if framing == "syslen":
+        from .splitters import SyslenSplitter, _scan_syslen_region
+
+        starts, lens, n, consumed, err = _scan_syslen_region(data)
+        recs = [data[s:s + ln] for s, ln in zip(starts.tolist(),
+                                                lens.tolist())]
+        rest = data[consumed:]
+        if err:
+            tail = ["Can't read message's length"]
+        elif rest and SyslenSplitter._mid_body(rest):
+            tail = ["failed to fill whole buffer"]
+        elif rest:
+            tail = ["Can't read message's length"]
+        else:
+            tail = []
+        return recs, tail
     sep = b"\0" if framing == "nul" else b"\n"
-    decoder = RFC5424Decoder()
-    encoder = GelfEncoder(config or Config.from_string(""))
     parts = data.split(sep)
     if parts and parts[-1] == b"":
         parts.pop()
+    if framing == "line":
+        parts = [p[:-1] if p.endswith(b"\r") else p for p in parts]
+    return parts, []
+
+
+def scalar_expectation(data: bytes, framing: str = "line",
+                       config: Config = None, merger=NulMerger(),
+                       fmt: str = "rfc5424") -> Tuple[bytes, List[str]]:
+    """Output bytes (GELF, NUL-framed unless another merger is given;
+    None = no framing) and stderr lines of the reference's per-record
+    path over ``data``: frame (line: one trailing CR stripped; syslen:
+    the octet-count scan and its EOF/bad-prefix messages; the trailing
+    partial frame of line/NUL included), then decode (``fmt`` is
+    ``rfc5424`` or ``jsonl``) → encode → frame (line_splitter.rs:17-54,
+    syslen_splitter.rs:26-69)."""
+    decoder = JSONLDecoder() if fmt == "jsonl" else RFC5424Decoder()
+    encoder = GelfEncoder(config or Config.from_string(""))
+    recs, tail = _frames(data, framing)
     out, errs = [], []
-    for raw in parts:
-        if framing == "line" and raw.endswith(b"\r"):
-            raw = raw[:-1]
+    for raw in recs:
         try:
             line = raw.decode("utf-8")
         except UnicodeDecodeError:
@@ -166,4 +314,4 @@ def scalar_expectation(data: bytes, framing: str = "line",
             stripped = line.strip()
             if not (framing == "nul" and not stripped):
                 errs.append(f"{e}: [{stripped}]")
-    return b"".join(out), errs
+    return b"".join(out), errs + tail

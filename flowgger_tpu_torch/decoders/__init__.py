@@ -1,5 +1,5 @@
 """Scalar (per-line) decoders: the exactness oracle for rows the RFC5424
-kernel flags ``ok=False`` and for lines longer than
+and JSON-lines kernels flag ``ok=False`` and for lines longer than
 ``input.tpu_max_line_len``.
 
 Parity model: flowgger src/flowgger/decoder/ — trait
@@ -23,6 +23,7 @@ class Decoder:
         raise NotImplementedError
 
 
+from .jsonl import JSONLDecoder  # noqa: E402
 from .rfc5424 import RFC5424Decoder  # noqa: E402
 
-__all__ = ["Decoder", "DecodeError", "RFC5424Decoder"]
+__all__ = ["Decoder", "DecodeError", "JSONLDecoder", "RFC5424Decoder"]

@@ -1,7 +1,7 @@
 """Stdin input.
 
 Parity model: flowgger src/flowgger/input/stdin_input.rs:11-66.
-Framing from ``input.framing`` (line or nul in this slice, default line).
+Framing from ``input.framing`` (line, nul or syslen; default line).
 """
 
 from __future__ import annotations

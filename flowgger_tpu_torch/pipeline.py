@@ -3,11 +3,11 @@ the JAX package's pipeline that the port runs on the card.
 
 Parity model: flowgger src/flowgger/mod.rs:95-472 and the JAX package's
 ``pipeline.py``: the same TOML file, the same key names and defaults,
-the same output-framing inference.  This slice runs one configuration:
-``input.type = "stdin"``, ``input.framing = "line" | "nul"``,
-``input.format = "rfc5424_tpu"``, ``output.format = "gelf"``,
-``output.type = "stdout" | "file"``.  Anything else raises ConfigError
-naming the later slice; nothing quietly takes a scalar path.
+the same output-framing inference.  The port runs ``input.type =
+"stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
+``input.format = "rfc5424_tpu" | "jsonl_tpu"``, into ``output.format =
+"gelf"`` with ``output.type = "stdout" | "file"``.  Anything else raises
+ConfigError naming the later slice; nothing quietly takes a scalar path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where no GPU is present raises.
@@ -32,8 +32,10 @@ DEFAULT_OUTPUT_FORMAT = "gelf"
 DEFAULT_OUTPUT_TYPE = "kafka"
 DEFAULT_QUEUE_SIZE = 10_000_000
 
-_LATER = "is not ported yet (this slice of flowgger_tpu_torch runs stdin → " \
-    "rfc5424_tpu → GELF; it comes in a later slice)"
+_LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu " \
+    "or jsonl_tpu → GELF; it comes in a later slice)"
+# input.format → the batch handler's decode route
+_FORMATS = {"rfc5424_tpu": "rfc5424", "jsonl_tpu": "jsonl"}
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -85,8 +87,9 @@ class Pipeline:
         input_format = config.lookup_str(
             "input.format", "input.format must be a string",
             DEFAULT_INPUT_FORMAT)
-        if input_format != "rfc5424_tpu":
+        if input_format not in _FORMATS:
             raise ConfigError(f'input.format = "{input_format}" {_LATER}')
+        self.fmt = _FORMATS[input_format]
         self.input = StdinInput(config)
         output_format = config.lookup_str(
             "output.format", "output.format must be a string",
@@ -113,6 +116,8 @@ class Pipeline:
             raise ConfigError(
                 "output.gelf_extra keys that start with '_' or overwrite a "
                 f"GELF field {_LATER}")
+        if self.fmt == "jsonl" and self.encoder.extra:
+            raise ConfigError(f"output.gelf_extra with jsonl_tpu {_LATER}")
         queue_size = config.lookup_int(
             "input.queuesize", "input.queuesize must be a size integer",
             DEFAULT_QUEUE_SIZE)
@@ -127,7 +132,8 @@ class Pipeline:
             from .tpu.batch import BatchHandler
 
             self._handler = BatchHandler(self.tx, self.encoder, self.config,
-                                         self.merger, self.device)
+                                         self.merger, self.device,
+                                         fmt=self.fmt)
         return self._handler
 
     def run(self) -> None:

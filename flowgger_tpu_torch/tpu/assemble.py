@@ -130,6 +130,19 @@ def exclusive_cumsum(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def count_in_spans(cum: np.ndarray, a: np.ndarray, b: np.ndarray):
+    """Occurrences within [a, b) given an inclusive prefix-count.
+    Indices are clipped: callers mask out invalid spans afterwards, but
+    padded/kernel-flagged rows may carry out-of-range placeholders.  An
+    empty source buffer counts as zero everywhere."""
+    if cum.size == 0:
+        return np.zeros(np.broadcast(a, b).shape, dtype=np.int64)
+    top = cum.size - 1
+    hi = np.where(b > 0, cum[np.clip(b - 1, 0, top)], 0)
+    lo = np.where(a > 0, cum[np.clip(a - 1, 0, top)], 0)
+    return hi - lo
+
+
 def concat_segments(src: np.ndarray, seg_src: np.ndarray,
                     seg_len: np.ndarray,
                     dst0: Optional[np.ndarray] = None) -> np.ndarray:

@@ -1,17 +1,22 @@
-"""BatchHandler: the port's batched RFC5424 → GELF path.
+"""BatchHandler: the port's batched RFC5424 / JSON-lines → GELF paths.
 
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
-pending, when ``input.tpu_flush_ms`` elapses with data pending, or at end
-of stream — each session's region is cut at its last separator (the
-tail stays as carry for the next flush) and goes through:
+pending (for syslen framing: spaces, an upper bound on its frames), when
+``input.tpu_flush_ms`` elapses with data pending, or at end of stream —
+each session's region is framed (line/NUL: cut at its last separator;
+syslen: up to the first incomplete frame), the tail stays as carry for
+the next flush, and the records go through:
 
 1. device framing (``framing.device_frame_region``: span and gather
    kernels), or the host splitter when the span kernel declines;
-2. the RFC5424 decode kernel (``rfc5424.decode_rfc5424_submit``) and its
-   fetch, which re-decodes 7-16-pair rows with the 16-pair kernel;
-3. the host block encoder (``encode_gelf_block``), which runs the scalar
-   oracle for rows the kernel flagged and for over-length lines;
+2. the format's decode kernel and its fetch — RFC5424
+   (``rfc5424.decode_rfc5424_submit``, 7-16-pair rows re-decoded at 16
+   pairs) or JSON-lines (``jsonl.decode_jsonl_submit``, 9-24-key rows
+   re-decoded at 24 fields);
+3. the format's host block encoder (``encode_gelf_block`` /
+   ``encode_jsonl_block``), which runs the scalar oracle for rows the
+   kernel flagged and for over-length lines;
 4. the merger framing (pre-applied) and the output queue.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
@@ -30,21 +35,35 @@ from typing import List
 import torch
 
 from ..config import Config
-from ..splitters import Handler
+from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
 from . import framing as _framing
 from . import pack as _pack
 from .encode_gelf_block import encode_rfc5424_gelf_block
+from .encode_jsonl_block import encode_jsonl_gelf_block
+from .jsonl import decode_jsonl_fetch, decode_jsonl_submit
 from .rfc5424 import decode_rfc5424_fetch, decode_rfc5424_submit
 
 DEFAULT_BATCH_SIZE = 16384
 DEFAULT_FLUSH_MS = 50
 DEFAULT_MAX_LINE_LEN = 512
 
+# decode → block encode per input format (``input.format`` without its
+# ``_tpu`` suffix)
+_ROUTES = {
+    "rfc5424": (decode_rfc5424_submit, decode_rfc5424_fetch,
+                encode_rfc5424_gelf_block),
+    "jsonl": (decode_jsonl_submit, decode_jsonl_fetch,
+              encode_jsonl_gelf_block),
+}
+
 
 class BatchHandler(Handler):
     def __init__(self, tx, encoder, config: Config, merger,
-                 device: torch.device, start_timer: bool = True):
+                 device: torch.device, start_timer: bool = True,
+                 fmt: str = "rfc5424"):
         self.tx = tx
+        self.fmt = fmt
+        self._submit, self._fetch, self._encode = _ROUTES[fmt]
         self.encoder = encoder
         self.merger = merger
         self.device = device
@@ -119,6 +138,11 @@ class BatchHandler(Handler):
     def _decode_raw(self, sess: "_RawSession", chunks: List[bytes]) -> None:
         region = sess.carry + b"".join(chunks)
         sess.carry = b""
+        if not region or sess.dead:
+            return
+        if sess.framing == "syslen":
+            self._decode_raw_syslen(sess, region)
+            return
         cut = region.rfind(sess.sep)
         if cut < 0:
             sess.carry = region
@@ -126,7 +150,7 @@ class BatchHandler(Handler):
         framed, sess.carry = region[:cut + 1], region[cut + 1:]
         n = framed.count(sess.sep)
         try:
-            packed, _consumed = _framing.device_frame_region(
+            packed, _consumed, _err = _framing.device_frame_region(
                 framed, sess.framing, self.max_len, n_records=n,
                 device=self.device)
         except _framing.FramingDeclined:
@@ -137,16 +161,37 @@ class BatchHandler(Handler):
                                           strip_cr=sess.framing == "line")
         self._dispatch(packed)
 
+    def _decode_raw_syslen(self, sess: "_RawSession", region: bytes) -> None:
+        """Octet-count framing of one session region on the card; a
+        decline (a prefix over 9 digits, or more frames than spaces)
+        re-frames the same bytes with the host scan."""
+        try:
+            packed, consumed, err = _framing.device_frame_region(
+                region, "syslen", self.max_len,
+                n_records=max(region.count(b" "), 1), device=self.device)
+        except _framing.FramingDeclined:
+            starts, lens, n, consumed, err = _scan_syslen_region(region)
+            packed = _pack.pack_spans_2d(region[:consumed], starts, lens,
+                                         self.max_len)
+        if packed[5]:
+            self._dispatch(packed)
+        sess.carry = region[consumed:]
+        if err:
+            # host-scan parity: a malformed length prefix ends the stream
+            # (the session goes dead; the splitter's next push sees it)
+            print("Can't read message's length", file=sys.stderr)
+            sess.dead = True
+            sess.carry = b""
+
     def _dispatch(self, packed) -> None:
-        """Decode → fetch (+ 16-pair rescue) → block encode → enqueue."""
+        """Decode → fetch (+ the wider rescue) → block encode → enqueue."""
         batch, lens, chunk, starts, orig_lens, n_real = packed
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(batch).to(self.device)
             lens = torch.from_numpy(lens).to(self.device)
-        host_out = decode_rfc5424_fetch(decode_rfc5424_submit(batch, lens))
-        res = encode_rfc5424_gelf_block(chunk, starts, orig_lens, host_out,
-                                        n_real, batch.shape[1], self.encoder,
-                                        self.merger)
+        host_out = self._fetch(self._submit(batch, lens))
+        res = self._encode(chunk, starts, orig_lens, host_out, n_real,
+                           batch.shape[1], self.encoder, self.merger)
         self._emit_block(res)
 
     def _emit_block(self, res) -> None:
@@ -168,8 +213,10 @@ class _RawSession:
     """Per-stream region buffer for device framing: raw chunks accumulate
     untouched, the handler frames them at flush, and the carry-over tail
     — a record split across a chunk or flush boundary — stays here
-    between flushes.  ``est`` (one separator count per chunk) drives the
-    batch-size flush trigger."""
+    between flushes.  ``est`` drives the batch-size flush trigger: one
+    separator count per chunk (exact for line/NUL), or one space count
+    (an upper bound for syslen: each frame consumes at least one).
+    ``dead`` marks a syslen stream whose length prefix was malformed."""
 
     def __init__(self, handler: BatchHandler, framing: str):
         self.handler = handler
@@ -178,10 +225,14 @@ class _RawSession:
         self.carry = b""
         self.chunks: List[bytes] = []
         self.est = 0
+        self.dead = False
 
-    def push(self, chunk: bytes) -> None:
+    def push(self, chunk: bytes) -> bool:
+        """Buffer one raw chunk; returns False once the session died."""
+        if self.dead:
+            return False
         h = self.handler
-        est = chunk.count(self.sep)
+        est = chunk.count(b" " if self.framing == "syslen" else self.sep)
         with h._lock:
             self.chunks.append(chunk)
             self.est += est
@@ -191,17 +242,34 @@ class _RawSession:
                 h._arm_timer_locked()
         if full:
             h.flush()
+        return not self.dead
 
-    def finish(self) -> None:
-        """End of stream: flush pending data, then emit the carry as a
-        trailing partial frame (BufRead::lines parity), one trailing CR
-        stripped for line framing."""
+    def finish(self, idle: bool = False) -> None:
+        """End of stream: flush pending data, then resolve the carry with
+        the host splitters' EOF semantics — line/NUL emit a trailing
+        partial frame (BufRead::lines parity, one trailing CR stripped
+        for line framing); syslen prints the host scan's short-read,
+        idle or bad-length message."""
         h = self.handler
         h.flush()
         with h._lock:
             carry, self.carry = self.carry, b""
             if self in h._raw_sessions:
                 h._raw_sessions.remove(self)
+        if self.dead:
+            return
+        if self.framing == "syslen":
+            # a carry mid-body is a short read; an idle timeout outside a
+            # body closes quietly; a hard EOF on a non-body carry is a
+            # bad-length error
+            if carry and SyslenSplitter._mid_body(carry):
+                print("failed to fill whole buffer", file=sys.stderr)
+            elif idle:
+                print("Client hasn't sent any data for a while - Closing "
+                      "idle connection", file=sys.stderr)
+            elif carry:
+                print("Can't read message's length", file=sys.stderr)
+            return
         if carry:
             if self.framing == "line" and carry.endswith(b"\r"):
                 carry = carry[:-1]

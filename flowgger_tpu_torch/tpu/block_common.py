@@ -1,10 +1,11 @@
-"""Shared machinery for the columnar block encoder: framing specs, the
+"""Shared machinery for the columnar block encoders: framing specs, the
 scalar-oracle fallback loop, and the splice that interleaves vectorized
 tier runs with per-row fallback output in input order.
 
-The block encoder produces a contiguous ``final_buf`` for its fast-tier
-rows plus ``row_off`` boundaries; this module turns that into an
-EncodedBlock with the reference's observable semantics — per-line errors
+Each block encoder (RFC5424 and JSON-lines to GELF) produces a
+contiguous ``final_buf`` for its fast-tier rows plus ``row_off``
+boundaries; this module turns that into an EncodedBlock with the
+reference's observable semantics — per-line errors
 in order (line_splitter.rs:37-54), framing pre-applied with the
 pipeline's merger (merger/mod.rs:30-32).
 """
@@ -47,6 +48,31 @@ def ts_scratch(out, n: int, ridx: np.ndarray, fmt_fn):
                      for k, v in out.items()
                      if k in ("days", "sod", "off", "nanos")})
     return vals_scratch(ts, fmt_fn)
+
+
+def span_f64_scratch(chunk_bytes: bytes, tsa, tsb, fmt_fn):
+    """Dedup parse+format of per-row numeric SPANS in one dict pass
+    keyed on the span bytes (repetitive streams share few distinct
+    stamps; fmt_fn is the only per-unique Python).  Returns
+    (scratch bytes, per-row offsets, per-row lengths)."""
+    cache = {}
+    pieces = []
+    pos = 0
+    R = len(tsa)
+    off = np.empty(R, dtype=np.int64)
+    ln = np.empty(R, dtype=np.int64)
+    for i, (a, b) in enumerate(zip(tsa.tolist(), tsb.tolist())):
+        key = chunk_bytes[a:b]
+        hit = cache.get(key)
+        if hit is None:
+            txt = fmt_fn(float(key)).encode("ascii")
+            hit = (pos, len(txt))
+            cache[key] = hit
+            pieces.append(txt)
+            pos += len(txt)
+        off[i] = hit[0]
+        ln[i] = hit[1]
+    return b"".join(pieces), off, ln
 
 
 def sorted_pair_order(chunk_arr: np.ndarray, rop: np.ndarray,

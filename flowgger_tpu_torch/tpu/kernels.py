@@ -1,14 +1,18 @@
-"""The hand-written CUDA kernels of the main path, their loader, and the
-chained framing→decode entry.
+"""The hand-written CUDA kernels of the port, their loader, and the
+chained framing→decode entries.
 
 Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
 
 - ``frame_sep_spans`` — line/NUL record spans over a raw region
   (replaces ``pallas_kernels.frame_sep_spans_pallas``);
+- ``frame_syslen_spans`` — octet-counted (syslen) frame spans over a raw
+  region (replaces ``pallas_kernels.frame_syslen_spans_pallas``);
 - ``frame_gather`` — the dense ``[rows, max_len]`` batch from the spans
   (replaces ``pallas_kernels.frame_gather_pallas``);
 - ``decode_rfc5424`` — the per-row RFC5424 channels at 6 and 16 pairs
-  (replaces ``rfc5424.decode_rfc5424_pallas``).
+  (replaces ``rfc5424.decode_rfc5424_pallas``);
+- ``structural_index`` — the per-row JSON-lines structural index at 8
+  and 24 fields (replaces ``pallas_kernels.structural_index_pallas``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use, into ``build/cuda`` next to the
@@ -21,7 +25,8 @@ the launch reports, and counts its launches in :data:`LAUNCHES`.
 Nothing here falls back: no ``nvcc``, a failed build, or a refused launch
 raises.  The plain PyTorch versions live beside the dispatchers that
 choose between them by the tensor's device (``framing.sep_spans``,
-``framing.gather``, ``rfc5424.decode_rfc5424_submit``).
+``framing.syslen_spans``, ``framing.gather``,
+``rfc5424.decode_rfc5424_submit``, ``jsonl.decode_jsonl_submit``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -44,24 +49,31 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {
     "frame_sep_spans": "frame_sep_spans.cu",
+    "frame_syslen_spans": "frame_syslen_spans.cu",
     "frame_gather": "frame_gather.cu",
     "decode_rfc5424": "decode_rfc5424.cu",
+    "structural_index": "structural_index.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
 
 # launches per kernel since the last reset_launch_counts(); a wrapper
-# adds one exactly where it launches its kernel (the decode kernel counts
-# its 6-pair and 16-pair instantiations apart)
-LAUNCHES: Dict[str, int] = {"frame_sep_spans": 0, "frame_gather": 0,
-                            "decode_rfc5424_p6": 0, "decode_rfc5424_p16": 0}
+# adds one exactly where it launches its kernel (the decode kernels count
+# their instantiations apart: 6 and 16 pairs, 8 and 24 fields)
+LAUNCHES: Dict[str, int] = {
+    "frame_sep_spans": 0, "frame_syslen_spans": 0, "frame_gather": 0,
+    "decode_rfc5424_p6": 0, "decode_rfc5424_p16": 0,
+    "structural_index_f8": 0, "structural_index_f24": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "frame_sep_spans": {
         "fg_frame_sep_spans": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    },
+    "frame_syslen_spans": {
+        "fg_frame_syslen_spans": (_P, _I, _I, _P, _P, _P, _P),
     },
     "frame_gather": {
         "fg_frame_gather": (_P, ctypes.c_longlong, _P, _P, _I, _I, _P, _P,
@@ -70,6 +82,10 @@ _SIGNATURES = {
     "decode_rfc5424": {
         "fg_decode_rfc5424_sd4_p6": (_P, _P, _P, _I, _I, _P),
         "fg_decode_rfc5424_sd4_p16": (_P, _P, _P, _I, _I, _P),
+    },
+    "structural_index": {
+        "fg_structural_index_f8": (_P, _P, _P, _I, _I, _I, _P),
+        "fg_structural_index_f24": (_P, _P, _P, _I, _I, _I, _P),
     },
 }
 _TILE_BYTES = 4096   # kTile in frame_sep_spans.cu
@@ -203,6 +219,27 @@ def frame_sep_spans_cuda(region: torch.Tensor, rlen: int, sep: int = 10,
     return {"starts": starts, "lens": lens, "meta": meta}
 
 
+def frame_syslen_spans_cuda(region: torch.Tensor, rlen: int,
+                            ncap: int = 256):
+    """Octet-count frame spans over ``region[:rlen]`` (u8 [B] on a CUDA
+    device): ``{"starts", "lens"}`` int32 [ncap] and ``"meta"`` int32
+    [4] = (n, consumed, err, decline), all on the device."""
+    _need(region, "region", torch.uint8, 1)
+    if not 0 <= rlen <= region.shape[0] or ncap < 1:
+        raise ValueError(f"bad span geometry rlen={rlen} B={region.shape[0]} "
+                         f"ncap={ncap}")
+    dev = region.device
+    starts = torch.empty(ncap, dtype=torch.int32, device=dev)
+    lens = torch.empty(ncap, dtype=torch.int32, device=dev)
+    meta = torch.empty(4, dtype=torch.int32, device=dev)
+    rc = _lib("frame_syslen_spans").fg_frame_syslen_spans(
+        region.data_ptr(), rlen, ncap, starts.data_ptr(), lens.data_ptr(),
+        meta.data_ptr(), _stream())
+    _check(rc, "frame_syslen_spans")
+    LAUNCHES["frame_syslen_spans"] += 1
+    return {"starts": starts, "lens": lens, "meta": meta}
+
+
 def frame_gather_cuda(region: torch.Tensor, starts: torch.Tensor,
                       lens: torch.Tensor, max_len: int = 512):
     """``(batch u8 [rows, max_len], lens_c int32 [rows])`` on the
@@ -253,6 +290,36 @@ def decode_rfc5424_cuda(batch: torch.Tensor, lens: torch.Tensor,
     return out
 
 
+def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                          max_fields: int = 8, nested: int = 4
+                          ) -> torch.Tensor:
+    """The JSON-lines structural index of ``batch`` (u8 [N, L]) as one
+    int32 ``[2 + 7 * max_fields, N]`` tensor on the device
+    (``jsonidx.unpack_channels`` splits it).  Instantiated for 8 and 24
+    fields, with nested containers (``nested`` >= 1 levels)."""
+    from .jsonidx import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or L < 1:
+        raise ValueError("lens must have one entry per row")
+    if max_fields not in (8, 24) or nested < 1:
+        raise ValueError(f"no structural_index kernel for max_fields="
+                         f"{max_fields} nested={nested}")
+    if 32 * ((((L + 3) // 4) | 1) * 4) > 227 * 1024:
+        raise ValueError(f"rows of {L} bytes exceed the structural index "
+                         "kernel's shared-memory staging")
+    out = torch.empty((n_channels(max_fields), N), dtype=torch.int32,
+                      device=batch.device)
+    fn = getattr(_lib("structural_index"), f"fg_structural_index_f{max_fields}")
+    rc = fn(batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, L, nested,
+            _stream())
+    _check(rc, "structural_index")
+    LAUNCHES[f"structural_index_f{max_fields}"] += 1
+    return out
+
+
 def fused_frame_decode_rfc5424(region: torch.Tensor, rlen: int,
                                sep: int = 10, strip_cr: bool = False,
                                ncap: int = 256, max_len: int = 512,
@@ -272,4 +339,24 @@ def fused_frame_decode_rfc5424(region: torch.Tensor, rlen: int,
     out = decode_rfc5424_submit(batch, lens_c, max_sd=max_sd)[0]
     if isinstance(out, torch.Tensor):
         out = unpack_channels(out, max_sd, DEFAULT_MAX_PAIRS)
+    return spans, out
+
+
+def fused_frame_decode_jsonl(region: torch.Tensor, rlen: int, sep: int = 10,
+                             strip_cr: bool = True, ncap: int = 256,
+                             max_len: int = 512):
+    """Raw region → spans → gather → the 8-field JSON-lines structural
+    index, the three kernels chained on one stream with the dense batch
+    internal (the CPU takes the plain versions).  Returns ``(spans,
+    channels)``; rows past ``spans["n"]`` index padding and must be
+    masked by the caller."""
+    from .framing import gather, sep_spans
+    from .jsonidx import unpack_channels
+    from .jsonl import DEFAULT_MAX_FIELDS, decode_jsonl_submit
+
+    spans = sep_spans(region, rlen, sep=sep, strip_cr=strip_cr, ncap=ncap)
+    batch, lens_c = gather(region, spans["starts"], spans["lens"], max_len)
+    out = decode_jsonl_submit(batch, lens_c)[0]
+    if isinstance(out, torch.Tensor):
+        out = unpack_channels(out, DEFAULT_MAX_FIELDS)
     return spans, out

@@ -85,3 +85,11 @@ def pack_region_2d(region: bytes, max_len: int, sep: int = 10,
     (batch, clipped_lens, chunk, starts, orig_lens, n_real)."""
     starts, lens, n = _split(region, strip_cr, sep)
     return _finish(region, starts, lens, n, max_len)
+
+
+def pack_spans_2d(chunk: bytes, starts: np.ndarray, lens: np.ndarray,
+                  max_len: int):
+    """Pack records given as spans into ``chunk`` (the host syslen scan's
+    output; same return contract as :func:`pack_region_2d`)."""
+    return _finish(chunk, np.asarray(starts, np.int32),
+                   np.asarray(lens, np.int32), len(starts), max_len)

@@ -1,4 +1,5 @@
-"""Calendar math and RFC3339 parsing for the scalar RFC5424 oracle.
+"""Calendar math and RFC3339 parsing for the scalar RFC5424 oracle, and
+the receive-time stamp of the JSON-lines oracle.
 
 Behavioral model: the reference's use of the ``time`` crate — RFC3339 →
 unix f64 with nanosecond precision (rfc5424_decoder.rs:94-103,
@@ -12,6 +13,8 @@ formula in int32 and emits the same (days, secs, nanos) decomposition.
 """
 
 from __future__ import annotations
+
+import time as _time
 
 _DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
 
@@ -114,3 +117,9 @@ def rfc3339_to_unix(s: str) -> float:
     days = days_from_civil(year, month, day)
     total = days * 86400 + hour * 3600 + minute * 60 + sec - offset_secs
     return (total * 1_000_000_000 + nanos) / 1e9
+
+
+def now_precise() -> float:
+    """PreciseTimestamp::now (utils/mod.rs:14-21): secs + nanos/1e9."""
+    ns = _time.time_ns()
+    return (ns // 1_000_000_000) + (ns % 1_000_000_000) / 1e9

@@ -101,12 +101,12 @@ def test_device_frame_region_matches_host_pack(framing, sep):
                   .astype(np.uint8)) + (b"\r" if i % 3 == 0 else b"")
             for i in range(300)]
     framed = b"".join(r + sep for r in recs)
-    packed, consumed = F.device_frame_region(
+    packed, consumed, err = F.device_frame_region(
         framed, framing, MAX_LEN, n_records=framed.count(sep),
         device=torch.device("cpu"))
     ref = jpack.pack_region_2d(framed, MAX_LEN, sep=sep[0],
                                strip_cr=framing == "line")
-    assert consumed == len(framed)
+    assert consumed == len(framed) and err is False
     assert np.array_equal(packed[0].numpy(), ref[0])
     assert np.array_equal(packed[1].numpy(), ref[1])
     assert packed[2] == ref[2]

@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from flowgger_tpu_torch.corpus import make_corpus
+from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                       syslen_stream)
 from flowgger_tpu_torch.tpu import framing as F
+from flowgger_tpu_torch.tpu import jsonidx as JI
 from flowgger_tpu_torch.tpu import pack
 from flowgger_tpu_torch.tpu import rfc5424 as T
 
@@ -39,7 +41,8 @@ def libs(tmp_path_factory):
         pytest.skip("g++ is needed to compile the kernel sources for the CPU")
     out = tmp_path_factory.mktemp("cuda_host")
     libs = {n: ctypes.CDLL(str(host_build.build(n, out)))
-            for n in ("decode_rfc5424", "frame_sep_spans", "frame_gather")}
+            for n in ("decode_rfc5424", "frame_sep_spans", "frame_gather",
+                      "frame_syslen_spans", "structural_index")}
     for p in (6, 16):
         fn = getattr(libs["decode_rfc5424"], f"fg_decode_rfc5424_sd4_p{p}")
         fn.argtypes, fn.restype = [_P, _P, _P, _I, _I, _P], _I
@@ -48,6 +51,11 @@ def libs(tmp_path_factory):
     fn = libs["frame_gather"].fg_frame_gather
     fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _I, _I, _P, _P, _P]
     fn.restype = _I
+    fn = libs["frame_syslen_spans"].fg_frame_syslen_spans
+    fn.argtypes, fn.restype = [_P, _I, _I, _P, _P, _P, _P], _I
+    for f in (8, 24):
+        fn = getattr(libs["structural_index"], f"fg_structural_index_f{f}")
+        fn.argtypes, fn.restype = [_P, _P, _P, _I, _I, _I, _P], _I
     return libs
 
 
@@ -132,3 +140,60 @@ def test_gather_kernel_source_matches_plain(libs):
                             torch.from_numpy(lens), max_len)
     assert np.array_equal(out, rb.numpy()) and np.array_equal(lens_c,
                                                               rl.numpy())
+
+
+def _json_lines():
+    from test_torch_jsonl import EDGE_LINES
+
+    return ([ln.encode() for ln in EDGE_LINES]
+            + make_jsonl_corpus(300, seed=19)[0])
+
+
+@pytest.mark.parametrize("L", [512, 96])
+@pytest.mark.parametrize("max_fields", [8, 24])
+def test_structural_index_kernel_source_matches_plain(libs, L, max_fields):
+    """Every channel on every row — padding, rejected and over-long rows
+    included — equals the plain structural index."""
+    batch, lens, *_ = pack.pack_lines_2d(_json_lines(), L)
+    out = np.full((JI.n_channels(max_fields), batch.shape[0]), -7, np.int32)
+    fn = getattr(libs["structural_index"], f"fg_structural_index_f{max_fields}")
+    assert fn(_ptr(batch), _ptr(lens), _ptr(out), batch.shape[0], L, 4,
+              None) == 0
+    got = JI.unpack_channels(torch.from_numpy(out), max_fields)
+    ref = JI.structural_index(torch.from_numpy(batch), torch.from_numpy(lens),
+                              max_fields, nested=4)
+    assert ref["ok"].any() and not ref["ok"].all()
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+def _syslen_cases():
+    from test_torch_syslen import CASES, _region
+
+    out = [(name, *_region(recs, extra), 64) for name, recs, extra in CASES]
+    lines, _ = make_corpus(600, seed=29)
+    blob = syslen_stream(lines)
+    reg = np.zeros(F.region_bucket(len(blob)), np.uint8)
+    reg[:len(blob)] = np.frombuffer(blob, np.uint8)
+    out.append(("corpus", reg, len(blob), 1024))
+    out.append(("corpus-overflow", reg, len(blob), 512))
+    return out
+
+
+def test_syslen_spans_kernel_source_matches_plain(libs):
+    """The chain walk equals the plain version wherever the plain version
+    does not decline, and declines exactly where it does."""
+    fn = libs["frame_syslen_spans"].fg_frame_syslen_spans
+    for name, reg, rlen, ncap in _syslen_cases():
+        starts = np.full(ncap, -7, np.int32)
+        lens = np.full(ncap, -7, np.int32)
+        meta = np.full(4, -7, np.int32)
+        assert fn(_ptr(reg), rlen, ncap, _ptr(starts), _ptr(lens),
+                  _ptr(meta), None) == 0
+        ref = F.frame_syslen_spans(torch.from_numpy(reg), rlen, ncap=ncap)
+        assert bool(meta[3]) == bool(ref["decline"]), name
+        if not meta[3]:
+            assert np.array_equal(starts, ref["starts"].numpy()), name
+            assert np.array_equal(lens, ref["lens"].numpy()), name
+            assert list(meta[:3]) == [int(ref["n"]), int(ref["consumed"]),
+                                      int(ref["err"])], name

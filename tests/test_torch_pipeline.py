@@ -149,7 +149,7 @@ BAD_CONFIGS = [
     ('[input]\ntype = "tcp"\nformat = "rfc5424_tpu"\n', "input.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424"\n', "input.format"),
     ('[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n', "input.format"),
-    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "syslen"\n',
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "capnp"\n',
      "input.framing"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "stdout"\nformat = "ltsv"\n', "output.format"),
@@ -157,6 +157,8 @@ BAD_CONFIGS = [
      'type = "kafka"\n', "output.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "stdout"\n[output.gelf_extra]\n_dyn = "x"\n', "gelf_extra"),
+    ('[input]\ntype = "stdin"\nformat = "jsonl_tpu"\n[output]\n'
+     'type = "stdout"\n[output.gelf_extra]\nx = "y"\n', "gelf_extra"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "file"\nfile_path = "x"\nfile_rotation_size = 10\n',
      "file_rotation_size"),
