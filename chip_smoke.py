@@ -4,9 +4,12 @@
 
 Phases, each printing JSON lines:
 
-1. device — ``nvidia-smi`` name and power limit, torch's device name;
+1. device — ``nvidia-smi`` name and power limit, torch's device name,
+   the SM clock under a spin kernel;
 2. build  — the five CUDA kernels compiled from ``flowgger_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel);
+   (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
+   for each entry function: registers, shared memory, stack and spill
+   bytes as ``nvcc -Xptxas -v`` reports them;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each: line framing of a 16 384-line region →
@@ -31,6 +34,15 @@ Phases, each printing JSON lines:
    runs' GELF bytes and stderr lines must equal the port's scalar path
    over the same bytes (``corpus.scalar_expectation``).
 
+Kernel times: ``ms`` is the device time of one launch (calls issued back
+to back behind a spin kernel that holds the stream, :func:`device_ms`);
+``plain_ms`` is one call of the plain version between two events on an
+idle stream (:func:`cuda_ms`), so it also holds the host's time to issue
+it, tens of microseconds against its milliseconds.  To time only the
+kernels of a tree, call the first three phases from its root:
+``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build();
+c.phase_kernels(20261016)"``.
+
 It then prints the kernel table, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failed phase raises
 and the script exits non-zero; without a CUDA device it exits non-zero
@@ -45,6 +57,7 @@ import functools
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,7 +80,11 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of ``iters`` single-call times between CUDA events."""
+    """Median of ``iters`` single-call times between CUDA events.  The
+    first event is recorded on an idle stream, so each time also holds
+    the host's work to issue the call (the wrapper's Python and ctypes
+    time, tens of microseconds): what one synchronous call costs, not the
+    kernel's own time (see :func:`device_ms`)."""
     import torch
 
     for _ in range(warmup):
@@ -82,6 +99,40 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` (no host synchronization
+    inside): a spin kernel holds the stream while the host issues
+    ``iters`` calls, so they run back to back and the time between the
+    two events is theirs alone.  If the hold ended before the last call
+    was issued, the host may have left gaps: the hold is lengthened and
+    the run repeated, and if no hold up to 2**32 cycles covers the
+    issue, there is no device time to give and it raises."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    hold = 1 << 22   # cycles (~2 ms at 1.98 GHz)
+    while True:
+        torch.cuda._sleep(hold)
+        held = torch.cuda.Event()
+        held.record()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        covered = not held.query()
+        b.synchronize()
+        if covered:
+            return a.elapsed_time(b) / iters
+        if hold >= 1 << 32:
+            raise AssertionError(f"device_ms: a hold of {hold} cycles ended "
+                                 f"before {iters} calls were issued")
+        hold <<= 2
 
 
 def bound(nbytes: int, nops: int) -> dict:
@@ -142,8 +193,69 @@ def phase_device():
     line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
     emit({"phase": "device", "nvidia_smi": line,
           "torch_device": torch.cuda.get_device_name(0),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "sm_clock_mhz": spin_clock_mhz()})
     return line
+
+
+def spin_clock_mhz(cycles: int = 1 << 26) -> float:
+    """The SM clock under load: a spin kernel of ``cycles`` clock ticks
+    timed between CUDA events, after one spin that lets the clock ramp up
+    from idle."""
+    import torch
+
+    torch.cuda._sleep(cycles)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    return cycles / (a.elapsed_time(b) * 1e3)
+
+
+def kernel_name(mangled: str) -> str:
+    """The last component of an Itanium-mangled nested name (the
+    kernel's own name) with its integer template arguments written out:
+    ``_ZN<len><ns><len><name>I<args>E...`` → ``name<a, b>``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    if targs:
+        args = re.findall(r"Li(-?\d+)E", targs.group(1))
+        name += "<" + ", ".join(args) + ">"
+    return name
+
+
+def ptxas_resources(log: str) -> list:
+    """Per entry function of one ``nvcc -Xptxas -v`` log: its kernel name
+    (template arguments written out), registers, shared memory, stack
+    frame and spill bytes."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append({"function": kernel_name(m.group(1))})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[-1].update(stack_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def phase_build():
@@ -158,6 +270,13 @@ def phase_build():
         for k, v in res.items()))
     emit({"phase": "build", "wall_s": wall,
           "seconds": {k: v["seconds"] for k, v in res.items()}})
+    for source, v in res.items():
+        found = ptxas_resources(v["log"])
+        if not found:
+            raise AssertionError(f"no ptxas resource lines in the build log "
+                                 f"of {source}")
+        for r in found:
+            emit({"phase": "kernel_build", "source": source, **r})
 
 
 def gather_case(region, starts, lens):
@@ -180,7 +299,7 @@ def gather_case(region, starts, lens):
         "name": "frame_gather", "route": "cuda",
         "source": "flowgger_tpu_torch/csrc/frame_gather.cu",
         "replaces": "flowgger_tpu/tpu/pallas_kernels.py:399",
-        "max_abs_err": err, "ms": cuda_ms(k3), "plain_ms": cuda_ms(p3),
+        "max_abs_err": err, "ms": device_ms(k3), "plain_ms": cuda_ms(p3),
         # one select per output byte
         **bound(int(gl.sum()) + 8 * n + n * MAX_LEN + 4 * n, n * MAX_LEN),
         "library_ms": None, "shape": f"[{n}, {MAX_LEN}]"}, (gb, gl)
@@ -219,7 +338,7 @@ def decode_case(kind: str, width: int, batch, lens_c):
     n, valid = batch.shape[0], int(lens_c.sum())
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "max_abs_err": err, "ms": cuda_ms(kern),
+        "replaces": replaces, "max_abs_err": err, "ms": device_ms(kern),
         "plain_ms": cuda_ms(plain, iters=5, warmup=1),
         # bytes: each row's valid bytes (the definitions mask everything
         # past its length), the lengths and the int32 channels written;
@@ -280,7 +399,7 @@ def syslen_case(data: bytes, ncap: int, frames: int = 0):
         "name": "frame_syslen_spans", "route": "cuda",
         "source": "flowgger_tpu_torch/csrc/frame_syslen_spans.cu",
         "replaces": "flowgger_tpu/tpu/pallas_kernels.py:343",
-        "max_abs_err": max(errs), "ms": cuda_ms(k4),
+        "max_abs_err": max(errs), "ms": device_ms(k4),
         "plain_ms": cuda_ms(p4, iters=5, warmup=1),
         # one classify per region byte
         **bound(rlen + 8 * ncap + 16, rlen), "library_ms": None,
@@ -337,7 +456,7 @@ def kernels_line_path(seed: int, rows: list, shapes: list):
         "name": "frame_sep_spans", "route": "cuda",
         "source": "flowgger_tpu_torch/csrc/frame_sep_spans.cu",
         "replaces": "flowgger_tpu/tpu/pallas_kernels.py:237",
-        "max_abs_err": max(errs), "ms": cuda_ms(k2), "plain_ms": cuda_ms(p2),
+        "max_abs_err": max(errs), "ms": device_ms(k2), "plain_ms": cuda_ms(p2),
         # one compare per region byte
         **bound(rlen + 8 * ncap + 16, rlen), "library_ms": None,
         "shape": f"region {rlen} B, ncap {ncap}"})

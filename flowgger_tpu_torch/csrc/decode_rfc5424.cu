@@ -1,4 +1,4 @@
-// RFC5424 structural decode, one CUDA thread per row.
+// RFC5424 structural decode, one warp per row.
 //
 // Replaces the JAX package's Pallas kernel decode_rfc5424_pallas
 // (flowgger_tpu/tpu/rfc5424.py:1095, pallas_call :1145), which runs the
@@ -6,36 +6,55 @@
 //
 // What it computes: for every row of a packed [N, L] uint8 batch, the
 // channels of tpu/rfc5424.py (_KEYS_1D, _KEYS_SD x max_sd, _KEYS_PAIR x
-// max_pairs), written channel-major into one int32 [C, N] tensor so each
-// channel store is coalesced across the warp.  The definitions are the
-// reference's vectorized ones, evaluated here as six sequential passes
-// over the row: every "k-th masked position" extraction keeps the
+// max_pairs), written channel-major into one int32 [C, N] tensor.  The
+// definitions are the reference's data-parallel ones, evaluated as six
+// passes over the row: every "k-th masked position" extraction keeps the
 // reference's bit-packed sum form (several ordinals per wrapping 32-bit
 // word, so multi-hit ordinals on malformed rows carry exactly as they do
 // there), and the three packed field words wrap the same way.  So the
 // kernel agrees with the plain PyTorch version on every row — ok and
 // pair_count included — not only on accepted rows.
 //
-// Bound on the H100: bytes.  One read of the batch plus the channel
-// writes; the arithmetic per byte is a few dozen integer operations.
-// Design: a block stages 32 rows in shared memory with coalesced loads
-// (row stride padded to an odd word count, so the 32 threads reading
-// byte i of their own rows hit 32 different banks), then each thread
-// walks its row from shared memory.  Passes stop at the row's length,
-// except where a malformed row's PRI or timestamp zone runs into the
-// padding.  This is the simple first kernel; one thread per row leaves
-// the card latency-bound at this batch size (see PERF.md).
+// Bound on the H100: bytes (one read of each row's valid bytes plus the
+// channel writes; a few dozen integer operations per byte).  What keeps
+// a decode from it is latency: the passes depend on each other (the
+// ']' chain needs the quote state, the pair checks need the SD-ID ends),
+// so a row is a chain of six walks, and a launch lasts as long as its
+// slowest row.  Design:
+// - One warp per row, eight rows per block.  Each warp stages its row's
+//   valid bytes in shared memory with 16-byte loads, then every pass
+//   steps over 32 consecutive positions at a time, one byte per lane:
+//   a 150-byte row is ~5 warp steps a pass, not ~150 thread steps.
+// - Running state is a warp scan with a carry across 32-position chunks
+//   (WarpQuote below): the backslash run ending at i-1 is the count of
+//   backslash-ballot bits directly below the lane plus the carried run;
+//   quote, space and ']' ordinals are popcounts of masked ballots; "first
+//   position where" / "last non-space" are __ffs / __clz of a ballot; the
+//   previous position's flags come from __shfl_up_sync and the carry from
+//   the chunk's last lane.  Passes 2 and 3 (header fields) need no scan:
+//   each lane sums its positions of the header zones and the warp
+//   reduces once (pass 1 counts the high bytes, the one term of their
+//   words that lies past the header).
+// - The per-ordinal sums are per-warp uint32 words in shared memory,
+//   added with atomicAdd (wrapping addition is order-independent, so the
+//   packed words are exact), then unpacked one ordinal per lane.
+// - Channel values go through a shared [C, 8] tile, so each channel is
+//   stored as one 32-byte run of the block's eight rows.
+// Passes stop at the row's length, except where a malformed row's PRI or
+// timestamp zone runs into the padding (passes 2-3 read it as zeros).
 //
 // TPU workarounds not carried over: the u8->i32 widening (bytes stay
-// u8), the log-shift scan ladders (sequential counters), and the f32
-// reductions (integer sums).
+// u8), the log-shift scan ladders (warp ballots), and the f32 reductions
+// (integer sums).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowsPerBlock = 32;
+constexpr int kWarps = 8;                // rows per block, one warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kEscRunCap = 16;
 constexpr int kN1D = 23;
 
@@ -57,21 +76,18 @@ __device__ __forceinline__ int slot_bits_for(int L) {
   return b > 10 ? b : 10;
 }
 
-// Fold per-ordinal sums into packed wrapping words (slots ordinals per
-// word, sb bits each) and read the slots back: extract_by_ord "sum".
-template <int K>
-__device__ __forceinline__ void unpack_slots(const uint32_t* sums,
-                                             uint32_t* vals, int sb) {
+// extract_by_ord "sum": ordinal k's slot after the per-ordinal sums of
+// its group (slots ordinals per wrapping word, sb bits each) are folded
+// into one word.
+__device__ __forceinline__ uint32_t unpack_slot(const uint32_t* sums, int K,
+                                                int k, int sb) {
   int slots = 30 / sb;
   if (slots < 1) slots = 1;
-  uint32_t mask = (1u << sb) - 1u;
-  for (int base = 0; base < K; base += slots) {
-    uint32_t word = 0;
-    for (int s = 0; s < slots && base + s < K; ++s)
-      word += sums[base + s] << (sb * s);
-    for (int s = 0; s < slots && base + s < K; ++s)
-      vals[base + s] = (word >> (sb * s)) & mask;
-  }
+  const int base = k - k % slots;
+  uint32_t word = 0;
+  for (int s = 0; s < slots && base + s < K; ++s)
+    word += sums[base + s] << (sb * s);
+  return (word >> (sb * (k - base))) & ((1u << sb) - 1u);
 }
 
 __device__ __forceinline__ bool is_digit(int c) { return c >= 48 && c <= 57; }
@@ -104,77 +120,139 @@ __device__ __forceinline__ int days_in_month(int y, int m) {
   return is31 ? 31 : 30;
 }
 
-// Running escape / quote state shared by the passes: escaped(i) is the
-// parity of the backslash run ending at i-1 (runs capped at
-// ESC_RUN_CAP-1), and q_before counts real quotes strictly before i.
-struct QuoteState {
-  int run = 0;        // backslash run ending at the previous position
-  int q_before = 0;   // real quotes at positions < i
+// ---- warp helpers (every lane of the warp calls each one) -----------------
+
+__device__ __forceinline__ unsigned lanemask_lt(int lane) {
+  return (1u << lane) - 1u;
+}
+
+// index of the j-th (from 0) set bit of m; m has more than j set bits
+__device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
+  for (int t = 0; t < j; ++t) m &= m - 1u;
+  return __ffs((int)m) - 1;
+}
+
+__device__ __forceinline__ bool warp_any(bool p) {
+  return __ballot_sync(kFull, p) != 0;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    int w = __shfl_xor_sync(kFull, v, o);
+    v = w < v ? w : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    int w = __shfl_xor_sync(kFull, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+}
+
+// The reference's escape / quote state (its _esc_parity, tpu/rfc5424.py
+// :285, and the real-quote count) over one 32-position chunk a step:
+// escaped(i) is the parity of the
+// backslash run ending at i-1 (runs capped at ESC_RUN_CAP-1), and
+// q_before counts real quotes strictly before i.  Lanes past the row
+// pass c = 0, which is neither a backslash nor a quote.
+struct WarpQuote {
+  int run = 0;        // backslash run ending at the previous chunk's end
+  int q = 0;          // real quotes before this chunk
   bool real_q = false;
   bool cap = false;
-  __device__ __forceinline__ void step(int c) {
-    int rp = run < kEscRunCap - 1 ? run : kEscRunCap - 1;
-    bool escaped = (rp & 1) != 0;
-    cap = run >= kEscRunCap;
-    real_q = (c == 34) && !escaped;
-    run = (c == 92) ? run + 1 : 0;
+  int q_before = 0;   // this lane's real quotes at positions < i
+  __device__ __forceinline__ void step(int c, int lane) {
+    const unsigned bs = __ballot_sync(kFull, c == 92);
+    const unsigned lt = lanemask_lt(lane);
+    const unsigned nb = ~bs & lt;   // non-backslash positions below the lane
+    const int r = nb ? lane - 32 + __clz((int)nb) : lane + run;
+    const int rp = r < kEscRunCap - 1 ? r : kEscRunCap - 1;
+    cap = r >= kEscRunCap;
+    real_q = c == 34 && (rp & 1) == 0;
+    const unsigned qb = __ballot_sync(kFull, real_q);
+    q_before = q + __popc(qb & lt);
+    run = ~bs ? __clz((int)~bs) : run + 32;
+    q += __popc(qb);
   }
-  __device__ __forceinline__ void advance() { q_before += real_q ? 1 : 0; }
 };
 
+// One warp's per-ordinal sums (extract_by_ord's operands).
 template <int MAX_SD, int MAX_PAIRS>
-__global__ void __launch_bounds__(kRowsPerBlock)
-decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
-                      const int32_t* __restrict__ lens_in,
-                      int32_t* __restrict__ out, int N, int L,
-                      int stride_words) {
-  extern __shared__ uint32_t smem[];
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  // cooperative, coalesced staging of this block's rows
-  for (int r = 0; r < kRowsPerBlock && row0 + r < N; ++r) {
-    const uint8_t* src = batch + (size_t)(row0 + r) * L;
-    uint8_t* dst = reinterpret_cast<uint8_t*>(smem + r * stride_words);
-    for (int j = threadIdx.x; j < L; j += blockDim.x) dst[j] = src[j];
-  }
-  __syncthreads();
-  const int row = row0 + threadIdx.x;
-  if (row >= N) return;
-  const uint8_t* rb = reinterpret_cast<const uint8_t*>(
-      smem + threadIdx.x * stride_words);
+struct RowSums {
+  uint32_t rb[MAX_SD + 1], sid[MAX_SD];
+  uint32_t oq[MAX_PAIRS], cq[MAX_PAIRS], esc[MAX_PAIRS], ns[MAX_PAIRS];
+};
 
-  const int len = lens_in[row];
+// Decodes one row with the calling warp and writes its channel values
+// to col[ch * kWarps] (the block's channel tile).
+template <int MAX_SD, int MAX_PAIRS>
+__device__ __forceinline__ void decode_row(
+    const uint8_t* __restrict__ src, const int len, const int L,
+    uint4* __restrict__ stage, RowSums<MAX_SD, MAX_PAIRS>& S,
+    int32_t* __restrict__ col, const int lane) {
   const int n = len < L ? (len > 0 ? len : 0) : L;  // valid positions
+
+  // ---- stage the valid bytes; zero the ordinal sums ------------------------
+  if ((L & 15) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    for (int v = lane; v < (n + 15) >> 4; v += 32) stage[v] = s4[v];
+  } else {
+    uint8_t* d = reinterpret_cast<uint8_t*>(stage);
+    for (int j = lane; j < n; j += 32) d[j] = src[j];
+  }
+  {
+    uint32_t* w = reinterpret_cast<uint32_t*>(&S);
+    for (int j = lane; j < (int)(sizeof(S) / 4); j += 32) w[j] = 0;
+  }
+  __syncwarp();
+  const uint8_t* rb = reinterpret_cast<const uint8_t*>(stage);
   auto B = [&](int i) -> int { return (i >= 0 && i < n) ? rb[i] : 0; };
 
   // ---- BOM --------------------------------------------------------------
   const bool bom = len >= 3 && B(0) == 0xEF && B(1) == 0xBB && B(2) == 0xBF;
   const int start0 = bom ? 3 : 0;
   bool ok = (bom ? B(3) : B(0)) == '<';
-  bool viol = false;
+  bool viol = false;   // this lane's violations; any lane's reject the row
 
-  // ---- pass 1: spaces, '>', quote totals, trim end -----------------------
-  int sp[6];
-  for (int k = 0; k < 6; ++k) sp[k] = L;
+  // ---- pass 1: spaces, '>', quote totals, trim end, high bytes ------------
+  int sp_lane = L;     // lane k < 6 holds the k-th space
   int n_sp = 0, gt = L, trim_last = 0, q_before_rest = -1;
+  uint32_t n_high = 0;   // bytes >= 128 (this lane's, then the row's)
   {
-    QuoteState qs;
-    for (int i = 0; i < n; ++i) {
-      int c = rb[i];
-      qs.step(c);
-      if (qs.cap && c == 34) ok = false;
-      qs.advance();
-      if (c == 32) {
-        if (n_sp < 6) sp[n_sp] = i;
-        ++n_sp;
-        // quotes up to and including the 6th space: the count before
-        // the rest zone (the space itself is not a quote)
-        if (n_sp == 6) q_before_rest = qs.q_before;
+    WarpQuote qs;
+    bool capped_q = false;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const bool valid = i < n;
+      const int c = valid ? rb[i] : 0;
+      qs.step(c, lane);
+      capped_q = capped_q || (qs.cap && c == 34);
+      const unsigned spb = __ballot_sync(kFull, c == 32);
+      const int cnt = __popc(spb);
+      if (lane < 6 && lane >= n_sp && lane < n_sp + cnt)
+        sp_lane = base + nth_set_bit(spb, lane - n_sp);
+      if (n_sp <= 5 && 5 < n_sp + cnt) {
+        // quotes before the 6th space: the count before the rest zone
+        // (the space itself is not a quote)
+        q_before_rest = __shfl_sync(kFull, qs.q_before,
+                                    nth_set_bit(spb, 5 - n_sp));
       }
-      if (c == '>' && i > start0 && gt == L) gt = i;
-      if (!is_ws(c)) trim_last = i + 1;
+      n_sp += cnt;
+      const unsigned gtb = __ballot_sync(kFull, c == '>' && i > start0);
+      if (gt == L && gtb) gt = base + __ffs((int)gtb) - 1;
+      const unsigned nwb = __ballot_sync(kFull, valid && !is_ws(c));
+      if (nwb) trim_last = base + 32 - __clz((int)nwb);
+      n_high += c >= 128 ? 1u : 0u;
     }
-    if (q_before_rest < 0) q_before_rest = qs.q_before;
+    if (q_before_rest < 0) q_before_rest = qs.q;
+    if (warp_any(capped_q)) ok = false;
+    n_high = __reduce_add_sync(kFull, n_high);
   }
+  int sp[6];
+  for (int k = 0; k < 6; ++k) sp[k] = __shfl_sync(kFull, sp_lane, k);
   ok = ok && sp[5] < L;
   int f_start[7], f_end[7];
   f_start[0] = start0;
@@ -191,16 +269,21 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
   // the PRI and timestamp zones are not masked by the row length: on a
   // malformed row they can run into the zero padding, whose bytes still
   // count (as non-digits) in the packed words, so passes 2 and 3 walk
-  // them too — every channel then matches the reference on every row
+  // them too — every channel then matches the reference on every row.
+  // Past the header zones (PRI, version, timestamp, the rest's first
+  // byte) only high bytes add to the words, and pass 1 counted those.
   int m = gt > ts_s + tlen ? gt : ts_s + tlen;
   m = m < L ? m : L;
   m = m > n ? m : n;
+  int zone_end = gt + 2 > ts_s + tlen ? gt + 2 : ts_s + tlen;
+  zone_end = zone_end > rest_s + 1 ? zone_end : rest_s + 1;
+  zone_end = zone_end < m ? zone_end : m;
 
   // ---- pass 2: words 1 and 2, header violations, fraction run -----------
   uint32_t word1 = 0, word2 = 0;
   int frac_run = 10;
-  for (int i = 0; i < m; ++i) {
-    int c = i < n ? rb[i] : 0;
+  for (int i = lane; i < zone_end; i += 32) {
+    int c = B(i);
     bool dg = is_digit(c);
     int r = i - ts_s;
     bool in_ts = r >= 0 && r < tlen;
@@ -234,6 +317,9 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
     }
     if (i == gt + 1 && c == '1') word1 += 1u << 29;
   }
+  word1 = __reduce_add_sync(kFull, word1);
+  word2 = __reduce_add_sync(kFull, word2);
+  frac_run = warp_min(frac_run);
   const int w1s = (int)word1, w2s = (int)word2;
   const int year = w1s & 0x3FFF;
   const int month = (w1s >> 14) & 0x7F;
@@ -262,9 +348,8 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
   uint32_t nanos_u = 0, word3 = 0;
   bool off_digit_viol = false, off_colon_viol = false;
   const bool pack_high = L <= 1023;
-  bool any_high = false;
-  for (int i = 0; i < m; ++i) {
-    int c = i < n ? rb[i] : 0;
+  for (int i = lane; i < zone_end; i += 32) {
+    int c = B(i);
     bool dg = is_digit(c);
     int r = i - ts_s;
     bool in_ts = r >= 0 && r < tlen;
@@ -293,11 +378,13 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
       if (c == '-') word3 += 1u << 17;
       if (c == '[') word3 += 1u << 18;
     }
-    if (c >= 128) {
-      any_high = true;
-      if (pack_high) word3 += 1u << 19;
-    }
   }
+  nanos_u = __reduce_add_sync(kFull, nanos_u);
+  word3 = __reduce_add_sync(kFull, word3);
+  if (pack_high) word3 += n_high << 19;
+  const bool any_high = n_high > 0;
+  off_digit_viol = warp_any(off_digit_viol);
+  off_colon_viol = warp_any(off_colon_viol);
   const int w3s = (int)word3;
   const int oh = w3s & 0x7F;
   const int om = (w3s >> 7) & 0x7F;
@@ -323,47 +410,44 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
 
   // ---- pass 4: the structural ']' chain ----------------------------------
   const int rb_sb = bit_length(((L << 3) | 7) + 1);
-  uint32_t rb_sum[MAX_SD + 1];
-  for (int k = 0; k <= MAX_SD; ++k) rb_sum[k] = 0;
   {
-    QuoteState qs;
+    const int vmax = (1 << rb_sb) - 2;
+    WarpQuote qs;
     int rb_ord = 0;
-    bool prev_closeq = false;
-    int prev_c = 0;
-    for (int i = 0; i < n; ++i) {
-      int c = rb[i];
-      qs.step(c);
-      int q_excl = qs.q_before - q_before_rest;
-      bool outside = (q_excl & 1) == 0;
-      bool in_rest = i >= rest_s;
-      bool close_q = qs.real_q && in_rest && !outside;
-      if (c == ']' && outside && in_rest) {
-        ++rb_ord;
-        bool next_valid = i + 1 < n;
-        int next_c = next_valid ? rb[i + 1] : 0;
-        int payload = ((prev_c == 32) || prev_closeq ? 1 : 0)
-                      + ((next_c == '[' && next_valid) ? 2 : 0)
-                      + ((next_c == 32 && next_valid) ? 4 : 0);
-        if (rb_ord <= MAX_SD + 1) {
-          int v = (i << 3) | payload;
-          int vmax = (1 << rb_sb) - 2;
-          rb_sum[rb_ord - 1] += (uint32_t)((v < vmax ? v : vmax) + 1);
-        }
+    int prev_closeq_carry = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const int c = i < n ? rb[i] : 0;
+      qs.step(c, lane);
+      const int q_excl = qs.q_before - q_before_rest;
+      const bool outside = (q_excl & 1) == 0;
+      const bool in_rest = i >= rest_s;
+      const int close_q = qs.real_q && in_rest && !outside;
+      int prev_closeq = __shfl_up_sync(kFull, close_q, 1);
+      if (lane == 0) prev_closeq = prev_closeq_carry;
+      const bool hit = c == ']' && outside && in_rest;
+      const unsigned hits = __ballot_sync(kFull, hit);
+      const int ord = rb_ord + __popc(hits & lanemask_lt(lane)) + 1;
+      if (hit && ord <= MAX_SD + 1) {
+        const bool next_valid = i + 1 < n;
+        const int next_c = B(i + 1);
+        const int payload = ((B(i - 1) == 32) || prev_closeq ? 1 : 0)
+                            + ((next_c == '[' && next_valid) ? 2 : 0)
+                            + ((next_c == 32 && next_valid) ? 4 : 0);
+        const int v = (i << 3) | payload;
+        atomicAdd(&S.rb[ord - 1], (uint32_t)((v < vmax ? v : vmax) + 1));
       }
-      prev_closeq = close_q;
-      prev_c = c;
-      qs.advance();
+      rb_ord += __popc(hits);
+      prev_closeq_carry = __shfl_sync(kFull, close_q, 31);
     }
   }
+  __syncwarp();
   int rb_pos[MAX_SD + 1], rb_flags[MAX_SD + 1];
-  {
-    uint32_t vals[MAX_SD + 1];
-    unpack_slots<MAX_SD + 1>(rb_sum, vals, rb_sb);
-    for (int k = 0; k <= MAX_SD; ++k) {
-      int w = vals[k] == 0 ? (L << 3) : (int)vals[k] - 1;
-      rb_pos[k] = w >> 3;
-      rb_flags[k] = w & 7;
-    }
+  for (int k = 0; k <= MAX_SD; ++k) {
+    const uint32_t v = unpack_slot(S.rb, MAX_SD + 1, k, rb_sb);
+    const int w = v == 0 ? (L << 3) : (int)v - 1;
+    rb_pos[k] = w >> 3;
+    rb_flags[k] = w & 7;
   }
   int sd_end_zone = L;
   for (int k = 0; k <= MAX_SD; ++k) {
@@ -383,8 +467,13 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
   const int sd_count = is_sd ? sd_count_raw : 0;
   int last_idx = sd_count - 1;
   last_idx = last_idx < 0 ? 0 : (last_idx > MAX_SD ? MAX_SD : last_idx);
-  const int sd_end = rb_pos[last_idx];
-  const int end_flags = rb_flags[last_idx];
+  int sd_end = L, end_flags = 0;
+  for (int k = 0; k <= MAX_SD; ++k) {
+    if (k == last_idx) {
+      sd_end = rb_pos[k];
+      end_flags = rb_flags[k];
+    }
+  }
   if (is_sd) ok = ok && sd_count_raw <= MAX_SD && sd_end < L;
   int blk_start[MAX_SD];
   blk_start[0] = rest_s;
@@ -400,62 +489,68 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
   // ---- pass 5: SD-ID ends, quote positions, escape counts, msg start ----
   const int sb = slot_bits_for(L);
   const int vclip = (1 << sb) - 2;
-  uint32_t sid_sum[MAX_SD], oq_sum[MAX_PAIRS], cq_sum[MAX_PAIRS],
-      esc_sum[MAX_PAIRS];
-  for (int k = 0; k < MAX_SD; ++k) sid_sum[k] = 0;
-  for (int k = 0; k < MAX_PAIRS; ++k) oq_sum[k] = cq_sum[k] = esc_sum[k] = 0;
   int pair_total = 0;
   int msg_a = L;
   {
-    QuoteState qs;
+    WarpQuote qs;
     int rb_ord = 0;
-    bool prev_closeq = false, prev_sp = false;
-    int prev_c = 0;
-    for (int i = 0; i < n; ++i) {
-      int c = rb[i];
-      qs.step(c);
-      int q_excl = qs.q_before - q_before_rest;
-      bool outside = (q_excl & 1) == 0;
-      bool in_rest = i >= rest_s;
-      bool real_q = qs.real_q && in_rest;
-      bool open_q = real_q && outside;
-      bool close_q = real_q && !outside;
-      bool zone_c = in_rest && i <= sd_end_zone && is_sd;
-      bool sd_zone = in_rest && i <= sd_end && is_sd;
-      if (c == ']' && outside && in_rest) ++rb_ord;
-      int vi = (i < vclip ? i : vclip) + 1;
-      bool is_sp = c == 32;
-      if (is_sp && outside && zone_c && !prev_closeq && !prev_sp) {
-        int ord = rb_ord + 1;
-        if (ord >= 1 && ord <= MAX_SD) sid_sum[ord - 1] += (uint32_t)vi;
+    int prev_carry = 0;   // bit 0: close quote, bit 1: space
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const bool valid = i < n;
+      const int c = valid ? rb[i] : 0;
+      qs.step(c, lane);
+      const int q_excl = qs.q_before - q_before_rest;
+      const bool outside = (q_excl & 1) == 0;
+      const bool in_rest = i >= rest_s;
+      const bool real_q = qs.real_q && in_rest;
+      const bool open_q = real_q && outside;
+      const bool close_q = real_q && !outside;
+      const bool zone_c = in_rest && i <= sd_end_zone && is_sd;
+      const bool sd_zone = in_rest && i <= sd_end && is_sd;
+      const unsigned hits = __ballot_sync(kFull, c == ']' && outside
+                                                 && in_rest);
+      // ']' at or before i (a space, where it is read, is not one)
+      const int rb_ord_i = rb_ord + __popc(hits & lanemask_lt(lane));
+      const int vi = (i < vclip ? i : vclip) + 1;
+      const bool is_sp = c == 32;
+      const int flags = (close_q ? 1 : 0) | (is_sp ? 2 : 0);
+      int prev = __shfl_up_sync(kFull, flags, 1);
+      if (lane == 0) prev = prev_carry;
+      if (valid) {
+        if (is_sp && outside && zone_c && (prev & 3) == 0) {
+          int ord = rb_ord_i + 1;
+          if (ord >= 1 && ord <= MAX_SD) atomicAdd(&S.sid[ord - 1], (uint32_t)vi);
+        }
+        if (open_q && zone_c) {
+          int ord = (q_excl >> 1) + 1;
+          if (ord > pair_total) pair_total = ord;
+          if (ord >= 1 && ord <= MAX_PAIRS)
+            atomicAdd(&S.oq[ord - 1], (uint32_t)vi);
+        }
+        if (close_q && zone_c) {
+          int ord = (q_excl + 1) >> 1;
+          if (ord >= 1 && ord <= MAX_PAIRS)
+            atomicAdd(&S.cq[ord - 1], (uint32_t)vi);
+        }
+        if (c == 92 && (q_excl & 1) == 1) {
+          int ord = (q_excl >> 1) + 1;
+          if (ord >= 1 && ord <= MAX_PAIRS) atomicAdd(&S.esc[ord - 1], 1u);
+        }
+        if (open_q && sd_zone && B(i - 1) != '=') viol = true;
+        if (!is_ws(c) && i >= msg_start && i < msg_a) msg_a = i;
       }
-      if (open_q && zone_c) {
-        int ord = (q_excl >> 1) + 1;
-        if (ord > pair_total) pair_total = ord;
-        if (ord >= 1 && ord <= MAX_PAIRS) oq_sum[ord - 1] += (uint32_t)vi;
-      }
-      if (close_q && zone_c) {
-        int ord = (q_excl + 1) >> 1;
-        if (ord >= 1 && ord <= MAX_PAIRS) cq_sum[ord - 1] += (uint32_t)vi;
-      }
-      if (c == 92 && (q_excl & 1) == 1) {
-        int ord = (q_excl >> 1) + 1;
-        if (ord >= 1 && ord <= MAX_PAIRS) esc_sum[ord - 1] += 1u;
-      }
-      if (open_q && sd_zone && prev_c != '=') viol = true;
-      if (!is_ws(c) && i >= msg_start && msg_a == L) msg_a = i;
-      prev_closeq = close_q;
-      prev_sp = is_sp;
-      prev_c = c;
-      qs.advance();
+      rb_ord += __popc(hits);
+      prev_carry = __shfl_sync(kFull, flags, 31);
     }
   }
+  __syncwarp();
+  pair_total = warp_max(pair_total);
+  msg_a = warp_min(msg_a);
   int sid_end[MAX_SD];
-  {
-    uint32_t vals[MAX_SD];
-    unpack_slots<MAX_SD>(sid_sum, vals, sb);
-    for (int k = 0; k < MAX_SD; ++k)
-      sid_end[k] = vals[k] == 0 ? L : (int)vals[k] - 1;
+  for (int k = 0; k < MAX_SD; ++k) {
+    const uint32_t v = unpack_slot(S.sid, MAX_SD, k, sb);
+    sid_end[k] = v == 0 ? L : (int)v - 1;
   }
   if (is_sd) {
     for (int k = 0; k < MAX_SD; ++k)
@@ -463,121 +558,145 @@ decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
   }
   const int pair_count = is_sd ? pair_total : 0;
   if (is_sd) ok = ok && pair_count <= MAX_PAIRS;
-  int oq_pos[MAX_PAIRS], cq_pos[MAX_PAIRS];
-  uint32_t esc_cnt[MAX_PAIRS];
+  // pair k lives on lane k from here on
+  const int pk = lane < MAX_PAIRS ? lane : 0;
+  int oq_pos, cq_pos;
+  uint32_t esc_cnt;
   {
-    uint32_t vals[MAX_PAIRS];
-    unpack_slots<MAX_PAIRS>(oq_sum, vals, sb);
-    for (int k = 0; k < MAX_PAIRS; ++k)
-      oq_pos[k] = vals[k] == 0 ? L : (int)vals[k] - 1;
-    unpack_slots<MAX_PAIRS>(cq_sum, vals, sb);
-    for (int k = 0; k < MAX_PAIRS; ++k)
-      cq_pos[k] = vals[k] == 0 ? L : (int)vals[k] - 1;
-    unpack_slots<MAX_PAIRS>(esc_sum, esc_cnt, sb);
+    uint32_t v = unpack_slot(S.oq, MAX_PAIRS, pk, sb);
+    oq_pos = v == 0 ? L : (int)v - 1;
+    v = unpack_slot(S.cq, MAX_PAIRS, pk, sb);
+    cq_pos = v == 0 ? L : (int)v - 1;
+    esc_cnt = unpack_slot(S.esc, MAX_PAIRS, pk, sb);
   }
 
   // ---- pass 6: pair-name structure and name starts ----------------------
-  uint32_t ns_sum[MAX_PAIRS];
-  for (int k = 0; k < MAX_PAIRS; ++k) ns_sum[k] = 0;
   {
-    QuoteState qs;
-    bool prev_name = false, prev_eq = false;
-    int prev_c = 0;
-    for (int i = 0; i < n; ++i) {
-      int c = rb[i];
-      qs.step(c);
-      int q_excl = qs.q_before - q_before_rest;
-      bool outside = (q_excl & 1) == 0;
-      bool in_rest = i >= rest_s;
-      bool real_q = qs.real_q && in_rest;
-      bool open_q = real_q && outside;
-      bool sd_zone = in_rest && i <= sd_end && is_sd;
+    WarpQuote qs;
+    int prev_carry = 0;   // bit 0: name byte, bit 1: '=' (last position)
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const bool valid = i < n;
+      const int c = valid ? rb[i] : 0;
+      qs.step(c, lane);
+      const int q_excl = qs.q_before - q_before_rest;
+      const bool outside = (q_excl & 1) == 0;
+      const bool in_rest = i >= rest_s;
+      const bool real_q = qs.real_q && in_rest;
+      const bool open_q = real_q && outside;
+      const bool sd_zone = in_rest && i <= sd_end && is_sd;
       bool in_pair = false;
       if (is_sd) {
         for (int k = 0; k < MAX_SD; ++k)
           in_pair = in_pair || (k < sd_count && i > sid_end[k]
                                 && i < rb_pos[k]);
       }
-      bool name = is_name_byte(c) && outside && in_pair;
-      // run end of the previous position: its next byte must be '='
-      if (prev_name && !name && c != '=') viol = true;
-      // '=' at the previous position must be followed by an open quote
-      if (prev_eq && !(open_q && in_pair)) viol = true;
-      if (name && !prev_name) {
-        if (prev_c != 32) viol = true;
-        int ord = (q_excl >> 1) + 1;
-        if (ord >= 1 && ord <= MAX_PAIRS)
-          ns_sum[ord - 1] += (uint32_t)((i < vclip ? i : vclip) + 1);
+      const bool name = is_name_byte(c) && outside && in_pair;
+      const bool eq = c == '=' && outside && in_pair;
+      const int flags = (name ? 1 : 0) | (eq ? 2 : 0);
+      int prev = __shfl_up_sync(kFull, flags, 1);
+      if (lane == 0) prev = prev_carry;
+      const bool prev_name = (prev & 1) != 0;
+      if (valid) {
+        // run end of the previous position: its next byte must be '='
+        if (prev_name && !name && c != '=') viol = true;
+        // '=' at the previous position must be followed by an open quote
+        if ((prev & 2) && !(open_q && in_pair)) viol = true;
+        if (name && !prev_name) {
+          if (B(i - 1) != 32) viol = true;
+          int ord = (q_excl >> 1) + 1;
+          if (ord >= 1 && ord <= MAX_PAIRS)
+            atomicAdd(&S.ns[ord - 1], (uint32_t)((i < vclip ? i : vclip) + 1));
+        }
+        if (real_q && sd_zone && !in_pair) viol = true;
       }
-      if (real_q && sd_zone && !in_pair) viol = true;
-      prev_name = name;
-      prev_eq = c == '=' && outside && in_pair;
-      prev_c = c;
-      qs.advance();
+      const int last = n - 1 - base < 31 ? n - 1 - base : 31;
+      prev_carry = __shfl_sync(kFull, flags, last);
     }
     // the last valid position: its next byte is padding (never '=', and
     // never an open quote)
-    if (prev_name || prev_eq) viol = true;
+    if (prev_carry != 0) viol = true;
   }
-  int ns_pos[MAX_PAIRS];
+  __syncwarp();
+  int ns_pos;
   {
-    uint32_t vals[MAX_PAIRS];
-    unpack_slots<MAX_PAIRS>(ns_sum, vals, sb);
-    for (int k = 0; k < MAX_PAIRS; ++k)
-      ns_pos[k] = vals[k] == 0 ? L : (int)vals[k] - 1;
+    const uint32_t v = unpack_slot(S.ns, MAX_PAIRS, pk, sb);
+    ns_pos = v == 0 ? L : (int)v - 1;
   }
-  for (int k = 0; k < MAX_PAIRS; ++k) {
-    if (k < pair_count) {
-      if (!(ns_pos[k] <= oq_pos[k] - 2)) ok = false;
-      if (!(cq_pos[k] > oq_pos[k])) ok = false;
-    }
-  }
-  int trim_end = trim_last > start0 ? trim_last : start0;
-  int msg_trim_start = msg_a < trim_end ? msg_a : trim_end;
-  ok = ok && !viol;
+  const bool pv = lane < MAX_PAIRS && lane < pair_count;
+  if (warp_any(pv && (!(ns_pos <= oq_pos - 2) || !(cq_pos > oq_pos))))
+    ok = false;
+  const int trim_end = trim_last > start0 ? trim_last : start0;
+  const int msg_trim_start = msg_a < trim_end ? msg_a : trim_end;
+  ok = ok && !warp_any(viol);
 
-  // ---- channel-major stores ---------------------------------------------
-  auto put = [&](int ch, int v) { out[(size_t)ch * N + row] = v; };
-  put(C_OK, ok);
-  put(C_BOM, bom);
-  put(C_FACILITY, pri >> 3);
-  put(C_SEVERITY, pri & 7);
-  put(C_DAYS, days);
-  put(C_SOD, sod);
-  put(C_OFF, off_secs);
-  put(C_NANOS, (int)nanos_u);
-  put(C_HOST_S, f_start[2]);
-  put(C_HOST_E, f_end[2]);
-  put(C_APP_S, f_start[3]);
-  put(C_APP_E, f_end[3]);
-  put(C_PROC_S, f_start[4]);
-  put(C_PROC_E, f_end[4]);
-  put(C_MSGID_S, f_start[5]);
-  put(C_MSGID_E, f_end[5]);
-  put(C_MSG_START, msg_start);
-  put(C_SD_COUNT, sd_count);
-  put(C_PAIR_COUNT, pair_count);
-  put(C_FULL_START, start0);
-  put(C_TRIM_END, trim_end);
-  put(C_MSG_TRIM_START, msg_trim_start);
-  put(C_HAS_HIGH, has_high);
-  int ch = kN1D;
-  for (int k = 0; k < MAX_SD; ++k) put(ch + k, blk_start[k] + 1);
-  ch += MAX_SD;
-  for (int k = 0; k < MAX_SD; ++k) put(ch + k, sid_end[k]);
-  ch += MAX_SD;
-  for (int k = 0; k < MAX_PAIRS; ++k) {
-    bool pv = k < pair_count;
+  // ---- channel values into the block's tile -----------------------------
+  auto put = [&](int ch, int v) { col[ch * kWarps] = v; };
+  if (lane == 0) {
+    put(C_OK, ok);
+    put(C_BOM, bom);
+    put(C_FACILITY, pri >> 3);
+    put(C_SEVERITY, pri & 7);
+    put(C_DAYS, days);
+    put(C_SOD, sod);
+    put(C_OFF, off_secs);
+    put(C_NANOS, (int)nanos_u);
+    put(C_HOST_S, f_start[2]);
+    put(C_HOST_E, f_end[2]);
+    put(C_APP_S, f_start[3]);
+    put(C_APP_E, f_end[3]);
+    put(C_PROC_S, f_start[4]);
+    put(C_PROC_E, f_end[4]);
+    put(C_MSGID_S, f_start[5]);
+    put(C_MSGID_E, f_end[5]);
+    put(C_MSG_START, msg_start);
+    put(C_SD_COUNT, sd_count);
+    put(C_PAIR_COUNT, pair_count);
+    put(C_FULL_START, start0);
+    put(C_TRIM_END, trim_end);
+    put(C_MSG_TRIM_START, msg_trim_start);
+    put(C_HAS_HIGH, has_high);
+    for (int k = 0; k < MAX_SD; ++k) put(kN1D + k, blk_start[k] + 1);
+    for (int k = 0; k < MAX_SD; ++k) put(kN1D + MAX_SD + k, sid_end[k]);
+  }
+  if (lane < MAX_PAIRS) {
+    const int k = lane, ch = kN1D + 2 * MAX_SD;
     int psd = -1;
-    for (int j = 0; j < MAX_SD; ++j) psd += blk_start[j] <= oq_pos[k] ? 1 : 0;
+    for (int j = 0; j < MAX_SD; ++j) psd += blk_start[j] <= oq_pos ? 1 : 0;
     psd = psd < 0 ? 0 : (psd > MAX_SD - 1 ? MAX_SD - 1 : psd);
-    put(ch + k, pv ? ns_pos[k] : 0);                          // name_start
-    put(ch + MAX_PAIRS + k, oq_pos[k] - 1);                   // name_end
-    put(ch + 2 * MAX_PAIRS + k, oq_pos[k] + 1);               // val_start
-    put(ch + 3 * MAX_PAIRS + k, cq_pos[k]);                   // val_end
-    put(ch + 4 * MAX_PAIRS + k, pv ? psd : 0);                // pair_sd
-    put(ch + 5 * MAX_PAIRS + k,                               // val_has_esc
-        esc_cnt[k] > 0 && pv && cq_pos[k] > oq_pos[k] + 1);
+    put(ch + k, pv ? ns_pos : 0);                            // name_start
+    put(ch + MAX_PAIRS + k, oq_pos - 1);                     // name_end
+    put(ch + 2 * MAX_PAIRS + k, oq_pos + 1);                 // val_start
+    put(ch + 3 * MAX_PAIRS + k, cq_pos);                     // val_end
+    put(ch + 4 * MAX_PAIRS + k, pv ? psd : 0);               // pair_sd
+    put(ch + 5 * MAX_PAIRS + k,                              // val_has_esc
+        esc_cnt > 0 && pv && cq_pos > oq_pos + 1);
+  }
+}
+
+template <int MAX_SD, int MAX_PAIRS>
+__global__ void __launch_bounds__(kThreads)
+decode_rfc5424_kernel(const uint8_t* __restrict__ batch,
+                      const int32_t* __restrict__ lens_in,
+                      int32_t* __restrict__ out, int N, int L,
+                      int stride_vec) {
+  constexpr int C = kN1D + 2 * MAX_SD + 6 * MAX_PAIRS;
+  extern __shared__ uint4 rows_smem[];
+  __shared__ RowSums<MAX_SD, MAX_PAIRS> sums[kWarps];
+  __shared__ int32_t tile[C][kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kWarps;
+  const int row = row0 + warp;
+  if (row < N)
+    decode_row<MAX_SD, MAX_PAIRS>(batch + (size_t)row * L, lens_in[row], L,
+                                  rows_smem + warp * stride_vec, sums[warp],
+                                  &tile[0][warp], threadIdx.x & 31);
+  __syncthreads();
+  // each channel's eight rows are one contiguous run of [C, N]
+  const int rows = N - row0 < kWarps ? N - row0 : kWarps;
+  for (int t = threadIdx.x; t < C * kWarps; t += kThreads) {
+    const int ch = t / kWarps, r = t % kWarps;
+    if (r < rows) out[(size_t)ch * N + row0 + r] = tile[ch][r];
   }
 }
 
@@ -585,18 +704,18 @@ template <int MAX_SD, int MAX_PAIRS>
 int launch(const void* batch, const void* lens, void* out, int N, int L,
            cudaStream_t stream) {
   if (N <= 0) return 0;
-  const int stride_words = (((L + 3) / 4) | 1);
-  const size_t smem = (size_t)kRowsPerBlock * stride_words * 4;
+  const int stride_vec = (L + 15) / 16;
+  const size_t smem = (size_t)kWarps * stride_vec * 16;
   auto kern = decode_rfc5424_kernel<MAX_SD, MAX_PAIRS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = (N + kRowsPerBlock - 1) / kRowsPerBlock;
-  kern<<<grid, kRowsPerBlock, smem, stream>>>(
+  const int grid = (N + kWarps - 1) / kWarps;
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(batch), static_cast<const int32_t*>(lens),
-      static_cast<int32_t*>(out), N, L, stride_words);
+      static_cast<int32_t*>(out), N, L, stride_vec);
   return (int)cudaGetLastError();
 }
 

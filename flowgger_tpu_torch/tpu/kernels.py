@@ -89,6 +89,11 @@ _SIGNATURES = {
     },
 }
 _TILE_BYTES = 4096   # kTile in frame_sep_spans.cu
+# decode_rfc5424.cu stages kWarps rows, each padded to 16 bytes, in
+# dynamic shared memory beside its static per-warp sums and channel tile
+# (< 8 KiB), within the 227 KiB a block may use
+_DECODE_ROWS_PER_BLOCK = 8
+_DECODE_STAGING_BYTES = 219 * 1024
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -123,16 +128,18 @@ def _lib_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every missing kernel library, one ``nvcc`` per source,
     all started together.  Returns ``{name: {"seconds", "log",
-    "cached"}}``; raises RuntimeError naming the source if any build
-    fails."""
+    "cached"}}``, where ``log`` is nvcc's output (kept beside the library,
+    so a cached build returns it too); raises RuntimeError naming the
+    source if any build fails."""
     names = list(names or _SOURCES)
     out: Dict[str, dict] = {}
     procs = {}
     build_dir().mkdir(parents=True, exist_ok=True)
     for name in names:
         dst = _lib_path(name)
-        if dst.exists():
-            out[name] = {"seconds": 0.0, "log": "", "cached": True}
+        if dst.exists() and dst.with_suffix(".log").exists():
+            out[name] = {"seconds": 0.0, "cached": True,
+                         "log": dst.with_suffix(".log").read_text()}
             continue
         tmp = dst.with_suffix(
             f".{os.getpid()}.{threading.get_ident()}.tmp")
@@ -147,6 +154,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{_SOURCES[name]} (nvcc exit {proc.returncode}):\n{log}")
             continue
+        dst.with_suffix(".log").write_text(log)
         os.replace(tmp, dst)
         out[name] = {"seconds": secs, "log": log, "cached": False}
     if failed:
@@ -278,7 +286,7 @@ def decode_rfc5424_cuda(batch: torch.Tensor, lens: torch.Tensor,
     if max_sd != 4 or max_pairs not in (6, 16):
         raise ValueError(f"no decode_rfc5424 kernel for max_sd={max_sd} "
                          f"max_pairs={max_pairs}")
-    if 32 * ((((L + 3) // 4) | 1) * 4) > 227 * 1024:
+    if _DECODE_ROWS_PER_BLOCK * 16 * (-(-L // 16)) > _DECODE_STAGING_BYTES:
         raise ValueError(f"rows of {L} bytes exceed the decode kernel's "
                          "shared-memory staging")
     out = torch.empty((n_channels(max_sd, max_pairs), N), dtype=torch.int32,

@@ -6,7 +6,8 @@ CUDA-only constructs the sources use; they are rewritten here, and every
 other line compiles as written.  Returns the path of a shared library
 with the source's ``extern "C"`` entry points, called through ctypes with
 host pointers exactly as ``flowgger_tpu_torch.tpu.kernels`` calls the
-device build.
+device build.  ``src_dir`` points elsewhere for the emulation's own
+probe (``intrinsics_probe.cu`` beside this file).
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ def gxx_available() -> bool:
     return shutil.which("g++") is not None
 
 
-def build(name: str, out_dir: Path) -> Path:
+def build(name: str, out_dir: Path, src_dir: Path = CSRC) -> Path:
     src = out_dir / f"{name}.cpp"
-    src.write_text(host_source((CSRC / f"{name}.cu").read_text()))
+    src.write_text(host_source((src_dir / f"{name}.cu").read_text()))
     lib = out_dir / f"lib{name}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
                     "-pthread", "-I", str(HERE), "-o", str(lib), str(src)],

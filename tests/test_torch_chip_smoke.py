@@ -1,0 +1,81 @@
+"""chip_smoke.py's CPU-side helpers: the ``-Xptxas -v`` resource parse
+behind its ``kernel_build`` lines, and its refusal to run without a card.
+The kernels' timings and checks need the card and run only there."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# the shape of nvcc 12's -Xptxas -v report for one source with two
+# instantiations in an anonymous namespace
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__9519733e_17_decode_rfc5424_cu_3f9c3a4921decode_rfc5424_kernelILi4ELi16EEEvPKhPKiPiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__9519733e_17_decode_rfc5424_cu_3f9c3a4921decode_rfc5424_kernelILi4ELi16EEEvPKhPKiPiiii
+    40 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 62 registers, used 1 barriers, 6400 bytes smem, 392 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__67f511d1_21_frame_syslen_spans_cu_30c510b919syslen_spans_kernelEPKhiiiPiS2_S2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__67f511d1_21_frame_syslen_spans_cu_30c510b919syslen_spans_kernelEPKhiiiPiS2_S2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_resources_per_entry_function():
+    assert chip_smoke.ptxas_resources(PTXAS_LOG) == [
+        {"function": "decode_rfc5424_kernel<4, 16>", "stack_bytes": 40,
+         "spill_store_bytes": 8, "spill_load_bytes": 4, "registers": 62,
+         "static_smem_bytes": 6400},
+        {"function": "syslen_spans_kernel", "stack_bytes": 0,
+         "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 32,
+         "static_smem_bytes": 0}]
+    assert chip_smoke.ptxas_resources("") == []
+
+
+def test_kernel_name_demangles_nested_names():
+    assert chip_smoke.kernel_name(
+        "_ZN12_GLOBAL__N_121decode_rfc5424_kernelILi4ELi6EEEvPKhPKiPiiii"
+    ) == "decode_rfc5424_kernel<4, 6>"
+    assert chip_smoke.kernel_name("_Z13gather_kernelPKhxPKiS2_iiPhPi") == \
+        "gather_kernel"
+
+
+def test_build_returns_the_nvcc_log_of_a_cached_library(tmp_path,
+                                                        monkeypatch):
+    """The ``kernel_build`` lines come from the build log, so a cached
+    library must return the log of the build that made it."""
+    from flowgger_tpu_torch.tpu import kernels
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != -o ]; do shift; done\n'
+                    ': > "$2"\necho "ptxas info    : Used 7 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernels, "build_dir", lambda: tmp_path / "cuda")
+    fresh = kernels.build(["frame_gather"])["frame_gather"]
+    cached = kernels.build(["frame_gather"])["frame_gather"]
+    assert not fresh["cached"] and cached["cached"]
+    assert "Used 7 registers" in fresh["log"]
+    assert cached["log"] == fresh["log"]
+
+
+def test_refuses_without_a_card_or_outside_a_checkout(tmp_path):
+    """Alone in a directory it exits non-zero before printing a result;
+    in the checkout it does the same when there is no CUDA device."""
+    import torch
+
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    scripts = [alone]
+    if not torch.cuda.is_available():
+        scripts.append(ROOT / "chip_smoke.py")
+    for script in scripts:
+        proc = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=str(script.parent))
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -4,14 +4,17 @@ plain PyTorch versions they replace.
 
 A CUDA kernel has no interpret mode, and this box has no nvcc and no
 card; the emulation runs every CUDA thread of a block as a host thread
-(barriers for __syncthreads, a slot exchange for warp shuffles), so the
-kernels' indexing, scans and per-row logic are checked here exactly as
-written.  Speed and the GPU memory model are not: chip_smoke.py holds
-the nvcc builds against the same plain versions on the card.
+(barriers for __syncthreads, a slot exchange for warp shuffles, ballots
+and reductions), so the kernels' indexing, scans and per-row logic are
+checked here exactly as written, and each emulated intrinsic is checked
+against its definition.  Speed and the GPU memory model are not:
+chip_smoke.py holds the nvcc builds against the same plain versions on
+the card.
 """
 
 import ctypes
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -40,9 +43,15 @@ def libs(tmp_path_factory):
     if not host_build.gxx_available():
         pytest.skip("g++ is needed to compile the kernel sources for the CPU")
     out = tmp_path_factory.mktemp("cuda_host")
-    libs = {n: ctypes.CDLL(str(host_build.build(n, out)))
-            for n in ("decode_rfc5424", "frame_sep_spans", "frame_gather",
-                      "frame_syslen_spans", "structural_index")}
+    names = ("decode_rfc5424", "frame_sep_spans", "frame_gather",
+             "frame_syslen_spans", "structural_index")
+    with ThreadPoolExecutor(len(names) + 1) as ex:
+        probe = ex.submit(host_build.build, "intrinsics_probe", out,
+                          host_build.HERE)
+        paths = dict(zip(names, ex.map(
+            lambda n: host_build.build(n, out), names)))
+        paths["probe"] = probe.result()
+    libs = {n: ctypes.CDLL(str(p)) for n, p in paths.items()}
     for p in (6, 16):
         fn = getattr(libs["decode_rfc5424"], f"fg_decode_rfc5424_sd4_p{p}")
         fn.argtypes, fn.restype = [_P, _P, _P, _I, _I, _P], _I
@@ -56,23 +65,56 @@ def libs(tmp_path_factory):
     for f in (8, 24):
         fn = getattr(libs["structural_index"], f"fg_structural_index_f{f}")
         fn.argtypes, fn.restype = [_P, _P, _P, _I, _I, _I, _P], _I
+    fn = libs["probe"].fg_probe_intrinsics
+    fn.argtypes, fn.restype = [_P, _P, _P], _I
     return libs
+
+
+def test_emulated_intrinsics_match_definitions(libs):
+    """Each warp intrinsic and atomic of cuda_host/cuda_runtime.h, run by
+    two warps on seeded values (zero and negative ones included), equals
+    its definition."""
+    rng = np.random.default_rng(5)
+    v = rng.integers(-2 ** 31, 2 ** 31, 64, dtype=np.int64)
+    v[[0, 9, 40]] = 0
+    v[[3, 33]] = -1
+    v[[5, 50]] = 1 << 20
+    x = v.astype(np.int32)
+    out = np.full((64, 10), -7, np.int32)
+    acc = np.zeros(4, np.uint32)
+    assert libs["probe"].fg_probe_intrinsics(_ptr(x), _ptr(out),
+                                             _ptr(acc)) == 0
+    u = v & 0xFFFFFFFF
+    for t in range(64):
+        w, lane = t & ~31, t & 31
+        warp = u[w:w + 32]
+        ballot = sum(int(b & 1) << k for k, b in enumerate(warp))
+        want = [
+            x[w | ((lane * 7 + 3) & 31)],             # __shfl_sync
+            x[t - 3] if lane >= 3 else x[t],           # __shfl_up_sync
+            x[t + 5] if lane + 5 < 32 else x[t],       # __shfl_down_sync
+            x[w | (lane ^ 6)],                         # __shfl_xor_sync
+            np.uint32(ballot).view(np.int32),          # __ballot_sync
+            np.uint32(int(warp.sum()) & 0xFFFFFFFF).view(np.int32),
+            bin(int(u[t])).count("1"),                 # __popc
+            (int(u[t]) & -int(u[t])).bit_length(),     # __ffs
+            32 - int(u[t]).bit_length(),               # __clz
+            x[w | ((lane + 1) & 31)],                  # __syncwarp
+        ]
+        assert list(out[t]) == [int(a) for a in want], t
+    assert list(acc) == [int(u[k::4].sum()) & 0xFFFFFFFF for k in range(4)]
 
 
 def _lines():
     from test_torch_rfc5424 import _escape_lines, _pairs_lines
 
-    lines, _ = make_corpus(300, seed=17)
+    lines, _ = make_corpus(150, seed=17)
     return lines + _pairs_lines() + _escape_lines()
 
 
-@pytest.mark.parametrize("L", [512, 96])
-@pytest.mark.parametrize("max_pairs", [6, 16])
-def test_decode_kernel_source_matches_plain(libs, L, max_pairs):
-    """Every channel on every row — padding and rejected rows included —
-    equals the plain version (the stricter form of chip_smoke's rule)."""
-    batch, lens, *_ = pack.pack_lines_2d(_lines(), L)
-    out = np.zeros((T.n_channels(4, max_pairs), batch.shape[0]), np.int32)
+def _decode_check(libs, lines, L, max_pairs):
+    batch, lens, *_ = pack.pack_lines_2d(lines, L)
+    out = np.full((T.n_channels(4, max_pairs), batch.shape[0]), -7, np.int32)
     fn = getattr(libs["decode_rfc5424"], f"fg_decode_rfc5424_sd4_p{max_pairs}")
     assert fn(_ptr(batch), _ptr(lens), _ptr(out), batch.shape[0], L,
               None) == 0
@@ -82,6 +124,59 @@ def test_decode_kernel_source_matches_plain(libs, L, max_pairs):
     assert ref["ok"].any() and not ref["ok"].all()
     for k, v in ref.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("L", [512, 96])
+@pytest.mark.parametrize("max_pairs", [6, 16])
+def test_decode_kernel_source_matches_plain(libs, L, max_pairs):
+    """Every channel on every row — padding and rejected rows included —
+    equals the plain version (the stricter form of chip_smoke's rule)."""
+    _decode_check(libs, _lines(), L, max_pairs)
+
+
+HEAD = "<13>1 2015-08-05T15:53:45.123Z {host} app 42 m1 "
+# structures that the hostname shifts across every lane of a 32-byte
+# chunk: escape runs of 1-3, 15-17 and 31-33 backslashes (a run of 16 or
+# more before a quote rejects the row), quotes, ']', '=', empty values,
+# several SD elements, a dash SD with quotes and ']' in the message
+BOUNDARY_SD = [
+    '[id k="v" k2="a\\\\\\"b"][x@1 y="z" w=""] m',
+    '[id k="' + "\\" * 15 + '" j="' + "\\" * 16 + '"] m',
+    '[id k="' + "\\" * 17 + 'x" l="a' + "\\" * 2 + '"] m',
+    '[id k="' + "\\" * 31 + 'x" l="' + "\\" * 33 + '"][b c="d"] m',
+    '[id k="' + "\\" * 32 + '"] m',
+    '- msg  with "quotes" ] and = signs  ',
+    '[a b="c"][d e="f"][g h="i"][j k="l"] m',
+]
+
+
+def _boundary_lines(L):
+    """Rows whose structure lands on lanes 0 and 31 and straddles 32-byte
+    chunk boundaries (the hostname grows one byte at a time, with and
+    without a BOM), and rows of length 31, 32, 33, L - 1, L and L + 1."""
+    out = []
+    for sd in BOUNDARY_SD:
+        for shift in range(33):
+            line = HEAD.format(host="h" * (1 + shift)) + sd
+            out.append(("\ufeff" if shift % 11 == 5 else "") + line)
+    base = HEAD.format(host="host") + '[id k="v"] message'
+    for n in (31, 32, 33):
+        out.append(base[:n])
+        out.append(base[:n - 1] + " ")
+    for n in (L - 1, L, L + 1):
+        out.append(base + "x" * (n - len(base)))
+        out.append(base[:-7] + " " * (n - len(base) + 7))
+    return [ln.encode() for ln in out]
+
+
+@pytest.mark.parametrize("L", [512, 96, 100])
+@pytest.mark.parametrize("max_pairs", [6, 16])
+def test_decode_kernel_source_chunk_boundaries(libs, L, max_pairs):
+    """The warp-per-row scans carry state across 32-position chunks: every
+    channel of every boundary row equals the plain version, at a row
+    width that is a multiple of 16 bytes (vector staging) and at one
+    that is not (byte staging)."""
+    _decode_check(libs, _boundary_lines(L), L, max_pairs)
 
 
 def _spans(libs, reg, rlen, sep, strip_cr, ncap):
@@ -180,20 +275,91 @@ def _syslen_cases():
     return out
 
 
+def _syslen_check(libs, name, reg, rlen, ncap):
+    fn = libs["frame_syslen_spans"].fg_frame_syslen_spans
+    starts = np.full(ncap, -7, np.int32)
+    lens = np.full(ncap, -7, np.int32)
+    meta = np.full(4, -7, np.int32)
+    assert fn(_ptr(reg), rlen, ncap, _ptr(starts), _ptr(lens), _ptr(meta),
+              None) == 0
+    ref = F.frame_syslen_spans(torch.from_numpy(reg), rlen, ncap=ncap)
+    assert bool(meta[3]) == bool(ref["decline"]), name
+    if not meta[3]:
+        assert np.array_equal(starts, ref["starts"].numpy()), name
+        assert np.array_equal(lens, ref["lens"].numpy()), name
+        assert list(meta[:3]) == [int(ref["n"]), int(ref["consumed"]),
+                                  int(ref["err"])], name
+    return meta
+
+
 def test_syslen_spans_kernel_source_matches_plain(libs):
     """The chain walk equals the plain version wherever the plain version
     does not decline, and declines exactly where it does."""
-    fn = libs["frame_syslen_spans"].fg_frame_syslen_spans
     for name, reg, rlen, ncap in _syslen_cases():
-        starts = np.full(ncap, -7, np.int32)
-        lens = np.full(ncap, -7, np.int32)
-        meta = np.full(4, -7, np.int32)
-        assert fn(_ptr(reg), rlen, ncap, _ptr(starts), _ptr(lens),
-                  _ptr(meta), None) == 0
-        ref = F.frame_syslen_spans(torch.from_numpy(reg), rlen, ncap=ncap)
-        assert bool(meta[3]) == bool(ref["decline"]), name
-        if not meta[3]:
-            assert np.array_equal(starts, ref["starts"].numpy()), name
-            assert np.array_equal(lens, ref["lens"].numpy()), name
-            assert list(meta[:3]) == [int(ref["n"]), int(ref["consumed"]),
-                                      int(ref["err"])], name
+        _syslen_check(libs, name, reg, rlen, ncap)
+
+
+WINDOW = 200 * 1024   # bytes a window stages (kWindow, frame_syslen_spans.cu)
+
+
+def _as_region(blob: bytes, offset: int = 0):
+    """blob as a u8 array exactly rlen long, starting ``offset`` bytes
+    past a 16-byte boundary (an offset stages the window byte by byte)."""
+    buf = np.zeros(len(blob) + 32, np.uint8)
+    at = -buf.ctypes.data % 16 + offset
+    reg = buf[at:at + len(blob)]
+    reg[:] = np.frombuffer(blob, np.uint8)
+    return reg
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_syslen_spans_kernel_source_refills_window(libs, offset):
+    """A corpus region larger than one shared-memory window: the walk
+    refills the window from a head and goes on; the span capacity ends
+    the chain inside the second window (a decline) one frame early."""
+    lines, _ = make_corpus(1400, seed=31)
+    blob = syslen_stream(lines)
+    assert len(blob) > WINDOW + 16 * 1024
+    reg = _as_region(blob, offset)
+    meta = _syslen_check(libs, "corpus-large", reg, len(blob), 2048)
+    assert meta[3] == 0 and meta[0] == 1399 and meta[1] < len(blob)
+    meta = _syslen_check(libs, "corpus-large-overflow", reg, len(blob),
+                         int(meta[0]) - 1)
+    assert meta[3] == 1
+
+
+def _frame(body: bytes) -> bytes:
+    return b"%d " % len(body) + body
+
+
+def _filler_to(head: int) -> bytes:
+    """One frame whose successor starts at ``head``."""
+    for digits in range(1, 8):
+        n = head - digits - 1
+        if len(str(n)) == digits:
+            return b"%d " % n + b"a" * n
+    raise ValueError(head)
+
+
+# what follows the window-edge head, and whether the chain runs past it
+EDGE_TAILS = {
+    "frames": _frame(b"x" * 12345) + _frame(b"hello") + b"3 ab",
+    "ten-digit-prefix": b"0000000003 abc",        # decline
+    "forty-digit-prefix": b"1" * 40 + b" x",      # decline (slow path)
+    "forty-digits-garbage": b"1" * 40 + b"x y",   # stop, err (slow path)
+    "bad-prefix": b"12x 5 abc",                   # stop, err
+    "empty-prefix": b" 5 abc",                    # stop, err
+    "no-space-after": b"77x",                     # stop, no err
+}
+# heads around the first window's edge: a hop reads 32 bytes, so a head
+# past WINDOW - 32 refills; a 5-digit prefix at WINDOW - 3 straddles it
+EDGE_HEADS = [WINDOW - 40, WINDOW - 33, WINDOW - 32, WINDOW - 31,
+              WINDOW - 3, WINDOW + 7]
+
+
+@pytest.mark.parametrize("head", EDGE_HEADS)
+@pytest.mark.parametrize("tail", list(EDGE_TAILS))
+def test_syslen_spans_kernel_source_window_edge(libs, head, tail):
+    blob = _filler_to(head) + EDGE_TAILS[tail]
+    meta = _syslen_check(libs, tail, _as_region(blob), len(blob), 16)
+    assert meta[0] >= 1
