@@ -18,8 +18,8 @@ Phases, each printing JSON lines:
    whole 16 384-frame region); the JSON-lines structural index at 8 and
    24 fields on a gathered [16384, 512] JSON-lines batch; the gather and
    decodes at the e2e runs' other shapes (the syslen flush batch, the
-   rescue sub-batches); and both chained framing → decode entries
-   against the kernels called one by one;
+   rescue sub-batches, a 2 048-row JSON-lines batch); and both chained
+   framing → decode entries against the kernels called one by one;
 4. breakdown — the host-clock wall of each stage of the RFC5424 and the
    JSON-lines paths over eight full regions each (framing, decode, block
    encode, sink write);
@@ -523,9 +523,10 @@ def kernels_syslen(seed: int, rows: list, shapes: list):
 
 
 def kernels_jsonl(seed: int, rows: list, shapes: list):
-    """K5 at 8 and 24 fields on a gathered [16384, 512] JSON-lines batch
-    and at 24 fields on the rescue's sub-batch, and the chained
-    JSON-lines entry."""
+    """K5 at 8 and 24 fields on a gathered [16384, 512] JSON-lines batch,
+    at 24 fields on the rescue's sub-batch and at 8 fields on the batch's
+    first 2 048 rows (a small flush), and the chained JSON-lines
+    entry."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_jsonl_corpus
@@ -548,6 +549,9 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
     row, _ = decode_case("jsonl", hi, *rescue_batch(batch, lens_c, torch.nonzero(
         ~refs[lo]["ok"] & (nf > lo) & (nf <= hi)).flatten()))
     shapes.append({**row, "where": "jsonl path, rescue sub-batch"})
+    small = 2048
+    row, _ = decode_case("jsonl", lo, batch[:small], lens_c[:small])
+    shapes.append({**row, "where": "jsonl path, 2 048-row batch"})
 
     spans_f, ch_f = kernels.fused_frame_decode_jsonl(
         region, rlen, sep=10, strip_cr=True, ncap=ncap, max_len=MAX_LEN)

@@ -21,9 +21,10 @@ row — rejected and padding rows included — equals the reference's:
 
 Anything structurally surprising flags the row ``ok=False``; the host
 re-runs the scalar oracle on it.  The hand-written CUDA kernel
-(``csrc/structural_index.cu``) evaluates the same definitions as one
-sequential pass per row; ``jsonl.decode_jsonl_submit`` launches it for a
-CUDA batch and takes this version only for a batch on the CPU.
+(``csrc/structural_index.cu``) evaluates the same definitions with one
+warp per row, in one pass of warp scans; ``jsonl.decode_jsonl_submit``
+launches it for a CUDA batch and takes this version only for a batch on
+the CPU.
 """
 
 from __future__ import annotations

@@ -89,11 +89,13 @@ _SIGNATURES = {
     },
 }
 _TILE_BYTES = 4096   # kTile in frame_sep_spans.cu
-# decode_rfc5424.cu stages kWarps rows, each padded to 16 bytes, in
-# dynamic shared memory beside its static per-warp sums and channel tile
-# (< 8 KiB), within the 227 KiB a block may use
+# decode_rfc5424.cu and structural_index.cu stage kWarps rows, each
+# padded to 16 bytes, in dynamic shared memory beside their static
+# per-warp sums and channel tile (< 8 KiB and < 12 KiB), within the
+# 227 KiB a block may use
 _DECODE_ROWS_PER_BLOCK = 8
 _DECODE_STAGING_BYTES = 219 * 1024
+_INDEX_STAGING_BYTES = 215 * 1024
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -315,7 +317,7 @@ def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
     if max_fields not in (8, 24) or nested < 1:
         raise ValueError(f"no structural_index kernel for max_fields="
                          f"{max_fields} nested={nested}")
-    if 32 * ((((L + 3) // 4) | 1) * 4) > 227 * 1024:
+    if _DECODE_ROWS_PER_BLOCK * 16 * (-(-L // 16)) > _INDEX_STAGING_BYTES:
         raise ValueError(f"rows of {L} bytes exceed the structural index "
                          "kernel's shared-memory staging")
     out = torch.empty((n_channels(max_fields), N), dtype=torch.int32,
