@@ -12,14 +12,17 @@ Phases, each printing JSON lines:
    bytes as ``nvcc -Xptxas -v`` reports them;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
-   times and the bound of each: line framing of a 16 384-line region →
-   spans → [16384, 512] batch → RFC5424 channels at 6 and 16 pairs; the
-   octet-counted framing of the syslen path's flush region (and of a
-   whole 16 384-frame region); the JSON-lines structural index at 8 and
-   24 fields on a gathered [16384, 512] JSON-lines batch; the gather and
-   decodes at the e2e runs' other shapes (the syslen flush batch, the
-   rescue sub-batches, a 2 048-row JSON-lines batch); and both chained
-   framing → decode entries against the kernels called one by one;
+   times and the bound of each (K2 and K3 checked again on a launch after
+   their timing loop): line framing of a 16 384-line region → spans →
+   [16384, 512] batch → RFC5424 channels at 6 and 16 pairs (and K3 at
+   [16384, 500], K2 over the region NUL-framed and over seven such
+   regions back to back, >= 16 MiB); the octet-counted framing of the
+   syslen path's flush region (and of a whole 16 384-frame region); the
+   JSON-lines structural index at 8 and 24 fields on a gathered
+   [16384, 512] JSON-lines batch; the gather and decodes at the e2e runs'
+   other shapes (the syslen flush batch, the rescue sub-batches, a 2 048-
+   row JSON-lines batch); and both chained framing → decode entries
+   against the kernels called one by one;
 4. breakdown — the host-clock wall of each stage of the RFC5424 and the
    JSON-lines paths over eight full regions each (framing, decode, block
    encode, sink write);
@@ -72,6 +75,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH = 16384
 MAX_LEN = 512
 SYSLEN_LINES = 4 * BATCH    # lines of the syslen-framed e2e run
+BIG_REGION = 16 << 20       # bytes of K2's many-wave region
 WORK = ROOT / "build" / "chip_smoke"
 
 
@@ -279,30 +283,75 @@ def phase_build():
             emit({"phase": "kernel_build", "source": source, **r})
 
 
-def gather_case(region, starts, lens):
-    """K3 against its plain version on every byte of every row:
-    ``(row, (batch, lens_c))``."""
+def gather_case(region, starts, lens, max_len: int = MAX_LEN):
+    """K3 against its plain version on every byte of every row, once
+    before and once after its timing loop: ``(row, (batch, lens_c))``."""
     from flowgger_tpu_torch.tpu import framing, kernels
 
     def k3():
-        return kernels.frame_gather_cuda(region, starts, lens, MAX_LEN)
+        return kernels.frame_gather_cuda(region, starts, lens, max_len)
 
     def p3():
-        return framing.frame_gather(region, starts, lens, MAX_LEN)
+        return framing.frame_gather(region, starts, lens, max_len)
 
-    (gb, gl), (pb, pl) = k3(), p3()
-    err = max(max_abs_err(gb, pb), max_abs_err(gl, pl))
-    if err:
-        raise AssertionError(f"frame_gather disagrees: max_abs_err {err}")
+    def check():
+        (gb, gl), (pb, pl) = k3(), p3()
+        err = max(max_abs_err(gb, pb), max_abs_err(gl, pl))
+        if err:
+            raise AssertionError(f"frame_gather disagrees: max_abs_err {err}")
+        return err, gb, gl
+
+    err, gb, gl = check()
+    ms = device_ms(k3)
+    check()   # a launch after the timing loop: no state leaks between launches
     n = starts.shape[0]
     return {
         "name": "frame_gather", "route": "cuda",
         "source": "flowgger_tpu_torch/csrc/frame_gather.cu",
         "replaces": "flowgger_tpu/tpu/pallas_kernels.py:399",
-        "max_abs_err": err, "ms": device_ms(k3), "plain_ms": cuda_ms(p3),
+        "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(p3),
         # one select per output byte
-        **bound(int(gl.sum()) + 8 * n + n * MAX_LEN + 4 * n, n * MAX_LEN),
-        "library_ms": None, "shape": f"[{n}, {MAX_LEN}]"}, (gb, gl)
+        **bound(int(gl.sum()) + 8 * n + n * max_len + 4 * n, n * max_len),
+        "library_ms": None, "shape": f"[{n}, {max_len}]"}, (gb, gl)
+
+
+def sep_case(region, rlen: int, sep: int, strip_cr: bool, ncap: int,
+             records: int):
+    """K2 against its plain version on every slot and meta word, once
+    before and once after its timing loop; ``records`` is the count it
+    must find: ``(row, spans)``."""
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    def k2():
+        return kernels.frame_sep_spans_cuda(region, rlen, sep, strip_cr, ncap)
+
+    def p2():
+        return framing.frame_sep_spans(region, rlen, sep, strip_cr, ncap)
+
+    def check():
+        got, ref = k2(), p2()
+        meta = got["meta"].cpu().tolist()
+        errs = [max_abs_err(got["starts"], ref["starts"]),
+                max_abs_err(got["lens"], ref["lens"]),
+                abs(meta[0] - int(ref["n"])),
+                abs(meta[1] - int(ref["consumed"])),
+                abs(meta[2] - int(ref["overflow"])), abs(meta[3])]
+        if any(errs) or meta[0] != records:
+            raise AssertionError(f"frame_sep_spans disagrees with its plain "
+                                 f"version: {errs}, n={meta[0]}")
+        return max(errs), got
+
+    err, got = check()
+    ms = device_ms(k2)
+    check()   # a launch after the timing loop: the scratch came back clean
+    return {
+        "name": "frame_sep_spans", "route": "cuda",
+        "source": "flowgger_tpu_torch/csrc/frame_sep_spans.cu",
+        "replaces": "flowgger_tpu/tpu/pallas_kernels.py:237",
+        "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(p2),
+        # one compare per region byte
+        **bound(rlen + 8 * ncap + 16, rlen), "library_ms": None,
+        "shape": f"region {rlen} B, ncap {ncap}, sep {sep}"}, got
 
 
 def decode_case(kind: str, width: int, batch, lens_c):
@@ -424,11 +473,12 @@ def syslen_flush_region(data: bytes):
 def kernels_line_path(seed: int, rows: list, shapes: list):
     """K2 spans, K3 gather, K1 decode at 6 and 16 pairs and at the
     rescue's sub-batch, and the chained RFC5424 entry, on one 16 384-line
-    region."""
+    region; K3 also at a row width that is not a multiple of 16, K2 also
+    over the records NUL-framed and over a region of >= 16 MiB."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_corpus
-    from flowgger_tpu_torch.tpu import framing, kernels, pack, rfc5424
+    from flowgger_tpu_torch.tpu import kernels, pack, rfc5424
 
     lines, _ = make_corpus(BATCH, seed)
     region_b = b"\n".join(lines) + b"\n"
@@ -437,34 +487,31 @@ def kernels_line_path(seed: int, rows: list, shapes: list):
     ncap = pack.bucket_rows(BATCH)
 
     # K2: spans over one flush region
-    def k2():
-        return kernels.frame_sep_spans_cuda(region, rlen, 10, True, ncap)
+    row, got = sep_case(region, rlen, 10, True, ncap, BATCH)
+    rows.append(row)
 
-    def p2():
-        return framing.frame_sep_spans(region, rlen, 10, True, ncap)
-
-    got, ref = k2(), p2()
-    meta = got["meta"].cpu().tolist()
-    errs = [max_abs_err(got["starts"], ref["starts"]),
-            max_abs_err(got["lens"], ref["lens"]),
-            abs(meta[0] - int(ref["n"])), abs(meta[1] - int(ref["consumed"])),
-            abs(meta[2] - int(ref["overflow"]))]
-    if any(errs) or meta[0] != BATCH:
-        raise AssertionError(f"frame_sep_spans disagrees with its plain "
-                             f"version: {errs}, n={meta[0]}")
-    rows.append({
-        "name": "frame_sep_spans", "route": "cuda",
-        "source": "flowgger_tpu_torch/csrc/frame_sep_spans.cu",
-        "replaces": "flowgger_tpu/tpu/pallas_kernels.py:237",
-        "max_abs_err": max(errs), "ms": device_ms(k2), "plain_ms": cuda_ms(p2),
-        # one compare per region byte
-        **bound(rlen + 8 * ncap + 16, rlen), "library_ms": None,
-        "shape": f"region {rlen} B, ncap {ncap}"})
-
-    # K3: gather to [16384, 512]
+    # K3: gather to [16384, 512], and at a row width that is not a
+    # multiple of 16 bytes (input.tpu_max_line_len is any integer)
     starts, lens = got["starts"], got["lens"]
     row, (batch, lens_c) = gather_case(region, starts, lens)
     rows.append(row)
+    row, _ = gather_case(region, starts, lens, MAX_LEN - 12)
+    shapes.append({**row, "where": "rfc5424 line path, row width not a "
+                                   "multiple of 16"})
+
+    # K2 over the same records NUL-framed, and over a region of more
+    # tiles than the card holds at once (the tickets order the look-back
+    # beyond one wave)
+    nul = upload(b"\0".join(lines) + b"\0")
+    row, _ = sep_case(nul, rlen, 0, False, ncap, BATCH)
+    shapes.append({**row, "where": "NUL-framed region"})
+    reps = -(-BIG_REGION // rlen)
+    big = upload(region_b * reps)
+    row, _ = sep_case(big, reps * rlen, 10, True,
+                      pack.bucket_rows(reps * BATCH), reps * BATCH)
+    shapes.append({**row, "where": f"{reps} line regions back to back "
+                                   f"(>= {BIG_REGION >> 20} MiB)"})
+    del nul, big
 
     # K1 at 6 pairs (main batch) and 16 pairs (rescue width), then at
     # the sub-batch the rescue really dispatches

@@ -42,7 +42,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -88,7 +88,7 @@ _SIGNATURES = {
         "fg_structural_index_f24": (_P, _P, _P, _I, _I, _I, _P),
     },
 }
-_TILE_BYTES = 4096   # kTile in frame_sep_spans.cu
+_TILE_BYTES = 16384  # kTile in frame_sep_spans.cu
 # decode_rfc5424.cu and structural_index.cu stage kWarps rows, each
 # padded to 16 bytes, in dynamic shared memory beside their static
 # per-warp sums and channel tile (< 8 KiB and < 12 KiB), within the
@@ -99,6 +99,10 @@ _INDEX_STAGING_BYTES = 215 * 1024
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
+# frame_sep_spans' look-back scratch per (device, stream): int64 word 0
+# holds its two uint32 counters, words 1.. one status word a tile.  It is
+# zeroed once, at allocation, and every launch leaves it zero again.
+_sep_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -209,21 +213,35 @@ def frame_sep_spans_cuda(region: torch.Tensor, rlen: int, sep: int = 10,
                          strip_cr: bool = True, ncap: int = 256):
     """Record spans over ``region[:rlen]`` (u8 [B] on a CUDA device):
     ``{"starts", "lens"}`` int32 [ncap] and ``"meta"`` int32 [4] =
-    (n, consumed, overflow, 0), all on the device."""
+    (n, consumed, overflow, 0), all on the device.
+
+    One launch: a single-pass scan whose blocks pass their prefixes on
+    through look-back status words.  Those live in a scratch kept per
+    device and stream (zeroed once, when it is allocated or grown, and
+    left zero by every launch), so a call launches nothing else."""
     _need(region, "region", torch.uint8, 1)
-    if not 0 <= rlen <= region.shape[0] or ncap < 1:
+    # the status words hold counts and positions in 31 bits
+    if not 0 <= rlen <= min(region.shape[0], (1 << 31) - 1) or ncap < 1:
         raise ValueError(f"bad span geometry rlen={rlen} B={region.shape[0]} "
                          f"ncap={ncap}")
     dev = region.device
     ntiles = max(1, -(-rlen // _TILE_BYTES))
-    scratch = torch.empty(2 * ntiles, dtype=torch.int32, device=dev)
+    stream = _stream()
+    key = (dev.index, stream)
+    scratch = _sep_scratch.get(key)
+    if scratch is None or scratch.numel() - 1 < ntiles:
+        cap = 1024
+        while cap < ntiles:
+            cap <<= 1
+        scratch = torch.zeros(1 + cap, dtype=torch.int64, device=dev)
+        _sep_scratch[key] = scratch
     starts = torch.empty(ncap, dtype=torch.int32, device=dev)
     lens = torch.empty(ncap, dtype=torch.int32, device=dev)
     meta = torch.empty(4, dtype=torch.int32, device=dev)
     rc = _lib("frame_sep_spans").fg_frame_sep_spans(
         region.data_ptr(), rlen, sep, int(bool(strip_cr)), ncap,
-        scratch.data_ptr(), scratch[ntiles:].data_ptr(), starts.data_ptr(),
-        lens.data_ptr(), meta.data_ptr(), _stream())
+        scratch.data_ptr(), scratch[1:].data_ptr(), starts.data_ptr(),
+        lens.data_ptr(), meta.data_ptr(), stream)
     _check(rc, "frame_sep_spans")
     LAUNCHES["frame_sep_spans"] += 1
     return {"starts": starts, "lens": lens, "meta": meta}

@@ -3,11 +3,14 @@ g++ and the host emulation header beside this file (cuda_runtime.h).
 
 The launch syntax and the dynamic shared-memory declaration are the only
 CUDA-only constructs the sources use; they are rewritten here, and every
-other line compiles as written.  Returns the path of a shared library
-with the source's ``extern "C"`` entry points, called through ctypes with
-host pointers exactly as ``flowgger_tpu_torch.tpu.kernels`` calls the
-device build.  ``src_dir`` points elsewhere for the emulation's own
-probe (``intrinsics_probe.cu`` beside this file).
+other line compiles as written.  A probe beside this file may
+``#include "name.cu"`` a kernel source to call its device functions; the
+include is inlined, rewritten the same way.  Returns the path of a
+shared library with the source's ``extern "C"`` entry points, called
+through ctypes with host pointers exactly as
+``flowgger_tpu_torch.tpu.kernels`` calls the device build.  ``src_dir``
+points elsewhere for the emulation's own probes (``intrinsics_probe.cu``
+and ``lookback_probe.cu`` beside this file).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ CSRC = HERE.parent.parent / "flowgger_tpu_torch" / "csrc"
 
 
 def host_source(text: str) -> str:
+    # a probe may include a kernel source to reach its device functions
+    text = re.sub(r'#include "(\w+\.cu)"',
+                  lambda m: host_source((CSRC / m.group(1)).read_text()), text)
     text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                   r"\1* \2 = reinterpret_cast<\1*>(g_dyn_smem.data());", text)
     return re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", text,
@@ -36,7 +42,11 @@ def build(name: str, out_dir: Path, src_dir: Path = CSRC) -> Path:
     src = out_dir / f"{name}.cpp"
     src.write_text(host_source((src_dir / f"{name}.cu").read_text()))
     lib = out_dir / f"lib{name}.so"
+    # a misaligned access traps here as it faults on the card (a 16-byte
+    # vector load or store off a 16-byte boundary, an unaligned int)
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-pthread", "-I", str(HERE), "-o", str(lib), str(src)],
+                    "-pthread", "-fsanitize=alignment",
+                    "-fsanitize-undefined-trap-on-error", "-I", str(HERE),
+                    "-o", str(lib), str(src)],
                    check=True, capture_output=True, text=True)
     return lib

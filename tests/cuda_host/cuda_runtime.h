@@ -13,7 +13,9 @@
 // intrinsic, as the kernels do (they launch whole warps and keep every
 // warp intrinsic under warp-uniform control): a partial warp would wait
 // at the warp barrier for ever.  The mask argument is not read.
-// atomicAdd goes through std::atomic_ref.  __shared__ variables become
+// atomicAdd goes through std::atomic_ref, __threadfence is a sequentially
+// consistent std::atomic_thread_fence, and volatile loads and stores are
+// the compiler's own.  __shared__ variables become
 // statics (one block at a time, so one copy suffices).
 // tests/cuda_host/build.py rewrites `kernel<<<grid, block, smem,
 // stream>>>(args)` into emu_launch(...) and `extern __shared__ T name[]`
@@ -79,6 +81,10 @@ inline std::vector<unsigned char> g_dyn_smem;
 inline std::barrier<>* g_block_bar = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_bars;
 inline std::vector<long long> g_shfl_slots;
+
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
 
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 
@@ -146,6 +152,14 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) {
     unsigned t = 0;
     for (int l = 0; l < 32; ++l) t += static_cast<unsigned>(s[l]);
     return t;
+  });
+}
+
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return warp_exchange(v, [](const long long* s, int) {
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l) m = std::max(m, static_cast<unsigned>(s[l]));
+    return m;
   });
 }
 

@@ -13,6 +13,7 @@ the card.
 """
 
 import ctypes
+import functools
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -45,12 +46,15 @@ def libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_host")
     names = ("decode_rfc5424", "frame_sep_spans", "frame_gather",
              "frame_syslen_spans", "structural_index")
-    with ThreadPoolExecutor(len(names) + 1) as ex:
+    with ThreadPoolExecutor(len(names) + 2) as ex:
         probe = ex.submit(host_build.build, "intrinsics_probe", out,
                           host_build.HERE)
+        lookback = ex.submit(host_build.build, "lookback_probe", out,
+                             host_build.HERE)
         paths = dict(zip(names, ex.map(
             lambda n: host_build.build(n, out), names)))
         paths["probe"] = probe.result()
+        paths["lookback"] = lookback.result()
     libs = {n: ctypes.CDLL(str(p)) for n, p in paths.items()}
     for p in (6, 16):
         fn = getattr(libs["decode_rfc5424"], f"fg_decode_rfc5424_sd4_p{p}")
@@ -67,20 +71,23 @@ def libs(tmp_path_factory):
         fn.argtypes, fn.restype = [_P, _P, _P, _I, _I, _I, _P], _I
     fn = libs["probe"].fg_probe_intrinsics
     fn.argtypes, fn.restype = [_P, _P, _P], _I
+    fn = libs["lookback"].fg_probe_lookback
+    fn.argtypes, fn.restype = [_P, _P, _I, _P], _I
     return libs
 
 
 def test_emulated_intrinsics_match_definitions(libs):
-    """Each warp intrinsic and atomic of cuda_host/cuda_runtime.h, run by
-    two warps on seeded values (zero and negative ones included), equals
-    its definition."""
+    """Each warp intrinsic, atomic and fence of cuda_host/cuda_runtime.h,
+    run by two warps on seeded values (zero and negative ones included),
+    equals its definition (the fence: a value stored before it is read
+    by a thread that saw the flag stored after it)."""
     rng = np.random.default_rng(5)
     v = rng.integers(-2 ** 31, 2 ** 31, 64, dtype=np.int64)
     v[[0, 9, 40]] = 0
     v[[3, 33]] = -1
     v[[5, 50]] = 1 << 20
     x = v.astype(np.int32)
-    out = np.full((64, 10), -7, np.int32)
+    out = np.full((64, 12), -7, np.int32)
     acc = np.zeros(4, np.uint32)
     assert libs["probe"].fg_probe_intrinsics(_ptr(x), _ptr(out),
                                              _ptr(acc)) == 0
@@ -100,6 +107,8 @@ def test_emulated_intrinsics_match_definitions(libs):
             (int(u[t]) & -int(u[t])).bit_length(),     # __ffs
             32 - int(u[t]).bit_length(),               # __clz
             x[w | ((lane + 1) & 31)],                  # __syncwarp
+            np.uint32(warp.max()).view(np.int32),     # __reduce_max_sync
+            x[32] if t == 0 else x[t],                 # __threadfence
         ]
         assert list(out[t]) == [int(a) for a in want], t
     assert list(acc) == [int(u[k::4].sum()) & 0xFFFFFFFF for k in range(4)]
@@ -179,21 +188,46 @@ def test_decode_kernel_source_chunk_boundaries(libs, L, max_pairs):
     _decode_check(libs, _boundary_lines(L), L, max_pairs)
 
 
-def _spans(libs, reg, rlen, sep, strip_cr, ncap):
-    ntiles = max(1, -(-rlen // 4096))
-    scratch = np.zeros(2 * ntiles, np.int32)
+TILE = 16384   # kTile, frame_sep_spans.cu
+
+
+def _sep_scratch(ntiles: int) -> np.ndarray:
+    """The look-back scratch as the wrapper keeps it: int64 word 0 the two
+    uint32 counters, words 1.. one status word a tile, zero."""
+    return np.zeros(1 + ntiles, np.int64)
+
+
+def _spans(libs, reg, rlen, sep, strip_cr, ncap, scratch=None):
+    """One launch of the kernel source; the scratch must come back
+    zero."""
+    if scratch is None:
+        scratch = _sep_scratch(max(1, -(-rlen // TILE)))
     starts = np.full(ncap, -7, np.int32)
     lens = np.full(ncap, -7, np.int32)
     meta = np.full(4, -7, np.int32)
     rc = libs["frame_sep_spans"].fg_frame_sep_spans(
         _ptr(reg), rlen, sep, int(strip_cr), ncap, _ptr(scratch),
-        _ptr(scratch[ntiles:]), _ptr(starts), _ptr(lens), _ptr(meta), None)
+        _ptr(scratch[1:]), _ptr(starts), _ptr(lens), _ptr(meta), None)
     assert rc == 0
+    assert not scratch.any(), "the launch left its look-back scratch set"
     return starts, lens, meta
 
 
+def _spans_check(libs, reg, rlen, sep, strip_cr, ncap, scratch=None):
+    """Every slot and meta word equal to the plain version."""
+    starts, lens, meta = _spans(libs, reg, rlen, sep, strip_cr, ncap,
+                                scratch)
+    ref = F.frame_sep_spans(torch.from_numpy(reg), rlen, sep=sep,
+                            strip_cr=strip_cr, ncap=ncap)
+    assert np.array_equal(starts, ref["starts"].numpy())
+    assert np.array_equal(lens, ref["lens"].numpy())
+    assert list(meta) == [int(ref["n"]), int(ref["consumed"]),
+                          int(ref["overflow"]), 0]
+    return meta
+
+
 @pytest.mark.parametrize("sep,strip_cr,n_recs,tail,ncap", [
-    (10, True, 900, b"", 1024),          # several 4 KiB tiles
+    (10, True, 900, b"", 1024),          # several tiles
     (10, True, 900, b"partial", 512),    # span overflow
     (0, False, 300, b"x\r", 512),
     (10, True, 0, b"no separator", 256),
@@ -208,13 +242,158 @@ def test_sep_spans_kernel_source_matches_plain(libs, sep, strip_cr, n_recs,
     blob = b"".join(r + bytes([sep]) for r in recs) + tail
     reg = np.zeros(F.region_bucket(len(blob)), np.uint8)
     reg[:len(blob)] = np.frombuffer(blob, np.uint8)
-    starts, lens, meta = _spans(libs, reg, len(blob), sep, strip_cr, ncap)
-    ref = F.frame_sep_spans(torch.from_numpy(reg), len(blob), sep=sep,
-                            strip_cr=strip_cr, ncap=ncap)
-    assert np.array_equal(starts, ref["starts"].numpy())
-    assert np.array_equal(lens, ref["lens"].numpy())
-    assert list(meta[:3]) == [int(ref["n"]), int(ref["consumed"]),
-                              int(ref["overflow"])]
+    _spans_check(libs, reg, len(blob), sep, strip_cr, ncap)
+
+
+def _records(rng, n, sep, hi=200):
+    """n random printable records, every fourth ending in a CR, each
+    closed by ``sep``."""
+    return b"".join(bytes(rng.integers(32, 127, int(rng.integers(0, hi)))
+                          .astype(np.uint8))
+                    + (b"\r" if i % 4 == 0 else b"") + bytes([sep])
+                    for i in range(n))
+
+
+def _placed(size, at, sep, fill=b"a"):
+    """``size`` bytes of ``fill`` with ``sep`` at each offset of ``at``
+    (a negative offset from the end), a CR before every separator whose
+    offset is odd."""
+    buf = bytearray(fill * size)
+    for p in at:
+        p %= size
+        buf[p] = sep
+        if p % 2 and p > 0:
+            buf[p - 1] = 13
+    return bytes(buf)
+
+
+@functools.lru_cache(maxsize=None)
+def _sep_cases():
+    """{name: (blob, B, sep, strip_cr, ncap, region offset)} for the
+    single-pass scan's edges."""
+    rng = np.random.default_rng(41)
+    many = _records(rng, 11600, 10)           # >= 70 tiles
+    assert len(many) >= 70 * TILE
+    long_rec = (_records(rng, 20, 10) + b"b" * (3 * TILE + 777) + b"\n"
+                + _records(rng, 20, 10))   # 3 tiles without a separator
+    edges = _placed(4 * TILE, [0, 31, 32, 33, TILE - 1, TILE, TILE + 1,
+                               2 * TILE - 1, 2 * TILE, 3 * TILE - 2,
+                               3 * TILE - 1, -1], 10)
+    edges_nul = edges.replace(b"\n", b"\0")
+    cr_edge = bytearray(_placed(3 * TILE, [100, 3 * TILE - 1], 10))
+    cr_edge[TILE - 1:TILE + 1] = b"\r\n"     # a CR ends tile 0
+    cr_edge[2 * TILE - 1:2 * TILE + 1] = b"x\n"
+    cr_edge[63:65] = b"\r\n"                 # a CR ends a thread's bytes
+    mid = _records(rng, 300, 10, hi=40)
+    many_nul = many.replace(b"\n", b"\0")
+    return {
+        "many-tiles": (many, len(many), 10, True, 16384, 0),
+        "long-record": (long_rec, len(long_rec), 10, True, 64, 0),
+        "tile-edges": (edges, len(edges), 10, True, 32, 0),
+        "tile-edges-nul": (edges_nul, len(edges_nul), 0, False, 32, 0),
+        "cr-before-tile-edge": (bytes(cr_edge), len(cr_edge), 10, True, 8, 0),
+        # separators in [rlen, B) are not records
+        "newlines-past-rlen": (mid, len(mid) + 4096, 10, True, 512, 0),
+        "empty": (b"", F.MIN_REGION_BYTES, 10, True, 256, 0),
+        # the ncap-th separator lies mid-tile; n > ncap
+        "overflow-mid-tile": (many, len(many), 10, True, 2500, 0),
+        "overflow-nul": (many_nul, len(many), 0, False, 1300, 0),
+        # an unaligned region takes the byte path
+        "unaligned": (edges, len(edges), 10, True, 32, 3),
+    }
+
+
+SEP_CASES = ["many-tiles", "long-record", "tile-edges", "tile-edges-nul",
+             "cr-before-tile-edge", "newlines-past-rlen", "empty",
+             "overflow-mid-tile", "overflow-nul", "unaligned"]
+
+
+@pytest.mark.parametrize("name", SEP_CASES)
+def test_sep_spans_kernel_source_tiles(libs, name):
+    """The single-pass scan at its edges, every slot and meta word equal
+    to the plain version: a look-back over 70+ tiles, a record across
+    tiles with no separator, separators on a tile's (and a thread's)
+    first and last byte, a CR ending one tile before a separator opening
+    the next, separator bytes past rlen, rlen = 0, overflow mid-tile, an
+    unaligned region."""
+    blob, B, sep, strip_cr, ncap, offset = _sep_cases()[name]
+    if name == "newlines-past-rlen":
+        rlen = len(blob) - 4096
+        blob = blob + b"\n" * (B - len(blob))
+    else:
+        rlen = len(blob)
+    buf = np.full(B + 32, 10 if sep == 10 else 0, np.uint8)
+    at = -buf.ctypes.data % 16 + offset
+    reg = buf[at:at + B]
+    reg[:len(blob)] = np.frombuffer(blob, np.uint8)
+    meta = _spans_check(libs, reg, rlen, sep, strip_cr, ncap)
+    assert (meta[2] == 1) == name.startswith("overflow")
+
+
+def test_sep_spans_kernel_source_reuses_scratch(libs):
+    """Two launches on one scratch, the second over a larger region:
+    the first leaves its status words and counters zero, so the second
+    starts clean.  The wrapper sizes the scratch by the source's tile."""
+    from flowgger_tpu_torch.tpu import kernels
+
+    lib = libs["frame_sep_spans"]
+    lib.fg_frame_sep_tile_bytes.restype = _I
+    assert lib.fg_frame_sep_tile_bytes() == kernels._TILE_BYTES == TILE
+    rng = np.random.default_rng(43)
+    scratch = _sep_scratch(64)
+    for n in (300, 2400):
+        blob = _records(rng, n, 10)
+        reg = np.zeros(F.region_bucket(len(blob)), np.uint8)
+        reg[:len(blob)] = np.frombuffer(blob, np.uint8)
+        meta = _spans_check(libs, reg, len(blob), 10, True, 4096, scratch)
+        assert meta[0] == n
+
+
+def _lookback_words(rng, ntiles, p_incl):
+    """Status words for ``ntiles`` tiles: tile 0 inclusive, each later
+    tile inclusive with probability ``p_incl``, else its aggregate; and
+    the exclusive prefix (count, last + 1) each tile must get."""
+    cnt = rng.integers(0, 1 << 13, ntiles)
+    last1 = np.where(rng.random(ntiles) < 0.8,
+                     np.arange(ntiles) * TILE + rng.integers(1, TILE, ntiles),
+                     0)
+    inc_c, inc_l = np.cumsum(cnt), np.maximum.accumulate(last1)
+    incl = rng.random(ntiles) < p_incl
+    incl[0] = True
+    words = [((2 if i else 1) << 62) | (int(c) << 31) | int(l)
+             for i, c, l in zip(incl, np.where(incl, inc_c, cnt),
+                                np.where(incl, inc_l, last1))]
+    excl = np.stack([np.concatenate([[0], inc_c[:-1]]),
+                     np.concatenate([[0], inc_l[:-1]])], 1)
+    return np.array(words, np.uint64), excl
+
+
+@pytest.mark.parametrize("p_incl", [0.0, 0.05, 0.5, 1.0])
+def test_lookback_sums_to_the_nearest_inclusive_word(libs, p_incl):
+    """lookback() over a hand-made mix of aggregate and inclusive words
+    (none in a 128-word window, several in one, the nearest 1-299 tiles
+    back) returns each tile's exclusive prefix; the kernel run by the
+    emulation meets only an inclusive word one tile back."""
+    rng = np.random.default_rng(int(p_incl * 100))
+    words, excl = _lookback_words(rng, 300, p_incl)
+    tiles = np.arange(1, 300, dtype=np.int32)
+    out = np.full((tiles.size, 2), 7, np.uint32)
+    assert libs["lookback"].fg_probe_lookback(
+        _ptr(words), _ptr(tiles), tiles.size, _ptr(out)) == 0
+    assert np.array_equal(out, excl[tiles].astype(np.uint32))
+
+
+def _gather_check(libs, reg, starts, lens, max_len):
+    rows = starts.shape[0]
+    out = np.full((rows, max_len), 0xEE, np.uint8)
+    lens_c = np.full(rows, -7, np.int32)
+    assert libs["frame_gather"].fg_frame_gather(
+        _ptr(reg), reg.shape[0], _ptr(starts), _ptr(lens), rows, max_len,
+        _ptr(out), _ptr(lens_c), None) == 0
+    rb, rl = F.frame_gather(torch.from_numpy(reg), torch.from_numpy(starts),
+                            torch.from_numpy(lens), max_len)
+    assert np.array_equal(out, rb.numpy()) and np.array_equal(lens_c,
+                                                              rl.numpy())
 
 
 def test_gather_kernel_source_matches_plain(libs):
@@ -225,16 +404,109 @@ def test_gather_kernel_source_matches_plain(libs):
     reg = np.zeros(F.region_bucket(len(blob)), np.uint8)
     reg[:len(blob)] = np.frombuffer(blob, np.uint8)
     starts, lens, _ = _spans(libs, reg, len(blob), 10, True, 256)
-    max_len = 128   # records longer than this clip
-    out = np.zeros((256, max_len), np.uint8)
-    lens_c = np.zeros(256, np.int32)
-    assert libs["frame_gather"].fg_frame_gather(
-        _ptr(reg), reg.shape[0], _ptr(starts), _ptr(lens), 256, max_len,
-        _ptr(out), _ptr(lens_c), None) == 0
-    rb, rl = F.frame_gather(torch.from_numpy(reg), torch.from_numpy(starts),
-                            torch.from_numpy(lens), max_len)
-    assert np.array_equal(out, rb.numpy()) and np.array_equal(lens_c,
-                                                              rl.numpy())
+    _gather_check(libs, reg, starts, lens, 128)   # longer records clip
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("max_len", [512, 128, 100])
+def test_gather_kernel_source_alignments(libs, max_len, offset):
+    """257 rows: sources at every alignment 0-15 with lengths 0, 1,
+    15-17, 31-33, max_len - 1 to max_len + 1 and far beyond, records
+    ending on the last byte of a region whose size is not a multiple of
+    16, a region whose address is ``offset`` bytes past a 16-byte
+    boundary, and rows not 16-byte aligned when max_len is 100."""
+    B = 3 * 1024 + 13
+    rng = np.random.default_rng(max_len + offset)
+    buf = np.zeros(B + 32, np.uint8)
+    at = -buf.ctypes.data % 16 + offset
+    reg = buf[at:at + B]
+    reg[:] = rng.integers(1, 256, B)
+    lengths = [0, 1, 15, 16, 17, 31, 32, 33, max_len - 1, max_len,
+               max_len + 1, 5 * max_len]
+    starts, lens = [], []
+    for a in range(16):
+        for j, ln in enumerate(lengths):
+            starts.append(a + 16 * ((7 * a + j) % 90))
+            lens.append(ln)
+    for ln in (1, 15, 16, 17, 100, max_len - 1, max_len):
+        starts.append(B - ln)
+        lens.append(ln)
+    while len(starts) < 257:
+        starts.append(int(rng.integers(0, B - max_len)))
+        lens.append(int(rng.integers(0, max_len + 1)))
+    _gather_check(libs, reg, np.array(starts, np.int32),
+                  np.array(lens, np.int32), max_len)
+
+
+# Runs in a child process: a region that ends where an inaccessible page
+# begins, so a read past its last byte kills the child, not the test run.
+GUARDED = r"""
+import ctypes, mmap, sys
+import numpy as np
+
+gather, spans, out_dir, offset = sys.argv[1:5]
+offset = int(offset)
+libc = ctypes.CDLL(None)
+libc.mprotect.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+page = mmap.PAGESIZE
+mem = mmap.mmap(-1, 4 * page)
+base = ctypes.addressof(ctypes.c_char.from_buffer(mem))
+assert libc.mprotect(base + 3 * page, page, 0) == 0
+B = 2 * page - offset
+region = np.frombuffer(mem, np.uint8, B, page + offset)
+rng = np.random.default_rng(offset)
+region[:] = rng.integers(32, 127, B)
+region[rng.integers(0, B, 40)] = 10
+region[-1] = 10
+P, I = ctypes.c_void_p, ctypes.c_int
+f = ctypes.CDLL(spans).fg_frame_sep_spans
+f.argtypes, f.restype = [P, I, I, I, I, P, P, P, P, P, P], I
+scratch = np.zeros(8, np.int64)
+starts = np.zeros(64, np.int32)
+lens = np.zeros(64, np.int32)
+meta = np.zeros(4, np.int32)
+p = lambda a: a.ctypes.data
+assert f(p(region), B, 10, 1, 64, p(scratch), p(scratch[1:]), p(starts),
+         p(lens), p(meta), None) == 0
+g = ctypes.CDLL(gather).fg_frame_gather
+g.argtypes, g.restype = [P, ctypes.c_longlong, P, P, I, I, P, P, P], I
+max_len = 100
+gs = np.array([B - n for n in range(1, 33)] + [B - 100, B - 117],
+              np.int32)
+gl = np.array([B - s for s in gs], np.int32)
+out = np.zeros((gs.size, max_len), np.uint8)
+lens_c = np.zeros(gs.size, np.int32)
+assert g(p(region), B, p(gs), p(gl), gs.size, max_len, p(out), p(lens_c),
+         None) == 0
+np.savez(out_dir + "/guarded.npz", region=region, starts=starts, lens=lens,
+         meta=meta, gs=gs, gl=gl, out=out, lens_c=lens_c)
+"""
+
+
+@pytest.mark.parametrize("offset", [0, 16, 7])
+def test_kernel_sources_read_nothing_past_the_region(libs, tmp_path, offset):
+    """K2 and K3 over a region whose last byte is the last readable byte
+    of a page (its size 16-byte aligned or not): no vector load reaches
+    past it, and every slot and byte still equals the plain version
+    (K3's rows all end on that last byte)."""
+    import subprocess
+
+    proc = subprocess.run(
+        [sys.executable, "-c", GUARDED, libs["frame_gather"]._name,
+         libs["frame_sep_spans"]._name, str(tmp_path), str(offset)],
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    d = np.load(tmp_path / "guarded.npz")
+    reg = torch.from_numpy(d["region"])
+    ref = F.frame_sep_spans(reg, reg.shape[0], sep=10, strip_cr=True, ncap=64)
+    assert np.array_equal(d["starts"], ref["starts"].numpy())
+    assert np.array_equal(d["lens"], ref["lens"].numpy())
+    assert list(d["meta"]) == [int(ref["n"]), int(ref["consumed"]),
+                               int(ref["overflow"]), 0]
+    rb, rl = F.frame_gather(reg, torch.from_numpy(d["gs"]),
+                            torch.from_numpy(d["gl"]), 100)
+    assert np.array_equal(d["out"], rb.numpy())
+    assert np.array_equal(d["lens_c"], rl.numpy())
 
 
 def _json_lines():
