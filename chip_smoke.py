@@ -6,7 +6,7 @@ Phases, each printing JSON lines:
 
 1. device — ``nvidia-smi`` name and power limit, torch's device name,
    the SM clock under a spin kernel;
-2. build  — the five CUDA kernels compiled from ``flowgger_tpu_torch/csrc``
+2. build  — the six CUDA kernels compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
    bytes as ``nvcc -Xptxas -v`` reports them;
@@ -20,22 +20,41 @@ Phases, each printing JSON lines:
    syslen path's flush region (and of a whole 16 384-frame region); the
    JSON-lines structural index at 8 and 24 fields on a gathered
    [16384, 512] JSON-lines batch; the gather and decodes at the e2e runs'
-   other shapes (the syslen flush batch, the rescue sub-batches, a 2 048-
-   row JSON-lines batch); and both chained framing → decode entries
-   against the kernels called one by one;
+   other shapes (the line paths' flush regions and batches — a flush
+   holds up to one 64 KiB read more than 16 384 records, so its batch is
+   [32768, 512] — the syslen flush batch, the rescue sub-batches, a
+   2 048-row JSON-lines batch); both chained framing → decode entries
+   against the kernels called one by one; and the device GELF encode
+   (E1) at 6 and 16 pairs, probe and assemble, on a gathered
+   [16384, 512] batch of the tier mix (every row's tier bit and length,
+   every tier row's bytes), at 6 pairs on the tier path's flush batch
+   and on 256 rows (its end-of-stream batch's shape), and E1's phase-1
+   probes at 6 and 16 pairs on the rfc5424 line path's flush batch and
+   the syslen flush batch;
 4. breakdown — the host-clock wall of each stage of the RFC5424 and the
    JSON-lines paths over eight full regions each (framing, decode, block
-   encode, sink write);
-5. e2e    — three configurations through the port's entry points on
+   encode, sink write), and of the tier mix through the device encode
+   tier (its block encode split into probe, timestamp text, assemble +
+   fetch, splice and oracle rows) and through the host tier; then
+   (``encode_ab``) what the tier costs the rfc5424 mix, which it
+   declines: one batch's decline alone, and the rfc5424 / line
+   configuration in process with the tier on and off, alternating;
+5. e2e    — four configurations through the port's entry points on
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing), stdin →
-   jsonl_tpu → GELF (line framing) and stdin → rfc5424_tpu → GELF
-   (syslen framing).  Each runs once in process through
+   jsonl_tpu → GELF (line framing), stdin → rfc5424_tpu → GELF (syslen
+   framing) and stdin → rfc5424_tpu → GELF over the tier mix (line
+   framing).  Each runs once in process through
    ``flowgger_tpu_torch.start`` with every kernel launch count reset
    just before and read just after (the run must launch each kernel of
-   its path; the syslen run must decline no region), and once as
-   ``python -m flowgger_tpu_torch cfg.toml`` in a subprocess.  Both
-   runs' GELF bytes and stderr lines must equal the port's scalar path
-   over the same bytes (``corpus.scalar_expectation``).
+   its path; the syslen run must decline no region; the tier-mix run
+   must have the device encode tier take every batch and fetch fewer
+   bytes a tier row than it emits; every run must launch E1 only at
+   batch shapes the kernels phase checked), and once as ``python -m
+   flowgger_tpu_torch cfg.toml`` in a subprocess.  Both runs' GELF bytes
+   and stderr lines must equal the port's scalar path over the same
+   bytes (``corpus.scalar_expectation``).  Each reports the device
+   encode tier's batches taken, declined and cooled, its rows, and its
+   fetched and emitted bytes a tier row.
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -220,8 +239,9 @@ def spin_clock_mhz(cycles: int = 1 << 26) -> float:
 
 def kernel_name(mangled: str) -> str:
     """The last component of an Itanium-mangled nested name (the
-    kernel's own name) with its integer template arguments written out:
-    ``_ZN<len><ns><len><name>I<args>E...`` → ``name<a, b>``."""
+    kernel's own name) with its integer and bool template arguments
+    written out: ``_ZN<len><ns><len><name>I<args>E...`` → ``name<a,
+    b>``."""
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -229,9 +249,10 @@ def kernel_name(mangled: str) -> str:
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    targs = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[i:])
     if targs:
-        args = re.findall(r"Li(-?\d+)E", targs.group(1))
+        args = [v if t == "i" else ("false", "true")[int(v)] for t, v in
+                re.findall(r"L([ib])(-?\d+)E", targs.group(1))]
         name += "<" + ", ".join(args) + ">"
     return name
 
@@ -470,11 +491,48 @@ def syslen_flush_region(data: bytes):
     return data[:end], spaces
 
 
+def line_flush(lines: list):
+    """The region of the line path's first flush over ``lines`` joined
+    by newlines, and its record count: the splitter's reads, taken until
+    their separators reach the batch size (``_RawSession.push``'s
+    trigger), cut at the last separator.  A flush holds up to one read
+    more than the batch size, so its batch has ``bucket_rows`` of that
+    count rows: [32768, 512] at the defaults, about half of them
+    padding."""
+    from flowgger_tpu_torch.splitters import _CHUNK
+
+    data = b"\n".join(lines)
+    end = n = 0
+    while n < BATCH and end < len(data):
+        n += data.count(b"\n", end, end + _CHUNK)
+        end = min(end + _CHUNK, len(data))
+    return data[:data.rfind(b"\n", 0, end) + 1], n
+
+
+def flush_batch(lines: list, where: str, shapes: list):
+    """K2 and K3 on the line path's first flush over ``lines``, as
+    ``device_frame_region`` launches them (spans at ``bucket_rows(n)``
+    slots, the batch from its first ``bucket_rows(n)`` spans): the
+    gathered ``(batch, lens_c)``."""
+    from flowgger_tpu_torch.tpu import pack
+
+    region_b, n = line_flush(lines)
+    region = upload(region_b)
+    rows = pack.bucket_rows(n)
+    row, got = sep_case(region, len(region_b), 10, True, rows, n)
+    shapes.append({**row, "where": f"{where}, flush region"})
+    row, (batch, lens_c) = gather_case(region, got["starts"][:rows],
+                                       got["lens"][:rows])
+    shapes.append({**row, "where": f"{where}, flush batch"})
+    return batch, lens_c
+
+
 def kernels_line_path(seed: int, rows: list, shapes: list):
     """K2 spans, K3 gather, K1 decode at 6 and 16 pairs and at the
     rescue's sub-batch, and the chained RFC5424 entry, on one 16 384-line
     region; K3 also at a row width that is not a multiple of 16, K2 also
-    over the records NUL-framed and over a region of >= 16 MiB."""
+    over the records NUL-framed and over a region of >= 16 MiB; K2, K3,
+    K1 p6 and E1's phase-1 probes at the e2e run's flush shapes."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_corpus
@@ -525,6 +583,15 @@ def kernels_line_path(seed: int, rows: list, shapes: list):
         batch, lens_c, torch.nonzero((pc > lo) & (pc <= hi)).flatten()))
     shapes.append({**row, "where": "rfc5424 line path, rescue sub-batch"})
 
+    # the batch of a flush as the e2e run gathers it: K1, and E1's
+    # phase-1 probes as this path's declining batches launch them
+    fb, fl = flush_batch(make_corpus(2 * BATCH, seed + 7)[0],
+                         "rfc5424 line path", shapes)
+    row, _ = decode_case("rfc5424", lo, fb, fl)
+    shapes.append({**row, "where": "rfc5424 line path, flush batch"})
+    phase1_probes(fb, fl, kernels.decode_rfc5424_cuda(fb, fl, 4, lo),
+                  "rfc5424 line path, flush batch", shapes)
+
     # the chained entry (spans -> gather -> decode on one stream) gives
     # the same spans and 6-pair channels as the kernels called one by one
     spans_f, ch_f = kernels.fused_frame_decode_rfc5424(
@@ -538,12 +605,12 @@ def kernels_line_path(seed: int, rows: list, shapes: list):
 
 def kernels_syslen(seed: int, rows: list, shapes: list):
     """K4 over the syslen path's flush region (the shape its e2e run
-    launches it at) and over a whole 16 384-frame region; K3 and K1 at
-    the flush's batch and rescue shapes."""
+    launches it at) and over a whole 16 384-frame region; K3, K1 and
+    E1's phase-1 probes at the flush's batch and rescue shapes."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_corpus, syslen_stream
-    from flowgger_tpu_torch.tpu import pack, rfc5424
+    from flowgger_tpu_torch.tpu import kernels, pack, rfc5424
 
     lines, _ = make_corpus(BATCH, seed + 2)
     data = syslen_stream(lines, cut=0)
@@ -567,13 +634,17 @@ def kernels_syslen(seed: int, rows: list, shapes: list):
     row, _ = decode_case("rfc5424", hi, *rescue_batch(
         batch, lens_c, torch.nonzero((pc > lo) & (pc <= hi)).flatten()))
     shapes.append({**row, "where": "syslen path, rescue sub-batch"})
+    phase1_probes(batch, lens_c, kernels.decode_rfc5424_cuda(batch, lens_c,
+                                                             4, lo),
+                  "syslen path, flush batch", shapes)
 
 
 def kernels_jsonl(seed: int, rows: list, shapes: list):
     """K5 at 8 and 24 fields on a gathered [16384, 512] JSON-lines batch,
-    at 24 fields on the rescue's sub-batch and at 8 fields on the batch's
-    first 2 048 rows (a small flush), and the chained JSON-lines
-    entry."""
+    at 24 fields on the rescue's sub-batch, at 8 fields on the batch's
+    first 2 048 rows (a small flush) and on a flush batch as the e2e run
+    gathers it (after K2 and K3 at its shapes), and the chained
+    JSON-lines entry."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_jsonl_corpus
@@ -599,6 +670,10 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
     small = 2048
     row, _ = decode_case("jsonl", lo, batch[:small], lens_c[:small])
     shapes.append({**row, "where": "jsonl path, 2 048-row batch"})
+    fb, fl = flush_batch(make_jsonl_corpus(2 * BATCH, seed + 8)[0],
+                         "jsonl path", shapes)
+    row, _ = decode_case("jsonl", lo, fb, fl)
+    shapes.append({**row, "where": "jsonl path, flush batch"})
 
     spans_f, ch_f = kernels.fused_frame_decode_jsonl(
         region, rlen, sep=10, strip_cr=True, ncap=ncap, max_len=MAX_LEN)
@@ -607,6 +682,190 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
             and all(torch.equal(ch_f[k], v) for k, v in refs[lo].items())):
         raise AssertionError("fused_frame_decode_jsonl disagrees with the "
                              "kernels called one by one")
+
+
+# the (kernel name, batch shape) pairs at which E1 was held against its
+# plain version; the e2e phase fails if its runs launch E1 at another
+E1_CHECKED: set = set()
+
+
+def encode_case(P: int, batch, lens_c, packed, ts_len, ts_text=None):
+    """E1 (the device GELF encode) at ``P`` pairs against its plain
+    version on one batch: the probe's tier bit and length of every row,
+    and with ``ts_text`` the assemble's bytes of every tier row at its
+    offset, each checked once before and once after its timing loop:
+    ``[probe row]`` or ``[probe row, assemble row]``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import device_gelf, kernels, rfc5424
+
+    suffix, max_sd = b"\0", 4
+    N, L = batch.shape
+    dec = rfc5424.unpack_channels(packed, max_sd, P)
+    bank_b, table = device_gelf.kernel_consts(suffix)
+    bank = device_gelf._bank_on(bank_b, batch.device)
+    OW = device_gelf.out_width(L, suffix)
+    kw = {"suffix": suffix, "max_sd": max_sd}
+
+    def k_probe():
+        return kernels.encode_gelf_cuda(batch, lens_c, packed, ts_len, bank,
+                                        table, max_sd, P, OW)
+
+    def p_probe():
+        return device_gelf.encode_rows(batch, lens_c, dec, None, ts_len,
+                                       assemble=False, **kw)
+
+    ref_tier, ref_len = p_probe()
+
+    def check_probe():
+        tier, out_len = k_probe()
+        err = max(max_abs_err(tier, ref_tier), max_abs_err(out_len, ref_len))
+        if err:
+            raise AssertionError(f"encode_gelf probe p{P} [{N}, {L}] "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_p = check_probe()
+    ms_p = device_ms(k_probe)
+    check_probe()   # a launch after the timing loop
+    E1_CHECKED.add((f"encode_gelf_probe_p{P}", (N, L)))
+
+    # bytes the function needs a row: the 14 one-per-row channels it
+    # reads, the last SD element's id span (rows with 1..max_sd
+    # elements), and 5 channels for each pair up to min(pair_count, P)
+    # (pairs past a row's count are gated off); int32 each
+    pc = dec["pair_count"].to(torch.int64).clamp(0, P)
+    sdc = dec["sd_count"].to(torch.int64)
+    ch_row = 4 * (14 + 5 * pc + 2 * ((sdc >= 1) & (sdc <= max_sd)))
+    n_tier = int(ref_tier.sum())
+    valid = int(lens_c.sum())
+    common = {"route": "cuda", "source": "flowgger_tpu_torch/csrc/encode_gelf.cu",
+              "replaces": "flowgger_tpu/tpu/device_gelf.py:141",
+              "library_ms": None}
+    shape = f"[{N}, {L}], {n_tier} tier rows, {valid} valid bytes"
+    out = [{
+        "name": f"encode_gelf_probe_p{P}", **common, "max_abs_err": err_p,
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        # bytes: each row's valid bytes, the channels it needs, its
+        # timestamp length, its tier bit and length; operations: one
+        # escape test per valid byte
+        **bound(valid + int(ch_row.sum()) + 4 * N + 5 * N, valid),
+        "shape": shape}]
+    if ts_text is None:
+        return out
+
+    gated = torch.where(ref_tier, ref_len.to(torch.int64), 0)
+    row_off = torch.where(ref_tier, torch.cumsum(gated, 0) - gated, -1)
+    total = int(gated.sum())
+
+    def k_asm():
+        return kernels.encode_gelf_cuda(batch, lens_c, packed, ts_len, bank,
+                                        table, max_sd, P, OW, ts_text=ts_text,
+                                        row_off=row_off, total=total)
+
+    def p_asm():
+        rows, out_len, _ = device_gelf.encode_rows(batch, lens_c, dec,
+                                                   ts_text, ts_len, **kw)
+        return device_gelf.flat_rows(rows, out_len, row_off, total)
+
+    ref_flat = p_asm()
+
+    def check_asm():
+        err = max_abs_err(k_asm(), ref_flat)
+        if err:
+            raise AssertionError(f"encode_gelf assemble p{P} [{N}, {L}] "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_a = check_asm()
+    ms_a = device_ms(k_asm)
+    check_asm()   # a launch after the timing loop
+    E1_CHECKED.add((f"encode_gelf_assemble_p{P}", (N, L)))
+    tier_valid = int(torch.where(ref_tier, lens_c, 0).sum())
+    ts_bytes = int(torch.where(ref_tier, ts_len, 0).sum())
+    out.append({
+        "name": f"encode_gelf_assemble_p{P}", **common, "max_abs_err": err_a,
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        # bytes: the tier rows' valid bytes, channels, timestamp text and
+        # lengths, every row's offset, and the output written; operations:
+        # one escape test per valid byte of a tier row
+        **bound(tier_valid + int(ch_row[ref_tier].sum()) + 4 * n_tier
+                + ts_bytes + 8 * N + total, tier_valid),
+        "shape": f"{shape}, {total} output bytes"})
+    return out
+
+
+def phase1_probes(batch, lens_c, packed6, where: str, shapes: list):
+    """E1's phase-1 probes as a declining batch meets them: at 6 pairs
+    from the main decode and at 16 from the wide decode, every row's
+    timestamp at the pessimistic width TS_W."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import device_common, kernels, rfc5424
+
+    ts_len = torch.full((batch.shape[0],), device_common.TS_W,
+                        dtype=torch.int32, device=batch.device)
+    hi = rfc5424.RESCUE_MAX_PAIRS
+    for P, packed in ((rfc5424.DEFAULT_MAX_PAIRS, packed6),
+                      (hi, kernels.decode_rfc5424_cuda(batch, lens_c, 4, hi))):
+        row, = encode_case(P, batch, lens_c, packed, ts_len)
+        shapes.append({**row, "where": f"{where}, phase-1 probe"})
+
+
+def ts_text_of(packed):
+    """``(ts_len, ts_text)`` on the card for every ok row of a packed
+    decode, as the tier formats them."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import device_common
+
+    small = {"ok": (packed[0] != 0).cpu().numpy()}
+    small.update(zip(("days", "sod", "off", "nanos"),
+                     packed[4:8].cpu().numpy()))
+    txt, tl = device_common.ts_text_block(small)
+    return torch.from_numpy(tl).to("cuda"), torch.from_numpy(txt).to("cuda")
+
+
+def kernels_encode(seed: int, rows: list, shapes: list):
+    """E1's probe and assemble at 6 and 16 pairs on a gathered
+    [16384, 512] batch of the tier mix, from the decode kernel's packed
+    channels at each width, with the rows' real timestamp text; at 6
+    pairs also on a flush batch of the tier path (what its e2e run
+    launches, [32768, 512]) and on the first 256 rows (the end-of-stream
+    batch's shape)."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_tier_corpus
+    from flowgger_tpu_torch.tpu import framing, kernels, pack, rfc5424
+
+    lines, _ = make_tier_corpus(BATCH, seed + 5)
+    region_b = b"\n".join(lines) + b"\n"
+    region = upload(region_b)
+    ncap = pack.bucket_rows(BATCH)
+    spans = framing.sep_spans(region, len(region_b), 10, True, ncap)
+    batch, lens_c = framing.gather(region, spans["starts"], spans["lens"],
+                                   MAX_LEN)
+    lo = rfc5424.DEFAULT_MAX_PAIRS
+    for P in (lo, rfc5424.RESCUE_MAX_PAIRS):
+        packed = kernels.decode_rfc5424_cuda(batch, lens_c, 4, P)
+        ts_len, ts_text = ts_text_of(packed)
+        rows.extend(encode_case(P, batch, lens_c, packed, ts_len, ts_text))
+        if P == lo:
+            fb, fl = flush_batch(make_tier_corpus(2 * BATCH, seed + 9)[0],
+                                 "tier path", shapes)
+            fp = kernels.decode_rfc5424_cuda(fb, fl, 4, lo)
+            for row in encode_case(P, fb, fl, fp, *ts_text_of(fp)):
+                shapes.append({**row, "where": "tier path, flush batch"})
+            # the smallest batch the tier path takes: the end-of-stream
+            # partial frame, one row in a 256-row bucket (here 256 rows)
+            small_n = pack.bucket_rows(1)
+            for row in encode_case(P, batch[:small_n], lens_c[:small_n],
+                                   packed[:, :small_n].contiguous(),
+                                   ts_len[:small_n], ts_text[:small_n]):
+                shapes.append({**row, "where": "tier path, end-of-stream "
+                                               "batch"})
 
 
 def phase_kernels(seed: int):
@@ -619,6 +878,7 @@ def phase_kernels(seed: int):
     kernels_line_path(seed, rows, shapes)
     kernels_syslen(seed, rows, shapes)
     kernels_jsonl(seed, rows, shapes)
+    kernels_encode(seed, rows, shapes)
     for r in rows:
         emit({"phase": "kernel", **r})
     for r in shapes:
@@ -676,6 +936,77 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8):
           "lines_per_s": n_batches * BATCH / total})
 
 
+def phase_breakdown_tier(seed: int, n_batches: int = 8):
+    """The tier mix over ``n_batches`` full line regions twice on one
+    card: through the device encode tier, its block encode split into
+    the probe (phase 1 and wide), the timestamp text, assemble + fetch,
+    the constant splice and the oracle rows (``finish_block``); then
+    through the host tier (channels fetched, numpy block engine).  Host
+    clock, each stage ending in a synchronize or a fetch."""
+    import torch
+
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.corpus import make_tier_corpus
+    from flowgger_tpu_torch.encoders import GelfEncoder
+    from flowgger_tpu_torch.mergers import NulMerger
+    from flowgger_tpu_torch.tpu import device_gelf, framing
+    from flowgger_tpu_torch.tpu.batch import _ROUTES
+
+    dev = torch.device("cuda")
+    lines, _ = make_tier_corpus(n_batches * BATCH, seed + 4)
+    submit, fetch, encode = _ROUTES["rfc5424"]
+    encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
+    WORK.mkdir(parents=True, exist_ok=True)
+    outs = {}
+    for tier in ("device", "host"):
+        walls = {"frame": 0.0, "decode": 0.0, "write": 0.0}
+        state, stages, fallback = {}, {}, 0
+        with open(WORK / f"breakdown_tier_{tier}.out", "wb",
+                  buffering=0) as sink:
+            for b in range(n_batches):
+                region = b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
+                t0 = time.perf_counter()
+                packed, _, _ = framing.device_frame_region(
+                    region, "line", MAX_LEN, BATCH, dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                handle = submit(packed[0], packed[1])
+                if tier == "device":
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    res, _ = device_gelf.fetch_encode(
+                        handle, packed, encoder, merger, state,
+                        timings=stages)
+                    if res is None:
+                        raise AssertionError(f"the device tier declined "
+                                             f"batch {b} of the tier mix")
+                else:
+                    host = fetch(handle)
+                    t2 = time.perf_counter()
+                    res = encode(packed[2], packed[3], packed[4], host,
+                                 packed[5], MAX_LEN, encoder, merger)
+                    stages["block_encode"] = stages.get(
+                        "block_encode", 0.0) + time.perf_counter() - t2
+                t3 = time.perf_counter()
+                sink.write(res.block.data)
+                t4 = time.perf_counter()
+                walls["frame"] += t1 - t0
+                walls["decode"] += t2 - t1
+                walls["write"] += t4 - t3
+                fallback += res.fallback_rows
+        outs[tier] = (WORK / f"breakdown_tier_{tier}.out").read_bytes()
+        walls.update(stages)
+        total = sum(walls.values())
+        emit({"phase": "breakdown", "format": "rfc5424_tier", "tier": tier,
+              "lines": n_batches * BATCH, "wall_s": walls,
+              "share": {k: v / total for k, v in walls.items()},
+              "oracle_rows": fallback, "route_state": state,
+              "lines_per_s": n_batches * BATCH / total})
+    if outs["device"] != outs["host"]:
+        raise AssertionError("the device and host tiers wrote different "
+                             "bytes for the tier mix")
+
+
 # e2e configurations: name -> (input.format, input.framing, the scalar
 # expectation's fmt, the kernels its run must launch)
 PATHS = {
@@ -688,16 +1019,24 @@ PATHS = {
     "rfc5424_syslen": ("rfc5424_tpu", "syslen", "rfc5424",
                        ("frame_syslen_spans", "frame_gather",
                         "decode_rfc5424_p6")),
+    # the mix the device encode tier takes (corpus.make_tier_corpus): no
+    # batch may decline
+    "rfc5424_tier": ("rfc5424_tpu", "line", "rfc5424",
+                     ("frame_sep_spans", "frame_gather", "decode_rfc5424_p6",
+                      "encode_gelf_probe_p6", "encode_gelf_assemble_p6")),
 }
 
 
 def _write_input(name: str, n_lines: int, seed: int):
     from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                           make_tier_corpus,
                                            scalar_expectation, syslen_stream)
 
     fmt, framing, kind, _ = PATHS[name]
     if kind == "jsonl":
         lines, kinds = make_jsonl_corpus(n_lines, seed)
+    elif name == "rfc5424_tier":
+        lines, kinds = make_tier_corpus(n_lines, seed)
     else:
         lines, kinds = make_corpus(n_lines, seed)
     if framing == "syslen":
@@ -725,12 +1064,55 @@ def _config(name: str, tag: str) -> Path:
     return cfg
 
 
-def phase_e2e(name: str, n_lines: int, seed: int):
-    """One configuration in process (counts reset just before, read just
-    after) and through the CLI; returns the in-process launch counts."""
+@contextlib.contextmanager
+def e1_shapes():
+    """Collects the (kernel name, batch shape) of each E1 launch made
+    inside the block (the wrapper's count says which entry ran)."""
+    from flowgger_tpu_torch.tpu import kernels
+
+    seen = set()
+    launch = kernels.encode_gelf_cuda
+
+    def recording(batch, *args, **kw):
+        before = dict(kernels.LAUNCHES)
+        res = launch(batch, *args, **kw)
+        seen.update((k, tuple(batch.shape)) for k, v in
+                    kernels.LAUNCHES.items() if v != before.get(k, 0))
+        return res
+
+    kernels.encode_gelf_cuda = recording
+    try:
+        yield seen
+    finally:
+        kernels.encode_gelf_cuda = launch
+
+
+def run_inproc(cfg: Path, path: Path):
+    """One run through ``flowgger_tpu_torch.start`` on ``cuda`` with
+    ``path`` as stdin: (wall seconds, pipeline, stderr lines)."""
     import torch
 
     import flowgger_tpu_torch
+
+    err_buf = io.StringIO()
+    saved_stdin = sys.stdin
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with open(path, "rb") as raw, contextlib.redirect_stderr(err_buf):
+            sys.stdin = io.TextIOWrapper(io.BufferedReader(raw))
+            pipe = flowgger_tpu_torch.start(str(cfg), device="cuda")
+    finally:
+        sys.stdin = saved_stdin
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, pipe, err_buf.getvalue().splitlines()
+
+
+def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
+    """One configuration in process (counts reset just before, read just
+    after) and through the CLI; returns the in-process launch counts.
+    With ``e1_checked`` (the kernels phase's :data:`E1_CHECKED`) it
+    fails if the run launched E1 at a batch shape not checked there."""
     from flowgger_tpu_torch.tpu import framing, kernels
 
     WORK.mkdir(parents=True, exist_ok=True)
@@ -738,25 +1120,15 @@ def phase_e2e(name: str, n_lines: int, seed: int):
 
     # (a) in process, through the library entry point, counts reset
     cfg = _config(name, "inproc")
-    err_buf = io.StringIO()
-    saved_stdin = sys.stdin
     for k in framing.DECLINES:
         framing.DECLINES[k] = 0
     kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        with open(path, "rb") as raw, contextlib.redirect_stderr(err_buf):
-            sys.stdin = io.TextIOWrapper(io.BufferedReader(raw))
-            flowgger_tpu_torch.start(str(cfg), device="cuda")
-    finally:
-        sys.stdin = saved_stdin
-    torch.cuda.synchronize()
-    wall_in = time.perf_counter() - t0
+    with e1_shapes() as e1_seen:
+        wall_in, pipe, errs = run_inproc(cfg, path)
     launches = dict(kernels.LAUNCHES)
     declines = dict(framing.DECLINES)
+    tier = dict(pipe._handler.route_state.get("rfc5424", {}))
     got = (WORK / f"{name}_inproc.out").read_bytes()
-    errs = err_buf.getvalue().splitlines()
     if got != exp_out or errs != exp_err:
         raise AssertionError(
             f"{name}: in-process e2e differs from the scalar path: bytes "
@@ -767,6 +1139,28 @@ def phase_e2e(name: str, n_lines: int, seed: int):
         raise AssertionError(f"{name}: the run launched no {missing} kernel")
     if any(declines.values()):
         raise AssertionError(f"{name}: device framing declined {declines}")
+    if e1_checked is not None and e1_seen - e1_checked:
+        raise AssertionError(f"{name}: E1 launched at shapes the kernels "
+                             f"phase did not check: "
+                             f"{sorted(e1_seen - e1_checked)}")
+    # the device encode tier: batches taken, declined (over 5 % of rows
+    # outside it), skipped in cooldown; bytes fetched and emitted a tier
+    # row
+    rows = tier.get("tier_rows", 0)
+    tier_report = {k: tier.get(k, 0) for k in ("taken", "declined", "cooled",
+                                               "wide", "tier_rows")}
+    tier_report.update(
+        fetch_bytes=tier.get("fetch_bytes", 0),
+        fetch_bytes_per_tier_row=tier.get("fetch_bytes", 0) / max(rows, 1),
+        emit_bytes_per_tier_row=tier.get("emit_bytes", 0) / max(rows, 1))
+    if name == "rfc5424_tier" and (
+            tier_report["declined"] or tier_report["cooled"]
+            or not tier_report["taken"]
+            or tier_report["fetch_bytes_per_tier_row"]
+            >= tier_report["emit_bytes_per_tier_row"]):
+        raise AssertionError(f"{name}: the device encode tier did not take "
+                             f"every batch under the emitted bytes: "
+                             f"{tier_report}")
 
     # (b) the CLI in a subprocess
     cfg = _config(name, "cli")
@@ -790,11 +1184,102 @@ def phase_e2e(name: str, n_lines: int, seed: int):
     emit({"phase": "e2e", "path": name, "lines": n_lines,
           "input_bytes": len(data), "output_bytes": len(exp_out),
           "error_lines": len(exp_err), "mix": mix, "launches": launches,
-          "framing_declines": declines,
+          "framing_declines": declines, "device_encode_tier": tier_report,
+          "e1_launch_shapes": sorted(f"{k} {list(v)}" for k, v in e1_seen),
           "inproc_wall_s": wall_in, "inproc_lines_per_s": n_lines / wall_in,
           "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
           "identical_to_scalar_path": True})
     return launches
+
+
+def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
+    """What the device encode tier costs a mix it declines, the rfc5424
+    mix (19 % of rows outside the tier), on one card in one process:
+
+    (a) each of ``n_batches`` framed and decoded batches through
+        ``device_gelf.fetch_encode`` alone, from a fresh hysteresis
+        state: a phase-1 probe and decline (the wide attempt cooled), and
+        a phase-1 probe, 16-pair decode and probe, and decline; host
+        clock from a synchronized start to the decline;
+    (b) the rfc5424 / line configuration over the same ``n_batches``
+        × 16 384 lines in process with ``FLOWGGER_DEVICE_ENCODE`` = 1
+        (tier on, every batch probed unless cooled) and = 0 (host tier
+        only), alternating in ``pairs`` pairs (on-off, off-on, ...) after
+        one unrecorded run of each; the runs' outputs must be
+        identical."""
+    import torch
+
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.corpus import make_corpus
+    from flowgger_tpu_torch.encoders import GelfEncoder
+    from flowgger_tpu_torch.mergers import NulMerger
+    from flowgger_tpu_torch.tpu import device_gelf, framing
+    from flowgger_tpu_torch.tpu.rfc5424 import decode_rfc5424_submit
+
+    dev = torch.device("cuda")
+    lines, _ = make_corpus(n_batches * BATCH, seed + 6)
+    encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
+    cost = {"probe_decline": [], "probe_wide_decline": []}
+    for b in range(n_batches):
+        region = b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
+        packed, _, _ = framing.device_frame_region(region, "line", MAX_LEN,
+                                                   BATCH, dev)
+        handle = decode_rfc5424_submit(packed[0], packed[1])
+        for kind, state in (("probe_decline", {"wide_cooldown": 1}),
+                            ("probe_wide_decline", {})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = device_gelf.fetch_encode(handle, packed, encoder, merger,
+                                              state)
+            cost[kind].append((time.perf_counter() - t0) * 1e3)
+            if res is not None or state.get("declined") != 1:
+                raise AssertionError(f"encode A/B: batch {b} of the rfc5424 "
+                                     f"mix was not declined: {state}")
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "encode_ab.in"
+    path.write_bytes(b"\n".join(lines))
+    saved = os.environ.get("FLOWGGER_DEVICE_ENCODE")
+    runs, ref = [], None
+    # one run of each first, not recorded: the first start in a process
+    # pays one-time costs that would land on whichever side ran first
+    order = ["1", "0"] + [f for i in range(pairs)
+                          for f in (("1", "0") if i % 2 == 0 else ("0", "1"))]
+    try:
+        for i, flag in enumerate(order):
+            os.environ["FLOWGGER_DEVICE_ENCODE"] = flag
+            cfg = _config("rfc5424_line", f"ab{flag}")
+            wall, pipe, errs = run_inproc(cfg, path)
+            got = (WORK / f"rfc5424_line_ab{flag}.out").read_bytes()
+            if ref is None:
+                ref = (got, errs)
+            elif (got, errs) != ref:
+                raise AssertionError("encode A/B: the runs with the "
+                                     "tier on and off differ")
+            state = pipe._handler.route_state.get("rfc5424", {})
+            if i < 2:
+                continue
+            runs.append({"device_encode": flag, "wall_s": wall,
+                         "lines_per_s": len(lines) / wall,
+                         "tier": {k: state.get(k, 0) for k in
+                                  ("taken", "declined", "cooled",
+                                   "wide")}})
+    finally:
+        if saved is None:
+            os.environ.pop("FLOWGGER_DEVICE_ENCODE", None)
+        else:
+            os.environ["FLOWGGER_DEVICE_ENCODE"] = saved
+    on = [r["lines_per_s"] for r in runs if r["device_encode"] == "1"]
+    off = [r["lines_per_s"] for r in runs if r["device_encode"] == "0"]
+    ratios = [a / b for a, b in zip(on, off)]
+    emit({"phase": "encode_ab", "path": "rfc5424_line", "lines": len(lines),
+          "decline_ms_per_batch": {
+              k: {"mean": statistics.mean(v), "median": statistics.median(v),
+                  "max": max(v)} for k, v in cost.items()},
+          "runs": runs, "on_over_off_per_pair": ratios,
+          "median_on_over_off": statistics.median(ratios),
+          "spread_off": (max(off) - min(off)) / statistics.median(off),
+          "spread_on": (max(on) - min(on)) / statistics.median(on)})
 
 
 def main(argv=None) -> int:
@@ -823,10 +1308,12 @@ def main(argv=None) -> int:
     rows = phase_kernels(args.seed)
     phase_breakdown(args.seed, "rfc5424")
     phase_breakdown(args.seed, "jsonl")
+    phase_breakdown_tier(args.seed)
+    phase_encode_ab(args.seed)
     total = {}
     for name in PATHS:
         n = SYSLEN_LINES if name == "rfc5424_syslen" else args.lines
-        for k, v in phase_e2e(name, n, args.seed).items():
+        for k, v in phase_e2e(name, n, args.seed, E1_CHECKED).items():
             total[k] = total.get(k, 0) + v
     for r in rows:
         r["launches"] = total[r["name"]]

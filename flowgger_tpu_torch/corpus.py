@@ -8,6 +8,9 @@ branch of the device paths:
   elements (scalar oracle), escaped quotes including backslash runs past
   the kernel's escape cap, malformed lines (stderr), over-length lines,
   CRLF endings and non-ASCII messages;
+- :func:`make_tier_corpus` — RFC5424 lines the device encode tier takes
+  (:data:`TIER_MIX`): ~97 % 0-6-pair rows, some with characters the
+  JSON escape map carries, and ~3 % outside the tier;
 - :func:`make_jsonl_corpus` — JSON-lines rows (:data:`JSONL_MIX`), every
   one with a numeric ``timestamp``: flat objects, rows for the 24-field
   rescue and beyond it, nested containers within and past the depth cap,
@@ -133,6 +136,16 @@ def make_line(rng, kind: str) -> bytes:
         return f"{head} - {_msg(rng, 4)}\r".encode()
     if kind == "high":
         return f"{head} - {_msg(rng, 3)} ünïcødé ✓ 日本".encode()
+    if kind == "tier":
+        sd = "-" if rng.random() < 0.2 else \
+            _sd(rng, int(rng.integers(1, 5)), int(rng.integers(0, 7)))
+        words = _msg(rng, int(rng.integers(1, 12))).split(" ")
+        if rng.random() < 0.2:
+            # a character the JSON escape map must carry
+            at = int(rng.integers(0, len(words) + 1))
+            words.insert(at, ('say "hi"', "C:\\temp\\x", "col\tsep")[
+                int(rng.integers(0, 3))])
+        return f"{head} {sd} {' '.join(words)}".encode()
     raise ValueError(kind)
 
 
@@ -141,6 +154,25 @@ def make_corpus(n_lines: int, seed: int) -> Tuple[List[bytes], List[str]]:
     :data:`MIX` with ``numpy.random.default_rng(seed)``."""
     rng = np.random.default_rng(seed)
     kinds, shares = zip(*MIX)
+    picks = rng.choice(len(kinds), size=n_lines, p=np.asarray(shares) / sum(shares))
+    lines = [make_line(rng, kinds[int(k)]) for k in picks]
+    return lines, [kinds[int(k)] for k in picks]
+
+
+# (kind, share) — the mix the device encode tier takes: 0-6-pair rows
+# with distinct SD names, a fifth of them with a quote, backslash or tab
+# in the message, and ~3 % of rows outside the tier (malformed,
+# non-ASCII, 7-16 pairs), under its 5 % decline threshold
+TIER_MIX = (("tier", 0.97), ("malformed", 0.01), ("high", 0.01),
+            ("rescue", 0.01))
+
+
+def make_tier_corpus(n_lines: int, seed: int
+                     ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` RFC5424 lines and their kinds, drawn from
+    :data:`TIER_MIX` with ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    kinds, shares = zip(*TIER_MIX)
     picks = rng.choice(len(kinds), size=n_lines, p=np.asarray(shares) / sum(shares))
     lines = [make_line(rng, kinds[int(k)]) for k in picks]
     return lines, [kinds[int(k)] for k in picks]

@@ -148,11 +148,15 @@ class Pipeline:
             thread.join()
 
 
-def start(config_file: str, device: Optional[str] = None) -> None:
+def start(config_file: str, device: Optional[str] = None) -> Pipeline:
     """Library entry point: run the pipeline of ``config_file`` until its
-    input ends.  ``device`` defaults to ``cuda``."""
+    input ends.  ``device`` defaults to ``cuda``.  Returns the finished
+    pipeline (its batch handler's ``route_state`` holds the device
+    encode tier's counts)."""
     try:
         config = Config.from_path(config_file)
     except OSError as e:
         raise ConfigError(f"Unable to read the config file [{config_file}]: {e}")
-    Pipeline(config, device=device).run()
+    pipe = Pipeline(config, device=device)
+    pipe.run()
+    return pipe

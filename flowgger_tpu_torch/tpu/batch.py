@@ -14,9 +14,13 @@ the next flush, and the records go through:
    (``rfc5424.decode_rfc5424_submit``, 7-16-pair rows re-decoded at 16
    pairs) or JSON-lines (``jsonl.decode_jsonl_submit``, 9-24-key rows
    re-decoded at 24 fields);
-3. the format's host block encoder (``encode_gelf_block`` /
-   ``encode_jsonl_block``), which runs the scalar oracle for rows the
-   kernel flagged and for over-length lines;
+3. for RFC5424 into GELF, the device encode tier
+   (``device_gelf.fetch_encode``: probe, timestamp text, assemble, one
+   fetch of the tier rows' bytes), which hands the batch back when more
+   than 5 % of its rows fall outside the tier, and cools down after
+   three such batches in a row; then the format's host block encoder
+   (``encode_gelf_block`` / ``encode_jsonl_block``), which runs the
+   scalar oracle for rows the kernel flagged and for over-length lines;
 4. the merger framing (pre-applied) and the output queue.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
@@ -36,6 +40,7 @@ import torch
 
 from ..config import Config
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
+from . import device_gelf
 from . import framing as _framing
 from . import pack as _pack
 from .encode_gelf_block import encode_rfc5424_gelf_block
@@ -85,6 +90,9 @@ class BatchHandler(Handler):
         # reorder output
         self._decode_lock = threading.Lock()
         self._timer = None
+        # the device encode tier's decline hysteresis and counts, per
+        # input format (device_common.fetch_encode_driver)
+        self.route_state: dict = {}
 
     # -- ingest --------------------------------------------------------------
     def open_raw(self, framing: str) -> "_RawSession":
@@ -184,12 +192,22 @@ class BatchHandler(Handler):
             sess.carry = b""
 
     def _dispatch(self, packed) -> None:
-        """Decode → fetch (+ the wider rescue) → block encode → enqueue."""
+        """Decode → the device encode tier, or fetch (+ the wider rescue)
+        → host block encode → enqueue."""
         batch, lens, chunk, starts, orig_lens, n_real = packed
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(batch).to(self.device)
             lens = torch.from_numpy(lens).to(self.device)
-        host_out = self._fetch(self._submit(batch, lens))
+        handle = self._submit(batch, lens)
+        if (self.fmt == "rfc5424"
+                and device_gelf.route_ok(self.encoder, self.merger)):
+            res, _ = device_gelf.fetch_encode(
+                handle, packed, self.encoder, self.merger,
+                self.route_state.setdefault(self.fmt, {}))
+            if res is not None:
+                self._emit_block(res)
+                return
+        host_out = self._fetch(handle)
         res = self._encode(chunk, starts, orig_lens, host_out, n_real,
                            batch.shape[1], self.encoder, self.merger)
         self._emit_block(res)

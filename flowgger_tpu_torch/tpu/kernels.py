@@ -12,7 +12,12 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
 - ``decode_rfc5424`` — the per-row RFC5424 channels at 6 and 16 pairs
   (replaces ``rfc5424.decode_rfc5424_pallas``);
 - ``structural_index`` — the per-row JSON-lines structural index at 8
-  and 24 fields (replaces ``pallas_kernels.structural_index_pallas``).
+  and 24 fields (replaces ``pallas_kernels.structural_index_pallas``);
+- ``encode_gelf`` — the RFC5424→GELF encode of the device tier at 6 and
+  16 pairs, a probe (tier bit and length of every row) and an assemble
+  (the tier rows' bytes at their offsets); it replaces the jnp
+  ``device_gelf._encode_kernel`` with device_common's escape, sort,
+  assembly and compaction stages, not a ``pallas_call``.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use, into ``build/cuda`` next to the
@@ -26,7 +31,8 @@ Nothing here falls back: no ``nvcc``, a failed build, or a refused launch
 raises.  The plain PyTorch versions live beside the dispatchers that
 choose between them by the tensor's device (``framing.sep_spans``,
 ``framing.syslen_spans``, ``framing.gather``,
-``rfc5424.decode_rfc5424_submit``, ``jsonl.decode_jsonl_submit``).
+``rfc5424.decode_rfc5424_submit``, ``jsonl.decode_jsonl_submit``,
+``device_gelf.probe`` and ``device_gelf.assemble``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -53,6 +59,7 @@ _SOURCES = {
     "frame_gather": "frame_gather.cu",
     "decode_rfc5424": "decode_rfc5424.cu",
     "structural_index": "structural_index.cu",
+    "encode_gelf": "encode_gelf.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -64,7 +71,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {
     "frame_sep_spans": 0, "frame_syslen_spans": 0, "frame_gather": 0,
     "decode_rfc5424_p6": 0, "decode_rfc5424_p16": 0,
-    "structural_index_f8": 0, "structural_index_f24": 0}
+    "structural_index_f8": 0, "structural_index_f24": 0,
+    "encode_gelf_probe_p6": 0, "encode_gelf_assemble_p6": 0,
+    "encode_gelf_probe_p16": 0, "encode_gelf_assemble_p16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,6 +95,12 @@ _SIGNATURES = {
     "structural_index": {
         "fg_structural_index_f8": (_P, _P, _P, _I, _I, _I, _P),
         "fg_structural_index_f24": (_P, _P, _P, _I, _I, _I, _P),
+    },
+    "encode_gelf": {
+        f"fg_encode_gelf_{mode}_p{p}": (
+            (_P,) * 4 + ((_P,) if mode == "assemble" else ())
+            + (_P, _P, _I, _I, _I, _I, _P, _P, _P))
+        for mode in ("probe", "assemble") for p in (6, 16)
     },
 }
 _TILE_BYTES = 16384  # kTile in frame_sep_spans.cu
@@ -346,6 +361,68 @@ def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
     _check(rc, "structural_index")
     LAUNCHES[f"structural_index_f{max_fields}"] += 1
     return out
+
+
+def encode_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                     channels: torch.Tensor, ts_len: torch.Tensor,
+                     bank: torch.Tensor, consts, max_sd: int, max_pairs: int,
+                     OW: int, ts_text: Optional[torch.Tensor] = None,
+                     row_off: Optional[torch.Tensor] = None,
+                     total: int = 0):
+    """The device GELF encode of ``batch`` (u8 [N, L]) from the decode
+    kernel's packed ``channels`` (int32 [C, N] at ``max_sd`` = 4 and
+    ``max_pairs`` = 6 or 16), the timestamp lengths (int32 [N]) and the
+    constant bank (u8 on the device; ``consts`` is the host table of
+    ``device_gelf.kernel_consts``).
+
+    Without ``row_off`` it probes: ``(tier bool [N], out_len int32
+    [N])``.  With ``row_off`` (int64 [N]) and ``ts_text`` (u8 [N, 32]) it
+    assembles: a u8 [total] buffer holding the elided bytes of each row
+    whose offset is not negative, at that offset."""
+    from .device_common import TS_W
+    from .rfc5424 import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(channels, "channels", torch.int32, 2)
+    _need(ts_len, "ts_len", torch.int32, 1)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if max_pairs not in (6, 16):
+        raise ValueError(f"no encode_gelf kernel for max_pairs={max_pairs}")
+    if (channels.shape != (n_channels(4, max_pairs), N)
+            or lens.shape[0] != N or ts_len.shape[0] != N):
+        raise ValueError("channels must be the [C, N] decode output at "
+                         "max_sd=4 and lens/ts_len one entry per row")
+    if not 1 <= L < 1 << 15 or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L}")
+    dev = batch.device
+    lib = _lib("encode_gelf")
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        out_len = torch.empty(N, dtype=torch.int32, device=dev)
+        rc = getattr(lib, f"fg_encode_gelf_probe_p{max_pairs}")(
+            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+            ts_len.data_ptr(), bank.data_ptr(), consts, N, L, max_sd, OW,
+            tier.data_ptr(), out_len.data_ptr(), _stream())
+        _check(rc, "encode_gelf probe")
+        LAUNCHES[f"encode_gelf_probe_p{max_pairs}"] += 1
+        return tier, out_len
+    _need(row_off, "row_off", torch.int64, 1)
+    _need(ts_text, "ts_text", torch.uint8, 2)
+    if row_off.shape[0] != N or ts_text.shape != (N, TS_W):
+        raise ValueError("row_off must have one entry per row and ts_text "
+                         f"be [N, {TS_W}]")
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    rc = getattr(lib, f"fg_encode_gelf_assemble_p{max_pairs}")(
+        batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+        ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, L,
+        max_sd, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
+    _check(rc, "encode_gelf assemble")
+    LAUNCHES[f"encode_gelf_assemble_p{max_pairs}"] += 1
+    return flat
 
 
 def fused_frame_decode_rfc5424(region: torch.Tensor, rlen: int,

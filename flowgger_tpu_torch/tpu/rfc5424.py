@@ -595,6 +595,14 @@ def decode_rfc5424_fetch(handle) -> Dict[str, np.ndarray]:
                           RESCUE_MAX_PAIRS)
 
 
+def decode_rfc5424_wide(handle):
+    """The whole batch of a submitted decode decoded again at
+    RESCUE_MAX_PAIRS, left on its device (the device encode tier's pair
+    escalation)."""
+    _, batch, lens, max_sd = handle
+    return _decode_on(batch, lens, max_sd, RESCUE_MAX_PAIRS)
+
+
 def decode_rfc5424_host(batch, lens, max_sd: int = DEFAULT_MAX_SD):
     """Synchronous submit + fetch."""
     return decode_rfc5424_fetch(decode_rfc5424_submit(batch, lens, max_sd))

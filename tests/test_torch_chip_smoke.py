@@ -42,6 +42,9 @@ def test_kernel_name_demangles_nested_names():
     ) == "decode_rfc5424_kernel<4, 6>"
     assert chip_smoke.kernel_name("_Z13gather_kernelPKhxPKiS2_iiPhPi") == \
         "gather_kernel"
+    assert chip_smoke.kernel_name(
+        "_ZN12_GLOBAL__N_118encode_gelf_kernelILi16ELb1EEEvPKhPKiS4_S2_"
+        "S4_S2_NS_6ConstsEiiiiiPhPiPKlS5_") == "encode_gelf_kernel<16, true>"
 
 
 def test_build_returns_the_nvcc_log_of_a_cached_library(tmp_path,
@@ -79,3 +82,49 @@ def test_refuses_without_a_card_or_outside_a_checkout(tmp_path):
                               cwd=str(script.parent))
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
+    """E1's chip check on the CPU with its wrapper standing in for the
+    plain version: the probe's bound counts each row's 14 fixed channels,
+    the last SD id span of rows with 1-4 SD elements and 5 channels for
+    each of its first min(pair_count, P) pairs; the checked shape is
+    recorded, and ``e1_shapes`` records a launch by its shape."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_corpus
+    from flowgger_tpu_torch.tpu import device_gelf, kernels, pack, rfc5424
+
+    def plain(batch, lens, ch, ts_len, bank, table, max_sd, P, OW, **kw):
+        assert bank.numel() and len(table) and OW == 1024
+        kernels.LAUNCHES[f"encode_gelf_probe_p{P}"] += 1
+        return device_gelf.encode_rows(
+            batch, lens, rfc5424.unpack_channels(ch, max_sd, P), None,
+            ts_len, suffix=b"\0", max_sd=max_sd, assemble=False)
+
+    monkeypatch.setattr(kernels, "encode_gelf_cuda", plain)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, **kw: fn() and 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, **kw: fn() and 0.0)
+    monkeypatch.setattr(chip_smoke, "E1_CHECKED", set())
+    lines, _ = make_corpus(64, seed=3)
+    batch, lens, *_ = pack.pack_lines_2d(lines, 512)
+    bt = torch.from_numpy(batch)
+    lt = torch.from_numpy(lens).to(torch.int32)
+    dec = rfc5424.decode_rfc5424(bt, lt, 4, 6)
+    keys = [*rfc5424._KEYS_1D, *rfc5424._KEYS_SD, *rfc5424._KEYS_PAIR]
+    packed = torch.cat([dec[k].to(torch.int32).reshape(bt.shape[0], -1).t()
+                        for k in keys]).contiguous()
+    ts_len = torch.full((bt.shape[0],), 32, dtype=torch.int32)
+    row, = chip_smoke.encode_case(6, bt, lt, packed, ts_len)
+    pc = dec["pair_count"].to(torch.int64).clamp(0, 6)
+    sdc = dec["sd_count"].to(torch.int64)
+    assert (pc < 6).any() and (sdc == 0).any()
+    N = bt.shape[0]
+    channels = 4 * int((14 + 5 * pc + 2 * ((sdc >= 1) & (sdc <= 4))).sum())
+    assert row["bound_bytes"] == int(lt.sum()) + channels + 9 * N
+    assert row["bound_bytes"] < int(lt.sum()) + 4 * (14 + 8 + 30) * N + 9 * N
+    assert chip_smoke.E1_CHECKED == {("encode_gelf_probe_p6", (N, 512))}
+    with chip_smoke.e1_shapes() as seen:
+        kernels.encode_gelf_cuda(bt[:256], lt[:256], packed[:, :256],
+                                 ts_len[:256], torch.ones(1), [0], 4, 6, 1024)
+    assert seen == {("encode_gelf_probe_p6", (256, 512))}
