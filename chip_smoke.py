@@ -9,7 +9,8 @@ Phases, each printing JSON lines:
 2. build  — the six CUDA kernels compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
-   bytes as ``nvcc -Xptxas -v`` reports them;
+   bytes as ``nvcc -Xptxas -v`` reports them (E1's four instantiations
+   must be among them);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each (K2 and K3 checked again on a launch after
@@ -26,9 +27,10 @@ Phases, each printing JSON lines:
    2 048-row JSON-lines batch); both chained framing → decode entries
    against the kernels called one by one; and the device GELF encode
    (E1) at 6 and 16 pairs, probe and assemble, on a gathered
-   [16384, 512] batch of the tier mix (every row's tier bit and length,
-   every tier row's bytes), at 6 pairs on the tier path's flush batch
-   and on 256 rows (its end-of-stream batch's shape), and E1's phase-1
+   [16384, 512] batch of the tier mix (every row's base tier bit and
+   base length, zeros past the real rows, every tier row's bytes), at 6
+   pairs on the tier path's flush batch and on 256 rows (its
+   end-of-stream batch's shape, 200 of them real), and E1's phase-1
    probes at 6 and 16 pairs on the rfc5424 line path's flush batch and
    the syslen flush batch;
 4. breakdown — the host-clock wall of each stage of the RFC5424 and the
@@ -49,7 +51,9 @@ Phases, each printing JSON lines:
    its path; the syslen run must decline no region; the tier-mix run
    must have the device encode tier take every batch and fetch fewer
    bytes a tier row than it emits; every run must launch E1 only at
-   batch shapes the kernels phase checked), and once as ``python -m
+   batch shapes the kernels phase checked, and the rfc5424 runs one
+   6-pair probe a probed batch and one assemble a taken batch, the
+   16-pair probes being the wide attempts), and once as ``python -m
    flowgger_tpu_torch cfg.toml`` in a subprocess.  Both runs' GELF bytes
    and stderr lines must equal the port's scalar path over the same
    bytes (``corpus.scalar_expectation``).  Each reports the device
@@ -295,13 +299,20 @@ def phase_build():
         for k, v in res.items()))
     emit({"phase": "build", "wall_s": wall,
           "seconds": {k: v["seconds"] for k, v in res.items()}})
+    seen = set()
     for source, v in res.items():
         found = ptxas_resources(v["log"])
         if not found:
             raise AssertionError(f"no ptxas resource lines in the build log "
                                  f"of {source}")
         for r in found:
+            seen.add(r["function"])
             emit({"phase": "kernel_build", "source": source, **r})
+    # E1's four instantiations: probe and assemble at 6 and 16 pairs
+    missing = {f"encode_gelf_kernel<{p}, {a}>" for p in (6, 16)
+               for a in ("false", "true")} - seen
+    if missing:
+        raise AssertionError(f"no kernel_build line for {sorted(missing)}")
 
 
 def gather_case(region, starts, lens, max_len: int = MAX_LEN):
@@ -513,7 +524,7 @@ def flush_batch(lines: list, where: str, shapes: list):
     """K2 and K3 on the line path's first flush over ``lines``, as
     ``device_frame_region`` launches them (spans at ``bucket_rows(n)``
     slots, the batch from its first ``bucket_rows(n)`` spans): the
-    gathered ``(batch, lens_c)``."""
+    gathered ``(batch, lens_c, n)``, ``n`` its real rows."""
     from flowgger_tpu_torch.tpu import pack
 
     region_b, n = line_flush(lines)
@@ -524,7 +535,7 @@ def flush_batch(lines: list, where: str, shapes: list):
     row, (batch, lens_c) = gather_case(region, got["starts"][:rows],
                                        got["lens"][:rows])
     shapes.append({**row, "where": f"{where}, flush batch"})
-    return batch, lens_c
+    return batch, lens_c, n
 
 
 def kernels_line_path(seed: int, rows: list, shapes: list):
@@ -585,11 +596,11 @@ def kernels_line_path(seed: int, rows: list, shapes: list):
 
     # the batch of a flush as the e2e run gathers it: K1, and E1's
     # phase-1 probes as this path's declining batches launch them
-    fb, fl = flush_batch(make_corpus(2 * BATCH, seed + 7)[0],
-                         "rfc5424 line path", shapes)
+    fb, fl, fn = flush_batch(make_corpus(2 * BATCH, seed + 7)[0],
+                             "rfc5424 line path", shapes)
     row, _ = decode_case("rfc5424", lo, fb, fl)
     shapes.append({**row, "where": "rfc5424 line path, flush batch"})
-    phase1_probes(fb, fl, kernels.decode_rfc5424_cuda(fb, fl, 4, lo),
+    phase1_probes(fb, fl, kernels.decode_rfc5424_cuda(fb, fl, 4, lo), fn,
                   "rfc5424 line path, flush batch", shapes)
 
     # the chained entry (spans -> gather -> decode on one stream) gives
@@ -635,7 +646,7 @@ def kernels_syslen(seed: int, rows: list, shapes: list):
         batch, lens_c, torch.nonzero((pc > lo) & (pc <= hi)).flatten()))
     shapes.append({**row, "where": "syslen path, rescue sub-batch"})
     phase1_probes(batch, lens_c, kernels.decode_rfc5424_cuda(batch, lens_c,
-                                                             4, lo),
+                                                             4, lo), n,
                   "syslen path, flush batch", shapes)
 
 
@@ -670,8 +681,8 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
     small = 2048
     row, _ = decode_case("jsonl", lo, batch[:small], lens_c[:small])
     shapes.append({**row, "where": "jsonl path, 2 048-row batch"})
-    fb, fl = flush_batch(make_jsonl_corpus(2 * BATCH, seed + 8)[0],
-                         "jsonl path", shapes)
+    fb, fl, _ = flush_batch(make_jsonl_corpus(2 * BATCH, seed + 8)[0],
+                            "jsonl path", shapes)
     row, _ = decode_case("jsonl", lo, fb, fl)
     shapes.append({**row, "where": "jsonl path, flush batch"})
 
@@ -689,12 +700,15 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
 E1_CHECKED: set = set()
 
 
-def encode_case(P: int, batch, lens_c, packed, ts_len, ts_text=None):
+def encode_case(P: int, batch, lens_c, packed, n: int, ts_len=None,
+                ts_text=None):
     """E1 (the device GELF encode) at ``P`` pairs against its plain
-    version on one batch: the probe's tier bit and length of every row,
-    and with ``ts_text`` the assemble's bytes of every tier row at its
-    offset, each checked once before and once after its timing loop:
-    ``[probe row]`` or ``[probe row, assemble row]``."""
+    version on one batch of ``n`` real rows: the probe's base tier bit
+    and base length of every row (zeros at and past ``n``), and with
+    ``ts_len`` and ``ts_text`` the assemble's bytes of every tier row
+    (``base & (base_len + ts_len <= OW)``, ``fetch_encode_driver``'s
+    rule) at its offset, each checked once before and once after its
+    timing loop: ``[probe row]`` or ``[probe row, assemble row]``."""
     import torch
 
     from flowgger_tpu_torch.tpu import device_gelf, kernels, rfc5424
@@ -708,20 +722,20 @@ def encode_case(P: int, batch, lens_c, packed, ts_len, ts_text=None):
     kw = {"suffix": suffix, "max_sd": max_sd}
 
     def k_probe():
-        return kernels.encode_gelf_cuda(batch, lens_c, packed, ts_len, bank,
-                                        table, max_sd, P, OW)
+        return kernels.encode_gelf_cuda(batch, lens_c, packed, n, bank, table,
+                                        max_sd, P)
 
     def p_probe():
-        return device_gelf.encode_rows(batch, lens_c, dec, None, ts_len,
-                                       assemble=False, **kw)
+        return device_gelf.encode_rows(batch, lens_c, dec, assemble=False,
+                                       n=n, **kw)
 
-    ref_tier, ref_len = p_probe()
+    ref_base, ref_len = p_probe()
 
     def check_probe():
-        tier, out_len = k_probe()
-        err = max(max_abs_err(tier, ref_tier), max_abs_err(out_len, ref_len))
+        base, base_len = k_probe()
+        err = max(max_abs_err(base, ref_base), max_abs_err(base_len, ref_len))
         if err:
-            raise AssertionError(f"encode_gelf probe p{P} [{N}, {L}] "
+            raise AssertionError(f"encode_gelf probe p{P} [{N}, {L}] n={n} "
                                  f"disagrees with its plain version: "
                                  f"max_abs_err {err}")
         return err
@@ -731,38 +745,42 @@ def encode_case(P: int, batch, lens_c, packed, ts_len, ts_text=None):
     check_probe()   # a launch after the timing loop
     E1_CHECKED.add((f"encode_gelf_probe_p{P}", (N, L)))
 
-    # bytes the function needs a row: the 14 one-per-row channels it
-    # reads, the last SD element's id span (rows with 1..max_sd
+    # bytes the function needs a real row: its length, the 14 one-per-row
+    # channels it reads, the last SD element's id span (rows with 1..max_sd
     # elements), and 5 channels for each pair up to min(pair_count, P)
     # (pairs past a row's count are gated off); int32 each
+    real = torch.arange(N, device=batch.device) < n
     pc = dec["pair_count"].to(torch.int64).clamp(0, P)
     sdc = dec["sd_count"].to(torch.int64)
     ch_row = 4 * (14 + 5 * pc + 2 * ((sdc >= 1) & (sdc <= max_sd)))
-    n_tier = int(ref_tier.sum())
-    valid = int(lens_c.sum())
+    n_base = int(ref_base.sum())
+    valid = int(torch.where(real, lens_c, 0).sum())
     common = {"route": "cuda", "source": "flowgger_tpu_torch/csrc/encode_gelf.cu",
               "replaces": "flowgger_tpu/tpu/device_gelf.py:141",
               "library_ms": None}
-    shape = f"[{N}, {L}], {n_tier} tier rows, {valid} valid bytes"
+    shape = f"[{N}, {L}], n={n}, {n_base} base tier rows, {valid} valid bytes"
     out = [{
         "name": f"encode_gelf_probe_p{P}", **common, "max_abs_err": err_p,
         "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
-        # bytes: each row's valid bytes, the channels it needs, its
-        # timestamp length, its tier bit and length; operations: one
-        # escape test per valid byte
-        **bound(valid + int(ch_row.sum()) + 4 * N + 5 * N, valid),
+        # bytes: each real row's valid bytes, length and the channels it
+        # needs, every row's bit and length; operations: one escape test
+        # per valid byte
+        **bound(valid + int(ch_row[real].sum()) + 4 * n + 5 * N, valid),
         "shape": shape}]
     if ts_text is None:
         return out
 
-    gated = torch.where(ref_tier, ref_len.to(torch.int64), 0)
-    row_off = torch.where(ref_tier, torch.cumsum(gated, 0) - gated, -1)
+    length = ref_len.to(torch.int64) + ts_len
+    tier = ref_base & (length <= OW)
+    gated = torch.where(tier, length, 0)
+    row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
     total = int(gated.sum())
 
     def k_asm():
-        return kernels.encode_gelf_cuda(batch, lens_c, packed, ts_len, bank,
-                                        table, max_sd, P, OW, ts_text=ts_text,
-                                        row_off=row_off, total=total)
+        return kernels.encode_gelf_cuda(batch, lens_c, packed, n, bank, table,
+                                        max_sd, P, OW, ts_text=ts_text,
+                                        ts_len=ts_len, row_off=row_off,
+                                        total=total)
 
     def p_asm():
         rows, out_len, _ = device_gelf.encode_rows(batch, lens_c, dec,
@@ -783,34 +801,31 @@ def encode_case(P: int, batch, lens_c, packed, ts_len, ts_text=None):
     ms_a = device_ms(k_asm)
     check_asm()   # a launch after the timing loop
     E1_CHECKED.add((f"encode_gelf_assemble_p{P}", (N, L)))
-    tier_valid = int(torch.where(ref_tier, lens_c, 0).sum())
-    ts_bytes = int(torch.where(ref_tier, ts_len, 0).sum())
+    n_tier = int(tier.sum())
+    tier_valid = int(torch.where(tier, lens_c, 0).sum())
+    ts_bytes = int(torch.where(tier, ts_len, 0).sum())
     out.append({
         "name": f"encode_gelf_assemble_p{P}", **common, "max_abs_err": err_a,
         "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
-        # bytes: the tier rows' valid bytes, channels, timestamp text and
-        # lengths, every row's offset, and the output written; operations:
-        # one escape test per valid byte of a tier row
-        **bound(tier_valid + int(ch_row[ref_tier].sum()) + 4 * n_tier
+        # bytes: the tier rows' valid bytes, lengths, channels, timestamp
+        # text and lengths, every row's offset, and the output written;
+        # operations: one escape test per valid byte of a tier row
+        **bound(tier_valid + int(ch_row[tier].sum()) + 8 * n_tier
                 + ts_bytes + 8 * N + total, tier_valid),
-        "shape": f"{shape}, {total} output bytes"})
+        "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
+                 f"bytes"})
     return out
 
 
-def phase1_probes(batch, lens_c, packed6, where: str, shapes: list):
+def phase1_probes(batch, lens_c, packed6, n: int, where: str, shapes: list):
     """E1's phase-1 probes as a declining batch meets them: at 6 pairs
-    from the main decode and at 16 from the wide decode, every row's
-    timestamp at the pessimistic width TS_W."""
-    import torch
+    from the main decode and at 16 from the wide decode."""
+    from flowgger_tpu_torch.tpu import kernels, rfc5424
 
-    from flowgger_tpu_torch.tpu import device_common, kernels, rfc5424
-
-    ts_len = torch.full((batch.shape[0],), device_common.TS_W,
-                        dtype=torch.int32, device=batch.device)
     hi = rfc5424.RESCUE_MAX_PAIRS
     for P, packed in ((rfc5424.DEFAULT_MAX_PAIRS, packed6),
                       (hi, kernels.decode_rfc5424_cuda(batch, lens_c, 4, hi))):
-        row, = encode_case(P, batch, lens_c, packed, ts_len)
+        row, = encode_case(P, batch, lens_c, packed, n)
         shapes.append({**row, "where": f"{where}, phase-1 probe"})
 
 
@@ -833,10 +848,8 @@ def kernels_encode(seed: int, rows: list, shapes: list):
     [16384, 512] batch of the tier mix, from the decode kernel's packed
     channels at each width, with the rows' real timestamp text; at 6
     pairs also on a flush batch of the tier path (what its e2e run
-    launches, [32768, 512]) and on the first 256 rows (the end-of-stream
-    batch's shape)."""
-    import torch
-
+    launches, [32768, 512] with ~16 500 real rows) and on 256 rows (the
+    end-of-stream batch's shape, here with 200 real rows)."""
     from flowgger_tpu_torch.corpus import make_tier_corpus
     from flowgger_tpu_torch.tpu import framing, kernels, pack, rfc5424
 
@@ -851,18 +864,19 @@ def kernels_encode(seed: int, rows: list, shapes: list):
     for P in (lo, rfc5424.RESCUE_MAX_PAIRS):
         packed = kernels.decode_rfc5424_cuda(batch, lens_c, 4, P)
         ts_len, ts_text = ts_text_of(packed)
-        rows.extend(encode_case(P, batch, lens_c, packed, ts_len, ts_text))
+        rows.extend(encode_case(P, batch, lens_c, packed, BATCH, ts_len,
+                                ts_text))
         if P == lo:
-            fb, fl = flush_batch(make_tier_corpus(2 * BATCH, seed + 9)[0],
-                                 "tier path", shapes)
+            fb, fl, fn = flush_batch(
+                make_tier_corpus(2 * BATCH, seed + 9)[0], "tier path", shapes)
             fp = kernels.decode_rfc5424_cuda(fb, fl, 4, lo)
-            for row in encode_case(P, fb, fl, fp, *ts_text_of(fp)):
+            for row in encode_case(P, fb, fl, fp, fn, *ts_text_of(fp)):
                 shapes.append({**row, "where": "tier path, flush batch"})
             # the smallest batch the tier path takes: the end-of-stream
-            # partial frame, one row in a 256-row bucket (here 256 rows)
+            # partial frame, one row in a 256-row bucket
             small_n = pack.bucket_rows(1)
             for row in encode_case(P, batch[:small_n], lens_c[:small_n],
-                                   packed[:, :small_n].contiguous(),
+                                   packed[:, :small_n].contiguous(), 200,
                                    ts_len[:small_n], ts_text[:small_n]):
                 shapes.append({**row, "where": "tier path, end-of-stream "
                                                "batch"})
@@ -1153,6 +1167,18 @@ def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
         fetch_bytes=tier.get("fetch_bytes", 0),
         fetch_bytes_per_tier_row=tier.get("fetch_bytes", 0) / max(rows, 1),
         emit_bytes_per_tier_row=tier.get("emit_bytes", 0) / max(rows, 1))
+    # one 6-pair probe a probed batch (taken or declined; a cooled batch
+    # is not probed), one assemble a taken batch; the 16-pair probes are
+    # the wide attempts, counted apart
+    probed = tier_report["taken"] + tier_report["declined"]
+    if PATHS[name][2] == "rfc5424" and (
+            launches["encode_gelf_probe_p6"] != probed
+            or launches["encode_gelf_assemble_p6"]
+            + launches["encode_gelf_assemble_p16"] != tier_report["taken"]):
+        raise AssertionError(f"{name}: {launches} E1 launches for "
+                             f"{tier_report}: not one probe a probed batch "
+                             f"and one assemble a taken batch")
+    tier_report["wide_probes"] = launches["encode_gelf_probe_p16"]
     if name == "rfc5424_tier" and (
             tier_report["declined"] or tier_report["cooled"]
             or not tier_report["taken"]

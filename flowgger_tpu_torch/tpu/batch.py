@@ -3,10 +3,11 @@
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
 pending (for syslen framing: spaces, an upper bound on its frames), when
-``input.tpu_flush_ms`` elapses with data pending, or at end of stream —
-each session's region is framed (line/NUL: cut at its last separator;
-syslen: up to the first incomplete frame), the tail stays as carry for
-the next flush, and the records go through:
+a session's region reaches 4 MiB, when ``input.tpu_flush_ms`` elapses
+with data pending, or at end of stream — each session's region is framed
+(line/NUL: cut at its last separator; syslen: up to the first incomplete
+frame), the tail stays as carry for the next flush, and the records go
+through:
 
 1. device framing (``framing.device_frame_region``: span and gather
    kernels), or the host splitter when the span kernel declines;
@@ -51,6 +52,11 @@ from .rfc5424 import decode_rfc5424_fetch, decode_rfc5424_submit
 DEFAULT_BATCH_SIZE = 16384
 DEFAULT_FLUSH_MS = 50
 DEFAULT_MAX_LINE_LEN = 512
+# bound on one session's buffered region (bytes): a flush is forced once
+# it is reached, whatever the record estimate, as in the reference, so a
+# flood without separators (or a giant syslen body) cannot grow a region
+# without limit
+_RAW_REGION_CAP = 4 << 20
 
 # decode → block encode per input format (``input.format`` without its
 # ``_tpu`` suffix)
@@ -136,6 +142,7 @@ class BatchHandler(Handler):
                 raw = [(s, s.chunks) for s in self._raw_sessions if s.chunks]
                 for s, _ in raw:
                     s.chunks = []
+                    s.nbytes = 0
                     self._raw_est -= s.est
                     s.est = 0
             for s, chunks in raw:
@@ -234,7 +241,9 @@ class _RawSession:
     between flushes.  ``est`` drives the batch-size flush trigger: one
     separator count per chunk (exact for line/NUL), or one space count
     (an upper bound for syslen: each frame consumes at least one).
-    ``dead`` marks a syslen stream whose length prefix was malformed."""
+    ``nbytes`` (the chunks' bytes) with the carry drives the region cap,
+    :data:`_RAW_REGION_CAP`.  ``dead`` marks a syslen stream whose length
+    prefix was malformed."""
 
     def __init__(self, handler: BatchHandler, framing: str):
         self.handler = handler
@@ -243,6 +252,7 @@ class _RawSession:
         self.carry = b""
         self.chunks: List[bytes] = []
         self.est = 0
+        self.nbytes = 0
         self.dead = False
 
     def push(self, chunk: bytes) -> bool:
@@ -253,9 +263,11 @@ class _RawSession:
         est = chunk.count(b" " if self.framing == "syslen" else self.sep)
         with h._lock:
             self.chunks.append(chunk)
+            self.nbytes += len(chunk)
             self.est += est
             h._raw_est += est
-            full = h._pending_locked() >= h.batch_size
+            full = (h._pending_locked() >= h.batch_size
+                    or self.nbytes + len(self.carry) >= _RAW_REGION_CAP)
             if not full:
                 h._arm_timer_locked()
         if full:

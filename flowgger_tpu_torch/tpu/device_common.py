@@ -180,7 +180,9 @@ def ts_text_block(small: Dict[str, np.ndarray]):
     txt = np.zeros((uniq.size, TS_W), dtype=np.uint8)
     ulen = np.zeros(uniq.size, dtype=np.int32)
     for u, val in enumerate(uniq):
-        s = json_f64(float(val)).encode("ascii")[:TS_W]
+        s = json_f64(float(val)).encode("ascii")
+        # fetch_encode_driver's one-probe lengths rest on this bound
+        assert len(s) <= TS_W, f"timestamp text {s!r} exceeds TS_W"
         txt[u, :len(s)] = np.frombuffer(s, dtype=np.uint8)
         ulen[u] = len(s)
     return txt[inv], ulen[inv]
@@ -312,29 +314,40 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
                         fallback_frac: float, decline_limit: int,
                         cooldown: int, wide=None, elide=None,
                         timings: Optional[dict] = None):
-    """The device tier's fetch flow (the reference's, step for step):
+    """The device tier's fetch flow (the reference's decisions, in its
+    order):
 
     1. cooldown: a batch in a cooldown window goes to the host tier;
-    2. phase-1 tier probe at the pessimistic TS_W timestamp width, so a
-       stream that keeps declining never pays the timestamp text;
+    2. phase 1: one probe of the real rows gives each row's tier bit
+       before the width test and its length without the timestamp text
+       (``base``, ``base_len``); the phase-1 tier is the width test at
+       the pessimistic TS_W timestamp width, ``base & (base_len + TS_W
+       <= OW)``, and only that bit crosses, so a stream that keeps
+       declining never pays the timestamp text;
     3. when more than ``fallback_frac`` of the rows fall outside it, the
        wide probe (``wide()``: the batch decoded again at 16 pairs) if
        the format has one and is not cooling it down; then the decline,
        which after ``decline_limit`` in a row starts a cooldown of
        ``cooldown`` batches;
     4. the timestamp text of the phase-1 candidates, uploaded;
-    5. phase 2: the probe with the real text widths; a row rides the
-       tier when phase 2 accepts it and it was a phase-1 candidate;
+    5. each row's length, ``base_len + ts_len``.  The reference probes
+       again with the real text widths and intersects with phase 1;
+       since a text is at most TS_W bytes (``ts_text_block``) and the
+       length grows with it, that intersection is phase 1 itself, so
+       the tier rows are the phase-1 candidates and no second probe
+       runs;
     6. the tier rows' elided bytes, assembled at their offsets (an
-       exclusive scan of the gated lengths) in one flat buffer, fetched
-       whole, the elided constants spliced back on the host;
+       exclusive scan of the gated lengths, on the device) in one flat
+       buffer, fetched whole, the elided constants spliced back on the
+       host;
     7. the syslen prefix, then the other rows through the scalar oracle
        (``finish_block``).
 
-    ``kern`` is an object with ``probe(ts_len) -> (tier, out_len)`` and
-    ``assemble(ts_text, ts_len, row_off, total) -> flat`` on the batch's
-    device, ``N`` rows and ``small_channels() -> (dict, nbytes)`` (the
-    ``ok`` and timestamp channels on the host).  Counts go to
+    ``kern`` is an object with ``probe(n) -> (base, base_len)`` and
+    ``assemble(ts_text, ts_len, row_off, total, n) -> flat`` on the
+    batch's device, ``N`` rows, the output width ``OW`` and
+    ``small_channels() -> (dict, nbytes)`` (the ``ok`` and timestamp
+    channels on the host).  Counts go to
     ``route_state``: ``taken``, ``declined``, ``cooled``, ``wide``,
     ``tier_rows``, ``fetch_bytes`` and ``emit_bytes`` beside the
     reference's hysteresis keys; ``timings`` (optional) collects the
@@ -372,9 +385,12 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
             timings[name] = timings.get(name, 0.0) + now - clock[0]
         clock[0] = now
 
-    full_ts_len = torch.full((N,), TS_W, dtype=torch.int32,
-                             device=kern.device)
-    tier1_np = _fetch(kern.probe(full_ts_len)[0][:n])
+    def phase1(probed) -> np.ndarray:
+        base, base_len = probed
+        return _fetch(base[:n] & (base_len[:n] + TS_W <= kern.OW))
+
+    probed = kern.probe(n)
+    tier1_np = phase1(probed)
 
     starts64 = np.asarray(starts[:n], dtype=np.int64)
     lens64 = np.asarray(orig_lens[:n], dtype=np.int64)
@@ -391,11 +407,11 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
             route_state["wide_cooldown"] = wide_cd - 1
         else:
             kern_w = wide()
-            tier1w = _fetch(kern_w.probe(full_ts_len)[0][:n])
-            cand1w = tier1w & (lens64 <= max_len)
+            probed_w = kern_w.probe(n)
+            cand1w = phase1(probed_w) & (lens64 <= max_len)
             if (1.0 - cand1w.mean()) <= fallback_frac:
                 _count(route_state, "wide")
-                kern, cand1 = kern_w, cand1w
+                kern, probed, cand1 = kern_w, probed_w, cand1w
             elif route_state is not None:
                 route_state["wide_cooldown"] = cooldown
 
@@ -416,7 +432,7 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     small, nbytes = kern.small_channels(n)
     fetched[0] += nbytes
     # only phase-1 candidates get timestamp text; the others carry a
-    # placeholder, so phase-2 acceptance is intersected with cand1
+    # placeholder and stay off the tier
     small["ok"] = small["ok"].astype(bool) & cand1
     ts_np, ts_len_np = ts_text_block(small)
     ts_text = torch.zeros((N, TS_W), dtype=torch.uint8)
@@ -427,21 +443,19 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     ts_len = ts_len.to(kern.device)
     _stage("ts_text")
 
-    tier_d, len_d = kern.probe(ts_len)
-    tier_np = _fetch(tier_d[:n])
+    len_d = probed[1] + ts_len
     # lengths are bounded by OW: they cross as u16
     len_np = _fetch(len_d[:n].to(torch.int32 if kern.OW > 0xFFFF
                                  else torch.uint16)).astype(np.int64)
-    cand = tier_np & cand1
-    ridx = np.flatnonzero(cand)
+    ridx = np.flatnonzero(cand1)
     total = int(len_np[ridx].sum())
     if ridx.size:
         cand_full = torch.zeros(N, dtype=torch.bool)
-        cand_full[:n] = torch.from_numpy(cand)
+        cand_full[:n] = torch.from_numpy(cand1)
         gate = cand_full.to(kern.device)
         gated = torch.where(gate, len_d.to(torch.int64), 0)
         row_off = torch.where(gate, torch.cumsum(gated, 0) - gated, -1)
-        body = _fetch(kern.assemble(ts_text, ts_len, row_off, total))
+        body = _fetch(kern.assemble(ts_text, ts_len, row_off, total, n))
         row_off_h = exclusive_cumsum(len_np[ridx])
     else:
         body = np.zeros(0, dtype=np.uint8)
@@ -465,7 +479,7 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     _count(route_state, "tier_rows", int(ridx.size))
     _count(route_state, "fetch_bytes", fetched[0])
     _count(route_state, "emit_bytes", len(final_buf))
-    res = finish_block(chunk, starts64, lens64, n, cand, ridx, final_buf,
+    res = finish_block(chunk, starts64, lens64, n, cand1, ridx, final_buf,
                        row_off_h, prefix_lens_tier, suffix, syslen, merger,
                        encoder, scalar_fn=scalar_fn)
     _stage("oracle")

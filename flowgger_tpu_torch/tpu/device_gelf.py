@@ -1,8 +1,10 @@
 """Device RFC5424→GELF encode: the tier between the decode and the host
 block encoder.
 
-For each row of a decoded batch the encode computes whether the row is
-in the tier and its output length (a *probe*), and for the tier rows
+For each real row of a decoded batch the encode computes whether the
+row is in the tier before its width test and its output length without
+the timestamp text (a *probe*, once a batch: a row's length is that
+plus its text's, so the width test is the host's), and for the tier rows
 their GELF bytes without the row-constant head, timestamp label and
 tail (an *assemble*), each row written at its byte offset in one flat
 buffer.  The host fetches exactly those bytes plus a few per-row
@@ -14,8 +16,9 @@ the reference's tier, decline and hysteresis rules.
 Two implementations of one contract:
 
 - :func:`encode_rows` — the plain PyTorch version of the JAX package's
-  ``device_gelf._encode_kernel`` (``elide=True``): the same tier mask,
-  ``out_len`` and tier-row bytes.  The CPU takes it, and the tests hold
+  ``device_gelf._encode_kernel`` (``elide=True``): with the width test
+  and the text's length added, the same tier mask, ``out_len`` and
+  tier-row bytes.  The CPU takes it, and the tests hold
   it against the JAX function.
 - the hand-written CUDA kernel ``csrc/encode_gelf.cu`` (through
   ``tpu/kernels.py``), which reads the decode kernel's packed ``[C, N]``
@@ -40,7 +43,7 @@ DIFF_TEST = ("tests/test_torch_device_gelf.py::"
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -115,13 +118,23 @@ def out_width(L: int, suffix: bytes, extras=()) -> int:
 
 
 def encode_rows(batch: torch.Tensor, lens: torch.Tensor,
-                dec: Dict[str, torch.Tensor], ts_text, ts_len: torch.Tensor,
+                dec: Dict[str, torch.Tensor], ts_text=None, ts_len=None,
                 *, suffix: bytes, max_sd: int, extras=(),
-                assemble: bool = True):
+                assemble: bool = True, n: Optional[int] = None):
     """Plain version of the reference's ``_encode_kernel(...,
-    elide=True)`` over a decode channel dict: ``(tier, out_len)``, or
-    with ``assemble`` ``(rows [N, OW] u8, out_len, tier)``.  A tier row
-    holds its elided GELF bytes in ``rows[:out_len]``."""
+    elide=True)`` over a decode channel dict.
+
+    Without ``assemble`` it is the probe: ``(base bool [N], base_len
+    int32 [N])``, the tier rule before its width test and the row's
+    length without its timestamp text, both 0 for rows outside it and
+    for rows at or past ``n`` (default: none).  A row's length is
+    ``base_len + ts_len``, and it is in the tier when ``base`` holds and
+    that length is at most ``out_width``: the reference's ``out_len``
+    and tier mask, whatever the text.
+
+    With ``assemble``: ``(rows [N, OW] u8, out_len, tier)`` at the given
+    timestamp text, where a tier row holds its elided GELF bytes in
+    ``rows[:out_len]``."""
     N, L = batch.shape
     i64 = torch.int64
     bank, off, parts = _bank(suffix, tuple(extras))
@@ -220,27 +233,29 @@ def encode_rows(batch: torch.Tensor, lens: torch.Tensor,
     msg_empty = trim_e <= msg_s
     segs.append((torch.where(msg_empty, cbase + off["dash"], msg_s),
                  torch.where(msg_empty, 1, trim_e - msg_s)))
-    segs.append((zero + tbase, ts_len.to(i64)))
 
-    out_len = segs[0][1]
+    base_len = segs[0][1]
     for _, ln in segs[1:]:
-        out_len = out_len + ln
+        base_len = base_len + ln
 
-    # ---- tier ------------------------------------------------------------
-    tier = (dec["ok"].to(torch.bool)
+    # ---- tier before its width test ---------------------------------------
+    base = (dec["ok"].to(torch.bool)
             & ~dec["has_high"].to(torch.bool)
             & ~es["bad_ctl"].any(dim=1)
             & (es["ne_total"] <= E_CAP)
             & (pair_count <= P)
             & (sd_count <= max_sd)
             & ~val_esc_any
-            & ~ambig
-            & (out_len <= OW))
-    out_len = out_len.to(torch.int32)
+            & ~ambig)
     if not assemble:
-        return tier, out_len
+        if n is not None:
+            base &= torch.arange(N, device=batch.device) < n
+        return base, torch.where(base, base_len, 0).to(torch.int32)
+    # the timestamp text is the last segment
+    segs.append((zero + tbase, ts_len.to(i64)))
+    out_len = base_len + ts_len.to(i64)
     rows, _ = assemble_rows(segs, es["esc_row"], bank, ts_text, OW)
-    return rows, out_len, tier
+    return rows, out_len.to(torch.int32), base & (out_len <= OW)
 
 
 def flat_rows(rows: torch.Tensor, out_len: torch.Tensor,
@@ -303,28 +318,31 @@ class _Rows:
             bank, self.table = kernel_consts(suffix, extras)
             self.bank = _bank_on(bank, batch.device)
 
-    def probe(self, ts_len):
-        """``(tier bool [N], out_len int32 [N])`` on the batch's
-        device."""
+    def probe(self, n: int):
+        """``(base bool [N], base_len int32 [N])`` of the first ``n``
+        rows on the batch's device (:func:`encode_rows` without
+        ``assemble``; 0 for the other rows)."""
         if self.batch.is_cuda:
             from .kernels import encode_gelf_cuda
 
-            return encode_gelf_cuda(self.batch, self.lens, self.out, ts_len,
+            return encode_gelf_cuda(self.batch, self.lens, self.out, n,
                                     self.bank, self.table, self.max_sd,
-                                    self.max_pairs, self.OW)
-        return encode_rows(self.batch, self.lens, self.out, None, ts_len,
-                           assemble=False, **self.kw)
+                                    self.max_pairs)
+        return encode_rows(self.batch, self.lens, self.out, assemble=False,
+                           n=n, **self.kw)
 
-    def assemble(self, ts_text, ts_len, row_off, total):
-        """The elided bytes of the rows with ``row_off >= 0``, each at its
-        offset, in one ``total``-byte u8 buffer on the batch's device."""
+    def assemble(self, ts_text, ts_len, row_off, total, n: int):
+        """The elided bytes of the rows with ``row_off >= 0`` (all below
+        ``n``), each at its offset, in one ``total``-byte u8 buffer on
+        the batch's device."""
         if self.batch.is_cuda:
             from .kernels import encode_gelf_cuda
 
-            return encode_gelf_cuda(self.batch, self.lens, self.out, ts_len,
+            return encode_gelf_cuda(self.batch, self.lens, self.out, n,
                                     self.bank, self.table, self.max_sd,
                                     self.max_pairs, self.OW, ts_text=ts_text,
-                                    row_off=row_off, total=total)
+                                    ts_len=ts_len, row_off=row_off,
+                                    total=total)
         rows, out_len, _ = encode_rows(self.batch, self.lens, self.out,
                                        ts_text, ts_len, **self.kw)
         return flat_rows(rows, out_len, row_off, total)

@@ -14,8 +14,9 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
 - ``structural_index`` — the per-row JSON-lines structural index at 8
   and 24 fields (replaces ``pallas_kernels.structural_index_pallas``);
 - ``encode_gelf`` — the RFC5424→GELF encode of the device tier at 6 and
-  16 pairs, a probe (tier bit and length of every row) and an assemble
-  (the tier rows' bytes at their offsets); it replaces the jnp
+  16 pairs, a probe (each real row's tier bit before the width test and
+  its length without the timestamp text) and an assemble (the tier rows'
+  bytes at their offsets); it replaces the jnp
   ``device_gelf._encode_kernel`` with device_common's escape, sort,
   assembly and compaction stages, not a ``pallas_call``.
 
@@ -32,7 +33,7 @@ raises.  The plain PyTorch versions live beside the dispatchers that
 choose between them by the tensor's device (``framing.sep_spans``,
 ``framing.syslen_spans``, ``framing.gather``,
 ``rfc5424.decode_rfc5424_submit``, ``jsonl.decode_jsonl_submit``,
-``device_gelf.probe`` and ``device_gelf.assemble``).
+and ``device_gelf._Rows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -97,10 +98,11 @@ _SIGNATURES = {
         "fg_structural_index_f24": (_P, _P, _P, _I, _I, _I, _P),
     },
     "encode_gelf": {
-        f"fg_encode_gelf_{mode}_p{p}": (
-            (_P,) * 4 + ((_P,) if mode == "assemble" else ())
-            + (_P, _P, _I, _I, _I, _I, _P, _P, _P))
-        for mode in ("probe", "assemble") for p in (6, 16)
+        **{f"fg_encode_gelf_probe_p{p}": (_P, _P, _P, _P, _I, _I, _I, _I,
+                                          _P, _P, _P) for p in (6, 16)},
+        **{f"fg_encode_gelf_assemble_p{p}": (_P,) * 7 + (_I, _I, _I, _I,
+                                                          _P, _P, _P)
+           for p in (6, 16)},
     },
 }
 _TILE_BYTES = 16384  # kTile in frame_sep_spans.cu
@@ -364,62 +366,65 @@ def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
 
 
 def encode_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
-                     channels: torch.Tensor, ts_len: torch.Tensor,
-                     bank: torch.Tensor, consts, max_sd: int, max_pairs: int,
-                     OW: int, ts_text: Optional[torch.Tensor] = None,
+                     channels: torch.Tensor, n: int, bank: torch.Tensor,
+                     consts, max_sd: int, max_pairs: int, OW: int = 0,
+                     ts_text: Optional[torch.Tensor] = None,
+                     ts_len: Optional[torch.Tensor] = None,
                      row_off: Optional[torch.Tensor] = None,
                      total: int = 0):
-    """The device GELF encode of ``batch`` (u8 [N, L]) from the decode
-    kernel's packed ``channels`` (int32 [C, N] at ``max_sd`` = 4 and
-    ``max_pairs`` = 6 or 16), the timestamp lengths (int32 [N]) and the
-    constant bank (u8 on the device; ``consts`` is the host table of
+    """The device GELF encode of the first ``n`` rows of ``batch`` (u8
+    [N, L]) from the decode kernel's packed ``channels`` (int32 [C, N] at
+    ``max_sd`` = 4 and ``max_pairs`` = 6 or 16) and the constant bank
+    (u8 on the device; ``consts`` is the host table of
     ``device_gelf.kernel_consts``).
 
-    Without ``row_off`` it probes: ``(tier bool [N], out_len int32
-    [N])``.  With ``row_off`` (int64 [N]) and ``ts_text`` (u8 [N, 32]) it
-    assembles: a u8 [total] buffer holding the elided bytes of each row
-    whose offset is not negative, at that offset."""
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32
+    [N])``, the tier bit before the width test and the length without
+    the timestamp text, 0 for rows outside it and rows at or past ``n``.
+    With ``row_off`` (int64 [N]), ``ts_text`` (u8 [N, 32]), ``ts_len``
+    (int32 [N]) and the output width ``OW`` it assembles: a u8 [total]
+    buffer holding the elided bytes of each row whose offset is not
+    negative, at that offset."""
     from .device_common import TS_W
     from .rfc5424 import n_channels
 
     _need(batch, "batch", torch.uint8, 2)
     _need(lens, "lens", torch.int32, 1)
     _need(channels, "channels", torch.int32, 2)
-    _need(ts_len, "ts_len", torch.int32, 1)
     _need(bank, "bank", torch.uint8, 1)
     N, L = batch.shape
     if max_pairs not in (6, 16):
         raise ValueError(f"no encode_gelf kernel for max_pairs={max_pairs}")
-    if (channels.shape != (n_channels(4, max_pairs), N)
-            or lens.shape[0] != N or ts_len.shape[0] != N):
+    if channels.shape != (n_channels(4, max_pairs), N) or lens.shape[0] != N:
         raise ValueError("channels must be the [C, N] decode output at "
-                         "max_sd=4 and lens/ts_len one entry per row")
-    if not 1 <= L < 1 << 15 or bank.device != batch.device:
-        raise ValueError(f"bad encode geometry L={L}")
+                         "max_sd=4 and lens one entry per row")
+    if not 1 <= L < 1 << 15 or not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L} n={n} N={N}")
     dev = batch.device
     lib = _lib("encode_gelf")
     if row_off is None:
         tier = torch.empty(N, dtype=torch.bool, device=dev)
-        out_len = torch.empty(N, dtype=torch.int32, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
         rc = getattr(lib, f"fg_encode_gelf_probe_p{max_pairs}")(
-            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
-            ts_len.data_ptr(), bank.data_ptr(), consts, N, L, max_sd, OW,
-            tier.data_ptr(), out_len.data_ptr(), _stream())
+            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
+            N, n, L, max_sd, tier.data_ptr(), base_len.data_ptr(), _stream())
         _check(rc, "encode_gelf probe")
         LAUNCHES[f"encode_gelf_probe_p{max_pairs}"] += 1
-        return tier, out_len
+        return tier, base_len
     _need(row_off, "row_off", torch.int64, 1)
     _need(ts_text, "ts_text", torch.uint8, 2)
-    if row_off.shape[0] != N or ts_text.shape != (N, TS_W):
-        raise ValueError("row_off must have one entry per row and ts_text "
-                         f"be [N, {TS_W}]")
+    _need(ts_len, "ts_len", torch.int32, 1)
+    if (row_off.shape[0] != N or ts_len.shape[0] != N
+            or ts_text.shape != (N, TS_W) or OW < 1):
+        raise ValueError("row_off and ts_len must have one entry per row, "
+                         f"ts_text be [N, {TS_W}] and OW positive")
     flat = torch.empty(total, dtype=torch.uint8, device=dev)
     if total == 0:
         return flat
     rc = getattr(lib, f"fg_encode_gelf_assemble_p{max_pairs}")(
         batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
-        ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, L,
-        max_sd, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
+        ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
+        L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "encode_gelf assemble")
     LAUNCHES[f"encode_gelf_assemble_p{max_pairs}"] += 1
     return flat

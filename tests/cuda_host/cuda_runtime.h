@@ -16,7 +16,8 @@
 // atomicAdd goes through std::atomic_ref, __threadfence is a sequentially
 // consistent std::atomic_thread_fence, and volatile loads and stores are
 // the compiler's own.  __shared__ variables become
-// statics (one block at a time, so one copy suffices).
+// statics (one block at a time, so one copy suffices); the dynamic
+// shared memory starts each launch filled with 0xA5, not zeros.
 // tests/cuda_host/build.py rewrites `kernel<<<grid, block, smem,
 // stream>>>(args)` into emu_launch(...) and `extern __shared__ T name[]`
 // into a pointer at the dynamic buffer.  This checks the kernels' logic
@@ -55,7 +56,7 @@ inline dim3 blockIdx, blockDim, gridDim;
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 template <class F>
@@ -167,7 +168,9 @@ template <class K, class... A>
 inline void emu_launch(K kern, dim3 grid, dim3 block, size_t smem,
                        cudaStream_t, A... args) {
   const int nt = static_cast<int>(block.x);
-  g_dyn_smem.assign(smem + 16, 0);
+  // the card leaves shared memory as the last block left it: fill it
+  // with a pattern, so a read of a byte no thread wrote shows
+  g_dyn_smem.assign(smem + 16, 0xA5);
   g_shfl_slots.assign(2 * nt, 0);
   gridDim = grid;
   blockDim = block;

@@ -86,21 +86,22 @@ def test_refuses_without_a_card_or_outside_a_checkout(tmp_path):
 
 def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
     """E1's chip check on the CPU with its wrapper standing in for the
-    plain version: the probe's bound counts each row's 14 fixed channels,
-    the last SD id span of rows with 1-4 SD elements and 5 channels for
-    each of its first min(pair_count, P) pairs; the checked shape is
+    plain version: the probe's bound counts each real row's valid bytes,
+    length, 14 fixed channels, the last SD id span of rows with 1-4 SD
+    elements and 5 channels for each of its first min(pair_count, P)
+    pairs, and every row's bit and length; the checked shape is
     recorded, and ``e1_shapes`` records a launch by its shape."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_corpus
     from flowgger_tpu_torch.tpu import device_gelf, kernels, pack, rfc5424
 
-    def plain(batch, lens, ch, ts_len, bank, table, max_sd, P, OW, **kw):
-        assert bank.numel() and len(table) and OW == 1024
+    def plain(batch, lens, ch, n, bank, table, max_sd, P, OW=0, **kw):
+        assert bank.numel() and len(table) and not kw
         kernels.LAUNCHES[f"encode_gelf_probe_p{P}"] += 1
         return device_gelf.encode_rows(
-            batch, lens, rfc5424.unpack_channels(ch, max_sd, P), None,
-            ts_len, suffix=b"\0", max_sd=max_sd, assemble=False)
+            batch, lens, rfc5424.unpack_channels(ch, max_sd, P),
+            suffix=b"\0", max_sd=max_sd, assemble=False, n=n)
 
     monkeypatch.setattr(kernels, "encode_gelf_cuda", plain)
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, **kw: fn() and 0.0)
@@ -114,17 +115,17 @@ def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
     keys = [*rfc5424._KEYS_1D, *rfc5424._KEYS_SD, *rfc5424._KEYS_PAIR]
     packed = torch.cat([dec[k].to(torch.int32).reshape(bt.shape[0], -1).t()
                         for k in keys]).contiguous()
-    ts_len = torch.full((bt.shape[0],), 32, dtype=torch.int32)
-    row, = chip_smoke.encode_case(6, bt, lt, packed, ts_len)
-    pc = dec["pair_count"].to(torch.int64).clamp(0, 6)
-    sdc = dec["sd_count"].to(torch.int64)
+    N, n = bt.shape[0], 50
+    row, = chip_smoke.encode_case(6, bt, lt, packed, n)
+    pc = dec["pair_count"].to(torch.int64).clamp(0, 6)[:n]
+    sdc = dec["sd_count"].to(torch.int64)[:n]
     assert (pc < 6).any() and (sdc == 0).any()
-    N = bt.shape[0]
     channels = 4 * int((14 + 5 * pc + 2 * ((sdc >= 1) & (sdc <= 4))).sum())
-    assert row["bound_bytes"] == int(lt.sum()) + channels + 9 * N
-    assert row["bound_bytes"] < int(lt.sum()) + 4 * (14 + 8 + 30) * N + 9 * N
+    valid = int(lt[:n].sum())
+    assert row["bound_bytes"] == valid + channels + 4 * n + 5 * N
+    assert row["bound_bytes"] < valid + 4 * (14 + 8 + 30) * n + 9 * N
     assert chip_smoke.E1_CHECKED == {("encode_gelf_probe_p6", (N, 512))}
     with chip_smoke.e1_shapes() as seen:
-        kernels.encode_gelf_cuda(bt[:256], lt[:256], packed[:, :256],
-                                 ts_len[:256], torch.ones(1), [0], 4, 6, 1024)
+        kernels.encode_gelf_cuda(bt[:256], lt[:256], packed[:, :256], 256,
+                                 torch.ones(1), [0], 4, 6)
     assert seen == {("encode_gelf_probe_p6", (256, 512))}

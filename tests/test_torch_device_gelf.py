@@ -146,17 +146,72 @@ def test_plain_encode_matches_jax_kernel(merger, extras, max_pairs):
     acc, r_len, r_tier = (np.asarray(acc), np.asarray(r_len),
                           np.asarray(r_tier))
 
-    rows, p_len, p_tier = DG.encode_rows(
+    # the probe's outputs composed as fetch_encode_driver composes them:
+    # a row's length is base_len + its text's, the width test the host's
+    kw = {"suffix": SUFFIX[merger], "max_sd": 4, "extras": extras}
+    base, base_len = DG.encode_rows(bt, lt, dec, assemble=False, n=n, **kw)
+    OW = DG.out_width(L, SUFFIX[merger], extras)
+    p_len = base_len.numpy() + ts_len
+    p_tier = base.numpy() & (p_len <= OW)
+    rows, a_len, a_tier = DG.encode_rows(
         bt, lt, dec, torch.from_numpy(ts_text), torch.from_numpy(ts_len),
-        suffix=SUFFIX[merger], max_sd=4, extras=extras)
-    p_tier, p_len, rows = p_tier.numpy(), p_len.numpy(), rows.numpy()
+        **kw)
+    rows = rows.numpy()
+    assert (a_tier.numpy() == p_tier).all()
     assert (p_tier == r_tier).all()
     assert p_tier[:n].sum() > n // 2 and (~p_tier[:n]).sum() > 10
     t = np.flatnonzero(p_tier)
     assert (p_len[t] == r_len[t]).all()
+    assert (a_len.numpy()[t] == r_len[t]).all()
     assert rows.shape == acc.shape
     for i in t:
         assert rows[i, :p_len[i]].tobytes() == acc[i, :r_len[i]].tobytes(), i
+
+
+@pytest.mark.parametrize("corpus", ["rfc5424", "tier"])
+def test_one_probe_matches_the_two_probe_rule(corpus):
+    """fetch_encode_driver's one probe against the reference's two (its
+    ``_encode_kernel`` at the pessimistic TS_W width, then with the real
+    timestamp text, intersected): the phase-1 candidates are the same
+    rows, intersecting with phase 2 changes none of them, and each
+    one's length is ``base_len + ts_len``."""
+    make = make_tier_corpus if corpus == "tier" else make_corpus
+    lines, _ = make(250, seed=45)
+    batch, lens, _, _, orig, n = pack.pack_lines_2d(lines, L)
+    assert batch.shape == (256, L)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    dec = T.decode_rfc5424(bt, lt, 4, 6)
+    base, base_len = DG.encode_rows(bt, lt, dec, suffix=b"\n", max_sd=4,
+                                    assemble=False, n=n)
+    base, base_len = base.numpy()[:n], base_len.numpy()[:n]
+    OW = DG.out_width(L, b"\n")
+    short = orig[:n] <= L
+    cand1 = base & (base_len + DC.TS_W <= OW) & short
+
+    jb, jl = jnp.asarray(batch), jnp.asarray(lens)
+    rdec = dict(RT.decode_rfc5424_jit(jb, jl, max_sd=4, max_pairs=6))
+
+    def ref_probe(ts_text, ts_len):
+        _, r_len, r_tier = RG._encode_kernel(
+            jb, jl, rdec, jnp.asarray(ts_text), jnp.asarray(ts_len),
+            suffix=b"\n", max_sd=4, impl=RT.best_scan_impl(),
+            assemble=True, extras=(), elide=True)
+        return np.asarray(r_len)[:n], np.asarray(r_tier)[:n]
+
+    ts_text = np.zeros((256, DC.TS_W), np.uint8)
+    _, r_tier1 = ref_probe(ts_text, np.full(256, DC.TS_W, np.int32))
+    assert ((r_tier1 & short) == cand1).all()
+    small = {k: dec[k][:n].numpy() for k in ("ok", "days", "sod", "off",
+                                             "nanos")}
+    small["ok"] = small["ok"].astype(bool) & cand1
+    txt, tl = DC.ts_text_block(small)
+    ts_len = np.zeros(256, np.int32)
+    ts_text[:n], ts_len[:n] = txt, tl
+    r_len2, r_tier2 = ref_probe(ts_text, ts_len)
+    assert ((r_tier2 & cand1) == cand1).all()
+    c = np.flatnonzero(cand1)
+    assert (r_len2[c] == base_len[c] + tl[c]).all()
+    assert 0.5 * n < c.size < n
 
 
 def _wide_line(k):
@@ -262,9 +317,9 @@ def test_tier_corpus_stays_under_the_decline_threshold():
     batch, lens, _, _, orig, n = pack.pack_lines_2d(lines, 512)
     bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
     dec = T.decode_rfc5424(bt, lt)
-    tier, _ = DG.encode_rows(bt, lt, dec, None,
-                             torch.full((n,), DC.TS_W, dtype=torch.int32),
-                             suffix=b"\0", max_sd=4, assemble=False)
+    base, base_len = DG.encode_rows(bt, lt, dec, suffix=b"\0", max_sd=4,
+                                    assemble=False, n=n)
+    tier = base & (base_len + DC.TS_W <= DG.out_width(512, b"\0"))
     cand = tier.numpy()[:n] & (orig[:n] <= 512)
     kinds = np.asarray(kinds)
     assert cand[kinds == "tier"].all()
