@@ -1,12 +1,15 @@
 """Chip smoke run of flowgger_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--lines N]
+    python3 chip_smoke.py [--seed N] [--lines N] [--host-ab ROUNDS]
 
 Phases, each printing JSON lines:
 
 1. device — ``nvidia-smi`` name and power limit, torch's device name,
-   the SM clock under a spin kernel;
-2. build  — the six CUDA kernels compiled from ``flowgger_tpu_torch/csrc``
+   the SM clock under a spin kernel, the host's CPU model and count;
+2. build  — the native host tier (``csrc/flowgger_host.cpp``, g++; a
+   ``host_build`` line with the compiler's version, the flags, the
+   seconds and whether the library was cached), then the six CUDA
+   kernels compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
    bytes as ``nvcc -Xptxas -v`` reports them (E1's four instantiations
@@ -33,15 +36,23 @@ Phases, each printing JSON lines:
    end-of-stream batch's shape, 200 of them real), and E1's phase-1
    probes at 6 and 16 pairs on the rfc5424 line path's flush batch and
    the syslen flush batch;
-4. breakdown — the host-clock wall of each stage of the RFC5424 and the
+4. native — each export of the native host tier against its plain
+   numpy or Python version, byte for byte, at the e2e runs' shapes (the
+   tier path's stamps and constant splice, the jsonl path's body
+   gather, the GELF row engine against the numpy engine on the rfc5424
+   path's flush batch), with the host-clock time of both;
+5. breakdown — the host-clock wall of each stage of the RFC5424 and the
    JSON-lines paths over eight full regions each (framing, decode, block
-   encode, sink write), and of the tier mix through the device encode
+   encode split into its engine and its oracle rows, sink write; the
+   RFC5424 path again on the block encoder's numpy engine, which must
+   write the same bytes), and of the tier mix through the device encode
    tier (its block encode split into probe, timestamp text, assemble +
-   fetch, splice and oracle rows) and through the host tier; then
+   fetch, splice and oracle rows) and through the host tier on either
+   engine (engine and oracle rows apart); then
    (``encode_ab``) what the tier costs the rfc5424 mix, which it
    declines: one batch's decline alone, and the rfc5424 / line
    configuration in process with the tier on and off, alternating;
-5. e2e    — four configurations through the port's entry points on
+6. e2e    — four configurations through the port's entry points on
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing), stdin →
    jsonl_tpu → GELF (line framing), stdin → rfc5424_tpu → GELF (syslen
    framing) and stdin → rfc5424_tpu → GELF over the tier mix (line
@@ -53,7 +64,10 @@ Phases, each printing JSON lines:
    bytes a tier row than it emits; every run must launch E1 only at
    batch shapes the kernels phase checked, and the rfc5424 runs one
    6-pair probe a probed batch and one assemble a taken batch, the
-   16-pair probes being the wide attempts), and once as ``python -m
+   16-pair probes being the wide attempts; the native row engine must
+   have written every rfc5424 host-tier batch that had tier rows and the
+   native formatter every taken batch's timestamp text, by
+   ``native.CALLS``), and once as ``python -m
    flowgger_tpu_torch cfg.toml`` in a subprocess.  Both runs' GELF bytes
    and stderr lines must equal the port's scalar path over the same
    bytes (``corpus.scalar_expectation``).  Each reports the device
@@ -70,7 +84,14 @@ kernels of a tree, call the first three phases from its root:
 c.phase_kernels(20261016)"``.
 
 It then prints the kernel table, the card's ``nvidia-smi`` line, and as
-its last line ``{"ok": true, "device": {...}}``.  Any failed phase raises
+its last line ``{"ok": true, "device": {...}}``.
+
+``--host-ab ROUNDS`` runs the device and build phases and then only
+:func:`phase_host_ab`: the rfc5424, jsonl and tier-mix breakdowns in
+fresh processes with the native host tier as shipped, on one thread a
+call, and not loaded at all, rotating for ``ROUNDS`` rounds, to see
+whether the library slows the Python it does not replace (the oracle
+rows).  It ends with the ``nvidia-smi`` line.  Any failed phase raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.  Scratch files go to ``build/chip_smoke``.
 """
@@ -221,8 +242,32 @@ def phase_device():
     emit({"phase": "device", "nvidia_smi": line,
           "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "sm_clock_mhz": spin_clock_mhz()})
+          "sm_clock_mhz": spin_clock_mhz(), "host_cpu": host_cpu(),
+          "host_cpu_count": os.cpu_count()})
     return line
+
+
+def host_cpu() -> str:
+    """The host's CPU model and architecture (``lscpu``, else
+    ``/proc/cpuinfo``): the host tier's stages run there."""
+    import platform
+
+    model = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.startswith("Model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not model:
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next((ln.split(":", 1)[1].strip() for ln in f
+                              if ln.startswith("model name")), "")
+        except OSError:
+            pass
+    return f"{model or 'unknown model'} ({platform.machine()})"
 
 
 def spin_clock_mhz(cycles: int = 1 << 26) -> float:
@@ -288,8 +333,15 @@ def ptxas_resources(log: str) -> list:
 
 
 def phase_build():
+    from flowgger_tpu_torch import native
     from flowgger_tpu_torch.tpu import kernels
 
+    # the native host tier (g++, a few seconds) first, then the kernels
+    host = native.build()
+    emit({"phase": "host_build", "compiler": host["compiler"],
+          "version": host["version"], "flags": host["flags"],
+          "seconds": host["seconds"], "cached": host["cached"],
+          "library": os.path.relpath(host["path"], ROOT)})
     t0 = time.perf_counter()
     res = kernels.build()
     wall = time.perf_counter() - t0
@@ -900,30 +952,296 @@ def phase_kernels(seed: int):
     return rows
 
 
-def phase_breakdown(seed: int, fmt: str, n_batches: int = 8):
+def host_ms(fn, iters: int = 5) -> float:
+    """Median host-clock ms of ``iters`` calls of ``fn`` after one
+    unrecorded call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def recorded_calls(module, attr: str, calls: list):
+    """Records the arguments of each call of ``module.attr`` made inside
+    the block."""
+    fn = getattr(module, attr)
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, attr, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+@contextlib.contextmanager
+def numpy_engine():
+    """The GELF block encoder on its numpy engine (the JAX package's
+    ``gelf_extra`` engine) inside the block: the package has no knob, so
+    the engine check is patched."""
+    from flowgger_tpu_torch import native
+
+    avail = native.gelf_rows_available
+    native.gelf_rows_available = lambda: False
+    try:
+        yield
+    finally:
+        native.gelf_rows_available = avail
+
+
+@contextlib.contextmanager
+def plain_gather():
+    """Every segment gather on the plain numpy version inside the
+    block (``concat_segments`` is imported by name in four modules)."""
+    from flowgger_tpu_torch.tpu import (assemble, block_common,
+                                        device_common, encode_gelf_block,
+                                        encode_jsonl_block)
+
+    mods = (assemble, block_common, device_common, encode_gelf_block,
+            encode_jsonl_block)
+    saved = [m.concat_segments for m in mods]
+    for m in mods:
+        m.concat_segments = assemble._concat_segments_np
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.concat_segments = fn
+
+
+def _same_arrays(what: str, got, ref) -> None:
+    import numpy as np
+
+    for g, r in zip(got, ref):
+        if isinstance(r, np.ndarray):
+            if g.dtype != r.dtype or not np.array_equal(g, r):
+                raise AssertionError(f"native {what} differs from its plain "
+                                     f"version")
+        elif g != r:
+            raise AssertionError(f"native {what} differs from its plain "
+                                 f"version: {g!r} vs {r!r}")
+
+
+def phase_native(seed: int):
+    """Each export of the native host tier (``csrc/flowgger_host.cpp``)
+    against its plain numpy or Python version at the e2e runs' shapes,
+    byte for byte, with the host-clock time of both: the timestamp text
+    of the tier path's flush batch (~16 470 records) and the segment
+    gather of its constant splice, the jsonl path's body gather, and the
+    GELF row engine inside the block encoder against the numpy engine on
+    the rfc5424 path's flush batch."""
+    import numpy as np
+    import torch
+
+    from flowgger_tpu_torch import native
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                           make_tier_corpus)
+    from flowgger_tpu_torch.encoders import GelfEncoder
+    from flowgger_tpu_torch.mergers import NulMerger
+    from flowgger_tpu_torch.tpu import (assemble, device_common, device_gelf,
+                                        encode_gelf_block, encode_jsonl_block,
+                                        framing)
+    from flowgger_tpu_torch.tpu.batch import _ROUTES
+    from flowgger_tpu_torch.tpu.rfc5424 import (decode_rfc5424_fetch,
+                                                decode_rfc5424_submit)
+
+    src = "flowgger_tpu_torch/csrc/flowgger_host.cpp"
+    dev = torch.device("cuda")
+    encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
+
+    def case(name, export, replaces, fast, plain, work):
+        got, ref = fast(), plain()
+        _same_arrays(name, got, ref)
+        row = {"phase": "native", "name": name, "export": export,
+               "source": src, "replaces": replaces, "identical": True,
+               "ms": host_ms(fast), "plain_ms": host_ms(plain), **work}
+        emit(row)
+
+    region, n = line_flush(make_tier_corpus(2 * BATCH, seed + 9)[0])
+
+    # the tier path's flush batch through the device tier, recording the
+    # splice's gather
+    packed, _, _ = framing.device_frame_region(region, "line", MAX_LEN, n,
+                                               dev)
+    handle = decode_rfc5424_submit(packed[0], packed[1])
+    kern = device_gelf._Rows(handle[1], handle[2], handle[0], handle[3], 6,
+                             b"\0", ())
+    small, _ = kern.small_channels(n)
+    case("format_f64_json", "fg_format_f64_json",
+         "native/flowgger_host.cpp:980",
+         lambda: device_common.ts_text_block(small),
+         lambda: device_common._ts_text_block_np(small),
+         {"where": "tier path, flush batch stamps", "values": n,
+          "distinct": int(np.unique(device_common._ts_vals(small)).size)})
+    calls = []
+    with recorded_calls(device_common, "concat_segments", calls):
+        res, _ = device_gelf.fetch_encode(handle, packed, encoder, merger, {})
+    if res is None or len(calls) != 1:
+        raise AssertionError(f"the device tier did not take the tier path's "
+                             f"flush batch through one splice ({len(calls)})")
+    args = calls[0][0]
+    case("concat_segments", "fg_concat_segments",
+         "native/flowgger_host.cpp:893",
+         lambda: (assemble.concat_segments(*args),),
+         lambda: (assemble._concat_segments_np(*args),),
+         {"where": "tier path, constant splice", "segments": int(
+             args[1].size), "bytes": int(args[2].sum())})
+
+    # the GELF row engine: the rfc5424 path's flush batch through the host
+    # tier's block encoder with each engine
+    rregion, rn = line_flush(make_corpus(2 * BATCH, seed + 3)[0])
+    rpacked, _, _ = framing.device_frame_region(rregion, "line", MAX_LEN, rn,
+                                                dev)
+    host = decode_rfc5424_fetch(decode_rfc5424_submit(rpacked[0],
+                                                      rpacked[1]))
+
+    def encode():
+        return encode_gelf_block.encode_rfc5424_gelf_block(
+            rpacked[2], rpacked[3], rpacked[4], host, rpacked[5], MAX_LEN,
+            encoder, merger)
+
+    def encode_np():
+        with numpy_engine():
+            return encode()
+
+    nat, nump = encode(), encode_np()
+    if bytes(nat.block.data) != bytes(nump.block.data) or \
+            nat.errors != nump.errors:
+        raise AssertionError("the native and numpy GELF engines differ on "
+                             "the rfc5424 flush batch")
+    calls = []
+    with recorded_calls(native, "gelf_rows_native", calls):
+        encode()
+    rargs = calls[0][0]
+    # the JSON-lines block encoder's body gather on the jsonl path's
+    # flush batch, and its whole block encode with the native gather and
+    # with the plain one, alternating
+    jregion, jn = line_flush(make_jsonl_corpus(2 * BATCH, seed + 7)[0])
+    jpacked, _, _ = framing.device_frame_region(jregion, "line", MAX_LEN,
+                                                jn, dev)
+    jsubmit, jfetch, jencode = _ROUTES["jsonl"]
+    jhost = jfetch(jsubmit(jpacked[0], jpacked[1]))
+
+    def jenc():
+        return jencode(jpacked[2], jpacked[3], jpacked[4], jhost, jpacked[5],
+                       MAX_LEN, encoder, merger)
+
+    calls = []
+    with recorded_calls(encode_jsonl_block, "concat_segments", calls):
+        jres = jenc()
+    jargs = calls[-1][0]
+    case("concat_segments", "fg_concat_segments",
+         "native/flowgger_host.cpp:893",
+         lambda: (assemble.concat_segments(*jargs),),
+         lambda: (assemble._concat_segments_np(*jargs),),
+         {"where": "jsonl path, block body", "segments": int(jargs[1].size),
+          "bytes": int(jargs[2].sum())})
+    ab = {"native": [], "plain": []}
+    for i in range(10):
+        side = ("native", "plain")[(i + i // 2) % 2]
+        with contextlib.ExitStack() as stack:
+            if side == "plain":
+                stack.enter_context(plain_gather())
+            t0 = time.perf_counter()
+            res = jenc()
+            ab[side].append((time.perf_counter() - t0) * 1e3)
+        if bytes(res.block.data) != bytes(jres.block.data):
+            raise AssertionError("the JSON-lines block encoder's output "
+                                 "depends on its gather")
+    emit({"phase": "native", "name": "jsonl_block_encode",
+          "where": "jsonl path, flush batch", "records": jn,
+          "oracle_rows": jres.fallback_rows, "gather_calls": len(calls),
+          "ms_native_gather": ab["native"], "ms_plain_gather": ab["plain"]})
+
+    emit({"phase": "native", "name": "gelf_rows",
+          "export": "fg_gelf_lens_v2 + fg_gelf_write_v2", "source": src,
+          "replaces": "native/flowgger_host.cpp:687, :701",
+          "identical": True, "where": "rfc5424 line path, flush batch",
+          "records": rn, "tier_rows": int(rargs[1].shape[0]),
+          "engine_ms": host_ms(lambda: native.gelf_rows_native(*rargs)),
+          "block_encode_ms": host_ms(encode),
+          "oracle_rows": nat.fallback_rows,
+          "numpy_block_encode_ms": host_ms(encode_np),
+          "numpy_oracle_rows": nump.fallback_rows})
+
+
+@contextlib.contextmanager
+def stage_clock(module, walls: dict, **stages):
+    """Adds the host-clock seconds of each call of ``module.<attr>``
+    made inside the block to ``walls[key]``, for each ``key=attr`` of
+    ``stages``: a block encoder's scalar-oracle rows (``finish_block``,
+    which also splices them with the tier rows) and its timestamp text
+    (``ts_scratch`` / ``span_f64_scratch``)."""
+    saved = {attr: getattr(module, attr) for attr in stages.values()}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
+    for key, attr in stages.items():
+        walls.setdefault(key, 0.0)
+        setattr(module, attr, timed(key, saved[attr]))
+    try:
+        yield walls
+    finally:
+        for attr, fn in saved.items():
+            setattr(module, attr, fn)
+
+
+def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
+                    engine: str = "native", lines=None):
     """Host-clock walls of one path's stages, each ending in a
     synchronize, over ``n_batches`` full line regions: device framing
     (upload, span and gather kernels, span metadata back), decode
-    (kernel, fetch, wider rescue), block encode (numpy engine plus the
-    scalar oracle rows), and the sink write."""
+    (kernel, fetch, wider rescue), block encode (the engine, then the
+    scalar oracle rows, timed apart), and the sink write.  ``engine =
+    "numpy"`` runs the GELF block encoder on its numpy engine;
+    ``lines`` replaces the corpus made from ``seed``.  Returns the
+    written bytes."""
     import torch
 
     from flowgger_tpu_torch.config import Config
     from flowgger_tpu_torch.corpus import make_corpus, make_jsonl_corpus
     from flowgger_tpu_torch.encoders import GelfEncoder
     from flowgger_tpu_torch.mergers import NulMerger
-    from flowgger_tpu_torch.tpu import framing
+    from flowgger_tpu_torch.tpu import (encode_gelf_block, encode_jsonl_block,
+                                        framing)
     from flowgger_tpu_torch.tpu.batch import _ROUTES
 
     dev = torch.device("cuda")
-    make = make_jsonl_corpus if fmt == "jsonl" else make_corpus
-    lines, _ = make(n_batches * BATCH, seed + 1)
+    if lines is None:
+        make = make_jsonl_corpus if fmt == "jsonl" else make_corpus
+        lines, _ = make(n_batches * BATCH, seed + 1)
     submit, fetch, encode = _ROUTES[fmt]
     encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
     walls = {"frame": 0.0, "decode": 0.0, "encode": 0.0, "write": 0.0}
+    inner = {}
     fallback = 0
     WORK.mkdir(parents=True, exist_ok=True)
-    with open(WORK / f"breakdown_{fmt}.out", "wb", buffering=0) as sink:
+    out = WORK / f"breakdown_{fmt}_{engine}.out"
+    if fmt == "jsonl":
+        module, stamps = encode_jsonl_block, "span_f64_scratch"
+    else:
+        module, stamps = encode_gelf_block, "ts_scratch"
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(stage_clock(module, inner, oracle="finish_block",
+                                        stamps=stamps))
+        if engine == "numpy":
+            stack.enter_context(numpy_engine())
+        sink = stack.enter_context(open(out, "wb", buffering=0))
         for b in range(n_batches):
             region = b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
             t0 = time.perf_counter()
@@ -944,39 +1262,59 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8):
             walls["write"] += t4 - t3
             fallback += res.fallback_rows
     total = sum(walls.values())
-    emit({"phase": "breakdown", "format": fmt, "lines": n_batches * BATCH,
-          "wall_s": walls, "share": {k: v / total for k, v in walls.items()},
+    # the engine's share includes its timestamp text, shown apart too
+    walls["encode_engine"] = walls["encode"] - inner["oracle"]
+    walls["encode_engine_stamps"] = inner["stamps"]
+    walls["encode_oracle"] = inner["oracle"]
+    emit({"phase": "breakdown", "format": fmt, "engine": engine,
+          "lines": n_batches * BATCH, "wall_s": walls,
+          "share": {k: v / total for k, v in walls.items()},
           "oracle_rows": fallback,
           "lines_per_s": n_batches * BATCH / total})
+    return out.read_bytes()
 
 
-def phase_breakdown_tier(seed: int, n_batches: int = 8):
-    """The tier mix over ``n_batches`` full line regions twice on one
-    card: through the device encode tier, its block encode split into
+def phase_breakdown_tier(seed: int, n_batches: int = 8,
+                         tiers=("device", "host", "host_numpy"), lines=None):
+    """The tier mix over ``n_batches`` full line regions three times on
+    one card: through the device encode tier, its block encode split into
     the probe (phase 1 and wide), the timestamp text, assemble + fetch,
     the constant splice and the oracle rows (``finish_block``); then
-    through the host tier (channels fetched, numpy block engine).  Host
-    clock, each stage ending in a synchronize or a fetch."""
+    through the host tier (channels fetched, the block encoder's native
+    engine, then its oracle rows, timed apart), and through the host tier
+    on the numpy engine (``tiers`` picks some of the three).  Host
+    clock, each stage ending in a synchronize or a fetch.  The three must
+    write the same bytes.  ``lines`` replaces the corpus made from
+    ``seed``.  Returns the bytes each wrote."""
     import torch
 
     from flowgger_tpu_torch.config import Config
     from flowgger_tpu_torch.corpus import make_tier_corpus
     from flowgger_tpu_torch.encoders import GelfEncoder
     from flowgger_tpu_torch.mergers import NulMerger
-    from flowgger_tpu_torch.tpu import device_gelf, framing
+    from flowgger_tpu_torch.tpu import device_gelf, encode_gelf_block, framing
     from flowgger_tpu_torch.tpu.batch import _ROUTES
 
     dev = torch.device("cuda")
-    lines, _ = make_tier_corpus(n_batches * BATCH, seed + 4)
+    if lines is None:
+        lines, _ = make_tier_corpus(n_batches * BATCH, seed + 4)
     submit, fetch, encode = _ROUTES["rfc5424"]
     encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
     WORK.mkdir(parents=True, exist_ok=True)
     outs = {}
-    for tier in ("device", "host"):
+    for tier in tiers:
         walls = {"frame": 0.0, "decode": 0.0, "write": 0.0}
         state, stages, fallback = {}, {}, 0
-        with open(WORK / f"breakdown_tier_{tier}.out", "wb",
-                  buffering=0) as sink:
+        inner = {}
+        with contextlib.ExitStack() as stack:
+            if tier != "device":
+                stack.enter_context(stage_clock(
+                    encode_gelf_block, inner, oracle="finish_block",
+                    stamps="ts_scratch"))
+            if tier == "host_numpy":
+                stack.enter_context(numpy_engine())
+            sink = stack.enter_context(open(
+                WORK / f"breakdown_tier_{tier}.out", "wb", buffering=0))
             for b in range(n_batches):
                 region = b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
                 t0 = time.perf_counter()
@@ -1011,14 +1349,21 @@ def phase_breakdown_tier(seed: int, n_batches: int = 8):
         outs[tier] = (WORK / f"breakdown_tier_{tier}.out").read_bytes()
         walls.update(stages)
         total = sum(walls.values())
+        if tier != "device":
+            walls["block_encode_engine"] = (walls["block_encode"]
+                                            - inner["oracle"])
+            walls["block_encode_engine_stamps"] = inner["stamps"]
+            walls["block_encode_oracle"] = inner["oracle"]
         emit({"phase": "breakdown", "format": "rfc5424_tier", "tier": tier,
               "lines": n_batches * BATCH, "wall_s": walls,
               "share": {k: v / total for k, v in walls.items()},
               "oracle_rows": fallback, "route_state": state,
               "lines_per_s": n_batches * BATCH / total})
-    if outs["device"] != outs["host"]:
-        raise AssertionError("the device and host tiers wrote different "
-                             "bytes for the tier mix")
+    if len(set(outs.values())) > 1:
+        raise AssertionError("the device tier and the host tier's two "
+                             "engines wrote different bytes for the tier "
+                             "mix")
+    return outs
 
 
 # e2e configurations: name -> (input.format, input.framing, the scalar
@@ -1127,19 +1472,38 @@ def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
     after) and through the CLI; returns the in-process launch counts.
     With ``e1_checked`` (the kernels phase's :data:`E1_CHECKED`) it
     fails if the run launched E1 at a batch shape not checked there."""
+    from flowgger_tpu_torch import native
+    from flowgger_tpu_torch.tpu import batch as batch_mod
     from flowgger_tpu_torch.tpu import framing, kernels
 
     WORK.mkdir(parents=True, exist_ok=True)
     path, data, exp_out, exp_err, mix = _write_input(name, n_lines, seed)
 
-    # (a) in process, through the library entry point, counts reset
+    # (a) in process, through the library entry point, counts reset; the
+    # host tier's rfc5424 block encodes are counted, and those with tier
+    # rows apart
     cfg = _config(name, "inproc")
     for k in framing.DECLINES:
         framing.DECLINES[k] = 0
     kernels.reset_launch_counts()
-    with e1_shapes() as e1_seen:
-        wall_in, pipe, errs = run_inproc(cfg, path)
+    native.reset_calls()
+    host_tier = {"batches": 0, "with_tier_rows": 0}
+    submit, fetch, encode = batch_mod._ROUTES["rfc5424"]
+
+    def counted(*args, **kw):
+        res = encode(*args, **kw)
+        host_tier["batches"] += 1
+        host_tier["with_tier_rows"] += int(args[4]) > res.fallback_rows
+        return res
+
+    batch_mod._ROUTES["rfc5424"] = (submit, fetch, counted)
+    try:
+        with e1_shapes() as e1_seen:
+            wall_in, pipe, errs = run_inproc(cfg, path)
+    finally:
+        batch_mod._ROUTES["rfc5424"] = (submit, fetch, encode)
     launches = dict(kernels.LAUNCHES)
+    calls = dict(native.CALLS)
     declines = dict(framing.DECLINES)
     tier = dict(pipe._handler.route_state.get("rfc5424", {}))
     got = (WORK / f"{name}_inproc.out").read_bytes()
@@ -1179,6 +1543,17 @@ def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
                              f"{tier_report}: not one probe a probed batch "
                              f"and one assemble a taken batch")
     tier_report["wide_probes"] = launches["encode_gelf_probe_p16"]
+    # the native host tier: its row engine wrote every rfc5424 host-tier
+    # batch with tier rows, and its formatter every taken batch's
+    # timestamp text
+    rfc = PATHS[name][2] == "rfc5424"
+    if (calls["fg_gelf_write_v2"] != host_tier["with_tier_rows"]
+            or calls["fg_gelf_lens_v2"] != host_tier["with_tier_rows"]
+            or (rfc and host_tier["batches"]
+                != tier_report["declined"] + tier_report["cooled"])
+            or calls["fg_format_f64_json"] != tier_report["taken"]):
+        raise AssertionError(f"{name}: native calls {calls} for host-tier "
+                             f"batches {host_tier} and {tier_report}")
     if name == "rfc5424_tier" and (
             tier_report["declined"] or tier_report["cooled"]
             or not tier_report["taken"]
@@ -1211,6 +1586,7 @@ def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
           "input_bytes": len(data), "output_bytes": len(exp_out),
           "error_lines": len(exp_err), "mix": mix, "launches": launches,
           "framing_declines": declines, "device_encode_tier": tier_report,
+          "native_calls": calls, "host_tier_batches": host_tier,
           "e1_launch_shapes": sorted(f"{k} {list(v)}" for k, v in e1_seen),
           "inproc_wall_s": wall_in, "inproc_lines_per_s": n_lines / wall_in,
           "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
@@ -1308,11 +1684,143 @@ def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
           "spread_on": (max(on) - min(on)) / statistics.median(on)})
 
 
+# sides of the host A/B (phase_host_ab): the native host tier as shipped,
+# the same with one worker thread a call, and no native library at all
+HOST_AB_SIDES = ("native", "threads1", "plain")
+
+
+@contextlib.contextmanager
+def host_side(side: str):
+    """Inside the block the package runs as ``side`` of the host A/B:
+    ``native`` as shipped; ``threads1`` with every native call on one
+    thread; ``plain`` with the numpy engine, the plain gather and the
+    plain timestamp text, so that the native library is never loaded."""
+    from flowgger_tpu_torch import native
+    from flowgger_tpu_torch.tpu import device_common
+
+    with contextlib.ExitStack() as stack:
+        if side == "threads1":
+            saved = native._DEFAULT_THREADS
+            native._DEFAULT_THREADS = 1
+            stack.callback(setattr, native, "_DEFAULT_THREADS", saved)
+        elif side == "plain":
+            stack.enter_context(numpy_engine())
+            stack.enter_context(plain_gather())
+            saved = device_common.ts_text_block
+            device_common.ts_text_block = device_common._ts_text_block_np
+            stack.callback(setattr, device_common, "ts_text_block", saved)
+        yield
+    if side == "plain" and native._lib is not None:
+        raise AssertionError("host A/B: the plain side loaded the native "
+                             "library")
+
+
+def _ab_lines(name: str, seed: int):
+    """The A/B's corpora, made once and read back by every side."""
+    from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                           make_tier_corpus)
+
+    make, off = {"rfc5424": (make_corpus, 1), "jsonl": (make_jsonl_corpus, 1),
+                 "tier": (make_tier_corpus, 4)}[name]
+    path = WORK / "host_ab" / f"{name}.in"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(b"\n".join(make(8 * BATCH, seed + off)[0]))
+    return path.read_bytes().split(b"\n")
+
+
+def host_ab_side(seed: int, side: str) -> None:
+    """One run of one side of the host A/B, in a process of its own: the
+    rfc5424, jsonl and tier-mix (device tier) breakdowns in that order,
+    then the digests of what each wrote."""
+    import hashlib
+
+    with host_side(side):
+        engine = "numpy" if side == "plain" else "native"
+        outs = {"rfc5424": phase_breakdown(seed, "rfc5424", engine=engine,
+                                           lines=_ab_lines("rfc5424", seed)),
+                "jsonl": phase_breakdown(seed, "jsonl",
+                                         lines=_ab_lines("jsonl", seed)),
+                "tier": phase_breakdown_tier(
+                    seed, tiers=("device",),
+                    lines=_ab_lines("tier", seed))["device"]}
+    emit({"phase": "host_ab_digest", "side": side,
+          "sha256": {k: hashlib.sha256(v).hexdigest()
+                     for k, v in outs.items()}})
+
+
+def phase_host_ab(seed: int, rounds: int) -> None:
+    """Whether the native host tier slows the host code it does not
+    replace: the oracle rows (``finish_block``, scalar decode and encode
+    in Python) and the JSON-lines path, whose block encode changes only
+    by its gather.  Each side of :data:`HOST_AB_SIDES` runs
+    :func:`host_ab_side` in a fresh process, ``rounds`` times, the order
+    rotating each round (after one unrecorded run of each side); every
+    run must write the same bytes."""
+    _ab_lines("rfc5424", seed), _ab_lines("jsonl", seed)
+    _ab_lines("tier", seed)
+    order = list(HOST_AB_SIDES) + [
+        HOST_AB_SIDES[(r + k) % len(HOST_AB_SIDES)]
+        for r in range(rounds) for k in range(len(HOST_AB_SIDES))]
+    runs, digest = [], None
+    for i, side in enumerate(order):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+             str(seed), "--host-ab-side", side],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(f"host A/B: side {side} failed:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        objs = [json.loads(ln) for ln in proc.stdout.splitlines()
+                if ln.startswith("{")]
+        got = next(o["sha256"] for o in objs
+                   if o.get("phase") == "host_ab_digest")
+        if digest is None:
+            digest = got
+        elif got != digest:
+            raise AssertionError(f"host A/B: side {side} wrote other bytes")
+        if i < len(HOST_AB_SIDES):
+            continue
+        run = {"round": (i - len(HOST_AB_SIDES)) // len(HOST_AB_SIDES),
+               "side": side}
+        for o in objs:
+            if o.get("phase") != "breakdown":
+                continue
+            w = o["wall_s"]
+            if o["format"] == "rfc5424_tier":   # the device tier's stages
+                oracle = w["oracle"]
+                encode = sum(w[k] for k in ("probe", "ts_text",
+                                            "assemble_fetch", "splice",
+                                            "oracle"))
+            else:
+                oracle, encode = w["encode_oracle"], w["encode"]
+            run[o["format"]] = {"lines_per_s": o["lines_per_s"],
+                                "oracle_rows": o["oracle_rows"],
+                                "oracle_s": oracle, "encode_s": encode}
+        runs.append(run)
+        emit({"phase": "host_ab_run", **run})
+    summary = {}
+    for side in HOST_AB_SIDES:
+        mine = [r for r in runs if r["side"] == side]
+        summary[side] = {
+            f"{k}_{m}": statistics.median(r[k][m] for r in mine)
+            for k in ("rfc5424", "jsonl", "rfc5424_tier")
+            for m in ("oracle_s", "encode_s", "lines_per_s")}
+        summary[side]["runs"] = len(mine)
+    emit({"phase": "host_ab", "rounds": rounds, "sides": HOST_AB_SIDES,
+          "median": summary})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--lines", type=int, default=16 * BATCH,
                     help="lines of each line-framed e2e run")
+    ap.add_argument("--host-ab", type=int, default=0, metavar="ROUNDS",
+                    help="run only the host A/B of the native host tier, "
+                         "ROUNDS rounds (phase_host_ab)")
+    ap.add_argument("--host-ab-side", choices=HOST_AB_SIDES,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1329,10 +1837,21 @@ def main(argv=None) -> int:
         print(f"chip_smoke: flowgger_tpu_torch not importable ({e}); run "
               "from the root of a checkout", file=sys.stderr)
         return 2
+    if args.host_ab_side:
+        host_ab_side(args.seed, args.host_ab_side)
+        return 0
     smi_line = phase_device()
     phase_build()
+    if args.host_ab:
+        phase_host_ab(args.seed, args.host_ab)
+        print(smi_line, flush=True)
+        return 0
     rows = phase_kernels(args.seed)
-    phase_breakdown(args.seed, "rfc5424")
+    phase_native(args.seed)
+    if (phase_breakdown(args.seed, "rfc5424")
+            != phase_breakdown(args.seed, "rfc5424", engine="numpy")):
+        raise AssertionError("the GELF block encoder's native and numpy "
+                             "engines wrote different bytes")
     phase_breakdown(args.seed, "jsonl")
     phase_breakdown_tier(args.seed)
     phase_encode_ab(args.seed)

@@ -1,0 +1,511 @@
+// Native host tier of flowgger_tpu_torch: the host-side hot loops of the
+// batched pipeline's encode stages, a trimmed copy of the JAX package's
+// native/flowgger_host.cpp (999 lines), built with g++ at first use by
+// flowgger_tpu_torch/native.py and bound through ctypes.
+//
+// Copied from native/flowgger_host.cpp, algorithms unchanged:
+//   the GELF row engine :357-716 (escape tables and helpers :381-476,
+//   the pair sort with kMaxPairs :478-520, the syslen prefix :522-540,
+//   gelf_row_len :558, gelf_row_write :608, run_threaded :664,
+//   fg_gelf_lens_v2 :687, fg_gelf_write_v2 :701);
+//   fg_concat_segments :887-904;
+//   json_f64_render :908-970 and fg_format_f64_json :976-997.
+// Left out: fg_split_lines, fg_split_syslen and fg_pack_lines :26-120
+// (the port frames on the card; its host framing serves only declines
+// and the end-of-stream record, on numpy and Python), fg_crc32c
+// :122-166 and the snappy codec :168-355 (the Kafka sink's), fg_r5_lens
+// / fg_r5_write :718-885 (RFC5424 output).  The extern "C" blocks are
+// regrouped so that none holds a namespace.
+//
+// Outputs are contracts held by tests/test_torch_native.py against the
+// numpy and Python versions beside the callers and against the JAX
+// package's library: row bytes and lengths, the gathered bytes and the
+// f64 text.  tests/native_host/test_host.cpp runs it under ASan and
+// UBSan.
+
+#include <charconv>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <algorithm>
+#include <functional>
+#include <thread>
+#include <vector>
+
+// ---------------------------------------------------------------------------
+// Columnar RFC5424 -> GELF row assembly (the encode hot loop of
+// gelf_encoder.rs:51-116, batched): given the decode kernel's span
+// tables, emit each row's GELF JSON bytes directly from the chunk.
+// Two phases — fg_gelf_lens_v2 measures exact output lengths, the
+// caller prefix-sums them, fg_gelf_write_v2 fills the buffer in
+// parallel.  (v2: the escaped-SD-value flags changed the signature; the
+// suffix keeps a stale prebuilt .so from being called with a shifted
+// argument layout — loaders feature-test the symbol name.)
+// JSON escaping matches json.encoder.encode_basestring (backslash,
+// quote, \b \t \n \f \r shortcuts, \u00XX for other control bytes);
+// differential tests in tests/test_torch_native.py pin the bytes
+// against the scalar encoder.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// rowmeta columns (int32, row-major [R, 17]); span offsets row-relative
+enum {
+    M_START = 0, M_HOST_S, M_HOST_E, M_APP_S, M_APP_E, M_PROC_S, M_PROC_E,
+    M_MSG_A, M_TRIM_E, M_FULL_S, M_SEV, M_NSD, M_SID_S, M_SID_E,
+    M_TS_OFF, M_TS_LEN, M_NPAIR, M_NCOL
+};
+
+struct EscTables {
+    uint8_t width[256];
+    char seq[256][8];
+    EscTables() {
+        for (int b = 0; b < 256; b++) {
+            width[b] = 1;
+            seq[b][0] = (char)b;
+        }
+        auto two = [&](int b, char c) {
+            width[b] = 2; seq[b][0] = '\\'; seq[b][1] = c;
+        };
+        for (int b = 0; b < 0x20; b++) {
+            width[b] = 6;
+            snprintf(seq[b], 8, "\\u%04x", b);
+        }
+        two('\b', 'b'); two('\t', 't'); two('\n', 'n');
+        two('\f', 'f'); two('\r', 'r'); two('"', '"'); two('\\', '\\');
+    }
+};
+const EscTables kEsc;
+
+inline int64_t esc_len(const uint8_t* s, int64_t len) {
+    int64_t out = 0;
+    for (int64_t i = 0; i < len; i++) out += kEsc.width[s[i]];
+    return out;
+}
+
+inline uint8_t* esc_write(uint8_t* dst, const uint8_t* s, int64_t len) {
+    for (int64_t i = 0; i < len; i++) {
+        uint8_t w = kEsc.width[s[i]];
+        if (w == 1) {
+            *dst++ = s[i];
+        } else {
+            memcpy(dst, kEsc.seq[s[i]], w);
+            dst += w;
+        }
+    }
+    return dst;
+}
+
+// SD-escaped values: RFC5424 unescape (backslash before '"' '\\' ']'
+// collapses; any other backslash is literal — rfc5424_decoder.rs:105-125
+// semantics) composed with the JSON escape, in one walk.
+inline int64_t esc_len_sd(const uint8_t* s, int64_t len) {
+    int64_t out = 0;
+    int64_t i = 0;
+    while (i < len) {
+        uint8_t b = s[i];
+        if (b == '\\' && i + 1 < len) {
+            uint8_t c = s[i + 1];
+            if (c == '"' || c == '\\' || c == ']')
+                out += kEsc.width[c];
+            else
+                out += kEsc.width[(uint8_t)'\\'] + kEsc.width[c];
+            i += 2;
+        } else {
+            out += kEsc.width[b];
+            i += 1;
+        }
+    }
+    return out;
+}
+
+inline uint8_t* esc_write_sd(uint8_t* dst, const uint8_t* s, int64_t len) {
+    auto put1 = [&](uint8_t b) {
+        uint8_t w = kEsc.width[b];
+        if (w == 1) {
+            *dst++ = b;
+        } else {
+            memcpy(dst, kEsc.seq[b], w);
+            dst += w;
+        }
+    };
+    int64_t i = 0;
+    while (i < len) {
+        uint8_t b = s[i];
+        if (b == '\\' && i + 1 < len) {
+            uint8_t c = s[i + 1];
+            if (!(c == '"' || c == '\\' || c == ']'))
+                put1('\\');
+            put1(c);
+            i += 2;
+        } else {
+            put1(b);
+            i += 1;
+        }
+    }
+    return dst;
+}
+
+inline uint8_t* put(uint8_t* dst, const char* s, size_t len) {
+    memcpy(dst, s, len);
+    return dst + len;
+}
+
+#define LIT(dst, s) put(dst, s, sizeof(s) - 1)
+
+const int kMaxPairs = 64;
+
+// sorted pair order with exact dict semantics: stable sort by name
+// bytes, then among equal names only the last (original order) survives
+// (Python dict last-wins + sorted(keys)).  Returns count of emitted
+// pairs; idx_out holds their original indices in emit order.
+inline int sort_pairs(const uint8_t* chunk, int64_t base,
+                      const int32_t* ns, const int32_t* ne, int p,
+                      int* idx_out) {
+    int idx[kMaxPairs];
+    for (int i = 0; i < p; i++) idx[i] = i;
+    // insertion sort (p is small), stable
+    for (int i = 1; i < p; i++) {
+        int cur = idx[i];
+        const uint8_t* cs = chunk + base + ns[cur];
+        int cl = ne[cur] - ns[cur];
+        int j = i - 1;
+        while (j >= 0) {
+            const uint8_t* js = chunk + base + ns[idx[j]];
+            int jl = ne[idx[j]] - ns[idx[j]];
+            int c = memcmp(js, cs, (size_t)std::min(jl, cl));
+            if (c < 0 || (c == 0 && jl <= cl)) break;
+            idx[j + 1] = idx[j];
+            j--;
+        }
+        idx[j + 1] = cur;
+    }
+    int out = 0;
+    for (int i = 0; i < p; i++) {
+        if (i + 1 < p) {  // name equal to the next entry? skip — the
+            // sort is stable, so the run's last element carries the
+            // last original occurrence (dict last-wins)
+            int a = idx[i], b = idx[i + 1];
+            int al = ne[a] - ns[a], bl = ne[b] - ns[b];
+            if (al == bl &&
+                memcmp(chunk + base + ns[a], chunk + base + ns[b],
+                       (size_t)al) == 0)
+                continue;
+        }
+        idx_out[out++] = idx[i];
+    }
+    return out;
+}
+
+inline int dec_digits(int64_t v) {
+    int d = 1;
+    while (v >= 10) { v /= 10; d++; }
+    return d;
+}
+
+// syslen framing prefix "{body} ": the caller only knows the total
+// framed length, so recover body = framed - digits(body) - 1 by
+// scanning digit counts (unique fixpoint, dec_digits is monotonic)
+inline uint8_t* put_syslen_prefix(uint8_t* dst, int64_t framed_len) {
+    int64_t body = framed_len;
+    for (int d = 1; d <= 10; d++) {
+        int64_t cand = framed_len - d - 1;
+        if (dec_digits(cand) == d) { body = cand; break; }
+    }
+    char buf[16];
+    int nb = snprintf(buf, sizeof buf, "%lld ", (long long)body);
+    return put(dst, buf, (size_t)nb);
+}
+
+struct GelfArgs {
+    const uint8_t* chunk;
+    const int32_t* meta;      // [R, M_NCOL]
+    int64_t R;
+    const int32_t* pns;       // [R, P] name/val spans, row-relative
+    const int32_t* pne;
+    const int32_t* pvs;
+    const int32_t* pve;
+    const int32_t* pesc;      // [R, P] value-needs-SD-unescape flags
+    int32_t P;
+    const uint8_t* ts_scratch;
+    const uint8_t* suffix;
+    int32_t suffix_len;
+    int32_t syslen;
+};
+
+int64_t gelf_row_len(const GelfArgs& a, int64_t r) {
+    const int32_t* m = a.meta + r * M_NCOL;
+    const uint8_t* chunk = a.chunk;
+    int64_t base = m[M_START];
+    int64_t len = 0;
+    int p = m[M_NPAIR];
+    if (p > 0) {
+        const int32_t* ns = a.pns + r * a.P;
+        const int32_t* ne = a.pne + r * a.P;
+        const int32_t* vs = a.pvs + r * a.P;
+        const int32_t* ve = a.pve + r * a.P;
+        const int32_t* pe = a.pesc + r * a.P;
+        int order[kMaxPairs];
+        int cnt = sort_pairs(chunk, base, ns, ne, p, order);
+        for (int k = 0; k < cnt; k++) {
+            int i = order[k];
+            len += 2 + 3 + 2;  // "_  ":"  ",
+            len += esc_len(chunk + base + ns[i], ne[i] - ns[i]);
+            len += pe[i]
+                ? esc_len_sd(chunk + base + vs[i], ve[i] - vs[i])
+                : esc_len(chunk + base + vs[i], ve[i] - vs[i]);
+        }
+    }
+    len += 1;                                   // {
+    len += sizeof("\"application_name\":\"") - 1;
+    len += esc_len(chunk + base + m[M_APP_S], m[M_APP_E] - m[M_APP_S]);
+    len += sizeof("\",\"full_message\":\"") - 1;
+    len += esc_len(chunk + base + m[M_FULL_S], m[M_TRIM_E] - m[M_FULL_S]);
+    len += sizeof("\",\"host\":\"") - 1;
+    int64_t hl = m[M_HOST_E] - m[M_HOST_S];
+    len += hl ? esc_len(chunk + base + m[M_HOST_S], hl)
+              : (int64_t)(sizeof("unknown") - 1);
+    len += sizeof("\",\"level\":") - 1 + 1;     // single severity digit
+    len += sizeof(",\"process_id\":\"") - 1;
+    len += esc_len(chunk + base + m[M_PROC_S], m[M_PROC_E] - m[M_PROC_S]);
+    if (m[M_NSD]) {
+        len += sizeof("\",\"sd_id\":\"") - 1;
+        len += esc_len(chunk + base + m[M_SID_S], m[M_SID_E] - m[M_SID_S]);
+    }
+    len += sizeof("\",\"short_message\":\"") - 1;
+    int64_t ml = m[M_TRIM_E] - m[M_MSG_A];
+    len += ml > 0 ? esc_len(chunk + base + m[M_MSG_A], ml) : 1;  // "-"
+    len += sizeof("\",\"timestamp\":") - 1;
+    len += m[M_TS_LEN];
+    len += sizeof(",\"version\":\"1.1\"}") - 1;
+    len += a.suffix_len;
+    if (a.syslen) len += dec_digits(len) + 1;   // "NNN " prefix
+    return len;
+}
+
+uint8_t* gelf_row_write(const GelfArgs& a, int64_t r, uint8_t* dst,
+                        int64_t framed_len) {
+    const int32_t* m = a.meta + r * M_NCOL;
+    const uint8_t* chunk = a.chunk;
+    int64_t base = m[M_START];
+    if (a.syslen) dst = put_syslen_prefix(dst, framed_len);
+    *dst++ = '{';
+    int p = m[M_NPAIR];
+    if (p > 0) {
+        const int32_t* ns = a.pns + r * a.P;
+        const int32_t* ne = a.pne + r * a.P;
+        const int32_t* vs = a.pvs + r * a.P;
+        const int32_t* ve = a.pve + r * a.P;
+        const int32_t* pe = a.pesc + r * a.P;
+        int order[kMaxPairs];
+        int cnt = sort_pairs(chunk, base, ns, ne, p, order);
+        for (int k = 0; k < cnt; k++) {
+            int i = order[k];
+            dst = LIT(dst, "\"_");
+            dst = esc_write(dst, chunk + base + ns[i], ne[i] - ns[i]);
+            dst = LIT(dst, "\":\"");
+            dst = pe[i]
+                ? esc_write_sd(dst, chunk + base + vs[i], ve[i] - vs[i])
+                : esc_write(dst, chunk + base + vs[i], ve[i] - vs[i]);
+            dst = LIT(dst, "\",");
+        }
+    }
+    dst = LIT(dst, "\"application_name\":\"");
+    dst = esc_write(dst, chunk + base + m[M_APP_S], m[M_APP_E] - m[M_APP_S]);
+    dst = LIT(dst, "\",\"full_message\":\"");
+    dst = esc_write(dst, chunk + base + m[M_FULL_S], m[M_TRIM_E] - m[M_FULL_S]);
+    dst = LIT(dst, "\",\"host\":\"");
+    int64_t hl = m[M_HOST_E] - m[M_HOST_S];
+    if (hl) dst = esc_write(dst, chunk + base + m[M_HOST_S], hl);
+    else dst = LIT(dst, "unknown");
+    dst = LIT(dst, "\",\"level\":");
+    *dst++ = (uint8_t)('0' + m[M_SEV]);
+    dst = LIT(dst, ",\"process_id\":\"");
+    dst = esc_write(dst, chunk + base + m[M_PROC_S], m[M_PROC_E] - m[M_PROC_S]);
+    if (m[M_NSD]) {
+        dst = LIT(dst, "\",\"sd_id\":\"");
+        dst = esc_write(dst, chunk + base + m[M_SID_S], m[M_SID_E] - m[M_SID_S]);
+    }
+    dst = LIT(dst, "\",\"short_message\":\"");
+    int64_t ml = m[M_TRIM_E] - m[M_MSG_A];
+    if (ml > 0) dst = esc_write(dst, chunk + base + m[M_MSG_A], ml);
+    else *dst++ = '-';
+    dst = LIT(dst, "\",\"timestamp\":");
+    dst = put(dst, (const char*)a.ts_scratch + m[M_TS_OFF],
+              (size_t)m[M_TS_LEN]);
+    dst = LIT(dst, ",\"version\":\"1.1\"}");
+    if (a.suffix_len)
+        dst = put(dst, (const char*)a.suffix, (size_t)a.suffix_len);
+    return dst;
+}
+
+void run_threaded(int64_t n, int n_threads,
+                  const std::function<void(int64_t, int64_t)>& work,
+                  int64_t min_n = 4096) {
+    if (n_threads < 1) n_threads = 1;
+    if (n_threads == 1 || n < min_n) {
+        work(0, n);
+        return;
+    }
+    std::vector<std::thread> threads;
+    int64_t per = (n + n_threads - 1) / n_threads;
+    for (int t = 0; t < n_threads; t++) {
+        int64_t lo = t * per;
+        int64_t hi = std::min<int64_t>(lo + per, n);
+        if (lo >= hi) break;
+        threads.emplace_back(work, lo, hi);
+    }
+    for (auto& th : threads) th.join();
+}
+
+}  // namespace
+
+extern "C" {
+
+void fg_gelf_lens_v2(const uint8_t* chunk, const int32_t* meta, int64_t R,
+                  const int32_t* pns, const int32_t* pne,
+                  const int32_t* pvs, const int32_t* pve,
+                  const int32_t* pesc, int32_t P,
+                  const uint8_t* ts_scratch,
+                  const uint8_t* suffix, int32_t suffix_len, int32_t syslen,
+                  int64_t* out_lens, int n_threads) {
+    GelfArgs a{chunk, meta, R, pns, pne, pvs, pve, pesc, P,
+               ts_scratch, suffix, suffix_len, syslen};
+    run_threaded(R, n_threads, [&](int64_t lo, int64_t hi) {
+        for (int64_t r = lo; r < hi; r++) out_lens[r] = gelf_row_len(a, r);
+    });
+}
+
+void fg_gelf_write_v2(const uint8_t* chunk, const int32_t* meta, int64_t R,
+                   const int32_t* pns, const int32_t* pne,
+                   const int32_t* pvs, const int32_t* pve,
+                   const int32_t* pesc, int32_t P,
+                   const uint8_t* ts_scratch,
+                   const uint8_t* suffix, int32_t suffix_len, int32_t syslen,
+                   const int64_t* out_off, uint8_t* dst, int n_threads) {
+    GelfArgs a{chunk, meta, R, pns, pne, pvs, pve, pesc, P,
+               ts_scratch, suffix, suffix_len, syslen};
+    run_threaded(R, n_threads, [&](int64_t lo, int64_t hi) {
+        for (int64_t r = lo; r < hi; r++)
+            gelf_row_write(a, r, dst + out_off[r], out_off[r + 1] - out_off[r]);
+    });
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// Concatenate segments of src into dst: segment i copies
+// src[seg_src[i] .. seg_src[i]+seg_len[i]) to dst[dst_off[i]).
+// dst_off is the exclusive prefix sum of seg_len (computed by the
+// caller, which lets worker threads start mid-stream).  This is the
+// byte-assembly engine of the columnar encode path
+// (flowgger_tpu_torch/tpu/assemble.py).
+void fg_concat_segments(const uint8_t* src,
+                        const int64_t* seg_src, const int64_t* seg_len,
+                        const int64_t* dst_off, int64_t nseg,
+                        uint8_t* dst, int n_threads) {
+    run_threaded(nseg, n_threads, [&](int64_t lo, int64_t hi) {
+        for (int64_t i = lo; i < hi; i++) {
+            int64_t len = seg_len[i];
+            if (len > 0)
+                memcpy(dst + dst_off[i], src + seg_src[i], (size_t)len);
+        }
+    }, 8192);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// serde_json-style f64 formatting (utils/rustfmt.py json_f64 semantics):
+// shortest round-trip digits via std::to_chars, re-rendered with the
+// CPython-repr notation rule (fixed for 10^-4 <= |v| < 10^16, keeping
+// ".0" on integral values; otherwise "dE" exponent form without '+' or
+// leading exponent zeros; non-finite -> "null").  Differentially fuzz-
+// tested against the Python oracle in tests/test_torch_native.py.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+int json_f64_render(double v, char* out) {
+    if (std::isnan(v) || std::isinf(v)) {
+        memcpy(out, "null", 4);
+        return 4;
+    }
+    char buf[40];
+    auto r = std::to_chars(buf, buf + sizeof(buf), v,
+                           std::chars_format::scientific);
+    const char* p = buf;
+    char* o = out;
+    if (*p == '-') { *o++ = '-'; p++; }
+    char digits[24];
+    int nd = 0;
+    while (p < r.ptr && *p != 'e') {
+        if (*p != '.') digits[nd++] = *p;
+        p++;
+    }
+    p++;  // 'e'
+    int esign = 1;
+    if (p < r.ptr && *p == '+') p++;
+    else if (p < r.ptr && *p == '-') { esign = -1; p++; }
+    int E = 0;
+    while (p < r.ptr) E = E * 10 + (*p++ - '0');
+    E *= esign;
+    if (E >= -4 && E < 16) {
+        if (E >= 0) {
+            int i = 0;
+            for (; i <= E; i++) *o++ = i < nd ? digits[i] : '0';
+            *o++ = '.';
+            if (i < nd) { for (; i < nd; i++) *o++ = digits[i]; }
+            else *o++ = '0';
+        } else {
+            *o++ = '0';
+            *o++ = '.';
+            for (int z = 0; z < -E - 1; z++) *o++ = '0';
+            for (int i = 0; i < nd; i++) *o++ = digits[i];
+        }
+    } else {
+        *o++ = digits[0];
+        if (nd > 1) {
+            *o++ = '.';
+            for (int i = 1; i < nd; i++) *o++ = digits[i];
+        }
+        *o++ = 'e';
+        if (E < 0) { *o++ = '-'; E = -E; }
+        char eb[8];
+        int ne = 0;
+        do { eb[ne++] = (char)('0' + E % 10); E /= 10; } while (E);
+        while (ne) *o++ = eb[--ne];
+    }
+    return (int)(o - out);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Format n doubles into a dense [n, width] byte matrix (rows zero-
+// padded) + per-row byte lengths.  Rows whose rendering would exceed
+// `width` get length 0 (callers treat that as "fall back this row");
+// json_f64 output is at most 24 bytes so any width >= 24 never clips.
+void fg_format_f64_json(const double* vals, int64_t n, uint8_t* out,
+                        int32_t width, int32_t* out_len, int n_threads) {
+    run_threaded(n, n_threads, [&](int64_t lo, int64_t hi) {
+        char buf[48];
+        for (int64_t i = lo; i < hi; i++) {
+            int len = json_f64_render(vals[i], buf);
+            uint8_t* row = out + (size_t)i * (size_t)width;
+            if (len > width) {
+                memset(row, 0, (size_t)width);
+                out_len[i] = 0;
+                continue;
+            }
+            memcpy(row, buf, (size_t)len);
+            if (len < width) memset(row + len, 0, (size_t)(width - len));
+            out_len[i] = (int32_t)len;
+        }
+    }, 16384);
+}
+
+}  // extern "C"

@@ -1,7 +1,7 @@
 """Vectorized byte assembly: build output buffers from span tables with
 numpy offset math — zero per-row Python on the fast tier.
 
-Output bytes for a whole batch are produced by three numpy primitives:
+Output bytes for a whole batch are produced by three primitives:
 
 1. ``escape_json`` — JSON-escape an entire chunk buffer once, sparsely:
    escapable bytes (quotes, backslashes, control chars) are rare in log
@@ -10,8 +10,10 @@ Output bytes for a whole batch are produced by three numpy primitives:
    mapping is ``x + extra_before(x)`` answered by a binary search over
    the escape positions — O(escapes), not O(bytes), beyond one copy.
 2. ``concat_segments`` — materialize an output buffer described as a
-   flat list of (source offset, length) segments: one ``np.repeat`` +
-   fancy-index gather in int32.
+   flat list of (source offset, length) segments: a threaded memcpy in
+   the native host tier (``flowgger_tpu_torch/native.py``), with
+   ``_concat_segments_np`` (one ``np.repeat`` + fancy-index gather in
+   int32) as its plain version.
 3. ``decimal_segments`` — render an int array as ASCII decimal via
    fixed-width digit segments with zero-length leading-zero segments,
    so even length prefixes (syslen framing) stay columnar.
@@ -147,8 +149,23 @@ def concat_segments(src: np.ndarray, seg_src: np.ndarray,
                     seg_len: np.ndarray,
                     dst0: Optional[np.ndarray] = None) -> np.ndarray:
     """Concatenate ``src[seg_src[i] : seg_src[i]+seg_len[i]]`` for all i
-    into one u8 buffer.  ``dst0`` is the (len+1) exclusive prefix sum of
+    into one u8 buffer (``fg_concat_segments``, a threaded memcpy in the
+    native host tier).  ``dst0`` is the (len+1) exclusive prefix sum of
     seg_len if the caller already computed it."""
+    from .. import native
+
+    seg_len = seg_len.astype(np.int64, copy=False)
+    if dst0 is None:
+        dst0 = exclusive_cumsum(seg_len)
+    return native.concat_segments_native(src, seg_src, seg_len, dst0,
+                                         int(dst0[-1]))
+
+
+def _concat_segments_np(src: np.ndarray, seg_src: np.ndarray,
+                        seg_len: np.ndarray,
+                        dst0: Optional[np.ndarray] = None) -> np.ndarray:
+    """The plain numpy version of :func:`concat_segments`, which the
+    tests hold the native gather against."""
     seg_len = seg_len.astype(np.int64, copy=False)
     if dst0 is None:
         dst0 = exclusive_cumsum(seg_len)

@@ -103,6 +103,22 @@ def sorted_pair_order(chunk_arr: np.ndarray, rop: np.ndarray,
     return order, dup_rows
 
 
+def syslen_prefix_lens_from_framed(framed_lens: np.ndarray) -> np.ndarray:
+    """Per-row syslen prefix width recovered from framed lengths (the
+    native row writer emits the prefix inline, so only the total framed
+    length comes back): the unique d with
+    decimal_digits(framed - d - 1) == d, plus one for the space."""
+    from .assemble import _DEC_WIDTH
+
+    plens = np.zeros(framed_lens.size, dtype=np.int64)
+    pow10 = 10 ** np.arange(1, _DEC_WIDTH, dtype=np.int64)
+    for d in range(1, _DEC_WIDTH + 1):
+        body = framed_lens - d - 1
+        ndig = 1 + (body[:, None] >= pow10[None, :]).sum(axis=1)
+        plens = np.where((plens == 0) & (ndig == d), d + 1, plens)
+    return plens
+
+
 def apply_syslen_prefix(body: np.ndarray, row_off: np.ndarray,
                         tier_lens: np.ndarray):
     """Prepend the syslen length prefix per row via one more segment

@@ -165,24 +165,39 @@ def splice_elided_rows(body: np.ndarray, row_off: np.ndarray,
     return out, exclusive_cumsum(lens + h + lb + tl)
 
 
+def _ts_vals(small: Dict[str, np.ndarray]) -> np.ndarray:
+    okh = small["ok"].astype(bool)
+    return compute_ts({k: np.where(okh, small[k], 0)
+                       for k in ("days", "sod", "off", "nanos")})
+
+
 def ts_text_block(small: Dict[str, np.ndarray]):
     """Per-row timestamp text ([R, TS_W] u8) and lengths ([R] int32):
-    ``json_f64`` of each row's f64 stamp, formatted once per distinct
-    stamp.  Rows whose ``ok`` is False get the text of 0.0 (a
-    placeholder the tier never emits)."""
+    ``json_f64`` of each row's f64 stamp, formatted by the native host
+    tier (``fg_format_f64_json``).  Rows whose ``ok`` is False get the
+    text of 0.0 (a placeholder the tier never emits)."""
+    from .. import native
+
+    txt, lens = native.format_f64_json_native(_ts_vals(small), TS_W)
+    # fetch_encode_driver's one-probe lengths rest on this bound; the
+    # formatter gives a text longer than TS_W length 0
+    if lens.size and int(lens.min()) == 0:
+        raise AssertionError("a timestamp text exceeds TS_W")
+    return txt, lens
+
+
+def _ts_text_block_np(small: Dict[str, np.ndarray]):
+    """The plain version of :func:`ts_text_block`: ``json_f64`` once
+    per distinct stamp."""
     from ..utils.rustfmt import json_f64
 
-    okh = small["ok"].astype(bool)
-    masked = {k: np.where(okh, small[k], 0)
-              for k in ("days", "sod", "off", "nanos")}
-    ts_vals = compute_ts(masked)
-    uniq, inv = np.unique(ts_vals, return_inverse=True)
+    uniq, inv = np.unique(_ts_vals(small), return_inverse=True)
     txt = np.zeros((uniq.size, TS_W), dtype=np.uint8)
     ulen = np.zeros(uniq.size, dtype=np.int32)
     for u, val in enumerate(uniq):
         s = json_f64(float(val)).encode("ascii")
-        # fetch_encode_driver's one-probe lengths rest on this bound
-        assert len(s) <= TS_W, f"timestamp text {s!r} exceeds TS_W"
+        if len(s) > TS_W:
+            raise AssertionError(f"timestamp text {s!r} exceeds TS_W")
         txt[u, :len(s)] = np.frombuffer(s, dtype=np.uint8)
         ulen[u] = len(s)
     return txt[inv], ulen[inv]

@@ -1,18 +1,29 @@
 """Columnar RFC5424→GELF encoding: span tables → one framed output
 buffer per batch, with no per-row Python on the fast tier.
 
-The row layout is flattened into (source offset, length) segments over
-a JSON-escaped chunk view, a constant bank and a timestamp scratch, then
-gathered in one ``concat_segments`` call (tpu/assemble.py).  This is the
-JAX package's numpy engine; its native row assembler is not part of the
-port.
+Two engines produce identical bytes, chosen as the JAX package
+chooses them:
 
-Rows outside the tier (kernel-flagged, oversized, non-ASCII, SD values
-needing unescape, duplicate or >48-byte SD names) re-run the scalar
-oracle (decoder → GelfEncoder), so observable bytes stay identical to
-the reference semantics (gelf_encoder.rs:51-116) in every case; the
-pipeline differential test holds the whole route against the JAX
-package.
+- **native** (every config without ``[output.gelf_extra]``, up to 64
+  pairs a row): ``fg_gelf_lens_v2`` / ``fg_gelf_write_v2`` in
+  ``csrc/flowgger_host.cpp`` (flowgger_tpu_torch/native.py) assemble each
+  tier row's GELF JSON directly from the chunk in two threaded passes
+  (measure, prefix-sum, write), including per-row SD-name sorting with
+  dict last-wins semantics, JSON escaping and the SD-value unescape.
+- **numpy** (``gelf_extra`` configs): the row layout is flattened into
+  (source offset, length) segments over a JSON-escaped chunk view, a
+  constant bank and a timestamp scratch, then gathered in one
+  ``concat_segments`` call (tpu/assemble.py).  This engine additionally
+  excludes rows with SD values that need an unescape, duplicate SD
+  names or names over 48 bytes; those rows re-run the scalar oracle
+  instead.
+
+Rows outside the tier (kernel-flagged, oversized, non-ASCII) re-run the
+scalar oracle (decoder → GelfEncoder), so observable bytes stay
+identical to the reference semantics (gelf_encoder.rs:51-116) in every
+case; tests/test_torch_native.py drives both engines and the JAX
+package's block encoder on the same channels, and the pipeline
+differential test holds the whole route against the JAX package.
 
 Framing (merger/mod.rs:30-32) is pre-applied: line/nul suffixes ride
 the tail constant and syslen's length prefix is rendered inline; the
@@ -46,12 +57,13 @@ from .block_common import (
     finish_block,
     merger_suffix,
     sorted_pair_order,
+    syslen_prefix_lens_from_framed,
     ts_scratch,
 )
 
 __all__ = ["encode_rfc5424_gelf_block", "BlockResult", "merger_suffix"]
 
-_NAME_KEY_MAX = 48   # SD names longer than this fall back
+_NAME_KEY_MAX = 48   # numpy engine: SD names longer than this fall back
 # numpy tier row stride: the open-brace slot + the canonical tail
 # columns (asserted against len(cols) below so the two can't desync)
 _TAIL_COLS = 18
@@ -156,6 +168,8 @@ def encode_rfc5424_gelf_block(
 ) -> Optional[BlockResult]:
     """Returns None when this route can't apply (gelf_extra keys that
     need dynamic placement, or an unknown merger type)."""
+    from .. import native
+
     spec = merger_suffix(merger)
     if spec is None:
         return None
@@ -180,34 +194,43 @@ def encode_rfc5424_gelf_block(
     cand = ok & (lens64 <= max_len) & ~has_high
 
     chunk_arr = np.frombuffer(chunk_bytes, dtype=np.uint8)
-    if val_has_esc.shape[1]:
-        # value spans are emitted through the shared escaped chunk view,
-        # which cannot compose the SD unescape: those rows take the oracle
+    # the native row engine has no extras slots: extras configs run on
+    # the numpy segment engine, as in the JAX package
+    use_native = (native.gelf_rows_available()
+                  and not encoder.extra
+                  and name_start.shape[1] <= native.MAX_PAIRS)
+    if not use_native and val_has_esc.shape[1]:
+        # the numpy engine emits value spans through the shared escaped
+        # chunk view and cannot compose the SD unescape; the native row
+        # assembler handles those values directly
         cand &= ~val_has_esc.any(axis=1)
-    # SD name length cap + no duplicate names (vectorized sort-key limits)
-    jmask = np.arange(name_start.shape[1])[None, :] < pair_count[:, None]
-    nlen = np.where(jmask, name_end - name_start, 0)
-    cand &= nlen.max(axis=1, initial=0) <= _NAME_KEY_MAX
 
     ns_s = ne_s = vs_s = ve_s = np.zeros(0, dtype=np.int64)
-    # pair table sorted by (row, name bytes)
-    pc = np.where(cand & (sd_count > 0), pair_count.astype(np.int64), 0)
-    T = int(pc.sum())
-    if T:
-        rop = np.repeat(np.arange(n, dtype=np.int64), pc)
-        jop = np.arange(T, dtype=np.int64) - np.repeat(
-            exclusive_cumsum(pc)[:-1], pc)
-        ns_abs = starts64[rop] + name_start[rop, jop]
-        ne_abs = starts64[rop] + name_end[rop, jop]
-        vs_abs = starts64[rop] + np.asarray(out["val_start"])[:n][rop, jop]
-        ve_abs = starts64[rop] + np.asarray(out["val_end"])[:n][rop, jop]
-        order, dup_rows = sorted_pair_order(chunk_arr, rop, ns_abs,
-                                            ne_abs, _NAME_KEY_MAX)
-        if dup_rows.size:
-            cand[dup_rows] = False
-            order = order[cand[rop[order]]]
-        ns_s, ne_s = ns_abs[order], ne_abs[order]
-        vs_s, ve_s = vs_abs[order], ve_abs[order]
+    if not use_native:
+        # numpy tier limits: SD name length cap + no duplicate names
+        jmask = np.arange(name_start.shape[1])[None, :] < pair_count[:, None]
+        nlen = np.where(jmask, name_end - name_start, 0)
+        cand &= nlen.max(axis=1, initial=0) <= _NAME_KEY_MAX
+
+        # pair table sorted by (row, name bytes)
+        pc = np.where(cand & (sd_count > 0),
+                      pair_count.astype(np.int64), 0)
+        T = int(pc.sum())
+        if T:
+            rop = np.repeat(np.arange(n, dtype=np.int64), pc)
+            jop = np.arange(T, dtype=np.int64) - np.repeat(
+                exclusive_cumsum(pc)[:-1], pc)
+            ns_abs = starts64[rop] + name_start[rop, jop]
+            ne_abs = starts64[rop] + name_end[rop, jop]
+            vs_abs = starts64[rop] + np.asarray(out["val_start"])[:n][rop, jop]
+            ve_abs = starts64[rop] + np.asarray(out["val_end"])[:n][rop, jop]
+            order, dup_rows = sorted_pair_order(chunk_arr, rop, ns_abs,
+                                                ne_abs, _NAME_KEY_MAX)
+            if dup_rows.size:
+                cand[dup_rows] = False
+                order = order[cand[rop[order]]]
+            ns_s, ne_s = ns_abs[order], ne_abs[order]
+            vs_s, ve_s = vs_abs[order], ve_abs[order]
 
     ridx = np.flatnonzero(cand)
     R = ridx.size
@@ -215,7 +238,37 @@ def encode_rfc5424_gelf_block(
     row_off = np.zeros(1, dtype=np.int64)
     prefix_lens_tier: Optional[np.ndarray] = None
 
-    if R:
+    if R and use_native:
+        scratch, ts_off, ts_len = ts_scratch(out, n, ridx, json_f64)
+        meta = np.empty((R, 17), dtype=np.int32)
+        meta[:, 0] = starts64[ridx]
+        for k, key in enumerate(("host_start", "host_end", "app_start",
+                                 "app_end", "proc_start", "proc_end",
+                                 "msg_trim_start", "trim_end", "full_start",
+                                 "severity")):
+            meta[:, 1 + k] = np.asarray(out[key])[:n][ridx]
+        nsd = (np.asarray(sd_count)[ridx] > 0)
+        meta[:, 11] = nsd
+        last = np.maximum(np.asarray(sd_count)[ridx] - 1, 0)
+        meta[:, 12] = np.asarray(out["sid_start"])[:n][ridx, last]
+        meta[:, 13] = np.asarray(out["sid_end"])[:n][ridx, last]
+        meta[:, 14] = ts_off
+        meta[:, 15] = ts_len
+        meta[:, 16] = np.asarray(pair_count)[ridx]
+        pns = np.asarray(out["name_start"])[:n][ridx]
+        pne = np.asarray(out["name_end"])[:n][ridx]
+        pvs = np.asarray(out["val_start"])[:n][ridx]
+        pve = np.asarray(out["val_end"])[:n][ridx]
+        pesc = val_has_esc[ridx].astype(np.int32)
+        buf, row_off = native.gelf_rows_native(chunk_bytes, meta, pns, pne,
+                                               pvs, pve, pesc, scratch,
+                                               suffix, syslen)
+        tier_lens = np.diff(row_off)
+        if syslen:
+            prefix_lens_tier = syslen_prefix_lens_from_framed(tier_lens)
+        final_buf = buf.tobytes()
+
+    if R and not use_native:
         emap = escape_json(chunk_arr)
         esc = emap.esc
 

@@ -129,3 +129,55 @@ def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
         kernels.encode_gelf_cuda(bt[:256], lt[:256], packed[:, :256], 256,
                                  torch.ones(1), [0], 4, 6)
     assert seen == {("encode_gelf_probe_p6", (256, 512))}
+
+
+def test_host_ab_plain_side_never_loads_the_native_library(monkeypatch):
+    """The host A/B's ``plain`` side runs both block encoders and the
+    device tier's stamp text and splice on their plain versions, with
+    the bytes of the shipped side, and never reaches the library (whose
+    build here raises); the ``threads1`` side runs the library on one
+    thread and restores the count."""
+    import numpy as np
+    import torch
+
+    from flowgger_tpu_torch import native
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.corpus import make_corpus
+    from flowgger_tpu_torch.encoders import GelfEncoder
+    from flowgger_tpu_torch.mergers import NulMerger
+    from flowgger_tpu_torch.tpu import assemble, device_common, pack
+    from flowgger_tpu_torch.tpu.encode_gelf_block import (
+        encode_rfc5424_gelf_block)
+    from flowgger_tpu_torch.tpu.rfc5424 import decode_rfc5424_host
+
+    lines, _ = make_corpus(64, seed=3)
+    batch, lens, chunk, starts, orig_lens, n = pack.pack_lines_2d(lines, 512)
+    host = decode_rfc5424_host(torch.from_numpy(batch), torch.from_numpy(lens))
+    enc = GelfEncoder(Config.from_string(""))
+    small = {"ok": np.ones(3, bool), "days": np.full(3, 17000, np.int32),
+             "sod": np.arange(3, dtype=np.int32),
+             "off": np.zeros(3, np.int32), "nanos": np.zeros(3, np.int32)}
+
+    def run():
+        res = encode_rfc5424_gelf_block(chunk, starts, orig_lens, host, n,
+                                        512, enc, NulMerger())
+        cat = assemble.concat_segments(np.arange(9, dtype=np.uint8),
+                                       np.array([4, 0]), np.array([3, 2]))
+        return (bytes(res.block.data), bytes(cat),
+                device_common.ts_text_block(small)[0].tobytes())
+
+    shipped = run()
+    threads = native._DEFAULT_THREADS
+    with chip_smoke.host_side("threads1"):
+        assert native._DEFAULT_THREADS == 1
+        assert run() == shipped
+    assert native._DEFAULT_THREADS == threads
+
+    def no_build():
+        raise AssertionError("the plain side reached the native library")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "build", no_build)
+    with chip_smoke.host_side("plain"):
+        assert run() == shipped
+    assert native._lib is None
