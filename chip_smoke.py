@@ -8,12 +8,12 @@ Phases, each printing JSON lines:
    the SM clock under a spin kernel, the host's CPU model and count;
 2. build  — the native host tier (``csrc/flowgger_host.cpp``, g++; a
    ``host_build`` line with the compiler's version, the flags, the
-   seconds and whether the library was cached), then the six CUDA
-   kernels compiled from ``flowgger_tpu_torch/csrc``
+   seconds and whether the library was cached), then the eight CUDA
+   sources compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
-   bytes as ``nvcc -Xptxas -v`` reports them (E1's four instantiations
-   must be among them);
+   bytes as ``nvcc -Xptxas -v`` reports them (E1's four instantiations,
+   E3's, F1's and F3's two each and D3 must be among them);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each (K2 and K3 checked again on a launch after
@@ -28,14 +28,20 @@ Phases, each printing JSON lines:
    holds up to one 64 KiB read more than 16 384 records, so its batch is
    [32768, 512] — the syslen flush batch, the rescue sub-batches, a
    2 048-row JSON-lines batch); both chained framing → decode entries
-   against the kernels called one by one; and the device GELF encode
+   against the kernels called one by one; the device GELF encode
    (E1) at 6 and 16 pairs, probe and assemble, on a gathered
    [16384, 512] batch of the tier mix (every row's base tier bit and
    base length, zeros past the real rows, every tier row's bytes), at 6
    pairs on the tier path's flush batch and on 256 rows (its
    end-of-stream batch's shape, 200 of them real), and E1's phase-1
    probes at 6 and 16 pairs on the rfc5424 line path's flush batch and
-   the syslen flush batch;
+   the syslen flush batch; the fused rfc5424 route F1 (probe and
+   assemble, with the ok and timestamp channels) at the same tier
+   shapes, and its probe on the rfc5424 line and syslen flush batches;
+   the rfc3164 decode D3 (every channel), its split encode E3 and its
+   fused route F3 (probe and assemble) on a gathered [16384, 512] batch
+   of the rfc3164 tier mix, on the flush batches of both rfc3164 paths
+   and on 256 rows;
 4. native — each export of the native host tier against its plain
    numpy or Python version, byte for byte, at the e2e runs' shapes (the
    tier path's stamps and constant splice, the jsonl path's body
@@ -49,30 +55,41 @@ Phases, each printing JSON lines:
    tier (its block encode split into probe, timestamp text, assemble +
    fetch, splice and oracle rows) and through the host tier on either
    engine (engine and oracle rows apart); then
-   (``encode_ab``) what the tier costs the rfc5424 mix, which it
+   (``encode_ab``) what the split tier costs the rfc5424 mix, which it
    declines: one batch's decline alone, and the rfc5424 / line
-   configuration in process with the tier on and off, alternating;
-6. e2e    — four configurations through the port's entry points on
-   ``cuda``: stdin → rfc5424_tpu → GELF (line framing), stdin →
-   jsonl_tpu → GELF (line framing), stdin → rfc5424_tpu → GELF (syslen
-   framing) and stdin → rfc5424_tpu → GELF over the tier mix (line
-   framing).  Each runs once in process through
+   configuration in process with the tier on and off, alternating; then
+   (``fuse_ab``) the two tier mixes with ``input.tpu_fuse`` "auto" and
+   "off" in one process (block-encode walls, launches; the same bytes),
+   and the device ms of F1 against K1 + E1 probe + E1 assemble and of F3
+   against D3 + E3 probe + E3 assemble at a flush batch;
+6. e2e    — six configurations through the port's entry points on
+   ``cuda``: stdin → rfc5424_tpu → GELF (line framing, ``--lines``
+   lines), stdin → jsonl_tpu → GELF (line framing, 131 072 lines),
+   stdin → rfc5424_tpu → GELF (syslen framing, 65 536), stdin →
+   rfc5424_tpu → GELF over the tier mix (line framing, ``--lines``),
+   stdin → rfc3164_tpu → GELF (line framing, one day of BSD syslog,
+   131 072) and stdin → rfc3164_tpu → GELF over the rfc3164 tier mix
+   (131 072); ``--lines`` defaults to 262 144.
+   Each runs once in process through
    ``flowgger_tpu_torch.start`` with every kernel launch count reset
    just before and read just after (the run must launch each kernel of
-   its path; the syslen run must decline no region; the tier-mix run
-   must have the device encode tier take every batch and fetch fewer
-   bytes a tier row than it emits; every run must launch E1 only at
-   batch shapes the kernels phase checked, and the rfc5424 runs one
-   6-pair probe a probed batch and one assemble a taken batch, the
-   16-pair probes being the wide attempts; the native row engine must
-   have written every rfc5424 host-tier batch that had tier rows and the
-   native formatter every taken batch's timestamp text, by
-   ``native.CALLS``), and once as ``python -m
-   flowgger_tpu_torch cfg.toml`` in a subprocess.  Both runs' GELF bytes
-   and stderr lines must equal the port's scalar path over the same
-   bytes (``corpus.scalar_expectation``).  Each reports the device
-   encode tier's batches taken, declined and cooled, its rows, and its
-   fetched and emitted bytes a tier row.
+   its path; the syslen run must decline no region; the tier-mix runs
+   must have the fused route take every batch, and a second in-process
+   run of each with ``tpu_fuse = "off"`` the split device tier, each
+   fetching fewer bytes a tier row than it emits; every run must launch
+   E1, D3, E3, F1 and F3 only at batch shapes the kernels phase checked,
+   and launch one probe a probed batch and one assemble a taken batch on
+   each tier; the native row engine must have written every rfc5424
+   host-tier batch that had tier rows and the native formatter every
+   taken batch's timestamp text, by ``native.CALLS``), and once as
+   ``python -m flowgger_tpu_torch cfg.toml`` in a subprocess.  Every
+   run's GELF bytes and stderr lines must equal the port's scalar path
+   over the same bytes (``corpus.scalar_expectation``; for rfc3164 the
+   decoder's own "Unable to parse" lines and the error lines each in
+   order, since a batch prints its oracle rows' before their errors).
+   Each reports the fused route's and the split device tier's batches
+   taken, declined and cooled, their rows, and their fetched and
+   emitted bytes a tier row.
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -119,6 +136,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH = 16384
 MAX_LEN = 512
 SYSLEN_LINES = 4 * BATCH    # lines of the syslen-framed e2e run
+RFC3164_LINES = 8 * BATCH   # lines of each rfc3164 e2e run
+JSONL_LINES = 8 * BATCH     # lines of the jsonl e2e run (cut from 16 × for
+                            # time when the rfc3164 paths came)
 BIG_REGION = 16 << 20       # bytes of K2's many-wave region
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -360,9 +380,16 @@ def phase_build():
         for r in found:
             seen.add(r["function"])
             emit({"phase": "kernel_build", "source": source, **r})
-    # E1's four instantiations: probe and assemble at 6 and 16 pairs
-    missing = {f"encode_gelf_kernel<{p}, {a}>" for p in (6, 16)
-               for a in ("false", "true")} - seen
+    # E1's four instantiations (probe and assemble at 6 and 16 pairs),
+    # E3's, F1's and F3's two each, and D3
+    phases = ("false", "true")
+    missing = ({f"encode_gelf_kernel<{p}, {a}>" for p in (6, 16)
+                for a in phases}
+               | {f"{k}<{a}>" for k in ("encode_gelf3164_kernel",
+                                         "fused_rfc5424_gelf_kernel",
+                                         "fused_rfc3164_gelf_kernel")
+                  for a in phases}
+               | {"decode_rfc3164_kernel"}) - seen
     if missing:
         raise AssertionError(f"no kernel_build line for {sorted(missing)}")
 
@@ -654,6 +681,9 @@ def kernels_line_path(seed: int, rows: list, shapes: list):
     shapes.append({**row, "where": "rfc5424 line path, flush batch"})
     phase1_probes(fb, fl, kernels.decode_rfc5424_cuda(fb, fl, 4, lo), fn,
                   "rfc5424 line path, flush batch", shapes)
+    # the fused route's probe, as this path's declining batches launch it
+    for row in route_case("f1", fb, fl, fn, assemble=False):
+        shapes.append({**row, "where": "rfc5424 line path, flush batch"})
 
     # the chained entry (spans -> gather -> decode on one stream) gives
     # the same spans and 6-pair channels as the kernels called one by one
@@ -700,6 +730,8 @@ def kernels_syslen(seed: int, rows: list, shapes: list):
     phase1_probes(batch, lens_c, kernels.decode_rfc5424_cuda(batch, lens_c,
                                                              4, lo), n,
                   "syslen path, flush batch", shapes)
+    for row in route_case("f1", batch, lens_c, n, assemble=False):
+        shapes.append({**row, "where": "syslen path, flush batch"})
 
 
 def kernels_jsonl(seed: int, rows: list, shapes: list):
@@ -747,9 +779,10 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
                              "kernels called one by one")
 
 
-# the (kernel name, batch shape) pairs at which E1 was held against its
-# plain version; the e2e phase fails if its runs launch E1 at another
-E1_CHECKED: set = set()
+# the (kernel name, batch shape) pairs at which E1, D3, E3, F1 and F3 were
+# held against their plain versions; the e2e phase fails if its runs
+# launch one of them at another
+CHECKED: set = set()
 
 
 def encode_case(P: int, batch, lens_c, packed, n: int, ts_len=None,
@@ -795,7 +828,7 @@ def encode_case(P: int, batch, lens_c, packed, n: int, ts_len=None,
     err_p = check_probe()
     ms_p = device_ms(k_probe)
     check_probe()   # a launch after the timing loop
-    E1_CHECKED.add((f"encode_gelf_probe_p{P}", (N, L)))
+    CHECKED.add((f"encode_gelf_probe_p{P}", (N, L)))
 
     # bytes the function needs a real row: its length, the 14 one-per-row
     # channels it reads, the last SD element's id span (rows with 1..max_sd
@@ -852,7 +885,7 @@ def encode_case(P: int, batch, lens_c, packed, n: int, ts_len=None,
     err_a = check_asm()
     ms_a = device_ms(k_asm)
     check_asm()   # a launch after the timing loop
-    E1_CHECKED.add((f"encode_gelf_assemble_p{P}", (N, L)))
+    CHECKED.add((f"encode_gelf_assemble_p{P}", (N, L)))
     n_tier = int(tier.sum())
     tier_valid = int(torch.where(tier, lens_c, 0).sum())
     ts_bytes = int(torch.where(tier, ts_len, 0).sum())
@@ -919,19 +952,291 @@ def kernels_encode(seed: int, rows: list, shapes: list):
         rows.extend(encode_case(P, batch, lens_c, packed, BATCH, ts_len,
                                 ts_text))
         if P == lo:
+            # the fused route F1 on the same batch
+            rows.extend(route_case("f1", batch, lens_c, BATCH))
             fb, fl, fn = flush_batch(
                 make_tier_corpus(2 * BATCH, seed + 9)[0], "tier path", shapes)
             fp = kernels.decode_rfc5424_cuda(fb, fl, 4, lo)
-            for row in encode_case(P, fb, fl, fp, fn, *ts_text_of(fp)):
+            for row in (encode_case(P, fb, fl, fp, fn, *ts_text_of(fp))
+                        + route_case("f1", fb, fl, fn)):
                 shapes.append({**row, "where": "tier path, flush batch"})
             # the smallest batch the tier path takes: the end-of-stream
             # partial frame, one row in a 256-row bucket
             small_n = pack.bucket_rows(1)
-            for row in encode_case(P, batch[:small_n], lens_c[:small_n],
-                                   packed[:, :small_n].contiguous(), 200,
-                                   ts_len[:small_n], ts_text[:small_n]):
+            sb, sl = batch[:small_n], lens_c[:small_n]
+            for row in (encode_case(P, sb, sl,
+                                    packed[:, :small_n].contiguous(), 200,
+                                    ts_len[:small_n], ts_text[:small_n])
+                        + route_case("f1", sb, sl, 200)):
                 shapes.append({**row, "where": "tier path, end-of-stream "
                                                "batch"})
+
+
+def d3_case(batch, lens_c, year: int):
+    """D3 (the rfc3164 decode) against its plain version on every
+    channel of every row, rejected and padding rows included, once
+    before and once after its timing loop: ``(row, plain channels)``."""
+    from flowgger_tpu_torch.tpu import kernels, rfc3164
+
+    def kern():
+        return kernels.decode_rfc3164_cuda(batch, lens_c, year)
+
+    def plain():
+        return rfc3164.decode_rfc3164(batch, lens_c, year)
+
+    ref = plain()
+    err = channels_err("decode_rfc3164", rfc3164.unpack_channels(kern()), ref)
+    ms = device_ms(kern)
+    channels_err("decode_rfc3164", rfc3164.unpack_channels(kern()), ref)
+    CHECKED.add(("decode_rfc3164", tuple(batch.shape)))
+    n, valid = batch.shape[0], int(lens_c.sum())
+    return {
+        "name": "decode_rfc3164", "route": "cuda",
+        "source": "flowgger_tpu_torch/csrc/decode_rfc3164.cu",
+        "replaces": "flowgger_tpu/tpu/rfc3164.py:55",
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        # bytes: each row's valid bytes, its length and its 12 int32
+        # channels; operations: one per valid byte (one pass settles
+        # every whole-row reduction)
+        **bound(valid + 4 * n + 4 * len(rfc3164.KEYS) * n, valid),
+        "library_ms": None,
+        "shape": f"[{n}, {batch.shape[1]}], {valid} valid bytes, "
+                 f"{int(ref['ok'].sum())} ok rows"}, ref
+
+
+# route_case kinds: (format, table row name, source, reference def)
+ROUTE_KINDS = {
+    "e3": ("rfc3164", "encode_gelf3164",
+           "flowgger_tpu_torch/csrc/encode_gelf.cu",
+           "flowgger_tpu/tpu/device_rfc3164.py:100"),
+    "f1": ("rfc5424", "fused_rfc5424_gelf",
+           "flowgger_tpu_torch/csrc/fused_gelf.cu",
+           "flowgger_tpu/tpu/fused_routes.py:179"),
+    "f3": ("rfc3164", "fused_rfc3164_gelf",
+           "flowgger_tpu_torch/csrc/fused_gelf.cu",
+           "flowgger_tpu/tpu/fused_routes.py:197"),
+}
+
+
+def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
+    """E3 (``kind`` "e3": the split rfc3164 tier's encode, from D3's
+    packed channels), F1 ("f1") or F3 ("f3": the fused routes, decode and
+    encode in one kernel) against its plain version on one batch of
+    ``n`` real rows: the probe's base tier bit and base length of every
+    row (zeros at and past ``n``; for F1 and F3 also the ok and timestamp
+    channels), and with ``assemble`` the assemble's bytes of every tier
+    row (``base & (base_len + ts_len <= OW)`` at the rows' real stamp
+    text) at its offset, each checked once before and once after its
+    timing loop.  The plain versions of F1 and F3 are the format's plain
+    decode, narrowed to ``fused_routes.DEMAND``, then the split tier's
+    plain encode.  Returns ``[probe row]`` or ``[probe row, assemble
+    row]``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import (device_common, device_gelf,
+                                        device_rfc3164, fused_routes, kernels,
+                                        rfc3164, rfc5424)
+    from flowgger_tpu_torch.utils.timeparse import current_year_utc
+
+    fmt, name, source, replaces = ROUTE_KINDS[kind]
+    split = device_gelf if fmt == "rfc5424" else device_rfc3164
+    suffix = b"\0"
+    year = current_year_utc()
+    N, L = batch.shape
+    dev = batch.device
+    live = torch.arange(N, device=dev) < n
+    kw = {"suffix": suffix, **({"max_sd": 4} if fmt == "rfc5424" else {})}
+    bank_b, table = split.kernel_consts(suffix)
+    bank = device_gelf._bank_on(bank_b, dev)
+    OW = split.out_width(L, suffix)
+    small_keys = ("ok", "days", "sod", "off", "nanos")
+
+    def plain_decode():
+        if fmt == "rfc5424":
+            dec = rfc5424.decode_rfc5424(batch, lens_c)
+        else:
+            dec = rfc3164.decode_rfc3164(batch, lens_c, year)
+        if kind == "e3":
+            return dec
+        demand = fused_routes.DEMAND[f"{fmt}_gelf"]
+        return {k: v for k, v in dec.items() if k in demand}
+
+    dec0 = plain_decode()
+    packed = (kernels.decode_rfc3164_cuda(batch, lens_c, year)
+              if kind == "e3" else None)
+
+    def k_probe():
+        if kind == "e3":
+            return kernels.encode_gelf3164_cuda(batch, lens_c, packed, n,
+                                                bank, table)
+        return kernels.fused_gelf_cuda(fmt, batch, lens_c, n, bank, table,
+                                       year=year)
+
+    def p_probe():
+        # the fused routes' plain version decodes, as their kernels do
+        dec = dec0 if kind == "e3" else plain_decode()
+        base, base_len = split.encode_rows(batch, lens_c, dec,
+                                           assemble=False, n=n, **kw)
+        if kind == "e3":
+            return base, base_len
+        return base, base_len, torch.stack(
+            [torch.where(live, dec[k].to(torch.int32), 0)
+             for k in small_keys])
+
+    ref = p_probe()
+
+    def check_probe():
+        got = k_probe()
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        if err:
+            raise AssertionError(f"{name} probe [{N}, {L}] n={n} disagrees "
+                                 f"with its plain version: max_abs_err "
+                                 f"{err}")
+        return err
+
+    err_p = check_probe()
+    ms_p = device_ms(k_probe)
+    check_probe()   # a launch after the timing loop
+    CHECKED.add((f"{name}_probe", (N, L)))
+
+    ref_base = ref[0]
+    real_valid = int(torch.where(live, lens_c, 0).sum())
+    gate = live & dec0["ok"].to(torch.bool) & ~dec0["has_high"].to(torch.bool)
+    gated_valid = int(torch.where(gate, lens_c, 0).sum())
+    n_gate = int(gate.sum())
+    common = {"route": "cuda", "source": source, "replaces": replaces,
+              "library_ms": None}
+    if kind == "e3":
+        # bytes: the ok and has_high channels of each real row, the valid
+        # bytes, length and five other channels (has_pri, severity, the
+        # host span, msg_start) of the rows they pass, every row's bit and
+        # length; operations: one escape test per loaded byte
+        probe_bytes = 8 * n + gated_valid + 24 * n_gate + 5 * N
+        probe_ops = gated_valid
+    else:
+        # bytes: each real row's valid bytes and length, every row's bit,
+        # length and five channels; operations: the decode's passes (K1's
+        # six, D3's one) and one escape test per valid byte
+        probe_bytes = real_valid + 4 * n + 25 * N
+        probe_ops = (7 if fmt == "rfc5424" else 2) * real_valid
+    out = [{
+        "name": f"{name}_probe", **common, "max_abs_err": err_p, "ms": ms_p,
+        "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        **bound(probe_bytes, probe_ops),
+        "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
+                 f"{real_valid} valid bytes"}]
+    if not assemble:
+        return out
+
+    small = {k: dec0[k][:n].cpu().numpy() for k in small_keys}
+    txt, tl = device_common.ts_text_block(small)
+    ts_text = torch.zeros((N, device_common.TS_W), dtype=torch.uint8)
+    ts_len = torch.zeros(N, dtype=torch.int32)
+    ts_text[:n], ts_len[:n] = torch.from_numpy(txt), torch.from_numpy(tl)
+    ts_text, ts_len = ts_text.to(dev), ts_len.to(dev)
+    length = ref[1].to(torch.int64) + ts_len
+    tier = ref_base & (length <= OW)
+    gated = torch.where(tier, length, 0)
+    row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
+    total = int(gated.sum())
+
+    def k_asm():
+        if kind == "e3":
+            return kernels.encode_gelf3164_cuda(
+                batch, lens_c, packed, n, bank, table, OW, ts_text=ts_text,
+                ts_len=ts_len, row_off=row_off, total=total)
+        return kernels.fused_gelf_cuda(fmt, batch, lens_c, n, bank, table,
+                                       year=year, OW=OW, ts_text=ts_text,
+                                       ts_len=ts_len, row_off=row_off,
+                                       total=total)
+
+    def p_asm():
+        dec = dec0 if kind == "e3" else plain_decode()
+        rows_, out_len, _ = split.encode_rows(batch, lens_c, dec, ts_text,
+                                              ts_len, **kw)
+        return device_gelf.flat_rows(rows_, out_len, row_off, total)
+
+    ref_flat = p_asm()
+
+    def check_asm():
+        err = max_abs_err(k_asm(), ref_flat)
+        if err:
+            raise AssertionError(f"{name} assemble [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_a = check_asm()
+    ms_a = device_ms(k_asm)
+    check_asm()   # a launch after the timing loop
+    CHECKED.add((f"{name}_assemble", (N, L)))
+    n_tier = int(tier.sum())
+    tier_valid = int(torch.where(tier, lens_c, 0).sum())
+    ts_bytes = int(torch.where(tier, ts_len, 0).sum())
+    # bytes: the tier rows' valid bytes, lengths, the channels the encode
+    # reads (E3: seven) or nothing more (F1, F3 decode them), timestamp
+    # text and lengths, every row's offset, the output written;
+    # operations: the decode's passes over a tier row (fused) and one
+    # escape test a byte
+    ch_bytes = 28 * n_tier if kind == "e3" else 0
+    passes = 1 if kind == "e3" else (7 if fmt == "rfc5424" else 2)
+    out.append({
+        "name": f"{name}_assemble", **common, "max_abs_err": err_a,
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        **bound(tier_valid + 8 * n_tier + ch_bytes + ts_bytes + 8 * N + total,
+                passes * tier_valid),
+        "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
+                 f"bytes"})
+    return out
+
+
+def kernels_rfc3164(seed: int, rows: list, shapes: list):
+    """D3, E3 (probe and assemble) and F3 (probe and assemble) on a
+    gathered [16384, 512] batch of the rfc3164 tier mix; on the flush
+    batches of the rfc3164 line path (D3, E3's and F3's probes, as its
+    declining batches launch them) and of the rfc3164 tier path (all
+    five); and on 256 rows, 200 of them real (the end-of-stream batch's
+    shape)."""
+    from flowgger_tpu_torch.corpus import (make_rfc3164_corpus,
+                                           make_rfc3164_tier_corpus)
+    from flowgger_tpu_torch.tpu import framing, pack
+    from flowgger_tpu_torch.utils.timeparse import current_year_utc
+
+    year = current_year_utc()
+    lines, _ = make_rfc3164_tier_corpus(BATCH, seed + 11)
+    region_b = b"\n".join(lines) + b"\n"
+    region = upload(region_b)
+    spans = framing.sep_spans(region, len(region_b), 10, True,
+                              pack.bucket_rows(BATCH))
+    batch, lens_c = framing.gather(region, spans["starts"], spans["lens"],
+                                   MAX_LEN)
+    rows.append(d3_case(batch, lens_c, year)[0])
+    rows.extend(route_case("e3", batch, lens_c, BATCH))
+    rows.extend(route_case("f3", batch, lens_c, BATCH))
+
+    fb, fl, fn = flush_batch(make_rfc3164_corpus(2 * BATCH, seed + 12)[0],
+                             "rfc3164 line path", shapes)
+    where = "rfc3164 line path, flush batch"
+    shapes.append({**d3_case(fb, fl, year)[0], "where": where})
+    for row in (route_case("e3", fb, fl, fn, assemble=False)
+                + route_case("f3", fb, fl, fn, assemble=False)):
+        shapes.append({**row, "where": where})
+
+    fb, fl, fn = flush_batch(
+        make_rfc3164_tier_corpus(2 * BATCH, seed + 14)[0],
+        "rfc3164 tier path", shapes)
+    where = "rfc3164 tier path, flush batch"
+    shapes.append({**d3_case(fb, fl, year)[0], "where": where})
+    for row in route_case("e3", fb, fl, fn) + route_case("f3", fb, fl, fn):
+        shapes.append({**row, "where": where})
+
+    small_n = pack.bucket_rows(1)
+    sb, sl = batch[:small_n], lens_c[:small_n]
+    where = "rfc3164 paths, end-of-stream batch"
+    shapes.append({**d3_case(sb, sl, year)[0], "where": where})
+    for row in route_case("e3", sb, sl, 200) + route_case("f3", sb, sl, 200):
+        shapes.append({**row, "where": where})
 
 
 def phase_kernels(seed: int):
@@ -945,6 +1250,7 @@ def phase_kernels(seed: int):
     kernels_syslen(seed, rows, shapes)
     kernels_jsonl(seed, rows, shapes)
     kernels_encode(seed, rows, shapes)
+    kernels_rfc3164(seed, rows, shapes)
     for r in rows:
         emit({"phase": "kernel", **r})
     for r in shapes:
@@ -1367,37 +1673,62 @@ def phase_breakdown_tier(seed: int, n_batches: int = 8,
 
 
 # e2e configurations: name -> (input.format, input.framing, the scalar
-# expectation's fmt, the kernels its run must launch)
+# expectation's fmt, the kernels its run must launch, and for the tier
+# mixes the kernels a second run with input.tpu_fuse = "off" must launch)
 PATHS = {
     "rfc5424_line": ("rfc5424_tpu", "line", "rfc5424",
-                     ("frame_sep_spans", "frame_gather", "decode_rfc5424_p6",
-                      "decode_rfc5424_p16")),
+                     ("frame_sep_spans", "frame_gather",
+                      "fused_rfc5424_gelf_probe", "decode_rfc5424_p6",
+                      "decode_rfc5424_p16"), None),
     "jsonl_line": ("jsonl_tpu", "line", "jsonl",
                    ("frame_sep_spans", "frame_gather", "structural_index_f8",
-                    "structural_index_f24")),
+                    "structural_index_f24"), None),
     "rfc5424_syslen": ("rfc5424_tpu", "syslen", "rfc5424",
                        ("frame_syslen_spans", "frame_gather",
-                        "decode_rfc5424_p6")),
-    # the mix the device encode tier takes (corpus.make_tier_corpus): no
-    # batch may decline
+                        "fused_rfc5424_gelf_probe", "decode_rfc5424_p6"),
+                       None),
+    # the mix the device encode tiers take (corpus.make_tier_corpus): no
+    # batch may decline; the fused route takes every batch, and with
+    # tpu_fuse = "off" the split tier does
     "rfc5424_tier": ("rfc5424_tpu", "line", "rfc5424",
+                     ("frame_sep_spans", "frame_gather",
+                      "fused_rfc5424_gelf_probe",
+                      "fused_rfc5424_gelf_assemble"),
                      ("frame_sep_spans", "frame_gather", "decode_rfc5424_p6",
                       "encode_gelf_probe_p6", "encode_gelf_assemble_p6")),
+    # one day of BSD syslog (corpus.make_rfc3164_corpus, the 17th: layout
+    # A), not chosen to engage the tiers
+    "rfc3164_line": ("rfc3164_tpu", "line", "rfc3164",
+                     ("frame_sep_spans", "frame_gather",
+                      "fused_rfc3164_gelf_probe", "decode_rfc3164",
+                      "encode_gelf3164_probe"), None),
+    # the rfc3164 mix the tiers take (corpus.make_rfc3164_tier_corpus, the
+    # 7th: layout C)
+    "rfc3164_tier": ("rfc3164_tpu", "line", "rfc3164",
+                     ("frame_sep_spans", "frame_gather",
+                      "fused_rfc3164_gelf_probe",
+                      "fused_rfc3164_gelf_assemble"),
+                     ("frame_sep_spans", "frame_gather", "decode_rfc3164",
+                      "encode_gelf3164_probe", "encode_gelf3164_assemble")),
 }
+# the wrappers whose launch shapes the e2e runs record (checked against
+# CHECKED), and each one's name in LAUNCHES for a launch
+SHAPE_CHECKED = ("encode_gelf_cuda", "encode_gelf3164_cuda",
+                 "fused_gelf_cuda", "decode_rfc3164_cuda")
 
 
 def _write_input(name: str, n_lines: int, seed: int):
     from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                           make_rfc3164_corpus,
+                                           make_rfc3164_tier_corpus,
                                            make_tier_corpus,
                                            scalar_expectation, syslen_stream)
 
-    fmt, framing, kind, _ = PATHS[name]
-    if kind == "jsonl":
-        lines, kinds = make_jsonl_corpus(n_lines, seed)
-    elif name == "rfc5424_tier":
-        lines, kinds = make_tier_corpus(n_lines, seed)
-    else:
-        lines, kinds = make_corpus(n_lines, seed)
+    fmt, framing, kind, _, _ = PATHS[name]
+    make = {"jsonl_line": make_jsonl_corpus, "rfc5424_tier": make_tier_corpus,
+            "rfc3164_line": make_rfc3164_corpus,
+            "rfc3164_tier": make_rfc3164_tier_corpus}.get(name, make_corpus)
+    lines, kinds = make(n_lines, seed)
     if framing == "syslen":
         # the last frame is cut short: a short read at EOF
         data = syslen_stream(lines)
@@ -1411,39 +1742,67 @@ def _write_input(name: str, n_lines: int, seed: int):
     return path, data, exp_out, exp_err, mix
 
 
-def _config(name: str, tag: str) -> Path:
-    fmt, framing, _, _ = PATHS[name]
+def _config(name: str, tag: str, fuse: str = "auto") -> Path:
+    fmt, framing, _, _, _ = PATHS[name]
     out = WORK / f"{name}_{tag}.out"
     cfg = WORK / f"{name}_{tag}.toml"
     cfg.write_text(
         f'[input]\ntype = "stdin"\nformat = "{fmt}"\nframing = "{framing}"\n'
+        f'tpu_fuse = "{fuse}"\n'
         f'[output]\ntype = "file"\nformat = "gelf"\nfile_path = "{out}"\n')
     if out.exists():
         out.unlink()
     return cfg
 
 
+_UNABLE = "Unable to parse the rfc3164 input: "
+
+
+def same_stderr(kind: str, got: list, want: list) -> bool:
+    """The stderr lines of a run against the scalar path's.  The rfc3164
+    decoder prints its own line for a row both of its layouts reject,
+    when the oracle runs it; the batched path runs a batch's oracle rows
+    before it prints their error lines, so for rfc3164 each of the two
+    kinds of line must come in the scalar path's order on its own."""
+    if kind != "rfc3164":
+        return got == want
+
+    def split(lines):
+        return ([ln for ln in lines if ln.startswith(_UNABLE)],
+                [ln for ln in lines if not ln.startswith(_UNABLE)])
+
+    return split(got) == split(want)
+
+
 @contextlib.contextmanager
-def e1_shapes():
-    """Collects the (kernel name, batch shape) of each E1 launch made
-    inside the block (the wrapper's count says which entry ran)."""
+def launch_shapes():
+    """Collects the (kernel name, batch shape) of each launch made inside
+    the block by the wrappers of :data:`SHAPE_CHECKED` (the wrapper's
+    count says which entry ran)."""
+    import torch
+
     from flowgger_tpu_torch.tpu import kernels
 
     seen = set()
-    launch = kernels.encode_gelf_cuda
+    saved = {w: getattr(kernels, w) for w in SHAPE_CHECKED}
 
-    def recording(batch, *args, **kw):
-        before = dict(kernels.LAUNCHES)
-        res = launch(batch, *args, **kw)
-        seen.update((k, tuple(batch.shape)) for k, v in
-                    kernels.LAUNCHES.items() if v != before.get(k, 0))
-        return res
+    def recording(launch):
+        def run(*args, **kw):
+            batch = next(a for a in args if isinstance(a, torch.Tensor))
+            before = dict(kernels.LAUNCHES)
+            res = launch(*args, **kw)
+            seen.update((k, tuple(batch.shape)) for k, v in
+                        kernels.LAUNCHES.items() if v != before.get(k, 0))
+            return res
+        return run
 
-    kernels.encode_gelf_cuda = recording
+    for w, fn in saved.items():
+        setattr(kernels, w, recording(fn))
     try:
         yield seen
     finally:
-        kernels.encode_gelf_cuda = launch
+        for w, fn in saved.items():
+            setattr(kernels, w, fn)
 
 
 def run_inproc(cfg: Path, path: Path):
@@ -1467,28 +1826,43 @@ def run_inproc(cfg: Path, path: Path):
     return time.perf_counter() - t0, pipe, err_buf.getvalue().splitlines()
 
 
-def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
-    """One configuration in process (counts reset just before, read just
-    after) and through the CLI; returns the in-process launch counts.
-    With ``e1_checked`` (the kernels phase's :data:`E1_CHECKED`) it
-    fails if the run launched E1 at a batch shape not checked there."""
+_STATE_KEYS = ("taken", "declined", "cooled", "wide", "tier_rows")
+
+
+def _tier_report(state: dict) -> dict:
+    """One tier's batches taken, declined (over 5 % of rows outside it)
+    and skipped in cooldown, its rows, and bytes fetched and emitted a
+    tier row."""
+    rows = state.get("tier_rows", 0)
+    rep = {k: state.get(k, 0) for k in _STATE_KEYS}
+    rep.update(
+        fetch_bytes=state.get("fetch_bytes", 0),
+        fetch_bytes_per_tier_row=state.get("fetch_bytes", 0) / max(rows, 1),
+        emit_bytes_per_tier_row=state.get("emit_bytes", 0) / max(rows, 1))
+    return rep
+
+
+def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
+               checked, fuse: str):
+    """One in-process run of a configuration with ``input.tpu_fuse =
+    fuse``, every launch count reset just before and read just after;
+    fails unless its bytes and stderr are the scalar path's, it launched
+    every kernel of its path, and the tiers' counts agree with the
+    launches.  Returns the report."""
     from flowgger_tpu_torch import native
     from flowgger_tpu_torch.tpu import batch as batch_mod
     from flowgger_tpu_torch.tpu import framing, kernels
 
-    WORK.mkdir(parents=True, exist_ok=True)
-    path, data, exp_out, exp_err, mix = _write_input(name, n_lines, seed)
-
-    # (a) in process, through the library entry point, counts reset; the
-    # host tier's rfc5424 block encodes are counted, and those with tier
-    # rows apart
-    cfg = _config(name, "inproc")
+    fmt_in, _, kind, need, need_split = PATHS[name]
+    tag = "inproc" if fuse == "auto" else f"inproc_{fuse}"
+    cfg = _config(name, tag, fuse)
     for k in framing.DECLINES:
         framing.DECLINES[k] = 0
     kernels.reset_launch_counts()
     native.reset_calls()
     host_tier = {"batches": 0, "with_tier_rows": 0}
-    submit, fetch, encode = batch_mod._ROUTES["rfc5424"]
+    # the host tier's block encodes, and those with tier rows apart
+    submit, fetch, encode = batch_mod._ROUTES[kind]
 
     def counted(*args, **kw):
         res = encode(*args, **kw)
@@ -1496,72 +1870,106 @@ def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
         host_tier["with_tier_rows"] += int(args[4]) > res.fallback_rows
         return res
 
-    batch_mod._ROUTES["rfc5424"] = (submit, fetch, counted)
+    batch_mod._ROUTES[kind] = (submit, fetch, counted)
     try:
-        with e1_shapes() as e1_seen:
-            wall_in, pipe, errs = run_inproc(cfg, path)
+        with launch_shapes() as seen:
+            wall, pipe, errs = run_inproc(cfg, path)
     finally:
-        batch_mod._ROUTES["rfc5424"] = (submit, fetch, encode)
+        batch_mod._ROUTES[kind] = (submit, fetch, encode)
     launches = dict(kernels.LAUNCHES)
     calls = dict(native.CALLS)
     declines = dict(framing.DECLINES)
-    tier = dict(pipe._handler.route_state.get("rfc5424", {}))
-    got = (WORK / f"{name}_inproc.out").read_bytes()
-    if got != exp_out or errs != exp_err:
+    got = (WORK / f"{name}_{tag}.out").read_bytes()
+    if got != exp_out or not same_stderr(kind, errs, exp_err):
         raise AssertionError(
-            f"{name}: in-process e2e differs from the scalar path: bytes "
-            f"{len(got)} vs {len(exp_out)}, equal={got == exp_out}; "
+            f"{name} ({fuse}): in-process e2e differs from the scalar path: "
+            f"bytes {len(got)} vs {len(exp_out)}, equal={got == exp_out}; "
             f"stderr lines {len(errs)} vs {len(exp_err)}")
-    missing = [k for k in PATHS[name][3] if launches[k] == 0]
+    need = need if fuse == "auto" else need_split
+    missing = [k for k in need if launches[k] == 0]
     if missing:
-        raise AssertionError(f"{name}: the run launched no {missing} kernel")
+        raise AssertionError(f"{name} ({fuse}): the run launched no "
+                             f"{missing} kernel")
     if any(declines.values()):
         raise AssertionError(f"{name}: device framing declined {declines}")
-    if e1_checked is not None and e1_seen - e1_checked:
-        raise AssertionError(f"{name}: E1 launched at shapes the kernels "
-                             f"phase did not check: "
-                             f"{sorted(e1_seen - e1_checked)}")
-    # the device encode tier: batches taken, declined (over 5 % of rows
-    # outside it), skipped in cooldown; bytes fetched and emitted a tier
-    # row
-    rows = tier.get("tier_rows", 0)
-    tier_report = {k: tier.get(k, 0) for k in ("taken", "declined", "cooled",
-                                               "wide", "tier_rows")}
-    tier_report.update(
-        fetch_bytes=tier.get("fetch_bytes", 0),
-        fetch_bytes_per_tier_row=tier.get("fetch_bytes", 0) / max(rows, 1),
-        emit_bytes_per_tier_row=tier.get("emit_bytes", 0) / max(rows, 1))
-    # one 6-pair probe a probed batch (taken or declined; a cooled batch
-    # is not probed), one assemble a taken batch; the 16-pair probes are
-    # the wide attempts, counted apart
-    probed = tier_report["taken"] + tier_report["declined"]
-    if PATHS[name][2] == "rfc5424" and (
-            launches["encode_gelf_probe_p6"] != probed
-            or launches["encode_gelf_assemble_p6"]
-            + launches["encode_gelf_assemble_p16"] != tier_report["taken"]):
-        raise AssertionError(f"{name}: {launches} E1 launches for "
-                             f"{tier_report}: not one probe a probed batch "
-                             f"and one assemble a taken batch")
-    tier_report["wide_probes"] = launches["encode_gelf_probe_p16"]
+    if checked is not None and seen - checked:
+        raise AssertionError(f"{name}: kernels launched at shapes the "
+                             f"kernels phase did not check: "
+                             f"{sorted(seen - checked)}")
+    rstate = pipe._handler.route_state
+    split = _tier_report(rstate.get(kind, {}))
+    fused = _tier_report(rstate.get(f"fused:{kind}_gelf", {}))
+    # one probe a probed batch (taken or declined; a cooled batch is not
+    # probed) and one assemble a taken batch, on each tier; the split
+    # rfc5424 tier's 16-pair probes are its wide attempts, counted apart
+    e_probe, e_asm = (("encode_gelf_probe_p6", ("encode_gelf_assemble_p6",
+                                                "encode_gelf_assemble_p16"))
+                      if kind == "rfc5424" else
+                      ("encode_gelf3164_probe", ("encode_gelf3164_assemble",)))
+    if kind in ("rfc5424", "rfc3164"):
+        f_name = f"fused_{kind}_gelf"
+        if (launches[e_probe] != split["taken"] + split["declined"]
+                or sum(launches[k] for k in e_asm) != split["taken"]
+                or launches[f"{f_name}_probe"]
+                != fused["taken"] + fused["declined"]
+                or launches[f"{f_name}_assemble"] != fused["taken"]):
+            raise AssertionError(f"{name} ({fuse}): {launches} for split "
+                                 f"{split} and fused {fused}: not one probe "
+                                 f"a probed batch and one assemble a taken "
+                                 f"batch")
+        if kind == "rfc5424":
+            split["wide_probes"] = launches["encode_gelf_probe_p16"]
     # the native host tier: its row engine wrote every rfc5424 host-tier
     # batch with tier rows, and its formatter every taken batch's
-    # timestamp text
-    rfc = PATHS[name][2] == "rfc5424"
-    if (calls["fg_gelf_write_v2"] != host_tier["with_tier_rows"]
-            or calls["fg_gelf_lens_v2"] != host_tier["with_tier_rows"]
-            or (rfc and host_tier["batches"]
-                != tier_report["declined"] + tier_report["cooled"])
-            or calls["fg_format_f64_json"] != tier_report["taken"]):
-        raise AssertionError(f"{name}: native calls {calls} for host-tier "
-                             f"batches {host_tier} and {tier_report}")
-    if name == "rfc5424_tier" and (
-            tier_report["declined"] or tier_report["cooled"]
-            or not tier_report["taken"]
-            or tier_report["fetch_bytes_per_tier_row"]
-            >= tier_report["emit_bytes_per_tier_row"]):
-        raise AssertionError(f"{name}: the device encode tier did not take "
-                             f"every batch under the emitted bytes: "
-                             f"{tier_report}")
+    # timestamp text (split or fused)
+    rfc = kind == "rfc5424"
+    if (calls["fg_gelf_write_v2"] != (host_tier["with_tier_rows"] if rfc
+                                      else 0)
+            or calls["fg_gelf_lens_v2"] != calls["fg_gelf_write_v2"]
+            or (kind in ("rfc5424", "rfc3164") and host_tier["batches"]
+                != split["declined"] + split["cooled"])
+            or calls["fg_format_f64_json"]
+            != split["taken"] + fused["taken"]):
+        raise AssertionError(f"{name} ({fuse}): native calls {calls} for "
+                             f"host-tier batches {host_tier}, split {split}, "
+                             f"fused {fused}")
+    if name.endswith("_tier"):
+        # the tier mixes: the fused route takes every batch (the split
+        # tier sees none), or with the fused route off the split tier
+        # does; fewer bytes fetched than emitted a tier row
+        took, idle = (fused, split) if fuse == "auto" else (split, fused)
+        if (took["declined"] or took["cooled"] or not took["taken"]
+                or any(idle[k] for k in _STATE_KEYS)
+                or took["fetch_bytes_per_tier_row"]
+                >= took["emit_bytes_per_tier_row"]):
+            raise AssertionError(f"{name} ({fuse}): the tier did not take "
+                                 f"every batch under the emitted bytes: "
+                                 f"taker {took}, other {idle}")
+    return {"fuse": fuse, "launches": launches, "framing_declines": declines,
+            "fused_route": fused, "split_tier": split, "native_calls": calls,
+            "host_tier_batches": host_tier,
+            "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
+            "inproc_wall_s": wall,
+            "inproc_lines_per_s": None}
+
+
+def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
+    """One configuration in process (counts reset just before, read just
+    after; the tier mixes a second time with the fused route off) and
+    through the CLI; returns the launch counts summed over the in-process
+    runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
+    fails if a run launched E1, D3, E3, F1 or F3 at a batch shape not
+    checked there."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    path, data, exp_out, exp_err, mix = _write_input(name, n_lines, seed)
+    kind = PATHS[name][2]
+
+    # (a) in process, through the library entry point, counts reset
+    runs = [e2e_inproc(name, path, exp_out, exp_err, checked, "auto")]
+    if PATHS[name][4] is not None:
+        runs.append(e2e_inproc(name, path, exp_out, exp_err, checked, "off"))
+    for r in runs:
+        r["inproc_lines_per_s"] = n_lines / r["inproc_wall_s"]
 
     # (b) the CLI in a subprocess
     cfg = _config(name, "cli")
@@ -1578,20 +1986,20 @@ def phase_e2e(name: str, n_lines: int, seed: int, e1_checked=None):
                              + proc.stderr.decode()[-4000:])
     got = (WORK / f"{name}_cli.out").read_bytes()
     errs = proc.stderr.decode().splitlines()
-    if got != exp_out or errs != exp_err:
+    if got != exp_out or not same_stderr(kind, errs, exp_err):
         raise AssertionError(
             f"{name}: CLI e2e differs from the scalar path: bytes equal="
             f"{got == exp_out}; stderr lines {len(errs)} vs {len(exp_err)}")
     emit({"phase": "e2e", "path": name, "lines": n_lines,
           "input_bytes": len(data), "output_bytes": len(exp_out),
-          "error_lines": len(exp_err), "mix": mix, "launches": launches,
-          "framing_declines": declines, "device_encode_tier": tier_report,
-          "native_calls": calls, "host_tier_batches": host_tier,
-          "e1_launch_shapes": sorted(f"{k} {list(v)}" for k, v in e1_seen),
-          "inproc_wall_s": wall_in, "inproc_lines_per_s": n_lines / wall_in,
+          "error_lines": len(exp_err), "mix": mix, "runs": runs,
           "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
           "identical_to_scalar_path": True})
-    return launches
+    total = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
@@ -1650,7 +2058,9 @@ def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
     try:
         for i, flag in enumerate(order):
             os.environ["FLOWGGER_DEVICE_ENCODE"] = flag
-            cfg = _config("rfc5424_line", f"ab{flag}")
+            # the split tier alone, as this A/B measured it before the
+            # fused route (phase_fuse_ab compares the two)
+            cfg = _config("rfc5424_line", f"ab{flag}", fuse="off")
             wall, pipe, errs = run_inproc(cfg, path)
             got = (WORK / f"rfc5424_line_ab{flag}.out").read_bytes()
             if ref is None:
@@ -1682,6 +2092,154 @@ def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
           "median_on_over_off": statistics.median(ratios),
           "spread_off": (max(off) - min(off)) / statistics.median(off),
           "spread_on": (max(on) - min(on)) / statistics.median(on)})
+
+
+def phase_fuse_ab(seed: int, n_batches: int = 8):
+    """The fused route against the split path on the two tier mixes
+    (rfc5424 and rfc3164, ``n_batches`` × 16 384 lines each), in one
+    process: a batch handler with ``input.tpu_fuse = "auto"`` (the fused
+    route takes every batch) and then ``"off"`` (the split decode and the
+    split device tier), each over the same framed regions: one
+    unrecorded run of each (the first run in a process pays one-time
+    costs, the scalar oracle's zone lookups among them), then auto, off,
+    off, auto.  Host-clock walls of device framing and of the block
+    encode (``_dispatch``: the route's kernels, stamp text, fetch,
+    splice, oracle rows, enqueue), launch counts; every run must write
+    the same bytes.  Then the device
+    ms, at a flush batch of the mix, of F1 (probe + assemble) against K1
+    p6 + E1 probe + E1 assemble, and of F3 against D3 + E3 probe + E3
+    assemble.  No claim is made from them."""
+    import queue
+
+    import torch
+
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.corpus import (make_rfc3164_tier_corpus,
+                                           make_tier_corpus)
+    from flowgger_tpu_torch.encoders import GelfEncoder
+    from flowgger_tpu_torch.mergers import NulMerger
+    from flowgger_tpu_torch.tpu import (device_common, device_gelf,
+                                        device_rfc3164, framing, kernels)
+    from flowgger_tpu_torch.tpu.batch import BatchHandler
+    from flowgger_tpu_torch.utils.timeparse import current_year_utc
+
+    dev = torch.device("cuda")
+    year = current_year_utc()
+    for fmt, make in (("rfc5424", make_tier_corpus),
+                      ("rfc3164", make_rfc3164_tier_corpus)):
+        lines, _ = make(n_batches * BATCH, seed + 15)
+        regions = [b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
+                   for b in range(n_batches)]
+        outs, runs = [], []
+        for i, fuse in enumerate(("auto", "off", "auto", "off", "off",
+                                  "auto")):
+            cfg = Config.from_string(f'[input]\ntpu_fuse = "{fuse}"\n')
+            tx = queue.Queue()
+            handler = BatchHandler(tx, GelfEncoder(cfg), cfg, NulMerger(),
+                                   dev, start_timer=False, fmt=fmt)
+            walls = {"frame": 0.0, "block_encode": 0.0}
+            kernels.reset_launch_counts()
+            with contextlib.redirect_stderr(io.StringIO()):
+                for region in regions:
+                    t0 = time.perf_counter()
+                    packed, _, _ = framing.device_frame_region(
+                        region, "line", MAX_LEN, BATCH, dev)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    handler._dispatch(packed)
+                    walls["frame"] += t1 - t0
+                    walls["block_encode"] += time.perf_counter() - t1
+            outs.append(b"".join(tx.get_nowait().data
+                                 for _ in range(tx.qsize())))
+            if i < 2:
+                continue
+            runs.append({
+                "fuse": fuse, "wall_s": walls,
+                "lines_per_s": n_batches * BATCH / sum(walls.values()),
+                "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+                "route_state": {k: {kk: vv for kk, vv in v.items()
+                                    if kk in _STATE_KEYS}
+                                for k, v in handler.route_state.items()}})
+        if len(set(outs)) > 1:
+            raise AssertionError(f"fuse A/B: {fmt} with the fused route on "
+                                 f"and off wrote different bytes")
+        for r in runs:
+            key = f"fused:{fmt}_gelf" if r["fuse"] == "auto" else fmt
+            taken = r["route_state"].get(key, {}).get("taken", 0)
+            if taken != n_batches or len(r["route_state"]) != 1:
+                raise AssertionError(f"fuse A/B: {fmt} ({r['fuse']}): "
+                                     f"{r['route_state']}, not every batch "
+                                     f"taken by its one tier")
+        block = {f: sum(r["wall_s"]["block_encode"] for r in runs
+                        if r["fuse"] == f) for f in ("auto", "off")}
+
+        # device ms at a flush batch of the mix: the fused route's two
+        # kernels against the split path's three
+        region_b, n = line_flush(make(2 * BATCH, seed + 16)[0])
+        packed, _, _ = framing.device_frame_region(region_b, "line", MAX_LEN,
+                                                   n, dev)
+        b, ln = packed[0], packed[1]
+        N = b.shape[0]
+        split = device_gelf if fmt == "rfc5424" else device_rfc3164
+        bank_b, table = split.kernel_consts(b"\0")
+        bank = device_gelf._bank_on(bank_b, dev)
+        OW = split.out_width(MAX_LEN, b"\0")
+        base, base_len, small = kernels.fused_gelf_cuda(fmt, b, ln, n, bank,
+                                                        table, year=year)
+        sm = small[:, :n].cpu().numpy()
+        txt, tl = device_common.ts_text_block(
+            {"ok": sm[0] != 0, "days": sm[1], "sod": sm[2], "off": sm[3],
+             "nanos": sm[4]})
+        ts_text = torch.zeros((N, device_common.TS_W), dtype=torch.uint8)
+        ts_len = torch.zeros(N, dtype=torch.int32)
+        ts_text[:n], ts_len[:n] = torch.from_numpy(txt), torch.from_numpy(tl)
+        ts_text, ts_len = ts_text.to(dev), ts_len.to(dev)
+        length = base_len.to(torch.int64) + ts_len
+        tier = base & (length <= OW)
+        gated = torch.where(tier, length, 0)
+        row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
+        total = int(gated.sum())
+        asm = {"OW": OW, "ts_text": ts_text, "ts_len": ts_len,
+               "row_off": row_off, "total": total}
+        if fmt == "rfc5424":
+            ch = kernels.decode_rfc5424_cuda(b, ln, 4, 6)
+            split_fns = {
+                "decode_rfc5424_p6": lambda: kernels.decode_rfc5424_cuda(
+                    b, ln, 4, 6),
+                "encode_gelf_probe_p6": lambda: kernels.encode_gelf_cuda(
+                    b, ln, ch, n, bank, table, 4, 6),
+                "encode_gelf_assemble_p6": lambda: kernels.encode_gelf_cuda(
+                    b, ln, ch, n, bank, table, 4, 6, **asm)}
+        else:
+            ch = kernels.decode_rfc3164_cuda(b, ln, year)
+            split_fns = {
+                "decode_rfc3164": lambda: kernels.decode_rfc3164_cuda(
+                    b, ln, year),
+                "encode_gelf3164_probe": lambda: kernels.encode_gelf3164_cuda(
+                    b, ln, ch, n, bank, table),
+                "encode_gelf3164_assemble":
+                    lambda: kernels.encode_gelf3164_cuda(b, ln, ch, n, bank,
+                                                         table, **asm)}
+        fused_fns = {
+            f"fused_{fmt}_gelf_probe": lambda: kernels.fused_gelf_cuda(
+                fmt, b, ln, n, bank, table, year=year),
+            f"fused_{fmt}_gelf_assemble": lambda: kernels.fused_gelf_cuda(
+                fmt, b, ln, n, bank, table, year=year, **asm)}
+        # both paths assemble the same bytes at this batch
+        if not torch.equal(fused_fns[f"fused_{fmt}_gelf_assemble"](),
+                           list(split_fns.values())[2]()):
+            raise AssertionError(f"fuse A/B: {fmt}: the fused and split "
+                                 f"assembles differ at the flush batch")
+        fused_ms = {k: device_ms(f) for k, f in fused_fns.items()}
+        split_ms = {k: device_ms(f) for k, f in split_fns.items()}
+        emit({"phase": "fuse_ab", "format": fmt,
+              "lines": n_batches * BATCH, "runs": runs,
+              "block_encode_auto_over_off": block["auto"] / block["off"],
+              "flush_shape": [N, MAX_LEN], "flush_rows": n,
+              "tier_rows": int(tier.sum()), "fused_ms": fused_ms,
+              "split_ms": split_ms,
+              "fused_over_split_ms": sum(fused_ms.values())
+              / sum(split_ms.values())})
 
 
 # sides of the host A/B (phase_host_ab): the native host tier as shipped,
@@ -1815,7 +2373,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--lines", type=int, default=16 * BATCH,
-                    help="lines of each line-framed e2e run")
+                    help="lines of the rfc5424 line-framed e2e runs")
     ap.add_argument("--host-ab", type=int, default=0, metavar="ROUNDS",
                     help="run only the host A/B of the native host tier, "
                          "ROUNDS rounds (phase_host_ab)")
@@ -1840,26 +2398,46 @@ def main(argv=None) -> int:
     if args.host_ab_side:
         host_ab_side(args.seed, args.host_ab_side)
         return 0
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+
     smi_line = phase_device()
     phase_build()
+    lap("device_build")
     if args.host_ab:
         phase_host_ab(args.seed, args.host_ab)
         print(smi_line, flush=True)
         return 0
     rows = phase_kernels(args.seed)
+    lap("kernels")
     phase_native(args.seed)
+    lap("native")
     if (phase_breakdown(args.seed, "rfc5424")
             != phase_breakdown(args.seed, "rfc5424", engine="numpy")):
         raise AssertionError("the GELF block encoder's native and numpy "
                              "engines wrote different bytes")
     phase_breakdown(args.seed, "jsonl")
     phase_breakdown_tier(args.seed)
+    lap("breakdown")
     phase_encode_ab(args.seed)
+    lap("encode_ab")
+    phase_fuse_ab(args.seed)
+    lap("fuse_ab")
     total = {}
     for name in PATHS:
-        n = SYSLEN_LINES if name == "rfc5424_syslen" else args.lines
-        for k, v in phase_e2e(name, n, args.seed, E1_CHECKED).items():
+        n = {"rfc5424_syslen": SYSLEN_LINES, "jsonl_line": JSONL_LINES,
+             "rfc3164_line": RFC3164_LINES,
+             "rfc3164_tier": RFC3164_LINES}.get(name, args.lines)
+        for k, v in phase_e2e(name, n, args.seed, CHECKED).items():
             total[k] = total.get(k, 0) + v
+        lap(f"e2e_{name}")
+    emit({"phase": "phase_seconds", **seconds,
+          "total": sum(seconds.values())})
     for r in rows:
         r["launches"] = total[r["name"]]
     emit({"kernels": [

@@ -17,6 +17,12 @@ branch of the device paths:
   escaped strings with backslash runs up to 24, malformed rows,
   whitespace runs past the lookaround window, over-length, CRLF and
   non-ASCII rows;
+- :func:`make_rfc3164_corpus` — one day's BSD-syslog stream
+  (:data:`RFC3164_MIX`) in RFC 3164's §4.1 / §5.4 layout
+  ``<PRI>Mmm dd hh:mm:ss host tag[pid]: msg``, and the rows of it the
+  fast path leaves to the scalar oracle;
+- :func:`make_rfc3164_tier_corpus` — BSD-syslog lines the device encode
+  tier takes (:data:`RFC3164_TIER_MIX`), dated a single-digit day;
 - :func:`syslen_stream` — any line list as octet-counted frames
   (``<len> <line>`` back to back), the last frame cut short.
 
@@ -32,7 +38,8 @@ from typing import List, Tuple
 import numpy as np
 
 from .config import Config
-from .decoders import DecodeError, JSONLDecoder, RFC5424Decoder
+from .decoders import (DecodeError, JSONLDecoder, RFC3164Decoder,
+                       RFC5424Decoder)
 from .encoders import EncodeError, GelfEncoder
 from .mergers import NulMerger
 
@@ -283,6 +290,111 @@ def make_jsonl_corpus(n_lines: int, seed: int
     return lines, [kinds[int(k)] for k in picks]
 
 
+# (kind, share) — a day of BSD syslog as daemons write it (RFC 3164
+# §4.1, §5.4): "fast" is the layout <PRI>Mmm dd hh:mm:ss host tag[pid]:
+# msg with lowercase short names, FQDNs and IPv4 hosts; the rest are
+# the shapes the fast path sends to the scalar oracle or that decode
+# through it the same way: no PRI (fast), a capitalised single-token
+# host (the timezone-lookalike guard), a double space or tab in the
+# message, a trailing space, over-512-byte rows, non-ASCII, CRLF
+# endings (framing strips the CR: fast), malformed month, time or PRI
+RFC3164_MIX = (
+    ("fast", 0.85), ("nopri", 0.03), ("tzhost", 0.02), ("space", 0.02),
+    ("trailing", 0.01), ("long", 0.02), ("high", 0.02), ("crlf", 0.02),
+    ("malformed", 0.01),
+)
+# the mix the device encode tier takes: ~97 % fast rows, the rest
+# outside the tier, under its 5 % decline threshold
+RFC3164_TIER_MIX = (("fast", 0.97), ("tzhost", 0.01), ("high", 0.01),
+                    ("malformed", 0.01))
+_HOSTS = ("web01", "db-3", "cache7", "lb0", "api-gw", "mx2")
+_DOMAINS = ("example.com", "corp.internal", "eu-west.prod.net")
+_TAGS = ("sshd", "CRON", "kernel", "nginx", "postfix/smtpd", "systemd",
+         "su", "dhclient")
+_TZ_HOSTS = ("Gateway", "Router", "NAS", "Printer", "UTC", "EST")
+_MONTH = "Oct"
+_MALFORMED_3164 = (
+    "<13>Foo {d} 10:11:12 host app: bad month",
+    "<13>{m} {d} 25:61:00 host app: bad time",
+    "<999>{m} {d} 10:11:12 host app: bad pri",
+    "<13{m} {d} 10:11:12 host app: unterminated pri",
+    "<13>{m} {d} 10:11:12",
+    "{m} {d}",
+    "just some words",
+    "",
+)
+
+
+def _host3164(rng) -> str:
+    r = int(rng.integers(0, 3))
+    if r == 0:
+        return _HOSTS[int(rng.integers(0, len(_HOSTS)))]
+    if r == 1:
+        return (f"{_HOSTS[int(rng.integers(0, len(_HOSTS)))]}."
+                f"{_DOMAINS[int(rng.integers(0, len(_DOMAINS)))]}")
+    return ".".join(str(int(v)) for v in rng.integers(1, 255, 4))
+
+
+def make_rfc3164_line(rng, kind: str, day: int, sod: int) -> bytes:
+    """One BSD-syslog line of ``kind`` dated ``_MONTH`` ``day`` at second
+    ``sod`` of the day (the day padded to two places with a space, RFC
+    3164 §4.1.2)."""
+    dd = f"{day:2d}"
+    stamp = f"{_MONTH} {dd} {sod // 3600:02d}:{sod // 60 % 60:02d}:{sod % 60:02d}"
+    pri = f"<{int(rng.integers(0, 192))}>"
+    tag = _TAGS[int(rng.integers(0, len(_TAGS)))]
+    pid = f"[{int(rng.integers(1, 65536))}]" if rng.random() < 0.7 else ""
+    msg = _msg(rng, int(rng.integers(1, 14)))
+    if rng.random() < 0.15:
+        msg += ' path="/var/log/x" user=\\root'
+    host = _host3164(rng)
+    if kind == "malformed":
+        t = _MALFORMED_3164[int(rng.integers(0, len(_MALFORMED_3164)))]
+        return t.format(m=_MONTH, d=dd).encode()
+    if kind == "nopri":
+        pri = ""
+    elif kind == "tzhost":
+        host = _TZ_HOSTS[int(rng.integers(0, len(_TZ_HOSTS)))]
+    elif kind == "space":
+        gap = "  " if rng.random() < 0.5 else "\t"
+        msg = msg + gap + "extra"
+    elif kind == "trailing":
+        msg += " "
+    elif kind == "long":
+        msg = _msg(rng, 100)
+    elif kind == "high":
+        msg += " caf\u00e9 \u2713"
+    line = f"{pri}{stamp} {host} {tag}{pid}: {msg}".encode()
+    return line + b"\r" if kind == "crlf" else line
+
+
+def _rfc3164_lines(n_lines: int, seed: int, mix, day: int):
+    rng = np.random.default_rng(seed)
+    kinds, shares = zip(*mix)
+    picks = rng.choice(len(kinds), size=n_lines,
+                       p=np.asarray(shares) / sum(shares))
+    # one day's stream: the seconds of the day rise with the line index
+    lines = [make_rfc3164_line(rng, kinds[int(k)], day, i * 86400 // n_lines)
+             for i, k in enumerate(picks)]
+    return lines, [kinds[int(k)] for k in picks]
+
+
+def make_rfc3164_corpus(n_lines: int, seed: int, day: int = 17
+                        ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` BSD-syslog lines of one day (layout A, a two-digit
+    day, by default) and their kinds, drawn from :data:`RFC3164_MIX`
+    with ``numpy.random.default_rng(seed)``."""
+    return _rfc3164_lines(n_lines, seed, RFC3164_MIX, day)
+
+
+def make_rfc3164_tier_corpus(n_lines: int, seed: int, day: int = 7
+                             ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` BSD-syslog lines the device encode tier takes, from
+    :data:`RFC3164_TIER_MIX`; the single-digit day puts every row in
+    layout C (``Mon  d``)."""
+    return _rfc3164_lines(n_lines, seed, RFC3164_TIER_MIX, day)
+
+
 def syslen_stream(lines: List[bytes], cut: int = 3) -> bytes:
     """``lines`` as octet-counted frames, back to back; the last frame
     loses its final ``cut`` bytes (a short read at EOF)."""
@@ -326,9 +438,16 @@ def scalar_expectation(data: bytes, framing: str = "line",
     path over ``data``: frame (line: one trailing CR stripped; syslen:
     the octet-count scan and its EOF/bad-prefix messages; the trailing
     partial frame of line/NUL included), then decode (``fmt`` is
-    ``rfc5424`` or ``jsonl``) → encode → frame (line_splitter.rs:17-54,
-    syslen_splitter.rs:26-69)."""
-    decoder = JSONLDecoder() if fmt == "jsonl" else RFC5424Decoder()
+    ``rfc5424``, ``rfc3164`` or ``jsonl``) → encode → frame
+    (line_splitter.rs:17-54, syslen_splitter.rs:26-69).  The rfc3164
+    decoder prints its own "Unable to parse" line before the error line
+    of a row both of its layouts reject; those come in row order here
+    (the batched path prints a batch's before its error lines)."""
+    import contextlib
+    import io
+
+    decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder}.get(
+        fmt, RFC5424Decoder)()
     encoder = GelfEncoder(config or Config.from_string(""))
     recs, tail = _frames(data, framing)
     out, errs = [], []
@@ -338,11 +457,15 @@ def scalar_expectation(data: bytes, framing: str = "line",
         except UnicodeDecodeError:
             errs.append("Invalid UTF-8 input")
             continue
+        said = io.StringIO()
         try:
-            payload = encoder.encode(decoder.decode(line))
+            with contextlib.redirect_stderr(said):
+                record = decoder.decode(line)
+            payload = encoder.encode(record)
             out.append(merger.frame(payload) if merger is not None
                        else payload)
         except (DecodeError, EncodeError) as e:
+            errs.extend(said.getvalue().splitlines())
             stripped = line.strip()
             if not (framing == "nul" and not stripped):
                 errs.append(f"{e}: [{stripped}]")

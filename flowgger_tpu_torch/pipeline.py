@@ -5,8 +5,8 @@ Parity model: flowgger src/flowgger/mod.rs:95-472 and the JAX package's
 ``pipeline.py``: the same TOML file, the same key names and defaults,
 the same output-framing inference.  The port runs ``input.type =
 "stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
-``input.format = "rfc5424_tpu" | "jsonl_tpu"``, into ``output.format =
-"gelf"`` with ``output.type = "stdout" | "file"``.  Anything else raises
+``input.format = "rfc5424_tpu" | "rfc3164_tpu" | "jsonl_tpu"``, into
+``output.format = "gelf"`` with ``output.type = "stdout" | "file"``.  Anything else raises
 ConfigError naming the later slice; nothing quietly takes a scalar path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
@@ -32,10 +32,11 @@ DEFAULT_OUTPUT_FORMAT = "gelf"
 DEFAULT_OUTPUT_TYPE = "kafka"
 DEFAULT_QUEUE_SIZE = 10_000_000
 
-_LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu " \
-    "or jsonl_tpu → GELF; it comes in a later slice)"
+_LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu, " \
+    "rfc3164_tpu or jsonl_tpu → GELF; it comes in a later slice)"
 # input.format → the batch handler's decode route
-_FORMATS = {"rfc5424_tpu": "rfc5424", "jsonl_tpu": "jsonl"}
+_FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
+            "jsonl_tpu": "jsonl"}
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -111,8 +112,15 @@ class Pipeline:
             output_framing = infer_output_framing(output_format, output_type)
         self.merger = get_merger(output_framing)
         from .tpu.encode_gelf_block import gelf_extra_slots
+        from .tpu.encode_rfc3164_gelf_block import gelf_extra_consts_3164
 
-        if gelf_extra_slots(self.encoder.extra) is None:
+        # gelf_extra keys the block encoder cannot place statically take
+        # the reference's Record path, which is not ported
+        if self.fmt == "rfc3164":
+            placeable = gelf_extra_consts_3164(self.encoder.extra) is not None
+        else:
+            placeable = gelf_extra_slots(self.encoder.extra) is not None
+        if not placeable:
             raise ConfigError(
                 "output.gelf_extra keys that start with '_' or overwrite a "
                 f"GELF field {_LATER}")

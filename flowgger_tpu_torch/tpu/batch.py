@@ -1,4 +1,5 @@
-"""BatchHandler: the port's batched RFC5424 / JSON-lines → GELF paths.
+"""BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines → GELF
+paths.
 
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
@@ -7,22 +8,30 @@ a session's region reaches 4 MiB, when ``input.tpu_flush_ms`` elapses
 with data pending, or at end of stream — each session's region is framed
 (line/NUL: cut at its last separator; syslen: up to the first incomplete
 frame), the tail stays as carry for the next flush, and the records go
-through:
+down the reference's ladder (its ``_emit_fast`` and
+``block_fetch_encode``):
 
 1. device framing (``framing.device_frame_region``: span and gather
    kernels), or the host splitter when the span kernel declines;
-2. the format's decode kernel and its fetch — RFC5424
-   (``rfc5424.decode_rfc5424_submit``, 7-16-pair rows re-decoded at 16
-   pairs) or JSON-lines (``jsonl.decode_jsonl_submit``, 9-24-key rows
-   re-decoded at 24 fields);
-3. for RFC5424 into GELF, the device encode tier
-   (``device_gelf.fetch_encode``: probe, timestamp text, assemble, one
-   fetch of the tier rows' bytes), which hands the batch back when more
-   than 5 % of its rows fall outside the tier, and cools down after
-   three such batches in a row; then the format's host block encoder
-   (``encode_gelf_block`` / ``encode_jsonl_block``), which runs the
+2. for RFC5424 or RFC3164 into GELF with ``input.tpu_fuse`` "auto" (the
+   default) or "on", the fused route (``fused_routes``: decode and encode
+   in one kernel a phase), unless its own cooldown is running, which
+   counts down here, at submit;
+3. on a fused decline (or with ``tpu_fuse = "off"``) the format's
+   decode kernel — RFC5424 (``rfc5424.decode_rfc5424_submit``, 7-16-pair
+   rows re-decoded at 16 pairs on the host path), RFC3164
+   (``rfc3164.decode_rfc3164_submit``) or JSON-lines
+   (``jsonl.decode_jsonl_submit``, 9-24-key rows re-decoded at 24
+   fields);
+4. for RFC5424 or RFC3164 into GELF, the split device encode tier
+   (``device_gelf`` / ``device_rfc3164``: probe, timestamp text,
+   assemble, one fetch of the tier rows' bytes) under its own decline
+   state; each tier hands the batch back when more than 5 % of its rows
+   fall outside it, and cools down after three such batches in a row;
+5. the format's host block encoder (``encode_gelf_block``,
+   ``encode_rfc3164_gelf_block``, ``encode_jsonl_block``), which runs the
    scalar oracle for rows the kernel flagged and for over-length lines;
-4. the merger framing (pre-applied) and the output queue.
+6. the merger framing (pre-applied) and the output queue.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
 the reference (line_splitter.rs:37-54).  Batches are processed in order
@@ -39,14 +48,17 @@ from typing import List
 
 import torch
 
-from ..config import Config
+from ..config import Config, ConfigError
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
-from . import device_gelf
+from . import device_gelf, device_rfc3164
 from . import framing as _framing
+from . import fused_routes
 from . import pack as _pack
 from .encode_gelf_block import encode_rfc5424_gelf_block
 from .encode_jsonl_block import encode_jsonl_gelf_block
+from .encode_rfc3164_gelf_block import encode_rfc3164_gelf_block
 from .jsonl import decode_jsonl_fetch, decode_jsonl_submit
+from .rfc3164 import decode_rfc3164_fetch, decode_rfc3164_submit
 from .rfc5424 import decode_rfc5424_fetch, decode_rfc5424_submit
 
 DEFAULT_BATCH_SIZE = 16384
@@ -63,9 +75,13 @@ _RAW_REGION_CAP = 4 << 20
 _ROUTES = {
     "rfc5424": (decode_rfc5424_submit, decode_rfc5424_fetch,
                 encode_rfc5424_gelf_block),
+    "rfc3164": (decode_rfc3164_submit, decode_rfc3164_fetch,
+                encode_rfc3164_gelf_block),
     "jsonl": (decode_jsonl_submit, decode_jsonl_fetch,
               encode_jsonl_gelf_block),
 }
+# the split device encode tier per input format
+_DEVICE_TIERS = {"rfc5424": device_gelf, "rfc3164": device_rfc3164}
 
 
 class BatchHandler(Handler):
@@ -96,9 +112,32 @@ class BatchHandler(Handler):
         # reorder output
         self._decode_lock = threading.Lock()
         self._timer = None
-        # the device encode tier's decline hysteresis and counts, per
-        # input format (device_common.fetch_encode_driver)
+        # the device encode tiers' decline hysteresis and counts: the
+        # split tier's under the input format, the fused route's under
+        # "fused:<route>" (fused_routes.cooldown_state), never shared
         self.route_state: dict = {}
+        # fused decode→encode routes: "auto" (default) runs the fused
+        # route whenever the (format, encoder, merger) has one, declining
+        # to the split path; "off" pins the split path; "on" is "auto"
+        # plus a startup notice when this config can never fuse
+        self._fuse_mode = config.lookup_str(
+            "input.tpu_fuse", "input.tpu_fuse must be a string", "auto")
+        if self._fuse_mode not in ("auto", "on", "off"):
+            raise ConfigError("input.tpu_fuse must be auto, on or off")
+        if self._fuse_mode == "on" and self._fused_route() is None:
+            print(
+                'flowgger-tpu: input.tpu_fuse = "on" but this '
+                f"config cannot fuse format '{fmt}' (no registered "
+                "fused program for the route, template mining on, "
+                "or a sharded mesh owns the format); using the "
+                "split decode/encode path", file=sys.stderr)
+
+    def _fused_route(self):
+        """The fused route for this handler's config, or None: fuse mode
+        off, or no fused program for this (format, encoder, merger)."""
+        if self._fuse_mode == "off":
+            return None
+        return fused_routes.route_for(self.fmt, self.encoder, self.merger)
 
     # -- ingest --------------------------------------------------------------
     def open_raw(self, framing: str) -> "_RawSession":
@@ -199,16 +238,33 @@ class BatchHandler(Handler):
             sess.carry = b""
 
     def _dispatch(self, packed) -> None:
-        """Decode → the device encode tier, or fetch (+ the wider rescue)
-        → host block encode → enqueue."""
+        """The fused route, or the split decode → the split device encode
+        tier, or fetch (+ the wider rescue) → host block encode →
+        enqueue."""
         batch, lens, chunk, starts, orig_lens, n_real = packed
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(batch).to(self.device)
             lens = torch.from_numpy(lens).to(self.device)
+        route = self._fused_route()
+        if route is not None:
+            state = fused_routes.cooldown_state(self.route_state, route)
+            if state.get("cooldown", 0) > 0:
+                # fused route cooling down after declines: the split
+                # path takes this batch
+                state["cooldown"] -= 1
+                state["cooled"] = state.get("cooled", 0) + 1
+            else:
+                handle = fused_routes.submit(route, (batch, lens))
+                res, _ = fused_routes.fetch_encode(
+                    handle, packed, self.encoder, self.merger,
+                    self.route_state)
+                if res is not None:
+                    self._emit_block(res)
+                    return
         handle = self._submit(batch, lens)
-        if (self.fmt == "rfc5424"
-                and device_gelf.route_ok(self.encoder, self.merger)):
-            res, _ = device_gelf.fetch_encode(
+        tier = _DEVICE_TIERS.get(self.fmt)
+        if tier is not None and tier.route_ok(self.encoder, self.merger):
+            res, _ = tier.fetch_encode(
                 handle, packed, self.encoder, self.merger,
                 self.route_state.setdefault(self.fmt, {}))
             if res is not None:

@@ -1,0 +1,289 @@
+"""Fused device-resident decode→encode routes: one program per
+(in-format, out-format) pair, so the decode's span channels never leave
+the device between the decode and the encode.
+
+A trimmed copy of the JAX package's ``tpu/fused_routes.py`` with its two
+GELF legs of rfc5424 and rfc3164 input.  The split tier
+(``device_gelf`` / ``device_rfc3164``) runs the decode and the encode as
+two launches with the decode's channel tensor written to device memory
+in between; a fused route runs both in one kernel a phase:
+
+- F1, ``rfc5424_gelf``: K1's row decode (6 pairs) and E1's encode in one
+  warp (``csrc/fused_gelf.cu``);
+- F3, ``rfc3164_gelf``: D3's row decode and E3's encode in one warp.
+
+Each phase (the probe, then the assemble of a taken batch) decodes its
+rows again, as each call of the reference's fused program does; the
+channels stay in shared memory.  Only the channels the encode reads
+(:data:`DEMAND`) are written there.  The probe returns the tier bit
+before the width test and the length without the timestamp text, as the
+split tier's probe does, plus the ``ok`` and timestamp channels the
+driver formats the stamp text from; so the driver
+(``device_common.fetch_encode_driver``) needs no decode output at all.
+
+The decline ladder is the reference's: a fused route keeps its own
+hysteresis state (:func:`cooldown_state`, key ``fused:<route>``), whose
+cooldown the handler counts down at submit; a declined or cooled batch
+goes down the split path — split decode, the split device tier under its
+own state, the host block encoder, the scalar oracle — and the bytes are
+the same at every rung.  The fused route has no 16-pair wide probe (the
+reference passes its driver none).
+
+Left out, on purpose: the fused compile watchdog and
+``FLOWGGER_FUSED_COMPILE_TIMEOUT_MS`` (the CUDA kernels build once,
+before the first batch, and a failed build raises), the AOT
+``fused_wrap``, the metrics registry and the six other routes of the
+reference's ``ROUTES``.
+
+Plain versions (the CPU): the format's plain decode, narrowed to
+:data:`DEMAND`, then the split tier's plain encode.
+"""
+
+from __future__ import annotations
+
+# byte-identity contract (flowcheck FC03): the scalar counterpart the
+# fused routes must stay byte-identical to, and the differential tests
+# that enforce it
+SCALAR_ORACLE = "flowgger_tpu_torch.encoders.gelf:GelfEncoder"
+DIFF_TEST = (
+    "tests/test_torch_fused.py::test_fused_split_scalar_bytes_equal",
+    "tests/test_torch_fused.py::test_fused_probe_matches_reference",
+)
+
+from typing import Dict, Optional
+
+import torch
+
+# decline hysteresis — same ladder constants as the split device tiers
+FALLBACK_FRAC = 0.05
+DECLINE_LIMIT = 3
+COOLDOWN = 16
+
+_TS4 = ("days", "sod", "off", "nanos")
+
+# Field-demand masks: exactly the decode channels each route's encode and
+# fetch driver read.  A missing key fails fast (KeyError in the plain
+# encode), so the CPU differential tests double as completeness checks.
+DEMAND = {
+    "rfc5424_gelf": frozenset((
+        "ok", "has_high", "severity", *_TS4,
+        "host_start", "host_end", "app_start", "app_end",
+        "proc_start", "proc_end", "full_start", "trim_end",
+        "msg_trim_start", "sd_count", "sid_start", "sid_end",
+        "pair_count", "name_start", "name_end", "val_start", "val_end",
+        "val_has_esc",
+    )),  # drops: bom, facility, msgid_start/end, msg_start, pair_sd
+    "rfc3164_gelf": frozenset((
+        "ok", "has_pri", "has_high", "severity", *_TS4,
+        "host_start", "host_end", "msg_start",
+    )),  # drops: facility
+}
+
+
+class FusedHandle:
+    """A submitted fused batch: the device inputs plus the route that
+    will run them.  The kernels run at fetch time."""
+
+    __slots__ = ("route", "batch_dev", "lens_dev")
+
+    def __init__(self, route, batch_dev, lens_dev):
+        self.route = route
+        self.batch_dev = batch_dev
+        self.lens_dev = lens_dev
+
+
+class _FusedRows:
+    """One fused batch as the fetch driver sees it (the contract of
+    ``device_gelf._Rows``): ``probe`` and ``assemble`` launch the fused
+    kernel on a CUDA batch, and run the plain decode and encode on a CPU
+    batch; ``small_channels`` hands back the ``ok`` and timestamp
+    channels the probe produced."""
+
+    def __init__(self, route, batch, lens, suffix, extras, year):
+        self.route = route
+        self.batch, self.lens = batch, lens
+        self.N = batch.shape[0]
+        self.device = batch.device
+        self.suffix, self.extras, self.year = suffix, extras, year
+        self.small = None
+        self.dec = None        # the plain decode, kept from the probe
+        if route.fmt == "rfc3164":
+            from . import device_rfc3164 as split
+        else:
+            from . import device_gelf as split
+        self.split = split
+        self.OW = split.out_width(batch.shape[1], suffix, extras)
+        if batch.is_cuda:
+            from .device_gelf import _bank_on
+
+            bank, self.table = split.kernel_consts(suffix, extras)
+            self.bank = _bank_on(bank, batch.device)
+
+    def _plain_decode(self) -> Dict[str, torch.Tensor]:
+        if self.route.fmt == "rfc3164":
+            from .rfc3164 import decode_rfc3164
+
+            dec = decode_rfc3164(self.batch, self.lens, self.year)
+        else:
+            from .rfc5424 import decode_rfc5424
+
+            dec = decode_rfc5424(self.batch, self.lens)
+        demand = DEMAND[self.route.name]
+        return {k: v for k, v in dec.items() if k in demand}
+
+    def _plain_encode(self, dec, **kw):
+        if self.route.fmt == "rfc3164":
+            return self.split.encode_rows(self.batch, self.lens, dec,
+                                          suffix=self.suffix,
+                                          extras=self.extras, **kw)
+        from .rfc5424 import DEFAULT_MAX_SD
+
+        return self.split.encode_rows(self.batch, self.lens, dec,
+                                      suffix=self.suffix,
+                                      max_sd=DEFAULT_MAX_SD,
+                                      extras=self.extras, **kw)
+
+    def probe(self, n: int):
+        """``(base, base_len)`` of the first ``n`` rows, as the split
+        tier's probe; keeps the ``ok`` and timestamp channels (int32
+        [5, N]: ok, days, sod, off, nanos; 0 past ``n``)."""
+        if self.batch.is_cuda:
+            from .kernels import fused_gelf_cuda
+
+            base, base_len, self.small = fused_gelf_cuda(
+                self.route.fmt, self.batch, self.lens, n, self.bank,
+                self.table, year=self.year)
+            return base, base_len
+        dec = self.dec = self._plain_decode()
+        live = torch.arange(self.N, device=self.device) < n
+        self.small = torch.stack([
+            torch.where(live, dec[k].to(torch.int32), 0)
+            for k in ("ok",) + _TS4])
+        return self._plain_encode(dec, assemble=False, n=n)
+
+    def assemble(self, ts_text, ts_len, row_off, total, n: int):
+        if self.batch.is_cuda:
+            from .kernels import fused_gelf_cuda
+
+            return fused_gelf_cuda(
+                self.route.fmt, self.batch, self.lens, n, self.bank,
+                self.table, year=self.year, OW=self.OW, ts_text=ts_text,
+                ts_len=ts_len, row_off=row_off, total=total)
+        from .device_gelf import flat_rows
+
+        # the kernel decodes again; the plain version's decode is the
+        # same function of the same batch, so the probe's is reused
+        dec = self.dec if self.dec is not None else self._plain_decode()
+        rows, out_len, _ = self._plain_encode(dec, ts_text=ts_text,
+                                              ts_len=ts_len)
+        return flat_rows(rows, out_len, row_off, total)
+
+    def small_channels(self, n: int):
+        h = self.small[:, :n].cpu().numpy()
+        small = {"ok": h[0] != 0, "days": h[1], "sod": h[2], "off": h[3],
+                 "nanos": h[4]}
+        return small, h.nbytes
+
+
+class FusedRoute:
+    """One (in-format → GELF) fused program plus its driver recipe."""
+
+    __slots__ = ("name", "fmt")
+
+    def __init__(self, name: str, fmt: str):
+        self.name = name
+        self.fmt = fmt
+
+    def route_ok(self, encoder, merger) -> bool:
+        """The split device tier's gate (GELF output, framing allowlist,
+        extras placement, ``FLOWGGER_DEVICE_ENCODE``): a route the split
+        tier would refuse is never fused either."""
+        if self.fmt == "rfc3164":
+            from . import device_rfc3164
+
+            return device_rfc3164.route_ok(encoder, merger)
+        from . import device_gelf
+
+        return device_gelf.route_ok(encoder, merger)
+
+    def make_kernel(self, handle: FusedHandle, encoder, merger):
+        """The driver's row object plus its kwargs (scalar oracle, the
+        elided constants)."""
+        from .block_common import merger_suffix
+
+        suffix, syslen = merger_suffix(merger)
+        extras = tuple((k, v) for k, v in encoder.extra)
+        year = None
+        if self.fmt == "rfc3164":
+            from ..utils.timeparse import current_year_utc
+            from .device_rfc3164 import elide_spec
+            from .materialize_rfc3164 import _scalar_3164 as scalar_fn
+
+            year = current_year_utc()
+        else:
+            from .device_gelf import elide_spec
+            from .materialize import _scalar_line as scalar_fn
+        kern = _FusedRows(self, handle.batch_dev, handle.lens_dev, suffix,
+                          extras, year)
+        return kern, {"suffix": suffix, "syslen": syslen,
+                      "scalar_fn": scalar_fn,
+                      "elide": elide_spec(suffix, extras)}
+
+
+ROUTES = {
+    "rfc5424": FusedRoute("rfc5424_gelf", "rfc5424"),
+    "rfc3164": FusedRoute("rfc3164_gelf", "rfc3164"),
+}
+
+
+def route_for(fmt: str, encoder, merger) -> Optional[FusedRoute]:
+    """The registered fused route for this (fmt, encoder, merger)
+    config, or None when no fused program applies (the split path is
+    then the route — ``input.tpu_fuse = "auto"`` semantics).  Every
+    route here is a GELF leg, so its split tier's gate (which takes only
+    the GELF encoder) decides."""
+    route = ROUTES.get(fmt)
+    if route is None or not route.route_ok(encoder, merger):
+        return None
+    return route
+
+
+def cooldown_state(route_state: dict, route: FusedRoute) -> dict:
+    """The per-handler fused decline-hysteresis dict for ``route`` — the
+    one key both the submit-side cooldown check and the driver's decline
+    bookkeeping share.  Its own namespace: a fused decline must not eat
+    the split device tier's decline budget (or the other way round)."""
+    return route_state.setdefault(f"fused:{route.name}", {})
+
+
+def submit(route: FusedRoute, packed, device=None) -> FusedHandle:
+    """Put one packed tuple's inputs on the device.  No kernel runs
+    here: the fused kernels launch in :func:`fetch_encode`."""
+    batch, lens = packed[0], packed[1]
+    if not isinstance(batch, torch.Tensor):
+        batch = torch.from_numpy(batch)
+        lens = torch.from_numpy(lens)
+    if device is not None:
+        batch = batch.to(device)
+        lens = lens.to(device)
+    return FusedHandle(route, batch, lens.to(torch.int32))
+
+
+def fetch_encode(handle: FusedHandle, packed, encoder, merger,
+                 route_state=None, timings=None):
+    """Run the fused route for a submitted handle through the shared
+    fetch driver; returns (BlockResult | None, fetch_seconds).  None =
+    the fused tier declined (the tier fraction) — the caller falls back
+    to the split path."""
+    from .device_common import fetch_encode_driver
+
+    route = handle.route
+    state = None
+    if route_state is not None:
+        state = cooldown_state(route_state, route)
+    kern, kw = route.make_kernel(handle, encoder, merger)
+    return fetch_encode_driver(
+        kern, packed, encoder, merger, state, kw["suffix"], kw["syslen"],
+        scalar_fn=kw["scalar_fn"], fallback_frac=FALLBACK_FRAC,
+        decline_limit=DECLINE_LIMIT, cooldown=COOLDOWN,
+        elide=kw["elide"], timings=timings)

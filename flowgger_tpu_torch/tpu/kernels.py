@@ -18,12 +18,26 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
   its length without the timestamp text) and an assemble (the tier rows'
   bytes at their offsets); it replaces the jnp
   ``device_gelf._encode_kernel`` with device_common's escape, sort,
-  assembly and compaction stages, not a ``pallas_call``.
+  assembly and compaction stages, not a ``pallas_call``; beside it (the
+  same source) E3, the RFC3164→GELF encode of the split rfc3164 tier, a
+  probe and an assemble (replaces the jnp
+  ``device_rfc3164._encode_kernel``);
+- ``decode_rfc3164`` — D3, the per-row RFC3164 channels (replaces the jnp
+  ``rfc3164.decode_rfc3164``, not a ``pallas_call``);
+- ``fused_gelf`` — the fused routes F1 (rfc5424→GELF: K1's row decode and
+  E1 in one kernel a phase) and F3 (rfc3164→GELF: D3's and E3's),
+  replacing the jnp + Pallas ``fused_routes._fused_rfc5424_gelf`` and the
+  jnp ``_fused_rfc3164_gelf``.
+
+The one-warp-a-row kernels share their device code through headers in
+``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
+``decode_rfc3164_row.cuh``, ``encode_gelf_row.cuh``); each ``.cu`` still
+builds to one library.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use, into ``build/cuda`` next to the
-package (listed in ``.gitignore``), keyed by a hash of the source and the
-flags so an edited source rebuilds.  :func:`build` compiles every
+package (listed in ``.gitignore``), keyed by a hash of the source, the
+headers and the flags so an edited source or header rebuilds.  :func:`build` compiles every
 missing library in parallel — one ``nvcc`` per source, all started
 together.  The libraries are loaded with ``ctypes``; a wrapper checks its
 tensors, launches on PyTorch's current stream, raises on any CUDA error
@@ -32,8 +46,9 @@ Nothing here falls back: no ``nvcc``, a failed build, or a refused launch
 raises.  The plain PyTorch versions live beside the dispatchers that
 choose between them by the tensor's device (``framing.sep_spans``,
 ``framing.syslen_spans``, ``framing.gather``,
-``rfc5424.decode_rfc5424_submit``, ``jsonl.decode_jsonl_submit``,
-and ``device_gelf._Rows``).
+``rfc5424.decode_rfc5424_submit``, ``rfc3164.decode_rfc3164_submit``,
+``jsonl.decode_jsonl_submit``, ``device_gelf._Rows``,
+``device_rfc3164._Rows`` and ``fused_routes._FusedRows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -61,6 +76,8 @@ _SOURCES = {
     "decode_rfc5424": "decode_rfc5424.cu",
     "structural_index": "structural_index.cu",
     "encode_gelf": "encode_gelf.cu",
+    "decode_rfc3164": "decode_rfc3164.cu",
+    "fused_gelf": "fused_gelf.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,7 +91,11 @@ LAUNCHES: Dict[str, int] = {
     "decode_rfc5424_p6": 0, "decode_rfc5424_p16": 0,
     "structural_index_f8": 0, "structural_index_f24": 0,
     "encode_gelf_probe_p6": 0, "encode_gelf_assemble_p6": 0,
-    "encode_gelf_probe_p16": 0, "encode_gelf_assemble_p16": 0}
+    "encode_gelf_probe_p16": 0, "encode_gelf_assemble_p16": 0,
+    "decode_rfc3164": 0,
+    "encode_gelf3164_probe": 0, "encode_gelf3164_assemble": 0,
+    "fused_rfc5424_gelf_probe": 0, "fused_rfc5424_gelf_assemble": 0,
+    "fused_rfc3164_gelf_probe": 0, "fused_rfc3164_gelf_assemble": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,10 +124,26 @@ _SIGNATURES = {
         **{f"fg_encode_gelf_assemble_p{p}": (_P,) * 7 + (_I, _I, _I, _I,
                                                           _P, _P, _P)
            for p in (6, 16)},
+        "fg_encode_gelf3164_probe": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+        "fg_encode_gelf3164_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P, _P,
+                                                    _P),
+    },
+    "decode_rfc3164": {
+        "fg_decode_rfc3164": (_P, _P, _I, _P, _I, _I, _P),
+    },
+    "fused_gelf": {
+        "fg_fused_rfc5424_gelf_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                        _P),
+        "fg_fused_rfc5424_gelf_assemble": (_P,) * 6 + (_I, _I, _I, _I, _P,
+                                                       _P, _P),
+        "fg_fused_rfc3164_gelf_probe": (_P, _P, _I, _P, _I, _I, _I, _P, _P,
+                                        _P, _P),
+        "fg_fused_rfc3164_gelf_assemble": (_P, _P, _I) + (_P,) * 4 + (
+            _I, _I, _I, _I, _P, _P, _P),
     },
 }
 _TILE_BYTES = 16384  # kTile in frame_sep_spans.cu
-# decode_rfc5424.cu and structural_index.cu stage kWarps rows, each
+# decode_rfc5424.cu, decode_rfc3164.cu and structural_index.cu stage kWarps rows, each
 # padded to 16 bytes, in dynamic shared memory beside their static
 # per-warp sums and channel tile (< 8 KiB and < 12 KiB), within the
 # 227 KiB a block may use
@@ -143,7 +180,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / _SOURCES[name]).read_bytes()
+    # the source and every shared header under csrc/ key the build
+    src = (_CSRC / _SOURCES[name]).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{h}.so"
 
@@ -385,7 +424,6 @@ def encode_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
     (int32 [N]) and the output width ``OW`` it assembles: a u8 [total]
     buffer holding the elided bytes of each row whose offset is not
     negative, at that offset."""
-    from .device_common import TS_W
     from .rfc5424 import n_channels
 
     _need(batch, "batch", torch.uint8, 2)
@@ -411,13 +449,7 @@ def encode_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
         _check(rc, "encode_gelf probe")
         LAUNCHES[f"encode_gelf_probe_p{max_pairs}"] += 1
         return tier, base_len
-    _need(row_off, "row_off", torch.int64, 1)
-    _need(ts_text, "ts_text", torch.uint8, 2)
-    _need(ts_len, "ts_len", torch.int32, 1)
-    if (row_off.shape[0] != N or ts_len.shape[0] != N
-            or ts_text.shape != (N, TS_W) or OW < 1):
-        raise ValueError("row_off and ts_len must have one entry per row, "
-                         f"ts_text be [N, {TS_W}] and OW positive")
+    _assemble_args(N, OW, ts_text, ts_len, row_off)
     flat = torch.empty(total, dtype=torch.uint8, device=dev)
     if total == 0:
         return flat
@@ -427,6 +459,146 @@ def encode_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
         L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "encode_gelf assemble")
     LAUNCHES[f"encode_gelf_assemble_p{max_pairs}"] += 1
+    return flat
+
+
+def decode_rfc3164_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                        year: int) -> torch.Tensor:
+    """The RFC3164 channels of ``batch`` (u8 [N, L]) for ``year`` as one
+    int32 ``[12, N]`` tensor on the device (``rfc3164.unpack_channels``
+    splits it)."""
+    from .rfc3164 import KEYS
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or L < 1:
+        raise ValueError("lens must have one entry per row")
+    if _DECODE_ROWS_PER_BLOCK * 16 * (-(-L // 16)) > _DECODE_STAGING_BYTES:
+        raise ValueError(f"rows of {L} bytes exceed the decode kernel's "
+                         "shared-memory staging")
+    out = torch.empty((len(KEYS), N), dtype=torch.int32, device=batch.device)
+    rc = _lib("decode_rfc3164").fg_decode_rfc3164(
+        batch.data_ptr(), lens.data_ptr(), int(year), out.data_ptr(), N, L,
+        _stream())
+    _check(rc, "decode_rfc3164")
+    LAUNCHES["decode_rfc3164"] += 1
+    return out
+
+
+def _assemble_args(N: int, OW: int, ts_text, ts_len, row_off):
+    from .device_common import TS_W
+
+    _need(row_off, "row_off", torch.int64, 1)
+    _need(ts_text, "ts_text", torch.uint8, 2)
+    _need(ts_len, "ts_len", torch.int32, 1)
+    if (row_off.shape[0] != N or ts_len.shape[0] != N
+            or ts_text.shape != (N, TS_W) or OW < 1):
+        raise ValueError("row_off and ts_len must have one entry per row, "
+                         f"ts_text be [N, {TS_W}] and OW positive")
+
+
+def encode_gelf3164_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                         channels: torch.Tensor, n: int, bank: torch.Tensor,
+                         consts, OW: int = 0,
+                         ts_text: Optional[torch.Tensor] = None,
+                         ts_len: Optional[torch.Tensor] = None,
+                         row_off: Optional[torch.Tensor] = None,
+                         total: int = 0):
+    """E3, the device GELF encode of the first ``n`` rows of an rfc3164
+    ``batch`` from the D3 kernel's packed ``channels`` (int32 [12, N])
+    and the constant bank (``consts``: ``device_rfc3164.kernel_consts``'s
+    table).  The contract of :func:`encode_gelf_cuda`: without
+    ``row_off`` the probe ``(base bool [N], base_len int32 [N])``, with it
+    the assemble's u8 [total] buffer."""
+    from .rfc3164 import KEYS
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(channels, "channels", torch.int32, 2)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if channels.shape != (len(KEYS), N) or lens.shape[0] != N:
+        raise ValueError("channels must be the [12, N] rfc3164 decode output "
+                         "and lens one entry per row")
+    if not 1 <= L < 1 << 15 or not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L} n={n} N={N}")
+    dev = batch.device
+    lib = _lib("encode_gelf")
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        rc = lib.fg_encode_gelf3164_probe(
+            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
+            N, n, L, tier.data_ptr(), base_len.data_ptr(), _stream())
+        _check(rc, "encode_gelf3164 probe")
+        LAUNCHES["encode_gelf3164_probe"] += 1
+        return tier, base_len
+    _assemble_args(N, OW, ts_text, ts_len, row_off)
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    rc = lib.fg_encode_gelf3164_assemble(
+        batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+        ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
+        L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
+    _check(rc, "encode_gelf3164 assemble")
+    LAUNCHES["encode_gelf3164_assemble"] += 1
+    return flat
+
+
+def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
+                    n: int, bank: torch.Tensor, consts, year=None,
+                    OW: int = 0, ts_text: Optional[torch.Tensor] = None,
+                    ts_len: Optional[torch.Tensor] = None,
+                    row_off: Optional[torch.Tensor] = None, total: int = 0):
+    """A fused route's kernel on the first ``n`` rows of ``batch`` (u8
+    [N, L]): F1 for ``fmt = "rfc5424"`` (K1's decode at 6 pairs, then E1;
+    ``consts`` is ``device_gelf.kernel_consts``'s table), F3 for
+    ``"rfc3164"`` (D3 for ``year``, then E3; ``device_rfc3164``'s table).
+
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
+    small int32 [5, N])``, the split probe's outputs plus the ok, days,
+    sod, off and nanos channels, zeros at and past ``n``.  With
+    ``row_off``, ``ts_text``, ``ts_len`` and ``OW`` it assembles, as
+    :func:`encode_gelf_cuda` does."""
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if fmt not in ("rfc5424", "rfc3164"):
+        raise ValueError(f"no fused GELF route for {fmt}")
+    if fmt == "rfc3164" and year is None:
+        raise ValueError("the rfc3164 route needs the year")
+    if lens.shape[0] != N or not (4 if fmt == "rfc5424" else 1) <= L < 1 << 15:
+        raise ValueError(f"bad fused geometry L={L} N={N}")
+    if not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad fused geometry n={n} N={N}")
+    dev = batch.device
+    lib = _lib("fused_gelf")
+    yr = () if fmt == "rfc5424" else (int(year),)
+    name = f"fused_{fmt}_gelf"
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        small = torch.empty((5, N), dtype=torch.int32, device=dev)
+        rc = getattr(lib, f"fg_{name}_probe")(
+            batch.data_ptr(), lens.data_ptr(), *yr, consts, N, n, L,
+            tier.data_ptr(), base_len.data_ptr(), small.data_ptr(),
+            _stream())
+        _check(rc, f"{name} probe")
+        LAUNCHES[f"{name}_probe"] += 1
+        return tier, base_len, small
+    _assemble_args(N, OW, ts_text, ts_len, row_off)
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    rc = getattr(lib, f"fg_{name}_assemble")(
+        batch.data_ptr(), lens.data_ptr(), *yr, ts_text.data_ptr(),
+        ts_len.data_ptr(), bank.data_ptr(), consts, N, n, L, OW,
+        row_off.data_ptr(), flat.data_ptr(), _stream())
+    _check(rc, f"{name} assemble")
+    LAUNCHES[f"{name}_assemble"] += 1
     return flat
 
 

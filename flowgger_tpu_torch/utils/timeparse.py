@@ -1,5 +1,6 @@
-"""Calendar math and RFC3339 parsing for the scalar RFC5424 oracle, and
-the receive-time stamp of the JSON-lines oracle.
+"""Calendar math, RFC3339 parsing for the scalar RFC5424 oracle, the
+BSD-syslog date parse of the scalar RFC3164 oracle, and the
+receive-time stamp of the JSON-lines oracle.
 
 Behavioral model: the reference's use of the ``time`` crate — RFC3339 →
 unix f64 with nanosecond precision (rfc5424_decoder.rs:94-103,
@@ -15,6 +16,12 @@ formula in int32 and emits the same (days, secs, nanos) decomposition.
 from __future__ import annotations
 
 import time as _time
+from functools import lru_cache
+from typing import Optional, Tuple
+
+MONTH_ABBR = ("Jan", "Feb", "Mar", "Apr", "May", "Jun",
+              "Jul", "Aug", "Sep", "Oct", "Nov", "Dec")
+_MONTH_IDX = {m: i + 1 for i, m in enumerate(MONTH_ABBR)}
 
 _DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
 
@@ -123,3 +130,88 @@ def now_precise() -> float:
     """PreciseTimestamp::now (utils/mod.rs:14-21): secs + nanos/1e9."""
     ns = _time.time_ns()
     return (ns // 1_000_000_000) + (ns % 1_000_000_000) / 1e9
+
+
+def current_year_utc() -> int:
+    return _time.gmtime().tm_year
+
+
+@lru_cache(maxsize=4096)
+def _zone(tzname: str):
+    """The IANA zone of that name, or None if there is none.  Cached by
+    name, the misses too: every token after a BSD-syslog time is tried as
+    a zone name, and a miss searches the zone paths again each time."""
+    try:
+        from zoneinfo import ZoneInfo
+
+        return ZoneInfo(tzname)
+    except Exception:  # flowcheck: disable=FC04 -- parse contract: None means "no zoneinfo"; caller logs once
+        return None
+
+
+def _tz_offset_nanos(tzname: str, year: int, month: int, day: int,
+                     hour: int, minute: int, sec: int) -> Optional[int]:
+    """UTC offset (seconds) for an IANA zone at the given *local* wall time,
+    or None if the zone name is unknown.  Mirrors time-tz
+    ``assume_timezone`` (rfc3164_decoder.rs:190-209)."""
+    import datetime as _dt
+
+    tz = _zone(tzname)
+    if tz is None:
+        return None
+    local = _dt.datetime(year, month, day, hour, minute, sec, tzinfo=tz)
+    off = local.utcoffset()
+    if off is None:
+        return None
+    return int(off.total_seconds())
+
+
+def parse_rfc3164_ts(tokens, has_year: bool) -> Tuple[float, int]:
+    """Parse ``[Mon] [day] [hh:mm:ss]`` (+optional leading year token when
+    ``has_year``) followed by an optional IANA timezone token.
+
+    Returns (unix_ts_f64, tokens_consumed).  Matches
+    rfc3164_decoder.rs:162-213: without a year the *current UTC year* is
+    assumed; a following token naming a known timezone shifts the result,
+    otherwise the wall time is taken as UTC.
+    """
+    idx = 0
+    if has_year:
+        if len(tokens) < 4:
+            raise ValueError("not enough tokens")
+        year_s, mon_s, day_s, time_s = tokens[0], tokens[1], tokens[2], tokens[3]
+        if not _ascii_digits(year_s):
+            raise ValueError("bad year")
+        year = int(year_s)
+        idx = 4
+    else:
+        if len(tokens) < 3:
+            raise ValueError("not enough tokens")
+        year = current_year_utc()
+        mon_s, day_s, time_s = tokens[0], tokens[1], tokens[2]
+        idx = 3
+    month = _MONTH_IDX.get(mon_s)
+    if month is None:
+        raise ValueError("bad month")
+    if not _ascii_digits(day_s):
+        raise ValueError("bad day")
+    day = int(day_s)
+    parts = time_s.split(":")
+    if len(parts) != 3 or not all(_ascii_digits(p) for p in parts):
+        raise ValueError("bad time")
+    hour, minute, sec = (int(p) for p in parts)
+    if not (len(parts[0]) == 2 and len(parts[1]) == 2 and len(parts[2]) == 2):
+        raise ValueError("bad time field width")
+    if not (1 <= day <= days_in_month(year, month)
+            and hour <= 23 and minute <= 59 and sec <= 59):
+        raise ValueError("bad date/time")
+
+    days = days_from_civil(year, month, day)
+    total = days * 86400 + hour * 3600 + minute * 60 + sec
+
+    # Optional timezone token
+    if idx < len(tokens):
+        off = _tz_offset_nanos(tokens[idx], year, month, day, hour, minute, sec)
+        if off is not None:
+            return float((total - off) * 1_000_000_000 / 1e9), idx + 1
+    return float(total * 1_000_000_000 / 1e9), idx

@@ -3,9 +3,11 @@ g++ and the host emulation header beside this file (cuda_runtime.h).
 
 The launch syntax and the dynamic shared-memory declaration are the only
 CUDA-only constructs the sources use; they are rewritten here, and every
-other line compiles as written.  A probe beside this file may
-``#include "name.cu"`` a kernel source to call its device functions; the
-include is inlined, rewritten the same way.  Returns the path of a
+other line compiles as written.  A source's ``#include "name.cuh"``
+headers (beside it in ``csrc/``) are inlined, each once, as ``#pragma
+once`` has nvcc include them, and rewritten the same way.  A probe
+beside this file may ``#include "name.cu"`` a kernel source to call its
+device functions; the include is inlined the same way.  Returns the path of a
 shared library with the source's ``extern "C"`` entry points, called
 through ctypes with host pointers exactly as
 ``flowgger_tpu_torch.tpu.kernels`` calls the device build.  ``src_dir``
@@ -24,10 +26,20 @@ HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent.parent / "flowgger_tpu_torch" / "csrc"
 
 
-def host_source(text: str) -> str:
-    # a probe may include a kernel source to reach its device functions
-    text = re.sub(r'#include "(\w+\.cu)"',
-                  lambda m: host_source((CSRC / m.group(1)).read_text()), text)
+def host_source(text: str, seen=None) -> str:
+    # a kernel source's headers, and a kernel source a probe includes to
+    # reach its device functions, inlined once each
+    seen = set() if seen is None else seen
+
+    def inline(m):
+        name = m.group(1)
+        if name in seen:
+            return ""
+        seen.add(name)
+        return host_source((CSRC / name).read_text(), seen)
+
+    text = text.replace("#pragma once\n", "")
+    text = re.sub(r'#include "(\w+\.cuh?)"', inline, text)
     text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                   r"\1* \2 = reinterpret_cast<\1*>(g_dyn_smem.data());", text)
     return re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", text,

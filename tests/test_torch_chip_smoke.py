@@ -90,7 +90,7 @@ def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
     length, 14 fixed channels, the last SD id span of rows with 1-4 SD
     elements and 5 channels for each of its first min(pair_count, P)
     pairs, and every row's bit and length; the checked shape is
-    recorded, and ``e1_shapes`` records a launch by its shape."""
+    recorded, and ``launch_shapes`` records a launch by its shape."""
     import torch
 
     from flowgger_tpu_torch.corpus import make_corpus
@@ -106,7 +106,7 @@ def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
     monkeypatch.setattr(kernels, "encode_gelf_cuda", plain)
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, **kw: fn() and 0.0)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, **kw: fn() and 0.0)
-    monkeypatch.setattr(chip_smoke, "E1_CHECKED", set())
+    monkeypatch.setattr(chip_smoke, "CHECKED", set())
     lines, _ = make_corpus(64, seed=3)
     batch, lens, *_ = pack.pack_lines_2d(lines, 512)
     bt = torch.from_numpy(batch)
@@ -124,8 +124,8 @@ def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
     valid = int(lt[:n].sum())
     assert row["bound_bytes"] == valid + channels + 4 * n + 5 * N
     assert row["bound_bytes"] < valid + 4 * (14 + 8 + 30) * n + 9 * N
-    assert chip_smoke.E1_CHECKED == {("encode_gelf_probe_p6", (N, 512))}
-    with chip_smoke.e1_shapes() as seen:
+    assert chip_smoke.CHECKED == {("encode_gelf_probe_p6", (N, 512))}
+    with chip_smoke.launch_shapes() as seen:
         kernels.encode_gelf_cuda(bt[:256], lt[:256], packed[:, :256], 256,
                                  torch.ones(1), [0], 4, 6)
     assert seen == {("encode_gelf_probe_p6", (256, 512))}

@@ -250,8 +250,10 @@ def _batches():
 def test_handler_matches_reference_batch_for_batch(capsys):
     ref_enc = RGelfEncoder(RConfig.from_string(""))
     ref_state = {}
+    # the split tier, as block_fetch_encode runs it: the fused route off
     cfg = Config.from_string(f"[input]\ntpu_max_line_len = {L}\n"
-                             "tpu_batch_size = 100000\n")
+                             "tpu_batch_size = 100000\n"
+                             'tpu_fuse = "off"\n')
     tx = queue.Queue()
     handler = BatchHandler(tx, GelfEncoder(cfg), cfg, LineMerger(),
                            torch.device("cpu"), start_timer=False)
@@ -330,9 +332,9 @@ def test_tier_corpus_stays_under_the_decline_threshold():
 def test_entry_point_engages_the_tier(tmp_path, monkeypatch, capsys,
                                       opt_out):
     """stdin → rfc5424_tpu → GELF through ``pipeline.start`` on the CPU,
-    syslen output framing and static extras: the tier takes both batches
-    of the tier mix, and the bytes equal the scalar path's (with the
-    tier switched off too)."""
+    syslen output framing and static extras, the fused route off: the
+    split tier takes both batches of the tier mix, and the bytes equal
+    the scalar path's (with the tier switched off too)."""
     if opt_out:
         monkeypatch.setenv("FLOWGGER_DEVICE_ENCODE", "0")
     lines, _ = make_tier_corpus(700, seed=44)
@@ -341,7 +343,7 @@ def test_entry_point_engages_the_tier(tmp_path, monkeypatch, capsys,
     cfg = tmp_path / "cfg.toml"
     cfg.write_text(
         '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
-        'tpu_batch_size = 128\ntpu_flush_ms = 600000\n'
+        'tpu_batch_size = 128\ntpu_flush_ms = 600000\ntpu_fuse = "off"\n'
         '[output]\ntype = "file"\nformat = "gelf"\nframing = "syslen"\n'
         f'file_path = "{out}"\n[output.gelf_extra]\nx-origin = "port"\n')
     monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(io.BytesIO(data)))

@@ -35,6 +35,8 @@ import build as host_build  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SRC = host_build.CSRC / "encode_gelf.cu"
+# the row encode E1's kernels call, shared with the fused route
+ROW_SRC = host_build.CSRC / "encode_gelf_row.cuh"
 SUFFIX = b"\n"
 
 
@@ -279,7 +281,7 @@ def test_encode_kernel_tables_match_python():
     """The channel rows, the constants' order and the tier constants in
     the source are the ones rfc5424, device_common and device_gelf
     define."""
-    text = SRC.read_text()
+    text = SRC.read_text() + ROW_SRC.read_text()
     enum = re.search(r"enum Const \{(.*?)\}", text, re.S).group(1)
     names = [w.strip()[2:].lower() for w in enum.split(",")][:-1]
     assert tuple(names) == DG.KERNEL_CONSTS
