@@ -35,9 +35,12 @@ Phases, each printing JSON lines:
    pairs on the tier path's flush batch and on 256 rows (its
    end-of-stream batch's shape, 200 of them real), and E1's phase-1
    probes at 6 and 16 pairs on the rfc5424 line path's flush batch and
-   the syslen flush batch; the fused rfc5424 route F1 (probe and
-   assemble, with the ok and timestamp channels) at the same tier
-   shapes, and its probe on the rfc5424 line and syslen flush batches;
+   the syslen flush batch (K1 at both widths there too); the fused
+   rfc5424 route F1 (the probe with the ok and timestamp channels and
+   each tier row's carried channels, then the assemble from those
+   channels; its wrapper refuses an assemble without them or of a row
+   outside the probe's tier) at the same tier shapes, and its probe on
+   the rfc5424 line and syslen flush batches;
    the rfc3164 decode D3 (every channel), its split encode E3 and its
    fused route F3 (probe and assemble) on a gathered [16384, 512] batch
    of the rfc3164 tier mix, on the flush batches of both rfc3164 paths
@@ -60,8 +63,9 @@ Phases, each printing JSON lines:
    configuration in process with the tier on and off, alternating; then
    (``fuse_ab``) the two tier mixes with ``input.tpu_fuse`` "auto" and
    "off" in one process (block-encode walls, launches; the same bytes),
-   and the device ms of F1 against K1 + E1 probe + E1 assemble and of F3
-   against D3 + E3 probe + E3 assemble at a flush batch;
+   and the device ms of F1 (probe + assemble from the carried channels)
+   against K1 + E1 probe + E1 assemble and of F3 against D3 + E3 probe +
+   E3 assemble at a flush batch;
 6. e2e    — six configurations through the port's entry points on
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing, ``--lines``
    lines), stdin → jsonl_tpu → GELF (line framing, 131 072 lines),
@@ -77,7 +81,9 @@ Phases, each printing JSON lines:
    must have the fused route take every batch, and a second in-process
    run of each with ``tpu_fuse = "off"`` the split device tier, each
    fetching fewer bytes a tier row than it emits; every run must launch
-   E1, D3, E3, F1 and F3 only at batch shapes the kernels phase checked,
+   E1, D3, E3, F1 and F3 only at batch shapes the kernels phase checked
+   (K1's shapes that it did not, a rescue sub-batch's rows follow its
+   data, are checked after the runs on rows of the rfc5424 mix),
    and launch one probe a probed batch and one assemble a taken batch on
    each tier; the native row engine must have written every rfc5424
    host-tier batch that had tier rows and the native formatter every
@@ -495,6 +501,8 @@ def decode_case(kind: str, width: int, batch, lens_c):
                             "flowgger_tpu/tpu/pallas_kernels.py:439")
     ref = plain()
     err = channels_err(name, unpack(kern()), ref)
+    if kind == "rfc5424":
+        CHECKED.add((name, tuple(batch.shape)))
     n, valid = batch.shape[0], int(lens_c.sum())
     return {
         "name": name, "route": "cuda", "source": source,
@@ -677,8 +685,9 @@ def kernels_line_path(seed: int, rows: list, shapes: list):
     # phase-1 probes as this path's declining batches launch them
     fb, fl, fn = flush_batch(make_corpus(2 * BATCH, seed + 7)[0],
                              "rfc5424 line path", shapes)
-    row, _ = decode_case("rfc5424", lo, fb, fl)
-    shapes.append({**row, "where": "rfc5424 line path, flush batch"})
+    for mp in (lo, hi):
+        row, _ = decode_case("rfc5424", mp, fb, fl)
+        shapes.append({**row, "where": "rfc5424 line path, flush batch"})
     phase1_probes(fb, fl, kernels.decode_rfc5424_cuda(fb, fl, 4, lo), fn,
                   "rfc5424 line path, flush batch", shapes)
     # the fused route's probe, as this path's declining batches launch it
@@ -779,9 +788,9 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
                              "kernels called one by one")
 
 
-# the (kernel name, batch shape) pairs at which E1, D3, E3, F1 and F3 were
-# held against their plain versions; the e2e phase fails if its runs
-# launch one of them at another
+# the (kernel name, batch shape) pairs at which K1, E1, D3, E3, F1 and F3
+# were held against their plain versions; the e2e phase fails if its runs
+# launch one of them at another (K1: checks it there, phase_k1_shapes)
 CHECKED: set = set()
 
 
@@ -1028,10 +1037,12 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
     channels), and with ``assemble`` the assemble's bytes of every tier
     row (``base & (base_len + ts_len <= OW)`` at the rows' real stamp
     text) at its offset, each checked once before and once after its
-    timing loop.  The plain versions of F1 and F3 are the format's plain
-    decode, narrowed to ``fused_routes.DEMAND``, then the split tier's
-    plain encode.  Returns ``[probe row]`` or ``[probe row, assemble
-    row]``."""
+    timing loop.  F1's and F3's probes also carry each tier row's
+    channels (held against the plain decode's) and their assembles read
+    them.  The plain versions of F1 and F3 are the format's plain decode,
+    narrowed to ``fused_routes.DEMAND``, then the split tier's plain
+    encode; their assembles reuse the probe's decode, as the kernels do.
+    Returns ``[probe row]`` or ``[probe row, assemble row]``."""
     import torch
 
     from flowgger_tpu_torch.tpu import (device_common, device_gelf,
@@ -1065,6 +1076,7 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
     dec0 = plain_decode()
     packed = (kernels.decode_rfc3164_cuda(batch, lens_c, year)
               if kind == "e3" else None)
+    route = f"{fmt}_gelf"
 
     def k_probe():
         if kind == "e3":
@@ -1074,7 +1086,7 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
                                        year=year)
 
     def p_probe():
-        # the fused routes' plain version decodes, as their kernels do
+        # the fused routes' plain probe decodes, as their kernels do
         dec = dec0 if kind == "e3" else plain_decode()
         base, base_len = split.encode_rows(batch, lens_c, dec,
                                            assemble=False, n=n, **kw)
@@ -1085,10 +1097,19 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
              for k in small_keys])
 
     ref = p_probe()
+    # F1 and F3 carry the encode's channels of each tier row to the
+    # assemble: the plain decode's, on those rows
+    ref_carried = (None if kind == "e3"
+                   else fused_routes.carried_plain(dec0, route))
+    probed = {}
 
     def check_probe():
         got = k_probe()
         err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        if ref_carried is not None:
+            on = ref[0]
+            err = max(err, max_abs_err(got[3][on], ref_carried[on]))
+            probed["chan"], probed["tier"] = got[3], got[0]
         if err:
             raise AssertionError(f"{name} probe [{N}, {L}] n={n} disagrees "
                                  f"with its plain version: max_abs_err "
@@ -1116,9 +1137,12 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         probe_ops = gated_valid
     else:
         # bytes: each real row's valid bytes and length, every row's bit,
-        # length and five channels; operations: the decode's passes (K1's
-        # six, D3's one) and one escape test per valid byte
-        probe_bytes = real_valid + 4 * n + 25 * N
+        # length and five channels, the carried channels of each base
+        # tier row; operations: the decode's passes (K1's six, D3's one)
+        # and one escape test per valid byte
+        carry = 4 * kernels.FUSED_CARRY[fmt]
+        probe_bytes = (real_valid + 4 * n + 25 * N
+                       + carry * int(ref_base.sum()))
         probe_ops = (7 if fmt == "rfc5424" else 2) * real_valid
     out = [{
         "name": f"{name}_probe", **common, "max_abs_err": err_p, "ms": ms_p,
@@ -1146,18 +1170,49 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
             return kernels.encode_gelf3164_cuda(
                 batch, lens_c, packed, n, bank, table, OW, ts_text=ts_text,
                 ts_len=ts_len, row_off=row_off, total=total)
+        # from the channels the probe carried
         return kernels.fused_gelf_cuda(fmt, batch, lens_c, n, bank, table,
                                        year=year, OW=OW, ts_text=ts_text,
                                        ts_len=ts_len, row_off=row_off,
-                                       total=total)
+                                       total=total, chan=probed["chan"],
+                                       tier=probed["tier"])
+
+    def t_asm():
+        # the timed call: the wrapper's launch without its contract check,
+        # which reads a flag back from the card
+        if kind == "e3":
+            return k_asm()
+        return kernels.fused_assemble_launch(fmt, batch, lens_c, n, bank,
+                                             table, OW, ts_text, ts_len,
+                                             row_off, total, probed["chan"])
 
     def p_asm():
-        dec = dec0 if kind == "e3" else plain_decode()
-        rows_, out_len, _ = split.encode_rows(batch, lens_c, dec, ts_text,
+        # the plain routes keep their probe's decode
+        rows_, out_len, _ = split.encode_rows(batch, lens_c, dec0, ts_text,
                                               ts_len, **kw)
         return device_gelf.flat_rows(rows_, out_len, row_off, total)
 
     ref_flat = p_asm()
+    if kind != "e3":
+        # the wrapper's contract: no assemble without the probe's channels,
+        # and none of a row outside the probe's tier
+        def refused(**kw):
+            try:
+                kernels.fused_gelf_cuda(fmt, batch, lens_c, n, bank, table,
+                                        year=year, OW=OW, ts_text=ts_text,
+                                        ts_len=ts_len, total=total, **kw)
+            except ValueError:
+                return True
+            return False
+
+        outside = torch.nonzero(live & ~ref_base).flatten()[:1]
+        bad_off = row_off.clone()
+        bad_off[outside] = 0
+        if (not refused(row_off=row_off, chan=None, tier=probed["tier"])
+                or (outside.numel() and not refused(
+                    row_off=bad_off, chan=probed["chan"],
+                    tier=probed["tier"]))):
+            raise AssertionError(f"{name} assemble ran against its contract")
 
     def check_asm():
         err = max_abs_err(k_asm(), ref_flat)
@@ -1168,24 +1223,23 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         return err
 
     err_a = check_asm()
-    ms_a = device_ms(k_asm)
+    ms_a = device_ms(t_asm)
     check_asm()   # a launch after the timing loop
     CHECKED.add((f"{name}_assemble", (N, L)))
     n_tier = int(tier.sum())
     tier_valid = int(torch.where(tier, lens_c, 0).sum())
     ts_bytes = int(torch.where(tier, ts_len, 0).sum())
     # bytes: the tier rows' valid bytes, lengths, the channels the encode
-    # reads (E3: seven) or nothing more (F1, F3 decode them), timestamp
-    # text and lengths, every row's offset, the output written;
-    # operations: the decode's passes over a tier row (fused) and one
-    # escape test a byte
-    ch_bytes = 28 * n_tier if kind == "e3" else 0
-    passes = 1 if kind == "e3" else (7 if fmt == "rfc5424" else 2)
+    # reads (E3: seven of D3's; F1, F3: the probe's carried row, 56 or 11
+    # int32), timestamp text and lengths, every row's offset, the output
+    # written; operations: one escape test a byte (E1's or E3's encode;
+    # no decode runs)
+    ch_bytes = (28 if kind == "e3" else 4 * kernels.FUSED_CARRY[fmt]) * n_tier
     out.append({
         "name": f"{name}_assemble", **common, "max_abs_err": err_a,
         "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
         **bound(tier_valid + 8 * n_tier + ch_bytes + ts_bytes + 8 * N + total,
-                passes * tier_valid),
+                tier_valid),
         "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
                  f"bytes"})
     return out
@@ -1714,7 +1768,12 @@ PATHS = {
 # the wrappers whose launch shapes the e2e runs record (checked against
 # CHECKED), and each one's name in LAUNCHES for a launch
 SHAPE_CHECKED = ("encode_gelf_cuda", "encode_gelf3164_cuda",
-                 "fused_gelf_cuda", "decode_rfc3164_cuda")
+                 "fused_gelf_cuda", "decode_rfc3164_cuda",
+                 "decode_rfc5424_cuda")
+# K1's shapes in the e2e runs that the kernels phase did not check (a
+# rescue sub-batch's rows follow its data): held against the plain
+# version after the e2e runs, by phase_k1_shapes
+K1_LATE: set = set()
 
 
 def _write_input(name: str, n_lines: int, seed: int):
@@ -1892,10 +1951,14 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
                              f"{missing} kernel")
     if any(declines.values()):
         raise AssertionError(f"{name}: device framing declined {declines}")
-    if checked is not None and seen - checked:
-        raise AssertionError(f"{name}: kernels launched at shapes the "
-                             f"kernels phase did not check: "
-                             f"{sorted(seen - checked)}")
+    if checked is not None:
+        late = {(k, v) for k, v in seen - checked
+                if k.startswith("decode_rfc5424_p")}
+        K1_LATE.update(late)
+        if seen - checked - late:
+            raise AssertionError(f"{name}: kernels launched at shapes the "
+                                 f"kernels phase did not check: "
+                                 f"{sorted(seen - checked - late)}")
     rstate = pipe._handler.route_state
     split = _tier_report(rstate.get(kind, {}))
     fused = _tier_report(rstate.get(f"fused:{kind}_gelf", {}))
@@ -1959,7 +2022,7 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     through the CLI; returns the launch counts summed over the in-process
     runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
     fails if a run launched E1, D3, E3, F1 or F3 at a batch shape not
-    checked there."""
+    checked there (K1's unchecked shapes go to :data:`K1_LATE`)."""
     WORK.mkdir(parents=True, exist_ok=True)
     path, data, exp_out, exp_err, mix = _write_input(name, n_lines, seed)
     kind = PATHS[name][2]
@@ -2000,6 +2063,26 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
         for k, v in r["launches"].items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+def phase_k1_shapes(seed: int) -> None:
+    """K1 against its plain version at each shape the e2e runs launched
+    it at and the kernels phase had not checked, on rows of the rfc5424
+    mix; a ``kernel_shape`` line each."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_corpus
+    from flowgger_tpu_torch.tpu import pack
+
+    for name, (rows, L) in sorted(K1_LATE - CHECKED):
+        lines, _ = make_corpus(rows, seed + rows)
+        b, ln, *_ = pack.pack_lines_2d(lines, L)
+        batch = torch.from_numpy(b[:rows]).cuda()
+        lens_c = torch.from_numpy(ln[:rows].astype("int32")).cuda()
+        row, _ = decode_case("rfc5424", int(name.rsplit("_p", 1)[1]), batch,
+                             lens_c)
+        emit({"phase": "kernel_shape", **row,
+              "where": "e2e launch shape, rfc5424 mix rows"})
 
 
 def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
@@ -2184,8 +2267,8 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
         bank_b, table = split.kernel_consts(b"\0")
         bank = device_gelf._bank_on(bank_b, dev)
         OW = split.out_width(MAX_LEN, b"\0")
-        base, base_len, small = kernels.fused_gelf_cuda(fmt, b, ln, n, bank,
-                                                        table, year=year)
+        base, base_len, small, chan = kernels.fused_gelf_cuda(
+            fmt, b, ln, n, bank, table, year=year)
         sm = small[:, :n].cpu().numpy()
         txt, tl = device_common.ts_text_block(
             {"ok": sm[0] != 0, "days": sm[1], "sod": sm[2], "off": sm[3],
@@ -2220,13 +2303,18 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
                 "encode_gelf3164_assemble":
                     lambda: kernels.encode_gelf3164_cuda(b, ln, ch, n, bank,
                                                          table, **asm)}
+        # the assemble from the probe's carried channels, timed without
+        # the wrapper's contract check (it reads a flag back)
         fused_fns = {
             f"fused_{fmt}_gelf_probe": lambda: kernels.fused_gelf_cuda(
                 fmt, b, ln, n, bank, table, year=year),
-            f"fused_{fmt}_gelf_assemble": lambda: kernels.fused_gelf_cuda(
-                fmt, b, ln, n, bank, table, year=year, **asm)}
+            f"fused_{fmt}_gelf_assemble": lambda: kernels.fused_assemble_launch(
+                fmt, b, ln, n, bank, table, OW, ts_text, ts_len, row_off,
+                total, chan)}
         # both paths assemble the same bytes at this batch
-        if not torch.equal(fused_fns[f"fused_{fmt}_gelf_assemble"](),
+        if not torch.equal(kernels.fused_gelf_cuda(fmt, b, ln, n, bank, table,
+                                                   year=year, chan=chan,
+                                                   tier=base, **asm),
                            list(split_fns.values())[2]()):
             raise AssertionError(f"fuse A/B: {fmt}: the fused and split "
                                  f"assembles differ at the flush batch")
@@ -2436,6 +2524,8 @@ def main(argv=None) -> int:
         for k, v in phase_e2e(name, n, args.seed, CHECKED).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")
+    phase_k1_shapes(args.seed)
+    lap("k1_shapes")
     emit({"phase": "phase_seconds", **seconds,
           "total": sum(seconds.values())})
     for r in rows:

@@ -19,29 +19,39 @@
 // channel writes; a few dozen integer operations per byte).  What keeps
 // a decode from it is latency: the passes depend on each other (the
 // ']' chain needs the quote state, the pair checks need the SD-ID ends),
-// so a row is a chain of six walks, and a launch lasts as long as its
-// slowest row.  Design:
+// and a launch lasts as long as its slowest row.  Design:
 // - One warp per row, eight rows per block.  Each warp stages its row's
-//   valid bytes in shared memory with 16-byte loads, then every pass
-//   steps over 32 consecutive positions at a time, one byte per lane:
-//   a 150-byte row is ~5 warp steps a pass, not ~150 thread steps.
-// - Running state is a warp scan with a carry across 32-position chunks
-//   (WarpQuote below): the backslash run ending at i-1 is the count of
-//   backslash-ballot bits directly below the lane plus the carried run;
-//   quote, space and ']' ordinals are popcounts of masked ballots; "first
-//   position where" / "last non-space" are __ffs / __clz of a ballot; the
-//   previous position's flags come from __shfl_up_sync and the carry from
-//   the chunk's last lane.  Passes 2 and 3 (header fields) need no scan:
-//   each lane sums its positions of the header zones and the warp
-//   reduces once (pass 1 counts the high bytes, the one term of their
-//   words that lies past the header).
+//   valid bytes in shared memory with 16-byte loads.
+// - Word-parallel passes: lane j owns the 32-position words j, j + 32,
+//   ... of the row and builds each word's class bitmasks once, four
+//   bytes at a time (SWAR: backslash, '"', space, ']', '=', '>', byte
+//   >= 128, not whitespace, SD-name byte), into the warp's shared area
+//   past the staged row (slots of decode_rfc5424_row.cuh's MaskSlot; 672
+//   bytes a warp at L = 512).  At L <= 1024 that is one round of at most
+//   32 words; a longer row takes rounds of 32 words with carries.
+// - The escape state needs at most the previous word: a backslash run
+//   that reaches past it is longer than the cap (kEscRunCap), so each
+//   '"' of a word is a real quote or not from its own word and the one
+//   before.  One warp scan of the words' real-quote counts gives the
+//   quotes before each word, and a prefix XOR inside the word the parity
+//   of every position (the reference's q_excl parity against the rest
+//   zone): the "outside" word, kept beside the masks.
+// - Each later pass is one round of word-local bit operations: the k-th
+//   space or ']' is a scan of popcounts and nth_set_bit inside the word,
+//   "first / last position where" is __ffs / __clz, the previous
+//   position's flag is a shift with the neighbour word's top bit, and the
+//   per-ordinal sums iterate only the set bits of the masked words.
+//   Passes 2 and 3 (header fields) need no scan: each lane sums its
+//   positions of the header zones and the warp reduces once (pass 1
+//   counts the high bytes, the one term of their words that lies past
+//   the header).
 // - The per-ordinal sums are per-warp uint32 words in shared memory,
 //   added with atomicAdd (wrapping addition is order-independent, so the
 //   packed words are exact), then unpacked one ordinal per lane.
 // - Channel values go through a shared [C, 8] tile, so each channel is
 //   stored as one 32-byte run of the block's eight rows.
-// Passes stop at the row's length, except where a malformed row's PRI or
-// timestamp zone runs into the padding (passes 2-3 read it as zeros).
+// Masks hold only positions below the row's length; passes 2-3 read a
+// malformed row's PRI or timestamp zone into the padding as zeros.
 //
 // TPU workarounds not carried over: the u8->i32 widening (bytes stay
 // u8), the log-shift scan ladders (warp ballots), and the f32 reductions
@@ -88,7 +98,7 @@ template <int MAX_SD, int MAX_PAIRS>
 int launch(const void* batch, const void* lens, void* out, int N, int L,
            cudaStream_t stream) {
   if (N <= 0) return 0;
-  const int stride_vec = (L + 15) / 16;
+  const int stride_vec = stage_bytes(L) / 16;   // row and masks
   const size_t smem = (size_t)kWarps * stride_vec * 16;
   auto kern = decode_rfc5424_kernel<MAX_SD, MAX_PAIRS>;
   if (smem > 48 * 1024) {

@@ -55,32 +55,50 @@ __device__ __forceinline__ bool is_name_byte(int c) {
   return c >= 33 && c <= 126 && c != 34 && c != 61 && c != 93;
 }
 
-// The reference's escape / quote state (its _esc_parity, tpu/rfc5424.py
-// :285, and the real-quote count) over one 32-position chunk a step:
-// escaped(i) is the parity of the
-// backslash run ending at i-1 (runs capped at ESC_RUN_CAP-1), and
-// q_before counts real quotes strictly before i.  Lanes past the row
-// pass c = 0, which is neither a backslash nor a quote.
-struct WarpQuote {
-  int run = 0;        // backslash run ending at the previous chunk's end
-  int q = 0;          // real quotes before this chunk
-  bool real_q = false;
-  bool cap = false;
-  int q_before = 0;   // this lane's real quotes at positions < i
-  __device__ __forceinline__ void step(int c, int lane) {
-    const unsigned bs = __ballot_sync(kFull, c == 92);
-    const unsigned lt = lanemask_lt(lane);
-    const unsigned nb = ~bs & lt;   // non-backslash positions below the lane
-    const int r = nb ? lane - 32 + __clz((int)nb) : lane + run;
-    const int rp = r < kEscRunCap - 1 ? r : kEscRunCap - 1;
-    cap = r >= kEscRunCap;
-    real_q = c == 34 && (rp & 1) == 0;
-    const unsigned qb = __ballot_sync(kFull, real_q);
-    q_before = q + __popc(qb & lt);
-    run = ~bs ? __clz((int)~bs) : run + 32;
-    q += __popc(qb);
-  }
+// The word-parallel passes.  Word w of a row holds positions 32w..32w+31
+// (bit b is position 32w + b); lane j owns words j, j + 32, ....  After
+// the row is staged, each lane builds its words' class bitmasks once and
+// keeps them in the warp's shared area past the staged row, one array a
+// slot, so the passes read them instead of stepping the row chunk by
+// chunk.  Only positions below the row's valid length have bits.
+enum MaskSlot {
+  M_BS,     // backslash
+  M_SP,     // space
+  M_RB,     // ']'
+  M_EQ,     // '='
+  M_NW,     // not whitespace
+  M_NM,     // SD-name byte
+  M_RQ,     // real quote: '"' after an even backslash run shorter than the
+            // cap (the word's '"' bits until the quote round)
+  M_OUT,    // outside: an even count of real quotes between the 6th space
+            // and the position (the reference's q_excl parity)
+  M_QB,     // real quotes before the word (int)
+  M_HB,     // structural ']' before the word (int)
+  kMaskSlots
 };
+
+__host__ __device__ inline int mask_words(int L) { return (L + 31) >> 5; }
+
+// Shared bytes a warp's decode needs at `stage`: the staged row, then
+// kMaskSlots words for each of its 32-position words, then the six space
+// positions (eight ints).
+__host__ __device__ inline int stage_bytes(int L) {
+  return round16(L) + round16(4 * (kMaskSlots * mask_words(L) + 8));
+}
+
+// bits of word w at the positions >= p
+__device__ __forceinline__ uint32_t from_bits(int w, int p) {
+  const int s = p - 32 * w;
+  return s <= 0 ? kFull : s >= 32 ? 0u : kFull << s;
+}
+// bits of word w at the positions <= p
+__device__ __forceinline__ uint32_t upto_bits(int w, int p) {
+  return ~from_bits(w, p + 1);
+}
+// bits below bit b
+__device__ __forceinline__ uint32_t low_bits(int b) {
+  return (1u << b) - 1u;
+}
 
 // One warp's per-ordinal sums (extract_by_ord's operands).
 template <int MAX_SD, int MAX_PAIRS>
@@ -90,8 +108,10 @@ struct RowSums {
 };
 
 // Decodes one row with the calling warp and writes its channel values
-// to col[ch * kWarps] (the block's channel tile).  With DEMAND only the
-// channels the GELF encode reads are written (the fused route's
+// to col[ch * kWarps] (the block's channel tile).  `stage` is the warp's
+// stage_bytes(L) of shared memory: the staged row, then the masks.  With
+// DEMAND only the channels the GELF encode reads are written (the fused
+// route's
 // fused_routes.DEMAND["rfc5424_gelf"]): no bom, facility, msgid span,
 // msg_start or pair_sd.
 template <int MAX_SD, int MAX_PAIRS, bool DEMAND = false>
@@ -107,6 +127,14 @@ __device__ __forceinline__ void decode_row(
     uint32_t* w = reinterpret_cast<uint32_t*>(&S);
     for (int j = lane; j < (int)(sizeof(S) / 4); j += 32) w[j] = 0;
   }
+  const int nwc = mask_words(L);        // mask words a slot
+  const int nwords = (n + 31) >> 5;     // words holding valid positions
+  uint32_t* const M =
+      reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(stage) +
+                                  round16(L));
+  auto MW = [&](int slot, int w) -> uint32_t& { return M[slot * nwc + w]; };
+  int* const sp_sh = reinterpret_cast<int*>(M + kMaskSlots * nwc);
+  if (lane < 6) sp_sh[lane] = L;
   __syncwarp();
   const uint8_t* rb = reinterpret_cast<const uint8_t*>(stage);
   auto B = [&](int i) -> int { return (i >= 0 && i < n) ? rb[i] : 0; };
@@ -117,42 +145,115 @@ __device__ __forceinline__ void decode_row(
   bool ok = (bom ? B(3) : B(0)) == '<';
   bool viol = false;   // this lane's violations; any lane's reject the row
 
-  // ---- pass 1: spaces, '>', quote totals, trim end, high bytes ------------
-  int sp_lane = L;     // lane k < 6 holds the k-th space
-  int n_sp = 0, gt = L, trim_last = 0, q_before_rest = -1;
+  // ---- pass 1: the class masks, '>', trim end, high bytes -----------------
+  // lane j builds words j, j + 32, ...: four bytes at a time (SWAR), a
+  // nibble of each class per four bytes
+  int gt = L, trim_last = 0;
   uint32_t n_high = 0;   // bytes >= 128 (this lane's, then the row's)
-  {
-    WarpQuote qs;
-    bool capped_q = false;
-    for (int base = 0; base < n; base += 32) {
-      const int i = base + lane;
-      const bool valid = i < n;
-      const int c = valid ? rb[i] : 0;
-      qs.step(c, lane);
-      capped_q = capped_q || (qs.cap && c == 34);
-      const unsigned spb = __ballot_sync(kFull, c == 32);
-      const int cnt = __popc(spb);
-      if (lane < 6 && lane >= n_sp && lane < n_sp + cnt)
-        sp_lane = base + nth_set_bit(spb, lane - n_sp);
-      if (n_sp <= 5 && 5 < n_sp + cnt) {
-        // quotes before the 6th space: the count before the rest zone
-        // (the space itself is not a quote)
-        q_before_rest = __shfl_sync(kFull, qs.q_before,
-                                    nth_set_bit(spb, 5 - n_sp));
-      }
-      n_sp += cnt;
-      const unsigned gtb = __ballot_sync(kFull, c == '>' && i > start0);
-      if (gt == L && gtb) gt = base + __ffs((int)gtb) - 1;
-      const unsigned nwb = __ballot_sync(kFull, valid && !is_ws(c));
-      if (nwb) trim_last = base + 32 - __clz((int)nwb);
-      n_high += c >= 128 ? 1u : 0u;
+  for (int w = lane; w < nwords; w += 32) {
+    uint32_t bs = 0, dq = 0, sp = 0, rbk = 0, eq = 0, gtw = 0, hi = 0, nw = 0,
+             nm = 0;
+    const uint32_t* rw = reinterpret_cast<const uint32_t*>(rb) + 8 * w;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int nv = n - 32 * w - 4 * t;   // valid bytes from here
+      if (nv <= 0) break;
+      const uint32_t valid =
+          nv >= 4 ? 0x80808080u : 0x80808080u & ((1u << (8 * nv)) - 1u);
+      const uint32_t x = rw[t];
+      const uint32_t e34 = bytes_equal(x, 34), e61 = bytes_equal(x, 61);
+      const uint32_t e93 = bytes_equal(x, 93);
+      const uint32_t ws = (bytes_below(x, 14) & ~bytes_below(x, 9)) |
+                          (bytes_below(x, 33) & ~bytes_below(x, 28));
+      const uint32_t name = ~bytes_below(x, 33) & bytes_below(x, 127) &
+                            ~e34 & ~e61 & ~e93;
+      const int sh = 4 * t;
+      bs |= nibble(bytes_equal(x, 92) & valid) << sh;
+      dq |= nibble(e34 & valid) << sh;
+      sp |= nibble(bytes_equal(x, 32) & valid) << sh;
+      rbk |= nibble(e93 & valid) << sh;
+      eq |= nibble(e61 & valid) << sh;
+      gtw |= nibble(bytes_equal(x, 62) & valid) << sh;
+      hi |= nibble(x & valid) << sh;
+      nw |= nibble(~ws & valid) << sh;
+      nm |= nibble(name & valid) << sh;
     }
-    if (q_before_rest < 0) q_before_rest = qs.q;
-    if (warp_any(capped_q)) ok = false;
-    n_high = __reduce_add_sync(kFull, n_high);
+    MW(M_BS, w) = bs;
+    MW(M_SP, w) = sp;
+    MW(M_RB, w) = rbk;
+    MW(M_EQ, w) = eq;
+    MW(M_NW, w) = nw;
+    MW(M_NM, w) = nm;
+    MW(M_RQ, w) = dq;
+    gtw &= from_bits(w, start0 + 1);
+    if (gtw && gt == L) gt = 32 * w + __ffs((int)gtw) - 1;
+    if (nw) trim_last = 32 * w + 32 - __clz((int)nw);
+    n_high += __popc(hi);
   }
+  gt = warp_min(gt);
+  trim_last = warp_max(trim_last);
+  n_high = __reduce_add_sync(kFull, n_high);
+  __syncwarp();
+
+  // ---- the real quotes, the quotes before each word, the six spaces ------
+  // the backslash run before a quote needs at most the previous word: a
+  // run that reaches past it is longer than the cap
+  int q_total = 0;
+  {
+    int s_carry = 0;
+    bool capped_q = false;
+    for (int w0 = 0; w0 < nwords; w0 += 32) {
+      const int w = w0 + lane;
+      uint32_t rq = 0, spw = 0;
+      if (w < nwords) {
+        const uint32_t bs = MW(M_BS, w);
+        const int run_prev = __clz((int)~(w > 0 ? MW(M_BS, w - 1) : 0u));
+        for (uint32_t bits = MW(M_RQ, w); bits; bits &= bits - 1) {
+          const int b = __ffs((int)bits) - 1;
+          const uint32_t nb = ~bs & low_bits(b);
+          const int r = nb ? b - 32 + __clz((int)nb) : b + run_prev;
+          if (r >= kEscRunCap)
+            capped_q = true;
+          else if ((r & 1) == 0)
+            rq |= 1u << b;
+        }
+        spw = MW(M_SP, w);
+      }
+      const int qc = __popc(rq), sc = __popc(spw);
+      const int qi = warp_incl_scan(qc, lane), si = warp_incl_scan(sc, lane);
+      if (w < nwords) {
+        MW(M_RQ, w) = rq;
+        MW(M_QB, w) = (uint32_t)(q_total + qi - qc);
+        const int sb = s_carry + si - sc;
+        for (int k = sb; k < sb + sc && k < 6; ++k)
+          sp_sh[k] = 32 * w + nth_set_bit(spw, k - sb);
+      }
+      q_total += __shfl_sync(kFull, qi, 31);
+      s_carry += __shfl_sync(kFull, si, 31);
+    }
+    if (warp_any(capped_q)) ok = false;
+  }
+  __syncwarp();
   int sp[6];
-  for (int k = 0; k < 6; ++k) sp[k] = __shfl_sync(kFull, sp_lane, k);
+  for (int k = 0; k < 6; ++k) sp[k] = sp_sh[k];
+  // real quotes before the 6th space: the count before the rest zone
+  int q_before_rest = q_total;
+  if (sp[5] < L)
+    q_before_rest = (int)MW(M_QB, sp[5] >> 5) +
+                    __popc(MW(M_RQ, sp[5] >> 5) & low_bits(sp[5] & 31));
+  for (int w = lane; w < nwords; w += 32) {
+    // parity of the word's real quotes below each bit, then the word's
+    // offset against the rest zone's
+    uint32_t x = MW(M_RQ, w) << 1;
+    x ^= x << 1;
+    x ^= x << 2;
+    x ^= x << 4;
+    x ^= x << 8;
+    x ^= x << 16;
+    if (((int)MW(M_QB, w) - q_before_rest) & 1) x = ~x;
+    MW(M_OUT, w) = ~x;
+  }
+  __syncwarp();
   ok = ok && sp[5] < L;
   int f_start[7], f_end[7];
   f_start[0] = start0;
@@ -308,37 +409,52 @@ __device__ __forceinline__ void decode_row(
   ok = ok && rest_s < len;
   ok = ok && (is_dash || is_sd);
 
+  // the real quotes before bit b of a word whose real-quote word is rq,
+  // less those before the rest zone (the reference's q_excl), from qb:
+  // the word's quotes before it less those before the rest zone (read
+  // once a word: the passes' atomics may alias the masks for the
+  // compiler)
+  auto q_excl = [](int qb, uint32_t rq, int b) {
+    return qb + __popc(rq & low_bits(b));
+  };
+  // close quotes of the rest zone in word w
+  auto close_bits = [&](int w) {
+    return MW(M_RQ, w) & from_bits(w, rest_s) & ~MW(M_OUT, w);
+  };
+
   // ---- pass 4: the structural ']' chain ----------------------------------
   const int rb_sb = bit_length(((L << 3) | 7) + 1);
   {
     const int vmax = (1 << rb_sb) - 2;
-    WarpQuote qs;
-    int rb_ord = 0;
-    int prev_closeq_carry = 0;
-    for (int base = 0; base < n; base += 32) {
-      const int i = base + lane;
-      const int c = i < n ? rb[i] : 0;
-      qs.step(c, lane);
-      const int q_excl = qs.q_before - q_before_rest;
-      const bool outside = (q_excl & 1) == 0;
-      const bool in_rest = i >= rest_s;
-      const int close_q = qs.real_q && in_rest && !outside;
-      int prev_closeq = __shfl_up_sync(kFull, close_q, 1);
-      if (lane == 0) prev_closeq = prev_closeq_carry;
-      const bool hit = c == ']' && outside && in_rest;
-      const unsigned hits = __ballot_sync(kFull, hit);
-      const int ord = rb_ord + __popc(hits & lanemask_lt(lane)) + 1;
-      if (hit && ord <= MAX_SD + 1) {
-        const bool next_valid = i + 1 < n;
-        const int next_c = B(i + 1);
-        const int payload = ((B(i - 1) == 32) || prev_closeq ? 1 : 0)
-                            + ((next_c == '[' && next_valid) ? 2 : 0)
-                            + ((next_c == 32 && next_valid) ? 4 : 0);
-        const int v = (i << 3) | payload;
-        atomicAdd(&S.rb[ord - 1], (uint32_t)((v < vmax ? v : vmax) + 1));
+    int h_carry = 0;
+    for (int w0 = 0; w0 < nwords; w0 += 32) {
+      const int w = w0 + lane;
+      const uint32_t hits =
+          w < nwords ? MW(M_RB, w) & MW(M_OUT, w) & from_bits(w, rest_s)
+                     : 0u;
+      const int hc = __popc(hits);
+      const int hi = warp_incl_scan(hc, lane);
+      const int hb = h_carry + hi - hc;
+      if (w < nwords) {
+        MW(M_HB, w) = (uint32_t)hb;
+        // close quotes at the previous positions
+        const uint32_t prev_cq =
+            (close_bits(w) << 1) | (w > 0 ? close_bits(w - 1) >> 31 : 0u);
+        int ord = hb;
+        for (uint32_t bits = hits; bits && ord <= MAX_SD; bits &= bits - 1) {
+          ++ord;
+          const int b = __ffs((int)bits) - 1, i = 32 * w + b;
+          const bool next_valid = i + 1 < n;
+          const int next_c = B(i + 1);
+          const int payload =
+              ((B(i - 1) == 32) || ((prev_cq >> b) & 1u) ? 1 : 0) +
+              ((next_c == '[' && next_valid) ? 2 : 0) +
+              ((next_c == 32 && next_valid) ? 4 : 0);
+          const int v = (i << 3) | payload;
+          atomicAdd(&S.rb[ord - 1], (uint32_t)((v < vmax ? v : vmax) + 1));
+        }
       }
-      rb_ord += __popc(hits);
-      prev_closeq_carry = __shfl_sync(kFull, close_q, 31);
+      h_carry += __shfl_sync(kFull, hi, 31);
     }
   }
   __syncwarp();
@@ -389,60 +505,53 @@ __device__ __forceinline__ void decode_row(
   // ---- pass 5: SD-ID ends, quote positions, escape counts, msg start ----
   const int sb = slot_bits_for(L);
   const int vclip = (1 << sb) - 2;
+  auto vi = [&](int i) { return (uint32_t)((i < vclip ? i : vclip) + 1); };
   int pair_total = 0;
   int msg_a = L;
-  {
-    WarpQuote qs;
-    int rb_ord = 0;
-    int prev_carry = 0;   // bit 0: close quote, bit 1: space
-    for (int base = 0; base < n; base += 32) {
-      const int i = base + lane;
-      const bool valid = i < n;
-      const int c = valid ? rb[i] : 0;
-      qs.step(c, lane);
-      const int q_excl = qs.q_before - q_before_rest;
-      const bool outside = (q_excl & 1) == 0;
-      const bool in_rest = i >= rest_s;
-      const bool real_q = qs.real_q && in_rest;
-      const bool open_q = real_q && outside;
-      const bool close_q = real_q && !outside;
-      const bool zone_c = in_rest && i <= sd_end_zone && is_sd;
-      const bool sd_zone = in_rest && i <= sd_end && is_sd;
-      const unsigned hits = __ballot_sync(kFull, c == ']' && outside
-                                                 && in_rest);
-      // ']' at or before i (a space, where it is read, is not one)
-      const int rb_ord_i = rb_ord + __popc(hits & lanemask_lt(lane));
-      const int vi = (i < vclip ? i : vclip) + 1;
-      const bool is_sp = c == 32;
-      const int flags = (close_q ? 1 : 0) | (is_sp ? 2 : 0);
-      int prev = __shfl_up_sync(kFull, flags, 1);
-      if (lane == 0) prev = prev_carry;
-      if (valid) {
-        if (is_sp && outside && zone_c && (prev & 3) == 0) {
-          int ord = rb_ord_i + 1;
-          if (ord >= 1 && ord <= MAX_SD) atomicAdd(&S.sid[ord - 1], (uint32_t)vi);
-        }
-        if (open_q && zone_c) {
-          int ord = (q_excl >> 1) + 1;
-          if (ord > pair_total) pair_total = ord;
-          if (ord >= 1 && ord <= MAX_PAIRS)
-            atomicAdd(&S.oq[ord - 1], (uint32_t)vi);
-        }
-        if (close_q && zone_c) {
-          int ord = (q_excl + 1) >> 1;
-          if (ord >= 1 && ord <= MAX_PAIRS)
-            atomicAdd(&S.cq[ord - 1], (uint32_t)vi);
-        }
-        if (c == 92 && (q_excl & 1) == 1) {
-          int ord = (q_excl >> 1) + 1;
-          if (ord >= 1 && ord <= MAX_PAIRS) atomicAdd(&S.esc[ord - 1], 1u);
-        }
-        if (open_q && sd_zone && B(i - 1) != '=') viol = true;
-        if (!is_ws(c) && i >= msg_start && i < msg_a) msg_a = i;
-      }
-      rb_ord += __popc(hits);
-      prev_carry = __shfl_sync(kFull, flags, 31);
+  for (int w = lane; w < nwords; w += 32) {
+    const uint32_t out = MW(M_OUT, w), rest = from_bits(w, rest_s);
+    const uint32_t rq = MW(M_RQ, w), spw = MW(M_SP, w);
+    const uint32_t zone_c = is_sd ? rest & upto_bits(w, sd_end_zone) : 0u;
+    const uint32_t sd_zone = is_sd ? rest & upto_bits(w, sd_end) : 0u;
+    const uint32_t open_q = rq & rest & out;
+    const uint32_t close_q = rq & rest & ~out;
+    // a close quote or a space at the previous position; '=' there
+    const uint32_t prev_cs =
+        ((close_q | spw) << 1) |
+        (w > 0 ? (close_bits(w - 1) | MW(M_SP, w - 1)) >> 31 : 0u);
+    const uint32_t prev_eq =
+        (MW(M_EQ, w) << 1) | (w > 0 ? MW(M_EQ, w - 1) >> 31 : 0u);
+    const uint32_t hits = MW(M_RB, w) & out & rest, bs = MW(M_BS, w);
+    const uint32_t nw = MW(M_NW, w);
+    const int hb = (int)MW(M_HB, w), qb = (int)MW(M_QB, w) - q_before_rest;
+    const uint32_t sid_sp = spw & out & zone_c & ~prev_cs;
+    for (uint32_t bits = sid_sp; bits; bits &= bits - 1) {
+      const int b = __ffs((int)bits) - 1;
+      // ']' before the space, plus one
+      const int ord = hb + __popc(hits & low_bits(b)) + 1;
+      if (ord <= MAX_SD) atomicAdd(&S.sid[ord - 1], vi(32 * w + b));
     }
+    for (uint32_t bits = open_q & zone_c; bits; bits &= bits - 1) {
+      const int b = __ffs((int)bits) - 1;
+      const int ord = (q_excl(qb, rq, b) >> 1) + 1;
+      if (ord > pair_total) pair_total = ord;
+      if (ord >= 1 && ord <= MAX_PAIRS)
+        atomicAdd(&S.oq[ord - 1], vi(32 * w + b));
+    }
+    for (uint32_t bits = close_q & zone_c; bits; bits &= bits - 1) {
+      const int b = __ffs((int)bits) - 1;
+      const int ord = (q_excl(qb, rq, b) + 1) >> 1;
+      if (ord >= 1 && ord <= MAX_PAIRS)
+        atomicAdd(&S.cq[ord - 1], vi(32 * w + b));
+    }
+    // backslashes inside a quoted value
+    for (uint32_t bits = bs & ~out; bits; bits &= bits - 1) {
+      const int ord = (q_excl(qb, rq, __ffs((int)bits) - 1) >> 1) + 1;
+      if (ord >= 1 && ord <= MAX_PAIRS) atomicAdd(&S.esc[ord - 1], 1u);
+    }
+    if (open_q & sd_zone & ~prev_eq) viol = true;
+    const uint32_t msg = nw & from_bits(w, msg_start);
+    if (msg && msg_a == L) msg_a = 32 * w + __ffs((int)msg) - 1;
   }
   __syncwarp();
   pair_total = warp_max(pair_total);
@@ -472,50 +581,53 @@ __device__ __forceinline__ void decode_row(
 
   // ---- pass 6: pair-name structure and name starts ----------------------
   {
-    WarpQuote qs;
-    int prev_carry = 0;   // bit 0: name byte, bit 1: '=' (last position)
-    for (int base = 0; base < n; base += 32) {
-      const int i = base + lane;
-      const bool valid = i < n;
-      const int c = valid ? rb[i] : 0;
-      qs.step(c, lane);
-      const int q_excl = qs.q_before - q_before_rest;
-      const bool outside = (q_excl & 1) == 0;
-      const bool in_rest = i >= rest_s;
-      const bool real_q = qs.real_q && in_rest;
-      const bool open_q = real_q && outside;
-      const bool sd_zone = in_rest && i <= sd_end && is_sd;
-      bool in_pair = false;
-      if (is_sd) {
+    // word w's positions inside a pair's name zone (between an SD-ID end
+    // and its ']'), and its name bytes and '=' outside quotes there
+    auto pair_bits = [&](int w) {
+      uint32_t in_pair = 0;
+      if (is_sd)
         for (int k = 0; k < MAX_SD; ++k)
-          in_pair = in_pair || (k < sd_count && i > sid_end[k]
-                                && i < rb_pos[k]);
+          if (k < sd_count)
+            in_pair |= from_bits(w, sid_end[k] + 1) & ~from_bits(w, rb_pos[k]);
+      return in_pair;
+    };
+    for (int w = lane; w < nwords; w += 32) {
+      const uint32_t in_pair = pair_bits(w), out = MW(M_OUT, w);
+      const uint32_t eqw = MW(M_EQ, w);
+      const uint32_t name = MW(M_NM, w) & out & in_pair;
+      const uint32_t eqf = eqw & out & in_pair;
+      uint32_t name_p = 0, eq_p = 0, sp_p = 0;   // previous word's last bit
+      if (w > 0) {
+        const uint32_t ip = pair_bits(w - 1), op = MW(M_OUT, w - 1);
+        name_p = (MW(M_NM, w - 1) & op & ip) >> 31;
+        eq_p = (MW(M_EQ, w - 1) & op & ip) >> 31;
+        sp_p = MW(M_SP, w - 1) >> 31;
       }
-      const bool name = is_name_byte(c) && outside && in_pair;
-      const bool eq = c == '=' && outside && in_pair;
-      const int flags = (name ? 1 : 0) | (eq ? 2 : 0);
-      int prev = __shfl_up_sync(kFull, flags, 1);
-      if (lane == 0) prev = prev_carry;
-      const bool prev_name = (prev & 1) != 0;
-      if (valid) {
-        // run end of the previous position: its next byte must be '='
-        if (prev_name && !name && c != '=') viol = true;
-        // '=' at the previous position must be followed by an open quote
-        if ((prev & 2) && !(open_q && in_pair)) viol = true;
-        if (name && !prev_name) {
-          if (B(i - 1) != 32) viol = true;
-          int ord = (q_excl >> 1) + 1;
-          if (ord >= 1 && ord <= MAX_PAIRS)
-            atomicAdd(&S.ns[ord - 1], (uint32_t)((i < vclip ? i : vclip) + 1));
-        }
-        if (real_q && sd_zone && !in_pair) viol = true;
+      const uint32_t prev_name = (name << 1) | name_p;
+      const uint32_t prev_eq = (eqf << 1) | eq_p;
+      const uint32_t valid = ~from_bits(w, n);
+      const uint32_t rest = from_bits(w, rest_s), rq = MW(M_RQ, w);
+      const uint32_t open_q = rq & rest & out, spw = MW(M_SP, w);
+      const int qb = (int)MW(M_QB, w) - q_before_rest;
+      // run end of the previous position: its next byte must be '='
+      if (prev_name & ~name & ~eqw & valid) viol = true;
+      // '=' at the previous position must be followed by an open quote
+      if (prev_eq & ~(open_q & in_pair) & valid) viol = true;
+      const uint32_t starts = name & ~prev_name;
+      if (starts & ~((spw << 1) | sp_p)) viol = true;
+      for (uint32_t bits = starts; bits; bits &= bits - 1) {
+        const int b = __ffs((int)bits) - 1;
+        const int ord = (q_excl(qb, rq, b) >> 1) + 1;
+        if (ord >= 1 && ord <= MAX_PAIRS)
+          atomicAdd(&S.ns[ord - 1], vi(32 * w + b));
       }
-      const int last = n - 1 - base < 31 ? n - 1 - base : 31;
-      prev_carry = __shfl_sync(kFull, flags, last);
+      const uint32_t sd_zone = is_sd ? rest & upto_bits(w, sd_end) : 0u;
+      if (rq & sd_zone & ~in_pair) viol = true;
+      // the last valid position: its next byte is padding (never '=', and
+      // never an open quote)
+      if (w == (n - 1) >> 5 && (((name | eqf) >> ((n - 1) & 31)) & 1u))
+        viol = true;
     }
-    // the last valid position: its next byte is padding (never '=', and
-    // never an open quote)
-    if (prev_carry != 0) viol = true;
   }
   __syncwarp();
   int ns_pos;

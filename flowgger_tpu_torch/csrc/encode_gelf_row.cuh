@@ -88,23 +88,6 @@ __device__ __forceinline__ int escape_letter(int b) {
          : b == 13 ? 'r' : b;
 }
 
-// Four bytes at a time (SWAR): 0x80 in each byte of the result where
-// the byte of x is below c (c <= 0x80; (x | 0x80) - c never borrows
-// across bytes), or equal to c.
-__device__ __forceinline__ uint32_t bytes_below(uint32_t x, uint32_t c) {
-  return ~((x | 0x80808080u) - c * 0x01010101u) & ~x & 0x80808080u;
-}
-
-__device__ __forceinline__ uint32_t bytes_equal(uint32_t x, uint32_t c) {
-  const uint32_t y = x ^ (c * 0x01010101u);
-  return ~(((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y | 0x7F7F7F7Fu);
-}
-
-// the four flag bits (bits 7, 15, 23, 31) of a SWAR result as a nibble
-__device__ __forceinline__ unsigned nibble(uint32_t f) {
-  return ((f >> 7) * 0x10204080u) >> 28;
-}
-
 // Shared memory of one warp: the staged row, a word per 16-byte chunk
 // (escapes before the chunk << 16 | the chunk's escape mask), and for the
 // assemble the sources of its S segments in one buffer (the escaped row

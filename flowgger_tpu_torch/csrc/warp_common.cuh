@@ -67,6 +67,32 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
+// Four bytes at a time (SWAR): 0x80 in each byte of the result where
+// the byte of x is below c (c <= 0x80; (x | 0x80) - c never borrows
+// across bytes), or equal to c.
+__device__ __forceinline__ uint32_t bytes_below(uint32_t x, uint32_t c) {
+  return ~((x | 0x80808080u) - c * 0x01010101u) & ~x & 0x80808080u;
+}
+
+__device__ __forceinline__ uint32_t bytes_equal(uint32_t x, uint32_t c) {
+  const uint32_t y = x ^ (c * 0x01010101u);
+  return ~(((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y | 0x7F7F7F7Fu);
+}
+
+// the four flag bits (bits 7, 15, 23, 31) of a SWAR result as a nibble
+__device__ __forceinline__ unsigned nibble(uint32_t f) {
+  return ((f >> 7) * 0x10204080u) >> 28;
+}
+
+// inclusive sum of v over lanes 0..lane
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += t;
+  }
+  return v;
+}
+
 // Stages a row's first n bytes (its valid bytes) in shared memory: 16-byte
 // loads where the row is 16-byte aligned and L a multiple of 16 (the
 // last chunk then carries the row's zero padding), bytes otherwise (the

@@ -6,20 +6,28 @@ A trimmed copy of the JAX package's ``tpu/fused_routes.py`` with its two
 GELF legs of rfc5424 and rfc3164 input.  The split tier
 (``device_gelf`` / ``device_rfc3164``) runs the decode and the encode as
 two launches with the decode's channel tensor written to device memory
-in between; a fused route runs both in one kernel a phase:
+in between; a fused route decodes and probes in one kernel and
+assembles in a second:
 
-- F1, ``rfc5424_gelf``: K1's row decode (6 pairs) and E1's encode in one
-  warp (``csrc/fused_gelf.cu``);
-- F3, ``rfc3164_gelf``: D3's row decode and E3's encode in one warp.
+- F1, ``rfc5424_gelf``: K1's row decode (6 pairs) and E1's probe in one
+  warp, then E1's assemble (``csrc/fused_gelf.cu``);
+- F3, ``rfc3164_gelf``: D3's row decode and E3's probe, then E3's
+  assemble.
 
-Each phase (the probe, then the assemble of a taken batch) decodes its
-rows again, as each call of the reference's fused program does; the
-channels stay in shared memory.  Only the channels the encode reads
-(:data:`DEMAND`) are written there.  The probe returns the tier bit
-before the width test and the length without the timestamp text, as the
-split tier's probe does, plus the ``ok`` and timestamp channels the
-driver formats the stamp text from; so the driver
-(``device_common.fetch_encode_driver``) needs no decode output at all.
+One decode per taken batch: the probe decodes each row once, keeps the
+channels in shared memory for its encode, and writes the channels the
+encode reads (:data:`DEMAND`) for its tier rows to a device tensor that
+:class:`_FusedRows` keeps until the assemble, which reads them and runs
+no decode (``kernels.FUSED_CARRY`` int32 a row).  The reference's fused
+program decodes again in its assemble, since each call of a jitted
+program is whole; that is its structure, not its contract: the carried
+channels are the same function of the same batch, so the bytes are the
+same.  An assemble without the probe's channels raises.  The probe
+returns the tier bit before the width test and the length without the
+timestamp text, as the split tier's probe does, plus the ``ok`` and
+timestamp channels the driver formats the stamp text from; so the
+driver (``device_common.fetch_encode_driver``) needs no decode output at
+all.
 
 The decline ladder is the reference's: a fused route keeps its own
 hysteresis state (:func:`cooldown_state`, key ``fused:<route>``), whose
@@ -36,7 +44,8 @@ before the first batch, and a failed build raises), the AOT
 reference's ``ROUTES``.
 
 Plain versions (the CPU): the format's plain decode, narrowed to
-:data:`DEMAND`, then the split tier's plain encode.
+:data:`DEMAND`, then the split tier's plain encode; the probe's decode is
+kept for the assemble, as the kernels keep theirs.
 """
 
 from __future__ import annotations
@@ -80,6 +89,34 @@ DEMAND = {
 }
 
 
+def carried_columns(route: str):
+    """The channels of one row of a fused probe's carried tensor, in
+    order, as ``(key, slot)`` (slot None for a row channel): the split
+    decode's packed layout (``rfc5424.unpack_channels`` at 4 SD elements
+    and 6 pairs, ``rfc3164.KEYS``) narrowed to ``DEMAND[route]``."""
+    demand = DEMAND[route]
+    if route == "rfc3164_gelf":
+        from .rfc3164 import KEYS
+
+        return [(k, None) for k in KEYS if k in demand]
+    from .rfc5424 import (_KEYS_1D, _KEYS_PAIR, _KEYS_SD, DEFAULT_MAX_PAIRS,
+                          DEFAULT_MAX_SD)
+
+    cols = [(k, None) for k in _KEYS_1D if k in demand]
+    for keys, width in ((_KEYS_SD, DEFAULT_MAX_SD),
+                        (_KEYS_PAIR, DEFAULT_MAX_PAIRS)):
+        cols += [(k, s) for k in keys if k in demand for s in range(width)]
+    return cols
+
+
+def carried_plain(dec: Dict[str, torch.Tensor], route: str) -> torch.Tensor:
+    """The carried channels of every row from a plain decode, int32
+    [N, C] (the kernel writes only its probe's tier rows)."""
+    cols = [dec[k] if s is None else dec[k][:, s]
+            for k, s in carried_columns(route)]
+    return torch.stack([c.to(torch.int32) for c in cols], dim=1)
+
+
 class FusedHandle:
     """A submitted fused batch: the device inputs plus the route that
     will run them.  The kernels run at fetch time."""
@@ -97,7 +134,9 @@ class _FusedRows:
     ``device_gelf._Rows``): ``probe`` and ``assemble`` launch the fused
     kernel on a CUDA batch, and run the plain decode and encode on a CPU
     batch; ``small_channels`` hands back the ``ok`` and timestamp
-    channels the probe produced."""
+    channels the probe produced.  The probe's decode (the kernel's
+    carried channels and tier bits, or the plain decode) is kept for the
+    assemble, which raises without it."""
 
     def __init__(self, route, batch, lens, suffix, extras, year):
         self.route = route
@@ -107,6 +146,7 @@ class _FusedRows:
         self.suffix, self.extras, self.year = suffix, extras, year
         self.small = None
         self.dec = None        # the plain decode, kept from the probe
+        self.carried = None    # the kernel's (chan, tier), kept from it
         if route.fmt == "rfc3164":
             from . import device_rfc3164 as split
         else:
@@ -150,9 +190,10 @@ class _FusedRows:
         if self.batch.is_cuda:
             from .kernels import fused_gelf_cuda
 
-            base, base_len, self.small = fused_gelf_cuda(
+            base, base_len, self.small, chan = fused_gelf_cuda(
                 self.route.fmt, self.batch, self.lens, n, self.bank,
                 self.table, year=self.year)
+            self.carried = (chan, base)
             return base, base_len
         dec = self.dec = self._plain_decode()
         live = torch.arange(self.N, device=self.device) < n
@@ -162,19 +203,21 @@ class _FusedRows:
         return self._plain_encode(dec, assemble=False, n=n)
 
     def assemble(self, ts_text, ts_len, row_off, total, n: int):
+        if self.carried is None and self.dec is None:
+            raise RuntimeError("a fused assemble needs its probe's decode: "
+                               "probe the batch first")
         if self.batch.is_cuda:
             from .kernels import fused_gelf_cuda
 
+            chan, tier = self.carried
             return fused_gelf_cuda(
                 self.route.fmt, self.batch, self.lens, n, self.bank,
                 self.table, year=self.year, OW=self.OW, ts_text=ts_text,
-                ts_len=ts_len, row_off=row_off, total=total)
+                ts_len=ts_len, row_off=row_off, total=total, chan=chan,
+                tier=tier)
         from .device_gelf import flat_rows
 
-        # the kernel decodes again; the plain version's decode is the
-        # same function of the same batch, so the probe's is reused
-        dec = self.dec if self.dec is not None else self._plain_decode()
-        rows, out_len, _ = self._plain_encode(dec, ts_text=ts_text,
+        rows, out_len, _ = self._plain_encode(self.dec, ts_text=ts_text,
                                               ts_len=ts_len)
         return flat_rows(rows, out_len, row_off, total)
 

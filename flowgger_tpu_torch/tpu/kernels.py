@@ -25,9 +25,10 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
 - ``decode_rfc3164`` — D3, the per-row RFC3164 channels (replaces the jnp
   ``rfc3164.decode_rfc3164``, not a ``pallas_call``);
 - ``fused_gelf`` — the fused routes F1 (rfc5424→GELF: K1's row decode and
-  E1 in one kernel a phase) and F3 (rfc3164→GELF: D3's and E3's),
-  replacing the jnp + Pallas ``fused_routes._fused_rfc5424_gelf`` and the
-  jnp ``_fused_rfc3164_gelf``.
+  E1's probe in one kernel, then E1's assemble from the channels the
+  probe carried) and F3 (rfc3164→GELF: D3's and E3's), replacing the
+  jnp + Pallas ``fused_routes._fused_rfc5424_gelf`` and the jnp
+  ``_fused_rfc3164_gelf``.
 
 The one-warp-a-row kernels share their device code through headers in
 ``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
@@ -132,24 +133,39 @@ _SIGNATURES = {
         "fg_decode_rfc3164": (_P, _P, _I, _P, _I, _I, _P),
     },
     "fused_gelf": {
+        "fg_fused_gelf_carry": (_I,),
         "fg_fused_rfc5424_gelf_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P,
-                                        _P),
-        "fg_fused_rfc5424_gelf_assemble": (_P,) * 6 + (_I, _I, _I, _I, _P,
+                                        _P, _P),
+        "fg_fused_rfc5424_gelf_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P,
                                                        _P, _P),
         "fg_fused_rfc3164_gelf_probe": (_P, _P, _I, _P, _I, _I, _I, _P, _P,
-                                        _P, _P),
-        "fg_fused_rfc3164_gelf_assemble": (_P, _P, _I) + (_P,) * 4 + (
-            _I, _I, _I, _I, _P, _P, _P),
+                                        _P, _P, _P),
+        "fg_fused_rfc3164_gelf_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P,
+                                                       _P, _P),
     },
 }
 _TILE_BYTES = 16384  # kTile in frame_sep_spans.cu
 # decode_rfc5424.cu, decode_rfc3164.cu and structural_index.cu stage kWarps rows, each
-# padded to 16 bytes, in dynamic shared memory beside their static
-# per-warp sums and channel tile (< 8 KiB and < 12 KiB), within the
-# 227 KiB a block may use
+# padded to 16 bytes (decode_rfc5424.cu also its class masks past each
+# row: _rfc5424_stage_bytes), in dynamic shared memory beside their
+# static per-warp sums and channel tile (< 8 KiB and < 12 KiB), within
+# the 227 KiB a block may use
 _DECODE_ROWS_PER_BLOCK = 8
 _DECODE_STAGING_BYTES = 219 * 1024
 _INDEX_STAGING_BYTES = 215 * 1024
+# int32 entries a row of the fused routes' carried channel tensor: the
+# channels fused_routes.DEMAND names (F1: 18 row channels, 2 x 4 SD
+# spans, 5 x 6 pair channels; F3: 11); fused_gelf.cu kCarry5 / kCarry3
+FUSED_CARRY = {"rfc5424": 56, "rfc3164": 11}
+
+
+def _rfc5424_stage_bytes(L: int) -> int:
+    """Shared bytes a warp of decode_rfc5424.cu takes: the staged row and
+    ten mask words a 32-position word plus eight ints
+    (decode_rfc5424_row.cuh stage_bytes)."""
+    def r16(v):
+        return -(-v // 16) * 16
+    return r16(L) + r16(4 * (10 * -(-L // 32) + 8))
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -362,7 +378,7 @@ def decode_rfc5424_cuda(batch: torch.Tensor, lens: torch.Tensor,
     if max_sd != 4 or max_pairs not in (6, 16):
         raise ValueError(f"no decode_rfc5424 kernel for max_sd={max_sd} "
                          f"max_pairs={max_pairs}")
-    if _DECODE_ROWS_PER_BLOCK * 16 * (-(-L // 16)) > _DECODE_STAGING_BYTES:
+    if _DECODE_ROWS_PER_BLOCK * _rfc5424_stage_bytes(L) > _DECODE_STAGING_BYTES:
         raise ValueError(f"rows of {L} bytes exceed the decode kernel's "
                          "shared-memory staging")
     out = torch.empty((n_channels(max_sd, max_pairs), N), dtype=torch.int32,
@@ -551,52 +567,89 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
                     n: int, bank: torch.Tensor, consts, year=None,
                     OW: int = 0, ts_text: Optional[torch.Tensor] = None,
                     ts_len: Optional[torch.Tensor] = None,
-                    row_off: Optional[torch.Tensor] = None, total: int = 0):
+                    row_off: Optional[torch.Tensor] = None, total: int = 0,
+                    chan: Optional[torch.Tensor] = None,
+                    tier: Optional[torch.Tensor] = None):
     """A fused route's kernel on the first ``n`` rows of ``batch`` (u8
     [N, L]): F1 for ``fmt = "rfc5424"`` (K1's decode at 6 pairs, then E1;
     ``consts`` is ``device_gelf.kernel_consts``'s table), F3 for
     ``"rfc3164"`` (D3 for ``year``, then E3; ``device_rfc3164``'s table).
 
     Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
-    small int32 [5, N])``, the split probe's outputs plus the ok, days,
-    sod, off and nanos channels, zeros at and past ``n``.  With
-    ``row_off``, ``ts_text``, ``ts_len`` and ``OW`` it assembles, as
-    :func:`encode_gelf_cuda` does."""
+    small int32 [5, N], chan int32 [N, C])``, the split probe's outputs,
+    the ok, days, sod, off and nanos channels (zeros at and past ``n``),
+    and the carried channels: row r of ``chan`` holds the C =
+    :data:`FUSED_CARRY` channels the encode reads where ``base[r]`` is
+    set, and is not written elsewhere.  With ``row_off``, ``ts_text``,
+    ``ts_len``, ``OW`` and the probe's ``chan`` and ``base`` (as
+    ``tier``) it assembles, as :func:`encode_gelf_cuda` does, from the
+    carried channels: no decode runs again.  The rows it writes (``row_off
+    >= 0``) must be probe tier rows; it raises ValueError, before any
+    launch, if one is not, or without ``chan`` or ``tier``.  That check
+    reads one flag back from the device."""
+    assembling = row_off is not None
+    if assembling and (chan is None or tier is None):
+        raise ValueError("a fused assemble needs the probe's carried channels "
+                         "(chan) and tier bits (tier): it does not decode "
+                         "again")
     _need(batch, "batch", torch.uint8, 2)
     _need(lens, "lens", torch.int32, 1)
     _need(bank, "bank", torch.uint8, 1)
     N, L = batch.shape
     if fmt not in ("rfc5424", "rfc3164"):
         raise ValueError(f"no fused GELF route for {fmt}")
-    if fmt == "rfc3164" and year is None:
+    if fmt == "rfc3164" and year is None and not assembling:
         raise ValueError("the rfc3164 route needs the year")
     if lens.shape[0] != N or not (4 if fmt == "rfc5424" else 1) <= L < 1 << 15:
         raise ValueError(f"bad fused geometry L={L} N={N}")
     if not 0 <= n <= N or bank.device != batch.device:
         raise ValueError(f"bad fused geometry n={n} N={N}")
+    C = FUSED_CARRY[fmt]
     dev = batch.device
-    lib = _lib("fused_gelf")
-    yr = () if fmt == "rfc5424" else (int(year),)
     name = f"fused_{fmt}_gelf"
-    if row_off is None:
-        tier = torch.empty(N, dtype=torch.bool, device=dev)
+    if not assembling:
+        lib = _lib("fused_gelf")
+        yr = () if fmt == "rfc5424" else (int(year),)
+        base = torch.empty(N, dtype=torch.bool, device=dev)
         base_len = torch.empty(N, dtype=torch.int32, device=dev)
         small = torch.empty((5, N), dtype=torch.int32, device=dev)
+        carried = torch.empty((N, C), dtype=torch.int32, device=dev)
         rc = getattr(lib, f"fg_{name}_probe")(
             batch.data_ptr(), lens.data_ptr(), *yr, consts, N, n, L,
-            tier.data_ptr(), base_len.data_ptr(), small.data_ptr(),
-            _stream())
+            base.data_ptr(), base_len.data_ptr(), small.data_ptr(),
+            carried.data_ptr(), _stream())
         _check(rc, f"{name} probe")
         LAUNCHES[f"{name}_probe"] += 1
-        return tier, base_len, small
+        return base, base_len, small, carried
     _assemble_args(N, OW, ts_text, ts_len, row_off)
-    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    _need(chan, "chan", torch.int32, 2)
+    _need(tier, "tier", torch.bool, 1)
+    if chan.shape != (N, C) or tier.shape[0] != N:
+        raise ValueError(f"chan must be the probe's [N, {C}] carried channels "
+                         "and tier its [N] tier bits")
+    # the carried channels exist only for the probe's tier rows
+    if bool(((row_off >= 0) & ~tier).any()):
+        raise ValueError(f"{name} assemble: row_off keeps a row outside the "
+                         "probe's tier")
+    return fused_assemble_launch(fmt, batch, lens, n, bank, consts, OW,
+                                 ts_text, ts_len, row_off, total, chan)
+
+
+def fused_assemble_launch(fmt: str, batch, lens, n: int, bank, consts,
+                          OW: int, ts_text, ts_len, row_off, total: int,
+                          chan) -> torch.Tensor:
+    """The launch behind :func:`fused_gelf_cuda`'s assemble, after its
+    checks (no host synchronization, so a device timing loop can issue
+    it back to back); returns the u8 [total] buffer."""
+    N, L = batch.shape
+    name = f"fused_{fmt}_gelf"
+    flat = torch.empty(total, dtype=torch.uint8, device=batch.device)
     if total == 0:
         return flat
-    rc = getattr(lib, f"fg_{name}_assemble")(
-        batch.data_ptr(), lens.data_ptr(), *yr, ts_text.data_ptr(),
-        ts_len.data_ptr(), bank.data_ptr(), consts, N, n, L, OW,
-        row_off.data_ptr(), flat.data_ptr(), _stream())
+    rc = getattr(_lib("fused_gelf"), f"fg_{name}_assemble")(
+        batch.data_ptr(), lens.data_ptr(), chan.data_ptr(),
+        ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
+        L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, f"{name} assemble")
     LAUNCHES[f"{name}_assemble"] += 1
     return flat

@@ -27,6 +27,7 @@ from flowgger_tpu_torch.tpu import device_common as DC
 from flowgger_tpu_torch.tpu import device_gelf as DG
 from flowgger_tpu_torch.tpu import device_rfc3164 as D3
 from flowgger_tpu_torch.tpu import fused_routes as FR
+from flowgger_tpu_torch.tpu import kernels as K
 from flowgger_tpu_torch.tpu import pack
 from flowgger_tpu_torch.tpu import rfc3164 as R3
 from flowgger_tpu_torch.tpu import rfc5424 as T
@@ -116,14 +117,15 @@ def libs(tmp_path_factory):
                 "fg_encode_gelf3164_assemble": [_P] * 7 + [_I] * 4
                 + [_P] * 3}),
             (libs["fused_gelf"], {
+                "fg_fused_gelf_carry": [_I],
                 "fg_fused_rfc5424_gelf_probe": [_P] * 3 + [_I] * 3
-                + [_P] * 4,
-                "fg_fused_rfc5424_gelf_assemble": [_P] * 6 + [_I] * 4
+                + [_P] * 5,
+                "fg_fused_rfc5424_gelf_assemble": [_P] * 7 + [_I] * 4
                 + [_P] * 3,
                 "fg_fused_rfc3164_gelf_probe": [_P, _P, _I, _P] + [_I] * 3
-                + [_P] * 4,
-                "fg_fused_rfc3164_gelf_assemble": [_P, _P, _I] + [_P] * 4
-                + [_I] * 4 + [_P] * 3})):
+                + [_P] * 5,
+                "fg_fused_rfc3164_gelf_assemble": [_P] * 7 + [_I] * 4
+                + [_P] * 3})):
         for name, args in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, _I
@@ -218,6 +220,8 @@ def _route_check(kind, libs, L, lines, n=None, garbage_rows=0, extras=()):
     tier = np.full(N, 7, np.uint8)
     base_len = np.full(N, -1, np.int32)
     small = np.full((5, N), -9, np.int32)
+    route = f"{fmt}_gelf"
+    chan = np.full((N, K.FUSED_CARRY[fmt]), -5, np.int32)
     if kind == "e3":
         ch = np.stack([dec[k].to(torch.int32).numpy() for k in R3.KEYS])
         ch = np.ascontiguousarray(ch)
@@ -228,7 +232,8 @@ def _route_check(kind, libs, L, lines, n=None, garbage_rows=0, extras=()):
         yr = (YEAR,) if kind == "f3" else ()
         assert getattr(libs["fused_gelf"], f"fg_fused_{fmt}_gelf_probe")(
             *ptrs, *yr, table, N, n, L, tier.ctypes.data,
-            base_len.ctypes.data, small.ctypes.data, None) == 0
+            base_len.ctypes.data, small.ctypes.data, chan.ctypes.data,
+            None) == 0
         live = np.arange(N) < n
         want_small = np.stack([np.where(live, dec[k].to(torch.int32).numpy(),
                                         0)
@@ -241,6 +246,12 @@ def _route_check(kind, libs, L, lines, n=None, garbage_rows=0, extras=()):
     assert (base_len == ref_len.numpy()).all()
     assert (tier[n:] == 0).all() and (base_len[n:] == 0).all()
     assert 3 < ref_base.sum() < n
+    if kind != "e3":
+        # the carried channels: the plain decode's on each tier row, and
+        # nothing written on the other rows (padding rows included)
+        on = tier.astype(bool)
+        assert (chan[on] == FR.carried_plain(dec, route).numpy()[on]).all()
+        assert (chan[~on] == -5).all()
 
     # assemble every tier row but one, each at its own residue mod 16
     rows, out_len, full_tier = split.encode_rows(
@@ -258,14 +269,31 @@ def _route_check(kind, libs, L, lines, n=None, garbage_rows=0, extras=()):
         rc = libs["encode_gelf"].fg_encode_gelf3164_assemble(
             *ptrs, ch.ctypes.data, *tail)
     else:
+        # from the channels the probe carried: no decode runs again
         rc = getattr(libs["fused_gelf"], f"fg_fused_{fmt}_gelf_assemble")(
-            *ptrs, *yr, *tail)
+            *ptrs, chan.ctypes.data, *tail)
     assert rc == 0
     want = np.full(flat.size, 0xAB, np.uint8)
     rows, out_len = rows.numpy(), out_len.numpy()
     for r in np.flatnonzero(keep):
         want[row_off[r]:row_off[r] + out_len[r]] = rows[r, :out_len[r]]
     assert (flat == want).all()
+    if kind != "e3":
+        # the port's plain route on the same rows: probe, then assemble
+        # with the probe's decode reused
+        rows_cpu = FR._FusedRows(FR.ROUTES[fmt], bt, lt, SUFFIX, extras,
+                                 YEAR)
+        p_base, p_len = rows_cpu.probe(n)
+        assert (p_base.numpy() == tier).all()
+        assert (p_len.numpy() == base_len).all()
+        gated = np.where(keep, out_len, 0)
+        ro = torch.from_numpy(np.where(keep, np.cumsum(gated) - gated, -1))
+        got = rows_cpu.assemble(torch.from_numpy(ts_text),
+                                torch.from_numpy(ts_len), ro,
+                                int(gated.sum()), n).numpy()
+        packed = np.concatenate([flat[row_off[r]:row_off[r] + out_len[r]]
+                                 for r in np.flatnonzero(keep)])
+        assert np.array_equal(got, packed)
     return tier, int(keep.sum())
 
 
@@ -302,6 +330,45 @@ def test_fused_rfc5424_source_matches_plain(libs, L, n, garbage):
     assemble."""
     lines = _lines_5424(L)[:48]
     _route_check("f1", libs, L, lines, n=n, garbage_rows=garbage)
+
+
+@pytest.mark.parametrize("what", ["route", "no_chan", "no_tier"])
+@pytest.mark.parametrize("fmt", ["rfc5424", "rfc3164"])
+def test_fused_assemble_needs_the_probe_decode(fmt, what):
+    """No path decodes again: the route's assemble before its probe
+    raises, and so does the kernel wrapper's without the probe's carried
+    channels or tier bits (before it touches a device)."""
+    lines = _lines_5424(64) if fmt == "rfc5424" else _lines_3164(64)
+    batch, lens = _pack(lines[:8], 64)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    N = bt.shape[0]
+    ts_text = torch.zeros((N, DC.TS_W), dtype=torch.uint8)
+    ts_len = torch.zeros(N, dtype=torch.int32)
+    row_off = torch.full((N,), -1, dtype=torch.int64)
+    if what == "route":
+        rows = FR._FusedRows(FR.ROUTES[fmt], bt, lt, SUFFIX, (), YEAR)
+        with pytest.raises(RuntimeError, match="probe"):
+            rows.assemble(ts_text, ts_len, row_off, 0, N)
+        return
+    carried = {"chan": torch.zeros((N, K.FUSED_CARRY[fmt]),
+                                   dtype=torch.int32),
+               "tier": torch.zeros(N, dtype=torch.bool)}
+    carried[what[3:]] = None
+    with pytest.raises(ValueError, match="carried channels"):
+        K.fused_gelf_cuda(fmt, bt, lt, N, torch.zeros(8, dtype=torch.uint8),
+                          None, year=YEAR, OW=64, ts_text=ts_text,
+                          ts_len=ts_len, row_off=row_off, total=0, **carried)
+
+
+def test_fused_carry_widths_match_the_source(libs):
+    """The carried row widths the source defines are the wrapper's and
+    the DEMAND channels' (one entry a channel row of the split decode's
+    layout)."""
+    fn = libs["fused_gelf"].fg_fused_gelf_carry
+    for route, fmt, code in (("rfc5424_gelf", "rfc5424", 5424),
+                             ("rfc3164_gelf", "rfc3164", 3164)):
+        assert fn(code) == K.FUSED_CARRY[fmt] == len(FR.carried_columns(route))
+    assert fn(0) == -1
 
 
 def test_rfc3164_tables_match_python():

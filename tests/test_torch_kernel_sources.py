@@ -21,11 +21,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
                                        syslen_stream)
+from flowgger_tpu_torch.tpu import device_gelf as DG
 from flowgger_tpu_torch.tpu import framing as F
+from flowgger_tpu_torch.tpu import fused_routes as FR
 from flowgger_tpu_torch.tpu import jsonidx as JI
+from flowgger_tpu_torch.tpu import kernels as K
 from flowgger_tpu_torch.tpu import pack
 from flowgger_tpu_torch.tpu import rfc5424 as T
 
@@ -45,7 +50,7 @@ def libs(tmp_path_factory):
         pytest.skip("g++ is needed to compile the kernel sources for the CPU")
     out = tmp_path_factory.mktemp("cuda_host")
     names = ("decode_rfc5424", "frame_sep_spans", "frame_gather",
-             "frame_syslen_spans", "structural_index")
+             "frame_syslen_spans", "structural_index", "fused_gelf")
     with ThreadPoolExecutor(len(names) + 2) as ex:
         probe = ex.submit(host_build.build, "intrinsics_probe", out,
                           host_build.HERE)
@@ -69,6 +74,8 @@ def libs(tmp_path_factory):
     for f in (8, 24):
         fn = getattr(libs["structural_index"], f"fg_structural_index_f{f}")
         fn.argtypes, fn.restype = [_P, _P, _P, _I, _I, _I, _P], _I
+    fn = libs["fused_gelf"].fg_fused_rfc5424_gelf_probe
+    fn.argtypes, fn.restype = [_P] * 3 + [_I] * 3 + [_P] * 5, _I
     fn = libs["probe"].fg_probe_intrinsics
     fn.argtypes, fn.restype = [_P, _P, _P], _I
     fn = libs["lookback"].fg_probe_lookback
@@ -186,6 +193,132 @@ def test_decode_kernel_source_chunk_boundaries(libs, L, max_pairs):
     width that is a multiple of 16 bytes (vector staging) and at one
     that is not (byte staging)."""
     _decode_check(libs, _boundary_lines(L), L, max_pairs)
+
+
+def _exact_rows(lines, L):
+    """``lines`` packed at width ``L``, exactly one row a line (no
+    padding rows: the other cases cover those)."""
+    batch, lens, *_ = pack.pack_lines_2d(lines, L)
+    n = len(lines)
+    return (np.ascontiguousarray(batch[:n]),
+            np.ascontiguousarray(lens[:n]).astype(np.int32))
+
+
+def _k1_rows_check(libs, batch, lens, L, max_pairs):
+    """Every K1 channel of every row equal to the plain version; returns
+    the plain decode."""
+    out = np.full((T.n_channels(4, max_pairs), batch.shape[0]), -7, np.int32)
+    fn = getattr(libs["decode_rfc5424"], f"fg_decode_rfc5424_sd4_p{max_pairs}")
+    assert fn(_ptr(batch), _ptr(lens), _ptr(out), batch.shape[0], L,
+              None) == 0
+    got = T.unpack_channels(torch.from_numpy(out), 4, max_pairs)
+    ref = T.decode_rfc5424(torch.from_numpy(batch), torch.from_numpy(lens),
+                           max_pairs=max_pairs)
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    return ref
+
+
+def _fused_probe_check(libs, batch, lens, L):
+    """F1's probe on every row of ``batch`` against the plain route: the
+    base tier bit and length, the small channels and every tier row's
+    carried channels (the word-parallel decode as F1 runs it).  Returns
+    the tier rows."""
+    N = n = batch.shape[0]
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    route = "rfc5424_gelf"
+    dec = {k: v for k, v in T.decode_rfc5424(bt, lt).items()
+           if k in FR.DEMAND[route]}
+    _, table = DG.kernel_consts(b"\n")
+    tier = np.full(N, 7, np.uint8)
+    base_len = np.full(N, -1, np.int32)
+    small = np.full((5, N), -9, np.int32)
+    chan = np.full((N, K.FUSED_CARRY["rfc5424"]), -5, np.int32)
+    assert libs["fused_gelf"].fg_fused_rfc5424_gelf_probe(
+        _ptr(batch), _ptr(lens), table, N, n, L, _ptr(tier), _ptr(base_len),
+        _ptr(small), _ptr(chan), None) == 0
+    ref_base, ref_len = DG.encode_rows(bt, lt, dec, assemble=False, n=n,
+                                       suffix=b"\n", max_sd=4)
+    assert (tier == ref_base.numpy()).all()
+    assert (base_len == ref_len.numpy()).all()
+    want = np.stack([dec[k].to(torch.int32).numpy()
+                     for k in ("ok", "days", "sod", "off", "nanos")])
+    assert (small == want).all()
+    on = tier.astype(bool)
+    assert (chan[on] == FR.carried_plain(dec, route).numpy()[on]).all()
+    assert (chan[~on] == -5).all()
+    return int(on.sum())
+
+
+def _bitmask_lines(L):
+    """Rows aimed at the word-parallel rfc5424 decode: backslash runs of
+    14-17 and 31-33 that straddle a 32-position word (a run of 16 or more
+    before a quote rejects the row), a quote after a capped run, ']', '='
+    and spaces inside quotes across words, and rows of length 0, 1, 31,
+    32, 33, L - 1, L and more than L.  At L > 1024 a long first value
+    pushes the structures into the second round of 32 words."""
+    pad = '[p q="' + "y" * 1000 + '"]' if L > 1024 else ""
+    head = "<13>1 2015-08-05T15:53:45.5+01:00 {host} app 42 m1 " + pad
+    sds = []
+    for run in (14, 15, 16, 17, 31, 32, 33):
+        sds.append('[id k="' + "\\" * run + '" j="v"] m')
+        sds.append('[id k="a' + "\\" * run + 'x" j="' + "\\" * (run - 1)
+                   + '"] m')
+    sds += [
+        '[id k="' + "\\" * 16 + '"x" y="z"] m',          # capped, then a quote
+        '[id k="' + "\\" * 17 + '"" y="z"] m',
+        '[id k="a ] b = c ]] = " n="  ]  = "][x@2 y="] ="] msg ] = "',
+        '[id k="' + " " * 40 + "]" * 33 + "=" * 33 + '" z=""] m',
+        '[id  k="v"] m', '[id k ="v"] m', '[id k="v" ] m', '[id k="v"]m',
+    ]
+    out = []
+    for sd in sds:
+        for shift in (0, 9, 18, 27):
+            out.append(head.format(host="h" * (1 + shift)) + sd)
+    base = head.format(host="host") + '[id k="v" w="x y"] message'
+    # a message from the second word to the row's end (over two rounds
+    # of words at L > 1024)
+    dash = "<13>1 2015-08-05T15:53:45Z h app 42 m1 -  msg" + " m" * L
+    for n in (0, 1, 31, 32, 33, L - 1, L, L + 1, L + 40):
+        out.append((base + "z" * max(0, n - len(base)))[:n])
+        out.append(dash[:n])
+    out = [ln.encode("latin-1") for ln in out]
+    out.append(b"<13>1 2015-08-05T15:53:45Z h a p m [id k=\"\xc3\xa9\"] \xff")
+    return out
+
+
+@pytest.mark.parametrize("L", [4, 100, 512, 1100])
+@pytest.mark.parametrize("max_pairs", [6, 16])
+def test_decode_kernel_source_bitmask_rows(libs, L, max_pairs):
+    """K1 (both pair widths) and F1's probe on rows aimed at the
+    word-parallel decode, at widths below one word, not a multiple of
+    16, of one round of words and of two: every K1 channel of every row,
+    and F1's tier bits, lengths and carried channels, equal the plain
+    version."""
+    batch, lens = _exact_rows(_bitmask_lines(L), L)
+    ref = _k1_rows_check(libs, batch, lens, L, max_pairs)
+    if L >= 100:
+        assert ref["ok"].any() and not ref["ok"].all()
+    if max_pairs == 6:
+        kept = _fused_probe_check(libs, batch, lens, L)
+        assert kept > 0 or L < 100
+
+
+@settings(max_examples=6, deadline=None, derandomize=True, database=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(st.sampled_from([512, 1100]), st.lists(st.tuples(
+    st.integers(0, 40), st.text(alphabet='\\"] =[ab\t\x85' + "é",
+                                max_size=90)), min_size=1, max_size=16))
+def test_decode_kernel_source_bitmask_hypothesis(libs, L, rows):
+    """Bounded random SD tails behind hostnames of every length, at one
+    round of words (L = 512) or two (L = 1100): K1 and F1's probe equal
+    the plain version on every row."""
+    pad = '[p q="' + "y" * 1000 + '"]' if L > 1024 else ""
+    lines = [("<13>1 2015-08-05T15:53:45Z " + "h" * (1 + h) + " app 42 m1 "
+              + pad + "[id k=\"" + tail).encode() for h, tail in rows]
+    batch, lens = _exact_rows(lines, L)
+    _k1_rows_check(libs, batch, lens, L, 6)
+    _fused_probe_check(libs, batch, lens, L)
 
 
 TILE = 16384   # kTile, frame_sep_spans.cu
