@@ -8,12 +8,13 @@ Phases, each printing JSON lines:
    the SM clock under a spin kernel, the host's CPU model and count;
 2. build  — the native host tier (``csrc/flowgger_host.cpp``, g++; a
    ``host_build`` line with the compiler's version, the flags, the
-   seconds and whether the library was cached), then the eight CUDA
+   seconds and whether the library was cached), then the nine CUDA
    sources compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
-   bytes as ``nvcc -Xptxas -v`` reports them (E1's four instantiations,
-   E3's, F1's and F3's two each and D3 must be among them);
+   bytes as ``nvcc -Xptxas -v`` reports them (E1's and EL's four
+   instantiations, E3's, F1's, F3's and FL's two each, D3 and L1 must be
+   among them);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each (K2 and K3 checked again on a launch after
@@ -44,14 +45,18 @@ Phases, each printing JSON lines:
    the rfc3164 decode D3 (every channel), its split encode E3 and its
    fused route F3 (probe and assemble) on a gathered [16384, 512] batch
    of the rfc3164 tier mix, on the flush batches of both rfc3164 paths
-   and on 256 rows;
+   and on 256 rows; the ltsv decode L1 (every channel, padding rows
+   included), its split encode EL at 6 and 16 pairs and its fused route
+   FL (probe with its narrowed stamp channels and each tier row's carried
+   selection, then assemble) on a gathered [16384, 512] batch of the ltsv
+   tier mix, on the flush batches of both ltsv paths and on 256 rows;
 4. native — each export of the native host tier against its plain
    numpy or Python version, byte for byte, at the e2e runs' shapes (the
    tier path's stamps and constant splice, the jsonl path's body
    gather, the GELF row engine against the numpy engine on the rfc5424
    path's flush batch), with the host-clock time of both;
-5. breakdown — the host-clock wall of each stage of the RFC5424 and the
-   JSON-lines paths over eight full regions each (framing, decode, block
+5. breakdown — the host-clock wall of each stage of the RFC5424, the
+   JSON-lines and the LTSV paths over eight full regions each (framing, decode, block
    encode split into its engine and its oracle rows, sink write; the
    RFC5424 path again on the block encoder's numpy engine, which must
    write the same bytes), and of the tier mix through the device encode
@@ -61,19 +66,22 @@ Phases, each printing JSON lines:
    (``encode_ab``) what the split tier costs the rfc5424 mix, which it
    declines: one batch's decline alone, and the rfc5424 / line
    configuration in process with the tier on and off, alternating; then
-   (``fuse_ab``) the two tier mixes with ``input.tpu_fuse`` "auto" and
+   (``fuse_ab``) the three tier mixes with ``input.tpu_fuse`` "auto" and
    "off" in one process (block-encode walls, launches; the same bytes),
    and the device ms of F1 (probe + assemble from the carried channels)
-   against K1 + E1 probe + E1 assemble and of F3 against D3 + E3 probe +
-   E3 assemble at a flush batch;
-6. e2e    — six configurations through the port's entry points on
+   against K1 + E1 probe + E1 assemble, of F3 against D3 + E3 probe +
+   E3 assemble and of FL against L1 + EL probe + EL assemble at a flush
+   batch;
+6. e2e    — eight configurations through the port's entry points on
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing, ``--lines``
    lines), stdin → jsonl_tpu → GELF (line framing, 131 072 lines),
    stdin → rfc5424_tpu → GELF (syslen framing, 65 536), stdin →
    rfc5424_tpu → GELF over the tier mix (line framing, ``--lines``),
    stdin → rfc3164_tpu → GELF (line framing, one day of BSD syslog,
-   131 072) and stdin → rfc3164_tpu → GELF over the rfc3164 tier mix
-   (131 072); ``--lines`` defaults to 262 144.
+   65 536), stdin → rfc3164_tpu → GELF over the rfc3164 tier mix
+   (65 536), stdin → ltsv_tpu → GELF (line framing, access-log rows
+   with ltsv.org's labels, 131 072) and stdin → ltsv_tpu → GELF over
+   the ltsv tier mix (131 072); ``--lines`` defaults to 131 072.
    Each runs once in process through
    ``flowgger_tpu_torch.start`` with every kernel launch count reset
    just before and read just after (the run must launch each kernel of
@@ -92,7 +100,9 @@ Phases, each printing JSON lines:
    run's GELF bytes and stderr lines must equal the port's scalar path
    over the same bytes (``corpus.scalar_expectation``; for rfc3164 the
    decoder's own "Unable to parse" lines and the error lines each in
-   order, since a batch prints its oracle rows' before their errors).
+   order, since a batch prints its oracle rows' before their errors),
+   and its stdout the ltsv decoder's "Missing value" notices in order
+   (none for the other formats; the CLI's banner line first).
    Each reports the fused route's and the split device tier's batches
    taken, declined and cooled, their rows, and their fetched and
    emitted bytes a tier row.
@@ -142,7 +152,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH = 16384
 MAX_LEN = 512
 SYSLEN_LINES = 4 * BATCH    # lines of the syslen-framed e2e run
-RFC3164_LINES = 8 * BATCH   # lines of each rfc3164 e2e run
+RFC3164_LINES = 4 * BATCH   # lines of each rfc3164 e2e run (cut from 8 ×
+                            # for time when the ltsv paths came)
+LTSV_LINES = 8 * BATCH      # lines of each ltsv e2e run
 JSONL_LINES = 8 * BATCH     # lines of the jsonl e2e run (cut from 16 × for
                             # time when the rfc3164 paths came)
 BIG_REGION = 16 << 20       # bytes of K2's many-wave region
@@ -386,16 +398,18 @@ def phase_build():
         for r in found:
             seen.add(r["function"])
             emit({"phase": "kernel_build", "source": source, **r})
-    # E1's four instantiations (probe and assemble at 6 and 16 pairs),
-    # E3's, F1's and F3's two each, and D3
+    # E1's and EL's four instantiations (probe and assemble at 6 and 16
+    # pairs), E3's, F1's, F3's and FL's two each, D3 and L1
     phases = ("false", "true")
-    missing = ({f"encode_gelf_kernel<{p}, {a}>" for p in (6, 16)
-                for a in phases}
+    missing = ({f"{k}<{p}, {a}>" for k in ("encode_gelf_kernel",
+                                            "encode_gelf_ltsv_kernel")
+                for p in (6, 16) for a in phases}
                | {f"{k}<{a}>" for k in ("encode_gelf3164_kernel",
                                          "fused_rfc5424_gelf_kernel",
-                                         "fused_rfc3164_gelf_kernel")
+                                         "fused_rfc3164_gelf_kernel",
+                                         "fused_ltsv_gelf_kernel")
                   for a in phases}
-               | {"decode_rfc3164_kernel"}) - seen
+               | {"decode_rfc3164_kernel", "decode_ltsv_kernel"}) - seen
     if missing:
         raise AssertionError(f"no kernel_build line for {sorted(missing)}")
 
@@ -790,7 +804,8 @@ def kernels_jsonl(seed: int, rows: list, shapes: list):
 
 # the (kernel name, batch shape) pairs at which K1, E1, D3, E3, F1 and F3
 # were held against their plain versions; the e2e phase fails if its runs
-# launch one of them at another (K1: checks it there, phase_k1_shapes)
+# launch one of them at another (K1 and the ltsv kernels: checks them
+# there, phase_late_shapes)
 CHECKED: set = set()
 
 
@@ -1293,6 +1308,283 @@ def kernels_rfc3164(seed: int, rows: list, shapes: list):
         shapes.append({**row, "where": where})
 
 
+def l1_case(batch, lens_c, n: int):
+    """L1 (the ltsv decode) against its plain version on every channel of
+    every row, rejected and padding rows included, once before and once
+    after its timing loop: ``(row, plain channels)``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import kernels, ltsv
+
+    def kern():
+        return kernels.decode_ltsv_cuda(batch, lens_c, n)
+
+    def plain():
+        return ltsv.decode_ltsv(batch, lens_c, n=n)
+
+    ref = plain()
+    err = channels_err("decode_ltsv", ltsv.unpack_channels(kern()), ref)
+    ms = device_ms(kern)
+    channels_err("decode_ltsv", ltsv.unpack_channels(kern()), ref)
+    CHECKED.add(("decode_ltsv", tuple(batch.shape)))
+    N = batch.shape[0]
+    live = torch.arange(N, device=batch.device) < n
+    valid = int(torch.where(live, lens_c, 0).sum())
+    return {
+        "name": "decode_ltsv", "route": "cuda",
+        "source": "flowgger_tpu_torch/csrc/decode_ltsv.cu",
+        "replaces": "flowgger_tpu/tpu/ltsv.py:68",
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        # bytes: each real row's valid bytes and length, every row's 94
+        # int32 channels; operations: one per valid byte (one pass settles
+        # the part table and the key matches)
+        **bound(valid + 4 * n + 4 * ltsv.n_channels() * N, valid),
+        "library_ms": None,
+        "shape": f"[{N}, {batch.shape[1]}], n={n}, {valid} valid bytes, "
+                 f"{int(ref['ok'].sum())} ok rows"}, ref
+
+
+def ltsv_route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
+    """EL (``kind`` "el6" / "el16": the split ltsv tier's encode at 6 or
+    16 pairs, from L1's packed channels) or FL ("fl": the fused route,
+    L1's row decode and EL's probe in one kernel) against its plain
+    version on one batch of ``n`` real rows: the probe's base tier bit and
+    base length of every row (zeros at and past ``n``; for FL also its
+    nine small channels and each tier row's carried selection, held
+    against ``fused_routes.carried_plain``), and with ``assemble`` the
+    assemble's bytes of every tier row (``base & (base_len + ts_len <=
+    OW)`` at the rows' real stamp text) at its offset, each checked once
+    before and once after its timing loop; FL's assemble reads the
+    probe's carried selection.  Returns ``[probe row]`` or ``[probe row,
+    assemble row]``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import (device_common, device_gelf,
+                                        device_ltsv, fused_routes, kernels,
+                                        ltsv)
+
+    fused = kind == "fl"
+    P = 16 if kind == "el16" else 6
+    name = "fused_ltsv_gelf" if fused else "encode_gelf_ltsv"
+    tag = "" if fused else f"_p{P}"
+    source = ("flowgger_tpu_torch/csrc/fused_gelf.cu" if fused
+              else "flowgger_tpu_torch/csrc/encode_gelf.cu")
+    replaces = ("flowgger_tpu/tpu/fused_routes.py:215" if fused
+                else "flowgger_tpu/tpu/device_ltsv.py:127")
+    suffix = b"\0"
+    N, L = batch.shape
+    dev = batch.device
+    live = torch.arange(N, device=dev) < n
+    bank_b, table = device_ltsv.kernel_consts(suffix)
+    bank = device_gelf._bank_on(bank_b, dev)
+    OW = device_ltsv.out_width(L, suffix)
+    kw = {"suffix": suffix, "max_pairs": P}
+    dec0 = ltsv.decode_ltsv(batch, lens_c, n=n)
+    demand = fused_routes.DEMAND["ltsv_gelf"]
+    packed = None if fused else kernels.decode_ltsv_cuda(batch, lens_c, n)
+
+    def k_probe():
+        if fused:
+            return kernels.fused_gelf_cuda("ltsv", batch, lens_c, n, bank,
+                                           table)
+        return kernels.encode_gelf_ltsv_cuda(batch, lens_c, packed, n, bank,
+                                             table, P)
+
+    def p_probe():
+        # the fused route's plain probe decodes, as its kernel does
+        dec = dec0
+        if fused:
+            dec = {k: v for k, v in ltsv.decode_ltsv(batch, lens_c, n=n)
+                   .items() if k in demand}
+        base, base_len = device_ltsv.encode_rows(batch, lens_c, dec,
+                                                 assemble=False, n=n, **kw)
+        return base, base_len, device_ltsv.small_pack(dec, n)
+
+    ref = p_probe()
+    ref_carried = (fused_routes.carried_plain(
+        {k: v for k, v in dec0.items() if k in demand}, "ltsv_gelf", batch,
+        lens_c) if fused else None)
+    probed = {}
+
+    def check_probe():
+        # the tier bits, base lengths and narrowed stamp channels
+        got = k_probe()
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        if fused:
+            on = ref[0]
+            err = max(err, max_abs_err(got[3][on], ref_carried[on]))
+            probed["chan"], probed["tier"] = got[3], got[0]
+        if err:
+            raise AssertionError(f"{name}{tag} probe [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_p = check_probe()
+    ms_p = device_ms(k_probe)
+    check_probe()   # a launch after the timing loop
+    CHECKED.add((f"{name}_probe{tag}", (N, L)))
+
+    ref_base = ref[0]
+    n_base = int(ref_base.sum())
+    real_valid = int(torch.where(live, lens_c, 0).sum())
+    n_parts = torch.where(live, dec0["n_parts"].to(torch.int64).clamp(0, 24),
+                          0)
+    gate = (live & dec0["ok"].to(torch.bool)
+            & ~dec0["has_high"].to(torch.bool))
+    gated_valid = int(torch.where(gate, lens_c, 0).sum())
+    common = {"route": "cuda", "source": source, "replaces": replaces,
+              "library_ms": None}
+    if fused:
+        # bytes: each real row's valid bytes and length, every row's bit,
+        # length and 25 bytes of narrowed stamp channels, the carried
+        # selection of each base tier row; operations: L1's pass and one
+        # escape test per valid byte
+        carry = 4 * kernels.FUSED_CARRY["ltsv"]
+        probe_bytes = real_valid + 4 * n + 30 * N + carry * n_base
+        probe_ops = 2 * real_valid
+    else:
+        # bytes: the fourteen one-per-row channels each real row's gates
+        # and stamp channels read, the part starts and colons of its parts,
+        # the valid bytes of the rows the channels pass, every row's bit,
+        # length and 25 bytes of narrowed stamp channels; operations: one
+        # escape test per loaded byte
+        probe_bytes = (56 * n + 8 * int(n_parts.sum()) + gated_valid
+                       + 30 * N)
+        probe_ops = gated_valid
+    out = [{
+        "name": f"{name}_probe{tag}", **common, "max_abs_err": err_p,
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        **bound(probe_bytes, probe_ops),
+        "shape": f"[{N}, {L}], n={n}, {n_base} base tier rows, "
+                 f"{real_valid} valid bytes"}]
+    if not assemble:
+        return out
+
+    small = {k: dec0[k][:n].cpu().numpy() for k in ("ok",)
+             + device_ltsv.TS_KEYS}
+    txt, tl = device_common.ts_text_block(small, device_ltsv.ts_vals_ltsv)
+    ts_text = torch.zeros((N, device_common.TS_W), dtype=torch.uint8)
+    ts_len = torch.zeros(N, dtype=torch.int32)
+    ts_text[:n], ts_len[:n] = torch.from_numpy(txt), torch.from_numpy(tl)
+    ts_text, ts_len = ts_text.to(dev), ts_len.to(dev)
+    length = ref[1].to(torch.int64) + ts_len
+    tier = ref_base & (length <= OW)
+    gated = torch.where(tier, length, 0)
+    row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
+    total = int(gated.sum())
+
+    def k_asm():
+        if fused:
+            # from the selection the probe carried
+            return kernels.fused_gelf_cuda(
+                "ltsv", batch, lens_c, n, bank, table, OW=OW,
+                ts_text=ts_text, ts_len=ts_len, row_off=row_off, total=total,
+                chan=probed["chan"], tier=probed["tier"])
+        return kernels.encode_gelf_ltsv_cuda(
+            batch, lens_c, packed, n, bank, table, P, OW, ts_text=ts_text,
+            ts_len=ts_len, row_off=row_off, total=total)
+
+    def t_asm():
+        # the timed call: the fused wrapper's launch without its contract
+        # check, which reads a flag back from the card
+        if not fused:
+            return k_asm()
+        return kernels.fused_assemble_launch("ltsv", batch, lens_c, n, bank,
+                                             table, OW, ts_text, ts_len,
+                                             row_off, total, probed["chan"])
+
+    def p_asm():
+        rows_, out_len, _ = device_ltsv.encode_rows(batch, lens_c, dec0,
+                                                    ts_text, ts_len, **kw)
+        return device_gelf.flat_rows(rows_, out_len, row_off, total)
+
+    ref_flat = p_asm()
+
+    def check_asm():
+        err = max_abs_err(k_asm(), ref_flat)
+        if err:
+            raise AssertionError(f"{name}{tag} assemble [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_a = check_asm()
+    ms_a = device_ms(t_asm)
+    check_asm()   # a launch after the timing loop
+    CHECKED.add((f"{name}_assemble{tag}", (N, L)))
+    n_tier = int(tier.sum())
+    tier_valid = int(torch.where(tier, lens_c, 0).sum())
+    ts_bytes = int(torch.where(tier, ts_len, 0).sum())
+    if fused:
+        ch_bytes = 4 * kernels.FUSED_CARRY["ltsv"] * n_tier
+    else:
+        # the channels EL's assemble reads a tier row: n_parts, the four
+        # special positions, the host and message spans, the level, and
+        # the part starts of its parts, the pairs' colons and ends
+        pc = dec0["n_parts"].to(torch.int64)
+        ch_bytes = int(torch.where(tier, 4 * (12 + 3 * pc), 0).sum())
+    out.append({
+        "name": f"{name}_assemble{tag}", **common, "max_abs_err": err_a,
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        # bytes: the tier rows' valid bytes, lengths and channels (or
+        # carried selection), timestamp text and lengths, every row's
+        # offset, the output written; operations: one escape test a byte
+        **bound(tier_valid + 8 * n_tier + ch_bytes + ts_bytes + 8 * N + total,
+                tier_valid),
+        "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
+                 f"bytes"})
+    return out
+
+
+def kernels_ltsv(seed: int, rows: list, shapes: list):
+    """L1, EL (probe and assemble at 6 and 16 pairs) and FL (probe and
+    assemble) on a gathered [16384, 512] batch of the ltsv tier mix; on
+    the flush batch of the ltsv line path (L1, EL's probes at both widths
+    and FL's probe, as its declining batches launch them) and of the ltsv
+    tier path (L1, EL at both widths and FL, probe and assemble); and all
+    of them on 256 rows, 200 of them real (the end-of-stream batch's
+    shape)."""
+    from flowgger_tpu_torch.corpus import make_ltsv_corpus, make_ltsv_tier_corpus
+    from flowgger_tpu_torch.tpu import framing, pack
+
+    lines, _ = make_ltsv_tier_corpus(BATCH, seed + 21)
+    region_b = b"\n".join(lines) + b"\n"
+    region = upload(region_b)
+    spans = framing.sep_spans(region, len(region_b), 10, True,
+                              pack.bucket_rows(BATCH))
+    batch, lens_c = framing.gather(region, spans["starts"], spans["lens"],
+                                   MAX_LEN)
+    rows.append(l1_case(batch, lens_c, BATCH)[0])
+    for kind in ("el6", "el16", "fl"):
+        rows.extend(ltsv_route_case(kind, batch, lens_c, BATCH))
+
+    fb, fl, fn = flush_batch(make_ltsv_corpus(2 * BATCH, seed + 22)[0],
+                             "ltsv line path", shapes)
+    where = "ltsv line path, flush batch"
+    shapes.append({**l1_case(fb, fl, fn)[0], "where": where})
+    for kind in ("el6", "el16", "fl"):
+        for row in ltsv_route_case(kind, fb, fl, fn, assemble=False):
+            shapes.append({**row, "where": where})
+
+    fb, fl, fn = flush_batch(make_ltsv_tier_corpus(2 * BATCH, seed + 23)[0],
+                             "ltsv tier path", shapes)
+    where = "ltsv tier path, flush batch"
+    shapes.append({**l1_case(fb, fl, fn)[0], "where": where})
+    for kind in ("el6", "el16", "fl"):
+        for row in ltsv_route_case(kind, fb, fl, fn):
+            shapes.append({**row, "where": where})
+
+    small_n = pack.bucket_rows(1)
+    sb, sl = batch[:small_n], lens_c[:small_n]
+    where = "ltsv paths, end-of-stream batch"
+    shapes.append({**l1_case(sb, sl, 200)[0], "where": where})
+    for kind in ("el6", "el16", "fl"):
+        for row in ltsv_route_case(kind, sb, sl, 200):
+            shapes.append({**row, "where": where})
+
+
 def phase_kernels(seed: int):
     """Each kernel vs its plain version on the card; returns the table
     rows without launch counts (the e2e phase fills them in).  The
@@ -1305,6 +1597,7 @@ def phase_kernels(seed: int):
     kernels_jsonl(seed, rows, shapes)
     kernels_encode(seed, rows, shapes)
     kernels_rfc3164(seed, rows, shapes)
+    kernels_ltsv(seed, rows, shapes)
     for r in rows:
         emit({"phase": "kernel", **r})
     for r in shapes:
@@ -1574,19 +1867,24 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
     import torch
 
     from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.corpus import make_corpus, make_jsonl_corpus
+    from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                           make_ltsv_corpus)
+    from flowgger_tpu_torch.decoders import LTSVDecoder
     from flowgger_tpu_torch.encoders import GelfEncoder
     from flowgger_tpu_torch.mergers import NulMerger
     from flowgger_tpu_torch.tpu import (encode_gelf_block, encode_jsonl_block,
-                                        framing)
+                                        encode_ltsv_gelf_block, framing)
     from flowgger_tpu_torch.tpu.batch import _ROUTES
 
     dev = torch.device("cuda")
     if lines is None:
-        make = make_jsonl_corpus if fmt == "jsonl" else make_corpus
+        make = {"jsonl": make_jsonl_corpus,
+                "ltsv": make_ltsv_corpus}.get(fmt, make_corpus)
         lines, _ = make(n_batches * BATCH, seed + 1)
     submit, fetch, encode = _ROUTES[fmt]
     encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
+    # the ltsv block encoder takes the scalar decoder (its oracle rows)
+    extra = (LTSVDecoder(Config.from_string("")),) if fmt == "ltsv" else ()
     walls = {"frame": 0.0, "decode": 0.0, "encode": 0.0, "write": 0.0}
     inner = {}
     fallback = 0
@@ -1594,11 +1892,15 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
     out = WORK / f"breakdown_{fmt}_{engine}.out"
     if fmt == "jsonl":
         module, stamps = encode_jsonl_block, "span_f64_scratch"
+    elif fmt == "ltsv":
+        module, stamps = encode_ltsv_gelf_block, "ts_scratch"
     else:
         module, stamps = encode_gelf_block, "ts_scratch"
     with contextlib.ExitStack() as stack:
         stack.enter_context(stage_clock(module, inner, oracle="finish_block",
                                         stamps=stamps))
+        # the ltsv oracle rows' "Missing value" notices go to stdout
+        stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
         if engine == "numpy":
             stack.enter_context(numpy_engine())
         sink = stack.enter_context(open(out, "wb", buffering=0))
@@ -1612,7 +1914,7 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
             host = fetch(submit(packed[0], packed[1]))
             t2 = time.perf_counter()
             res = encode(packed[2], packed[3], packed[4], host, packed[5],
-                         MAX_LEN, encoder, merger)
+                         MAX_LEN, encoder, merger, *extra)
             t3 = time.perf_counter()
             sink.write(res.block.data)
             t4 = time.perf_counter()
@@ -1764,20 +2066,41 @@ PATHS = {
                       "fused_rfc3164_gelf_assemble"),
                      ("frame_sep_spans", "frame_gather", "decode_rfc3164",
                       "encode_gelf3164_probe", "encode_gelf3164_assemble")),
+    # LTSV access-log rows with ltsv.org's labels (corpus.make_ltsv_corpus:
+    # 8-14 pairs, 20 % Apache stamps), not chosen to engage the tiers: the
+    # 6-pair tier declines, the 16-pair escalation is probed
+    "ltsv_line": ("ltsv_tpu", "line", "ltsv",
+                  ("frame_sep_spans", "frame_gather", "fused_ltsv_gelf_probe",
+                   "decode_ltsv", "encode_gelf_ltsv_probe_p6",
+                   "encode_gelf_ltsv_probe_p16"), None),
+    # the ltsv mix the tiers take (corpus.make_ltsv_tier_corpus)
+    "ltsv_tier": ("ltsv_tpu", "line", "ltsv",
+                  ("frame_sep_spans", "frame_gather", "fused_ltsv_gelf_probe",
+                   "fused_ltsv_gelf_assemble"),
+                  ("frame_sep_spans", "frame_gather", "decode_ltsv",
+                   "encode_gelf_ltsv_probe_p6",
+                   "encode_gelf_ltsv_assemble_p6")),
 }
 # the wrappers whose launch shapes the e2e runs record (checked against
 # CHECKED), and each one's name in LAUNCHES for a launch
 SHAPE_CHECKED = ("encode_gelf_cuda", "encode_gelf3164_cuda",
                  "fused_gelf_cuda", "decode_rfc3164_cuda",
-                 "decode_rfc5424_cuda")
-# K1's shapes in the e2e runs that the kernels phase did not check (a
-# rescue sub-batch's rows follow its data): held against the plain
-# version after the e2e runs, by phase_k1_shapes
-K1_LATE: set = set()
+                 "decode_rfc5424_cuda", "decode_ltsv_cuda",
+                 "encode_gelf_ltsv_cuda")
+# the kernels whose e2e launch shapes follow the data (K1: a rescue
+# sub-batch's rows; the ltsv kernels: a flush's record count, which a
+# timer flush cuts where it falls): their shapes in the e2e runs that the
+# kernels phase did not check are held against the plain versions after
+# the runs, by phase_late_shapes
+LATE_PREFIXES = ("decode_rfc5424_p", "decode_ltsv", "encode_gelf_ltsv",
+                 "fused_ltsv_gelf")
+LATE: set = set()
 
 
 def _write_input(name: str, n_lines: int, seed: int):
     from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                           make_ltsv_corpus,
+                                           make_ltsv_tier_corpus,
                                            make_rfc3164_corpus,
                                            make_rfc3164_tier_corpus,
                                            make_tier_corpus,
@@ -1786,7 +2109,9 @@ def _write_input(name: str, n_lines: int, seed: int):
     fmt, framing, kind, _, _ = PATHS[name]
     make = {"jsonl_line": make_jsonl_corpus, "rfc5424_tier": make_tier_corpus,
             "rfc3164_line": make_rfc3164_corpus,
-            "rfc3164_tier": make_rfc3164_tier_corpus}.get(name, make_corpus)
+            "rfc3164_tier": make_rfc3164_tier_corpus,
+            "ltsv_line": make_ltsv_corpus,
+            "ltsv_tier": make_ltsv_tier_corpus}.get(name, make_corpus)
     lines, kinds = make(n_lines, seed)
     if framing == "syslen":
         # the last frame is cut short: a short read at EOF
@@ -1796,9 +2121,12 @@ def _write_input(name: str, n_lines: int, seed: int):
         data = b"\n".join(lines)
     path = WORK / f"{name}.in"
     path.write_bytes(data)
-    exp_out, exp_err = scalar_expectation(data, framing, fmt=kind)
+    # the ltsv decoder's "Missing value" notices go to stdout
+    notices = []
+    exp_out, exp_err = scalar_expectation(data, framing, fmt=kind,
+                                          notices=notices)
     mix = {k: kinds.count(k) for k in sorted(set(kinds))}
-    return path, data, exp_out, exp_err, mix
+    return path, data, exp_out, (exp_err, notices), mix
 
 
 def _config(name: str, tag: str, fuse: str = "auto") -> Path:
@@ -1866,23 +2194,26 @@ def launch_shapes():
 
 def run_inproc(cfg: Path, path: Path):
     """One run through ``flowgger_tpu_torch.start`` on ``cuda`` with
-    ``path`` as stdin: (wall seconds, pipeline, stderr lines)."""
+    ``path`` as stdin: (wall seconds, pipeline, stderr lines, stdout
+    lines: the ltsv decoder's notices)."""
     import torch
 
     import flowgger_tpu_torch
 
-    err_buf = io.StringIO()
+    err_buf, out_buf = io.StringIO(), io.StringIO()
     saved_stdin = sys.stdin
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with open(path, "rb") as raw, contextlib.redirect_stderr(err_buf):
+        with open(path, "rb") as raw, contextlib.redirect_stderr(err_buf), \
+                contextlib.redirect_stdout(out_buf):
             sys.stdin = io.TextIOWrapper(io.BufferedReader(raw))
             pipe = flowgger_tpu_torch.start(str(cfg), device="cuda")
     finally:
         sys.stdin = saved_stdin
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, pipe, err_buf.getvalue().splitlines()
+    return (time.perf_counter() - t0, pipe, err_buf.getvalue().splitlines(),
+            out_buf.getvalue().splitlines())
 
 
 _STATE_KEYS = ("taken", "declined", "cooled", "wide", "tier_rows")
@@ -1901,7 +2232,7 @@ def _tier_report(state: dict) -> dict:
     return rep
 
 
-def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
+def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
                checked, fuse: str):
     """One in-process run of a configuration with ``input.tpu_fuse =
     fuse``, every launch count reset just before and read just after;
@@ -1932,18 +2263,21 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
     batch_mod._ROUTES[kind] = (submit, fetch, counted)
     try:
         with launch_shapes() as seen:
-            wall, pipe, errs = run_inproc(cfg, path)
+            wall, pipe, errs, notices = run_inproc(cfg, path)
     finally:
         batch_mod._ROUTES[kind] = (submit, fetch, encode)
+    exp_err, exp_notices = exp_err
     launches = dict(kernels.LAUNCHES)
     calls = dict(native.CALLS)
     declines = dict(framing.DECLINES)
     got = (WORK / f"{name}_{tag}.out").read_bytes()
-    if got != exp_out or not same_stderr(kind, errs, exp_err):
+    if (got != exp_out or not same_stderr(kind, errs, exp_err)
+            or notices != exp_notices):
         raise AssertionError(
             f"{name} ({fuse}): in-process e2e differs from the scalar path: "
             f"bytes {len(got)} vs {len(exp_out)}, equal={got == exp_out}; "
-            f"stderr lines {len(errs)} vs {len(exp_err)}")
+            f"stderr lines {len(errs)} vs {len(exp_err)}; stdout lines "
+            f"{len(notices)} vs {len(exp_notices)}")
     need = need if fuse == "auto" else need_split
     missing = [k for k in need if launches[k] == 0]
     if missing:
@@ -1953,8 +2287,8 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
         raise AssertionError(f"{name}: device framing declined {declines}")
     if checked is not None:
         late = {(k, v) for k, v in seen - checked
-                if k.startswith("decode_rfc5424_p")}
-        K1_LATE.update(late)
+                if k.startswith(LATE_PREFIXES)}
+        LATE.update(late)
         if seen - checked - late:
             raise AssertionError(f"{name}: kernels launched at shapes the "
                                  f"kernels phase did not check: "
@@ -1965,11 +2299,14 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
     # one probe a probed batch (taken or declined; a cooled batch is not
     # probed) and one assemble a taken batch, on each tier; the split
     # rfc5424 tier's 16-pair probes are its wide attempts, counted apart
-    e_probe, e_asm = (("encode_gelf_probe_p6", ("encode_gelf_assemble_p6",
-                                                "encode_gelf_assemble_p16"))
-                      if kind == "rfc5424" else
-                      ("encode_gelf3164_probe", ("encode_gelf3164_assemble",)))
-    if kind in ("rfc5424", "rfc3164"):
+    e_probe, e_asm = {
+        "rfc5424": ("encode_gelf_probe_p6", ("encode_gelf_assemble_p6",
+                                             "encode_gelf_assemble_p16")),
+        "ltsv": ("encode_gelf_ltsv_probe_p6",
+                 ("encode_gelf_ltsv_assemble_p6",
+                  "encode_gelf_ltsv_assemble_p16")),
+    }.get(kind, ("encode_gelf3164_probe", ("encode_gelf3164_assemble",)))
+    if kind in ("rfc5424", "rfc3164", "ltsv"):
         f_name = f"fused_{kind}_gelf"
         if (launches[e_probe] != split["taken"] + split["declined"]
                 or sum(launches[k] for k in e_asm) != split["taken"]
@@ -1982,6 +2319,8 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
                                  f"batch")
         if kind == "rfc5424":
             split["wide_probes"] = launches["encode_gelf_probe_p16"]
+        if kind == "ltsv":
+            split["wide_probes"] = launches["encode_gelf_ltsv_probe_p16"]
     # the native host tier: its row engine wrote every rfc5424 host-tier
     # batch with tier rows, and its formatter every taken batch's
     # timestamp text (split or fused)
@@ -1989,7 +2328,8 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: list,
     if (calls["fg_gelf_write_v2"] != (host_tier["with_tier_rows"] if rfc
                                       else 0)
             or calls["fg_gelf_lens_v2"] != calls["fg_gelf_write_v2"]
-            or (kind in ("rfc5424", "rfc3164") and host_tier["batches"]
+            or (kind in ("rfc5424", "rfc3164", "ltsv")
+                and host_tier["batches"]
                 != split["declined"] + split["cooled"])
             or calls["fg_format_f64_json"]
             != split["taken"] + fused["taken"]):
@@ -2022,7 +2362,8 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     through the CLI; returns the launch counts summed over the in-process
     runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
     fails if a run launched E1, D3, E3, F1 or F3 at a batch shape not
-    checked there (K1's unchecked shapes go to :data:`K1_LATE`)."""
+    checked there (the unchecked shapes of K1 and the ltsv kernels go
+    to :data:`LATE`)."""
     WORK.mkdir(parents=True, exist_ok=True)
     path, data, exp_out, exp_err, mix = _write_input(name, n_lines, seed)
     kind = PATHS[name][2]
@@ -2049,13 +2390,19 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
                              + proc.stderr.decode()[-4000:])
     got = (WORK / f"{name}_cli.out").read_bytes()
     errs = proc.stderr.decode().splitlines()
-    if got != exp_out or not same_stderr(kind, errs, exp_err):
+    # stdout: the CLI's banner, then the ltsv decoder's notices
+    banner, *notices = proc.stdout.decode().splitlines()
+    if (got != exp_out or not same_stderr(kind, errs, exp_err[0])
+            or not banner.startswith("Flowgger") or notices != exp_err[1]):
         raise AssertionError(
             f"{name}: CLI e2e differs from the scalar path: bytes equal="
-            f"{got == exp_out}; stderr lines {len(errs)} vs {len(exp_err)}")
+            f"{got == exp_out}; stderr lines {len(errs)} vs "
+            f"{len(exp_err[0])}; stdout lines {len(notices)} vs "
+            f"{len(exp_err[1])}")
     emit({"phase": "e2e", "path": name, "lines": n_lines,
           "input_bytes": len(data), "output_bytes": len(exp_out),
-          "error_lines": len(exp_err), "mix": mix, "runs": runs,
+          "error_lines": len(exp_err[0]), "notice_lines": len(exp_err[1]),
+          "mix": mix, "runs": runs,
           "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
           "identical_to_scalar_path": True})
     total = {}
@@ -2065,24 +2412,42 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     return total
 
 
-def phase_k1_shapes(seed: int) -> None:
-    """K1 against its plain version at each shape the e2e runs launched
-    it at and the kernels phase had not checked, on rows of the rfc5424
-    mix; a ``kernel_shape`` line each."""
+def phase_late_shapes(seed: int) -> None:
+    """K1 and the ltsv kernels against their plain versions at each shape
+    the e2e runs launched them at and the kernels phase had not checked:
+    K1 on rows of the rfc5424 mix, L1 on rows of the ltsv mix, EL and FL
+    (probe, and assemble where the run assembled at that shape) on rows of
+    the ltsv tier mix, every row real; a ``kernel_shape`` line each."""
     import torch
 
-    from flowgger_tpu_torch.corpus import make_corpus
+    from flowgger_tpu_torch.corpus import (make_corpus, make_ltsv_corpus,
+                                           make_ltsv_tier_corpus)
     from flowgger_tpu_torch.tpu import pack
 
-    for name, (rows, L) in sorted(K1_LATE - CHECKED):
-        lines, _ = make_corpus(rows, seed + rows)
+    for name, (rows, L) in sorted(LATE - CHECKED):
+        if (name, (rows, L)) in CHECKED:
+            continue   # an earlier case of this loop checked it
+        make = (make_corpus if name.startswith("decode_rfc5424")
+                else make_ltsv_corpus if name == "decode_ltsv"
+                else make_ltsv_tier_corpus)
+        lines, _ = make(rows, seed + rows)
         b, ln, *_ = pack.pack_lines_2d(lines, L)
         batch = torch.from_numpy(b[:rows]).cuda()
         lens_c = torch.from_numpy(ln[:rows].astype("int32")).cuda()
-        row, _ = decode_case("rfc5424", int(name.rsplit("_p", 1)[1]), batch,
-                             lens_c)
-        emit({"phase": "kernel_shape", **row,
-              "where": "e2e launch shape, rfc5424 mix rows"})
+        if name.startswith("decode_rfc5424"):
+            row, _ = decode_case("rfc5424", int(name.rsplit("_p", 1)[1]),
+                                 batch, lens_c)
+            where = "e2e launch shape, rfc5424 mix rows"
+        elif name == "decode_ltsv":
+            row, _ = l1_case(batch, lens_c, rows)
+            where = "e2e launch shape, ltsv mix rows"
+        else:
+            kind = ("fl" if name.startswith("fused") else
+                    "el16" if name.endswith("p16") else "el6")
+            row = ltsv_route_case(kind, batch, lens_c, rows,
+                                  assemble="assemble" in name)[-1]
+            where = "e2e launch shape, ltsv tier mix rows"
+        emit({"phase": "kernel_shape", **row, "where": where})
 
 
 def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
@@ -2144,7 +2509,7 @@ def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
             # the split tier alone, as this A/B measured it before the
             # fused route (phase_fuse_ab compares the two)
             cfg = _config("rfc5424_line", f"ab{flag}", fuse="off")
-            wall, pipe, errs = run_inproc(cfg, path)
+            wall, pipe, errs, _ = run_inproc(cfg, path)
             got = (WORK / f"rfc5424_line_ab{flag}.out").read_bytes()
             if ref is None:
                 ref = (got, errs)
@@ -2178,8 +2543,8 @@ def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
 
 
 def phase_fuse_ab(seed: int, n_batches: int = 8):
-    """The fused route against the split path on the two tier mixes
-    (rfc5424 and rfc3164, ``n_batches`` × 16 384 lines each), in one
+    """The fused route against the split path on the three tier mixes
+    (rfc5424, rfc3164 and ltsv, ``n_batches`` × 16 384 lines each), in one
     process: a batch handler with ``input.tpu_fuse = "auto"`` (the fused
     route takes every batch) and then ``"off"`` (the split decode and the
     split device tier), each over the same framed regions: one
@@ -2190,26 +2555,30 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
     splice, oracle rows, enqueue), launch counts; every run must write
     the same bytes.  Then the device
     ms, at a flush batch of the mix, of F1 (probe + assemble) against K1
-    p6 + E1 probe + E1 assemble, and of F3 against D3 + E3 probe + E3
-    assemble.  No claim is made from them."""
+    p6 + E1 probe + E1 assemble, of F3 against D3 + E3 probe + E3
+    assemble and of FL against L1 + EL probe + EL assemble (6 pairs).  No
+    claim is made from them."""
     import queue
 
     import torch
 
     from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.corpus import (make_rfc3164_tier_corpus,
+    from flowgger_tpu_torch.corpus import (make_ltsv_tier_corpus,
+                                           make_rfc3164_tier_corpus,
                                            make_tier_corpus)
     from flowgger_tpu_torch.encoders import GelfEncoder
     from flowgger_tpu_torch.mergers import NulMerger
     from flowgger_tpu_torch.tpu import (device_common, device_gelf,
-                                        device_rfc3164, framing, kernels)
+                                        device_ltsv, device_rfc3164, framing,
+                                        fused_routes, kernels)
     from flowgger_tpu_torch.tpu.batch import BatchHandler
     from flowgger_tpu_torch.utils.timeparse import current_year_utc
 
     dev = torch.device("cuda")
     year = current_year_utc()
     for fmt, make in (("rfc5424", make_tier_corpus),
-                      ("rfc3164", make_rfc3164_tier_corpus)):
+                      ("rfc3164", make_rfc3164_tier_corpus),
+                      ("ltsv", make_ltsv_tier_corpus)):
         lines, _ = make(n_batches * BATCH, seed + 15)
         regions = [b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
                    for b in range(n_batches)]
@@ -2222,7 +2591,8 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
                                    dev, start_timer=False, fmt=fmt)
             walls = {"frame": 0.0, "block_encode": 0.0}
             kernels.reset_launch_counts()
-            with contextlib.redirect_stderr(io.StringIO()):
+            with contextlib.redirect_stderr(io.StringIO()), \
+                    contextlib.redirect_stdout(io.StringIO()):
                 for region in regions:
                     t0 = time.perf_counter()
                     packed, _, _ = framing.device_frame_region(
@@ -2263,16 +2633,22 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
                                                    n, dev)
         b, ln = packed[0], packed[1]
         N = b.shape[0]
-        split = device_gelf if fmt == "rfc5424" else device_rfc3164
+        split = {"rfc5424": device_gelf, "rfc3164": device_rfc3164,
+                 "ltsv": device_ltsv}[fmt]
         bank_b, table = split.kernel_consts(b"\0")
         bank = device_gelf._bank_on(bank_b, dev)
         OW = split.out_width(MAX_LEN, b"\0")
         base, base_len, small, chan = kernels.fused_gelf_cuda(
             fmt, b, ln, n, bank, table, year=year)
-        sm = small[:, :n].cpu().numpy()
-        txt, tl = device_common.ts_text_block(
-            {"ok": sm[0] != 0, "days": sm[1], "sod": sm[2], "off": sm[3],
-             "nanos": sm[4]})
+        if fmt == "ltsv":
+            sm, _ = device_ltsv.small_fetch(small, N, n)
+            txt, tl = device_common.ts_text_block(sm,
+                                                  device_ltsv.ts_vals_ltsv)
+        else:
+            sm = small[:, :n].cpu().numpy()
+            txt, tl = device_common.ts_text_block(
+                {"ok": sm[0] != 0, "days": sm[1], "sod": sm[2], "off": sm[3],
+                 "nanos": sm[4]})
         ts_text = torch.zeros((N, device_common.TS_W), dtype=torch.uint8)
         ts_len = torch.zeros(N, dtype=torch.int32)
         ts_text[:n], ts_len[:n] = torch.from_numpy(txt), torch.from_numpy(tl)
@@ -2293,6 +2669,16 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
                     b, ln, ch, n, bank, table, 4, 6),
                 "encode_gelf_assemble_p6": lambda: kernels.encode_gelf_cuda(
                     b, ln, ch, n, bank, table, 4, 6, **asm)}
+        elif fmt == "ltsv":
+            ch = kernels.decode_ltsv_cuda(b, ln, n)
+            split_fns = {
+                "decode_ltsv": lambda: kernels.decode_ltsv_cuda(b, ln, n),
+                "encode_gelf_ltsv_probe_p6":
+                    lambda: kernels.encode_gelf_ltsv_cuda(b, ln, ch, n, bank,
+                                                          table, 6),
+                "encode_gelf_ltsv_assemble_p6":
+                    lambda: kernels.encode_gelf_ltsv_cuda(b, ln, ch, n, bank,
+                                                          table, 6, **asm)}
         else:
             ch = kernels.decode_rfc3164_cuda(b, ln, year)
             split_fns = {
@@ -2460,8 +2846,10 @@ def phase_host_ab(seed: int, rounds: int) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
-    ap.add_argument("--lines", type=int, default=16 * BATCH,
-                    help="lines of the rfc5424 line-framed e2e runs")
+    ap.add_argument("--lines", type=int, default=8 * BATCH,
+                    help="lines of the rfc5424 line-framed e2e runs (cut "
+                         "from 16 × 16 384 for time when the ltsv paths "
+                         "came)")
     ap.add_argument("--host-ab", type=int, default=0, metavar="ROUNDS",
                     help="run only the host A/B of the native host tier, "
                          "ROUNDS rounds (phase_host_ab)")
@@ -2510,6 +2898,7 @@ def main(argv=None) -> int:
         raise AssertionError("the GELF block encoder's native and numpy "
                              "engines wrote different bytes")
     phase_breakdown(args.seed, "jsonl")
+    phase_breakdown(args.seed, "ltsv")
     phase_breakdown_tier(args.seed)
     lap("breakdown")
     phase_encode_ab(args.seed)
@@ -2520,12 +2909,13 @@ def main(argv=None) -> int:
     for name in PATHS:
         n = {"rfc5424_syslen": SYSLEN_LINES, "jsonl_line": JSONL_LINES,
              "rfc3164_line": RFC3164_LINES,
-             "rfc3164_tier": RFC3164_LINES}.get(name, args.lines)
+             "rfc3164_tier": RFC3164_LINES, "ltsv_line": LTSV_LINES,
+             "ltsv_tier": LTSV_LINES}.get(name, args.lines)
         for k, v in phase_e2e(name, n, args.seed, CHECKED).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")
-    phase_k1_shapes(args.seed)
-    lap("k1_shapes")
+    phase_late_shapes(args.seed)
+    lap("late_shapes")
     emit({"phase": "phase_seconds", **seconds,
           "total": sum(seconds.values())})
     for r in rows:

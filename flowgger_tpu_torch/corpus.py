@@ -23,6 +23,11 @@ branch of the device paths:
   fast path leaves to the scalar oracle;
 - :func:`make_rfc3164_tier_corpus` — BSD-syslog lines the device encode
   tier takes (:data:`RFC3164_TIER_MIX`), dated a single-digit day;
+- :func:`make_ltsv_corpus` — LTSV access-log rows with ltsv.org's
+  recommended labels (:data:`LTSV_MIX`): 8-14 pairs, ``time`` as RFC3339,
+  a unix float or the bracketed Apache form, and the odd rows;
+- :func:`make_ltsv_tier_corpus` — LTSV rows the device encode tiers take
+  (:data:`LTSV_TIER_MIX`);
 - :func:`syslen_stream` — any line list as octet-counted frames
   (``<len> <line>`` back to back), the last frame cut short.
 
@@ -38,8 +43,8 @@ from typing import List, Tuple
 import numpy as np
 
 from .config import Config
-from .decoders import (DecodeError, JSONLDecoder, RFC3164Decoder,
-                       RFC5424Decoder)
+from .decoders import (DecodeError, JSONLDecoder, LTSVDecoder,
+                       RFC3164Decoder, RFC5424Decoder)
 from .encoders import EncodeError, GelfEncoder
 from .mergers import NulMerger
 
@@ -395,6 +400,133 @@ def make_rfc3164_tier_corpus(n_lines: int, seed: int, day: int = 7
     return _rfc3164_lines(n_lines, seed, RFC3164_TIER_MIX, day)
 
 
+# ---------------------------------------------------------------------------
+# LTSV: access-log rows with ltsv.org's recommended labels
+# ---------------------------------------------------------------------------
+
+# (kind, share) of the sourced LTSV mix: access-log rows (time, host and
+# 8-14 of the labels below, so the 6-pair tier declines and the 16-pair
+# escalation is probed) with ``time`` in the three forms the decoder
+# takes — RFC3339 (Z or an offset), a unix float, and ltsv.org's own
+# bracketed Apache form, which the device decode leaves to the scalar
+# oracle — and the odd rows of the reference's tests: a colon-less part,
+# a repeated special key, ``level:9``, non-ASCII, a row over
+# ``tpu_max_line_len``, a signed or a 17-digit stamp
+LTSV_MIX = (
+    ("rfc3339", 0.40), ("unix", 0.30), ("apache", 0.20), ("colonless", 0.02),
+    ("repeated", 0.02), ("level9", 0.01), ("high", 0.02), ("long", 0.01),
+    ("signed", 0.01), ("digits17", 0.01),
+)
+# the mix the device encode tiers take: ~97 % rows of at most 6 pairs
+# with an RFC3339 or an unsigned unix stamp of at most 16 digits, ASCII,
+# no repeated special name; the rest outside the tiers
+LTSV_TIER_MIX = (
+    ("tier", 0.97), ("apache", 0.006), ("colonless", 0.006),
+    ("repeated", 0.006), ("high", 0.006), ("signed", 0.006),
+)
+# the labels ltsv.org recommends for access logs (besides time and host)
+LTSV_LABELS = ("forwardedfor", "req", "method", "uri", "protocol",
+               "status", "size", "reqsize", "referer", "ua", "vhost",
+               "reqtime", "cache", "runtime", "apptime")
+_PATHS = ("/", "/index.html", "/apache_pb.gif", "/api/v1/items?id=42",
+          "/static/app.js", "/login", "/search?q=a%20b")
+_UAS = ("Mozilla/4.08 [en] (Win98; I ;Nav)",
+        "Mozilla/5.0 (X11; Linux x86_64) AppleWebKit/537.36",
+        "curl/8.4.0", 'Go-http-client/1.1 "probe"', "kube-probe/1.29")
+
+
+def _ltsv_time(rng, form: str, i: int) -> str:
+    day, sod = 1 + i % 28, (i * 7919) % 86400
+    hh, mm, ss = sod // 3600, sod // 60 % 60, sod % 60
+    if form == "rfc3339":
+        frac = ("", ".5", ".123", ".123456")[int(rng.integers(0, 4))]
+        off = ("Z", "+09:00", "-07:00", "z")[int(rng.integers(0, 4))]
+        return f"2026-10-{day:02d}T{hh:02d}:{mm:02d}:{ss:02d}{frac}{off}"
+    if form == "unix":
+        base = 1760000000 + i
+        return (str(base) if rng.random() < 0.3
+                else f"{base}.{int(rng.integers(0, 1000)):03d}")
+    return f"[{day}/Oct/2026:{hh:02d}:{mm:02d}:{ss:02d} +0900]"
+
+
+def _ltsv_value(rng, label: str) -> str:
+    pick = int(rng.integers(0, 1 << 30))
+    method = ("GET", "POST", "HEAD", "PUT")[pick % 4]
+    path = _PATHS[pick % len(_PATHS)]
+    return {
+        "forwardedfor": "-" if pick % 3 else f"10.0.{pick % 256}.{pick % 97}",
+        "req": f"{method} {path} HTTP/1.1", "method": method, "uri": path,
+        "protocol": "HTTP/1.1",
+        "status": ("200", "304", "404", "500")[pick % 4],
+        "size": str(pick % 100000), "reqsize": str(pick % 2000),
+        "referer": "-" if pick % 2 else "http://www.example.com/start.html",
+        "ua": _UAS[pick % len(_UAS)], "vhost": "www.example.com",
+        "reqtime": f"0.{pick % 1000:03d}", "cache": ("HIT", "MISS")[pick % 2],
+        "runtime": f"0.{pick % 100:03d}", "apptime": f"0.{pick % 50:03d}",
+    }[label]
+
+
+def make_ltsv_line(rng, kind: str, i: int, tier: bool = False) -> bytes:
+    """One LTSV access-log row of ``kind`` (see :data:`LTSV_MIX` and
+    :data:`LTSV_TIER_MIX`): 8-14 labels, or 0-6 for a tier-mix row, in
+    ltsv.org's order with time and host first."""
+    if tier:
+        k = int(rng.integers(0, 7))
+    else:
+        k = int(rng.integers(8, 15))
+    labels = sorted(rng.choice(len(LTSV_LABELS), size=k, replace=False))
+    form = kind if kind in ("rfc3339", "unix", "apache") else (
+        "rfc3339" if rng.random() < 0.6 else "unix")
+    parts = [f"time:{_ltsv_time(rng, form, i)}",
+             f"host:192.168.{i % 256}.{(i * 31) % 254 + 1}"]
+    parts += [f"{LTSV_LABELS[j]}:{_ltsv_value(rng, LTSV_LABELS[j])}"
+              for j in labels]
+    if rng.random() < 0.3:
+        parts.append(f"message:{_msg(rng, int(rng.integers(1, 8)))}")
+    if rng.random() < 0.3:
+        parts.append(f"level:{int(rng.integers(0, 8))}")
+    if kind == "colonless":
+        parts.insert(int(rng.integers(0, len(parts) + 1)), "nocolon")
+    elif kind == "repeated":
+        parts.append(f"host:10.9.8.{i % 250}")
+    elif kind == "level9":
+        parts.append("level:9")
+    elif kind == "high":
+        parts.append("city:caf\u00e9 \u2713 \u65e5\u672c")
+    elif kind == "long":
+        parts.append(f"referer:http://www.example.com/{'a' * 520}")
+    elif kind == "signed":
+        parts[0] = f"time:-{1760000000 + i}.5"
+    elif kind == "digits17":
+        parts[0] = f"time:1760000000.{i % 10000000:07d}"
+    return "\t".join(parts).encode()
+
+
+def _ltsv_lines(n_lines: int, seed: int, mix, tier: bool):
+    rng = np.random.default_rng(seed)
+    kinds, shares = zip(*mix)
+    picks = rng.choice(len(kinds), size=n_lines,
+                       p=np.asarray(shares) / sum(shares))
+    lines = [make_ltsv_line(rng, kinds[int(k)], i, tier)
+             for i, k in enumerate(picks)]
+    return lines, [kinds[int(k)] for k in picks]
+
+
+def make_ltsv_corpus(n_lines: int, seed: int
+                     ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` LTSV access-log rows and their kinds, drawn from
+    :data:`LTSV_MIX` with ``numpy.random.default_rng(seed)``."""
+    return _ltsv_lines(n_lines, seed, LTSV_MIX, tier=False)
+
+
+def make_ltsv_tier_corpus(n_lines: int, seed: int
+                          ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` LTSV rows the device encode tiers take, from
+    :data:`LTSV_TIER_MIX` (a "tier" row has 0-6 labels and an RFC3339 or
+    an unsigned unix stamp of at most 13 digits)."""
+    return _ltsv_lines(n_lines, seed, LTSV_TIER_MIX, tier=True)
+
+
 def syslen_stream(lines: List[bytes], cut: int = 3) -> bytes:
     """``lines`` as octet-counted frames, back to back; the last frame
     loses its final ``cut`` bytes (a short read at EOF)."""
@@ -432,23 +564,31 @@ def _frames(data: bytes, framing: str):
 
 def scalar_expectation(data: bytes, framing: str = "line",
                        config: Config = None, merger=NulMerger(),
-                       fmt: str = "rfc5424") -> Tuple[bytes, List[str]]:
+                       fmt: str = "rfc5424",
+                       notices: List[str] = None) -> Tuple[bytes, List[str]]:
     """Output bytes (GELF, NUL-framed unless another merger is given;
     None = no framing) and stderr lines of the reference's per-record
     path over ``data``: frame (line: one trailing CR stripped; syslen:
     the octet-count scan and its EOF/bad-prefix messages; the trailing
     partial frame of line/NUL included), then decode (``fmt`` is
-    ``rfc5424``, ``rfc3164`` or ``jsonl``) → encode → frame
+    ``rfc5424``, ``rfc3164``, ``jsonl`` or ``ltsv``, the LTSV decoder
+    with ``config``'s schema and suffixes) → encode → frame
     (line_splitter.rs:17-54, syslen_splitter.rs:26-69).  The rfc3164
     decoder prints its own "Unable to parse" line before the error line
     of a row both of its layouts reject; those come in row order here
-    (the batched path prints a batch's before its error lines)."""
+    (the batched path prints a batch's before its error lines).  The
+    LTSV decoder's "Missing value for name" notices go to stdout; with
+    ``notices`` (a list) they are appended to it, in row order."""
     import contextlib
     import io
 
-    decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder}.get(
-        fmt, RFC5424Decoder)()
-    encoder = GelfEncoder(config or Config.from_string(""))
+    config = config or Config.from_string("")
+    if fmt == "ltsv":
+        decoder = LTSVDecoder(config)
+    else:
+        decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder}.get(
+            fmt, RFC5424Decoder)()
+    encoder = GelfEncoder(config)
     recs, tail = _frames(data, framing)
     out, errs = [], []
     for raw in recs:
@@ -457,10 +597,15 @@ def scalar_expectation(data: bytes, framing: str = "line",
         except UnicodeDecodeError:
             errs.append("Invalid UTF-8 input")
             continue
-        said = io.StringIO()
+        said, told = io.StringIO(), io.StringIO()
         try:
-            with contextlib.redirect_stderr(said):
-                record = decoder.decode(line)
+            with contextlib.redirect_stderr(said), \
+                    contextlib.redirect_stdout(told):
+                try:
+                    record = decoder.decode(line)
+                finally:
+                    if notices is not None:
+                        notices.extend(told.getvalue().splitlines())
             payload = encoder.encode(record)
             out.append(merger.frame(payload) if merger is not None
                        else payload)

@@ -1,8 +1,9 @@
 // GELF encode of decoded rows (the split device encode tier), one warp
-// per row: E1 for rfc5424 rows and, beside it, E3 for rfc3164 rows.  The
-// row encodes themselves live in encode_gelf_row.cuh, shared with the
-// fused routes (fused_gelf.cu); this file holds the kernels that read the
-// decode kernels' [C, N] channels from global memory.
+// per row: E1 for rfc5424 rows and, beside it, E3 for rfc3164 rows and EL
+// for ltsv rows.  The row encodes themselves live in encode_gelf_row.cuh
+// and encode_ltsv_row.cuh, shared with the fused routes (fused_gelf.cu);
+// this file holds the kernels that read the decode kernels' [C, N]
+// channels from global memory.
 //
 // E1, rfc5424 -> GELF.
 // Replaces the JAX package's jnp device code device_gelf._encode_kernel
@@ -87,11 +88,32 @@
 // the 3164 constant bank (device_rfc3164.KERNEL_CONSTS).  It reuses E1's
 // escape pass and staged 16-byte assemble; its tier rule is ok, no byte
 // >= 0x80, no control byte but \b \t \n \f \r, at most E_CAP escapes.
+//
+// EL, ltsv -> GELF, at 6 and 16 pairs.  Replaces the JAX package's jnp
+// device code device_ltsv._encode_kernel (flowgger_tpu/tpu/device_ltsv.py
+// :127) with device_common's escape_stage, sort_pairs_by_key8 and
+// assemble_rows: the probe and assemble contract of E1 over the ltsv
+// decode's channels (L1's [94, N], tpu/ltsv.py KEYS_1D and KEYS_PART).
+// The pairs are the parts whose start is none of the four special keys'
+// (last-occurrence) positions: lane j < 24 tests part j, a ballot gives
+// the pair mask, and lane p loads pair p's spans from part
+// nth_set_bit(mask, p); E1's key sort and ambiguity test order them.  The
+// reference's repeated-special screen is lane j matching the four keys at
+// part j's start (a popcount of the ballot > 1 leaves the tier).  Thirteen
+// fixed segments, one a lane (the line as full_message, host or
+// "unknown", the level pair gated on a level, the short_message constant
+// picked by it, the quoted message or "-", the timestamp text), with the
+// ltsv bank (device_ltsv.KERNEL_CONSTS).  Its tier rule, beside E1's
+// escape rules: ok, an RFC3339 stamp or an unsigned unix float of at most
+// 16 digits within 2**53, no colon-less part, at most P pairs, no
+// repeated special name, names the 8-byte key orders.  A row that fails
+// the rules its channels alone decide leaves before its bytes are loaded.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "encode_gelf_row.cuh"
+#include "encode_ltsv_row.cuh"
 
 namespace {
 
@@ -200,6 +222,36 @@ encode_gelf3164_kernel(const uint8_t* __restrict__ batch,
 }
 
 template <int P, bool ASM>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+encode_gelf_ltsv_kernel(const uint8_t* __restrict__ batch,
+                        const int32_t* __restrict__ lens_in,
+                        const int32_t* __restrict__ ch,
+                        const uint8_t* __restrict__ ts_text,
+                        const int32_t* __restrict__ ts_len_in,
+                        const uint8_t* __restrict__ bank, int bank_len,
+                        ConstsL k, int N, int n, int L, int OW,
+                        uint8_t* __restrict__ tier_out,
+                        int32_t* __restrict__ len_out,
+                        uint8_t* __restrict__ small,
+                        const int64_t* __restrict__ row_off,
+                        uint8_t* __restrict__ flat) {
+  extern __shared__ uint4 encl_smem_v[];
+  uint8_t* enc_smem = reinterpret_cast<uint8_t*>(encl_smem_v);
+  const int lane = threadIdx.x & 31;
+  const SplitRow r = split_row<ASM>(batch, lens_in, ts_text, ts_len_in, bank,
+                                    bank_len, N, n, L, OW, tier_out, len_out,
+                                    row_off, flat, lane);
+  const SmallL sm{small, N};
+  if (!ASM && !r.live && r.row < N && lane == 0)
+    store_small_ltsv(sm, r.row, 0, 0, 0, 0, 0, 0, 0, 0, 0);  // padding
+  if (!r.live) return;
+  const int stride = warp_smem(L, OW, segments_ltsv(P), ASM, bank_len).stride;
+  encode_ltsv_row<P, ASM>(ChanView{ch + r.row, N}, nullptr, r.in, k,
+                          enc_smem + (size_t)(threadIdx.x >> 5) * stride,
+                          r.out, lane, nullptr, sm, r.row);
+}
+
+template <int P, bool ASM>
 int launch(const void* batch, const void* lens, const void* ch,
            const void* ts_text, const void* ts_len, const void* bank,
            const int* consts, int N, int n, int L, int max_sd, int OW,
@@ -248,6 +300,32 @@ int launch3164(const void* batch, const void* lens, const void* ch,
       bank_len, k, N, n, L, OW, static_cast<uint8_t*>(tier),
       static_cast<int32_t*>(out_len), static_cast<const int64_t*>(row_off),
       static_cast<uint8_t*>(flat));
+  return (int)cudaGetLastError();
+}
+
+template <int P, bool ASM>
+int launch_ltsv(const void* batch, const void* lens, const void* ch,
+                const void* ts_text, const void* ts_len, const void* bank,
+                const int* consts, int N, int n, int L, int OW, void* tier,
+                void* out_len, void* small, const void* row_off, void* flat,
+                cudaStream_t stream) {
+  if (N <= 0) return 0;
+  const ConstsL k = const_table<kNumConstL>(consts);
+  const int bank_len = bank_bytes(k);
+  const int stride = warp_smem(L, OW, segments_ltsv(P), ASM, bank_len).stride;
+  auto kern = encode_gelf_ltsv_kernel<P, ASM>;
+  int grid = 0, threads = 0;
+  size_t smem = 0;
+  const int rc = warp_rows_geometry(kern, N, stride, kSmemMax, &grid,
+                                    &threads, &smem);
+  if (rc != 0) return rc;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(batch), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(ch), static_cast<const uint8_t*>(ts_text),
+      static_cast<const int32_t*>(ts_len), static_cast<const uint8_t*>(bank),
+      bank_len, k, N, n, L, OW, static_cast<uint8_t*>(tier),
+      static_cast<int32_t*>(out_len), static_cast<uint8_t*>(small),
+      static_cast<const int64_t*>(row_off), static_cast<uint8_t*>(flat));
   return (int)cudaGetLastError();
 }
 
@@ -321,6 +399,54 @@ int fg_encode_gelf3164_assemble(const void* batch, const void* lens,
   return launch3164<true>(batch, lens, ch, ts_text, ts_len, bank, consts, N,
                           n, L, OW, nullptr, nullptr, row_off, flat,
                           static_cast<cudaStream_t>(stream));
+}
+
+// EL probe at 6 and 16 pairs: base tier bit and base_len of every ltsv
+// row from L1's [94, N] channels, 0 and 0 for the rows at and past n, and
+// the narrowed stamp channels (25 N bytes, zeros past n)
+int fg_encode_gelf_ltsv_probe_p6(const void* batch, const void* lens,
+                                 const void* ch, const int* consts, int N,
+                                 int n, int L, void* tier, void* base_len,
+                                 void* small, void* stream) {
+  return launch_ltsv<6, false>(batch, lens, ch, nullptr, nullptr, nullptr,
+                               consts, N, n, L, 0, tier, base_len, small,
+                               nullptr, nullptr,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int fg_encode_gelf_ltsv_probe_p16(const void* batch, const void* lens,
+                                  const void* ch, const int* consts, int N,
+                                  int n, int L, void* tier, void* base_len,
+                                  void* small, void* stream) {
+  return launch_ltsv<16, false>(batch, lens, ch, nullptr, nullptr, nullptr,
+                                consts, N, n, L, 0, tier, base_len, small,
+                                nullptr, nullptr,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// EL assemble at 6 and 16 pairs: the elided bytes of each row below n
+// with row_off >= 0 at flat[row_off]
+int fg_encode_gelf_ltsv_assemble_p6(const void* batch, const void* lens,
+                                    const void* ch, const void* ts_text,
+                                    const void* ts_len, const void* bank,
+                                    const int* consts, int N, int n, int L,
+                                    int OW, const void* row_off, void* flat,
+                                    void* stream) {
+  return launch_ltsv<6, true>(batch, lens, ch, ts_text, ts_len, bank, consts,
+                              N, n, L, OW, nullptr, nullptr, nullptr, row_off,
+                              flat, static_cast<cudaStream_t>(stream));
+}
+
+int fg_encode_gelf_ltsv_assemble_p16(const void* batch, const void* lens,
+                                     const void* ch, const void* ts_text,
+                                     const void* ts_len, const void* bank,
+                                     const int* consts, int N, int n, int L,
+                                     int OW, const void* row_off, void* flat,
+                                     void* stream) {
+  return launch_ltsv<16, true>(batch, lens, ch, ts_text, ts_len, bank,
+                               consts, N, n, L, OW, nullptr, nullptr, nullptr,
+                               row_off, flat,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,16 +1,20 @@
-// The fused decode -> GELF encode routes, one warp per row: F1 (rfc5424)
-// and F3 (rfc3164), a probe and an assemble each.
+// The fused decode -> GELF encode routes, one warp per row: F1 (rfc5424),
+// F3 (rfc3164) and FL (ltsv), a probe and an assemble each.
 //
 // Replaces the JAX package's fused programs _fused_rfc5424_gelf
 // (flowgger_tpu/tpu/fused_routes.py:179: the K1 decode leg, Pallas
 // decode_rfc5424_pallas or the demand-narrowed jnp decode, traced with
 // device_gelf._encode_kernel into one jitted program, elide=True) and
 // _fused_rfc3164_gelf (:197: decode_rfc3164_jit with
-// DEMAND["rfc3164_gelf"] and device_rfc3164._encode_kernel).
+// DEMAND["rfc3164_gelf"] and device_rfc3164._encode_kernel) and
+// _fused_ltsv_gelf (:215: decode_ltsv_jit with DEMAND["ltsv_gelf"] and
+// device_ltsv._encode_kernel at 6 pairs; its probe hands the host the
+// narrowed timestamp channels of _ltsv_small_fetch :243).
 //
 // What it computes, per row of a packed [N, L] uint8 batch: the decode of
-// the split route's kernel (K1 at 6 pairs, or D3 for the year given) and,
-// on its channels, the encode of the split tier (E1 or E3):
+// the split route's kernel (K1 at 6 pairs, D3 for the year given, or L1)
+// and, on its channels, the encode of the split tier (E1, E3 or EL at 6
+// pairs):
 // - probe: for the rows below n, the base tier bit and base_len, as E1's
 //   and E3's probes, and the ok, days, sod, off and nanos channels the
 //   host formats the timestamp text from (int32 [5, N], zeros at and past
@@ -19,8 +23,17 @@
 //   channels the encode reads (fused_routes.DEMAND) to the carried
 //   tensor `chan`, row-major: kCarry5 = 56 int32 a row for F1 (6 pairs,
 //   4 SD elements), kCarry3 = 11 for F3, one contiguous run a row that
-//   the row's warp stores (224 or 44 bytes).  Other rows of `chan` are
-//   not written.
+//   the row's warp stores (224 or 44 bytes).  FL carries what EL's
+//   assemble reads after the pair selection and the sort, not the
+//   24-part table: kCarryL = 31 int32 (the pair count, the escaped host
+//   and message spans, whether a message is present, the level, and the
+//   four escaped span ends of each of the 6 sorted pairs; 124 bytes), so
+//   its assemble selects and sorts nothing again.  FL's small channels
+//   are the reference's narrowed ones, one 25 N-byte buffer
+//   (encode_ltsv_row.cuh SmallL: days, sod, nanos, ts_hi, ts_lo int32,
+//   off / 60 int16, ok, ts_kind, ts_meta & 255 uint8), so a row's stamp
+//   crosses in fewer bytes than the constants the encode leaves out.
+//   Other rows of `chan` are not written.
 // - assemble: for each row below n with row_off >= 0 (a subset of the
 //   probe's tier rows: the wrapper, kernels.fused_gelf_cuda, checks it),
 //   its elided GELF bytes at flat[row_off], as E1's and E3's assembles,
@@ -65,9 +78,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_ltsv_row.cuh"
 #include "decode_rfc3164_row.cuh"
 #include "decode_rfc5424_row.cuh"
 #include "encode_gelf_row.cuh"
+#include "encode_ltsv_row.cuh"
 
 namespace {
 
@@ -84,6 +99,7 @@ constexpr int kSmall = 5;                // ok, days, sod, off, nanos
 constexpr int kMinBlocks = 5;
 constexpr int kProbeBlocks5 = 4;
 constexpr int kProbeBlocks3 = 6;
+constexpr int kProbeBlocksL = 4;
 
 // The carried channels: entry j of a row of `chan` is tile channel
 // kept5(j) (F1) or kept3(j) (F3), the channels fused_routes.DEMAND names.
@@ -118,7 +134,7 @@ struct FusedRow {
   int64_t dst0;
 };
 
-template <bool ASM>
+template <bool ASM, int NSMALL = kSmall>
 __device__ __forceinline__ FusedRow fused_row(int N, int n,
                                               uint8_t* tier_out,
                                               int32_t* len_out,
@@ -132,7 +148,7 @@ __device__ __forceinline__ FusedRow fused_row(int N, int n,
     if (!ASM && lane == 0) {
       tier_out[r.row] = 0;
       len_out[r.row] = 0;
-      for (int c = 0; c < kSmall; ++c) small[(size_t)c * N + r.row] = 0;
+      for (int c = 0; c < NSMALL; ++c) small[(size_t)c * N + r.row] = 0;
     }
     return r;
   }
@@ -304,6 +320,57 @@ fused_rfc3164_gelf_kernel(const uint8_t* __restrict__ batch,
   }
 }
 
+template <bool ASM>
+__global__ void __launch_bounds__(32 * kWarps,
+                                  ASM ? kMinBlocks : kProbeBlocksL)
+fused_ltsv_gelf_kernel(const uint8_t* __restrict__ batch,
+                       const int32_t* __restrict__ lens_in,
+                       const uint8_t* __restrict__ ts_text,
+                       const int32_t* __restrict__ ts_len_in,
+                       const uint8_t* __restrict__ bank, int bank_len,
+                       enc::ConstsL k, int N, int n, int L, int OW,
+                       uint8_t* __restrict__ tier_out,
+                       int32_t* __restrict__ len_out,
+                       int32_t* __restrict__ small,
+                       int32_t* __restrict__ chan,
+                       const int64_t* __restrict__ row_off,
+                       uint8_t* __restrict__ flat) {
+  extern __shared__ uint4 fl_smem_v[];
+  __shared__ int32_t tile[ASM ? 1 : lt::kChannels][kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const FusedRow r = fused_row<ASM, 0>(N, n, tier_out, len_out, nullptr,
+                                       row_off, lane);
+  const enc::SmallL sm{reinterpret_cast<uint8_t*>(small), N};
+  if (!ASM && !r.live && r.row < N && lane == 0)
+    enc::store_small_ltsv(sm, r.row, 0, 0, 0, 0, 0, 0, 0, 0, 0);  // padding
+  if (!r.live) return;
+  const int stride = enc::warp_smem(L, OW, enc::segments_ltsv(kMaxPairs),
+                                    ASM, bank_len).stride;
+  uint8_t* base = reinterpret_cast<uint8_t*>(fl_smem_v) +
+                  (size_t)warp * stride;
+  const int len = lens_in[r.row];
+  int32_t* col = &tile[0][warp];
+  const enc::RowOut out{ASM ? nullptr : tier_out + r.row,
+                        ASM ? nullptr : len_out + r.row,
+                        ASM ? flat + r.dst0 : nullptr};
+  const enc::RowIn in = row_in<ASM>(batch, r.row, len, L, OW, bank, bank_len,
+                                    ts_text, ts_len_in);
+  int32_t* carried = chan + (size_t)r.row * enc::kCarryL;
+  if (ASM) {
+    // the probe's selection: no decode, no pair selection, no sort
+    enc::encode_ltsv_row<kMaxPairs, true, false, true>(
+        enc::ChanView{col, kWarps}, carried, in, k, base, out, lane);
+    return;
+  }
+  // the decode stages the row at the start of the warp's encode region
+  lt::decode_ltsv_row<true>(batch + (size_t)r.row * L, len, L,
+                            reinterpret_cast<uint4*>(base), col, lane);
+  __syncwarp();
+  enc::encode_ltsv_row<kMaxPairs, false, true, false>(
+      enc::ChanView{col, kWarps}, nullptr, in, k, base, out, lane, carried,
+      sm, r.row);
+}
+
 // dynamic shared memory a block may take beside the kernels' static
 // tile and sums (< 4 KiB)
 constexpr int kDynMax = 220 * 1024;
@@ -364,14 +431,43 @@ int launch3164(const void* batch, const void* lens, int year,
   return (int)cudaGetLastError();
 }
 
+template <bool ASM>
+int launch_ltsv(const void* batch, const void* lens, const void* ts_text,
+                const void* ts_len, const void* bank, const int* consts,
+                int N, int n, int L, int OW, void* tier, void* base_len,
+                void* small, void* chan, const void* row_off, void* flat,
+                cudaStream_t stream) {
+  if (N <= 0) return 0;
+  const enc::ConstsL k = enc::const_table<enc::kNumConstL>(consts);
+  const int bank_len = enc::bank_bytes(k);
+  const int stride = enc::warp_smem(L, OW, enc::segments_ltsv(kMaxPairs),
+                                    ASM, bank_len).stride;
+  auto kern = fused_ltsv_gelf_kernel<ASM>;
+  int grid = 0, threads = 0;
+  size_t smem = 0;
+  const int rc = enc::warp_rows_geometry(kern, N, stride, kDynMax, &grid,
+                                         &threads, &smem);
+  if (rc != 0) return rc;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(batch), static_cast<const int32_t*>(lens),
+      static_cast<const uint8_t*>(ts_text),
+      static_cast<const int32_t*>(ts_len), static_cast<const uint8_t*>(bank),
+      bank_len, k, N, n, L, OW, static_cast<uint8_t*>(tier),
+      static_cast<int32_t*>(base_len), static_cast<int32_t*>(small),
+      static_cast<int32_t*>(chan), static_cast<const int64_t*>(row_off),
+      static_cast<uint8_t*>(flat));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// int32 entries a row of the carried channel tensor: F1 (route 5424) or
-// F3 (route 3164)
+// int32 entries a row of the carried channel tensor: F1 (route 5424), F3
+// (route 3164) or FL (route 76, 'L')
 int fg_fused_gelf_carry(int route) {
-  return route == 5424 ? kCarry5 : route == 3164 ? kCarry3 : -1;
+  return route == 5424 ? kCarry5 : route == 3164 ? kCarry3
+         : route == 76 ? enc::kCarryL : -1;
 }
 
 // F1 probe: base tier bit (uint8) and base_len (int32) of every row, the
@@ -423,6 +519,32 @@ int fg_fused_rfc3164_gelf_assemble(const void* batch, const void* lens,
                           n, L, OW, nullptr, nullptr, nullptr,
                           const_cast<void*>(chan), row_off, flat,
                           static_cast<cudaStream_t>(stream));
+}
+
+// FL probe: base tier bit (uint8) and base_len (int32) of every ltsv row,
+// the narrowed stamp channels (25 N bytes, zeros for the rows at and past
+// n), and the carried selection of each base tier row (int32 [N, 31])
+int fg_fused_ltsv_gelf_probe(const void* batch, const void* lens,
+                             const int* consts, int N, int n, int L,
+                             void* tier, void* base_len, void* small,
+                             void* chan, void* stream) {
+  return launch_ltsv<false>(batch, lens, nullptr, nullptr, nullptr, consts, N,
+                            n, L, 0, tier, base_len, small, chan, nullptr,
+                            nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// FL assemble: the elided bytes of each row below n with row_off >= 0 at
+// flat[row_off], from the probe's carried selection
+int fg_fused_ltsv_gelf_assemble(const void* batch, const void* lens,
+                                const void* chan, const void* ts_text,
+                                const void* ts_len, const void* bank,
+                                const int* consts, int N, int n, int L,
+                                int OW, const void* row_off, void* flat,
+                                void* stream) {
+  return launch_ltsv<true>(batch, lens, ts_text, ts_len, bank, consts, N, n,
+                           L, OW, nullptr, nullptr, nullptr,
+                           const_cast<void*>(chan), row_off, flat,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

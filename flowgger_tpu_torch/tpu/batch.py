@@ -1,5 +1,5 @@
-"""BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines → GELF
-paths.
+"""BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines / LTSV
+→ GELF paths.
 
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
@@ -13,24 +13,26 @@ down the reference's ladder (its ``_emit_fast`` and
 
 1. device framing (``framing.device_frame_region``: span and gather
    kernels), or the host splitter when the span kernel declines;
-2. for RFC5424 or RFC3164 into GELF with ``input.tpu_fuse`` "auto" (the
-   default) or "on", the fused route (``fused_routes``: decode and encode
-   in one kernel a phase), unless its own cooldown is running, which
-   counts down here, at submit;
+2. for RFC5424, RFC3164 or LTSV into GELF with ``input.tpu_fuse`` "auto"
+   (the default) or "on", the fused route (``fused_routes``: decode and
+   encode in one kernel a phase), unless its own cooldown is running,
+   which counts down here, at submit;
 3. on a fused decline (or with ``tpu_fuse = "off"``) the format's
    decode kernel — RFC5424 (``rfc5424.decode_rfc5424_submit``, 7-16-pair
    rows re-decoded at 16 pairs on the host path), RFC3164
-   (``rfc3164.decode_rfc3164_submit``) or JSON-lines
+   (``rfc3164.decode_rfc3164_submit``), JSON-lines
    (``jsonl.decode_jsonl_submit``, 9-24-key rows re-decoded at 24
-   fields);
-4. for RFC5424 or RFC3164 into GELF, the split device encode tier
-   (``device_gelf`` / ``device_rfc3164``: probe, timestamp text,
-   assemble, one fetch of the tier rows' bytes) under its own decline
-   state; each tier hands the batch back when more than 5 % of its rows
-   fall outside it, and cools down after three such batches in a row;
+   fields) or LTSV (``ltsv.decode_ltsv_submit``, 24 parts);
+4. for RFC5424, RFC3164 or LTSV into GELF, the split device encode tier
+   (``device_gelf`` / ``device_rfc3164`` / ``device_ltsv``: probe,
+   timestamp text, assemble, one fetch of the tier rows' bytes) under
+   its own decline state; each tier hands the batch back when more than
+   5 % of its rows fall outside it (the ltsv tier first tries 16 pairs),
+   and cools down after three such batches in a row;
 5. the format's host block encoder (``encode_gelf_block``,
-   ``encode_rfc3164_gelf_block``, ``encode_jsonl_block``), which runs the
-   scalar oracle for rows the kernel flagged and for over-length lines;
+   ``encode_rfc3164_gelf_block``, ``encode_jsonl_block``,
+   ``encode_ltsv_gelf_block``), which runs the scalar oracle for rows the
+   kernel flagged and for over-length lines;
 6. the merger framing (pre-applied) and the output queue.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
@@ -50,14 +52,16 @@ import torch
 
 from ..config import Config, ConfigError
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
-from . import device_gelf, device_rfc3164
+from . import device_gelf, device_ltsv, device_rfc3164
 from . import framing as _framing
 from . import fused_routes
 from . import pack as _pack
 from .encode_gelf_block import encode_rfc5424_gelf_block
 from .encode_jsonl_block import encode_jsonl_gelf_block
+from .encode_ltsv_gelf_block import encode_ltsv_gelf_block
 from .encode_rfc3164_gelf_block import encode_rfc3164_gelf_block
 from .jsonl import decode_jsonl_fetch, decode_jsonl_submit
+from .ltsv import decode_ltsv_fetch, decode_ltsv_submit
 from .rfc3164 import decode_rfc3164_fetch, decode_rfc3164_submit
 from .rfc5424 import decode_rfc5424_fetch, decode_rfc5424_submit
 
@@ -79,9 +83,11 @@ _ROUTES = {
                 encode_rfc3164_gelf_block),
     "jsonl": (decode_jsonl_submit, decode_jsonl_fetch,
               encode_jsonl_gelf_block),
+    "ltsv": (decode_ltsv_submit, decode_ltsv_fetch, encode_ltsv_gelf_block),
 }
 # the split device encode tier per input format
-_DEVICE_TIERS = {"rfc5424": device_gelf, "rfc3164": device_rfc3164}
+_DEVICE_TIERS = {"rfc5424": device_gelf, "rfc3164": device_rfc3164,
+                 "ltsv": device_ltsv}
 
 
 class BatchHandler(Handler):
@@ -104,6 +110,13 @@ class BatchHandler(Handler):
             "input.tpu_max_line_len",
             "input.tpu_max_line_len must be an integer", DEFAULT_MAX_LINE_LEN)
         self._start_timer = start_timer
+        # the ltsv scalar decoder (schema and suffixes from the config):
+        # the oracle rows', the block encoder's and the tiers' gates
+        self.decoder = None
+        if fmt == "ltsv":
+            from ..decoders.ltsv import LTSVDecoder
+
+            self.decoder = LTSVDecoder(config)
         self._lines: List[bytes] = []
         self._raw_sessions: List["_RawSession"] = []
         self._raw_est = 0
@@ -137,7 +150,8 @@ class BatchHandler(Handler):
         off, or no fused program for this (format, encoder, merger)."""
         if self._fuse_mode == "off":
             return None
-        return fused_routes.route_for(self.fmt, self.encoder, self.merger)
+        return fused_routes.route_for(self.fmt, self.encoder, self.merger,
+                                      self.decoder)
 
     # -- ingest --------------------------------------------------------------
     def open_raw(self, framing: str) -> "_RawSession":
@@ -257,22 +271,33 @@ class BatchHandler(Handler):
                 handle = fused_routes.submit(route, (batch, lens))
                 res, _ = fused_routes.fetch_encode(
                     handle, packed, self.encoder, self.merger,
-                    self.route_state)
+                    self.route_state, decoder=self.decoder)
                 if res is not None:
                     self._emit_block(res)
                     return
-        handle = self._submit(batch, lens)
+        # the ltsv decode and its tier take the handler's decoder (the
+        # schema gate, the oracle rows) and the real row count
+        ltsv = self.fmt == "ltsv"
+        dec_kw = {"decoder": self.decoder} if ltsv else {}
+        handle = self._submit(batch, lens, *((n_real,) if ltsv else ()))
         tier = _DEVICE_TIERS.get(self.fmt)
-        if tier is not None and tier.route_ok(self.encoder, self.merger):
+        if tier is not None and tier.route_ok(self.encoder, self.merger,
+                                              **dec_kw):
             res, _ = tier.fetch_encode(
                 handle, packed, self.encoder, self.merger,
-                self.route_state.setdefault(self.fmt, {}))
+                self.route_state.setdefault(self.fmt, {}), **dec_kw)
             if res is not None:
                 self._emit_block(res)
                 return
         host_out = self._fetch(handle)
         res = self._encode(chunk, starts, orig_lens, host_out, n_real,
-                           batch.shape[1], self.encoder, self.merger)
+                           batch.shape[1], self.encoder, self.merger,
+                           *dec_kw.values())
+        if res is None:
+            # the reference's Record path (pipeline.Pipeline refuses the
+            # configs that would take it)
+            raise RuntimeError(f"the {self.fmt} block encoder declined a "
+                               "batch: the Record path is not ported")
         self._emit_block(res)
 
     def _emit_block(self, res) -> None:

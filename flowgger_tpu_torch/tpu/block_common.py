@@ -2,7 +2,7 @@
 scalar-oracle fallback loop, and the splice that interleaves vectorized
 tier runs with per-row fallback output in input order.
 
-Each block encoder (RFC5424 and JSON-lines to GELF) produces a
+Each block encoder (RFC5424, RFC3164, JSON-lines and LTSV to GELF) produces a
 contiguous ``final_buf`` for its fast-tier rows plus ``row_off``
 boundaries; this module turns that into an EncodedBlock with the
 reference's observable semantics — per-line errors
@@ -48,6 +48,31 @@ def ts_scratch(out, n: int, ridx: np.ndarray, fmt_fn):
                      for k, v in out.items()
                      if k in ("days", "sod", "off", "nanos")})
     return vals_scratch(ts, fmt_fn)
+
+
+def ltsv_special_screen(chunk_arr: np.ndarray, starts64: np.ndarray,
+                        part_start: np.ndarray, nlen: np.ndarray,
+                        jmask: np.ndarray):
+    """LTSV special-key routing of the LTSV → GELF block encoder:
+    specials match by NAME (the kernel's *_pos channels only catch the
+    last occurrence, but the scalar decoder routes every occurrence of
+    a repeated special), so the block screens by the first 8 key bytes.
+    Returns (special_name [n, P] mask, uniq_ok [n] — False where a
+    special name repeats and the row must take the oracle)."""
+    n, P = part_start.shape
+    key8 = (starts64[:, None, None] + part_start[:, :, None]
+            + np.arange(8, dtype=np.int64)[None, None, :])
+    km = chunk_arr[np.clip(key8, 0, max(chunk_arr.size - 1, 0))] \
+        if chunk_arr.size else np.zeros((n, P, 8), dtype=np.uint8)
+    special_name = np.zeros((n, P), dtype=bool)
+    uniq_ok = np.ones(n, dtype=bool)
+    for word in (b"time", b"host", b"message", b"level"):
+        match = jmask & (nlen == len(word))
+        for i, ch in enumerate(word[:8]):
+            match &= km[:, :, i] == ch
+        special_name |= match
+        uniq_ok &= match.sum(axis=1) <= 1
+    return special_name, uniq_ok
 
 
 def span_f64_scratch(chunk_bytes: bytes, tsa, tsb, fmt_fn):

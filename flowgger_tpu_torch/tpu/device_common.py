@@ -171,14 +171,20 @@ def _ts_vals(small: Dict[str, np.ndarray]) -> np.ndarray:
                        for k in ("days", "sod", "off", "nanos")})
 
 
-def ts_text_block(small: Dict[str, np.ndarray]):
+def ts_text_block(small: Dict[str, np.ndarray], ts_vals_fn=None):
     """Per-row timestamp text ([R, TS_W] u8) and lengths ([R] int32):
     ``json_f64`` of each row's f64 stamp, formatted by the native host
     tier (``fg_format_f64_json``).  Rows whose ``ok`` is False get the
-    text of 0.0 (a placeholder the tier never emits)."""
+    text of 0.0 (a placeholder the tier never emits).
+    ``ts_vals_fn(small, ok_mask) -> float64 array`` overrides the
+    days/sod/off/nanos combine for a format whose tier carries other
+    timestamp channels (the ltsv float spans: ``device_ltsv.
+    ts_vals_ltsv``)."""
     from .. import native
 
-    txt, lens = native.format_f64_json_native(_ts_vals(small), TS_W)
+    vals = (_ts_vals(small) if ts_vals_fn is None
+            else ts_vals_fn(small, small["ok"].astype(bool)))
+    txt, lens = native.format_f64_json_native(vals, TS_W)
     # fetch_encode_driver's one-probe lengths rest on this bound; the
     # formatter gives a text longer than TS_W length 0
     if lens.size and int(lens.min()) == 0:
@@ -186,12 +192,14 @@ def ts_text_block(small: Dict[str, np.ndarray]):
     return txt, lens
 
 
-def _ts_text_block_np(small: Dict[str, np.ndarray]):
+def _ts_text_block_np(small: Dict[str, np.ndarray], ts_vals_fn=None):
     """The plain version of :func:`ts_text_block`: ``json_f64`` once
     per distinct stamp."""
     from ..utils.rustfmt import json_f64
 
-    uniq, inv = np.unique(_ts_vals(small), return_inverse=True)
+    vals = (_ts_vals(small) if ts_vals_fn is None
+            else ts_vals_fn(small, small["ok"].astype(bool)))
+    uniq, inv = np.unique(vals, return_inverse=True)
     txt = np.zeros((uniq.size, TS_W), dtype=np.uint8)
     ulen = np.zeros(uniq.size, dtype=np.int32)
     for u, val in enumerate(uniq):
@@ -328,7 +336,7 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
                         suffix: bytes, syslen: bool, scalar_fn,
                         fallback_frac: float, decline_limit: int,
                         cooldown: int, wide=None, elide=None,
-                        timings: Optional[dict] = None):
+                        timings: Optional[dict] = None, ts_vals_fn=None):
     """The device tier's fetch flow (the reference's decisions, in its
     order):
 
@@ -362,7 +370,9 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     ``assemble(ts_text, ts_len, row_off, total, n) -> flat`` on the
     batch's device, ``N`` rows, the output width ``OW`` and
     ``small_channels() -> (dict, nbytes)`` (the ``ok`` and timestamp
-    channels on the host).  Counts go to
+    channels on the host: the reference driver's ``ts_keys``, which the
+    row object knows; ``ts_vals_fn`` combines them when they are not the
+    calendar four, as :func:`ts_text_block` says).  Counts go to
     ``route_state``: ``taken``, ``declined``, ``cooled``, ``wide``,
     ``tier_rows``, ``fetch_bytes`` and ``emit_bytes`` beside the
     reference's hysteresis keys; ``timings`` (optional) collects the
@@ -449,7 +459,7 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     # only phase-1 candidates get timestamp text; the others carry a
     # placeholder and stay off the tier
     small["ok"] = small["ok"].astype(bool) & cand1
-    ts_np, ts_len_np = ts_text_block(small)
+    ts_np, ts_len_np = ts_text_block(small, ts_vals_fn)
     ts_text = torch.zeros((N, TS_W), dtype=torch.uint8)
     ts_len = torch.zeros(N, dtype=torch.int32)
     ts_text[:n] = torch.from_numpy(ts_np)

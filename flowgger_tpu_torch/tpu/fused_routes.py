@@ -2,32 +2,42 @@
 (in-format, out-format) pair, so the decode's span channels never leave
 the device between the decode and the encode.
 
-A trimmed copy of the JAX package's ``tpu/fused_routes.py`` with its two
-GELF legs of rfc5424 and rfc3164 input.  The split tier
-(``device_gelf`` / ``device_rfc3164``) runs the decode and the encode as
-two launches with the decode's channel tensor written to device memory
-in between; a fused route decodes and probes in one kernel and
-assembles in a second:
+A trimmed copy of the JAX package's ``tpu/fused_routes.py`` with its
+three GELF legs of rfc5424, rfc3164 and ltsv input.  The split tier
+(``device_gelf`` / ``device_rfc3164`` / ``device_ltsv``) runs the decode
+and the encode as two launches with the decode's channel tensor written
+to device memory in between; a fused route decodes and probes in one
+kernel and assembles in a second:
 
 - F1, ``rfc5424_gelf``: K1's row decode (6 pairs) and E1's probe in one
   warp, then E1's assemble (``csrc/fused_gelf.cu``);
 - F3, ``rfc3164_gelf``: D3's row decode and E3's probe, then E3's
-  assemble.
+  assemble;
+- FL, ``ltsv_gelf``: L1's row decode and EL's probe at 6 pairs, then
+  EL's assemble.
 
 One decode per taken batch: the probe decodes each row once, keeps the
 channels in shared memory for its encode, and writes the channels the
-encode reads (:data:`DEMAND`) for its tier rows to a device tensor that
-:class:`_FusedRows` keeps until the assemble, which reads them and runs
-no decode (``kernels.FUSED_CARRY`` int32 a row).  The reference's fused
-program decodes again in its assemble, since each call of a jitted
-program is whole; that is its structure, not its contract: the carried
+encode reads for its tier rows to a device tensor that :class:`_FusedRows`
+keeps until the assemble, which reads them and runs no decode
+(``kernels.FUSED_CARRY`` int32 a row, :func:`carried_columns`): for F1
+and F3 the :data:`DEMAND` channels, for FL what EL's assemble reads
+after pair selection and the sort (the sorted pairs' escaped spans, the
+host and message spans, the level), not the 24-part table.  The
+reference's fused program decodes again in its assemble, since each call
+of a jitted program is whole; that is its structure, not its contract: the carried
 channels are the same function of the same batch, so the bytes are the
 same.  An assemble without the probe's channels raises.  The probe
 returns the tier bit before the width test and the length without the
 timestamp text, as the split tier's probe does, plus the ``ok`` and
 timestamp channels the driver formats the stamp text from; so the
 driver (``device_common.fetch_encode_driver``) needs no decode output at
-all.
+all (FL's timestamp channels are the reference's narrowed ones, and its
+host fetch is that of ``_ltsv_small_fetch``).
+
+A typed ``ltsv_schema`` keeps FL off, as it keeps the split ltsv tier
+off: the route's gate takes the handler's decoder, as the reference's
+``FusedRoute.route_ok(encoder, merger, decoder)`` does.
 
 The decline ladder is the reference's: a fused route keeps its own
 hysteresis state (:func:`cooldown_state`, key ``fused:<route>``), whose
@@ -40,7 +50,7 @@ reference passes its driver none).
 Left out, on purpose: the fused compile watchdog and
 ``FLOWGGER_FUSED_COMPILE_TIMEOUT_MS`` (the CUDA kernels build once,
 before the first batch, and a failed build raises), the AOT
-``fused_wrap``, the metrics registry and the six other routes of the
+``fused_wrap``, the metrics registry and the five other routes of the
 reference's ``ROUTES``.
 
 Plain versions (the CPU): the format's plain decode, narrowed to
@@ -86,14 +96,33 @@ DEMAND = {
         "ok", "has_pri", "has_high", "severity", *_TS4,
         "host_start", "host_end", "msg_start",
     )),  # drops: facility
+    "ltsv_gelf": frozenset((
+        "ok", "has_high", "n_parts", "part_start", "part_end",
+        "colon_pos", "time_pos", "host_pos", "msg_pos", "level_pos",
+        "host_start", "host_end", "msg_start", "msg_end", "level_val",
+        "ts_kind", "ts_hi", "ts_lo", "ts_meta", *_TS4,
+    )),  # drops: ts_start, ts_end
 }
+# FL's carried row: the row values EL's assemble reads, then each sorted
+# pair's four escaped span ends (fused_gelf.cu kCarryL)
+_LTSV_CARRY_ROW = ("pair_count", "host_s", "host_e", "msg_s", "msg_e",
+                   "has_msg", "level")
+_LTSV_CARRY_PAIR = ("ns", "ne", "vs", "ve")
 
 
 def carried_columns(route: str):
     """The channels of one row of a fused probe's carried tensor, in
-    order, as ``(key, slot)`` (slot None for a row channel): the split
-    decode's packed layout (``rfc5424.unpack_channels`` at 4 SD elements
-    and 6 pairs, ``rfc3164.KEYS``) narrowed to ``DEMAND[route]``."""
+    order, as ``(key, slot)`` (slot None for a row channel): for F1 and
+    F3 the split decode's packed layout (``rfc5424.unpack_channels`` at
+    4 SD elements and 6 pairs, ``rfc3164.KEYS``) narrowed to
+    ``DEMAND[route]``; for FL the keys of ``device_ltsv.select_rows``
+    (the row values, then the four spans of each of the 6 sorted pairs,
+    slot = pair)."""
+    if route == "ltsv_gelf":
+        from .device_ltsv import MAX_DEV_PAIRS
+
+        return [(k, None) for k in _LTSV_CARRY_ROW] + [
+            (k, p) for p in range(MAX_DEV_PAIRS) for k in _LTSV_CARRY_PAIR]
     demand = DEMAND[route]
     if route == "rfc3164_gelf":
         from .rfc3164 import KEYS
@@ -109,10 +138,21 @@ def carried_columns(route: str):
     return cols
 
 
-def carried_plain(dec: Dict[str, torch.Tensor], route: str) -> torch.Tensor:
+def carried_plain(dec: Dict[str, torch.Tensor], route: str, batch=None,
+                  lens=None) -> torch.Tensor:
     """The carried channels of every row from a plain decode, int32
-    [N, C] (the kernel writes only its probe's tier rows)."""
-    cols = [dec[k] if s is None else dec[k][:, s]
+    [N, C] (the kernel writes only its probe's tier rows).  FL's are
+    computed from the decode and the batch (``batch``, ``lens``) by the
+    plain encode's pair selection and sort."""
+    if route == "ltsv_gelf":
+        from .device_common import escape_stage
+        from .device_ltsv import MAX_DEV_PAIRS, select_rows
+
+        dec = select_rows(batch, lens, dec,
+                          escape_stage(batch, lens, False)["dmap"],
+                          MAX_DEV_PAIRS)
+    cols = [dec[k] if s is None else
+            (dec[k][s] if isinstance(dec[k], list) else dec[k][:, s])
             for k, s in carried_columns(route)]
     return torch.stack([c.to(torch.int32) for c in cols], dim=1)
 
@@ -149,6 +189,8 @@ class _FusedRows:
         self.carried = None    # the kernel's (chan, tier), kept from it
         if route.fmt == "rfc3164":
             from . import device_rfc3164 as split
+        elif route.fmt == "ltsv":
+            from . import device_ltsv as split
         else:
             from . import device_gelf as split
         self.split = split
@@ -164,6 +206,10 @@ class _FusedRows:
             from .rfc3164 import decode_rfc3164
 
             dec = decode_rfc3164(self.batch, self.lens, self.year)
+        elif self.route.fmt == "ltsv":
+            from .ltsv import decode_ltsv
+
+            dec = decode_ltsv(self.batch, self.lens)
         else:
             from .rfc5424 import decode_rfc5424
 
@@ -172,7 +218,7 @@ class _FusedRows:
         return {k: v for k, v in dec.items() if k in demand}
 
     def _plain_encode(self, dec, **kw):
-        if self.route.fmt == "rfc3164":
+        if self.route.fmt in ("rfc3164", "ltsv"):
             return self.split.encode_rows(self.batch, self.lens, dec,
                                           suffix=self.suffix,
                                           extras=self.extras, **kw)
@@ -186,7 +232,8 @@ class _FusedRows:
     def probe(self, n: int):
         """``(base, base_len)`` of the first ``n`` rows, as the split
         tier's probe; keeps the ``ok`` and timestamp channels (int32
-        [5, N]: ok, days, sod, off, nanos; 0 past ``n``)."""
+        [5, N]: ok, days, sod, off, nanos; for FL the narrowed buffer of
+        ``device_ltsv.small_pack``; 0 past ``n``)."""
         if self.batch.is_cuda:
             from .kernels import fused_gelf_cuda
 
@@ -197,9 +244,12 @@ class _FusedRows:
             return base, base_len
         dec = self.dec = self._plain_decode()
         live = torch.arange(self.N, device=self.device) < n
-        self.small = torch.stack([
-            torch.where(live, dec[k].to(torch.int32), 0)
-            for k in ("ok",) + _TS4])
+        if self.route.fmt == "ltsv":
+            self.small = self.split.small_pack(dec, n)
+        else:
+            self.small = torch.stack([
+                torch.where(live, dec[k].to(torch.int32), 0)
+                for k in ("ok",) + _TS4])
         return self._plain_encode(dec, assemble=False, n=n)
 
     def assemble(self, ts_text, ts_len, row_off, total, n: int):
@@ -222,6 +272,9 @@ class _FusedRows:
         return flat_rows(rows, out_len, row_off, total)
 
     def small_channels(self, n: int):
+        if self.route.fmt == "ltsv":
+            # the reference's _ltsv_small_fetch
+            return self.split.small_fetch(self.small, self.N, n)
         h = self.small[:, :n].cpu().numpy()
         small = {"ok": h[0] != 0, "days": h[1], "sod": h[2], "off": h[3],
                  "nanos": h[4]}
@@ -237,27 +290,42 @@ class FusedRoute:
         self.name = name
         self.fmt = fmt
 
-    def route_ok(self, encoder, merger) -> bool:
+    def route_ok(self, encoder, merger, decoder=None) -> bool:
         """The split device tier's gate (GELF output, framing allowlist,
-        extras placement, ``FLOWGGER_DEVICE_ENCODE``): a route the split
-        tier would refuse is never fused either."""
+        extras placement, ``FLOWGGER_DEVICE_ENCODE``, and for ltsv the
+        decoder's schema): a route the split tier would refuse is never
+        fused either."""
         if self.fmt == "rfc3164":
             from . import device_rfc3164
 
             return device_rfc3164.route_ok(encoder, merger)
+        if self.fmt == "ltsv":
+            from . import device_ltsv
+
+            return device_ltsv.route_ok(encoder, merger, decoder)
         from . import device_gelf
 
         return device_gelf.route_ok(encoder, merger)
 
-    def make_kernel(self, handle: FusedHandle, encoder, merger):
+    def make_kernel(self, handle: FusedHandle, encoder, merger,
+                    decoder=None):
         """The driver's row object plus its kwargs (scalar oracle, the
-        elided constants)."""
+        elided constants, the ltsv stamp combine)."""
         from .block_common import merger_suffix
 
         suffix, syslen = merger_suffix(merger)
         extras = tuple((k, v) for k, v in encoder.extra)
         year = None
-        if self.fmt == "rfc3164":
+        ts_vals_fn = None
+        if self.fmt == "ltsv":
+            from .device_ltsv import elide_spec, ts_vals_ltsv
+            from .materialize_ltsv import _scalar_ltsv
+
+            def scalar_fn(line):
+                return _scalar_ltsv(decoder, line)
+
+            ts_vals_fn = ts_vals_ltsv
+        elif self.fmt == "rfc3164":
             from ..utils.timeparse import current_year_utc
             from .device_rfc3164 import elide_spec
             from .materialize_rfc3164 import _scalar_3164 as scalar_fn
@@ -270,23 +338,27 @@ class FusedRoute:
                           extras, year)
         return kern, {"suffix": suffix, "syslen": syslen,
                       "scalar_fn": scalar_fn,
-                      "elide": elide_spec(suffix, extras)}
+                      "elide": elide_spec(suffix, extras),
+                      "ts_vals_fn": ts_vals_fn}
 
 
 ROUTES = {
     "rfc5424": FusedRoute("rfc5424_gelf", "rfc5424"),
     "rfc3164": FusedRoute("rfc3164_gelf", "rfc3164"),
+    "ltsv": FusedRoute("ltsv_gelf", "ltsv"),
 }
 
 
-def route_for(fmt: str, encoder, merger) -> Optional[FusedRoute]:
-    """The registered fused route for this (fmt, encoder, merger)
-    config, or None when no fused program applies (the split path is
-    then the route — ``input.tpu_fuse = "auto"`` semantics).  Every
-    route here is a GELF leg, so its split tier's gate (which takes only
-    the GELF encoder) decides."""
+def route_for(fmt: str, encoder, merger,
+              decoder=None) -> Optional[FusedRoute]:
+    """The registered fused route for this (fmt, encoder, merger,
+    decoder) config, or None when no fused program applies (the split
+    path is then the route — ``input.tpu_fuse = "auto"`` semantics).
+    Every route here is a GELF leg, so its split tier's gate (which
+    takes only the GELF encoder, and for ltsv no typed schema)
+    decides."""
     route = ROUTES.get(fmt)
-    if route is None or not route.route_ok(encoder, merger):
+    if route is None or not route.route_ok(encoder, merger, decoder):
         return None
     return route
 
@@ -313,7 +385,7 @@ def submit(route: FusedRoute, packed, device=None) -> FusedHandle:
 
 
 def fetch_encode(handle: FusedHandle, packed, encoder, merger,
-                 route_state=None, timings=None):
+                 route_state=None, timings=None, decoder=None):
     """Run the fused route for a submitted handle through the shared
     fetch driver; returns (BlockResult | None, fetch_seconds).  None =
     the fused tier declined (the tier fraction) — the caller falls back
@@ -324,9 +396,9 @@ def fetch_encode(handle: FusedHandle, packed, encoder, merger,
     state = None
     if route_state is not None:
         state = cooldown_state(route_state, route)
-    kern, kw = route.make_kernel(handle, encoder, merger)
+    kern, kw = route.make_kernel(handle, encoder, merger, decoder)
     return fetch_encode_driver(
         kern, packed, encoder, merger, state, kw["suffix"], kw["syslen"],
         scalar_fn=kw["scalar_fn"], fallback_frac=FALLBACK_FRAC,
         decline_limit=DECLINE_LIMIT, cooldown=COOLDOWN,
-        elide=kw["elide"], timings=timings)
+        elide=kw["elide"], timings=timings, ts_vals_fn=kw["ts_vals_fn"])

@@ -24,11 +24,16 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
   ``device_rfc3164._encode_kernel``);
 - ``decode_rfc3164`` — D3, the per-row RFC3164 channels (replaces the jnp
   ``rfc3164.decode_rfc3164``, not a ``pallas_call``);
+- ``decode_ltsv`` — L1, the per-row LTSV channels of 24 parts (replaces
+  the jnp ``ltsv.decode_ltsv``, not a ``pallas_call``); beside E1 and E3
+  in ``encode_gelf``, EL, the LTSV→GELF encode of the split ltsv tier at
+  6 and 16 pairs (replaces the jnp ``device_ltsv._encode_kernel``);
 - ``fused_gelf`` — the fused routes F1 (rfc5424→GELF: K1's row decode and
   E1's probe in one kernel, then E1's assemble from the channels the
-  probe carried) and F3 (rfc3164→GELF: D3's and E3's), replacing the
-  jnp + Pallas ``fused_routes._fused_rfc5424_gelf`` and the jnp
-  ``_fused_rfc3164_gelf``.
+  probe carried), F3 (rfc3164→GELF: D3's and E3's) and FL (ltsv→GELF:
+  L1's and EL's), replacing the jnp + Pallas
+  ``fused_routes._fused_rfc5424_gelf`` and the jnp
+  ``_fused_rfc3164_gelf`` and ``_fused_ltsv_gelf``.
 
 The one-warp-a-row kernels share their device code through headers in
 ``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
@@ -48,8 +53,9 @@ raises.  The plain PyTorch versions live beside the dispatchers that
 choose between them by the tensor's device (``framing.sep_spans``,
 ``framing.syslen_spans``, ``framing.gather``,
 ``rfc5424.decode_rfc5424_submit``, ``rfc3164.decode_rfc3164_submit``,
-``jsonl.decode_jsonl_submit``, ``device_gelf._Rows``,
-``device_rfc3164._Rows`` and ``fused_routes._FusedRows``).
+``jsonl.decode_jsonl_submit``, ``ltsv.decode_ltsv_submit``,
+``device_gelf._Rows``, ``device_rfc3164._Rows``, ``device_ltsv._Rows``
+and ``fused_routes._FusedRows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -79,6 +85,7 @@ _SOURCES = {
     "encode_gelf": "encode_gelf.cu",
     "decode_rfc3164": "decode_rfc3164.cu",
     "fused_gelf": "fused_gelf.cu",
+    "decode_ltsv": "decode_ltsv.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -96,7 +103,11 @@ LAUNCHES: Dict[str, int] = {
     "decode_rfc3164": 0,
     "encode_gelf3164_probe": 0, "encode_gelf3164_assemble": 0,
     "fused_rfc5424_gelf_probe": 0, "fused_rfc5424_gelf_assemble": 0,
-    "fused_rfc3164_gelf_probe": 0, "fused_rfc3164_gelf_assemble": 0}
+    "fused_rfc3164_gelf_probe": 0, "fused_rfc3164_gelf_assemble": 0,
+    "decode_ltsv": 0,
+    "encode_gelf_ltsv_probe_p6": 0, "encode_gelf_ltsv_assemble_p6": 0,
+    "encode_gelf_ltsv_probe_p16": 0, "encode_gelf_ltsv_assemble_p16": 0,
+    "fused_ltsv_gelf_probe": 0, "fused_ltsv_gelf_assemble": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,6 +139,15 @@ _SIGNATURES = {
         "fg_encode_gelf3164_probe": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
         "fg_encode_gelf3164_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P, _P,
                                                     _P),
+        **{f"fg_encode_gelf_ltsv_probe_p{p}": (_P, _P, _P, _P, _I, _I, _I,
+                                               _P, _P, _P, _P)
+           for p in (6, 16)},
+        **{f"fg_encode_gelf_ltsv_assemble_p{p}": (_P,) * 7 + (_I, _I, _I, _I,
+                                                              _P, _P, _P)
+           for p in (6, 16)},
+    },
+    "decode_ltsv": {
+        "fg_decode_ltsv": (_P, _P, _P, _I, _I, _I, _P),
     },
     "decode_rfc3164": {
         "fg_decode_rfc3164": (_P, _P, _I, _P, _I, _I, _P),
@@ -142,21 +162,29 @@ _SIGNATURES = {
                                         _P, _P, _P),
         "fg_fused_rfc3164_gelf_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P,
                                                        _P, _P),
+        "fg_fused_ltsv_gelf_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                     _P),
+        "fg_fused_ltsv_gelf_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P, _P,
+                                                    _P),
     },
 }
 _TILE_BYTES = 16384  # kTile in frame_sep_spans.cu
-# decode_rfc5424.cu, decode_rfc3164.cu and structural_index.cu stage kWarps rows, each
-# padded to 16 bytes (decode_rfc5424.cu also its class masks past each
-# row: _rfc5424_stage_bytes), in dynamic shared memory beside their
-# static per-warp sums and channel tile (< 8 KiB and < 12 KiB), within
-# the 227 KiB a block may use
+# decode_rfc5424.cu, decode_rfc3164.cu, decode_ltsv.cu and
+# structural_index.cu stage kWarps rows, each padded to 16 bytes
+# (decode_rfc5424.cu also its class masks past each row:
+# _rfc5424_stage_bytes), in dynamic shared memory beside their static
+# per-warp sums and channel tile (< 8 KiB and < 12 KiB), within the
+# 227 KiB a block may use
 _DECODE_ROWS_PER_BLOCK = 8
 _DECODE_STAGING_BYTES = 219 * 1024
 _INDEX_STAGING_BYTES = 215 * 1024
 # int32 entries a row of the fused routes' carried channel tensor: the
 # channels fused_routes.DEMAND names (F1: 18 row channels, 2 x 4 SD
-# spans, 5 x 6 pair channels; F3: 11); fused_gelf.cu kCarry5 / kCarry3
-FUSED_CARRY = {"rfc5424": 56, "rfc3164": 11}
+# spans, 5 x 6 pair channels; F3: 11); fused_gelf.cu kCarry5 / kCarry3;
+# FL: EL's selection after the sort (7 row values, 4 x 6 pair spans;
+# encode_ltsv_row.cuh kCarryL, fused_routes.carried_columns)
+FUSED_CARRY = {"rfc5424": 56, "rfc3164": 11, "ltsv": 31}
+
 
 
 def _rfc5424_stage_bytes(L: int) -> int:
@@ -502,6 +530,31 @@ def decode_rfc3164_cuda(batch: torch.Tensor, lens: torch.Tensor,
     return out
 
 
+def decode_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """L1: the LTSV channels of ``batch`` (u8 [N, L]) as one int32
+    ``[94, N]`` tensor on the device (``ltsv.unpack_channels`` splits
+    it); rows at and past ``n`` are padding (an empty row's channels,
+    their bytes never read)."""
+    from .ltsv import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or not 1 <= L < 1 << 15 or not 0 <= n <= N:
+        raise ValueError(f"bad ltsv decode geometry L={L} n={n} N={N}")
+    if _DECODE_ROWS_PER_BLOCK * 16 * (-(-L // 16)) > _DECODE_STAGING_BYTES:
+        raise ValueError(f"rows of {L} bytes exceed the decode kernel's "
+                         "shared-memory staging")
+    out = torch.empty((n_channels(), N), dtype=torch.int32,
+                      device=batch.device)
+    rc = _lib("decode_ltsv").fg_decode_ltsv(
+        batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, n, L, _stream())
+    _check(rc, "decode_ltsv")
+    LAUNCHES["decode_ltsv"] += 1
+    return out
+
+
 def _assemble_args(N: int, OW: int, ts_text, ts_len, row_off):
     from .device_common import TS_W
 
@@ -563,6 +616,64 @@ def encode_gelf3164_cuda(batch: torch.Tensor, lens: torch.Tensor,
     return flat
 
 
+def encode_gelf_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                          channels: torch.Tensor, n: int, bank: torch.Tensor,
+                          consts, max_pairs: int, OW: int = 0,
+                          ts_text: Optional[torch.Tensor] = None,
+                          ts_len: Optional[torch.Tensor] = None,
+                          row_off: Optional[torch.Tensor] = None,
+                          total: int = 0):
+    """EL, the device GELF encode of the first ``n`` rows of an ltsv
+    ``batch`` at ``max_pairs`` = 6 or 16 from the L1 kernel's packed
+    ``channels`` (int32 [94, N]) and the constant bank (``consts``:
+    ``device_ltsv.kernel_consts``'s table).  The contract of
+    :func:`encode_gelf_cuda`: without ``row_off`` the probe ``(base bool
+    [N], base_len int32 [N])``, with it the assemble's u8 [total]
+    buffer.  The probe also returns the narrowed stamp channels, a u8
+    ``[25 N]`` buffer (``device_ltsv.small_pack``'s layout):
+    ``(base, base_len, small)``."""
+    from .device_ltsv import SMALL_BYTES
+    from .ltsv import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(channels, "channels", torch.int32, 2)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if max_pairs not in (6, 16):
+        raise ValueError(f"no encode_gelf_ltsv kernel for max_pairs="
+                         f"{max_pairs}")
+    if channels.shape != (n_channels(), N) or lens.shape[0] != N:
+        raise ValueError("channels must be the [94, N] ltsv decode output "
+                         "and lens one entry per row")
+    if not 1 <= L < 1 << 15 or not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L} n={n} N={N}")
+    dev = batch.device
+    lib = _lib("encode_gelf")
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        small = torch.empty(SMALL_BYTES * N, dtype=torch.uint8, device=dev)
+        rc = getattr(lib, f"fg_encode_gelf_ltsv_probe_p{max_pairs}")(
+            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
+            N, n, L, tier.data_ptr(), base_len.data_ptr(), small.data_ptr(),
+            _stream())
+        _check(rc, "encode_gelf_ltsv probe")
+        LAUNCHES[f"encode_gelf_ltsv_probe_p{max_pairs}"] += 1
+        return tier, base_len, small
+    _assemble_args(N, OW, ts_text, ts_len, row_off)
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    rc = getattr(lib, f"fg_encode_gelf_ltsv_assemble_p{max_pairs}")(
+        batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+        ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
+        L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
+    _check(rc, "encode_gelf_ltsv assemble")
+    LAUNCHES[f"encode_gelf_ltsv_assemble_p{max_pairs}"] += 1
+    return flat
+
+
 def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
                     n: int, bank: torch.Tensor, consts, year=None,
                     OW: int = 0, ts_text: Optional[torch.Tensor] = None,
@@ -573,11 +684,15 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
     """A fused route's kernel on the first ``n`` rows of ``batch`` (u8
     [N, L]): F1 for ``fmt = "rfc5424"`` (K1's decode at 6 pairs, then E1;
     ``consts`` is ``device_gelf.kernel_consts``'s table), F3 for
-    ``"rfc3164"`` (D3 for ``year``, then E3; ``device_rfc3164``'s table).
+    ``"rfc3164"`` (D3 for ``year``, then E3; ``device_rfc3164``'s table),
+    FL for ``"ltsv"`` (L1, then EL at 6 pairs; ``device_ltsv``'s
+    table).
 
     Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
     small int32 [5, N], chan int32 [N, C])``, the split probe's outputs,
-    the ok, days, sod, off and nanos channels (zeros at and past ``n``),
+    the ok, days, sod, off and nanos channels (int32 [5, N], zeros at and
+    past ``n``; FL: the narrowed u8 [25 N] buffer of
+    ``device_ltsv.small_pack``),
     and the carried channels: row r of ``chan`` holds the C =
     :data:`FUSED_CARRY` channels the encode reads where ``base[r]`` is
     set, and is not written elsewhere.  With ``row_off``, ``ts_text``,
@@ -596,7 +711,7 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
     _need(lens, "lens", torch.int32, 1)
     _need(bank, "bank", torch.uint8, 1)
     N, L = batch.shape
-    if fmt not in ("rfc5424", "rfc3164"):
+    if fmt not in ("rfc5424", "rfc3164", "ltsv"):
         raise ValueError(f"no fused GELF route for {fmt}")
     if fmt == "rfc3164" and year is None and not assembling:
         raise ValueError("the rfc3164 route needs the year")
@@ -609,10 +724,16 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
     name = f"fused_{fmt}_gelf"
     if not assembling:
         lib = _lib("fused_gelf")
-        yr = () if fmt == "rfc5424" else (int(year),)
+        yr = (int(year),) if fmt == "rfc3164" else ()
         base = torch.empty(N, dtype=torch.bool, device=dev)
         base_len = torch.empty(N, dtype=torch.int32, device=dev)
-        small = torch.empty((5, N), dtype=torch.int32, device=dev)
+        if fmt == "ltsv":
+            from .device_ltsv import SMALL_BYTES
+
+            small = torch.empty(SMALL_BYTES * N, dtype=torch.uint8,
+                                device=dev)
+        else:
+            small = torch.empty((5, N), dtype=torch.int32, device=dev)
         carried = torch.empty((N, C), dtype=torch.int32, device=dev)
         rc = getattr(lib, f"fg_{name}_probe")(
             batch.data_ptr(), lens.data_ptr(), *yr, consts, N, n, L,

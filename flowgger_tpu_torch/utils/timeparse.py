@@ -1,6 +1,7 @@
 """Calendar math, RFC3339 parsing for the scalar RFC5424 oracle, the
-BSD-syslog date parse of the scalar RFC3164 oracle, and the
-receive-time stamp of the JSON-lines oracle.
+BSD-syslog date parse of the scalar RFC3164 oracle, the Apache-style
+date parse of the scalar LTSV oracle, and the receive-time stamp of the
+JSON-lines oracle.
 
 Behavioral model: the reference's use of the ``time`` crate — RFC3339 →
 unix f64 with nanosecond precision (rfc5424_decoder.rs:94-103,
@@ -215,3 +216,55 @@ def parse_rfc3164_ts(tokens, has_year: bool) -> Tuple[float, int]:
         if off is not None:
             return float((total - off) * 1_000_000_000 / 1e9), idx + 1
     return float(total * 1_000_000_000 / 1e9), idx
+
+
+def parse_english_time(s: str) -> float:
+    """Apache-style ``d/Mon/yyyy:hh:mm:ss[.frac] ±zzzz`` → unix f64
+    (ltsv_decoder.rs:224-253; day has no padding, offset is mandatory
+    with sign, 4-digit ``hhmm``)."""
+    # split date part and offset part on the single space
+    sp = s.find(" ")
+    if sp < 0:
+        raise ValueError("missing offset")
+    dt_part, off_part = s[:sp], s[sp + 1:]
+    if len(off_part) != 5 or off_part[0] not in "+-":
+        raise ValueError("bad offset")
+    if not _ascii_digits(off_part[1:]):
+        raise ValueError("bad offset")
+    oh, om = int(off_part[1:3]), int(off_part[3:5])
+    offset = oh * 3600 + om * 60
+    if off_part[0] == "-":
+        offset = -offset
+
+    comps = dt_part.split(":")
+    if len(comps) != 4:
+        raise ValueError("bad datetime")
+    date_s, hh_s, mm_s, ss_s = comps
+    dmy = date_s.split("/")
+    if len(dmy) != 3:
+        raise ValueError("bad date")
+    day_s, mon_s, year_s = dmy
+    if not (_ascii_digits(day_s) and _ascii_digits(year_s)):
+        raise ValueError("bad date")
+    month = _MONTH_IDX.get(mon_s)
+    if month is None:
+        raise ValueError("bad month")
+    day, year = int(day_s), int(year_s)
+    nanos = 0
+    if "." in ss_s:
+        sec_s, frac_s = ss_s.split(".", 1)
+        if not (_ascii_digits(frac_s) and 1 <= len(frac_s) <= 9):
+            raise ValueError("bad subsecond")
+        nanos = int(frac_s) * 10 ** (9 - len(frac_s))
+    else:
+        sec_s = ss_s
+    if not (_ascii_digits(hh_s) and _ascii_digits(mm_s)
+            and _ascii_digits(sec_s)):
+        raise ValueError("bad time")
+    hour, minute, sec = int(hh_s), int(mm_s), int(sec_s)
+    if not (1 <= month <= 12 and 1 <= day <= days_in_month(year, month)
+            and hour <= 23 and minute <= 59 and sec <= 59):
+        raise ValueError("bad date/time")
+    days = days_from_civil(year, month, day)
+    total = days * 86400 + hour * 3600 + minute * 60 + sec - offset
+    return (total * 1_000_000_000 + nanos) / 1e9

@@ -181,3 +181,108 @@ def test_host_ab_plain_side_never_loads_the_native_library(monkeypatch):
     with chip_smoke.host_side("plain"):
         assert run() == shipped
     assert native._lib is None
+
+
+def test_ltsv_cases_check_and_record_their_shapes(monkeypatch):
+    """L1's, EL's and FL's chip checks on the CPU, each wrapper standing
+    in with the plain version (and counting its launch): every case runs
+    its probe, its assemble and the fused route's carried selection
+    through the comparisons, records its checked shapes, and a stand-in
+    that differs from the plain version fails the check."""
+    import pytest
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_ltsv_tier_corpus
+    from flowgger_tpu_torch.tpu import (device_gelf, device_ltsv,
+                                        fused_routes, kernels, ltsv, pack)
+
+    def packed_of(dec):
+        rows = [dec[k].to(torch.int32) for k in ltsv.KEYS_1D]
+        return torch.cat([torch.stack(rows)]
+                         + [dec[k].t() for k in ltsv.KEYS_PART]).contiguous()
+
+    def decode(b, l, n):
+        kernels.LAUNCHES["decode_ltsv"] += 1
+        return packed_of(ltsv.decode_ltsv(b, l, n=n))
+
+    def encode(b, l, ch, n, bank, table, P, OW=0, ts_text=None, ts_len=None,
+               row_off=None, total=0):
+        dec = ltsv.unpack_channels(ch)
+        kw = {"suffix": b"\0", "max_pairs": P}
+        if row_off is None:
+            kernels.LAUNCHES[f"encode_gelf_ltsv_probe_p{P}"] += 1
+            base, base_len = device_ltsv.encode_rows(b, l, dec,
+                                                     assemble=False, n=n,
+                                                     **kw)
+            return base, base_len, device_ltsv.small_pack(dec, n)
+        kernels.LAUNCHES[f"encode_gelf_ltsv_assemble_p{P}"] += 1
+        rows, out_len, _ = device_ltsv.encode_rows(b, l, dec, ts_text,
+                                                   ts_len, **kw)
+        return device_gelf.flat_rows(rows, out_len, row_off, total)
+
+    def fused(fmt, b, l, n, bank, table, year=None, OW=0, ts_text=None,
+              ts_len=None, row_off=None, total=0, chan=None, tier=None):
+        dec = ltsv.decode_ltsv(b, l, n=n)
+        if row_off is not None:
+            return assemble_launch(fmt, b, l, n, bank, table, OW, ts_text,
+                                   ts_len, row_off, total, chan)
+        kernels.LAUNCHES["fused_ltsv_gelf_probe"] += 1
+        base, base_len = device_ltsv.encode_rows(
+            b, l, dec, suffix=b"\0", assemble=False, n=n)
+        carried = fused_routes.carried_plain(dec, "ltsv_gelf", b, l)
+        return (base, base_len, device_ltsv.small_pack(dec, n),
+                torch.where(base[:, None], carried, -1))
+
+    def assemble_launch(fmt, b, l, n, bank, table, OW, ts_text, ts_len,
+                        row_off, total, chan):
+        kernels.LAUNCHES["fused_ltsv_gelf_assemble"] += 1
+        rows, out_len, _ = device_ltsv.encode_rows(
+            b, l, ltsv.decode_ltsv(b, l, n=n), ts_text, ts_len,
+            suffix=b"\0")
+        return device_gelf.flat_rows(rows, out_len, row_off, total)
+
+    monkeypatch.setattr(kernels, "decode_ltsv_cuda", decode)
+    monkeypatch.setattr(kernels, "encode_gelf_ltsv_cuda", encode)
+    monkeypatch.setattr(kernels, "fused_gelf_cuda", fused)
+    monkeypatch.setattr(kernels, "fused_assemble_launch", assemble_launch)
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "CHECKED", set())
+    # short rows at a narrow width: the plain versions run many times
+    lines = [b"time:%d.5\thost:h%d\tk%d:v\tmessage:m" % (1760000000 + i, i,
+                                                          i % 3)
+             for i in range(150)] + make_ltsv_tier_corpus(30, seed=5)[0]
+    batch, lens, *_ = pack.pack_lines_2d(lines, 64)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    N, n = bt.shape[0], 170
+    row, ref = chip_smoke.l1_case(bt, lt, n)
+    assert row["name"] == "decode_ltsv" and row["max_abs_err"] == 0.0
+    assert not ref["ok"][n:].any()
+    names = []
+    for kind in ("el6", "el16", "fl"):
+        out = chip_smoke.ltsv_route_case(kind, bt, lt, n)
+        assert [r["max_abs_err"] for r in out] == [0.0, 0.0]
+        assert all(r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+                   for r in out)
+        names += [r["name"] for r in out]
+    assert names == ["encode_gelf_ltsv_probe_p6",
+                     "encode_gelf_ltsv_assemble_p6",
+                     "encode_gelf_ltsv_probe_p16",
+                     "encode_gelf_ltsv_assemble_p16", "fused_ltsv_gelf_probe",
+                     "fused_ltsv_gelf_assemble"]
+    assert chip_smoke.CHECKED == {(k, (N, 64)) for k in
+                                  ["decode_ltsv", *names]}
+    with chip_smoke.launch_shapes() as seen:
+        kernels.decode_ltsv_cuda(bt, lt, n)
+    assert seen == {("decode_ltsv", (N, 64))}
+
+    def wrong(b, l, n):
+        out = decode(b, l, n)
+        out[ltsv.KEYS_1D.index("ts_lo")] += 1
+        return out
+
+    monkeypatch.setattr(kernels, "decode_ltsv_cuda", wrong)
+    with pytest.raises(AssertionError, match="differ"):
+        chip_smoke.l1_case(bt, lt, n)

@@ -148,7 +148,7 @@ def test_gelf_extra_static_keys_honored(tmp_path, monkeypatch, capsys):
 BAD_CONFIGS = [
     ('[input]\ntype = "tcp"\nformat = "rfc5424_tpu"\n', "input.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424"\n', "input.format"),
-    ('[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n', "input.format"),
+    ('[input]\ntype = "stdin"\nformat = "gelf_tpu"\n', "input.format"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "capnp"\n',
      "input.framing"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
