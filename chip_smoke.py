@@ -12,9 +12,9 @@ Phases, each printing JSON lines:
    sources compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
-   bytes as ``nvcc -Xptxas -v`` reports them (E1's and EL's four
-   instantiations, E3's, F1's, F3's and FL's two each, D3 and L1 must be
-   among them);
+   bytes as ``nvcc -Xptxas -v`` reports them (E1's, EL's and EG's four
+   instantiations, E3's, F1's, F3's, FL's and FG's two each, D3, L1 and
+   K5 at 8, 16 and 24 fields must be among them);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each (K2 and K3 checked again on a launch after
@@ -50,13 +50,20 @@ Phases, each printing JSON lines:
    FL (probe with its narrowed stamp channels and each tier row's carried
    selection, then assemble) on a gathered [16384, 512] batch of the ltsv
    tier mix, on the flush batches of both ltsv paths and on 256 rows;
+   K5's flat mode (``nested = 0``, the GELF decode) at 8, 16 and 24
+   fields (every channel), its split encode EG at 8 and 16 fields and
+   its fused route FG (probe with its stamp channels and each tier row's
+   carried selection, then assemble) on a gathered [16384, 512] batch of
+   the gelf tier mix, on the flush batches of both gelf paths (and the
+   line path's 24-field rescue sub-batch) and on 256 rows;
 4. native — each export of the native host tier against its plain
    numpy or Python version, byte for byte, at the e2e runs' shapes (the
    tier path's stamps and constant splice, the jsonl path's body
    gather, the GELF row engine against the numpy engine on the rfc5424
    path's flush batch), with the host-clock time of both;
 5. breakdown — the host-clock wall of each stage of the RFC5424, the
-   JSON-lines and the LTSV paths over eight full regions each (framing, decode, block
+   JSON-lines, the LTSV and the GELF paths over four full regions each
+   (``AB_BATCHES``; framing, decode, block
    encode split into its engine and its oracle rows, sink write; the
    RFC5424 path again on the block encoder's numpy engine, which must
    write the same bytes), and of the tier mix through the device encode
@@ -66,22 +73,24 @@ Phases, each printing JSON lines:
    (``encode_ab``) what the split tier costs the rfc5424 mix, which it
    declines: one batch's decline alone, and the rfc5424 / line
    configuration in process with the tier on and off, alternating; then
-   (``fuse_ab``) the three tier mixes with ``input.tpu_fuse`` "auto" and
+   (``fuse_ab``) the four tier mixes with ``input.tpu_fuse`` "auto" and
    "off" in one process (block-encode walls, launches; the same bytes),
    and the device ms of F1 (probe + assemble from the carried channels)
    against K1 + E1 probe + E1 assemble, of F3 against D3 + E3 probe +
-   E3 assemble and of FL against L1 + EL probe + EL assemble at a flush
-   batch;
-6. e2e    — eight configurations through the port's entry points on
+   E3 assemble, of FL against L1 + EL probe + EL assemble and of FG
+   against K5/0 + EG probe + EG assemble at a flush batch;
+6. e2e    — ten configurations through the port's entry points on
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing, ``--lines``
-   lines), stdin → jsonl_tpu → GELF (line framing, 131 072 lines),
+   lines), stdin → jsonl_tpu → GELF (line framing, 65 536 lines),
    stdin → rfc5424_tpu → GELF (syslen framing, 65 536), stdin →
    rfc5424_tpu → GELF over the tier mix (line framing, ``--lines``),
    stdin → rfc3164_tpu → GELF (line framing, one day of BSD syslog,
    65 536), stdin → rfc3164_tpu → GELF over the rfc3164 tier mix
    (65 536), stdin → ltsv_tpu → GELF (line framing, access-log rows
-   with ltsv.org's labels, 131 072) and stdin → ltsv_tpu → GELF over
-   the ltsv tier mix (131 072); ``--lines`` defaults to 131 072.
+   with ltsv.org's labels, 131 072), stdin → ltsv_tpu → GELF over
+   the ltsv tier mix (131 072), stdin → gelf_tpu → GELF (line framing,
+   GELF 1.1 payloads, 65 536) and stdin → gelf_tpu → GELF over the gelf
+   tier mix (65 536); ``--lines`` defaults to 65 536.
    Each runs once in process through
    ``flowgger_tpu_torch.start`` with every kernel launch count reset
    just before and read just after (the run must launch each kernel of
@@ -100,7 +109,9 @@ Phases, each printing JSON lines:
    run's GELF bytes and stderr lines must equal the port's scalar path
    over the same bytes (``corpus.scalar_expectation``; for rfc3164 the
    decoder's own "Unable to parse" lines and the error lines each in
-   order, since a batch prints its oracle rows' before their errors),
+   order, since a batch prints its oracle rows' before their errors; for
+   gelf the wall-clock stamps of rows without a timestamp masked on both
+   sides, ``corpus.mask_wall_stamps``),
    and its stdout the ltsv decoder's "Missing value" notices in order
    (none for the other formats; the CLI's banner line first).
    Each reports the fused route's and the split device tier's batches
@@ -155,8 +166,14 @@ SYSLEN_LINES = 4 * BATCH    # lines of the syslen-framed e2e run
 RFC3164_LINES = 4 * BATCH   # lines of each rfc3164 e2e run (cut from 8 ×
                             # for time when the ltsv paths came)
 LTSV_LINES = 8 * BATCH      # lines of each ltsv e2e run
-JSONL_LINES = 8 * BATCH     # lines of the jsonl e2e run (cut from 16 × for
-                            # time when the rfc3164 paths came)
+JSONL_LINES = 4 * BATCH     # lines of the jsonl e2e run (cut from 16 × for
+                            # time when the rfc3164 paths came, from 8 ×
+                            # when the gelf paths came)
+GELF_LINES = 4 * BATCH      # lines of each gelf e2e run
+RFC5424_LINES = 4 * BATCH   # --lines default: the rfc5424 line paths (cut
+                            # from 8 × when the gelf paths came)
+AB_BATCHES = 4              # batches of the breakdowns, encode_ab and
+                            # fuse_ab (cut from 8 when the gelf paths came)
 BIG_REGION = 16 << 20       # bytes of K2's many-wave region
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -399,16 +416,24 @@ def phase_build():
             seen.add(r["function"])
             emit({"phase": "kernel_build", "source": source, **r})
     # E1's and EL's four instantiations (probe and assemble at 6 and 16
-    # pairs), E3's, F1's, F3's and FL's two each, D3 and L1
+    # pairs), EG's four (at 8 and 16 fields), E3's, F1's, F3's, FL's and
+    # FG's two each, D3 and L1, K5 nested and flat at 8 and 24 fields and
+    # flat at 16
     phases = ("false", "true")
     missing = ({f"{k}<{p}, {a}>" for k in ("encode_gelf_kernel",
                                             "encode_gelf_ltsv_kernel")
                 for p in (6, 16) for a in phases}
+               | {f"encode_gelf_gelf_kernel<{f}, {a}>" for f in (8, 16)
+                  for a in phases}
                | {f"{k}<{a}>" for k in ("encode_gelf3164_kernel",
                                          "fused_rfc5424_gelf_kernel",
                                          "fused_rfc3164_gelf_kernel",
-                                         "fused_ltsv_gelf_kernel")
+                                         "fused_ltsv_gelf_kernel",
+                                         "fused_gelf_gelf_kernel")
                   for a in phases}
+               | {f"structural_index_kernel<{f}, {a}>" for f in (8, 24)
+                  for a in phases}
+               | {"structural_index_kernel<16, true>"}
                | {"decode_rfc3164_kernel", "decode_ltsv_kernel"}) - seen
     if missing:
         raise AssertionError(f"no kernel_build line for {sorted(missing)}")
@@ -487,9 +512,9 @@ def sep_case(region, rlen: int, sep: int, strip_cr: bool, ncap: int,
 
 def decode_case(kind: str, width: int, batch, lens_c):
     """K1 at ``width`` pairs (``kind`` rfc5424) or K5 at ``width``
-    fields (``kind`` jsonl) against its plain version on every channel
-    of every row, rejected and padding rows included:
-    ``(row, plain channels)``."""
+    fields (``kind`` jsonl: its nested mode; ``gelf``: its flat mode,
+    nested = 0) against its plain version on every channel of every row,
+    rejected and padding rows included: ``(row, plain channels)``."""
     from flowgger_tpu_torch.tpu import jsonidx, jsonl, kernels, rfc5424
 
     if kind == "rfc5424":
@@ -504,18 +529,19 @@ def decode_case(kind: str, width: int, batch, lens_c):
         source, replaces = ("flowgger_tpu_torch/csrc/decode_rfc5424.cu",
                             "flowgger_tpu/tpu/rfc5424.py:1095")
     else:
+        nested = jsonl.NESTED_DEPTH if kind == "jsonl" else 0
         kern = functools.partial(kernels.structural_index_cuda, batch, lens_c,
-                                 width, jsonl.NESTED_DEPTH)
+                                 width, nested)
         plain = functools.partial(jsonidx.structural_index, batch, lens_c,
-                                  width, nested=jsonl.NESTED_DEPTH)
+                                  width, nested=nested)
         unpack = functools.partial(jsonidx.unpack_channels, max_fields=width)
-        name, C, passes = (f"structural_index_f{width}",
-                           jsonidx.n_channels(width), 1)
+        name, C, passes = (f"structural_index{'' if nested else '_flat'}"
+                           f"_f{width}", jsonidx.n_channels(width), 1)
         source, replaces = ("flowgger_tpu_torch/csrc/structural_index.cu",
                             "flowgger_tpu/tpu/pallas_kernels.py:439")
     ref = plain()
     err = channels_err(name, unpack(kern()), ref)
-    if kind == "rfc5424":
+    if kind != "jsonl":
         CHECKED.add((name, tuple(batch.shape)))
     n, valid = batch.shape[0], int(lens_c.sum())
     return {
@@ -1585,6 +1611,250 @@ def kernels_ltsv(seed: int, rows: list, shapes: list):
             shapes.append({**row, "where": where})
 
 
+def gelf_route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
+    """EG (``kind`` "eg8" / "eg16": the split gelf tier's encode at 8 or
+    16 fields, from K5's flat-mode packed channels) or FG ("fg": the
+    fused route, K5's flat row index and EG's probe in one kernel) against
+    its plain version on one batch of ``n`` real rows: the probe's base
+    tier bit and base length of every row and its ts_hi / ts_lo / ts_meta
+    channels (zeros off the tier and at and past ``n``; for FG also each
+    tier row's carried selection, held against
+    ``fused_routes.carried_plain``), and with ``assemble`` the assemble's
+    bytes of every tier row (``base & (base_len + ts_len <= OW)`` at the
+    rows' real stamp text) at its offset, each checked once before and
+    once after its timing loop; FG's assemble reads the probe's carried
+    selection.  Returns ``[probe row]`` or ``[probe row, assemble
+    row]``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import (device_common, device_gelf,
+                                        device_gelf_gelf, fused_routes, gelf,
+                                        jsonidx, kernels)
+
+    fused = kind == "fg"
+    F = 16 if kind == "eg16" else 8
+    name = "fused_gelf_gelf" if fused else "encode_gelf_gelf"
+    tag = "" if fused else f"_f{F}"
+    source = ("flowgger_tpu_torch/csrc/fused_gelf.cu" if fused
+              else "flowgger_tpu_torch/csrc/encode_gelf.cu")
+    replaces = ("flowgger_tpu/tpu/fused_routes.py:276" if fused
+                else "flowgger_tpu/tpu/device_gelf_gelf.py:99")
+    suffix = b"\0"
+    N, L = batch.shape
+    dev = batch.device
+    live = torch.arange(N, device=dev) < n
+    bank_b, table = device_gelf_gelf.kernel_consts(suffix)
+    bank = device_gelf._bank_on(bank_b, dev)
+    OW = device_gelf_gelf.out_width(L, suffix)
+    dec0 = gelf.decode_gelf(batch, lens_c, F)
+    packed = (None if fused
+              else kernels.structural_index_cuda(batch, lens_c, F, 0))
+
+    def k_probe():
+        if fused:
+            return kernels.fused_gelf_cuda("gelf", batch, lens_c, n, bank,
+                                           table)
+        return kernels.encode_gelf_gelf_cuda(batch, lens_c, packed, n, bank,
+                                             table, F)
+
+    def p_probe():
+        # the fused route's plain probe decodes, as its kernel does
+        dec = gelf.decode_gelf(batch, lens_c, F) if fused else dec0
+        return device_gelf_gelf.encode_rows(batch, lens_c, dec,
+                                            assemble=False, n=n,
+                                            suffix=suffix)
+
+    ref = p_probe()
+    ref_carried = (fused_routes.carried_plain(dec0, "gelf_gelf", batch,
+                                              lens_c) if fused else None)
+    probed = {}
+
+    def check_probe():
+        # the tier bits, base lengths and stamp channels
+        got = k_probe()
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        if fused:
+            on = ref[0]
+            err = max(err, max_abs_err(got[3][on], ref_carried[on]))
+            probed["chan"], probed["tier"] = got[3], got[0]
+        if err:
+            raise AssertionError(f"{name}{tag} probe [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_p = check_probe()
+    ms_p = device_ms(k_probe)
+    check_probe()   # a launch after the timing loop
+    CHECKED.add((f"{name}_probe{tag}", (N, L)))
+
+    ref_base = ref[0]
+    n_base = int(ref_base.sum())
+    real_valid = int(torch.where(live, lens_c, 0).sum())
+    ok = live & dec0["ok"].to(torch.bool)
+    nf = torch.where(ok, dec0["n_fields"].to(torch.int64).clamp(0, F), 0)
+    key_esc = (dec0["key_esc"] & (torch.arange(F, device=dev)[None, :]
+                                  < nf[:, None])).any(dim=1)
+    gated_valid = int(torch.where(ok & ~key_esc, lens_c, 0).sum())
+    common = {"route": "cuda", "source": source, "replaces": replaces,
+              "library_ms": None}
+    if fused:
+        # bytes: each real row's valid bytes and length, every row's bit,
+        # length and three stamp channels, the carried selection of each
+        # base tier row; operations: K5's pass and EG's screen per valid
+        # byte
+        carry = 4 * kernels.FUSED_CARRY["gelf"]
+        probe_bytes = real_valid + 4 * n + 17 * N + carry * n_base
+        probe_ops = 2 * real_valid
+    else:
+        # bytes: each real row's ok and n_fields, the seven channels of
+        # each field of an ok row, the valid bytes of the rows the channels
+        # pass, every row's bit, length and three stamp channels;
+        # operations: one screen per loaded byte
+        probe_bytes = 8 * n + 28 * int(nf.sum()) + gated_valid + 17 * N
+        probe_ops = gated_valid
+    out = [{
+        "name": f"{name}_probe{tag}", **common, "max_abs_err": err_p,
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        **bound(probe_bytes, probe_ops),
+        "shape": f"[{N}, {L}], n={n}, {n_base} base tier rows, "
+                 f"{real_valid} valid bytes"}]
+    if not assemble:
+        return out
+
+    small, _ = device_gelf_gelf.small_channels(ref[2], n)
+    txt, tl = device_common.ts_text_block(small,
+                                          device_gelf_gelf.ts_vals_gelf)
+    ts_text = torch.zeros((N, device_common.TS_W), dtype=torch.uint8)
+    ts_len = torch.zeros(N, dtype=torch.int32)
+    ts_text[:n], ts_len[:n] = torch.from_numpy(txt), torch.from_numpy(tl)
+    ts_text, ts_len = ts_text.to(dev), ts_len.to(dev)
+    length = ref[1].to(torch.int64) + ts_len
+    tier = ref_base & (length <= OW)
+    gated = torch.where(tier, length, 0)
+    row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
+    total = int(gated.sum())
+
+    def k_asm():
+        if fused:
+            # from the selection the probe carried
+            return kernels.fused_gelf_cuda(
+                "gelf", batch, lens_c, n, bank, table, OW=OW,
+                ts_text=ts_text, ts_len=ts_len, row_off=row_off, total=total,
+                chan=probed["chan"], tier=probed["tier"])
+        return kernels.encode_gelf_gelf_cuda(
+            batch, lens_c, packed, n, bank, table, F, OW, ts_text=ts_text,
+            ts_len=ts_len, row_off=row_off, total=total)
+
+    def t_asm():
+        # the timed call: the fused wrapper's launch without its contract
+        # check, which reads a flag back from the card
+        if not fused:
+            return k_asm()
+        return kernels.fused_assemble_launch("gelf", batch, lens_c, n, bank,
+                                             table, OW, ts_text, ts_len,
+                                             row_off, total, probed["chan"])
+
+    def p_asm():
+        rows_, out_len, _ = device_gelf_gelf.encode_rows(
+            batch, lens_c, dec0, ts_text, ts_len, suffix=suffix)
+        return device_gelf.flat_rows(rows_, out_len, row_off, total)
+
+    ref_flat = p_asm()
+
+    def check_asm():
+        err = max_abs_err(k_asm(), ref_flat)
+        if err:
+            raise AssertionError(f"{name}{tag} assemble [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_a = check_asm()
+    ms_a = device_ms(t_asm)
+    check_asm()   # a launch after the timing loop
+    CHECKED.add((f"{name}_assemble{tag}", (N, L)))
+    n_tier = int(tier.sum())
+    tier_valid = int(torch.where(tier, lens_c, 0).sum())
+    ts_bytes = int(torch.where(tier, ts_len, 0).sum())
+    if fused:
+        ch_bytes = 4 * kernels.FUSED_CARRY["gelf"] * n_tier
+    else:
+        # ok, n_fields and the seven channels of each field of a tier row
+        ch_bytes = int(torch.where(tier, 8 + 28 * nf, 0).sum())
+    out.append({
+        "name": f"{name}_assemble{tag}", **common, "max_abs_err": err_a,
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        # bytes: the tier rows' valid bytes and lengths, channels (or
+        # carried selection), timestamp text and lengths, every row's
+        # offset, the output written; operations: one per valid byte
+        **bound(tier_valid + 4 * n_tier + ch_bytes + ts_bytes + 8 * N + total,
+                tier_valid),
+        "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
+                 f"bytes"})
+    return out
+
+
+def kernels_gelf(seed: int, rows: list, shapes: list):
+    """K5 in its flat mode at 8, 16 and 24 fields, EG (probe and assemble
+    at 8 and 16 fields) and FG (probe and assemble) on a gathered
+    [16384, 512] batch of the gelf tier mix; on the flush batch of the
+    gelf line path (K5/0 at 8 and 16 fields, EG's probes at both widths
+    and FG's probe, as its declining batches launch them) and of the gelf
+    tier path (K5/0 at 8 fields, EG at both widths and FG, probe and
+    assemble); K5/0 at 24 fields on the line path's rescue sub-batch; and
+    all of them on 256 rows, 200 of them real (the end-of-stream batch's
+    shape)."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_gelf_corpus, make_gelf_tier_corpus
+    from flowgger_tpu_torch.tpu import framing, pack
+
+    lines, _ = make_gelf_tier_corpus(BATCH, seed + 31)
+    region_b = b"\n".join(lines) + b"\n"
+    region = upload(region_b)
+    spans = framing.sep_spans(region, len(region_b), 10, True,
+                              pack.bucket_rows(BATCH))
+    batch, lens_c = framing.gather(region, spans["starts"], spans["lens"],
+                                   MAX_LEN)
+    for F in (8, 16, 24):
+        rows.append(decode_case("gelf", F, batch, lens_c)[0])
+    for kind in ("eg8", "eg16", "fg"):
+        rows.extend(gelf_route_case(kind, batch, lens_c, BATCH))
+
+    fb, fl, fn = flush_batch(make_gelf_corpus(2 * BATCH, seed + 32)[0],
+                             "gelf line path", shapes)
+    where = "gelf line path, flush batch"
+    for F in (8, 16):
+        row, ref = decode_case("gelf", F, fb, fl)
+        shapes.append({**row, "where": where})
+        if F == 8:
+            nf = ref["n_fields"]
+            idx = torch.nonzero(~ref["ok"] & (nf > 8) & (nf <= 24)).flatten()
+    row, _ = decode_case("gelf", 24, *rescue_batch(fb, fl, idx))
+    shapes.append({**row, "where": "gelf line path, rescue sub-batch"})
+    for kind in ("eg8", "eg16", "fg"):
+        for row in gelf_route_case(kind, fb, fl, fn, assemble=False):
+            shapes.append({**row, "where": where})
+
+    fb, fl, fn = flush_batch(make_gelf_tier_corpus(2 * BATCH, seed + 33)[0],
+                             "gelf tier path", shapes)
+    where = "gelf tier path, flush batch"
+    shapes.append({**decode_case("gelf", 8, fb, fl)[0], "where": where})
+    for kind in ("eg8", "eg16", "fg"):
+        for row in gelf_route_case(kind, fb, fl, fn):
+            shapes.append({**row, "where": where})
+
+    small_n = pack.bucket_rows(1)
+    sb, sl = batch[:small_n], lens_c[:small_n]
+    where = "gelf paths, end-of-stream batch"
+    for F in (8, 16, 24):
+        shapes.append({**decode_case("gelf", F, sb, sl)[0], "where": where})
+    for kind in ("eg8", "eg16", "fg"):
+        for row in gelf_route_case(kind, sb, sl, 200):
+            shapes.append({**row, "where": where})
+
+
 def phase_kernels(seed: int):
     """Each kernel vs its plain version on the card; returns the table
     rows without launch counts (the e2e phase fills them in).  The
@@ -1598,6 +1868,7 @@ def phase_kernels(seed: int):
     kernels_encode(seed, rows, shapes)
     kernels_rfc3164(seed, rows, shapes)
     kernels_ltsv(seed, rows, shapes)
+    kernels_gelf(seed, rows, shapes)
     for r in rows:
         emit({"phase": "kernel", **r})
     for r in shapes:
@@ -1854,7 +2125,7 @@ def stage_clock(module, walls: dict, **stages):
             setattr(module, attr, fn)
 
 
-def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
+def phase_breakdown(seed: int, fmt: str, n_batches: int = AB_BATCHES,
                     engine: str = "native", lines=None):
     """Host-clock walls of one path's stages, each ending in a
     synchronize, over ``n_batches`` full line regions: device framing
@@ -1867,19 +2138,22 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
     import torch
 
     from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+    from flowgger_tpu_torch.corpus import (make_corpus, make_gelf_corpus,
+                                           make_jsonl_corpus,
                                            make_ltsv_corpus)
     from flowgger_tpu_torch.decoders import LTSVDecoder
     from flowgger_tpu_torch.encoders import GelfEncoder
     from flowgger_tpu_torch.mergers import NulMerger
-    from flowgger_tpu_torch.tpu import (encode_gelf_block, encode_jsonl_block,
+    from flowgger_tpu_torch.tpu import (encode_gelf_block,
+                                        encode_gelf_gelf_block,
+                                        encode_jsonl_block,
                                         encode_ltsv_gelf_block, framing)
     from flowgger_tpu_torch.tpu.batch import _ROUTES
 
     dev = torch.device("cuda")
     if lines is None:
-        make = {"jsonl": make_jsonl_corpus,
-                "ltsv": make_ltsv_corpus}.get(fmt, make_corpus)
+        make = {"jsonl": make_jsonl_corpus, "ltsv": make_ltsv_corpus,
+                "gelf": make_gelf_corpus}.get(fmt, make_corpus)
         lines, _ = make(n_batches * BATCH, seed + 1)
     submit, fetch, encode = _ROUTES[fmt]
     encoder, merger = GelfEncoder(Config.from_string("")), NulMerger()
@@ -1892,6 +2166,8 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
     out = WORK / f"breakdown_{fmt}_{engine}.out"
     if fmt == "jsonl":
         module, stamps = encode_jsonl_block, "span_f64_scratch"
+    elif fmt == "gelf":
+        module, stamps = encode_gelf_gelf_block, "span_f64_scratch"
     elif fmt == "ltsv":
         module, stamps = encode_ltsv_gelf_block, "ts_scratch"
     else:
@@ -1936,7 +2212,7 @@ def phase_breakdown(seed: int, fmt: str, n_batches: int = 8,
     return out.read_bytes()
 
 
-def phase_breakdown_tier(seed: int, n_batches: int = 8,
+def phase_breakdown_tier(seed: int, n_batches: int = AB_BATCHES,
                          tiers=("device", "host", "host_numpy"), lines=None):
     """The tier mix over ``n_batches`` full line regions three times on
     one card: through the device encode tier, its block encode split into
@@ -2080,25 +2356,43 @@ PATHS = {
                   ("frame_sep_spans", "frame_gather", "decode_ltsv",
                    "encode_gelf_ltsv_probe_p6",
                    "encode_gelf_ltsv_assemble_p6")),
+    # GELF 1.1 payloads as Graylog defines them (corpus.make_gelf_corpus:
+    # 8-14 fields, floats, escaped full messages), not chosen to engage
+    # the tiers: the 8-field tier declines, the 16-field escalation is
+    # probed, the host path rescues rows at 24 fields
+    "gelf_line": ("gelf_tpu", "line", "gelf",
+                  ("frame_sep_spans", "frame_gather", "fused_gelf_gelf_probe",
+                   "structural_index_flat_f8", "structural_index_flat_f16",
+                   "structural_index_flat_f24", "encode_gelf_gelf_probe_f8",
+                   "encode_gelf_gelf_probe_f16"), None),
+    # the gelf mix the tiers take (corpus.make_gelf_tier_corpus)
+    "gelf_tier": ("gelf_tpu", "line", "gelf",
+                  ("frame_sep_spans", "frame_gather", "fused_gelf_gelf_probe",
+                   "fused_gelf_gelf_assemble"),
+                  ("frame_sep_spans", "frame_gather",
+                   "structural_index_flat_f8", "encode_gelf_gelf_probe_f8",
+                   "encode_gelf_gelf_assemble_f8")),
 }
 # the wrappers whose launch shapes the e2e runs record (checked against
 # CHECKED), and each one's name in LAUNCHES for a launch
 SHAPE_CHECKED = ("encode_gelf_cuda", "encode_gelf3164_cuda",
                  "fused_gelf_cuda", "decode_rfc3164_cuda",
                  "decode_rfc5424_cuda", "decode_ltsv_cuda",
-                 "encode_gelf_ltsv_cuda")
+                 "encode_gelf_ltsv_cuda", "encode_gelf_gelf_cuda")
 # the kernels whose e2e launch shapes follow the data (K1: a rescue
-# sub-batch's rows; the ltsv kernels: a flush's record count, which a
-# timer flush cuts where it falls): their shapes in the e2e runs that the
-# kernels phase did not check are held against the plain versions after
-# the runs, by phase_late_shapes
+# sub-batch's rows; the ltsv and gelf kernels: a flush's record count,
+# which a timer flush cuts where it falls): their shapes in the e2e runs
+# that the kernels phase did not check are held against the plain
+# versions after the runs, by phase_late_shapes
 LATE_PREFIXES = ("decode_rfc5424_p", "decode_ltsv", "encode_gelf_ltsv",
-                 "fused_ltsv_gelf")
+                 "fused_ltsv_gelf", "encode_gelf_gelf", "fused_gelf_gelf")
 LATE: set = set()
 
 
 def _write_input(name: str, n_lines: int, seed: int):
-    from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+    from flowgger_tpu_torch.corpus import (make_corpus, make_gelf_corpus,
+                                           make_gelf_tier_corpus,
+                                           make_jsonl_corpus,
                                            make_ltsv_corpus,
                                            make_ltsv_tier_corpus,
                                            make_rfc3164_corpus,
@@ -2111,7 +2405,9 @@ def _write_input(name: str, n_lines: int, seed: int):
             "rfc3164_line": make_rfc3164_corpus,
             "rfc3164_tier": make_rfc3164_tier_corpus,
             "ltsv_line": make_ltsv_corpus,
-            "ltsv_tier": make_ltsv_tier_corpus}.get(name, make_corpus)
+            "ltsv_tier": make_ltsv_tier_corpus,
+            "gelf_line": make_gelf_corpus,
+            "gelf_tier": make_gelf_tier_corpus}.get(name, make_corpus)
     lines, kinds = make(n_lines, seed)
     if framing == "syslen":
         # the last frame is cut short: a short read at EOF
@@ -2121,12 +2417,32 @@ def _write_input(name: str, n_lines: int, seed: int):
         data = b"\n".join(lines)
     path = WORK / f"{name}.in"
     path.write_bytes(data)
-    # the ltsv decoder's "Missing value" notices go to stdout
+    # the ltsv decoder's "Missing value" notices go to stdout; a gelf row
+    # without a timestamp is stamped with the wall clock from here on
     notices = []
+    STAMPED_SINCE[name] = time.time()
     exp_out, exp_err = scalar_expectation(data, framing, fmt=kind,
                                           notices=notices)
     mix = {k: kinds.count(k) for k in sorted(set(kinds))}
     return path, data, exp_out, (exp_err, notices), mix
+
+
+# when each path's scalar expectation was made (_write_input)
+STAMPED_SINCE: dict = {}
+
+
+def same_bytes(name: str, got: bytes, want: bytes) -> bool:
+    """A run's GELF bytes against the scalar path's.  The gelf paths stamp
+    a row without a timestamp with the wall clock (the scalar decoder
+    does, in the reference too), so their stamps from the expectation's
+    making on are compared apart: masked on both sides
+    (``corpus.mask_wall_stamps``)."""
+    if PATHS[name][2] != "gelf":
+        return got == want
+    from flowgger_tpu_torch.corpus import mask_wall_stamps
+
+    since = STAMPED_SINCE[name] - 1.0
+    return mask_wall_stamps(got, since) == mask_wall_stamps(want, since)
 
 
 def _config(name: str, tag: str, fuse: str = "auto") -> Path:
@@ -2271,11 +2587,13 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
     calls = dict(native.CALLS)
     declines = dict(framing.DECLINES)
     got = (WORK / f"{name}_{tag}.out").read_bytes()
-    if (got != exp_out or not same_stderr(kind, errs, exp_err)
+    if (not same_bytes(name, got, exp_out)
+            or not same_stderr(kind, errs, exp_err)
             or notices != exp_notices):
         raise AssertionError(
             f"{name} ({fuse}): in-process e2e differs from the scalar path: "
-            f"bytes {len(got)} vs {len(exp_out)}, equal={got == exp_out}; "
+            f"bytes {len(got)} vs {len(exp_out)}, equal="
+            f"{same_bytes(name, got, exp_out)}; "
             f"stderr lines {len(errs)} vs {len(exp_err)}; stdout lines "
             f"{len(notices)} vs {len(exp_notices)}")
     need = need if fuse == "auto" else need_split
@@ -2305,8 +2623,11 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
         "ltsv": ("encode_gelf_ltsv_probe_p6",
                  ("encode_gelf_ltsv_assemble_p6",
                   "encode_gelf_ltsv_assemble_p16")),
+        "gelf": ("encode_gelf_gelf_probe_f8",
+                 ("encode_gelf_gelf_assemble_f8",
+                  "encode_gelf_gelf_assemble_f16")),
     }.get(kind, ("encode_gelf3164_probe", ("encode_gelf3164_assemble",)))
-    if kind in ("rfc5424", "rfc3164", "ltsv"):
+    if kind in ("rfc5424", "rfc3164", "ltsv", "gelf"):
         f_name = f"fused_{kind}_gelf"
         if (launches[e_probe] != split["taken"] + split["declined"]
                 or sum(launches[k] for k in e_asm) != split["taken"]
@@ -2321,6 +2642,8 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
             split["wide_probes"] = launches["encode_gelf_probe_p16"]
         if kind == "ltsv":
             split["wide_probes"] = launches["encode_gelf_ltsv_probe_p16"]
+        if kind == "gelf":
+            split["wide_probes"] = launches["encode_gelf_gelf_probe_f16"]
     # the native host tier: its row engine wrote every rfc5424 host-tier
     # batch with tier rows, and its formatter every taken batch's
     # timestamp text (split or fused)
@@ -2328,7 +2651,7 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
     if (calls["fg_gelf_write_v2"] != (host_tier["with_tier_rows"] if rfc
                                       else 0)
             or calls["fg_gelf_lens_v2"] != calls["fg_gelf_write_v2"]
-            or (kind in ("rfc5424", "rfc3164", "ltsv")
+            or (kind in ("rfc5424", "rfc3164", "ltsv", "gelf")
                 and host_tier["batches"]
                 != split["declined"] + split["cooled"])
             or calls["fg_format_f64_json"]
@@ -2392,11 +2715,12 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     errs = proc.stderr.decode().splitlines()
     # stdout: the CLI's banner, then the ltsv decoder's notices
     banner, *notices = proc.stdout.decode().splitlines()
-    if (got != exp_out or not same_stderr(kind, errs, exp_err[0])
+    if (not same_bytes(name, got, exp_out)
+            or not same_stderr(kind, errs, exp_err[0])
             or not banner.startswith("Flowgger") or notices != exp_err[1]):
         raise AssertionError(
             f"{name}: CLI e2e differs from the scalar path: bytes equal="
-            f"{got == exp_out}; stderr lines {len(errs)} vs "
+            f"{same_bytes(name, got, exp_out)}; stderr lines {len(errs)} vs "
             f"{len(exp_err[0])}; stdout lines {len(notices)} vs "
             f"{len(exp_err[1])}")
     emit({"phase": "e2e", "path": name, "lines": n_lines,
@@ -2413,22 +2737,27 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
 
 
 def phase_late_shapes(seed: int) -> None:
-    """K1 and the ltsv kernels against their plain versions at each shape
-    the e2e runs launched them at and the kernels phase had not checked:
-    K1 on rows of the rfc5424 mix, L1 on rows of the ltsv mix, EL and FL
-    (probe, and assemble where the run assembled at that shape) on rows of
-    the ltsv tier mix, every row real; a ``kernel_shape`` line each."""
+    """K1 and the ltsv and gelf kernels against their plain versions at
+    each shape the e2e runs launched them at and the kernels phase had not
+    checked: K1 on rows of the rfc5424 mix, L1 on rows of the ltsv mix, EL
+    and FL (probe, and assemble where the run assembled at that shape) on
+    rows of the ltsv tier mix, EG and FG likewise on rows of the gelf tier
+    mix, every row real; a ``kernel_shape`` line each."""
     import torch
 
-    from flowgger_tpu_torch.corpus import (make_corpus, make_ltsv_corpus,
+    from flowgger_tpu_torch.corpus import (make_corpus,
+                                           make_gelf_tier_corpus,
+                                           make_ltsv_corpus,
                                            make_ltsv_tier_corpus)
     from flowgger_tpu_torch.tpu import pack
 
     for name, (rows, L) in sorted(LATE - CHECKED):
         if (name, (rows, L)) in CHECKED:
             continue   # an earlier case of this loop checked it
+        gelf = "gelf_gelf" in name
         make = (make_corpus if name.startswith("decode_rfc5424")
                 else make_ltsv_corpus if name == "decode_ltsv"
+                else make_gelf_tier_corpus if gelf
                 else make_ltsv_tier_corpus)
         lines, _ = make(rows, seed + rows)
         b, ln, *_ = pack.pack_lines_2d(lines, L)
@@ -2441,6 +2770,12 @@ def phase_late_shapes(seed: int) -> None:
         elif name == "decode_ltsv":
             row, _ = l1_case(batch, lens_c, rows)
             where = "e2e launch shape, ltsv mix rows"
+        elif gelf:
+            kind = ("fg" if name.startswith("fused") else
+                    "eg16" if name.endswith("f16") else "eg8")
+            row = gelf_route_case(kind, batch, lens_c, rows,
+                                  assemble="assemble" in name)[-1]
+            where = "e2e launch shape, gelf tier mix rows"
         else:
             kind = ("fl" if name.startswith("fused") else
                     "el16" if name.endswith("p16") else "el6")
@@ -2450,7 +2785,7 @@ def phase_late_shapes(seed: int) -> None:
         emit({"phase": "kernel_shape", **row, "where": where})
 
 
-def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
+def phase_encode_ab(seed: int, n_batches: int = AB_BATCHES, pairs: int = 6):
     """What the device encode tier costs a mix it declines, the rfc5424
     mix (19 % of rows outside the tier), on one card in one process:
 
@@ -2542,9 +2877,9 @@ def phase_encode_ab(seed: int, n_batches: int = 8, pairs: int = 6):
           "spread_on": (max(on) - min(on)) / statistics.median(on)})
 
 
-def phase_fuse_ab(seed: int, n_batches: int = 8):
-    """The fused route against the split path on the three tier mixes
-    (rfc5424, rfc3164 and ltsv, ``n_batches`` × 16 384 lines each), in one
+def phase_fuse_ab(seed: int, n_batches: int = AB_BATCHES):
+    """The fused route against the split path on the four tier mixes
+    (rfc5424, rfc3164, ltsv and gelf, ``n_batches`` × 16 384 lines each), in one
     process: a batch handler with ``input.tpu_fuse = "auto"`` (the fused
     route takes every batch) and then ``"off"`` (the split decode and the
     split device tier), each over the same framed regions: one
@@ -2556,21 +2891,23 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
     the same bytes.  Then the device
     ms, at a flush batch of the mix, of F1 (probe + assemble) against K1
     p6 + E1 probe + E1 assemble, of F3 against D3 + E3 probe + E3
-    assemble and of FL against L1 + EL probe + EL assemble (6 pairs).  No
-    claim is made from them."""
+    assemble, of FL against L1 + EL probe + EL assemble (6 pairs) and of
+    FG against K5/0 + EG probe + EG assemble (8 fields).  No claim is made
+    from them."""
     import queue
 
     import torch
 
     from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.corpus import (make_ltsv_tier_corpus,
+    from flowgger_tpu_torch.corpus import (make_gelf_tier_corpus,
+                                           make_ltsv_tier_corpus,
                                            make_rfc3164_tier_corpus,
                                            make_tier_corpus)
     from flowgger_tpu_torch.encoders import GelfEncoder
     from flowgger_tpu_torch.mergers import NulMerger
     from flowgger_tpu_torch.tpu import (device_common, device_gelf,
-                                        device_ltsv, device_rfc3164, framing,
-                                        fused_routes, kernels)
+                                        device_gelf_gelf, device_ltsv,
+                                        device_rfc3164, framing, kernels)
     from flowgger_tpu_torch.tpu.batch import BatchHandler
     from flowgger_tpu_torch.utils.timeparse import current_year_utc
 
@@ -2578,7 +2915,8 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
     year = current_year_utc()
     for fmt, make in (("rfc5424", make_tier_corpus),
                       ("rfc3164", make_rfc3164_tier_corpus),
-                      ("ltsv", make_ltsv_tier_corpus)):
+                      ("ltsv", make_ltsv_tier_corpus),
+                      ("gelf", make_gelf_tier_corpus)):
         lines, _ = make(n_batches * BATCH, seed + 15)
         regions = [b"\n".join(lines[b * BATCH:(b + 1) * BATCH]) + b"\n"
                    for b in range(n_batches)]
@@ -2634,7 +2972,7 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
         b, ln = packed[0], packed[1]
         N = b.shape[0]
         split = {"rfc5424": device_gelf, "rfc3164": device_rfc3164,
-                 "ltsv": device_ltsv}[fmt]
+                 "ltsv": device_ltsv, "gelf": device_gelf_gelf}[fmt]
         bank_b, table = split.kernel_consts(b"\0")
         bank = device_gelf._bank_on(bank_b, dev)
         OW = split.out_width(MAX_LEN, b"\0")
@@ -2644,6 +2982,10 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
             sm, _ = device_ltsv.small_fetch(small, N, n)
             txt, tl = device_common.ts_text_block(sm,
                                                   device_ltsv.ts_vals_ltsv)
+        elif fmt == "gelf":
+            sm, _ = device_gelf_gelf.small_channels(small, n)
+            txt, tl = device_common.ts_text_block(
+                sm, device_gelf_gelf.ts_vals_gelf)
         else:
             sm = small[:, :n].cpu().numpy()
             txt, tl = device_common.ts_text_block(
@@ -2669,6 +3011,17 @@ def phase_fuse_ab(seed: int, n_batches: int = 8):
                     b, ln, ch, n, bank, table, 4, 6),
                 "encode_gelf_assemble_p6": lambda: kernels.encode_gelf_cuda(
                     b, ln, ch, n, bank, table, 4, 6, **asm)}
+        elif fmt == "gelf":
+            ch = kernels.structural_index_cuda(b, ln, 8, 0)
+            split_fns = {
+                "structural_index_flat_f8":
+                    lambda: kernels.structural_index_cuda(b, ln, 8, 0),
+                "encode_gelf_gelf_probe_f8":
+                    lambda: kernels.encode_gelf_gelf_cuda(b, ln, ch, n, bank,
+                                                          table, 8),
+                "encode_gelf_gelf_assemble_f8":
+                    lambda: kernels.encode_gelf_gelf_cuda(b, ln, ch, n, bank,
+                                                          table, 8, **asm)}
         elif fmt == "ltsv":
             ch = kernels.decode_ltsv_cuda(b, ln, n)
             split_fns = {
@@ -2846,10 +3199,10 @@ def phase_host_ab(seed: int, rounds: int) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
-    ap.add_argument("--lines", type=int, default=8 * BATCH,
+    ap.add_argument("--lines", type=int, default=RFC5424_LINES,
                     help="lines of the rfc5424 line-framed e2e runs (cut "
                          "from 16 × 16 384 for time when the ltsv paths "
-                         "came)")
+                         "came, from 8 × when the gelf paths came)")
     ap.add_argument("--host-ab", type=int, default=0, metavar="ROUNDS",
                     help="run only the host A/B of the native host tier, "
                          "ROUNDS rounds (phase_host_ab)")
@@ -2899,6 +3252,7 @@ def main(argv=None) -> int:
                              "engines wrote different bytes")
     phase_breakdown(args.seed, "jsonl")
     phase_breakdown(args.seed, "ltsv")
+    phase_breakdown(args.seed, "gelf")
     phase_breakdown_tier(args.seed)
     lap("breakdown")
     phase_encode_ab(args.seed)
@@ -2910,7 +3264,8 @@ def main(argv=None) -> int:
         n = {"rfc5424_syslen": SYSLEN_LINES, "jsonl_line": JSONL_LINES,
              "rfc3164_line": RFC3164_LINES,
              "rfc3164_tier": RFC3164_LINES, "ltsv_line": LTSV_LINES,
-             "ltsv_tier": LTSV_LINES}.get(name, args.lines)
+             "ltsv_tier": LTSV_LINES, "gelf_line": GELF_LINES,
+             "gelf_tier": GELF_LINES}.get(name, args.lines)
         for k, v in phase_e2e(name, n, args.seed, CHECKED).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")

@@ -28,6 +28,11 @@ branch of the device paths:
   a unix float or the bracketed Apache form, and the odd rows;
 - :func:`make_ltsv_tier_corpus` — LTSV rows the device encode tiers take
   (:data:`LTSV_TIER_MIX`);
+- :func:`make_gelf_corpus` — GELF 1.1 payloads (:data:`GELF_MIX`): the
+  five specials, 3-9 additional fields, floats and escaped full
+  messages, and the odd rows (no timestamp: :func:`mask_wall_stamps`);
+- :func:`make_gelf_tier_corpus` — GELF payloads the device encode tiers
+  take (:data:`GELF_TIER_MIX`);
 - :func:`syslen_stream` — any line list as octet-counted frames
   (``<len> <line>`` back to back), the last frame cut short.
 
@@ -43,8 +48,8 @@ from typing import List, Tuple
 import numpy as np
 
 from .config import Config
-from .decoders import (DecodeError, JSONLDecoder, LTSVDecoder,
-                       RFC3164Decoder, RFC5424Decoder)
+from .decoders import (DecodeError, GelfDecoder, JSONLDecoder,
+                       LTSVDecoder, RFC3164Decoder, RFC5424Decoder)
 from .encoders import EncodeError, GelfEncoder
 from .mergers import NulMerger
 
@@ -527,6 +532,125 @@ def make_ltsv_tier_corpus(n_lines: int, seed: int
     return _ltsv_lines(n_lines, seed, LTSV_TIER_MIX, tier=True)
 
 
+# ---------------------------------------------------------------------------
+# GELF: Graylog's GELF 1.1 payloads
+# ---------------------------------------------------------------------------
+
+# (kind, share) of the sourced GELF mix: payloads as Graylog's "GELF
+# Payload Specification" (GELF 1.1) defines them — version "1.1", host,
+# short_message, timestamp as epoch seconds with 3-6 decimals, level 0-7,
+# 3-9 ``_`` additional fields (strings and integers; 15 % of rows a float
+# such as ``_took_ms``), full_message on 20 % with an escaped newline —
+# and the odd rows: non-ASCII, no timestamp (the scalar path stamps the
+# wall clock), a nested object (flagged by the flat index), invalid
+# JSON, level 8, version "2.0".  Rows of 9-15 fields, floats and escaped
+# strings keep both device tiers declining (8 fields, then 16).
+GELF_MIX = (
+    ("gelf", 0.91), ("high", 0.02), ("no_ts", 0.02), ("nested", 0.02),
+    ("invalid", 0.01), ("level8", 0.01), ("version2", 0.01),
+)
+# the mix the device encode tiers take: ~97 % rows of the five specials
+# (version, host, short_message, timestamp, level) and 0-3 clean
+# additional fields (ASCII strings or canonical integers) with a stamp of
+# at most 16 digits; the rest outside the tiers
+GELF_TIER_MIX = (
+    ("tier", 0.97), ("float", 0.01), ("escaped", 0.01), ("high", 0.01),
+)
+# additional fields (name, string or integer); no two share an 8-byte
+# sort prefix, so their order is never ambiguous to the device tiers
+_GELF_FIELDS = (
+    ("_app", "s"), ("_env", "s"), ("_user_id", "i"), ("_status", "i"),
+    ("_bytes", "i"), ("_path", "s"), ("_method", "s"), ("_trace", "s"),
+    ("_region", "s"), ("_pid", "i"), ("_thread", "s"),
+)
+
+
+def _gelf_field(rng, name: str, kind: str) -> str:
+    pick = int(rng.integers(0, 1 << 30))
+    if kind == "i":
+        return f'"{name}":{pick % (10 ** int(rng.integers(1, 10)))}'
+    val = {
+        "_app": ("checkout", "auth", "search", "billing")[pick % 4],
+        "_env": ("prod", "staging", "dev")[pick % 3],
+        "_path": _PATHS[pick % len(_PATHS)],
+        "_method": ("GET", "POST", "HEAD", "PUT")[pick % 4],
+        "_trace": f"{pick:08x}{pick % 65536:04x}",
+        "_region": ("eu-west-1", "us-east-2", "ap-south-1")[pick % 3],
+        "_thread": f"worker-{pick % 64}",
+    }[name]
+    return f'"{name}":"{val}"'
+
+
+def make_gelf_line(rng, kind: str, i: int, tier: bool = False) -> bytes:
+    """One GELF 1.1 payload of ``kind`` (see :data:`GELF_MIX` and
+    :data:`GELF_TIER_MIX`)."""
+    host = _HOSTS[i % len(_HOSTS)] + "." + _DOMAINS[i % len(_DOMAINS)]
+    msg = _msg(rng, int(rng.integers(2, 9)))
+    if kind == "high":
+        msg += " caf\u00e9 \u2713 \u65e5\u672c"
+    digits = int(rng.integers(3, 7))
+    stamp = (f"{1760000000 + i // 4}."
+             f"{int(rng.integers(0, 10 ** digits)):0{digits}d}")
+    parts = ['"version":"2.0"' if kind == "version2" else '"version":"1.1"',
+             f'"host":"{host}"', f'"short_message":"{msg}"']
+    if kind == "escaped" or (not tier and rng.random() < 0.2):
+        parts.append(f'"full_message":"{msg}\\nat frame {i % 97}\\n"')
+    if kind != "no_ts":
+        parts.append(f'"timestamp":{stamp}')
+    parts.append(f'"level":{8 if kind == "level8" else int(rng.integers(0, 8))}')
+    k = int(rng.integers(0, 4)) if tier else int(rng.integers(3, 10))
+    for j in sorted(rng.choice(len(_GELF_FIELDS), size=k, replace=False)):
+        parts.append(_gelf_field(rng, *_GELF_FIELDS[int(j)]))
+    if kind == "float" or (not tier and rng.random() < 0.15):
+        parts.append(f'"_took_ms":{int(rng.integers(0, 5000))}.'
+                     f'{int(rng.integers(0, 1000)):03d}')
+    if kind == "nested":
+        parts.append(f'"_ctx":{{"span":"{i % 1000}","sampled":true}}')
+    line = "{" + ",".join(parts) + "}"
+    if kind == "invalid":
+        line = line[:-1]
+    return line.encode()
+
+
+def _gelf_lines(n_lines: int, seed: int, mix, tier: bool):
+    rng = np.random.default_rng(seed)
+    kinds, shares = zip(*mix)
+    picks = rng.choice(len(kinds), size=n_lines,
+                       p=np.asarray(shares) / sum(shares))
+    lines = [make_gelf_line(rng, kinds[int(k)], i, tier)
+             for i, k in enumerate(picks)]
+    return lines, [kinds[int(k)] for k in picks]
+
+
+def make_gelf_corpus(n_lines: int, seed: int
+                     ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` GELF 1.1 payloads and their kinds, drawn from
+    :data:`GELF_MIX` with ``numpy.random.default_rng(seed)``."""
+    return _gelf_lines(n_lines, seed, GELF_MIX, tier=False)
+
+
+def make_gelf_tier_corpus(n_lines: int, seed: int
+                          ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` GELF payloads the device encode tiers take, from
+    :data:`GELF_TIER_MIX`."""
+    return _gelf_lines(n_lines, seed, GELF_TIER_MIX, tier=True)
+
+
+def mask_wall_stamps(data: bytes, since: float) -> bytes:
+    """``data`` (GELF records) with every ``"timestamp"`` value at or
+    past ``since`` replaced by 0: the scalar path stamps a GELF row
+    without a timestamp with the wall clock (the reference does the
+    same), so two runs agree on those rows apart from the stamp.  The
+    corpora's own stamps lie before 2026."""
+    import re
+
+    def sub(m):
+        return (b'"timestamp":0' if float(m.group(1)) >= since
+                else m.group(0))
+
+    return re.sub(rb'"timestamp":(-?[0-9][0-9.eE+-]*)', sub, data)
+
+
 def syslen_stream(lines: List[bytes], cut: int = 3) -> bytes:
     """``lines`` as octet-counted frames, back to back; the last frame
     loses its final ``cut`` bytes (a short read at EOF)."""
@@ -571,7 +695,7 @@ def scalar_expectation(data: bytes, framing: str = "line",
     path over ``data``: frame (line: one trailing CR stripped; syslen:
     the octet-count scan and its EOF/bad-prefix messages; the trailing
     partial frame of line/NUL included), then decode (``fmt`` is
-    ``rfc5424``, ``rfc3164``, ``jsonl`` or ``ltsv``, the LTSV decoder
+    ``rfc5424``, ``rfc3164``, ``jsonl``, ``ltsv`` or ``gelf``, the LTSV decoder
     with ``config``'s schema and suffixes) → encode → frame
     (line_splitter.rs:17-54, syslen_splitter.rs:26-69).  The rfc3164
     decoder prints its own "Unable to parse" line before the error line
@@ -586,8 +710,8 @@ def scalar_expectation(data: bytes, framing: str = "line",
     if fmt == "ltsv":
         decoder = LTSVDecoder(config)
     else:
-        decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder}.get(
-            fmt, RFC5424Decoder)()
+        decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder,
+                   "gelf": GelfDecoder}.get(fmt, RFC5424Decoder)()
     encoder = GelfEncoder(config)
     recs, tail = _frames(data, framing)
     out, errs = [], []

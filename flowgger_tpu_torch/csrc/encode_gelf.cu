@@ -108,10 +108,45 @@
 // 16 digits within 2**53, no colon-less part, at most P pairs, no
 // repeated special name, names the 8-byte key orders.  A row that fails
 // the rules its channels alone decide leaves before its bytes are loaded.
+//
+// EG, gelf -> GELF, at 8 and 16 fields.  Replaces the JAX package's jnp
+// device code device_gelf_gelf._encode_kernel (flowgger_tpu/tpu/
+// device_gelf_gelf.py:99) with device_common's sort_pairs_by_key8 (fed
+// the fields in raw order, slot_valid) and assemble_rows: the probe and
+// assemble contract of E1 over K5's flat-mode channels (ok, n_fields,
+// then seven [F] field channels, tpu/jsonidx.py KEYS_F).  The tier is
+// escape-free: the raw row is the source of every span, so there is no
+// escape pass, and a row with a control byte, a byte >= 0x80 or an
+// escaped key or string value leaves it.  Lane f holds field f: its
+// special id, the quoted name ("timestamp" with both quotes, so the
+// closing quote pins the length) matched at the key's opening quote; its
+// point bytes (the key's first byte, the value's bytes 0, 1, 2 and last)
+// and span counts (dots, non-digits, fraction characters: popcounts over
+// three class-mask words a 32-position word, built once a row with
+// ballots, then folded three fields a word, ten bits each, as the
+// reference's packed sums give them back); the canonical-number screens
+// of the host tier.  A ballot a special id gives its (last) field and its
+// repeats; its values reach every lane by shuffle.  The pair fields'
+// keys (the final name: a leading '_' stripped) sort across lanes with
+// E1's bitonic network, the other fields keyed last.  The timestamp
+// (at most 24 bytes on the tier) is parsed exactly as split integers,
+// lane r its byte r: ts_hi and ts_lo nine digits each by warp sums,
+// ts_meta the fraction digits, the digit count and the sign in bit 16;
+// the probe writes them for its tier rows (int32 [3, N], zeros
+// elsewhere) and the host combines them in float64
+// (device_gelf_gelf.ts_vals_gelf).  Segments: five a pair (the seven of
+// the reference folded: '"' or '"_', the name, '":"' or '":', the value
+// span or true / false / null, '",' or ','), thirteen fixed (full_message
+// gated on its presence, host or "unknown", the level digit gated on
+// its presence, short_message or "-", the timestamp text), with the
+// gelf bank (device_gelf_gelf.KERNEL_CONSTS).  A row the channels alone
+// put outside the tier (not ok, an escaped key) leaves before its bytes
+// are loaded.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encode_gelf_gelf_row.cuh"
 #include "encode_gelf_row.cuh"
 #include "encode_ltsv_row.cuh"
 
@@ -251,6 +286,36 @@ encode_gelf_ltsv_kernel(const uint8_t* __restrict__ batch,
                           r.out, lane, nullptr, sm, r.row);
 }
 
+template <int F, bool ASM>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+encode_gelf_gelf_kernel(const uint8_t* __restrict__ batch,
+                        const int32_t* __restrict__ lens_in,
+                        const int32_t* __restrict__ ch,
+                        const uint8_t* __restrict__ ts_text,
+                        const int32_t* __restrict__ ts_len_in,
+                        const uint8_t* __restrict__ bank, int bank_len,
+                        ConstsG k, int N, int n, int L, int OW,
+                        uint8_t* __restrict__ tier_out,
+                        int32_t* __restrict__ len_out,
+                        int32_t* __restrict__ small,
+                        const int64_t* __restrict__ row_off,
+                        uint8_t* __restrict__ flat) {
+  extern __shared__ uint4 encg_smem_v[];
+  uint8_t* enc_smem = reinterpret_cast<uint8_t*>(encg_smem_v);
+  const int lane = threadIdx.x & 31;
+  const SplitRow r = split_row<ASM>(batch, lens_in, ts_text, ts_len_in, bank,
+                                    bank_len, N, n, L, OW, tier_out, len_out,
+                                    row_off, flat, lane);
+  const SmallG sm{small, N};
+  if (!ASM && !r.live && r.row < N && lane == 0)
+    store_small_gg(sm, r.row, 0, 0, 0);  // padding
+  if (!r.live) return;
+  const int stride = gg_smem(L, OW, F, ASM, bank_len).stride;
+  encode_gg_row<F, ASM>(ChanView{ch + r.row, N}, nullptr, r.in, k,
+                        enc_smem + (size_t)(threadIdx.x >> 5) * stride,
+                        r.out, lane, nullptr, sm, r.row);
+}
+
 template <int P, bool ASM>
 int launch(const void* batch, const void* lens, const void* ch,
            const void* ts_text, const void* ts_len, const void* bank,
@@ -325,6 +390,32 @@ int launch_ltsv(const void* batch, const void* lens, const void* ch,
       static_cast<const int32_t*>(ts_len), static_cast<const uint8_t*>(bank),
       bank_len, k, N, n, L, OW, static_cast<uint8_t*>(tier),
       static_cast<int32_t*>(out_len), static_cast<uint8_t*>(small),
+      static_cast<const int64_t*>(row_off), static_cast<uint8_t*>(flat));
+  return (int)cudaGetLastError();
+}
+
+template <int F, bool ASM>
+int launch_gg(const void* batch, const void* lens, const void* ch,
+              const void* ts_text, const void* ts_len, const void* bank,
+              const int* consts, int N, int n, int L, int OW, void* tier,
+              void* out_len, void* small, const void* row_off, void* flat,
+              cudaStream_t stream) {
+  if (N <= 0) return 0;
+  const ConstsG k = const_table<kNumConstG>(consts);
+  const int bank_len = bank_bytes(k);
+  const int stride = gg_smem(L, OW, F, ASM, bank_len).stride;
+  auto kern = encode_gelf_gelf_kernel<F, ASM>;
+  int grid = 0, threads = 0;
+  size_t smem = 0;
+  const int rc = warp_rows_geometry(kern, N, stride, kSmemMax, &grid,
+                                    &threads, &smem);
+  if (rc != 0) return rc;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(batch), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(ch), static_cast<const uint8_t*>(ts_text),
+      static_cast<const int32_t*>(ts_len), static_cast<const uint8_t*>(bank),
+      bank_len, k, N, n, L, OW, static_cast<uint8_t*>(tier),
+      static_cast<int32_t*>(out_len), static_cast<int32_t*>(small),
       static_cast<const int64_t*>(row_off), static_cast<uint8_t*>(flat));
   return (int)cudaGetLastError();
 }
@@ -447,6 +538,54 @@ int fg_encode_gelf_ltsv_assemble_p16(const void* batch, const void* lens,
                                consts, N, n, L, OW, nullptr, nullptr, nullptr,
                                row_off, flat,
                                static_cast<cudaStream_t>(stream));
+}
+
+// EG probe at 8 and 16 fields: base tier bit and base_len of every gelf
+// row from K5's flat-mode [2 + 7F, N] channels, 0 and 0 for the rows at
+// and past n, and the ts_hi / ts_lo / ts_meta channels of the tier rows
+// (int32 [3, N], zeros elsewhere)
+int fg_encode_gelf_gelf_probe_f8(const void* batch, const void* lens,
+                                 const void* ch, const int* consts, int N,
+                                 int n, int L, void* tier, void* base_len,
+                                 void* small, void* stream) {
+  return launch_gg<8, false>(batch, lens, ch, nullptr, nullptr, nullptr,
+                             consts, N, n, L, 0, tier, base_len, small,
+                             nullptr, nullptr,
+                             static_cast<cudaStream_t>(stream));
+}
+
+int fg_encode_gelf_gelf_probe_f16(const void* batch, const void* lens,
+                                  const void* ch, const int* consts, int N,
+                                  int n, int L, void* tier, void* base_len,
+                                  void* small, void* stream) {
+  return launch_gg<16, false>(batch, lens, ch, nullptr, nullptr, nullptr,
+                              consts, N, n, L, 0, tier, base_len, small,
+                              nullptr, nullptr,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// EG assemble at 8 and 16 fields: the elided bytes of each row below n
+// with row_off >= 0 at flat[row_off]
+int fg_encode_gelf_gelf_assemble_f8(const void* batch, const void* lens,
+                                    const void* ch, const void* ts_text,
+                                    const void* ts_len, const void* bank,
+                                    const int* consts, int N, int n, int L,
+                                    int OW, const void* row_off, void* flat,
+                                    void* stream) {
+  return launch_gg<8, true>(batch, lens, ch, ts_text, ts_len, bank, consts,
+                            N, n, L, OW, nullptr, nullptr, nullptr, row_off,
+                            flat, static_cast<cudaStream_t>(stream));
+}
+
+int fg_encode_gelf_gelf_assemble_f16(const void* batch, const void* lens,
+                                     const void* ch, const void* ts_text,
+                                     const void* ts_len, const void* bank,
+                                     const int* consts, int N, int n, int L,
+                                     int OW, const void* row_off, void* flat,
+                                     void* stream) {
+  return launch_gg<16, true>(batch, lens, ch, ts_text, ts_len, bank, consts,
+                             N, n, L, OW, nullptr, nullptr, nullptr, row_off,
+                             flat, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

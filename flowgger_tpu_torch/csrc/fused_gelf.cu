@@ -1,5 +1,5 @@
 // The fused decode -> GELF encode routes, one warp per row: F1 (rfc5424),
-// F3 (rfc3164) and FL (ltsv), a probe and an assemble each.
+// F3 (rfc3164), FL (ltsv) and FG (gelf), a probe and an assemble each.
 //
 // Replaces the JAX package's fused programs _fused_rfc5424_gelf
 // (flowgger_tpu/tpu/fused_routes.py:179: the K1 decode leg, Pallas
@@ -9,7 +9,10 @@
 // DEMAND["rfc3164_gelf"] and device_rfc3164._encode_kernel) and
 // _fused_ltsv_gelf (:215: decode_ltsv_jit with DEMAND["ltsv_gelf"] and
 // device_ltsv._encode_kernel at 6 pairs; its probe hands the host the
-// narrowed timestamp channels of _ltsv_small_fetch :243).
+// narrowed timestamp channels of _ltsv_small_fetch :243) and
+// _fused_gelf_gelf (:276: decode_gelf_jit, the flat structural index at 8
+// fields, with device_gelf_gelf._encode_kernel; its probe returns the
+// encode's timestamp parse with the decode's ok, :284-288).
 //
 // What it computes, per row of a packed [N, L] uint8 batch: the decode of
 // the split route's kernel (K1 at 6 pairs, D3 for the year given, or L1)
@@ -28,8 +31,14 @@
 //   24-part table: kCarryL = 31 int32 (the pair count, the escaped host
 //   and message spans, whether a message is present, the level, and the
 //   four escaped span ends of each of the 6 sorted pairs; 124 bytes), so
-//   its assemble selects and sorts nothing again.  FL's small channels
-//   are the reference's narrowed ones, one 25 N-byte buffer
+//   its assemble selects and sorts nothing again.  FG likewise carries
+//   what EG's assemble reads after special routing and the sort:
+//   kCarryG = 49 int32 (the pair count, the presence flags, the spans of
+//   full_message, host, the level digit and short_message, and each of
+//   the 8 sorted fields' name and value spans with its value class and
+//   '_' flag; 196 bytes), and its small channels are EG's stamp parse
+//   (int32 [3, N]: ts_hi, ts_lo, ts_meta, zeros off the tier).  FL's small
+//   channels are the reference's narrowed ones, one 25 N-byte buffer
 //   (encode_ltsv_row.cuh SmallL: days, sod, nanos, ts_hi, ts_lo int32,
 //   off / 60 int16, ok, ts_kind, ts_meta & 255 uint8), so a row's stamp
 //   crosses in fewer bytes than the constants the encode leaves out.
@@ -81,8 +90,10 @@
 #include "decode_ltsv_row.cuh"
 #include "decode_rfc3164_row.cuh"
 #include "decode_rfc5424_row.cuh"
+#include "encode_gelf_gelf_row.cuh"
 #include "encode_gelf_row.cuh"
 #include "encode_ltsv_row.cuh"
+#include "structural_index_row.cuh"
 
 namespace {
 
@@ -100,6 +111,8 @@ constexpr int kMinBlocks = 5;
 constexpr int kProbeBlocks5 = 4;
 constexpr int kProbeBlocks3 = 6;
 constexpr int kProbeBlocksL = 4;
+constexpr int kProbeBlocksG = 4;
+constexpr int kFieldsG = 8;              // the fused gelf route's field width
 
 // The carried channels: entry j of a row of `chan` is tile channel
 // kept5(j) (F1) or kept3(j) (F3), the channels fused_routes.DEMAND names.
@@ -371,6 +384,59 @@ fused_ltsv_gelf_kernel(const uint8_t* __restrict__ batch,
       sm, r.row);
 }
 
+template <bool ASM>
+__global__ void __launch_bounds__(32 * kWarps,
+                                  ASM ? kMinBlocks : kProbeBlocksG)
+fused_gelf_gelf_kernel(const uint8_t* __restrict__ batch,
+                       const int32_t* __restrict__ lens_in,
+                       const uint8_t* __restrict__ ts_text,
+                       const int32_t* __restrict__ ts_len_in,
+                       const uint8_t* __restrict__ bank, int bank_len,
+                       enc::ConstsG k, int N, int n, int L, int OW,
+                       uint8_t* __restrict__ tier_out,
+                       int32_t* __restrict__ len_out,
+                       int32_t* __restrict__ small,
+                       int32_t* __restrict__ chan,
+                       const int64_t* __restrict__ row_off,
+                       uint8_t* __restrict__ flat) {
+  extern __shared__ uint4 fgg_smem_v[];
+  __shared__ int32_t tile[ASM ? 1 : si::channels(kFieldsG)][kWarps];
+  __shared__ si::RowSums<kFieldsG> sums[ASM ? 1 : kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const FusedRow r = fused_row<ASM, 0>(N, n, tier_out, len_out, nullptr,
+                                       row_off, lane);
+  const enc::SmallG sm{small, N};
+  if (!ASM && !r.live && r.row < N && lane == 0)
+    enc::store_small_gg(sm, r.row, 0, 0, 0);  // padding
+  if (!r.live) return;
+  const int stride = enc::gg_smem(L, OW, kFieldsG, ASM, bank_len).stride;
+  uint8_t* base = reinterpret_cast<uint8_t*>(fgg_smem_v) +
+                  (size_t)warp * stride;
+  const int len = lens_in[r.row];
+  int32_t* col = &tile[0][warp];
+  const enc::RowOut out{ASM ? nullptr : tier_out + r.row,
+                        ASM ? nullptr : len_out + r.row,
+                        ASM ? flat + r.dst0 : nullptr};
+  const enc::RowIn in = row_in<ASM>(batch, r.row, len, L, OW, bank, bank_len,
+                                    ts_text, ts_len_in);
+  int32_t* carried = chan + (size_t)r.row * enc::kCarryG;
+  if (ASM) {
+    // the probe's selection: no decode, no special routing, no sort
+    enc::encode_gg_row<kFieldsG, true, false, true>(
+        enc::ChanView{col, kWarps}, carried, in, k, base, out, lane);
+    return;
+  }
+  // K5's flat row index stages the row at the start of the warp's encode
+  // region and writes the channels to the block's tile
+  si::index_row<kFieldsG, true>(batch + (size_t)r.row * L, len, L, 0,
+                          reinterpret_cast<uint4*>(base), sums[warp], col,
+                          lane);
+  __syncwarp();
+  enc::encode_gg_row<kFieldsG, false, true, false>(
+      enc::ChanView{col, kWarps}, nullptr, in, k, base, out, lane, carried,
+      sm, r.row);
+}
+
 // dynamic shared memory a block may take beside the kernels' static
 // tile and sums (< 4 KiB)
 constexpr int kDynMax = 220 * 1024;
@@ -459,15 +525,42 @@ int launch_ltsv(const void* batch, const void* lens, const void* ts_text,
   return (int)cudaGetLastError();
 }
 
+template <bool ASM>
+int launch_gg(const void* batch, const void* lens, const void* ts_text,
+              const void* ts_len, const void* bank, const int* consts, int N,
+              int n, int L, int OW, void* tier, void* base_len, void* small,
+              void* chan, const void* row_off, void* flat,
+              cudaStream_t stream) {
+  if (N <= 0) return 0;
+  const enc::ConstsG k = enc::const_table<enc::kNumConstG>(consts);
+  const int bank_len = enc::bank_bytes(k);
+  const int stride = enc::gg_smem(L, OW, kFieldsG, ASM, bank_len).stride;
+  auto kern = fused_gelf_gelf_kernel<ASM>;
+  int grid = 0, threads = 0;
+  size_t smem = 0;
+  const int rc = enc::warp_rows_geometry(kern, N, stride, kDynMax, &grid,
+                                         &threads, &smem);
+  if (rc != 0) return rc;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(batch), static_cast<const int32_t*>(lens),
+      static_cast<const uint8_t*>(ts_text),
+      static_cast<const int32_t*>(ts_len), static_cast<const uint8_t*>(bank),
+      bank_len, k, N, n, L, OW, static_cast<uint8_t*>(tier),
+      static_cast<int32_t*>(base_len), static_cast<int32_t*>(small),
+      static_cast<int32_t*>(chan), static_cast<const int64_t*>(row_off),
+      static_cast<uint8_t*>(flat));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // int32 entries a row of the carried channel tensor: F1 (route 5424), F3
-// (route 3164) or FL (route 76, 'L')
+// (route 3164), FL (route 76, 'L') or FG (route 71, 'G')
 int fg_fused_gelf_carry(int route) {
   return route == 5424 ? kCarry5 : route == 3164 ? kCarry3
-         : route == 76 ? enc::kCarryL : -1;
+         : route == 76 ? enc::kCarryL : route == 71 ? enc::kCarryG : -1;
 }
 
 // F1 probe: base tier bit (uint8) and base_len (int32) of every row, the
@@ -545,6 +638,33 @@ int fg_fused_ltsv_gelf_assemble(const void* batch, const void* lens,
                            L, OW, nullptr, nullptr, nullptr,
                            const_cast<void*>(chan), row_off, flat,
                            static_cast<cudaStream_t>(stream));
+}
+
+// FG probe: base tier bit (uint8) and base_len (int32) of every gelf row,
+// the int32 [3, N] ts_hi / ts_lo / ts_meta channels of its tier rows
+// (zeros elsewhere and for the rows at and past n), and the carried
+// selection of each base tier row (int32 [N, 49])
+int fg_fused_gelf_gelf_probe(const void* batch, const void* lens,
+                             const int* consts, int N, int n, int L,
+                             void* tier, void* base_len, void* small,
+                             void* chan, void* stream) {
+  return launch_gg<false>(batch, lens, nullptr, nullptr, nullptr, consts, N,
+                          n, L, 0, tier, base_len, small, chan, nullptr,
+                          nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// FG assemble: the elided bytes of each row below n with row_off >= 0 at
+// flat[row_off], from the probe's carried selection
+int fg_fused_gelf_gelf_assemble(const void* batch, const void* lens,
+                                const void* chan, const void* ts_text,
+                                const void* ts_len, const void* bank,
+                                const int* consts, int N, int n, int L,
+                                int OW, const void* row_off, void* flat,
+                                void* stream) {
+  return launch_gg<true>(batch, lens, ts_text, ts_len, bank, consts, N, n, L,
+                         OW, nullptr, nullptr, nullptr,
+                         const_cast<void*>(chan), row_off, flat,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

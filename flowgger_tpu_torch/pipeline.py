@@ -6,7 +6,7 @@ Parity model: flowgger src/flowgger/mod.rs:95-472 and the JAX package's
 the same output-framing inference.  The port runs ``input.type =
 "stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
 ``input.format = "rfc5424_tpu" | "rfc3164_tpu" | "jsonl_tpu" |
-"ltsv_tpu"``, into
+"ltsv_tpu" | "gelf_tpu"``, into
 ``output.format = "gelf"`` with ``output.type = "stdout" | "file"``.  Anything else raises
 ConfigError naming the later slice; nothing quietly takes a scalar path.
 
@@ -34,10 +34,11 @@ DEFAULT_OUTPUT_TYPE = "kafka"
 DEFAULT_QUEUE_SIZE = 10_000_000
 
 _LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu, " \
-    "rfc3164_tpu, jsonl_tpu or ltsv_tpu → GELF; it comes in a later slice)"
+    "rfc3164_tpu, jsonl_tpu, ltsv_tpu or gelf_tpu → GELF; it comes in a " \
+    "later slice)"
 # input.format → the batch handler's decode route
 _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
-            "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv"}
+            "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf"}
 
 
 def _check_ltsv_schema(config: Config) -> None:
@@ -117,7 +118,9 @@ class Pipeline:
             "output.format", "output.format must be a string",
             DEFAULT_OUTPUT_FORMAT)
         if output_format != "gelf":
-            raise ConfigError(f'output.format = "{output_format}" {_LATER}')
+            raise ConfigError(f'output.format = "{output_format}" {_LATER} '
+                              "(ROADMAP queue A item 6, the other output "
+                              "formats)")
         output_type = config.lookup_str(
             "output.type", "output.type must be a string", DEFAULT_OUTPUT_TYPE)
         if output_type == "stdout":
@@ -150,6 +153,13 @@ class Pipeline:
                 f"GELF field {_LATER}")
         if self.fmt == "jsonl" and self.encoder.extra:
             raise ConfigError(f"output.gelf_extra with jsonl_tpu {_LATER}")
+        if self.fmt == "gelf" and self.encoder.extra:
+            # the reference's gelf block encoder returns None with extras
+            # (encode_gelf_gelf_block.py:274-275) and its device tiers are
+            # gated off: every batch takes its Record path
+            raise ConfigError(f"output.gelf_extra with gelf_tpu takes the "
+                              f"reference's Record path, which {_LATER} "
+                              "(ROADMAP queue A item 3)")
         if self.fmt == "ltsv":
             _check_ltsv_schema(config)
         queue_size = config.lookup_int(

@@ -1,5 +1,5 @@
-"""BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines / LTSV
-→ GELF paths.
+"""BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines / LTSV /
+GELF → GELF paths.
 
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
@@ -13,7 +13,8 @@ down the reference's ladder (its ``_emit_fast`` and
 
 1. device framing (``framing.device_frame_region``: span and gather
    kernels), or the host splitter when the span kernel declines;
-2. for RFC5424, RFC3164 or LTSV into GELF with ``input.tpu_fuse`` "auto"
+2. for RFC5424, RFC3164, LTSV or GELF into GELF with ``input.tpu_fuse``
+   "auto"
    (the default) or "on", the fused route (``fused_routes``: decode and
    encode in one kernel a phase), unless its own cooldown is running,
    which counts down here, at submit;
@@ -22,17 +23,21 @@ down the reference's ladder (its ``_emit_fast`` and
    rows re-decoded at 16 pairs on the host path), RFC3164
    (``rfc3164.decode_rfc3164_submit``), JSON-lines
    (``jsonl.decode_jsonl_submit``, 9-24-key rows re-decoded at 24
-   fields) or LTSV (``ltsv.decode_ltsv_submit``, 24 parts);
-4. for RFC5424, RFC3164 or LTSV into GELF, the split device encode tier
-   (``device_gelf`` / ``device_rfc3164`` / ``device_ltsv``: probe,
-   timestamp text, assemble, one fetch of the tier rows' bytes) under
-   its own decline state; each tier hands the batch back when more than
-   5 % of its rows fall outside it (the ltsv tier first tries 16 pairs),
-   and cools down after three such batches in a row;
+   fields), LTSV (``ltsv.decode_ltsv_submit``, 24 parts) or GELF
+   (``gelf.decode_gelf_submit``, the flat index; 9-24-key rows
+   re-decoded at 24 fields on the host path);
+4. for RFC5424, RFC3164, LTSV or GELF into GELF, the split device encode
+   tier (``device_gelf`` / ``device_rfc3164`` / ``device_ltsv`` /
+   ``device_gelf_gelf``: probe, timestamp text, assemble, one fetch of
+   the tier rows' bytes) under its own decline state; each tier hands
+   the batch back when more than 5 % of its rows fall outside it (the
+   ltsv tier first tries 16 pairs, the gelf tier 16 fields), and cools
+   down after three such batches in a row;
 5. the format's host block encoder (``encode_gelf_block``,
    ``encode_rfc3164_gelf_block``, ``encode_jsonl_block``,
-   ``encode_ltsv_gelf_block``), which runs the scalar oracle for rows the
-   kernel flagged and for over-length lines;
+   ``encode_ltsv_gelf_block``, ``encode_gelf_gelf_block``), which runs
+   the scalar oracle for rows the kernel flagged and for over-length
+   lines;
 6. the merger framing (pre-applied) and the output queue.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
@@ -52,14 +57,16 @@ import torch
 
 from ..config import Config, ConfigError
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
-from . import device_gelf, device_ltsv, device_rfc3164
+from . import device_gelf, device_gelf_gelf, device_ltsv, device_rfc3164
 from . import framing as _framing
 from . import fused_routes
 from . import pack as _pack
 from .encode_gelf_block import encode_rfc5424_gelf_block
+from .encode_gelf_gelf_block import encode_gelf_gelf_block
 from .encode_jsonl_block import encode_jsonl_gelf_block
 from .encode_ltsv_gelf_block import encode_ltsv_gelf_block
 from .encode_rfc3164_gelf_block import encode_rfc3164_gelf_block
+from .gelf import decode_gelf_fetch, decode_gelf_submit
 from .jsonl import decode_jsonl_fetch, decode_jsonl_submit
 from .ltsv import decode_ltsv_fetch, decode_ltsv_submit
 from .rfc3164 import decode_rfc3164_fetch, decode_rfc3164_submit
@@ -84,10 +91,11 @@ _ROUTES = {
     "jsonl": (decode_jsonl_submit, decode_jsonl_fetch,
               encode_jsonl_gelf_block),
     "ltsv": (decode_ltsv_submit, decode_ltsv_fetch, encode_ltsv_gelf_block),
+    "gelf": (decode_gelf_submit, decode_gelf_fetch, encode_gelf_gelf_block),
 }
 # the split device encode tier per input format
 _DEVICE_TIERS = {"rfc5424": device_gelf, "rfc3164": device_rfc3164,
-                 "ltsv": device_ltsv}
+                 "ltsv": device_ltsv, "gelf": device_gelf_gelf}
 
 
 class BatchHandler(Handler):

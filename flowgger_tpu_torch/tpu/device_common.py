@@ -255,7 +255,8 @@ def _sort_network(n: int):
     return tuple(pairs)
 
 
-def sort_pairs_by_key8(bb: torch.Tensor, cols: dict, max_pairs: int):
+def sort_pairs_by_key8(bb: torch.Tensor, cols: dict, max_pairs: int,
+                       slot_valid=None):
     """Sort per-pair span columns by their names' first 8 bytes
     (serde_json's BTreeMap order) with a sorting network, and flag rows
     whose order the 8-byte prefix cannot decide.
@@ -266,7 +267,13 @@ def sort_pairs_by_key8(bb: torch.Tensor, cols: dict, max_pairs: int):
     0-3 and 4-7) and ``nlen`` key lists, sorts everything in place and
     returns the ambig mask: equal 8-byte prefixes are orderable only
     when exactly one name is ≤ 8 bytes; equal-length or both-longer
-    names (duplicates included, dict last-wins) leave the tier."""
+    names (duplicates included, dict last-wins) leave the tier.
+
+    Slots are normally compacted (the valid pairs first, gated by
+    ``_pair_count``); ``slot_valid`` (a list of [N] bool, one a slot)
+    marks the valid slots in place instead: the others key to _BIG and
+    the sort itself moves them to the tail (``device_gelf_gelf`` feeds
+    its fields in raw order so)."""
     N, L = bb.shape
     i64 = torch.int64
     pair_count = cols.pop("_pair_count")
@@ -275,7 +282,7 @@ def sort_pairs_by_key8(bb: torch.Tensor, cols: dict, max_pairs: int):
     for p in range(max_pairs):
         ns_r = cols["ns_raw"][p].to(i64)
         ne_r = cols["ne_raw"][p].to(i64)
-        pv = p < pair_count
+        pv = (p < pair_count) if slot_valid is None else slot_valid[p]
         pos = ns_r[:, None] + k8
         inn = (pos >= 0) & (pos < L) & (pos < ne_r[:, None])
         z = torch.where(inn, bb.gather(1, pos.clamp(0, L - 1)), 0)

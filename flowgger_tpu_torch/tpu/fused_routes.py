@@ -3,8 +3,9 @@
 the device between the decode and the encode.
 
 A trimmed copy of the JAX package's ``tpu/fused_routes.py`` with its
-three GELF legs of rfc5424, rfc3164 and ltsv input.  The split tier
-(``device_gelf`` / ``device_rfc3164`` / ``device_ltsv``) runs the decode
+four GELF legs of rfc5424, rfc3164, ltsv and gelf input.  The split tier
+(``device_gelf`` / ``device_rfc3164`` / ``device_ltsv`` /
+``device_gelf_gelf``) runs the decode
 and the encode as two launches with the decode's channel tensor written
 to device memory in between; a fused route decodes and probes in one
 kernel and assembles in a second:
@@ -14,7 +15,9 @@ kernel and assembles in a second:
 - F3, ``rfc3164_gelf``: D3's row decode and E3's probe, then E3's
   assemble;
 - FL, ``ltsv_gelf``: L1's row decode and EL's probe at 6 pairs, then
-  EL's assemble.
+  EL's assemble;
+- FG, ``gelf_gelf``: K5's flat row decode (8 fields) and EG's probe,
+  then EG's assemble.
 
 One decode per taken batch: the probe decodes each row once, keeps the
 channels in shared memory for its encode, and writes the channels the
@@ -23,7 +26,10 @@ keeps until the assemble, which reads them and runs no decode
 (``kernels.FUSED_CARRY`` int32 a row, :func:`carried_columns`): for F1
 and F3 the :data:`DEMAND` channels, for FL what EL's assemble reads
 after pair selection and the sort (the sorted pairs' escaped spans, the
-host and message spans, the level), not the 24-part table.  The
+host and message spans, the level), not the 24-part table, and for FG
+what EG's assemble reads after special routing and the sort (the sorted
+pairs' spans and value classes, the special fields' spans), not the
+7 x 8 field table.  The
 reference's fused program decodes again in its assemble, since each call
 of a jitted program is whole; that is its structure, not its contract: the carried
 channels are the same function of the same batch, so the bytes are the
@@ -50,7 +56,7 @@ reference passes its driver none).
 Left out, on purpose: the fused compile watchdog and
 ``FLOWGGER_FUSED_COMPILE_TIMEOUT_MS`` (the CUDA kernels build once,
 before the first batch, and a failed build raises), the AOT
-``fused_wrap``, the metrics registry and the five other routes of the
+``fused_wrap``, the metrics registry and the four other routes of the
 reference's ``ROUTES``.
 
 Plain versions (the CPU): the format's plain decode, narrowed to
@@ -67,6 +73,7 @@ SCALAR_ORACLE = "flowgger_tpu_torch.encoders.gelf:GelfEncoder"
 DIFF_TEST = (
     "tests/test_torch_fused.py::test_fused_split_scalar_bytes_equal",
     "tests/test_torch_fused.py::test_fused_probe_matches_reference",
+    "tests/test_torch_fused_gelf.py::test_fused_gelf_matches_reference",
 )
 
 from typing import Dict, Optional
@@ -102,12 +109,23 @@ DEMAND = {
         "host_start", "host_end", "msg_start", "msg_end", "level_val",
         "ts_kind", "ts_hi", "ts_lo", "ts_meta", *_TS4,
     )),  # drops: ts_start, ts_end
+    "gelf_gelf": frozenset((
+        "ok", "n_fields", "key_start", "key_end", "val_start",
+        "val_end", "val_type", "key_esc", "val_esc",
+    )),  # the canonicalizing re-encode touches every channel
 }
 # FL's carried row: the row values EL's assemble reads, then each sorted
 # pair's four escaped span ends (fused_gelf.cu kCarryL)
 _LTSV_CARRY_ROW = ("pair_count", "host_s", "host_e", "msg_s", "msg_e",
                    "has_msg", "level")
 _LTSV_CARRY_PAIR = ("ns", "ne", "vs", "ve")
+# FG's carried row: the row values EG's assemble reads (``flags``: has
+# full_message | has level << 1 | has short_message << 2), then each
+# sorted pair's spans and ``vt | us << 3`` (its value class, and whether
+# its name starts with '_'); encode_gelf_gelf_row.cuh kCarryG
+_GELF_CARRY_ROW = ("pc", "flags", "full_a", "full_b", "host_a", "host_b",
+                   "lvl_a", "short_a", "short_b")
+_GELF_CARRY_PAIR = ("ns", "ne", "vs", "ve", "vtus")
 
 
 def carried_columns(route: str):
@@ -123,6 +141,11 @@ def carried_columns(route: str):
 
         return [(k, None) for k in _LTSV_CARRY_ROW] + [
             (k, p) for p in range(MAX_DEV_PAIRS) for k in _LTSV_CARRY_PAIR]
+    if route == "gelf_gelf":
+        from .device_gelf_gelf import BASE_FIELDS
+
+        return [(k, None) for k in _GELF_CARRY_ROW] + [
+            (k, p) for p in range(BASE_FIELDS) for k in _GELF_CARRY_PAIR]
     demand = DEMAND[route]
     if route == "rfc3164_gelf":
         from .rfc3164 import KEYS
@@ -141,10 +164,23 @@ def carried_columns(route: str):
 def carried_plain(dec: Dict[str, torch.Tensor], route: str, batch=None,
                   lens=None) -> torch.Tensor:
     """The carried channels of every row from a plain decode, int32
-    [N, C] (the kernel writes only its probe's tier rows).  FL's are
-    computed from the decode and the batch (``batch``, ``lens``) by the
-    plain encode's pair selection and sort."""
-    if route == "ltsv_gelf":
+    [N, C] (the kernel writes only its probe's tier rows).  FL's and
+    FG's are computed from the decode and the batch (``batch``, ``lens``)
+    by the plain encode's pair selection (FG: special routing) and
+    sort."""
+    if route == "gelf_gelf":
+        from .device_gelf_gelf import analyze
+
+        dec = analyze(batch, lens, dec)
+        pv = [p < dec["pc"] for p in range(dec["F"])]
+        dec["flags"] = (dec["has_full"].to(torch.int64)
+                        | (dec["has_lvl"].to(torch.int64) << 1)
+                        | (dec["has_short"].to(torch.int64) << 2))
+        for k in ("ns", "ne", "vs", "ve"):
+            dec[k] = [torch.where(v, c, 0) for v, c in zip(pv, dec[k])]
+        dec["vtus"] = [torch.where(v, t | (u << 3), 0) for v, t, u in
+                       zip(pv, dec["vt"], dec["us"])]
+    elif route == "ltsv_gelf":
         from .device_common import escape_stage
         from .device_ltsv import MAX_DEV_PAIRS, select_rows
 
@@ -191,6 +227,8 @@ class _FusedRows:
             from . import device_rfc3164 as split
         elif route.fmt == "ltsv":
             from . import device_ltsv as split
+        elif route.fmt == "gelf":
+            from . import device_gelf_gelf as split
         else:
             from . import device_gelf as split
         self.split = split
@@ -210,6 +248,10 @@ class _FusedRows:
             from .ltsv import decode_ltsv
 
             dec = decode_ltsv(self.batch, self.lens)
+        elif self.route.fmt == "gelf":
+            from .gelf import decode_gelf
+
+            dec = decode_gelf(self.batch, self.lens)
         else:
             from .rfc5424 import decode_rfc5424
 
@@ -218,7 +260,7 @@ class _FusedRows:
         return {k: v for k, v in dec.items() if k in demand}
 
     def _plain_encode(self, dec, **kw):
-        if self.route.fmt in ("rfc3164", "ltsv"):
+        if self.route.fmt in ("rfc3164", "ltsv", "gelf"):
             return self.split.encode_rows(self.batch, self.lens, dec,
                                           suffix=self.suffix,
                                           extras=self.extras, **kw)
@@ -233,7 +275,8 @@ class _FusedRows:
         """``(base, base_len)`` of the first ``n`` rows, as the split
         tier's probe; keeps the ``ok`` and timestamp channels (int32
         [5, N]: ok, days, sod, off, nanos; for FL the narrowed buffer of
-        ``device_ltsv.small_pack``; 0 past ``n``)."""
+        ``device_ltsv.small_pack``; for FG EG's int32 [3, N] stamp
+        channels, 0 off its tier; 0 past ``n``)."""
         if self.batch.is_cuda:
             from .kernels import fused_gelf_cuda
 
@@ -243,6 +286,10 @@ class _FusedRows:
             self.carried = (chan, base)
             return base, base_len
         dec = self.dec = self._plain_decode()
+        if self.route.fmt == "gelf":
+            base, base_len, self.small = self._plain_encode(
+                dec, assemble=False, n=n)
+            return base, base_len
         live = torch.arange(self.N, device=self.device) < n
         if self.route.fmt == "ltsv":
             self.small = self.split.small_pack(dec, n)
@@ -275,6 +322,8 @@ class _FusedRows:
         if self.route.fmt == "ltsv":
             # the reference's _ltsv_small_fetch
             return self.split.small_fetch(self.small, self.N, n)
+        if self.route.fmt == "gelf":
+            return self.split.small_channels(self.small, n)
         h = self.small[:, :n].cpu().numpy()
         small = {"ok": h[0] != 0, "days": h[1], "sod": h[2], "off": h[3],
                  "nanos": h[4]}
@@ -303,6 +352,10 @@ class FusedRoute:
             from . import device_ltsv
 
             return device_ltsv.route_ok(encoder, merger, decoder)
+        if self.fmt == "gelf":
+            from . import device_gelf_gelf
+
+            return device_gelf_gelf.route_ok(encoder, merger)
         from . import device_gelf
 
         return device_gelf.route_ok(encoder, merger)
@@ -325,6 +378,11 @@ class FusedRoute:
                 return _scalar_ltsv(decoder, line)
 
             ts_vals_fn = ts_vals_ltsv
+        elif self.fmt == "gelf":
+            from .device_gelf_gelf import elide_spec, ts_vals_gelf
+            from .materialize_gelf import _scalar_gelf as scalar_fn
+
+            ts_vals_fn = ts_vals_gelf
         elif self.fmt == "rfc3164":
             from ..utils.timeparse import current_year_utc
             from .device_rfc3164 import elide_spec
@@ -346,6 +404,7 @@ ROUTES = {
     "rfc5424": FusedRoute("rfc5424_gelf", "rfc5424"),
     "rfc3164": FusedRoute("rfc3164_gelf", "rfc3164"),
     "ltsv": FusedRoute("ltsv_gelf", "ltsv"),
+    "gelf": FusedRoute("gelf_gelf", "gelf"),
 }
 
 

@@ -11,8 +11,10 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
   (replaces ``pallas_kernels.frame_gather_pallas``);
 - ``decode_rfc5424`` — the per-row RFC5424 channels at 6 and 16 pairs
   (replaces ``rfc5424.decode_rfc5424_pallas``);
-- ``structural_index`` — the per-row JSON-lines structural index at 8
-  and 24 fields (replaces ``pallas_kernels.structural_index_pallas``);
+- ``structural_index`` — K5, the per-row JSON structural index
+  (replaces ``pallas_kernels.structural_index_pallas``) in its two
+  modes: nested containers (the JSON-lines decode, 8 and 24 fields) and
+  flat objects, ``nested = 0`` (the GELF decode, 8, 16 and 24 fields);
 - ``encode_gelf`` — the RFC5424→GELF encode of the device tier at 6 and
   16 pairs, a probe (each real row's tier bit before the width test and
   its length without the timestamp text) and an assemble (the tier rows'
@@ -21,7 +23,9 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
   assembly and compaction stages, not a ``pallas_call``; beside it (the
   same source) E3, the RFC3164→GELF encode of the split rfc3164 tier, a
   probe and an assemble (replaces the jnp
-  ``device_rfc3164._encode_kernel``);
+  ``device_rfc3164._encode_kernel``); and EG, the GELF→GELF
+  re-canonicalization of the split gelf tier at 8 and 16 fields
+  (replaces the jnp ``device_gelf_gelf._encode_kernel``);
 - ``decode_rfc3164`` — D3, the per-row RFC3164 channels (replaces the jnp
   ``rfc3164.decode_rfc3164``, not a ``pallas_call``);
 - ``decode_ltsv`` — L1, the per-row LTSV channels of 24 parts (replaces
@@ -30,15 +34,17 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
   6 and 16 pairs (replaces the jnp ``device_ltsv._encode_kernel``);
 - ``fused_gelf`` — the fused routes F1 (rfc5424→GELF: K1's row decode and
   E1's probe in one kernel, then E1's assemble from the channels the
-  probe carried), F3 (rfc3164→GELF: D3's and E3's) and FL (ltsv→GELF:
-  L1's and EL's), replacing the jnp + Pallas
-  ``fused_routes._fused_rfc5424_gelf`` and the jnp
-  ``_fused_rfc3164_gelf`` and ``_fused_ltsv_gelf``.
+  probe carried), F3 (rfc3164→GELF: D3's and E3's), FL (ltsv→GELF:
+  L1's and EL's) and FG (gelf→GELF: K5's flat row decode and EG's),
+  replacing the jnp + Pallas ``fused_routes._fused_rfc5424_gelf`` and
+  the jnp ``_fused_rfc3164_gelf``, ``_fused_ltsv_gelf`` and
+  ``_fused_gelf_gelf``.
 
 The one-warp-a-row kernels share their device code through headers in
 ``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
-``decode_rfc3164_row.cuh``, ``encode_gelf_row.cuh``); each ``.cu`` still
-builds to one library.
+``decode_rfc3164_row.cuh``, ``encode_gelf_row.cuh``,
+``structural_index_row.cuh``, ``encode_gelf_gelf_row.cuh``, ...); each
+``.cu`` still builds to one library.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use, into ``build/cuda`` next to the
@@ -54,8 +60,9 @@ choose between them by the tensor's device (``framing.sep_spans``,
 ``framing.syslen_spans``, ``framing.gather``,
 ``rfc5424.decode_rfc5424_submit``, ``rfc3164.decode_rfc3164_submit``,
 ``jsonl.decode_jsonl_submit``, ``ltsv.decode_ltsv_submit``,
-``device_gelf._Rows``, ``device_rfc3164._Rows``, ``device_ltsv._Rows``
-and ``fused_routes._FusedRows``).
+``gelf.decode_on``, ``device_gelf._Rows``, ``device_rfc3164._Rows``,
+``device_ltsv._Rows``, ``device_gelf_gelf._Rows`` and
+``fused_routes._FusedRows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -93,7 +100,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel (the decode kernels count
-# their instantiations apart: 6 and 16 pairs, 8 and 24 fields)
+# their instantiations apart: 6 and 16 pairs, 8, 16 and 24 fields; K5's
+# flat mode, nested = 0, counts apart from its nested mode as "_flat")
 LAUNCHES: Dict[str, int] = {
     "frame_sep_spans": 0, "frame_syslen_spans": 0, "frame_gather": 0,
     "decode_rfc5424_p6": 0, "decode_rfc5424_p16": 0,
@@ -107,7 +115,12 @@ LAUNCHES: Dict[str, int] = {
     "decode_ltsv": 0,
     "encode_gelf_ltsv_probe_p6": 0, "encode_gelf_ltsv_assemble_p6": 0,
     "encode_gelf_ltsv_probe_p16": 0, "encode_gelf_ltsv_assemble_p16": 0,
-    "fused_ltsv_gelf_probe": 0, "fused_ltsv_gelf_assemble": 0}
+    "fused_ltsv_gelf_probe": 0, "fused_ltsv_gelf_assemble": 0,
+    "structural_index_flat_f8": 0, "structural_index_flat_f16": 0,
+    "structural_index_flat_f24": 0,
+    "encode_gelf_gelf_probe_f8": 0, "encode_gelf_gelf_assemble_f8": 0,
+    "encode_gelf_gelf_probe_f16": 0, "encode_gelf_gelf_assemble_f16": 0,
+    "fused_gelf_gelf_probe": 0, "fused_gelf_gelf_assemble": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -127,8 +140,8 @@ _SIGNATURES = {
         "fg_decode_rfc5424_sd4_p16": (_P, _P, _P, _I, _I, _P),
     },
     "structural_index": {
-        "fg_structural_index_f8": (_P, _P, _P, _I, _I, _I, _P),
-        "fg_structural_index_f24": (_P, _P, _P, _I, _I, _I, _P),
+        f"fg_structural_index_f{f}": (_P, _P, _P, _I, _I, _I, _P)
+        for f in (8, 16, 24)
     },
     "encode_gelf": {
         **{f"fg_encode_gelf_probe_p{p}": (_P, _P, _P, _P, _I, _I, _I, _I,
@@ -145,6 +158,12 @@ _SIGNATURES = {
         **{f"fg_encode_gelf_ltsv_assemble_p{p}": (_P,) * 7 + (_I, _I, _I, _I,
                                                               _P, _P, _P)
            for p in (6, 16)},
+        **{f"fg_encode_gelf_gelf_probe_f{f}": (_P, _P, _P, _P, _I, _I, _I,
+                                               _P, _P, _P, _P)
+           for f in (8, 16)},
+        **{f"fg_encode_gelf_gelf_assemble_f{f}": (_P,) * 7 + (_I, _I, _I, _I,
+                                                              _P, _P, _P)
+           for f in (8, 16)},
     },
     "decode_ltsv": {
         "fg_decode_ltsv": (_P, _P, _P, _I, _I, _I, _P),
@@ -166,6 +185,10 @@ _SIGNATURES = {
                                      _P),
         "fg_fused_ltsv_gelf_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P, _P,
                                                     _P),
+        "fg_fused_gelf_gelf_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                     _P),
+        "fg_fused_gelf_gelf_assemble": (_P,) * 7 + (_I, _I, _I, _I, _P, _P,
+                                                    _P),
     },
 }
 _TILE_BYTES = 16384  # kTile in frame_sep_spans.cu
@@ -182,8 +205,10 @@ _INDEX_STAGING_BYTES = 215 * 1024
 # channels fused_routes.DEMAND names (F1: 18 row channels, 2 x 4 SD
 # spans, 5 x 6 pair channels; F3: 11); fused_gelf.cu kCarry5 / kCarry3;
 # FL: EL's selection after the sort (7 row values, 4 x 6 pair spans;
-# encode_ltsv_row.cuh kCarryL, fused_routes.carried_columns)
-FUSED_CARRY = {"rfc5424": 56, "rfc3164": 11, "ltsv": 31}
+# encode_ltsv_row.cuh kCarryL, fused_routes.carried_columns); FG: EG's
+# selection after special routing and the sort (9 row values, 5 x 8 pair
+# values; encode_gelf_gelf_row.cuh kCarryG)
+FUSED_CARRY = {"rfc5424": 56, "rfc3164": 11, "ltsv": 31, "gelf": 49}
 
 
 
@@ -421,10 +446,13 @@ def decode_rfc5424_cuda(batch: torch.Tensor, lens: torch.Tensor,
 def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
                           max_fields: int = 8, nested: int = 4
                           ) -> torch.Tensor:
-    """The JSON-lines structural index of ``batch`` (u8 [N, L]) as one
+    """K5: the JSON structural index of ``batch`` (u8 [N, L]) as one
     int32 ``[2 + 7 * max_fields, N]`` tensor on the device
-    (``jsonidx.unpack_channels`` splits it).  Instantiated for 8 and 24
-    fields, with nested containers (``nested`` >= 1 levels)."""
+    (``jsonidx.unpack_channels`` splits it).  Two modes:
+    ``nested`` >= 1 admits containers that many levels below the top
+    object (the JSON-lines decode; 8 and 24 fields), ``nested = 0`` is
+    the flat mode (the GELF decode; 8, 16 and 24 fields), where any
+    bracket outside a string flags the row."""
     from .jsonidx import n_channels
 
     _need(batch, "batch", torch.uint8, 2)
@@ -432,9 +460,12 @@ def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
     N, L = batch.shape
     if lens.shape[0] != N or L < 1:
         raise ValueError("lens must have one entry per row")
-    if max_fields not in (8, 24) or nested < 1:
+    if nested < 0 or max_fields not in ((8, 16, 24) if nested == 0
+                                        else (8, 24)):
         raise ValueError(f"no structural_index kernel for max_fields="
-                         f"{max_fields} nested={nested}")
+                         f"{max_fields} nested={nested}: the nested mode "
+                         "(nested >= 1) has 8 and 24 fields, the flat mode "
+                         "(nested = 0) 8, 16 and 24")
     if _DECODE_ROWS_PER_BLOCK * 16 * (-(-L // 16)) > _INDEX_STAGING_BYTES:
         raise ValueError(f"rows of {L} bytes exceed the structural index "
                          "kernel's shared-memory staging")
@@ -444,7 +475,8 @@ def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
     rc = fn(batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, L, nested,
             _stream())
     _check(rc, "structural_index")
-    LAUNCHES[f"structural_index_f{max_fields}"] += 1
+    LAUNCHES[f"structural_index{'_flat' if nested == 0 else ''}"
+             f"_f{max_fields}"] += 1
     return out
 
 
@@ -674,6 +706,64 @@ def encode_gelf_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
     return flat
 
 
+def encode_gelf_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                          channels: torch.Tensor, n: int, bank: torch.Tensor,
+                          consts, max_fields: int, OW: int = 0,
+                          ts_text: Optional[torch.Tensor] = None,
+                          ts_len: Optional[torch.Tensor] = None,
+                          row_off: Optional[torch.Tensor] = None,
+                          total: int = 0):
+    """EG, the device GELF→GELF re-encode of the first ``n`` rows of a
+    gelf ``batch`` at ``max_fields`` = 8 or 16 from K5's flat-mode
+    packed ``channels`` (int32 [2 + 7 * max_fields, N]) and the constant
+    bank (``consts``: ``device_gelf_gelf.kernel_consts``'s table).  The
+    contract of :func:`encode_gelf_cuda`: without ``row_off`` the probe,
+    which also parses each tier row's timestamp, ``(base bool [N],
+    base_len int32 [N], small int32 [3, N])`` with ``small`` the
+    ``ts_hi`` / ``ts_lo`` / ``ts_meta`` channels (0 off the base tier and
+    at or past ``n``); with it the assemble's u8 [total] buffer."""
+    from .jsonidx import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(channels, "channels", torch.int32, 2)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if max_fields not in (8, 16):
+        raise ValueError(f"no encode_gelf_gelf kernel for max_fields="
+                         f"{max_fields}")
+    if channels.shape != (n_channels(max_fields), N) or lens.shape[0] != N:
+        raise ValueError("channels must be the flat structural index's "
+                         f"[{n_channels(max_fields)}, N] output and lens one "
+                         "entry per row")
+    if not 1 <= L < 1 << 15 or not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L} n={n} N={N}")
+    dev = batch.device
+    lib = _lib("encode_gelf")
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        small = torch.empty((3, N), dtype=torch.int32, device=dev)
+        rc = getattr(lib, f"fg_encode_gelf_gelf_probe_f{max_fields}")(
+            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
+            N, n, L, tier.data_ptr(), base_len.data_ptr(), small.data_ptr(),
+            _stream())
+        _check(rc, "encode_gelf_gelf probe")
+        LAUNCHES[f"encode_gelf_gelf_probe_f{max_fields}"] += 1
+        return tier, base_len, small
+    _assemble_args(N, OW, ts_text, ts_len, row_off)
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    rc = getattr(lib, f"fg_encode_gelf_gelf_assemble_f{max_fields}")(
+        batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+        ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
+        L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
+    _check(rc, "encode_gelf_gelf assemble")
+    LAUNCHES[f"encode_gelf_gelf_assemble_f{max_fields}"] += 1
+    return flat
+
+
 def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
                     n: int, bank: torch.Tensor, consts, year=None,
                     OW: int = 0, ts_text: Optional[torch.Tensor] = None,
@@ -686,13 +776,15 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
     ``consts`` is ``device_gelf.kernel_consts``'s table), F3 for
     ``"rfc3164"`` (D3 for ``year``, then E3; ``device_rfc3164``'s table),
     FL for ``"ltsv"`` (L1, then EL at 6 pairs; ``device_ltsv``'s
-    table).
+    table), FG for ``"gelf"`` (K5's flat mode at 8 fields, then EG;
+    ``device_gelf_gelf``'s table).
 
     Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
     small int32 [5, N], chan int32 [N, C])``, the split probe's outputs,
     the ok, days, sod, off and nanos channels (int32 [5, N], zeros at and
     past ``n``; FL: the narrowed u8 [25 N] buffer of
-    ``device_ltsv.small_pack``),
+    ``device_ltsv.small_pack``; FG: EG's int32 [3, N] stamp channels, 0
+    off its tier),
     and the carried channels: row r of ``chan`` holds the C =
     :data:`FUSED_CARRY` channels the encode reads where ``base[r]`` is
     set, and is not written elsewhere.  With ``row_off``, ``ts_text``,
@@ -711,7 +803,7 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
     _need(lens, "lens", torch.int32, 1)
     _need(bank, "bank", torch.uint8, 1)
     N, L = batch.shape
-    if fmt not in ("rfc5424", "rfc3164", "ltsv"):
+    if fmt not in ("rfc5424", "rfc3164", "ltsv", "gelf"):
         raise ValueError(f"no fused GELF route for {fmt}")
     if fmt == "rfc3164" and year is None and not assembling:
         raise ValueError("the rfc3164 route needs the year")
@@ -732,6 +824,8 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
 
             small = torch.empty(SMALL_BYTES * N, dtype=torch.uint8,
                                 device=dev)
+        elif fmt == "gelf":
+            small = torch.empty((3, N), dtype=torch.int32, device=dev)
         else:
             small = torch.empty((5, N), dtype=torch.int32, device=dev)
         carried = torch.empty((N, C), dtype=torch.int32, device=dev)

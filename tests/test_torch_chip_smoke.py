@@ -6,7 +6,23 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 import chip_smoke
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -286,3 +302,127 @@ def test_ltsv_cases_check_and_record_their_shapes(monkeypatch):
     monkeypatch.setattr(kernels, "decode_ltsv_cuda", wrong)
     with pytest.raises(AssertionError, match="differ"):
         chip_smoke.l1_case(bt, lt, n)
+
+
+def test_gelf_cases_check_and_record_their_shapes(monkeypatch):
+    """K5's flat mode, EG's and FG's chip checks on the CPU, each wrapper
+    standing in with the plain version (and counting its launch): every
+    case runs its probe, its assemble and the fused route's carried
+    selection through the comparisons, records its checked shapes under
+    the names of the ``kernels`` line's new rows, and a stand-in that
+    differs from the plain version fails the check."""
+    import pytest
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_gelf_tier_corpus
+    from flowgger_tpu_torch.tpu import (device_gelf, device_gelf_gelf,
+                                        fused_routes, gelf, jsonidx, kernels,
+                                        pack)
+
+    def packed_of(dec, F):
+        rows = [dec[k].to(torch.int32) for k in jsonidx.KEYS_1D]
+        return torch.cat([torch.stack(rows)]
+                         + [dec[k].to(torch.int32).t()
+                            for k in jsonidx.KEYS_F]).contiguous()
+
+    def index(b, l, F, nested):
+        assert nested == 0
+        kernels.LAUNCHES[f"structural_index_flat_f{F}"] += 1
+        return packed_of(gelf.decode_gelf(b, l, F), F)
+
+    def encode(b, l, ch, n, bank, table, F, OW=0, ts_text=None, ts_len=None,
+               row_off=None, total=0):
+        dec = jsonidx.unpack_channels(ch, F)
+        if row_off is None:
+            kernels.LAUNCHES[f"encode_gelf_gelf_probe_f{F}"] += 1
+            return device_gelf_gelf.encode_rows(b, l, dec, assemble=False,
+                                                n=n, suffix=b"\0")
+        kernels.LAUNCHES[f"encode_gelf_gelf_assemble_f{F}"] += 1
+        rows, out_len, _ = device_gelf_gelf.encode_rows(
+            b, l, dec, ts_text, ts_len, suffix=b"\0")
+        return device_gelf.flat_rows(rows, out_len, row_off, total)
+
+    def fused(fmt, b, l, n, bank, table, year=None, OW=0, ts_text=None,
+              ts_len=None, row_off=None, total=0, chan=None, tier=None):
+        assert fmt == "gelf"
+        if row_off is not None:
+            return assemble_launch(fmt, b, l, n, bank, table, OW, ts_text,
+                                   ts_len, row_off, total, chan)
+        kernels.LAUNCHES["fused_gelf_gelf_probe"] += 1
+        dec = gelf.decode_gelf(b, l)
+        base, base_len, small = device_gelf_gelf.encode_rows(
+            b, l, dec, suffix=b"\0", assemble=False, n=n)
+        carried = fused_routes.carried_plain(dec, "gelf_gelf", b, l)
+        return base, base_len, small, torch.where(base[:, None], carried, -1)
+
+    def assemble_launch(fmt, b, l, n, bank, table, OW, ts_text, ts_len,
+                        row_off, total, chan):
+        kernels.LAUNCHES["fused_gelf_gelf_assemble"] += 1
+        rows, out_len, _ = device_gelf_gelf.encode_rows(
+            b, l, gelf.decode_gelf(b, l), ts_text, ts_len, suffix=b"\0")
+        return device_gelf.flat_rows(rows, out_len, row_off, total)
+
+    monkeypatch.setattr(kernels, "structural_index_cuda", index)
+    monkeypatch.setattr(kernels, "encode_gelf_gelf_cuda", encode)
+    monkeypatch.setattr(kernels, "fused_gelf_cuda", fused)
+    monkeypatch.setattr(kernels, "fused_assemble_launch", assemble_launch)
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "CHECKED", set())
+    lines = make_gelf_tier_corpus(40, seed=5)[0]
+    batch, lens, *_ = pack.pack_lines_2d(lines, 256)
+    bt, lt = torch.from_numpy(batch[:64]), torch.from_numpy(lens[:64])
+    N, n = bt.shape[0], 40
+    names = []
+    for F in (8, 16, 24):
+        row, ref = chip_smoke.decode_case("gelf", F, bt, lt)
+        assert row["max_abs_err"] == 0.0 and ref["ok"][:n].any()
+        names.append(row["name"])
+    for kind in ("eg8", "eg16", "fg"):
+        out = chip_smoke.gelf_route_case(kind, bt, lt, n)
+        assert [r["max_abs_err"] for r in out] == [0.0, 0.0]
+        assert all(r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+                   and r["replaces"].startswith("flowgger_tpu/tpu/")
+                   for r in out)
+        names += [r["name"] for r in out]
+    assert names == ["structural_index_flat_f8", "structural_index_flat_f16",
+                     "structural_index_flat_f24",
+                     "encode_gelf_gelf_probe_f8",
+                     "encode_gelf_gelf_assemble_f8",
+                     "encode_gelf_gelf_probe_f16",
+                     "encode_gelf_gelf_assemble_f16",
+                     "fused_gelf_gelf_probe", "fused_gelf_gelf_assemble"]
+    assert set(names) <= set(kernels.LAUNCHES)
+    assert chip_smoke.CHECKED == {(k, (N, 256)) for k in names}
+    with chip_smoke.launch_shapes() as seen:
+        kernels.encode_gelf_gelf_cuda(bt, lt, index(bt, lt, 8, 0), n,
+                                      torch.ones(1), [0], 8)
+    assert ("encode_gelf_gelf_probe_f8", (N, 256)) in seen
+
+    def wrong(b, l, ch, n, bank, table, F, OW=0, **kw):
+        got = encode(b, l, ch, n, bank, table, F, OW, **kw)
+        if kw.get("row_off") is None:
+            got[2][1, :] += 1            # ts_lo
+        return got
+
+    monkeypatch.setattr(kernels, "encode_gelf_gelf_cuda", wrong)
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.gelf_route_case("eg8", bt, lt, n, assemble=False)
+
+
+def test_gelf_phases_are_named_and_cut():
+    """The gelf slice's e2e paths and their kernels, and the depth cuts
+    that make room for them in the run's time budget."""
+    for name in ("gelf_line", "gelf_tier"):
+        fmt, framing, kind, need, need_split = chip_smoke.PATHS[name]
+        assert (fmt, framing, kind) == ("gelf_tpu", "line", "gelf")
+        assert "fused_gelf_gelf_probe" in need
+    assert "fused_gelf_gelf_assemble" in chip_smoke.PATHS["gelf_tier"][3]
+    assert "encode_gelf_gelf_assemble_f8" in chip_smoke.PATHS["gelf_tier"][4]
+    assert {"structural_index_flat_f8", "encode_gelf_gelf_probe_f8",
+            "encode_gelf_gelf_probe_f16"} <= set(chip_smoke.PATHS["gelf_line"][3])
+    assert chip_smoke.GELF_LINES == 4 * chip_smoke.BATCH
+    assert chip_smoke.JSONL_LINES == 4 * chip_smoke.BATCH
+    assert chip_smoke.AB_BATCHES == 4

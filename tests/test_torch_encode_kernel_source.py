@@ -34,6 +34,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "cuda_host"))
 import build as host_build  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SRC = host_build.CSRC / "encode_gelf.cu"
 # the row encode E1's kernels call, shared with the fused route
 ROW_SRC = host_build.CSRC / "encode_gelf_row.cuh"

@@ -17,6 +17,20 @@ from flowgger_tpu_torch.tpu import framing as F
 from flowgger_tpu_torch.tpu import pack as tpack
 
 B, NCAP, MAX_LEN = 4096, 64, 48
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SPAN_KEYS = ("starts", "lens", "n", "consumed", "overflow")
 
 

@@ -44,6 +44,19 @@ from flowgger_tpu_torch.tpu.batch import BatchHandler
 from flowgger_tpu_torch.tpu.encode_jsonl_block import encode_jsonl_gelf_block
 from flowgger_tpu_torch.tpu.materialize_jsonl import materialize_jsonl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 L = 512
 
@@ -343,8 +356,9 @@ def _mask_now(bs: bytes) -> bytes:
 
 
 def _run(pkg, cfg, data, extra=()):
-    env = dict(os.environ, JAX_PLATFORMS="cpu", FLOWGGER_DEVICE_ENCODE="0",
-               PYTHONPATH=str(ROOT))
+    # one intra-op thread in the child too (see _one_thread)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               FLOWGGER_DEVICE_ENCODE="0", PYTHONPATH=str(ROOT))
     return subprocess.run([sys.executable, "-m", pkg, str(cfg), *extra],
                           input=data, capture_output=True, env=env,
                           cwd=str(ROOT), timeout=300)

@@ -30,6 +30,19 @@ from flowgger_tpu_torch.tpu.encode_gelf_block import encode_rfc5424_gelf_block
 from flowgger_tpu_torch.tpu.rfc5424 import decode_rfc5424_host
 from flowgger_tpu_torch.utils.rustfmt import json_f64
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 MAX_LEN = 512
 

@@ -26,6 +26,19 @@ from flowgger_tpu_torch.tpu.batch import BatchHandler
 from flowgger_tpu_torch.tpu.encode_gelf_block import encode_rfc5424_gelf_block
 from flowgger_tpu_torch.tpu.rfc5424 import decode_rfc5424_host
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 TAIL = b"<13>1 2015-08-05T15:53:45Z h a p m - partial frame at EOF"
 
@@ -39,8 +52,9 @@ def _input(framing, n_lines=600, seed=21):
 
 
 def _run(pkg, cfg, data, extra=()):
-    env = dict(os.environ, JAX_PLATFORMS="cpu", FLOWGGER_DEVICE_ENCODE="0",
-               PYTHONPATH=str(ROOT))
+    # one intra-op thread in the child too (see _one_thread)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               FLOWGGER_DEVICE_ENCODE="0", PYTHONPATH=str(ROOT))
     return subprocess.run([sys.executable, "-m", pkg, str(cfg), *extra],
                           input=data, capture_output=True, env=env,
                           cwd=str(ROOT), timeout=300)
@@ -148,7 +162,7 @@ def test_gelf_extra_static_keys_honored(tmp_path, monkeypatch, capsys):
 BAD_CONFIGS = [
     ('[input]\ntype = "tcp"\nformat = "rfc5424_tpu"\n', "input.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424"\n', "input.format"),
-    ('[input]\ntype = "stdin"\nformat = "gelf_tpu"\n', "input.format"),
+    ('[input]\ntype = "stdin"\nformat = "dns_tpu"\n', "input.format"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "capnp"\n',
      "input.framing"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'

@@ -30,6 +30,19 @@ from flowgger_tpu_torch.mergers import LineMerger
 from flowgger_tpu_torch.splitters import _CHUNK
 from flowgger_tpu_torch.tpu import batch as B
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BIG_BATCH = "[input]\ntpu_batch_size = 100000\n"
 
 

@@ -322,7 +322,9 @@ def test_route_ok_and_config_gates(monkeypatch):
 
 
 def _run(pkg, cfg, data, env_extra):
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT),
+    # one intra-op thread in the child too (see _one_thread)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT),
                **env_extra)
     extra = ("--device", "cpu") if pkg == "flowgger_tpu_torch" else ()
     return subprocess.run([sys.executable, "-m", pkg, str(cfg), *extra],

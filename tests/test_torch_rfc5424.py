@@ -26,6 +26,18 @@ from test_tpu_rfc5424 import CORPUS
 ROWS, L = 256, 512
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fuzz_lines(seed):
     rng = random.Random(seed)
     alphabet = list(' <>[]"\\=-:.TZ0123456789abchmp\t\u00e9')

@@ -36,6 +36,19 @@ from flowgger_tpu_torch.tpu import framing as F
 from flowgger_tpu_torch.tpu import pack
 from flowgger_tpu_torch.tpu.batch import BatchHandler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The tensors here are small: one intra-op thread keeps this file
+    from spinning a thread pool beside the other test workers (on a
+    loaded box a pool of one thread a core runs the plain versions
+    several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 B, NCAP, MAX_LEN = 4096, 64, 96
 SPAN_KEYS = ("starts", "lens", "n", "consumed", "err")
@@ -273,8 +286,9 @@ def test_cli_syslen_matches_jax_package(tmp_path):
     data = syslen_stream(lines)
     assert len(data) > 1 << 16
     outs = {}
-    env = dict(os.environ, JAX_PLATFORMS="cpu", FLOWGGER_DEVICE_ENCODE="0",
-               PYTHONPATH=str(ROOT))
+    # one intra-op thread in the child too (see _one_thread)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               FLOWGGER_DEVICE_ENCODE="0", PYTHONPATH=str(ROOT))
     for pkg in ("flowgger_tpu_torch", "flowgger_tpu"):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
