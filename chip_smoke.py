@@ -8,13 +8,13 @@ Phases, each printing JSON lines:
    the SM clock under a spin kernel, the host's CPU model and count;
 2. build  — the native host tier (``csrc/flowgger_host.cpp``, g++; a
    ``host_build`` line with the compiler's version, the flags, the
-   seconds and whether the library was cached), then the nine CUDA
+   seconds and whether the library was cached), then the ten CUDA
    sources compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
    bytes as ``nvcc -Xptxas -v`` reports them (E1's, EL's and EG's four
-   instantiations, E3's, F1's, F3's, FL's and FG's two each, D3, L1 and
-   K5 at 8, 16 and 24 fields must be among them);
+   instantiations, E3's, F1's, F3's, FL's and FG's two each, D3, L1, AC
+   and K5 at 8, 16 and 24 fields must be among them);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each (K2 and K3 checked again on a launch after
@@ -55,14 +55,18 @@ Phases, each printing JSON lines:
    its fused route FG (probe with its stamp channels and each tier row's
    carried selection, then assemble) on a gathered [16384, 512] batch of
    the gelf tier mix, on the flush batches of both gelf paths (and the
-   line path's 24-field rescue sub-batch) and on 256 rows;
+   line path's 24-field rescue sub-batch) and on 256 rows; the
+   auto-detect classifier AC on every real row of a gathered
+   [16384, 512] batch of the auto tier mix (with its registers, stack
+   and spill bytes), of the edge batch (``corpus.AUTO_EDGE`` and their
+   prefixes) and of both auto paths' flush batches;
 4. native — each export of the native host tier against its plain
    numpy or Python version, byte for byte, at the e2e runs' shapes (the
    tier path's stamps and constant splice, the jsonl path's body
    gather, the GELF row engine against the numpy engine on the rfc5424
    path's flush batch), with the host-clock time of both;
 5. breakdown — the host-clock wall of each stage of the RFC5424, the
-   JSON-lines, the LTSV and the GELF paths over four full regions each
+   JSON-lines, the LTSV and the GELF paths over two full regions each
    (``AB_BATCHES``; framing, decode, block
    encode split into its engine and its oracle rows, sink write; the
    RFC5424 path again on the block encoder's numpy engine, which must
@@ -79,7 +83,7 @@ Phases, each printing JSON lines:
    against K1 + E1 probe + E1 assemble, of F3 against D3 + E3 probe +
    E3 assemble, of FL against L1 + EL probe + EL assemble and of FG
    against K5/0 + EG probe + EG assemble at a flush batch;
-6. e2e    — ten configurations through the port's entry points on
+6. e2e    — ten single-format configurations through the port's entry points on
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing, ``--lines``
    lines), stdin → jsonl_tpu → GELF (line framing, 65 536 lines),
    stdin → rfc5424_tpu → GELF (syslen framing, 65 536), stdin →
@@ -87,14 +91,18 @@ Phases, each printing JSON lines:
    stdin → rfc3164_tpu → GELF (line framing, one day of BSD syslog,
    65 536), stdin → rfc3164_tpu → GELF over the rfc3164 tier mix
    (65 536), stdin → ltsv_tpu → GELF (line framing, access-log rows
-   with ltsv.org's labels, 131 072), stdin → ltsv_tpu → GELF over
-   the ltsv tier mix (131 072), stdin → gelf_tpu → GELF (line framing,
+   with ltsv.org's labels, 65 536), stdin → ltsv_tpu → GELF over
+   the ltsv tier mix (65 536), stdin → gelf_tpu → GELF (line framing,
    GELF 1.1 payloads, 65 536) and stdin → gelf_tpu → GELF over the gelf
    tier mix (65 536); ``--lines`` defaults to 65 536.
-   Each runs once in process through
+   Each runs first as ``python -m flowgger_tpu_torch cfg.toml`` in a
+   subprocess, started while the scalar expectation is made beside it,
+   then once in process through
    ``flowgger_tpu_torch.start`` with every kernel launch count reset
    just before and read just after (the run must launch each kernel of
-   its path; the syslen run must decline no region; the tier-mix runs
+   its path; the syslen run must decline no region; on the rfc5424,
+   rfc3164, ltsv and gelf line mixes both tiers must decline and then
+   cool; the tier-mix runs
    must have the fused route take every batch, and a second in-process
    run of each with ``tpu_fuse = "off"`` the split device tier, each
    fetching fewer bytes a tier row than it emits; every run must launch
@@ -104,8 +112,7 @@ Phases, each printing JSON lines:
    and launch one probe a probed batch and one assemble a taken batch on
    each tier; the native row engine must have written every rfc5424
    host-tier batch that had tier rows and the native formatter every
-   taken batch's timestamp text, by ``native.CALLS``), and once as
-   ``python -m flowgger_tpu_torch cfg.toml`` in a subprocess.  Every
+   taken batch's timestamp text, by ``native.CALLS``).  Every
    run's GELF bytes and stderr lines must equal the port's scalar path
    over the same bytes (``corpus.scalar_expectation``; for rfc3164 the
    decoder's own "Unable to parse" lines and the error lines each in
@@ -116,7 +123,21 @@ Phases, each printing JSON lines:
    (none for the other formats; the CLI's banner line first).
    Each reports the fused route's and the split device tier's batches
    taken, declined and cooled, their rows, and their fetched and
-   emitted bytes a tier row.
+   emitted bytes a tier row.  Then eight more (:data:`MIXED_PATHS`, each
+   through the CLI as above and in process with the launch counts
+   reset just before and read just after): stdin → auto_tpu → GELF over the four
+   line mixes interleaved with the classifier's edge rows
+   (``auto_line``) and over the four tier mixes (``auto_tier``, every
+   leg's split tier taking batches), 65 536 lines each; and the Record
+   path, 16 384 lines each: rfc5424 with a dynamic ``gelf_extra``,
+   rfc3164 with ``level``, ltsv with a 10-key typed schema, gelf and
+   jsonl with a ``gelf_extra``, auto with ``_env``.  Each must launch AC
+   (auto) and each leg's decode, be byte-identical to the scalar path
+   (stderr split as for rfc3164, the reference's start-up notice first
+   where the block route cannot engage) and reports lines/s, each leg's
+   split tier taken / declined / cooled and AC's launches; the legs'
+   sub-batch shapes the kernels phase did not check are checked after
+   the runs with the others (:func:`phase_late_shapes`).
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -152,6 +173,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -165,15 +187,20 @@ MAX_LEN = 512
 SYSLEN_LINES = 4 * BATCH    # lines of the syslen-framed e2e run
 RFC3164_LINES = 4 * BATCH   # lines of each rfc3164 e2e run (cut from 8 ×
                             # for time when the ltsv paths came)
-LTSV_LINES = 8 * BATCH      # lines of each ltsv e2e run
+LTSV_LINES = 4 * BATCH      # lines of each ltsv e2e run (cut from 8 ×
+                            # when the auto and Record-path runs came)
 JSONL_LINES = 4 * BATCH     # lines of the jsonl e2e run (cut from 16 × for
                             # time when the rfc3164 paths came, from 8 ×
                             # when the gelf paths came)
 GELF_LINES = 4 * BATCH      # lines of each gelf e2e run
 RFC5424_LINES = 4 * BATCH   # --lines default: the rfc5424 line paths (cut
                             # from 8 × when the gelf paths came)
-AB_BATCHES = 4              # batches of the breakdowns, encode_ab and
-                            # fuse_ab (cut from 8 when the gelf paths came)
+AB_BATCHES = 2              # batches of the breakdowns, encode_ab and
+                            # fuse_ab (cut from 8 when the gelf paths came,
+                            # from 4 when the auto and Record-path runs
+                            # came)
+AUTO_LINES = 4 * BATCH      # lines of each auto_tpu e2e run
+RECORD_LINES = BATCH        # lines of each Record-path e2e run
 BIG_REGION = 16 << 20       # bytes of K2's many-wave region
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -387,6 +414,11 @@ def ptxas_resources(log: str) -> list:
     return out
 
 
+# ptxas resources of each entry function (phase_build): registers,
+# stack and spill bytes for the kernel rows
+BUILD_RES: dict = {}
+
+
 def phase_build():
     from flowgger_tpu_torch import native
     from flowgger_tpu_torch.tpu import kernels
@@ -414,6 +446,7 @@ def phase_build():
                                  f"of {source}")
         for r in found:
             seen.add(r["function"])
+            BUILD_RES[r["function"]] = r
             emit({"phase": "kernel_build", "source": source, **r})
     # E1's and EL's four instantiations (probe and assemble at 6 and 16
     # pairs), EG's four (at 8 and 16 fields), E3's, F1's, F3's, FL's and
@@ -434,7 +467,8 @@ def phase_build():
                | {f"structural_index_kernel<{f}, {a}>" for f in (8, 24)
                   for a in phases}
                | {"structural_index_kernel<16, true>"}
-               | {"decode_rfc3164_kernel", "decode_ltsv_kernel"}) - seen
+               | {"decode_rfc3164_kernel", "decode_ltsv_kernel",
+                  "classify_auto_kernel"}) - seen
     if missing:
         raise AssertionError(f"no kernel_build line for {sorted(missing)}")
 
@@ -1855,6 +1889,106 @@ def kernels_gelf(seed: int, rows: list, shapes: list):
             shapes.append({**row, "where": where})
 
 
+def ac_case(batch, lens_c, n: int):
+    """AC (the auto-detect classifier) against its plain version on every
+    one of the ``n`` real rows, once before and once after its timing
+    loop; the row carries the kernel's registers, stack and spill bytes
+    (``kernel_build``)."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import autodetect, kernels
+
+    def kern():
+        return kernels.classify_auto_cuda(batch, lens_c, n)
+
+    def plain():
+        return autodetect.classify_plain(batch[:n], lens_c[:n])
+
+    ref = plain()
+    err = max_abs_err(kern(), ref)
+    if err or kern().dtype != torch.int8:
+        raise AssertionError(f"classify_auto disagrees with its plain "
+                             f"version: max_abs_err {err}")
+    ms = device_ms(kern)
+    if max_abs_err(kern(), ref):
+        raise AssertionError("classify_auto disagrees after its timing loop")
+    CHECKED.add(("classify_auto", tuple(batch.shape)))
+    # bytes the function must read: a row's valid bytes up to where both
+    # a tab and a colon were seen (all of them when not both), at least
+    # its header (the first 11 bytes decide '{', '<' and the RFC5424
+    # signature behind a BOM), its length; one byte written a row.
+    # Operations: two compares a scanned byte, ~40 a row for the header.
+    L = batch.shape[1]
+    b, ln = batch[:n], lens_c[:n].to(torch.int64)
+    iota = torch.arange(L, device=batch.device)
+    valid = iota[None, :] < ln[:, None]
+    big = torch.full_like(ln, L)
+
+    def first(mask):
+        return torch.where(mask.any(1), mask.to(torch.int32).argmax(1),
+                           big)
+
+    both = torch.maximum(first((b == 9) & valid), first((b == 58) & valid))
+    need = torch.where(both < big, both + 1, ln)
+    need = torch.maximum(need, torch.minimum(ln, torch.full_like(ln, 11)))
+    scanned = int(need.sum())
+    res = BUILD_RES.get("classify_auto_kernel", {})
+    counts = torch.bincount(ref.to(torch.int64), minlength=4).tolist()
+    return {
+        "name": "classify_auto", "route": "cuda",
+        "source": "flowgger_tpu_torch/csrc/classify_auto.cu",
+        "replaces": "flowgger_tpu/tpu/autodetect.py:97",
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        **bound(scanned + 4 * n + n, 2 * scanned + 40 * n),
+        "library_ms": None,
+        "registers": res.get("registers"),
+        "stack_bytes": res.get("stack_bytes"),
+        "spill_bytes": res.get("spill_store_bytes"),
+        "shape": f"[{batch.shape[0]}, {L}], n={n}, {scanned} bytes "
+                 f"scanned, classes rfc5424/rfc3164/ltsv/gelf {counts}"}
+
+
+def edge_batch():
+    """The classifier's edge rows (``corpus.AUTO_EDGE``) with each cut to
+    every length up to 12 and the auto mix around them, packed at the
+    default width and put on the card: ``(batch, lens_c, n)``."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import AUTO_EDGE, make_auto_corpus
+    from flowgger_tpu_torch.tpu import pack
+
+    rows = list(AUTO_EDGE) + [r[:k] for r in AUTO_EDGE for k in range(13)]
+    rows += make_auto_corpus(1000, 5)[0]
+    b, ln, _, _, _, n = pack.pack_lines_2d(rows, MAX_LEN)
+    return (torch.from_numpy(b).cuda(),
+            torch.from_numpy(ln.astype("int32")).cuda(), n)
+
+
+def kernels_auto(seed: int, rows: list, shapes: list):
+    """AC on a gathered [16384, 512] batch of the auto tier mix (its
+    table row), on the edge batch, and on the first flush batch of each
+    auto path ([32768, 512], ~16 500 real rows)."""
+    from flowgger_tpu_torch.corpus import make_auto_corpus
+    from flowgger_tpu_torch.tpu import framing, pack
+
+    lines, _ = make_auto_corpus(BATCH, seed + 41, tier=True)
+    region_b = b"\n".join(lines) + b"\n"
+    region = upload(region_b)
+    spans = framing.sep_spans(region, len(region_b), 10, True,
+                              pack.bucket_rows(BATCH))
+    batch, lens_c = framing.gather(region, spans["starts"], spans["lens"],
+                                   MAX_LEN)
+    rows.append(ac_case(batch, lens_c, BATCH))
+    shapes.append({**ac_case(*edge_batch()), "where": "edge batch"})
+    for tier in (False, True):
+        where = f"auto {'tier' if tier else 'line'} path"
+        fb, fl, fn = flush_batch(
+            make_auto_corpus(2 * BATCH, seed + 42 + tier, tier=tier)[0],
+            where, shapes)
+        shapes.append({**ac_case(fb, fl, fn), "where": f"{where}, flush batch"})
+
+
 def phase_kernels(seed: int):
     """Each kernel vs its plain version on the card; returns the table
     rows without launch counts (the e2e phase fills them in).  The
@@ -1869,6 +2003,7 @@ def phase_kernels(seed: int):
     kernels_rfc3164(seed, rows, shapes)
     kernels_ltsv(seed, rows, shapes)
     kernels_gelf(seed, rows, shapes)
+    kernels_auto(seed, rows, shapes)
     for r in rows:
         emit({"phase": "kernel", **r})
     for r in shapes:
@@ -2397,8 +2532,7 @@ def _write_input(name: str, n_lines: int, seed: int):
                                            make_ltsv_tier_corpus,
                                            make_rfc3164_corpus,
                                            make_rfc3164_tier_corpus,
-                                           make_tier_corpus,
-                                           scalar_expectation, syslen_stream)
+                                           make_tier_corpus, syslen_stream)
 
     fmt, framing, kind, _, _ = PATHS[name]
     make = {"jsonl_line": make_jsonl_corpus, "rfc5424_tier": make_tier_corpus,
@@ -2417,14 +2551,23 @@ def _write_input(name: str, n_lines: int, seed: int):
         data = b"\n".join(lines)
     path = WORK / f"{name}.in"
     path.write_bytes(data)
-    # the ltsv decoder's "Missing value" notices go to stdout; a gelf row
-    # without a timestamp is stamped with the wall clock from here on
-    notices = []
+    # a gelf row without a timestamp is stamped with the wall clock from
+    # here on (the CLI run starts next)
     STAMPED_SINCE[name] = time.time()
+    mix = {k: kinds.count(k) for k in sorted(set(kinds))}
+    return path, data, mix
+
+
+def _expectation(name: str, data: bytes):
+    """The scalar path's bytes, and its stderr and stdout lines (the ltsv
+    decoder's "Missing value" notices go to stdout)."""
+    from flowgger_tpu_torch.corpus import scalar_expectation
+
+    _, framing, kind, _, _ = PATHS[name]
+    notices = []
     exp_out, exp_err = scalar_expectation(data, framing, fmt=kind,
                                           notices=notices)
-    mix = {k: kinds.count(k) for k in sorted(set(kinds))}
-    return path, data, exp_out, (exp_err, notices), mix
+    return exp_out, (exp_err, notices)
 
 
 # when each path's scalar expectation was made (_write_input)
@@ -2478,16 +2621,16 @@ def same_stderr(kind: str, got: list, want: list) -> bool:
 
 
 @contextlib.contextmanager
-def launch_shapes():
+def launch_shapes(wrappers=SHAPE_CHECKED):
     """Collects the (kernel name, batch shape) of each launch made inside
-    the block by the wrappers of :data:`SHAPE_CHECKED` (the wrapper's
-    count says which entry ran)."""
+    the block by ``wrappers`` (default :data:`SHAPE_CHECKED`; the
+    wrapper's count says which entry ran)."""
     import torch
 
     from flowgger_tpu_torch.tpu import kernels
 
     seen = set()
-    saved = {w: getattr(kernels, w) for w in SHAPE_CHECKED}
+    saved = {w: getattr(kernels, w) for w in wrappers}
 
     def recording(launch):
         def run(*args, **kw):
@@ -2506,6 +2649,47 @@ def launch_shapes():
     finally:
         for w, fn in saved.items():
             setattr(kernels, w, fn)
+
+
+class CliRun:
+    """``python -m flowgger_tpu_torch cfg`` with ``path`` as stdin, started
+    in a subprocess at once so that the caller makes the scalar
+    expectation meanwhile (one busy Python thread beside it: the CLI's
+    wall is taken so).  :meth:`result` waits for it; leaving the
+    ``with`` block kills it if it still runs."""
+
+    def __init__(self, cfg: Path, path: Path):
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        self._stdin = open(path, "rb")
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "flowgger_tpu_torch", str(cfg)],
+            stdin=self._stdin, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, env=env, cwd=str(ROOT))
+        self._out = None
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        out, err = self.proc.communicate()
+        self._out = (self.proc.returncode, out, err,
+                     time.perf_counter() - self._t0)
+
+    def result(self, timeout: float = 600.0):
+        """(exit code, stdout bytes, stderr bytes, wall seconds)."""
+        self._waiter.join(timeout)
+        if self._out is None:
+            raise AssertionError(f"the CLI run did not end in {timeout} s")
+        return self._out
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._stdin.close()
 
 
 def run_inproc(cfg: Path, path: Path):
@@ -2659,6 +2843,10 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
         raise AssertionError(f"{name} ({fuse}): native calls {calls} for "
                              f"host-tier batches {host_tier}, split {split}, "
                              f"fused {fused}")
+    if name in COOLING and fuse == "auto" and not all(
+            t["declined"] and t["cooled"] for t in (fused, split)):
+        raise AssertionError(f"{name}: the tiers did not decline and then "
+                             f"cool: fused {fused}, split {split}")
     if name.endswith("_tier"):
         # the tier mixes: the fused route takes every batch (the split
         # tier sees none), or with the fused route off the split tier
@@ -2679,42 +2867,42 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
             "inproc_lines_per_s": None}
 
 
+# the line mixes not chosen to engage the tiers: both tiers of each must
+# decline (DECLINE_LIMIT batches) and then cool
+COOLING = ("rfc5424_line", "rfc3164_line", "ltsv_line", "gelf_line")
+
+
 def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
-    """One configuration in process (counts reset just before, read just
-    after; the tier mixes a second time with the fused route off) and
-    through the CLI; returns the launch counts summed over the in-process
-    runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
+    """One configuration through the CLI (started first, while the scalar
+    expectation is made) and then in process (counts reset just before,
+    read just after; the tier mixes a second time with the fused route
+    off); returns the launch counts summed over the in-process runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
     fails if a run launched E1, D3, E3, F1 or F3 at a batch shape not
     checked there (the unchecked shapes of K1 and the ltsv kernels go
     to :data:`LATE`)."""
     WORK.mkdir(parents=True, exist_ok=True)
-    path, data, exp_out, exp_err, mix = _write_input(name, n_lines, seed)
+    path, data, mix = _write_input(name, n_lines, seed)
     kind = PATHS[name][2]
 
-    # (a) in process, through the library entry point, counts reset
+    # (a) the CLI in a subprocess, beside the scalar expectation's making
+    with CliRun(_config(name, "cli"), path) as cli:
+        exp_out, exp_err = _expectation(name, data)
+        rc, cli_out, cli_err, wall_cli = cli.result()
+    if rc != 0:
+        raise AssertionError(f"{name}: CLI run failed:\n"
+                             + cli_err.decode()[-4000:])
+
+    # (b) in process, through the library entry point, counts reset
     runs = [e2e_inproc(name, path, exp_out, exp_err, checked, "auto")]
     if PATHS[name][4] is not None:
         runs.append(e2e_inproc(name, path, exp_out, exp_err, checked, "off"))
     for r in runs:
         r["inproc_lines_per_s"] = n_lines / r["inproc_wall_s"]
 
-    # (b) the CLI in a subprocess
-    cfg = _config(name, "cli")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.perf_counter()
-    with open(path, "rb") as stdin:
-        proc = subprocess.run(
-            [sys.executable, "-m", "flowgger_tpu_torch", str(cfg)],
-            stdin=stdin, capture_output=True, env=env, cwd=str(ROOT),
-            timeout=600)
-    wall_cli = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{name}: CLI run failed:\n"
-                             + proc.stderr.decode()[-4000:])
     got = (WORK / f"{name}_cli.out").read_bytes()
-    errs = proc.stderr.decode().splitlines()
+    errs = cli_err.decode().splitlines()
     # stdout: the CLI's banner, then the ltsv decoder's notices
-    banner, *notices = proc.stdout.decode().splitlines()
+    banner, *notices = cli_out.decode().splitlines()
     if (not same_bytes(name, got, exp_out)
             or not same_stderr(kind, errs, exp_err[0])
             or not banner.startswith("Flowgger") or notices != exp_err[1]):
@@ -2736,29 +2924,246 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     return total
 
 
+# e2e configurations of the auto input and of the Record path: name ->
+# (input.format, [input.*] tables (by their name in corpus: the package
+# is imported only after main's checks), [output.*] tables, the scalar
+# expectation's fmt, lines, the kernels its run must launch).  The auto
+# runs interleave the four line mixes (auto_line) or the four tier mixes
+# (auto_tier) ~40 / 30 / 15 / 15 % with the classifier's edge rows
+# (corpus.make_auto_corpus); the Record-path runs are the configs the
+# block route cannot take (a start-up notice) or whose batches its block
+# encoder declines (the 10-key schema)
+_LEGS = ("decode_rfc5424_p6", "decode_rfc3164", "decode_ltsv",
+         "structural_index_flat_f8")
+MIXED_PATHS = {
+    "auto_line": ("auto_tpu", "", "", "auto", AUTO_LINES,
+                  ("frame_sep_spans", "frame_gather", "classify_auto",
+                   *_LEGS, "encode_gelf_probe_p6", "encode_gelf3164_probe",
+                   "encode_gelf_ltsv_probe_p6", "encode_gelf_gelf_probe_f8")),
+    "auto_tier": ("auto_tpu", "", "", "auto", AUTO_LINES,
+                  ("frame_sep_spans", "frame_gather", "classify_auto",
+                   *_LEGS, "encode_gelf_assemble_p6",
+                   "encode_gelf3164_assemble", "encode_gelf_ltsv_assemble_p6",
+                   "encode_gelf_gelf_assemble_f8")),
+    "record_rfc5424": ("rfc5424_tpu", "",
+                       '[output.gelf_extra]\n_env = "prod"\nhost = "relay"\n',
+                       "rfc5424", RECORD_LINES,
+                       ("frame_sep_spans", "frame_gather",
+                        "decode_rfc5424_p6")),
+    "record_rfc3164": ("rfc3164_tpu", "", '[output.gelf_extra]\nlevel = "3"\n',
+                       "rfc3164", RECORD_LINES,
+                       ("frame_sep_spans", "frame_gather", "decode_rfc3164")),
+    "record_ltsv": ("ltsv_tpu", "LTSV_SCHEMA_10", "", "ltsv", RECORD_LINES,
+                    ("frame_sep_spans", "frame_gather", "decode_ltsv")),
+    "record_gelf": ("gelf_tpu", "", '[output.gelf_extra]\nx = "y"\n', "gelf",
+                    RECORD_LINES, ("frame_sep_spans", "frame_gather",
+                                   "structural_index_flat_f8")),
+    "record_jsonl": ("jsonl_tpu", "", '[output.gelf_extra]\nx = "y"\n',
+                     "jsonl", RECORD_LINES,
+                     ("frame_sep_spans", "frame_gather",
+                      "structural_index_f8")),
+    "record_auto": ("auto_tpu", "", '[output.gelf_extra]\n_env = "prod"\n',
+                    "auto", RECORD_LINES,
+                    ("frame_sep_spans", "frame_gather", "classify_auto",
+                     *_LEGS)),
+}
+# the kernels whose launch shapes a mixed run may show that the kernels
+# phase did not check (the legs' sub-batches follow each flush's class
+# counts): held against the plain versions after the runs
+MIXED_LATE = LATE_PREFIXES + ("decode_rfc3164", "encode_gelf3164",
+                              "encode_gelf_probe", "encode_gelf_assemble",
+                              "structural_index", "classify_auto")
+_MIXED_WRAPPERS = SHAPE_CHECKED + ("structural_index_cuda",
+                                   "classify_auto_cuda")
+_NOTICE = "flowgger-tpu: columnar block route disabled for format "
+
+
+def _mixed_tables(name: str):
+    from flowgger_tpu_torch import corpus
+
+    fmt, in_t, out_t, *_ = MIXED_PATHS[name]
+    return getattr(corpus, in_t) if in_t else "", out_t
+
+
+def _mixed_config(name: str, tag: str) -> Path:
+    fmt = MIXED_PATHS[name][0]
+    in_t, out_t = _mixed_tables(name)
+    out = WORK / f"{name}_{tag}.out"
+    cfg = WORK / f"{name}_{tag}.toml"
+    cfg.write_text(
+        f'[input]\ntype = "stdin"\nformat = "{fmt}"\nframing = "line"\n'
+        + in_t + '[output]\ntype = "file"\nformat = "gelf"\n'
+        f'file_path = "{out}"\n' + out_t)
+    if out.exists():
+        out.unlink()
+    return cfg
+
+
+def _mixed_same(got, errs, notices, exp) -> bool:
+    """Bytes (wall-clock stamps masked), stderr (the rfc3164 decoder's
+    own lines and the rest each in order; a start-up notice first where
+    the scalar path has none) and stdout notices against the scalar
+    path's."""
+    from flowgger_tpu_torch.corpus import mask_wall_stamps
+
+    exp_out, exp_err, exp_notices, since = exp
+    if errs and errs[0].startswith(_NOTICE):
+        errs = errs[1:]
+    return (mask_wall_stamps(got, since) == mask_wall_stamps(exp_out, since)
+            and same_stderr("rfc3164", errs, exp_err)
+            and notices == exp_notices)
+
+
+def phase_e2e_mixed(name: str, seed: int):
+    """One auto_tpu or Record-path configuration through the CLI (started
+    first, while the scalar expectation is made) and in process (every
+    launch count reset just before, read just after: each kernel of its
+    path launched), both byte-identical to the scalar path; reports lines/s, each leg's split tier taken / declined /
+    cooled and AC's launches, and returns the in-process launch
+    counts.  The launch shapes not checked by the kernels phase go to
+    :data:`LATE`."""
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.corpus import (make_auto_corpus, make_corpus,
+                                           make_gelf_corpus,
+                                           make_jsonl_corpus,
+                                           make_ltsv_corpus,
+                                           make_rfc3164_corpus,
+                                           scalar_expectation)
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    fmt_in, _, _, kind, n_lines, need = MIXED_PATHS[name]
+    if kind == "auto":
+        lines, kinds = make_auto_corpus(n_lines, seed + 51,
+                                        tier=name == "auto_tier")
+        kinds = [k.split(":")[0] for k in kinds]
+    else:
+        lines, kinds = {"rfc5424": make_corpus, "rfc3164": make_rfc3164_corpus,
+                        "ltsv": make_ltsv_corpus, "gelf": make_gelf_corpus,
+                        "jsonl": make_jsonl_corpus}[kind](n_lines, seed + 52)
+    data = b"\n".join(lines)
+    path = WORK / f"{name}.in"
+    path.write_bytes(data)
+    in_t, out_t = _mixed_tables(name)
+    since = time.time() - 1.0
+    notices = []
+
+    # (a) the CLI in a subprocess, beside the scalar expectation's making
+    with CliRun(_mixed_config(name, "cli"), path) as cli:
+        exp_out, exp_err = scalar_expectation(
+            data, "line", config=Config.from_string(in_t + out_t), fmt=kind,
+            notices=notices)
+        rc, cli_out, cli_err, wall_cli = cli.result()
+    if rc != 0:
+        raise AssertionError(f"{name}: CLI run failed:\n"
+                             + cli_err.decode()[-4000:])
+    exp = (exp_out, exp_err, notices, since)
+
+    # (b) in process, counts reset just before
+    cfg = _mixed_config(name, "inproc")
+    for k in framing.DECLINES:
+        framing.DECLINES[k] = 0
+    kernels.reset_launch_counts()
+    with launch_shapes(_MIXED_WRAPPERS) as seen:
+        wall, pipe, errs, said = run_inproc(cfg, path)
+    launches = dict(kernels.LAUNCHES)
+    got = (WORK / f"{name}_inproc.out").read_bytes()
+    if not _mixed_same(got, errs, said, exp):
+        raise AssertionError(f"{name}: in-process e2e differs from the "
+                             f"scalar path (bytes {len(got)} vs "
+                             f"{len(exp_out)}, stderr lines {len(errs)} vs "
+                             f"{len(exp_err)})")
+    notice = errs[0] if errs and errs[0].startswith(_NOTICE) else None
+    if (notice is None) != (name in ("auto_line", "auto_tier",
+                                     "record_ltsv")):
+        raise AssertionError(f"{name}: start-up notice {notice!r}")
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: the run launched no {missing} kernel")
+    if any(framing.DECLINES.values()):
+        raise AssertionError(f"{name}: device framing declined "
+                             f"{framing.DECLINES}")
+    late = {(k, v) for k, v in seen - CHECKED if k.startswith(MIXED_LATE)}
+    if seen - CHECKED - late:
+        raise AssertionError(f"{name}: kernels launched at shapes no phase "
+                             f"checks: {sorted(seen - CHECKED - late)}")
+    LATE.update(late)
+    legs = {leg: {k: st.get(k, 0) for k in _STATE_KEYS}
+            for leg, st in pipe._handler.route_state.items()}
+    if name == "auto_tier" and any(
+            legs.get(leg, {}).get("taken", 0) == 0
+            for leg in ("rfc5424", "rfc3164", "ltsv", "gelf")):
+        raise AssertionError(f"{name}: a leg's split tier took no batch: "
+                             f"{legs}")
+
+    banner, *cli_said = cli_out.decode().splitlines()
+    cli_errs = cli_err.decode().splitlines()
+    if (not banner.startswith("Flowgger")
+            or not _mixed_same((WORK / f"{name}_cli.out").read_bytes(),
+                               cli_errs, cli_said, exp)
+            or (cli_errs[:1] == [notice]) != (notice is not None)):
+        raise AssertionError(f"{name}: CLI e2e differs from the scalar path")
+    emit({"phase": "e2e", "path": name, "format": fmt_in,
+          "config_tables": in_t + out_t, "lines": n_lines,
+          "input_bytes": len(data), "output_bytes": len(exp_out),
+          "error_lines": len(exp_err), "notice_lines": len(notices),
+          "startup_notice": notice,
+          "mix": {k: kinds.count(k) for k in sorted(set(kinds))},
+          "launches": launches, "classify_auto_launches":
+              launches["classify_auto"], "legs": legs,
+          "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
+          "inproc_wall_s": wall, "inproc_lines_per_s": n_lines / wall,
+          "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
+          "identical_to_scalar_path": True})
+    return launches
+
+
 def phase_late_shapes(seed: int) -> None:
-    """K1 and the ltsv and gelf kernels against their plain versions at
-    each shape the e2e runs launched them at and the kernels phase had not
-    checked: K1 on rows of the rfc5424 mix, L1 on rows of the ltsv mix, EL
+    """The kernels against their plain versions at each shape the e2e runs
+    launched them at and the kernels phase had not checked, every row
+    real: K1 on rows of the rfc5424 mix, L1 on rows of the ltsv mix, EL
     and FL (probe, and assemble where the run assembled at that shape) on
-    rows of the ltsv tier mix, EG and FG likewise on rows of the gelf tier
-    mix, every row real; a ``kernel_shape`` line each."""
+    rows of the ltsv tier mix, EG and FG likewise on rows of the gelf
+    tier mix; from the auto and Record-path runs' legs also D3 and E3 on
+    rows of the rfc3164 tier mix, E1 (probe and assemble) on rows of the
+    rfc5424 tier mix, K5 (flat on the gelf tier mix, nested on the jsonl
+    mix) and AC on rows of the auto mix; a ``kernel_shape`` line each."""
     import torch
 
-    from flowgger_tpu_torch.corpus import (make_corpus,
-                                           make_gelf_tier_corpus,
-                                           make_ltsv_corpus,
-                                           make_ltsv_tier_corpus)
-    from flowgger_tpu_torch.tpu import pack
+    from flowgger_tpu_torch import corpus
+    from flowgger_tpu_torch.tpu import kernels, pack
+    from flowgger_tpu_torch.utils.timeparse import current_year_utc
 
     for name, (rows, L) in sorted(LATE - CHECKED):
         if (name, (rows, L)) in CHECKED:
             continue   # an earlier case of this loop checked it
-        gelf = "gelf_gelf" in name
-        make = (make_corpus if name.startswith("decode_rfc5424")
-                else make_ltsv_corpus if name == "decode_ltsv"
-                else make_gelf_tier_corpus if gelf
-                else make_ltsv_tier_corpus)
+        assemble = "assemble" in name
+        make, tag = {
+            "decode_rfc5424": (corpus.make_corpus, "rfc5424 mix"),
+            "decode_ltsv": (corpus.make_ltsv_corpus, "ltsv mix"),
+            "decode_rfc3164": (corpus.make_rfc3164_tier_corpus,
+                               "rfc3164 tier mix"),
+            "encode_gelf3164": (corpus.make_rfc3164_tier_corpus,
+                                "rfc3164 tier mix"),
+            "encode_gelf_probe": (corpus.make_tier_corpus,
+                                  "rfc5424 tier mix"),
+            "encode_gelf_assemble": (corpus.make_tier_corpus,
+                                     "rfc5424 tier mix"),
+            "structural_index_flat": (corpus.make_gelf_tier_corpus,
+                                      "gelf tier mix"),
+            "structural_index_f": (corpus.make_jsonl_corpus, "jsonl mix"),
+            "classify_auto": (corpus.make_auto_corpus, "auto mix"),
+            "encode_gelf_gelf": (corpus.make_gelf_tier_corpus,
+                                 "gelf tier mix"),
+            "fused_gelf_gelf": (corpus.make_gelf_tier_corpus,
+                                "gelf tier mix"),
+        }.get(next((k for k in ("decode_rfc5424", "decode_ltsv",
+                                "decode_rfc3164", "encode_gelf3164",
+                                "encode_gelf_probe", "encode_gelf_assemble",
+                                "structural_index_flat", "structural_index_f",
+                                "classify_auto", "encode_gelf_gelf",
+                                "fused_gelf_gelf") if name.startswith(k)),
+                   None), (corpus.make_ltsv_tier_corpus, "ltsv tier mix"))
         lines, _ = make(rows, seed + rows)
         b, ln, *_ = pack.pack_lines_2d(lines, L)
         batch = torch.from_numpy(b[:rows]).cuda()
@@ -2766,23 +3171,36 @@ def phase_late_shapes(seed: int) -> None:
         if name.startswith("decode_rfc5424"):
             row, _ = decode_case("rfc5424", int(name.rsplit("_p", 1)[1]),
                                  batch, lens_c)
-            where = "e2e launch shape, rfc5424 mix rows"
         elif name == "decode_ltsv":
             row, _ = l1_case(batch, lens_c, rows)
-            where = "e2e launch shape, ltsv mix rows"
-        elif gelf:
+        elif name == "decode_rfc3164":
+            row, _ = d3_case(batch, lens_c, current_year_utc())
+        elif name.startswith("encode_gelf3164"):
+            row = route_case("e3", batch, lens_c, rows, assemble=assemble)[-1]
+        elif name.startswith(("encode_gelf_probe", "encode_gelf_assemble")):
+            P = int(name.rsplit("_p", 1)[1])
+            packed = kernels.decode_rfc5424_cuda(batch, lens_c, 4, P)
+            row = encode_case(P, batch, lens_c, packed, rows,
+                              *(ts_text_of(packed) if assemble else ()))[-1]
+        elif name.startswith("structural_index"):
+            F = int(name.rsplit("_f", 1)[1])
+            kind = "gelf" if "flat" in name else "jsonl"
+            row, _ = decode_case(kind, F, batch, lens_c)
+            CHECKED.add((name, (rows, L)))
+        elif name == "classify_auto":
+            row = ac_case(batch, lens_c, rows)
+        elif "gelf_gelf" in name:
             kind = ("fg" if name.startswith("fused") else
                     "eg16" if name.endswith("f16") else "eg8")
             row = gelf_route_case(kind, batch, lens_c, rows,
-                                  assemble="assemble" in name)[-1]
-            where = "e2e launch shape, gelf tier mix rows"
+                                  assemble=assemble)[-1]
         else:
             kind = ("fl" if name.startswith("fused") else
                     "el16" if name.endswith("p16") else "el6")
             row = ltsv_route_case(kind, batch, lens_c, rows,
-                                  assemble="assemble" in name)[-1]
-            where = "e2e launch shape, ltsv tier mix rows"
-        emit({"phase": "kernel_shape", **row, "where": where})
+                                  assemble=assemble)[-1]
+        emit({"phase": "kernel_shape", **row,
+              "where": f"e2e launch shape, {tag} rows"})
 
 
 def phase_encode_ab(seed: int, n_batches: int = AB_BATCHES, pairs: int = 6):
@@ -3267,6 +3685,10 @@ def main(argv=None) -> int:
              "ltsv_tier": LTSV_LINES, "gelf_line": GELF_LINES,
              "gelf_tier": GELF_LINES}.get(name, args.lines)
         for k, v in phase_e2e(name, n, args.seed, CHECKED).items():
+            total[k] = total.get(k, 0) + v
+        lap(f"e2e_{name}")
+    for name in MIXED_PATHS:
+        for k, v in phase_e2e_mixed(name, args.seed).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")
     phase_late_shapes(args.seed)

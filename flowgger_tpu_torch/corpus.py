@@ -33,12 +33,17 @@ branch of the device paths:
   messages, and the odd rows (no timestamp: :func:`mask_wall_stamps`);
 - :func:`make_gelf_tier_corpus` — GELF payloads the device encode tiers
   take (:data:`GELF_TIER_MIX`);
+- :func:`make_auto_corpus` — one collector's mixed stream for
+  ``auto_tpu`` (:data:`AUTO_MIX`): the rfc5424, rfc3164, ltsv and gelf
+  corpora interleaved ~40 / 30 / 15 / 15 %, plus the classifier's edge
+  rows (:data:`AUTO_EDGE`); with ``tier=True`` from the four tier mixes;
 - :func:`syslen_stream` — any line list as octet-counted frames
   (``<len> <line>`` back to back), the last frame cut short.
 
 :func:`scalar_expectation` runs the port's scalar decoder and GELF
 encoder over the same bytes with the splitters' semantics — what the
-batched path must reproduce byte for byte, stderr lines included.
+batched path must reproduce byte for byte, stderr lines included (for
+``auto`` each line's class picks its decoder, as the classifier does).
 """
 
 from __future__ import annotations
@@ -440,6 +445,14 @@ _UAS = ("Mozilla/4.08 [en] (Win98; I ;Nav)",
         "curl/8.4.0", 'Go-http-client/1.1 "probe"', "kube-probe/1.29")
 
 
+# a typed schema over ten of those labels: more than the 8 keys the
+# block encoder types, so its batches take the Record path
+LTSV_SCHEMA_10 = (
+    '[input.ltsv_schema]\nstatus = "u64"\nsize = "i64"\nreqsize = "u64"\n'
+    'reqtime = "f64"\nruntime = "f64"\napptime = "f64"\ncache = "string"\n'
+    'method = "string"\nprotocol = "string"\nvhost = "string"\n')
+
+
 def _ltsv_time(rng, form: str, i: int) -> str:
     day, sod = 1 + i % 28, (i * 7919) % 86400
     hh, mm, ss = sod // 3600, sod // 60 % 60, sod % 60
@@ -636,6 +649,67 @@ def make_gelf_tier_corpus(n_lines: int, seed: int
     return _gelf_lines(n_lines, seed, GELF_TIER_MIX, tier=True)
 
 
+# ---------------------------------------------------------------------------
+# auto_tpu: one collector's mixed stream
+# ---------------------------------------------------------------------------
+
+# (format, share) of the auto mix: RFC5424 from rsyslog, BSD syslog from
+# network gear, LTSV from web servers and GELF from applications
+AUTO_MIX = (("rfc5424", 0.40), ("rfc3164", 0.30), ("ltsv", 0.15),
+            ("gelf", 0.15))
+# rows at the classifier's edges: a BOM before each class, PRI digit
+# counts 1, 4 and 5, a non-digit PRI, '{' alone, a tab or colon past
+# byte 512 (rows longer than tpu_max_line_len are classified from their
+# raw bytes), rows of length 0-2, a BOM alone and cut short
+AUTO_EDGE = (
+    b"\xef\xbb\xbf<13>1 2015-08-05T15:53:45Z host app 69 42 - bom rfc5424",
+    b"\xef\xbb\xbf<34>Oct 11 22:14:15 mymachine su: bom rfc3164",
+    b"\xef\xbb\xbftime:2015-08-05T15:53:45Z\thost:web1\tmessage:bom ltsv",
+    b'\xef\xbb\xbf{"version":"1.1","host":"web1","short_message":"bom",'
+    b'"timestamp":1438790025.5}',
+    b"<1>1 2015-08-05T15:53:45Z h a p m - one pri digit",
+    b"<1234>1 2015-08-05T15:53:45Z h a p m - four pri digits",
+    b"<12345>1 2015-08-05T15:53:45Z h a p m - five pri digits",
+    b"<1a>1 2015-08-05T15:53:45Z h a p m - a letter in the pri",
+    b"<13>2 2015-08-05T15:53:45Z h a p m - version 2",
+    b"<>1 2015-08-05T15:53:45Z h a p m - empty pri",
+    b"{",
+    b"time:1438790025.5\thost:w\tmessage:" + b"x" * 600,
+    b"host " + b"y" * 560 + b"\tkey:value past byte 512",
+    b"z" * 530 + b":" + b" colon past byte 512\tand a tab",
+    b"", b"<", b"\t:", b"a:", b"\xef\xbb", b"\xef\xbb\xbf",
+)
+
+
+def make_auto_corpus(n_lines: int, seed: int, tier: bool = False
+                     ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` lines of one mixed stream and their kinds
+    (``"<format>:<kind>"``, ``"edge"`` for :data:`AUTO_EDGE`): the four
+    formats' corpora (their tier mixes with ``tier=True``) drawn by
+    :data:`AUTO_MIX` with ``numpy.random.default_rng(seed)`` and
+    interleaved in that draw's order, the edge rows spread through
+    the stream."""
+    rng = np.random.default_rng(seed)
+    fmts, shares = zip(*AUTO_MIX)
+    n_mix = max(n_lines - len(AUTO_EDGE), 0)
+    picks = rng.choice(len(fmts), size=n_mix,
+                       p=np.asarray(shares) / sum(shares))
+    makers = ((make_tier_corpus, make_rfc3164_tier_corpus,
+               make_ltsv_tier_corpus, make_gelf_tier_corpus) if tier
+              else (make_corpus, make_rfc3164_corpus, make_ltsv_corpus,
+                    make_gelf_corpus))
+    streams = []
+    for i, make in enumerate(makers):
+        lines, kinds = make(int((picks == i).sum()), seed + 1 + i)
+        streams.append(iter(zip(lines, [f"{fmts[i]}:{k}" for k in kinds])))
+    out = [next(streams[int(k)]) for k in picks]
+    edge = list(zip(AUTO_EDGE, ["edge"] * len(AUTO_EDGE)))
+    at = np.sort(rng.choice(len(out) + 1, size=min(len(edge), n_lines)))
+    for j, pos in enumerate(at[::-1].tolist()):
+        out.insert(pos, edge[len(at) - 1 - j])
+    return [ln for ln, _ in out], [k for _, k in out]
+
+
 def mask_wall_stamps(data: bytes, since: float) -> bytes:
     """``data`` (GELF records) with every ``"timestamp"`` value at or
     past ``since`` replaced by 0: the scalar path stamps a GELF row
@@ -696,7 +770,9 @@ def scalar_expectation(data: bytes, framing: str = "line",
     the octet-count scan and its EOF/bad-prefix messages; the trailing
     partial frame of line/NUL included), then decode (``fmt`` is
     ``rfc5424``, ``rfc3164``, ``jsonl``, ``ltsv`` or ``gelf``, the LTSV decoder
-    with ``config``'s schema and suffixes) → encode → frame
+    with ``config``'s schema and suffixes; or ``auto``, each line's
+    ``autodetect.classify`` class picking its decoder, with ``config``'s
+    ``auto_extra_formats``) → encode (``config``'s ``gelf_extra``) → frame
     (line_splitter.rs:17-54, syslen_splitter.rs:26-69).  The rfc3164
     decoder prints its own "Unable to parse" line before the error line
     of a row both of its layouts reject; those come in row order here
@@ -707,11 +783,24 @@ def scalar_expectation(data: bytes, framing: str = "line",
     import io
 
     config = config or Config.from_string("")
-    if fmt == "ltsv":
-        decoder = LTSVDecoder(config)
+    if fmt == "auto":
+        from .tpu.autodetect import auto_extra_formats, classify
+
+        extras = auto_extra_formats(config)
+        by_class = (RFC5424Decoder(), RFC3164Decoder(), LTSVDecoder(config),
+                    GelfDecoder(), JSONLDecoder())
+
+        def decoder_for(raw):
+            return by_class[classify(raw, extras)]
     else:
-        decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder,
-                   "gelf": GelfDecoder}.get(fmt, RFC5424Decoder)()
+        if fmt == "ltsv":
+            decoder = LTSVDecoder(config)
+        else:
+            decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder,
+                       "gelf": GelfDecoder}.get(fmt, RFC5424Decoder)()
+
+        def decoder_for(raw):
+            return decoder
     encoder = GelfEncoder(config)
     recs, tail = _frames(data, framing)
     out, errs = [], []
@@ -726,7 +815,7 @@ def scalar_expectation(data: bytes, framing: str = "line",
             with contextlib.redirect_stderr(said), \
                     contextlib.redirect_stdout(told):
                 try:
-                    record = decoder.decode(line)
+                    record = decoder_for(raw).decode(line)
                 finally:
                     if notices is not None:
                         notices.extend(told.getvalue().splitlines())

@@ -6,8 +6,10 @@ Parity model: flowgger src/flowgger/mod.rs:95-472 and the JAX package's
 the same output-framing inference.  The port runs ``input.type =
 "stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
 ``input.format = "rfc5424_tpu" | "rfc3164_tpu" | "jsonl_tpu" |
-"ltsv_tpu" | "gelf_tpu"``, into
-``output.format = "gelf"`` with ``output.type = "stdout" | "file"``.  Anything else raises
+"ltsv_tpu" | "gelf_tpu" | "auto_tpu"``, into ``output.format = "gelf"``
+with ``output.type = "stdout" | "file"``, with any ``[output.gelf_extra]``
+and ``[input.ltsv_schema]`` (the configs the block route cannot take run
+the Record path, as the reference's do).  Anything else raises
 ConfigError naming the later slice; nothing quietly takes a scalar path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
@@ -34,31 +36,12 @@ DEFAULT_OUTPUT_TYPE = "kafka"
 DEFAULT_QUEUE_SIZE = 10_000_000
 
 _LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu, " \
-    "rfc3164_tpu, jsonl_tpu, ltsv_tpu or gelf_tpu → GELF; it comes in a " \
-    "later slice)"
+    "rfc3164_tpu, jsonl_tpu, ltsv_tpu, gelf_tpu or auto_tpu → GELF; it " \
+    "comes in a later slice)"
 # input.format → the batch handler's decode route
 _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
-            "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf"}
-
-
-def _check_ltsv_schema(config: Config) -> None:
-    """The ltsv configs whose batches the reference's block encoder hands
-    to its Record path (``encode_ltsv_gelf_block`` returns None): a
-    typed ``input.ltsv_schema`` of more than 8 keys, and a configured
-    ``input.ltsv_suffixes`` entry for a type the schema uses.  Every
-    other schema config runs (also raises the decoder's own
-    ConfigErrors)."""
-    from .decoders.ltsv import LTSVDecoder
-
-    decoder = LTSVDecoder(config)
-    schema = decoder.schema or {}
-    if len(schema) > 8:
-        raise ConfigError("input.ltsv_schema of more than 8 keys takes the "
-                          f"reference's Record path, which {_LATER}")
-    if any(decoder.suffixes.get(t) is not None for t in set(schema.values())):
-        raise ConfigError("input.ltsv_suffixes for a type input.ltsv_schema "
-                          "uses takes the reference's Record path, which "
-                          f"{_LATER}")
+            "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf",
+            "auto_tpu": "auto"}
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -135,33 +118,16 @@ class Pipeline:
         if output_framing is None:
             output_framing = infer_output_framing(output_format, output_type)
         self.merger = get_merger(output_framing)
-        from .tpu.encode_gelf_block import gelf_extra_slots
-        from .tpu.encode_ltsv_gelf_block import gelf_extra_consts_ltsv
-        from .tpu.encode_rfc3164_gelf_block import gelf_extra_consts_3164
+        if self.fmt in ("ltsv", "auto"):
+            # the decoder's own ConfigErrors (schema, suffixes) at
+            # construction, as the reference's pipeline builds it
+            from .decoders.ltsv import LTSVDecoder
 
-        # gelf_extra keys the block encoder cannot place statically take
-        # the reference's Record path, which is not ported
-        if self.fmt == "rfc3164":
-            placeable = gelf_extra_consts_3164(self.encoder.extra) is not None
-        elif self.fmt == "ltsv":
-            placeable = gelf_extra_consts_ltsv(self.encoder.extra) is not None
-        else:
-            placeable = gelf_extra_slots(self.encoder.extra) is not None
-        if not placeable:
-            raise ConfigError(
-                "output.gelf_extra keys that start with '_' or overwrite a "
-                f"GELF field {_LATER}")
-        if self.fmt == "jsonl" and self.encoder.extra:
-            raise ConfigError(f"output.gelf_extra with jsonl_tpu {_LATER}")
-        if self.fmt == "gelf" and self.encoder.extra:
-            # the reference's gelf block encoder returns None with extras
-            # (encode_gelf_gelf_block.py:274-275) and its device tiers are
-            # gated off: every batch takes its Record path
-            raise ConfigError(f"output.gelf_extra with gelf_tpu takes the "
-                              f"reference's Record path, which {_LATER} "
-                              "(ROADMAP queue A item 3)")
-        if self.fmt == "ltsv":
-            _check_ltsv_schema(config)
+            LTSVDecoder(config)
+        if self.fmt == "auto":
+            from .tpu.autodetect import auto_extra_formats
+
+            auto_extra_formats(config)
         queue_size = config.lookup_int(
             "input.queuesize", "input.queuesize must be a size integer",
             DEFAULT_QUEUE_SIZE)

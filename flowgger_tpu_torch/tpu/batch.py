@@ -40,6 +40,23 @@ down the reference's ladder (its ``_emit_fast`` and
    lines;
 6. the merger framing (pre-applied) and the output queue.
 
+``input.format = "auto_tpu"`` (``fmt = "auto"``) classifies each batch
+(``autodetect.classify_packed``: the AC kernel on the card) and runs
+steps 3-5 on each class's row subset, each leg under its own decline
+state (``autodetect.encode_auto_gelf_blocks``); it has no fused route.
+
+The Record path (the reference's ``_decode_packed`` and ``_emit_rows``)
+takes a batch when the block route cannot engage for the config
+(``output.gelf_extra`` keys that need dynamic placement, any
+``gelf_extra`` with gelf, jsonl or auto, a typed ``ltsv_schema`` with
+auto: a start-up notice says so, as the reference's does) or when a
+block encoder declines the batch (an ``ltsv_schema`` of more than 8
+keys, a suffix for a schema type): the format's decode kernel, then one
+Record a row (``materialize*``), ``encoder.encode`` and one queue item a
+record, which the output thread frames with the merger.  RFC5424 into
+GELF takes the per-row span encode there instead
+(``encode_gelf.encode_rfc5424_gelf``), as the reference does.
+
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
 the reference (line_splitter.rs:37-54).  Batches are processed in order
 under one decode lock, so a timer flush racing a size flush cannot
@@ -56,21 +73,30 @@ from typing import List
 import torch
 
 from ..config import Config, ConfigError
+from ..encoders import EncodeError
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
-from . import device_gelf, device_gelf_gelf, device_ltsv, device_rfc3164
+from . import autodetect, device_gelf, device_gelf_gelf, device_ltsv
+from . import device_rfc3164
 from . import framing as _framing
 from . import fused_routes
 from . import pack as _pack
+from . import materialize, materialize_gelf, materialize_jsonl
+from . import materialize_ltsv, materialize_rfc3164
+from .encode_gelf import encode_rfc5424_gelf
+from .encode_gelf_block import gelf_extra_slots
 from .encode_gelf_block import encode_rfc5424_gelf_block
 from .encode_gelf_gelf_block import encode_gelf_gelf_block
 from .encode_jsonl_block import encode_jsonl_gelf_block
-from .encode_ltsv_gelf_block import encode_ltsv_gelf_block
-from .encode_rfc3164_gelf_block import encode_rfc3164_gelf_block
+from .encode_ltsv_gelf_block import (encode_ltsv_gelf_block,
+                                     gelf_extra_consts_ltsv)
+from .encode_rfc3164_gelf_block import (encode_rfc3164_gelf_block,
+                                        gelf_extra_consts_3164)
 from .gelf import decode_gelf_fetch, decode_gelf_submit
 from .jsonl import decode_jsonl_fetch, decode_jsonl_submit
 from .ltsv import decode_ltsv_fetch, decode_ltsv_submit
 from .rfc3164 import decode_rfc3164_fetch, decode_rfc3164_submit
-from .rfc5424 import decode_rfc5424_fetch, decode_rfc5424_submit
+from .rfc5424 import (decode_rfc5424_fetch, decode_rfc5424_host,
+                     decode_rfc5424_submit)
 
 DEFAULT_BATCH_SIZE = 16384
 DEFAULT_FLUSH_MS = 50
@@ -96,6 +122,10 @@ _ROUTES = {
 # the split device encode tier per input format
 _DEVICE_TIERS = {"rfc5424": device_gelf, "rfc3164": device_rfc3164,
                  "ltsv": device_ltsv, "gelf": device_gelf_gelf}
+# the Record path's materializer of each format that takes no decoder
+_MATERIALIZE = {"rfc3164": materialize_rfc3164.materialize_rfc3164,
+                "gelf": materialize_gelf.materialize_gelf,
+                "jsonl": materialize_jsonl.materialize_jsonl}
 
 
 class BatchHandler(Handler):
@@ -104,7 +134,6 @@ class BatchHandler(Handler):
                  fmt: str = "rfc5424"):
         self.tx = tx
         self.fmt = fmt
-        self._submit, self._fetch, self._encode = _ROUTES[fmt]
         self.encoder = encoder
         self.merger = merger
         self.device = device
@@ -119,12 +148,16 @@ class BatchHandler(Handler):
             "input.tpu_max_line_len must be an integer", DEFAULT_MAX_LINE_LEN)
         self._start_timer = start_timer
         # the ltsv scalar decoder (schema and suffixes from the config):
-        # the oracle rows', the block encoder's and the tiers' gates
+        # the oracle rows', the block encoder's and the tiers' gates; the
+        # auto format's ltsv leg takes it too
         self.decoder = None
-        if fmt == "ltsv":
+        if fmt in ("ltsv", "auto"):
             from ..decoders.ltsv import LTSVDecoder
 
             self.decoder = LTSVDecoder(config)
+        # the opt-in extra auto legs (input.auto_extra_formats)
+        self._auto_extras = (autodetect.auto_extra_formats(config)
+                             if fmt == "auto" else ())
         self._lines: List[bytes] = []
         self._raw_sessions: List["_RawSession"] = []
         self._raw_est = 0
@@ -134,8 +167,9 @@ class BatchHandler(Handler):
         self._decode_lock = threading.Lock()
         self._timer = None
         # the device encode tiers' decline hysteresis and counts: the
-        # split tier's under the input format, the fused route's under
-        # "fused:<route>" (fused_routes.cooldown_state), never shared
+        # split tier's under the input format (the auto format's legs
+        # each under theirs), the fused route's under "fused:<route>"
+        # (fused_routes.cooldown_state), never shared
         self.route_state: dict = {}
         # fused decode→encode routes: "auto" (default) runs the fused
         # route whenever the (format, encoder, merger) has one, declining
@@ -145,7 +179,16 @@ class BatchHandler(Handler):
             "input.tpu_fuse", "input.tpu_fuse must be a string", "auto")
         if self._fuse_mode not in ("auto", "on", "off"):
             raise ConfigError("input.tpu_fuse must be auto, on or off")
-        if self._fuse_mode == "on" and self._fused_route() is None:
+        # the columnar block route is config-static: when it can never
+        # engage, every batch takes the Record path, and the reference
+        # says so once at startup (batch.py:284-292)
+        self._block_ok = self._block_route_ok()
+        reason = self._route_cliff_reason()
+        if reason:
+            print(f"flowgger-tpu: columnar block route disabled for "
+                  f"format '{fmt}' ({reason}); throughput falls to the "
+                  f"per-record path (~30x slower)", file=sys.stderr)
+        elif self._fuse_mode == "on" and self._fused_route() is None:
             print(
                 'flowgger-tpu: input.tpu_fuse = "on" but this '
                 f"config cannot fuse format '{fmt}' (no registered "
@@ -153,10 +196,41 @@ class BatchHandler(Handler):
                 "or a sharded mesh owns the format); using the "
                 "split decode/encode path", file=sys.stderr)
 
+    def _block_route_ok(self) -> bool:
+        """Whether the columnar block route can take this config's
+        batches (the reference's ``_block_route_ok``, GELF output): the
+        ``gelf_extra`` keys must place statically for rfc5424, rfc3164
+        and ltsv, and be absent for gelf, jsonl and auto; auto also
+        takes no typed ``ltsv_schema``.  (Every merger the pipeline
+        makes has a block form.)"""
+        extra = self.encoder.extra
+        if self.fmt == "rfc5424":
+            return gelf_extra_slots(extra) is not None
+        if self.fmt == "rfc3164":
+            return gelf_extra_consts_3164(extra) is not None
+        if self.fmt == "ltsv":
+            return gelf_extra_consts_ltsv(extra) is not None
+        if self.fmt == "auto":
+            return not extra and not self.decoder.schema
+        return not extra
+
+    def _route_cliff_reason(self):
+        """Why the block route can never engage for this config (None
+        when it does): the reference's ``_route_cliff_reason`` words."""
+        if self._block_ok:
+            return None
+        if self.encoder.extra:
+            if self.fmt in ("rfc5424", "rfc3164", "ltsv"):
+                return ("output.gelf_extra keys need dynamic placement "
+                        "(leading '_' or a fixed-key overwrite)")
+            return "output.gelf_extra is set"
+        return "input.ltsv_schema is set"
+
     def _fused_route(self):
         """The fused route for this handler's config, or None: fuse mode
-        off, or no fused program for this (format, encoder, merger)."""
-        if self._fuse_mode == "off":
+        off, the auto format (its legs take the split path), or no fused
+        program for this (format, encoder, merger)."""
+        if self._fuse_mode == "off" or self.fmt == "auto":
             return None
         return fused_routes.route_for(self.fmt, self.encoder, self.merger,
                                       self.decoder)
@@ -260,13 +334,27 @@ class BatchHandler(Handler):
             sess.carry = b""
 
     def _dispatch(self, packed) -> None:
-        """The fused route, or the split decode → the split device encode
-        tier, or fetch (+ the wider rescue) → host block encode →
-        enqueue."""
+        """The block route — the fused route, or the split decode → the
+        split device encode tier, or fetch (+ the wider rescue) → host
+        block encode — or the Record path; then enqueue."""
         batch, lens, chunk, starts, orig_lens, n_real = packed
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(batch).to(self.device)
             lens = torch.from_numpy(lens).to(self.device)
+            packed = (batch, lens, chunk, starts, orig_lens, n_real)
+        if not self._block_ok:
+            self._emit_record_path(packed)
+            return
+        if self.fmt == "auto":
+            res = autodetect.encode_auto_gelf_blocks(
+                packed, self.encoder, self.merger, self.decoder,
+                self.route_state, self._auto_extras)
+            if res is None:
+                self._emit(autodetect.decode_auto_packed(
+                    packed, self.decoder, self._auto_extras))
+            else:
+                self._emit_block(res)
+            return
         route = self._fused_route()
         if route is not None:
             state = fused_routes.cooldown_state(self.route_state, route)
@@ -283,44 +371,135 @@ class BatchHandler(Handler):
                 if res is not None:
                     self._emit_block(res)
                     return
-        # the ltsv decode and its tier take the handler's decoder (the
-        # schema gate, the oracle rows) and the real row count
-        ltsv = self.fmt == "ltsv"
-        dec_kw = {"decoder": self.decoder} if ltsv else {}
-        handle = self._submit(batch, lens, *((n_real,) if ltsv else ()))
-        tier = _DEVICE_TIERS.get(self.fmt)
-        if tier is not None and tier.route_ok(self.encoder, self.merger,
-                                              **dec_kw):
-            res, _ = tier.fetch_encode(
-                handle, packed, self.encoder, self.merger,
-                self.route_state.setdefault(self.fmt, {}), **dec_kw)
-            if res is not None:
-                self._emit_block(res)
-                return
-        host_out = self._fetch(handle)
-        res = self._encode(chunk, starts, orig_lens, host_out, n_real,
-                           batch.shape[1], self.encoder, self.merger,
-                           *dec_kw.values())
+        handle = block_submit(self.fmt, packed)
+        res, host_out = block_fetch_encode(
+            self.fmt, handle, packed, self.encoder, self.merger,
+            self.decoder, self.route_state)
         if res is None:
-            # the reference's Record path (pipeline.Pipeline refuses the
-            # configs that would take it)
-            raise RuntimeError(f"the {self.fmt} block encoder declined a "
-                               "batch: the Record path is not ported")
+            # the block encoder declined the batch after the fact (an
+            # ltsv_schema of more than 8 keys, a suffix for a schema
+            # type): the Record path, on the channels already fetched
+            self._emit(_materialize_packed(self.fmt, packed, host_out,
+                                           self.decoder))
+            return
         self._emit_block(res)
+
+    def _emit_record_path(self, packed) -> None:
+        """A batch of a config the block route cannot take: rfc5424 into
+        GELF per row from the decode's spans, auto through its per-class
+        Record path, every other format through its Record path."""
+        if self.fmt == "rfc5424":
+            batch, lens, chunk, starts, orig_lens, n_real = packed
+            self._emit_encoded(encode_rfc5424_gelf(
+                chunk, starts, orig_lens, decode_rfc5424_host(batch, lens),
+                n_real, batch.shape[1], self.encoder))
+        elif self.fmt == "auto":
+            self._emit(autodetect.decode_auto_packed(
+                packed, self.decoder, self._auto_extras))
+        else:
+            self._emit(_decode_packed(self.fmt, packed, self.decoder))
+
+    def _print_error(self, error: str, line: str) -> None:
+        if error == "__utf8__":
+            print("Invalid UTF-8 input", file=sys.stderr)
+        elif self.bare_errors:
+            print(error, file=sys.stderr)
+        else:
+            stripped = line.strip()
+            if not (self.quiet_empty and not stripped):
+                print(f"{error}: [{stripped}]", file=sys.stderr)
 
     def _emit_block(self, res) -> None:
         for error, line in res.errors:
-            if error == "__utf8__":
-                print("Invalid UTF-8 input", file=sys.stderr)
-                continue
-            if self.bare_errors:
-                print(error, file=sys.stderr)
-            else:
-                stripped = line.strip()
-                if not (self.quiet_empty and not stripped):
-                    print(f"{error}: [{stripped}]", file=sys.stderr)
+            self._print_error(error, line)
         if len(res.block):
             self.tx.put(res.block)
+
+    def _emit(self, results) -> None:
+        """Record-path rows in order: a decode error's line, or the
+        record encoded into one queue item (the output thread frames it
+        with the merger), or an encode error's line."""
+        for res in results:
+            if res.record is None:
+                self._print_error(res.error, res.line)
+                continue
+            try:
+                encoded = self.encoder.encode(res.record)
+            except EncodeError as e:
+                stripped = res.line.strip()
+                if not (self.quiet_empty and not stripped):
+                    print(f"{e}: [{stripped}]", file=sys.stderr)
+                continue
+            self.tx.put(encoded)
+
+    def _emit_encoded(self, results) -> None:
+        """The per-row span encode's rows in order: an error's line, or
+        the encoded bytes as one queue item."""
+        for res in results:
+            if res.encoded is None:
+                self._print_error(res.error, res.line)
+                continue
+            self.tx.put(res.encoded)
+
+
+def block_submit(fmt: str, packed):
+    """Launch the format's decode of one packed batch (on its device);
+    pair with :func:`block_fetch_encode`."""
+    batch, lens = packed[0], packed[1]
+    if fmt == "ltsv":
+        # the ltsv decode takes the real row count (padding rows unread)
+        return decode_ltsv_submit(batch, lens, packed[5])
+    return _ROUTES[fmt][0](batch, lens)
+
+
+def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
+                       ltsv_decoder=None, route_state=None):
+    """The split device encode tier of a submitted decode, then (on its
+    decline, or with no tier for the format) the fetch and the host
+    block encoder.  Returns ``(BlockResult, None)`` from the tier,
+    ``(BlockResult, channels)`` from the host block encoder, or ``(None,
+    channels)`` when the block encoder declines the batch: the caller
+    then takes the Record path on the fetched channels.  The tier's
+    decline and cooldown state lives in ``route_state[fmt]``, so the
+    auto format's legs never share one."""
+    dec = (ltsv_decoder,) if fmt == "ltsv" else ()
+    dec_kw = {"decoder": ltsv_decoder} if fmt == "ltsv" else {}
+    tier = _DEVICE_TIERS.get(fmt)
+    if tier is not None and tier.route_ok(encoder, merger, **dec_kw):
+        state = route_state.setdefault(fmt, {}) \
+            if route_state is not None else None
+        res, _ = tier.fetch_encode(handle, packed, encoder, merger, state,
+                                   **dec_kw)
+        if res is not None:
+            return res, None
+    _, fetch, encode = _ROUTES[fmt]
+    batch, _, chunk, starts, orig_lens, n_real = packed
+    host_out = fetch(handle)
+    return encode(chunk, starts, orig_lens, host_out, n_real,
+                  batch.shape[1], encoder, merger, *dec), host_out
+
+
+def _decode_packed(fmt: str, packed, decoder=None):
+    """The Record path of one packed batch: the format's decode kernel
+    (on the batch's device, with its rescue), its channels fetched, and
+    one LineResult a real row (the reference's ``_decode_packed``,
+    batch.py:2219)."""
+    host_out = _ROUTES[fmt][1](block_submit(fmt, packed))
+    return _materialize_packed(fmt, packed, host_out, decoder)
+
+
+def _materialize_packed(fmt: str, packed, host_out, decoder=None):
+    """One LineResult a real row of a packed batch, from its fetched
+    decode channels."""
+    batch, lens, chunk, starts, orig_lens, n_real = packed
+    L = batch.shape[1]
+    if fmt == "rfc5424":
+        return materialize.materialize(chunk, starts, lens, orig_lens,
+                                       host_out, n_real, L)
+    if fmt == "ltsv":
+        return materialize_ltsv.materialize_ltsv(
+            chunk, starts, orig_lens, host_out, n_real, L, decoder)
+    return _MATERIALIZE[fmt](chunk, starts, orig_lens, host_out, n_real, L)
 
 
 class _RawSession:

@@ -38,7 +38,10 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
   L1's and EL's) and FG (gelf→GELF: K5's flat row decode and EG's),
   replacing the jnp + Pallas ``fused_routes._fused_rfc5424_gelf`` and
   the jnp ``_fused_rfc3164_gelf``, ``_fused_ltsv_gelf`` and
-  ``_fused_gelf_gelf``.
+  ``_fused_gelf_gelf``;
+- ``classify_auto`` — AC, the auto-detect classifier: one class code a
+  row of a mixed batch (replaces the jnp ``autodetect.classify_device``,
+  not a ``pallas_call``).
 
 The one-warp-a-row kernels share their device code through headers in
 ``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
@@ -61,8 +64,8 @@ choose between them by the tensor's device (``framing.sep_spans``,
 ``rfc5424.decode_rfc5424_submit``, ``rfc3164.decode_rfc3164_submit``,
 ``jsonl.decode_jsonl_submit``, ``ltsv.decode_ltsv_submit``,
 ``gelf.decode_on``, ``device_gelf._Rows``, ``device_rfc3164._Rows``,
-``device_ltsv._Rows``, ``device_gelf_gelf._Rows`` and
-``fused_routes._FusedRows``).
+``device_ltsv._Rows``, ``device_gelf_gelf._Rows``,
+``fused_routes._FusedRows`` and ``autodetect.classify_rows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -93,6 +96,7 @@ _SOURCES = {
     "decode_rfc3164": "decode_rfc3164.cu",
     "fused_gelf": "fused_gelf.cu",
     "decode_ltsv": "decode_ltsv.cu",
+    "classify_auto": "classify_auto.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -120,7 +124,8 @@ LAUNCHES: Dict[str, int] = {
     "structural_index_flat_f24": 0,
     "encode_gelf_gelf_probe_f8": 0, "encode_gelf_gelf_assemble_f8": 0,
     "encode_gelf_gelf_probe_f16": 0, "encode_gelf_gelf_assemble_f16": 0,
-    "fused_gelf_gelf_probe": 0, "fused_gelf_gelf_assemble": 0}
+    "fused_gelf_gelf_probe": 0, "fused_gelf_gelf_assemble": 0,
+    "classify_auto": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -170,6 +175,9 @@ _SIGNATURES = {
     },
     "decode_rfc3164": {
         "fg_decode_rfc3164": (_P, _P, _I, _P, _I, _I, _P),
+    },
+    "classify_auto": {
+        "fg_classify_auto": (_P, _P, _P, _I, _I, _P),
     },
     "fused_gelf": {
         "fg_fused_gelf_carry": (_I,),
@@ -584,6 +592,25 @@ def decode_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
         batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, n, L, _stream())
     _check(rc, "decode_ltsv")
     LAUNCHES["decode_ltsv"] += 1
+    return out
+
+
+def classify_auto_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """AC: the auto-detect class code of each of the first ``n`` rows of
+    ``batch`` (u8 [N, L]), int8 [n] on the device
+    (``autodetect.classify_plain`` is its plain version)."""
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    N, L = batch.shape
+    if lens.shape[0] < n or not 0 <= n <= N or L < 1:
+        raise ValueError(f"bad classify geometry L={L} n={n} N={N} "
+                         f"lens={lens.shape[0]}")
+    out = torch.empty(n, dtype=torch.int8, device=batch.device)
+    rc = _lib("classify_auto").fg_classify_auto(
+        batch.data_ptr(), lens.data_ptr(), out.data_ptr(), n, L, _stream())
+    _check(rc, "classify_auto")
+    LAUNCHES["classify_auto"] += 1
     return out
 
 

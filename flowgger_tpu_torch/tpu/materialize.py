@@ -1,19 +1,26 @@
-"""Host helpers between the decode channels and the block encoder: the
-f64 timestamp from the kernel's calendar channels, and the scalar
+"""Host helpers between the RFC5424 decode channels and the encoders:
+the f64 timestamp from the kernel's calendar channels, the scalar
 oracle for rows the kernel flagged (``ok=False``) or that exceed
 ``tpu_max_line_len`` — so errors and edge cases stay byte-identical with
-the reference's per-line behavior (line_splitter.rs:37-39).
+the reference's per-line behavior (line_splitter.rs:37-39) — and the
+Record-path materializer, which slices each row's spans into a
+``Record`` for the per-record encode.
+
+A trimmed copy of the JAX package's ``tpu/materialize.py``
+(``materialize`` :56, ``_build_sd`` :106, ``_from_spans_str`` :125,
+``_from_spans_bytes`` :146), without its ``fallback_rows`` metric (the
+port emits no metrics yet).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..decoders import DecodeError
-from ..decoders.rfc5424 import RFC5424Decoder
-from ..record import Record
+from ..decoders.rfc5424 import RFC5424Decoder, _unescape_sd_value
+from ..record import Record, SDValue, StructuredData
 
 _SCALAR = RFC5424Decoder()
 
@@ -55,3 +62,96 @@ def _scalar_line(line: str) -> LineResult:
         return LineResult(_SCALAR.decode(line), None, line)
     except DecodeError as e:
         return LineResult(None, str(e), line)
+
+
+def materialize(chunk_bytes: bytes, starts: np.ndarray, lens: np.ndarray,
+                orig_lens: np.ndarray, out: Dict[str, np.ndarray],
+                n_real: int, max_len: int) -> List[LineResult]:
+    """Records for the first ``n_real`` rows.  ``lens`` are the (possibly
+    clipped) lengths the kernel saw, ``orig_lens`` the true line
+    lengths: rows longer than ``max_len``, and rows the kernel flagged,
+    take the scalar oracle."""
+    ts = compute_ts(out).tolist()
+    # plain-list views: one bulk conversion a batch
+    o = {k: np.asarray(v).tolist() for k, v in out.items()}
+    ok = o["ok"]
+    results: List[LineResult] = []
+    for n in range(n_real):
+        s = int(starts[n])
+        ln = int(orig_lens[n])
+        raw = chunk_bytes[s:s + ln]
+        try:
+            line = raw.decode("utf-8")
+        except UnicodeDecodeError:
+            results.append(LineResult(None, "__utf8__", ""))
+            continue
+        if not ok[n] or ln > max_len:
+            results.append(_scalar_line(line))
+            continue
+        if len(line) != ln:
+            # byte spans != str indices: slice the bytes, decode per field
+            results.append(_from_spans_bytes(raw, line, n, o, ts))
+            continue
+        results.append(_from_spans_str(line, n, o, ts))
+    return results
+
+
+def _build_sd(n: int, o: Dict[str, list], take
+              ) -> Optional[List[StructuredData]]:
+    sd_count = int(o["sd_count"][n])
+    if sd_count == 0:
+        return None
+    blocks = [StructuredData(take(int(o["sid_start"][n][k]),
+                                  int(o["sid_end"][n][k])))
+              for k in range(sd_count)]
+    has_esc = o["val_has_esc"]
+    for j in range(int(o["pair_count"][n])):
+        name = take(int(o["name_start"][n][j]), int(o["name_end"][n][j]))
+        value = take(int(o["val_start"][n][j]), int(o["val_end"][n][j]))
+        if has_esc[n][j]:
+            value = _unescape_sd_value(value)
+        blocks[int(o["pair_sd"][n][j])].pairs.append(
+            ("_" + name, SDValue.string(value)))
+    return blocks
+
+
+def _from_spans_str(line: str, n: int, o: Dict[str, list],
+                    ts: list) -> LineResult:
+    def take(a: int, b: int) -> str:
+        return line[a:b]
+
+    msg = line[int(o["msg_start"][n]):].strip()
+    record = Record(
+        ts=float(ts[n]),
+        hostname=take(int(o["host_start"][n]), int(o["host_end"][n])),
+        facility=int(o["facility"][n]),
+        severity=int(o["severity"][n]),
+        appname=take(int(o["app_start"][n]), int(o["app_end"][n])),
+        procid=take(int(o["proc_start"][n]), int(o["proc_end"][n])),
+        msgid=take(int(o["msgid_start"][n]), int(o["msgid_end"][n])),
+        msg=msg if msg else None,
+        full_msg=line[int(o["full_start"][n]):].rstrip(),
+        sd=_build_sd(n, o, take),
+    )
+    return LineResult(record, None, line)
+
+
+def _from_spans_bytes(raw: bytes, line: str, n: int, o: Dict[str, list],
+                      ts: list) -> LineResult:
+    def take(a: int, b: int) -> str:
+        return raw[a:b].decode("utf-8", errors="surrogatepass")
+
+    msg = raw[int(o["msg_start"][n]):].decode("utf-8").strip()
+    record = Record(
+        ts=float(ts[n]),
+        hostname=take(int(o["host_start"][n]), int(o["host_end"][n])),
+        facility=int(o["facility"][n]),
+        severity=int(o["severity"][n]),
+        appname=take(int(o["app_start"][n]), int(o["app_end"][n])),
+        procid=take(int(o["proc_start"][n]), int(o["proc_end"][n])),
+        msgid=take(int(o["msgid_start"][n]), int(o["msgid_end"][n])),
+        msg=msg if msg else None,
+        full_msg=raw[int(o["full_start"][n]):].decode("utf-8").rstrip(),
+        sd=_build_sd(n, o, take),
+    )
+    return LineResult(record, None, line)

@@ -8,6 +8,8 @@ the JAX package's packed contract: ``(batch, clipped_lens, chunk,
 starts, orig_lens, n_real)``.  Row counts are bucketed to powers of two
 (at least ``_MIN_ROWS``); padding rows have length 0 and fall outside
 ``n_real``, so the bucket never changes emitted bytes.
+:func:`subset_packed` takes a row subset of a packed tuple (the
+auto-detect partition), on the card when the batch lies there.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 _MIN_ROWS = 256
 
@@ -93,3 +96,34 @@ def pack_spans_2d(chunk: bytes, starts: np.ndarray, lens: np.ndarray,
     output; same return contract as :func:`pack_region_2d`)."""
     return _finish(chunk, np.asarray(starts, np.int32),
                    np.asarray(lens, np.int32), len(starts), max_len)
+
+
+def subset_packed(packed, idx: np.ndarray):
+    """The rows ``idx`` of a packed tuple as a packed tuple of their own
+    (the auto-detect partition), re-bucketed with :func:`bucket_rows`.
+    A batch on a device is gathered on that device (one index gather
+    into a zeroed bucket); a numpy batch on the host.  ``orig_lens``
+    keeps one entry a real row, as the reference's ``subset_packed``
+    (pack.py:262)."""
+    batch, lens, chunk, starts, orig_lens, _n = packed
+    m = int(idx.size)
+    rows = bucket_rows(m)
+    L = batch.shape[1]
+    s2 = np.zeros(rows, dtype=np.int32)
+    if isinstance(batch, torch.Tensor):
+        b2 = torch.zeros((rows, L), dtype=torch.uint8, device=batch.device)
+        l2 = torch.zeros(rows, dtype=torch.int32, device=batch.device)
+        if m:
+            dev_idx = torch.from_numpy(np.asarray(idx, np.int64)).to(
+                batch.device)
+            b2[:m] = batch.index_select(0, dev_idx)
+            l2[:m] = lens.index_select(0, dev_idx).to(torch.int32)
+    else:
+        b2 = np.zeros((rows, L), dtype=np.uint8)
+        l2 = np.zeros(rows, dtype=np.int32)
+        if m:
+            b2[:m] = batch[idx]
+            l2[:m] = lens[idx]
+    if m:
+        s2[:m] = np.asarray(starts)[idx]
+    return b2, l2, chunk, s2, np.asarray(orig_lens)[idx], m

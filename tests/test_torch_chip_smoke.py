@@ -425,4 +425,163 @@ def test_gelf_phases_are_named_and_cut():
             "encode_gelf_gelf_probe_f16"} <= set(chip_smoke.PATHS["gelf_line"][3])
     assert chip_smoke.GELF_LINES == 4 * chip_smoke.BATCH
     assert chip_smoke.JSONL_LINES == 4 * chip_smoke.BATCH
-    assert chip_smoke.AB_BATCHES == 4
+    assert chip_smoke.AB_BATCHES == 2
+
+
+def test_auto_case_checks_and_records_its_shape(monkeypatch):
+    """AC's chip check on the CPU, the wrapper standing in with the plain
+    version (and counting its launch): the class codes compared on every
+    real row, the shape recorded, a bytes bound over the bytes the rows
+    need, and a stand-in that differs from the plain version fails."""
+    import pytest
+    import torch
+
+    from flowgger_tpu_torch.corpus import AUTO_EDGE, make_auto_corpus
+    from flowgger_tpu_torch.tpu import autodetect, kernels, pack
+
+    def classify(b, l, n):
+        kernels.LAUNCHES["classify_auto"] += 1
+        return autodetect.classify_plain(b[:n], l[:n])
+
+    monkeypatch.setattr(kernels, "classify_auto_cuda", classify)
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "CHECKED", set())
+    lines = list(AUTO_EDGE) + make_auto_corpus(300, seed=9)[0]
+    batch, lens, *_ = pack.pack_lines_2d(lines, 128)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    row = chip_smoke.ac_case(bt, lt, len(lines))
+    assert row["name"] == "classify_auto" and row["max_abs_err"] == 0.0
+    assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert row["replaces"] == "flowgger_tpu/tpu/autodetect.py:97"
+    assert chip_smoke.CHECKED == {("classify_auto", tuple(bt.shape))}
+    with chip_smoke.launch_shapes(chip_smoke._MIXED_WRAPPERS) as seen:
+        kernels.classify_auto_cuda(bt, lt, 5)
+    assert seen == {("classify_auto", tuple(bt.shape))}
+
+    def wrong(b, l, n):
+        out = classify(b, l, n)
+        out[3] = (out[3] + 1) % 4
+        return out
+
+    monkeypatch.setattr(kernels, "classify_auto_cuda", wrong)
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.ac_case(bt, lt, len(lines))
+
+
+def test_mixed_phases_are_named_and_sized():
+    """The auto and Record-path e2e paths: their formats, tables and the
+    kernels each must launch; 65 536 lines an auto run and 16 384 a
+    Record-path run; and the earlier paths' depths, the line mixes deep
+    enough that both tiers decline and then cool."""
+    paths = chip_smoke.MIXED_PATHS
+    assert set(paths) == {"auto_line", "auto_tier", "record_rfc5424",
+                          "record_rfc3164", "record_ltsv", "record_gelf",
+                          "record_jsonl", "record_auto"}
+    for name, (fmt, in_t, out_t, kind, n, need) in paths.items():
+        assert fmt == ("auto_tpu" if kind == "auto" else f"{kind}_tpu")
+        assert n == (chip_smoke.AUTO_LINES if name.startswith("auto")
+                     else chip_smoke.RECORD_LINES)
+        assert "frame_sep_spans" in need
+        assert ("classify_auto" in need) == (kind == "auto")
+    assert chip_smoke._mixed_tables("record_ltsv")[0].count(" = ") == 10
+    assert chip_smoke.AUTO_LINES == 4 * chip_smoke.BATCH
+    assert chip_smoke.RECORD_LINES == chip_smoke.BATCH
+    B = chip_smoke.BATCH
+    assert (chip_smoke.LTSV_LINES, chip_smoke.RFC3164_LINES,
+            chip_smoke.RFC5424_LINES, chip_smoke.AB_BATCHES) == \
+        (4 * B, 4 * B, 4 * B, 2)
+    assert set(chip_smoke.COOLING) == {"rfc5424_line", "rfc3164_line",
+                                       "ltsv_line", "gelf_line"}
+
+
+@pytest.mark.parametrize("name", ["auto_tier", "record_rfc3164"])
+def test_mixed_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
+    """phase_e2e_mixed end to end on the CPU at a small size (in process
+    and through the CLI, both with ``--device cpu``; the launch checks,
+    which need the card's kernels, emptied): both runs byte-identical to
+    the scalar path, the start-up notice where the block route cannot
+    engage, and on the auto tier mix every leg's split tier taking a
+    batch."""
+    import io
+    import contextlib
+    import time
+
+    import flowgger_tpu_torch
+
+    fmt, in_t, out_t, kind, _, _ = chip_smoke.MIXED_PATHS[name]
+    # enough auto rows that the 20 edge rows stay far under each leg's
+    # 5 % decline threshold
+    n = 5000 if kind == "auto" else 1500
+    monkeypatch.setitem(chip_smoke.MIXED_PATHS, name,
+                        (fmt, in_t, out_t, kind, n, ()))
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+
+    def run_inproc(cfg, path):
+        err, out = io.StringIO(), io.StringIO()
+        saved = sys.stdin
+        t0 = time.perf_counter()
+        try:
+            with open(path, "rb") as raw, contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(out):
+                sys.stdin = io.TextIOWrapper(io.BufferedReader(raw))
+                pipe = flowgger_tpu_torch.start(str(cfg), device="cpu")
+        finally:
+            sys.stdin = saved
+        return (time.perf_counter() - t0, pipe, err.getvalue().splitlines(),
+                out.getvalue().splitlines())
+
+    real_popen = subprocess.Popen
+
+    def popen(argv, *a, **kw):
+        if "flowgger_tpu_torch" in argv:
+            kw["env"] = dict(kw["env"], OMP_NUM_THREADS="1")
+            argv = [*argv, "--device", "cpu"]
+        return real_popen(argv, *a, **kw)
+
+    monkeypatch.setattr(chip_smoke, "run_inproc", run_inproc)
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
+    emitted = []
+    monkeypatch.setattr(chip_smoke, "emit", emitted.append)
+    chip_smoke.phase_e2e_mixed(name, 20261016)
+    rep, = emitted
+    assert rep["identical_to_scalar_path"] and rep["lines"] == n
+    assert (rep["startup_notice"] is None) == (name == "auto_tier")
+    if name == "auto_tier":
+        assert all(rep["legs"][leg]["taken"] for leg in
+                   ("rfc5424", "rfc3164", "ltsv", "gelf"))
+
+
+@pytest.mark.parametrize("name", ["rfc3164_line", "gelf_line"])
+def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
+    """phase_e2e's CLI run (``--device cpu``, started while the scalar
+    expectation is made) against that expectation at a small size: its
+    bytes (gelf: wall-clock stamps masked), stderr and stdout; the
+    in-process runs, which need the card's kernels, stood in for."""
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    real_popen = subprocess.Popen
+
+    def popen(argv, *a, **kw):
+        if "flowgger_tpu_torch" in argv:
+            kw["env"] = dict(kw["env"], OMP_NUM_THREADS="1")
+            argv = [*argv, "--device", "cpu"]
+        return real_popen(argv, *a, **kw)
+
+    seen = []
+
+    def e2e_inproc(nm, path, exp_out, exp_err, checked, fuse):
+        seen.append((nm, fuse, len(exp_out), len(exp_err[0])))
+        return {"launches": {"frame_gather": 1}, "inproc_wall_s": 1.0}
+
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
+    monkeypatch.setattr(chip_smoke, "e2e_inproc", e2e_inproc)
+    emitted = []
+    monkeypatch.setattr(chip_smoke, "emit", emitted.append)
+    total = chip_smoke.phase_e2e(name, 1200, 20261016)
+    rep, = emitted
+    assert rep["identical_to_scalar_path"] and rep["lines"] == 1200
+    assert rep["cli_wall_s"] > 0 and rep["output_bytes"] > 0
+    assert seen == [(name, "auto", rep["output_bytes"], rep["error_lines"])]
+    assert total == {"frame_gather": 1}

@@ -247,7 +247,12 @@ def _batches():
     return out
 
 
-def test_handler_matches_reference_batch_for_batch(capsys):
+def test_handler_matches_reference_batch_for_batch(capsys, monkeypatch):
+    # the reference's compile watchdog off: its device encode compiles
+    # inline, so a compile another test left in flight on this worker
+    # (the watchdog's single-flight slot) or a slow compile on a loaded
+    # box cannot turn its taken batches into declines
+    monkeypatch.setenv("FLOWGGER_COMPILE_TIMEOUT_MS", "0")
     ref_enc = RGelfEncoder(RConfig.from_string(""))
     ref_state = {}
     # the split tier, as block_fetch_encode runs it: the fused route off

@@ -2,7 +2,8 @@
 decoder, the flat structural index (K5's plain version at ``nested = 0``)
 at 8, 16 and 24 fields channel for channel, the decode fetch with its
 24-field rescue, the host block encoder under every merger, the configs
-the slice refuses, and one CLI pair end to end.  Every comparison is
+the slice refuses, one CLI pair end to end and one on the Record path
+(a gelf_extra).  Every comparison is
 exact; GELF rows without a timestamp are stamped with the wall clock in
 both packages, so those stamps are masked (``corpus.mask_wall_stamps``).
 One batch geometry ([64, 256]) keeps the JAX side at a few compiled
@@ -296,16 +297,13 @@ def test_gelf_gelf_block_matches_reference(merger, jmerger):
 
 @pytest.mark.parametrize("text,words", [
     ('[input]\ntype = "stdin"\nformat = "gelf_tpu"\n[output]\n'
-     'type = "stdout"\n[output.gelf_extra]\nx = "y"\n',
-     ("gelf_extra", "Record path", "queue A item 3")),
-    ('[input]\ntype = "stdin"\nformat = "gelf_tpu"\n[output]\n'
      'type = "stdout"\nformat = "ltsv"\n',
      ("output.format", "queue A item 6")),
-], ids=["gelf_extra", "ltsv_output"])
+], ids=["ltsv_output"])
 def test_gelf_configs_the_slice_refuses(text, words):
-    """gelf_tpu with any gelf_extra takes the reference's Record path
-    (its block encoder returns None, its device tiers are gated off);
-    gelf_tpu into a non-GELF output is a later slice.  Both raise."""
+    """gelf_tpu into a non-GELF output is a later slice: it raises.  (A
+    gelf_extra, which takes the reference's Record path, runs:
+    test_cli_gelf_extra_matches_jax_package.)"""
     with pytest.raises(ConfigError, match="later slice") as exc:
         pipeline.Pipeline(Config.from_string(text), device="cpu")
     for w in words:
@@ -352,3 +350,36 @@ def test_cli_gelf_matches_jax_package(tmp_path):
     port, ref = outs["flowgger_tpu_torch"], outs["flowgger_tpu"]
     assert port[0] == ref[0] and b'"timestamp":0,' in port[0]
     assert port[1] == ref[1] and port[1]
+
+
+def test_cli_gelf_extra_matches_jax_package(tmp_path):
+    """gelf_tpu with a gelf_extra takes the Record path in both packages
+    (the block encoder and the device tiers decline any extra): the same
+    output bytes, stdout and stderr (the start-up notice first) through
+    both CLIs, exit code 0."""
+    lines = make_gelf_corpus(300, seed=44)[0] + [
+        r for r in RAW if b"\n" not in r]
+    data = b"\n".join(lines) + b'\n{"host":"tail","timestamp":1'
+    outs = {}
+    t0 = time.time() - 1.0
+    for pkg in ("flowgger_tpu_torch", "flowgger_tpu"):
+        out = tmp_path / f"{pkg}.out"
+        cfg = tmp_path / f"{pkg}.toml"
+        cfg.write_text(
+            '[input]\ntype = "stdin"\nformat = "gelf_tpu"\n'
+            'framing = "line"\ntpu_flush_ms = 600000\n'
+            'tpu_batch_size = 128\n'
+            '[output]\ntype = "file"\nformat = "gelf"\n'
+            f'file_path = "{out}"\n[output.gelf_extra]\nx = "y"\n'
+            'short_message = "over"\n')
+        proc = _run(pkg, cfg, data)
+        assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+        outs[pkg] = (mask_wall_stamps(out.read_bytes(), t0), proc.stdout,
+                     proc.stderr.decode().splitlines())
+    port, ref = outs["flowgger_tpu_torch"], outs["flowgger_tpu"]
+    assert port == ref
+    assert b'"short_message":"over"' in port[0] and b'"x":"y"' in port[0]
+    assert port[2][0] == (
+        "flowgger-tpu: columnar block route disabled for format 'gelf' "
+        "(output.gelf_extra is set); throughput falls to the per-record "
+        "path (~30x slower)")

@@ -2,11 +2,14 @@
 date parse and the scalar decoder (the oracle) with its schema and
 suffix tables from the same TOML, the plain decode (L1's plain version)
 on every channel, the host block encoder byte for byte (untyped and with
-a typed schema of at most 8 keys), the config gates (the Record-path
-configs raise ConfigError), and ``python -m flowgger_tpu_torch`` against
+a typed schema of at most 8 keys), the config gates (every schema and
+``gelf_extra`` config runs; the block encoders of both packages decline
+the same batches), and ``python -m flowgger_tpu_torch`` against
 ``python -m flowgger_tpu`` on ltsv configs across line, NUL and syslen
 framing, ``tpu_fuse`` auto and off, a static ``gelf_extra`` and a typed
-schema: the same bytes, stderr lines and stdout notices.
+schema, and on the four configs that take the Record path (a 10-key
+typed schema, a suffix for a schema type, ``gelf_extra`` keys this
+layout cannot place): the same bytes, stderr lines and stdout notices.
 
 Every jitted reference call shares one batch shape ([256, 256]); the
 decode compiles once.  Exact on every channel and byte.
@@ -38,7 +41,8 @@ from flowgger_tpu.utils import timeparse as RTP
 
 from flowgger_tpu_torch import pipeline
 from flowgger_tpu_torch.config import Config, ConfigError
-from flowgger_tpu_torch.corpus import (make_ltsv_corpus, make_ltsv_tier_corpus,
+from flowgger_tpu_torch.corpus import (LTSV_SCHEMA_10, make_ltsv_corpus,
+                                       make_ltsv_tier_corpus,
                                        scalar_expectation, syslen_stream)
 from flowgger_tpu_torch.decoders.ltsv import LTSVDecoder
 from flowgger_tpu_torch.encoders import GelfEncoder
@@ -285,42 +289,56 @@ def test_block_encoder_matches_reference(merger, cfg):
         RBL.gelf_extra_consts_ltsv(list(EXTRAS))
 
 
-@pytest.mark.parametrize("toml,raises", [
+# the configs of the Record path: batch by batch (the block encoder
+# declines: "batch") or for the whole run (the block route can never
+# engage, a start-up notice: "run")
+RECORD_PATH = {
+    "schema10": (LTSV_SCHEMA_10, "batch"),
+    "suffix": ('[input.ltsv_schema]\nstatus = "u64"\n[input.ltsv_suffixes]\n'
+               'u64 = "_n"\n', "batch"),
+    "dyn_extra": ('[output.gelf_extra]\n_dyn = "x"\n', "run"),
+    "host_extra": ('[output.gelf_extra]\nhost = "x"\n', "run"),
+}
+
+
+@pytest.mark.parametrize("toml,record_path", [
     ('[input.ltsv_schema]\n' + "".join(f'k{i} = "u64"\n' for i in range(9)),
-     "more than 8 keys"),
-    ('[input.ltsv_schema]\nstatus = "u64"\n[input.ltsv_suffixes]\n'
-     'u64 = "_n"\n', "ltsv_suffixes"),
+     "batch"),
+    RECORD_PATH["suffix"],
     ('[input.ltsv_schema]\nstatus = "u64"\n[input.ltsv_suffixes]\n'
      'i64 = "_n"\n', None),
     ('[input.ltsv_schema]\n' + "".join(f'k{i} = "u64"\n' for i in range(8)),
      None),
-    ('[output.gelf_extra]\n_dyn = "x"\n', "gelf_extra"),
-    ('[output.gelf_extra]\nhost = "x"\n', "gelf_extra"),
+    RECORD_PATH["dyn_extra"],
+    RECORD_PATH["host_extra"],
 ])
-def test_config_gates(toml, raises):
-    """ltsv_tpu runs every schema config but the two whose batches the
-    reference's block encoder hands to its Record path (more than 8
-    schema keys; a suffix for a type the schema uses), and gelf_extra
-    keys this layout cannot place: those raise ConfigError naming the
-    Record path or the later slice."""
+def test_config_gates(toml, record_path):
+    """ltsv_tpu runs every schema and gelf_extra config.  Two take the
+    Record path batch by batch, as the reference's do: its block encoder
+    and the port's both decline the batch (more than 8 schema keys; a
+    suffix for a type the schema uses); gelf_extra keys this layout
+    cannot place keep the block route off for the whole run (neither
+    package's block encoder takes them).  The CLI pairs of the four:
+    test_cli_ltsv_record_path_matches_jax_package."""
     text = ('[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n'
             '[output]\ntype = "stdout"\n' + toml)
     config = Config.from_string(text)
-    if raises is None:
-        pipeline.Pipeline(config, device="cpu")
-        return
-    with pytest.raises(ConfigError, match="later slice") as exc:
-        pipeline.Pipeline(config, device="cpu")
-    assert raises in str(exc.value)
-    if "ltsv" in raises or "keys" in raises:
-        assert "Record path" in str(exc.value)
-        # the reference's block encoder declines these batches
-        batch, lens, chunk, starts, orig, n = _packed()
-        rdec = RDecoder(RConfig.from_string(text))
-        assert RBL.encode_ltsv_gelf_block(
+    pipeline.Pipeline(config, device="cpu")
+    batch, lens, chunk, starts, orig, n = _packed()
+    host = L1.decode_ltsv_fetch(L1.decode_ltsv_submit(
+        torch.from_numpy(batch), torch.from_numpy(lens), n))
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        got = BL.encode_ltsv_gelf_block(
+            chunk, starts, orig, host, n, L, GelfEncoder(config),
+            NulMerger(), LTSVDecoder(config))
+        want = RBL.encode_ltsv_gelf_block(
             chunk, starts, orig, _ref_decode(batch, lens), n, L,
             RGelfEncoder(RConfig.from_string(text)), RNulMerger(),
-            rdec) is None
+            RDecoder(RConfig.from_string(text)))
+    assert (got is None) == (want is None) == (record_path is not None)
+    if got is not None:
+        assert got.block.data == want.block.data
 
 
 def _run(pkg, cfg, data, env_extra):
@@ -411,3 +429,47 @@ def test_tier_corpus_stays_under_the_decline_threshold():
         if make is make_ltsv_tier_corpus:
             assert cand[np.asarray(kinds) == "tier"].all()
             assert 1 - cand.mean() < DL.FALLBACK_FRAC
+
+
+@pytest.mark.parametrize("name", list(RECORD_PATH))
+def test_cli_ltsv_record_path_matches_jax_package(tmp_path, name):
+    """The ltsv configs of the Record path through both CLIs, NUL
+    framing: the file, stdout (the decoder's notices) and stderr (the
+    start-up notice where the block route can never engage) equal, exit
+    code 0, and the bytes the scalar path's."""
+    toml, record_path = RECORD_PATH[name]
+    lines, _ = make_ltsv_corpus(300, seed=86)
+    lines += [b"k0:1\tk1:x\tk8:-3\tstatus:7\thost:h\ttime:1",
+              b"k0:18446744073709551616\tstatus:-1\ttime:2",
+              b"status:12\tk3:0\tmessage:typed\thost:h2\ttime:3"]
+    data = b"\0".join(lines) + b"\0" + b"time:1\thost:tail\tpartial:1"
+    outs = {}
+    for pkg in ("flowgger_tpu_torch", "flowgger_tpu"):
+        out = tmp_path / f"{pkg}.out"
+        cfg = tmp_path / f"{pkg}.toml"
+        in_tables = toml if toml.startswith("[input") else ""
+        out_tables = toml if toml.startswith("[output") else ""
+        cfg.write_text(
+            '[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n'
+            'framing = "nul"\ntpu_flush_ms = 600000\n'
+            'tpu_batch_size = 256\n' + in_tables
+            + '[output]\ntype = "file"\nformat = "gelf"\n'
+            f'file_path = "{out}"\nframing = "line"\n' + out_tables)
+        env = ({"FLOWGGER_DEVICE_ENCODE": "0"} if pkg == "flowgger_tpu"
+               else {})
+        proc = _run(pkg, cfg, data, env)
+        assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+        outs[pkg] = (out.read_bytes(), proc.stdout,
+                     proc.stderr.decode().splitlines())
+    port, ref = outs["flowgger_tpu_torch"], outs["flowgger_tpu"]
+    assert port == ref and len(port[0]) > 1000
+    assert b"Missing value" in port[1]
+    notice = ("flowgger-tpu: columnar block route disabled for format "
+              "'ltsv' (output.gelf_extra keys need dynamic placement "
+              "(leading '_' or a fixed-key overwrite)); throughput falls "
+              "to the per-record path (~30x slower)")
+    assert (port[2][0] == notice) == (record_path == "run")
+    exp, errs = scalar_expectation(data, "nul", config=Config.from_string(
+        toml), merger=LineMerger(), fmt="ltsv")
+    assert port[0] == exp
+    assert [x for x in port[2] if x != notice] == errs

@@ -17,7 +17,8 @@ import torch
 
 from flowgger_tpu_torch import pipeline
 from flowgger_tpu_torch.config import Config, ConfigError
-from flowgger_tpu_torch.corpus import make_corpus, scalar_expectation
+from flowgger_tpu_torch.corpus import (make_corpus, make_jsonl_corpus,
+                                       scalar_expectation)
 from flowgger_tpu_torch.encoders import GelfEncoder
 from flowgger_tpu_torch.mergers import LineMerger, NulMerger, SyslenMerger
 from flowgger_tpu_torch.splitters import LineSplitter, NulSplitter
@@ -170,10 +171,6 @@ BAD_CONFIGS = [
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "kafka"\n', "output.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "stdout"\n[output.gelf_extra]\n_dyn = "x"\n', "gelf_extra"),
-    ('[input]\ntype = "stdin"\nformat = "jsonl_tpu"\n[output]\n'
-     'type = "stdout"\n[output.gelf_extra]\nx = "y"\n', "gelf_extra"),
-    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "file"\nfile_path = "x"\nfile_rotation_size = 10\n',
      "file_rotation_size"),
 ]
@@ -185,6 +182,59 @@ def test_later_slice_configs_raise(text, key):
     with pytest.raises(ConfigError, match="later slice") as exc:
         pipeline.Pipeline(Config.from_string(text), device="cpu")
     assert key in str(exc.value)
+
+
+# configs that take the Record path in both packages (they raised
+# ConfigError before the port had one): rfc5424 with gelf_extra keys that
+# need dynamic placement (the per-row span encode), jsonl with any
+# gelf_extra
+RECORD_PATH = {
+    "rfc5424_dyn": ("rfc5424_tpu", "line", '_dyn = "x"\nhost = "relay"\n',
+                    "output.gelf_extra keys need dynamic placement (leading "
+                    "'_' or a fixed-key overwrite)"),
+    "jsonl_extra": ("jsonl_tpu", "nul", 'x = "y"\n',
+                    "output.gelf_extra is set"),
+}
+
+
+@pytest.mark.parametrize("name", list(RECORD_PATH))
+def test_cli_record_path_matches_jax_package(tmp_path, name):
+    """A gelf_extra config of the Record path through both CLIs: the same
+    output bytes and stderr (the start-up notice first), exit code 0,
+    and the bytes the scalar path's."""
+    fmt, framing, extra, why = RECORD_PATH[name]
+    if fmt == "jsonl_tpu":
+        lines, _ = make_jsonl_corpus(500, seed=23)
+        data = b"\0".join(lines) + b'\0{"timestamp":1,"host":"tail"'
+    else:
+        data = _input(framing, n_lines=500, seed=24)
+    outs = {}
+    for pkg in ("flowgger_tpu_torch", "flowgger_tpu"):
+        out = tmp_path / f"{pkg}.out"
+        cfg = tmp_path / f"{pkg}.toml"
+        cfg.write_text(
+            f'[input]\ntype = "stdin"\nformat = "{fmt}"\n'
+            f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
+            'tpu_batch_size = 256\n'
+            '[output]\ntype = "file"\nformat = "gelf"\n'
+            f'file_path = "{out}"\nframing = "line"\n'
+            '[output.gelf_extra]\n' + extra)
+        extra_args = ("--device", "cpu") if pkg == "flowgger_tpu_torch" \
+            else ()
+        proc = _run(pkg, cfg, data, extra_args)
+        assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+        outs[pkg] = (out.read_bytes(), proc.stderr.decode().splitlines())
+    port, ref = outs["flowgger_tpu_torch"], outs["flowgger_tpu"]
+    assert port == ref and len(port[0]) > 10000
+    notice = (f"flowgger-tpu: columnar block route disabled for format "
+              f"'{fmt[:-4]}' ({why}); throughput falls to the per-record "
+              "path (~30x slower)")
+    assert port[1][0] == notice
+    exp, errs = scalar_expectation(
+        data, framing, config=Config.from_string("[output.gelf_extra]\n"
+                                                 + extra),
+        merger=LineMerger(), fmt=fmt[:-4])
+    assert port[0] == exp and port[1][1:] == errs
 
 
 def test_cuda_is_the_default_and_raises_without_a_gpu(tmp_path, monkeypatch):

@@ -298,25 +298,25 @@ def test_device_encode_matches_reference(suffix, extras):
 
 
 def test_route_ok_and_config_gates(monkeypatch):
-    """rfc3164_tpu runs into GELF; gelf_extra keys this layout cannot
-    place, and any other output format, raise ConfigError naming the
-    later slice (the reference takes its Record path there)."""
+    """rfc3164_tpu runs into GELF, with gelf_extra keys this layout
+    places and with keys it cannot (``level``: the Record path, as in the
+    reference, test_cli_rfc3164_level_extra_matches_jax_package); any
+    other output format raises ConfigError naming the later slice."""
     enc = GelfEncoder(Config.from_string(""))
     assert D3.route_ok(enc, LineMerger()) and D3.route_ok(enc, None)
-    pipeline.Pipeline(Config.from_string(
-        '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
-        '[output]\ntype = "stdout"\n[output.gelf_extra]\nzone = "eu"\n'),
-        device="cpu")
-    for text, key in (
-            ('[output]\ntype = "stdout"\n[output.gelf_extra]\nlevel = "9"\n',
-             "gelf_extra"),
-            ('[output]\ntype = "stdout"\nformat = "rfc5424"\n',
-             "output.format")):
-        with pytest.raises(ConfigError, match="later slice") as exc:
-            pipeline.Pipeline(Config.from_string(
-                '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n' + text),
-                device="cpu")
-        assert key in str(exc.value)
+    for extra in ('zone = "eu"\n', 'level = "9"\n'):
+        pipeline.Pipeline(Config.from_string(
+            '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+            '[output]\ntype = "stdout"\n[output.gelf_extra]\n' + extra),
+            device="cpu")
+    assert not D3.route_ok(GelfEncoder(Config.from_string(
+        '[output.gelf_extra]\nlevel = "9"\n')), LineMerger())
+    with pytest.raises(ConfigError, match="later slice") as exc:
+        pipeline.Pipeline(Config.from_string(
+            '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+            '[output]\ntype = "stdout"\nformat = "rfc5424"\n'),
+            device="cpu")
+    assert "output.format" in str(exc.value)
     monkeypatch.setenv("FLOWGGER_DEVICE_ENCODE", "0")
     assert not D3.route_ok(enc, LineMerger())
 
@@ -367,6 +367,42 @@ def test_cli_rfc3164_matches_jax_package(tmp_path, framing, out_type):
                                 fmt="rfc3164")
     banner, body = port[0].split(b"\n", 1)
     assert banner.startswith(b"Flowgger") and body == exp
+
+
+def test_cli_rfc3164_level_extra_matches_jax_package(tmp_path):
+    """rfc3164_tpu with a gelf_extra ``level`` (a fixed GELF field this
+    layout cannot place) takes the Record path in both packages: the
+    same output bytes and stderr through both CLIs (the start-up notice
+    first, then the decoder's own lines and the error lines), exit code
+    0, and the scalar path's bytes."""
+    lines, _ = make_rfc3164_corpus(500, seed=65)
+    data = b"\n".join(lines) + b"\n<13>Oct 17 10:11:12 tail partial"
+    extra = '[output.gelf_extra]\nlevel = "3"\nzone = "eu"\n'
+    outs = {}
+    for pkg in ("flowgger_tpu_torch", "flowgger_tpu"):
+        out = tmp_path / f"{pkg}.out"
+        cfg = tmp_path / f"{pkg}.toml"
+        cfg.write_text(
+            '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+            'framing = "line"\ntpu_flush_ms = 600000\n'
+            'tpu_batch_size = 256\n'
+            '[output]\ntype = "file"\nformat = "gelf"\n'
+            f'file_path = "{out}"\nframing = "nul"\n' + extra)
+        env = ({"FLOWGGER_DEVICE_ENCODE": "0"} if pkg == "flowgger_tpu"
+               else {})
+        proc = _run(pkg, cfg, data, env)
+        assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+        outs[pkg] = (out.read_bytes(), proc.stderr.decode().splitlines())
+    port, ref = outs["flowgger_tpu_torch"], outs["flowgger_tpu"]
+    assert port == ref and b'"level":"3"' in port[0]
+    assert port[1][0] == (
+        "flowgger-tpu: columnar block route disabled for format 'rfc3164' "
+        "(output.gelf_extra keys need dynamic placement (leading '_' or a "
+        "fixed-key overwrite)); throughput falls to the per-record path "
+        "(~30x slower)")
+    exp, _ = scalar_expectation(data, merger=NulMerger(), fmt="rfc3164",
+                                config=Config.from_string(extra))
+    assert port[0] == exp
 
 
 def test_tier_corpus_stays_under_the_decline_threshold():
