@@ -8,13 +8,14 @@ Phases, each printing JSON lines:
    the SM clock under a spin kernel, the host's CPU model and count;
 2. build  — the native host tier (``csrc/flowgger_host.cpp``, g++; a
    ``host_build`` line with the compiler's version, the flags, the
-   seconds and whether the library was cached), then the ten CUDA
+   seconds and whether the library was cached), then the thirteen CUDA
    sources compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
    bytes as ``nvcc -Xptxas -v`` reports them (E1's, EL's and EG's four
-   instantiations, E3's, F1's, F3's, FL's and FG's two each, D3, L1, AC
-   and K5 at 8, 16 and 24 fields must be among them);
+   instantiations, E3's, F1's, F3's, FL's, FG's, OL's, FO/ltsv's and AC's
+   two each, D3, L1, DN and K5 at 8, 16 and 24 fields must be among
+   them);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each (K2 and K3 checked again on a launch after
@@ -59,14 +60,21 @@ Phases, each printing JSON lines:
    auto-detect classifier AC on every real row of a gathered
    [16384, 512] batch of the auto tier mix (with its registers, stack
    and spill bytes), of the edge batch (``corpus.AUTO_EDGE`` and their
-   prefixes) and of both auto paths' flush batches;
+   prefixes) and of both auto paths' flush batches; the → LTSV encode OL
+   (from K1's channels) and its fused route FO/ltsv (probe with its gaps,
+   stamp channels and carried channels, then the assemble from them), each
+   probe and assemble on a gathered [16384, 512] batch of the → LTSV tier
+   mix (``corpus.make_ltsv_out_tier_corpus``) and on 256 rows; the dns
+   decode DN (every channel) on a gathered [16384, 512] batch of the dns
+   tier mix and of the dns mix; AC with its dns flag (AC+dns) on a
+   gathered [16384, 512] batch of the auto mix with the dns leg;
 4. native — each export of the native host tier against its plain
    numpy or Python version, byte for byte, at the e2e runs' shapes (the
    tier path's stamps and constant splice, the jsonl path's body
    gather, the GELF row engine against the numpy engine on the rfc5424
    path's flush batch), with the host-clock time of both;
 5. breakdown — the host-clock wall of each stage of the RFC5424, the
-   JSON-lines, the LTSV and the GELF paths over two full regions each
+   JSON-lines, the LTSV and the GELF paths over one full region each
    (``AB_BATCHES``; framing, decode, block
    encode split into its engine and its oracle rows, sink write; the
    RFC5424 path again on the block encoder's numpy engine, which must
@@ -85,8 +93,8 @@ Phases, each printing JSON lines:
    against K5/0 + EG probe + EG assemble at a flush batch;
 6. e2e    — ten single-format configurations through the port's entry points on
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing, ``--lines``
-   lines), stdin → jsonl_tpu → GELF (line framing, 65 536 lines),
-   stdin → rfc5424_tpu → GELF (syslen framing, 65 536), stdin →
+   lines), stdin → jsonl_tpu → GELF (line framing, 32 768 lines),
+   stdin → rfc5424_tpu → GELF (syslen framing, 32 768), stdin →
    rfc5424_tpu → GELF over the tier mix (line framing, ``--lines``),
    stdin → rfc3164_tpu → GELF (line framing, one day of BSD syslog,
    65 536), stdin → rfc3164_tpu → GELF over the rfc3164 tier mix
@@ -137,7 +145,21 @@ Phases, each printing JSON lines:
    where the block route cannot engage) and reports lines/s, each leg's
    split tier taken / declined / cooled and AC's launches; the legs'
    sub-batch shapes the kernels phase did not check are checked after
-   the runs with the others (:func:`phase_late_shapes`).
+   the runs with the others (:func:`phase_late_shapes`).  Then ten more
+   (:data:`OUT_PATHS`, in process with the launch counts reset just
+   before and read just after; the first five also through the CLI):
+   stdin → rfc5424_tpu → LTSV over cell 1's rfc5424 mix (65 536 lines,
+   reporting its share of rows outside OL: over 5 %, so both tiers must
+   decline and cool) and over the → LTSV tier mix (65 536, FO/ltsv taking
+   every batch, and with ``tpu_fuse = "off"`` OL), dns_tpu → GELF (the
+   dns mix, 65 536) and → LTSV (its tier mix, 16 384), auto_tpu with
+   ``auto_extra_formats = ["dns"]`` → LTSV (the four line mixes and the
+   dns mix, 16 384), and rfc3164, ltsv, gelf and jsonl → LTSV and ltsv
+   with ``corpus.LTSV_SCHEMA_10`` → LTSV (the Record path), 16 384 each;
+   each byte-identical to the scalar path (LTSV's ``time`` of rows
+   stamped with the wall clock masked), each new kernel's launch shapes
+   checked after the runs.  Four of the Record-path configs run in
+   process only (:data:`MIXED_CLI`).
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -184,23 +206,29 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH = 16384
 MAX_LEN = 512
-SYSLEN_LINES = 4 * BATCH    # lines of the syslen-framed e2e run
+SYSLEN_LINES = 2 * BATCH    # lines of the syslen-framed e2e run (cut from
+                            # 4 × when the LTSV-output and dns paths came:
+                            # its flushes past the third decline still
+                            # fall in a cooldown, so no new E1 / F1 shape)
 RFC3164_LINES = 4 * BATCH   # lines of each rfc3164 e2e run (cut from 8 ×
                             # for time when the ltsv paths came)
 LTSV_LINES = 4 * BATCH      # lines of each ltsv e2e run (cut from 8 ×
                             # when the auto and Record-path runs came)
-JSONL_LINES = 4 * BATCH     # lines of the jsonl e2e run (cut from 16 × for
+JSONL_LINES = 2 * BATCH     # lines of the jsonl e2e run (cut from 16 × for
                             # time when the rfc3164 paths came, from 8 ×
-                            # when the gelf paths came)
+                            # when the gelf paths came, from 4 × when the
+                            # LTSV-output and dns paths came)
 GELF_LINES = 4 * BATCH      # lines of each gelf e2e run
 RFC5424_LINES = 4 * BATCH   # --lines default: the rfc5424 line paths (cut
                             # from 8 × when the gelf paths came)
-AB_BATCHES = 2              # batches of the breakdowns, encode_ab and
+AB_BATCHES = 1              # batches of the breakdowns, encode_ab and
                             # fuse_ab (cut from 8 when the gelf paths came,
                             # from 4 when the auto and Record-path runs
-                            # came)
+                            # came, from 2 when the LTSV-output and dns
+                            # paths came)
 AUTO_LINES = 4 * BATCH      # lines of each auto_tpu e2e run
 RECORD_LINES = BATCH        # lines of each Record-path e2e run
+DNS_LINES = 4 * BATCH       # lines of the dns → GELF e2e run
 BIG_REGION = 16 << 20       # bytes of K2's many-wave region
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -449,8 +477,9 @@ def phase_build():
             BUILD_RES[r["function"]] = r
             emit({"phase": "kernel_build", "source": source, **r})
     # E1's and EL's four instantiations (probe and assemble at 6 and 16
-    # pairs), EG's four (at 8 and 16 fields), E3's, F1's, F3's, FL's and
-    # FG's two each, D3 and L1, K5 nested and flat at 8 and 24 fields and
+    # pairs), EG's four (at 8 and 16 fields), E3's, F1's, F3's, FL's,
+    # FG's, OL's and FO/ltsv's two each, AC's two (with and without the
+    # dns flag), D3, L1 and DN, K5 nested and flat at 8 and 24 fields and
     # flat at 16
     phases = ("false", "true")
     missing = ({f"{k}<{p}, {a}>" for k in ("encode_gelf_kernel",
@@ -467,8 +496,12 @@ def phase_build():
                | {f"structural_index_kernel<{f}, {a}>" for f in (8, 24)
                   for a in phases}
                | {"structural_index_kernel<16, true>"}
+               | {f"{k}<{a}>" for k in ("classify_auto_kernel",
+                                         "encode_ltsv_out_kernel",
+                                         "fused_ltsv_out_kernel")
+                  for a in phases}
                | {"decode_rfc3164_kernel", "decode_ltsv_kernel",
-                  "classify_auto_kernel"}) - seen
+                  "decode_dns_kernel"}) - seen
     if missing:
         raise AssertionError(f"no kernel_build line for {sorted(missing)}")
 
@@ -1889,30 +1922,32 @@ def kernels_gelf(seed: int, rows: list, shapes: list):
             shapes.append({**row, "where": where})
 
 
-def ac_case(batch, lens_c, n: int):
-    """AC (the auto-detect classifier) against its plain version on every
-    one of the ``n`` real rows, once before and once after its timing
-    loop; the row carries the kernel's registers, stack and spill bytes
-    (``kernel_build``)."""
+def ac_case(batch, lens_c, n: int, dns: bool = False):
+    """AC (the auto-detect classifier; with ``dns`` its dns overlay too,
+    AC+dns) against its plain version on every one of the ``n`` real
+    rows, once before and once after its timing loop; the row carries the
+    kernel's registers, stack and spill bytes (``kernel_build``)."""
     import torch
 
     from flowgger_tpu_torch.tpu import autodetect, kernels
 
+    name = "classify_auto_dns" if dns else "classify_auto"
+
     def kern():
-        return kernels.classify_auto_cuda(batch, lens_c, n)
+        return kernels.classify_auto_cuda(batch, lens_c, n, dns=dns)
 
     def plain():
-        return autodetect.classify_plain(batch[:n], lens_c[:n])
+        return autodetect.classify_plain(batch[:n], lens_c[:n], dns=dns)
 
     ref = plain()
     err = max_abs_err(kern(), ref)
     if err or kern().dtype != torch.int8:
-        raise AssertionError(f"classify_auto disagrees with its plain "
+        raise AssertionError(f"{name} disagrees with its plain "
                              f"version: max_abs_err {err}")
     ms = device_ms(kern)
     if max_abs_err(kern(), ref):
-        raise AssertionError("classify_auto disagrees after its timing loop")
-    CHECKED.add(("classify_auto", tuple(batch.shape)))
+        raise AssertionError(f"{name} disagrees after its timing loop")
+    CHECKED.add((name, tuple(batch.shape)))
     # bytes the function must read: a row's valid bytes up to where both
     # a tab and a colon were seen (all of them when not both), at least
     # its header (the first 11 bytes decide '{', '<' and the RFC5424
@@ -1929,15 +1964,22 @@ def ac_case(batch, lens_c, n: int):
                            big)
 
     both = torch.maximum(first((b == 9) & valid), first((b == 58) & valid))
+    if dns:
+        # the overlay needs the tab count: up to the sixth tab (and past
+        # both a tab and a colon), else the whole row
+        tabs = ((b == 9) & valid).to(torch.int32).cumsum(1)
+        both = torch.maximum(both, first((tabs == 6) & (b == 9) & valid))
     need = torch.where(both < big, both + 1, ln)
     need = torch.maximum(need, torch.minimum(ln, torch.full_like(ln, 11)))
     scanned = int(need.sum())
-    res = BUILD_RES.get("classify_auto_kernel", {})
-    counts = torch.bincount(ref.to(torch.int64), minlength=4).tolist()
+    res = BUILD_RES.get(f"classify_auto_kernel<{str(dns).lower()}>", {})
+    counts = torch.bincount(ref.to(torch.int64),
+                            minlength=6 if dns else 4).tolist()
     return {
-        "name": "classify_auto", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "flowgger_tpu_torch/csrc/classify_auto.cu",
-        "replaces": "flowgger_tpu/tpu/autodetect.py:97",
+        "replaces": "flowgger_tpu/tpu/autodetect.py:97" + (
+            " + :159" if dns else ""),
         "max_abs_err": err, "ms": ms,
         "plain_ms": cuda_ms(plain, iters=5, warmup=1),
         **bound(scanned + 4 * n + n, 2 * scanned + 40 * n),
@@ -1946,7 +1988,8 @@ def ac_case(batch, lens_c, n: int):
         "stack_bytes": res.get("stack_bytes"),
         "spill_bytes": res.get("spill_store_bytes"),
         "shape": f"[{batch.shape[0]}, {L}], n={n}, {scanned} bytes "
-                 f"scanned, classes rfc5424/rfc3164/ltsv/gelf {counts}"}
+                 f"scanned, classes rfc5424/rfc3164/ltsv/gelf"
+                 f"{'/jsonl/dns' if dns else ''} {counts}"}
 
 
 def edge_batch():
@@ -1989,6 +2032,285 @@ def kernels_auto(seed: int, rows: list, shapes: list):
         shapes.append({**ac_case(fb, fl, fn), "where": f"{where}, flush batch"})
 
 
+def dn_case(batch, lens_c, n: int):
+    """DN (the dns decode) against its plain version on every channel of
+    every row, rejected and padding rows included, once before and once
+    after its timing loop: ``(row, plain channels)``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import dns, kernels
+
+    def kern():
+        return kernels.decode_dns_cuda(batch, lens_c, n)
+
+    def plain():
+        return dns.decode_dns(batch, lens_c, n=n)
+
+    ref = plain()
+    err = channels_err("decode_dns", dns.unpack_channels(kern()), ref)
+    ms = device_ms(kern)
+    channels_err("decode_dns", dns.unpack_channels(kern()), ref)
+    CHECKED.add(("decode_dns", tuple(batch.shape)))
+    N = batch.shape[0]
+    live = torch.arange(N, device=batch.device) < n
+    valid = int(torch.where(live, lens_c, 0).sum())
+    return {
+        "name": "decode_dns", "route": "cuda",
+        "source": "flowgger_tpu_torch/csrc/decode_dns.cu",
+        "replaces": "flowgger_tpu/tpu/dns.py:44",
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        # bytes: each real row's valid bytes and length, every row's 14
+        # int32 channels; operations: a tab compare in the first pass, a
+        # digit / dot class in the second, per valid byte
+        **bound(valid + 4 * n + 4 * len(dns.KEYS) * N, 2 * valid),
+        "library_ms": None,
+        "shape": f"[{N}, {batch.shape[1]}], n={n}, {valid} valid bytes, "
+                 f"{int(ref['ok'].sum())} ok rows"}, ref
+
+
+def ol_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
+    """OL (``kind`` "ol": the split rfc5424 → LTSV tier's encode, from
+    K1's packed channels at 6 pairs) or FO/ltsv ("fo": the fused route,
+    K1's row decode and OL's probe in one kernel) against its plain
+    version on one batch of ``n`` real rows: the probe's base tier bit,
+    elided length and gaps of every row (zeros at and past ``n``; for FO
+    also the ok / stamp channels and each tier row's carried channels),
+    and with ``assemble`` the assemble's bytes of every tier row (``base
+    & (base_len <= OW)``: the stamp is not in the device row) at its
+    offset, each checked once before and once after its timing loop.
+    Returns ``[probe row]`` or ``[probe row, assemble row]``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import (device_gelf, device_ltsv_out,
+                                        fused_routes, kernels, rfc5424)
+
+    suffix = b"\n"
+    N, L = batch.shape
+    dev = batch.device
+    live = torch.arange(N, device=dev) < n
+    bank_b, table = device_ltsv_out.kernel_consts(suffix)
+    bank = device_gelf._bank_on(bank_b, dev)
+    OW = device_ltsv_out.out_width(L, suffix)
+    name = ("encode_ltsv_out" if kind == "ol" else "fused_rfc5424_ltsv")
+    source = ("flowgger_tpu_torch/csrc/encode_ltsv_out.cu" if kind == "ol"
+              else "flowgger_tpu_torch/csrc/fused_ltsv_out.cu")
+    replaces = ("flowgger_tpu/tpu/device_ltsv_out.py:133" if kind == "ol"
+                else "flowgger_tpu/tpu/fused_routes.py:329")
+    small_keys = ("ok", "days", "sod", "off", "nanos")
+    demand = fused_routes.DEMAND["rfc5424_ltsv"]
+
+    def plain_decode():
+        dec = rfc5424.decode_rfc5424(batch, lens_c)
+        return dec if kind == "ol" else {k: v for k, v in dec.items()
+                                         if k in demand}
+
+    dec0 = plain_decode()
+    packed = kernels.decode_rfc5424_cuda(batch, lens_c) if kind == "ol" \
+        else None
+
+    def k_probe():
+        if kind == "ol":
+            return kernels.encode_ltsv_out_cuda(batch, lens_c, packed, n,
+                                                bank, table)
+        base, base_len, small, chan, gaps = kernels.fused_ltsv_out_cuda(
+            batch, lens_c, n, bank, table)
+        return base, base_len, gaps, small, chan
+
+    def p_probe():
+        dec = dec0 if kind == "ol" else plain_decode()
+        base, base_len, gaps = device_ltsv_out.encode_rows(
+            batch, lens_c, dec, suffix=suffix, assemble=False, n=n)
+        if kind == "ol":
+            return base, base_len, gaps
+        return base, base_len, gaps, torch.stack(
+            [torch.where(live, dec[k].to(torch.int32), 0)
+             for k in small_keys])
+
+    ref = p_probe()
+    ref_carried = (None if kind == "ol"
+                   else fused_routes.carried_plain(dec0, "rfc5424_ltsv"))
+    probed = {}
+
+    def check_probe():
+        got = k_probe()
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        if ref_carried is not None:
+            on = ref[0]
+            err = max(err, max_abs_err(got[4][on], ref_carried[on]))
+            probed["chan"], probed["tier"] = got[4], got[0]
+        if err:
+            raise AssertionError(f"{name} probe [{N}, {L}] n={n} disagrees "
+                                 f"with its plain version: max_abs_err "
+                                 f"{err}")
+        return err
+
+    err_p = check_probe()
+    ms_p = device_ms(k_probe)
+    check_probe()   # a launch after the timing loop
+    CHECKED.add((f"{name}_probe", (N, L)))
+
+    ref_base = ref[0]
+    real_valid = int(torch.where(live, lens_c, 0).sum())
+    gate = live & dec0["ok"].to(torch.bool) & ~dec0["has_high"].to(torch.bool)
+    gated_valid = int(torch.where(gate, lens_c, 0).sum())
+    n_gate = int(gate.sum())
+    pairs = int(torch.where(gate, dec0["pair_count"].to(torch.int64),
+                            0).sum())
+    common = {"route": "cuda", "source": source, "replaces": replaces,
+              "library_ms": None}
+    if kind == "ol":
+        # bytes: ok, has_high and pair_count of each real row, the valid
+        # bytes and the ~13 span channels of the rows they pass, five
+        # int32 of each of their pairs, every row's bit, length and two
+        # gaps; operations: a tab / newline compare per loaded byte and
+        # a colon compare per name byte (counted as one per byte)
+        probe_bytes = (12 * n + gated_valid + 52 * n_gate + 20 * pairs
+                       + 13 * N)
+        probe_ops = 2 * gated_valid
+    else:
+        # bytes: each real row's valid bytes and length, every row's bit,
+        # length, gaps and five stamp channels, the carried channels of
+        # each base tier row; operations: K1's passes and OL's screens
+        probe_bytes = (real_valid + 4 * n + 33 * N
+                       + 4 * kernels.FUSED_LTSV_OUT_CARRY
+                       * int(ref_base.sum()))
+        probe_ops = 9 * real_valid
+    out = [{
+        "name": f"{name}_probe", **common, "max_abs_err": err_p, "ms": ms_p,
+        "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        **bound(probe_bytes, probe_ops),
+        "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
+                 f"{real_valid} valid bytes"}]
+    if not assemble:
+        return out
+
+    tier = ref_base & (ref[1] <= OW)
+    gated = torch.where(tier, ref[1].to(torch.int64), 0)
+    row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
+    total = int(gated.sum())
+
+    def k_asm():
+        if kind == "ol":
+            return kernels.encode_ltsv_out_cuda(batch, lens_c, packed, n,
+                                                bank, table, OW,
+                                                row_off=row_off, total=total)
+        return kernels.fused_ltsv_out_cuda(batch, lens_c, n, bank, table, OW,
+                                           row_off=row_off, total=total,
+                                           chan=probed["chan"],
+                                           tier=probed["tier"])
+
+    def t_asm():
+        # the timed call: FO's launch without its contract check, which
+        # reads a flag back from the card
+        if kind == "ol":
+            return k_asm()
+        return kernels.fused_ltsv_out_assemble_launch(
+            batch, lens_c, n, bank, table, OW, row_off, total,
+            probed["chan"])
+
+    def p_asm():
+        rows_, out_len, _ = device_ltsv_out.encode_rows(batch, lens_c, dec0,
+                                                        suffix=suffix)
+        return device_gelf.flat_rows(rows_, out_len, row_off, total)
+
+    ref_flat = p_asm()
+    if kind == "fo":
+        # the wrapper's contract: no assemble without the probe's channels,
+        # and none of a row outside the probe's tier
+        def refused(**kw):
+            try:
+                kernels.fused_ltsv_out_cuda(batch, lens_c, n, bank, table,
+                                            OW, total=total, **kw)
+            except ValueError:
+                return True
+            return False
+
+        outside = torch.nonzero(live & ~ref_base).flatten()[:1]
+        bad_off = row_off.clone()
+        bad_off[outside] = 0
+        if (not refused(row_off=row_off, chan=None, tier=probed["tier"])
+                or (outside.numel() and not refused(
+                    row_off=bad_off, chan=probed["chan"],
+                    tier=probed["tier"]))):
+            raise AssertionError(f"{name} assemble ran against its contract")
+
+    def check_asm():
+        err = max_abs_err(k_asm(), ref_flat)
+        if err:
+            raise AssertionError(f"{name} assemble [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_a = check_asm()
+    ms_a = device_ms(t_asm)
+    check_asm()   # a launch after the timing loop
+    CHECKED.add((f"{name}_assemble", (N, L)))
+    n_tier = int(tier.sum())
+    tier_valid = int(torch.where(tier, lens_c, 0).sum())
+    tier_pairs = int(torch.where(tier, dec0["pair_count"].to(torch.int64),
+                                 0).sum())
+    # bytes: the tier rows' valid bytes and lengths, the channels the
+    # encode reads (OL: 14 row channels and four a pair of K1's; FO: the
+    # probe's carried row, 38 int32), every row's offset, the output
+    # written; operations: one source lookup a byte written
+    ch_bytes = (4 * (14 * n_tier + 4 * tier_pairs) if kind == "ol"
+                else 4 * kernels.FUSED_LTSV_OUT_CARRY * n_tier)
+    out.append({
+        "name": f"{name}_assemble", **common, "max_abs_err": err_a,
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        **bound(tier_valid + 4 * n_tier + ch_bytes + 8 * N + total, total),
+        "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
+                 f"bytes"})
+    return out
+
+
+def gathered_batch(lines: list):
+    """``lines`` (at most a batch) framed and gathered on the card as the
+    line path's kernels do: ``(batch, lens_c)`` at [16384, 512]."""
+    from flowgger_tpu_torch.tpu import framing, pack
+
+    region_b = b"\n".join(lines) + b"\n"
+    region = upload(region_b)
+    spans = framing.sep_spans(region, len(region_b), 10, True,
+                              pack.bucket_rows(len(lines)))
+    return framing.gather(region, spans["starts"], spans["lens"], MAX_LEN)
+
+
+def kernels_ltsv_out(seed: int, rows: list, shapes: list):
+    """OL and FO/ltsv (probe and assemble) on a gathered [16384, 512]
+    batch of the → LTSV tier mix (``corpus.make_ltsv_out_tier_corpus``),
+    and at 256 rows (an end-of-stream batch's shape, 200 of them real)."""
+    from flowgger_tpu_torch.corpus import make_ltsv_out_tier_corpus
+
+    lines, _ = make_ltsv_out_tier_corpus(BATCH, seed + 61)
+    batch, lens_c = gathered_batch(lines)
+    rows.extend(ol_case("ol", batch, lens_c, BATCH))
+    rows.extend(ol_case("fo", batch, lens_c, BATCH))
+    for kind in ("ol", "fo"):
+        for row in ol_case(kind, batch[:256].contiguous(),
+                           lens_c[:256].contiguous(), 200):
+            shapes.append({**row, "where": "end-of-stream batch"})
+
+
+def kernels_dns(seed: int, rows: list, shapes: list):
+    """DN on a gathered [16384, 512] batch of the dns tier mix (and on the
+    dns mix, edge rows included, as a shape line); AC with the dns flag on
+    a gathered [16384, 512] batch of the auto mix with the dns leg."""
+    from flowgger_tpu_torch.corpus import (make_auto_corpus, make_dns_corpus,
+                                           make_dns_tier_corpus)
+
+    batch, lens_c = gathered_batch(make_dns_tier_corpus(BATCH, seed + 62)[0])
+    rows.append(dn_case(batch, lens_c, BATCH)[0])
+    batch, lens_c = gathered_batch(make_dns_corpus(BATCH, seed + 63)[0])
+    shapes.append({**dn_case(batch, lens_c, BATCH)[0],
+                   "where": "dns mix with its edge rows"})
+    batch, lens_c = gathered_batch(
+        make_auto_corpus(BATCH, seed + 64, dns=True)[0])
+    rows.append(ac_case(batch, lens_c, BATCH, dns=True))
+
+
 def phase_kernels(seed: int):
     """Each kernel vs its plain version on the card; returns the table
     rows without launch counts (the e2e phase fills them in).  The
@@ -2004,6 +2326,8 @@ def phase_kernels(seed: int):
     kernels_ltsv(seed, rows, shapes)
     kernels_gelf(seed, rows, shapes)
     kernels_auto(seed, rows, shapes)
+    kernels_ltsv_out(seed, rows, shapes)
+    kernels_dns(seed, rows, shapes)
     for r in rows:
         emit({"phase": "kernel", **r})
     for r in shapes:
@@ -2869,7 +3193,8 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
 
 # the line mixes not chosen to engage the tiers: both tiers of each must
 # decline (DECLINE_LIMIT batches) and then cool
-COOLING = ("rfc5424_line", "rfc3164_line", "ltsv_line", "gelf_line")
+COOLING = ("rfc5424_line", "rfc3164_line", "ltsv_line", "gelf_line",
+           "rfc5424_ltsv_line")
 
 
 def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
@@ -2976,6 +3301,10 @@ MIXED_LATE = LATE_PREFIXES + ("decode_rfc3164", "encode_gelf3164",
 _MIXED_WRAPPERS = SHAPE_CHECKED + ("structural_index_cuda",
                                    "classify_auto_cuda")
 _NOTICE = "flowgger-tpu: columnar block route disabled for format "
+# the mixed paths that also run through the CLI (the other Record-path
+# configs run in process only since the LTSV-output and dns paths came:
+# their CLI is held by the CPU tests)
+MIXED_CLI = ("auto_line", "auto_tier", "record_rfc5424", "record_auto")
 
 
 def _mixed_tables(name: str):
@@ -3048,15 +3377,22 @@ def phase_e2e_mixed(name: str, seed: int):
     since = time.time() - 1.0
     notices = []
 
-    # (a) the CLI in a subprocess, beside the scalar expectation's making
-    with CliRun(_mixed_config(name, "cli"), path) as cli:
-        exp_out, exp_err = scalar_expectation(
+    def expectation():
+        return scalar_expectation(
             data, "line", config=Config.from_string(in_t + out_t), fmt=kind,
             notices=notices)
-        rc, cli_out, cli_err, wall_cli = cli.result()
-    if rc != 0:
-        raise AssertionError(f"{name}: CLI run failed:\n"
-                             + cli_err.decode()[-4000:])
+
+    # (a) the CLI in a subprocess, beside the scalar expectation's making
+    cli = name in MIXED_CLI
+    if cli:
+        with CliRun(_mixed_config(name, "cli"), path) as run:
+            exp_out, exp_err = expectation()
+            rc, cli_out, cli_err, wall_cli = run.result()
+        if rc != 0:
+            raise AssertionError(f"{name}: CLI run failed:\n"
+                                 + cli_err.decode()[-4000:])
+    else:
+        exp_out, exp_err = expectation()
     exp = (exp_out, exp_err, notices, since)
 
     # (b) in process, counts reset just before
@@ -3096,13 +3432,18 @@ def phase_e2e_mixed(name: str, seed: int):
         raise AssertionError(f"{name}: a leg's split tier took no batch: "
                              f"{legs}")
 
-    banner, *cli_said = cli_out.decode().splitlines()
-    cli_errs = cli_err.decode().splitlines()
-    if (not banner.startswith("Flowgger")
-            or not _mixed_same((WORK / f"{name}_cli.out").read_bytes(),
-                               cli_errs, cli_said, exp)
-            or (cli_errs[:1] == [notice]) != (notice is not None)):
-        raise AssertionError(f"{name}: CLI e2e differs from the scalar path")
+    cli_report = {}
+    if cli:
+        banner, *cli_said = cli_out.decode().splitlines()
+        cli_errs = cli_err.decode().splitlines()
+        if (not banner.startswith("Flowgger")
+                or not _mixed_same((WORK / f"{name}_cli.out").read_bytes(),
+                                   cli_errs, cli_said, exp)
+                or (cli_errs[:1] == [notice]) != (notice is not None)):
+            raise AssertionError(f"{name}: CLI e2e differs from the scalar "
+                                 f"path")
+        cli_report = {"cli_wall_s": wall_cli,
+                      "cli_lines_per_s": n_lines / wall_cli}
     emit({"phase": "e2e", "path": name, "format": fmt_in,
           "config_tables": in_t + out_t, "lines": n_lines,
           "input_bytes": len(data), "output_bytes": len(exp_out),
@@ -3113,9 +3454,282 @@ def phase_e2e_mixed(name: str, seed: int):
               launches["classify_auto"], "legs": legs,
           "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
           "inproc_wall_s": wall, "inproc_lines_per_s": n_lines / wall,
-          "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
-          "identical_to_scalar_path": True})
+          **cli_report, "identical_to_scalar_path": True})
     return launches
+
+
+# e2e configurations of the LTSV output and the dns input: name ->
+# (input.format, [input] keys or the name of a corpus table of [input.*]
+# keys, output.format, the scalar expectation's fmt, lines, the corpus
+# maker (a name in flowgger_tpu_torch.corpus), whether it also runs
+# through the CLI, the kernels its run must launch, and the kernels a
+# second run with input.tpu_fuse = "off" must launch (None: no such run)).
+# rfc5424_ltsv_line is cell 1's rfc5424 line mix into LTSV (not chosen to
+# engage OL: both tiers decline and cool); rfc5424_ltsv_tier the mix OL's
+# screen takes (the tier mix without tabs: the fused route takes every
+# batch, and with it off the split tier does); dns_line the dns mix into
+# GELF (DN and the host block encoder), dns_ltsv the dns tier mix into
+# LTSV, auto_dns_ltsv cell 11's four line mixes and the dns mix into
+# LTSV; the ltsv_out_* runs the other inputs into LTSV (ltsv_out_schema:
+# the Record path), in process only
+_FRAME = ("frame_sep_spans", "frame_gather")
+OUT_PATHS = {
+    "rfc5424_ltsv_line": ("rfc5424_tpu", "", "ltsv", "rfc5424",
+                          RFC5424_LINES, "make_corpus", True,
+                          (*_FRAME, "fused_rfc5424_ltsv_probe",
+                           "decode_rfc5424_p6", "decode_rfc5424_p16",
+                           "encode_ltsv_out_probe"), None),
+    "rfc5424_ltsv_tier": ("rfc5424_tpu", "", "ltsv", "rfc5424",
+                          RFC5424_LINES, "make_ltsv_out_tier_corpus", True,
+                          (*_FRAME, "fused_rfc5424_ltsv_probe",
+                           "fused_rfc5424_ltsv_assemble"),
+                          (*_FRAME, "decode_rfc5424_p6",
+                           "encode_ltsv_out_probe",
+                           "encode_ltsv_out_assemble")),
+    "dns_line": ("dns_tpu", "", "gelf", "dns", DNS_LINES, "make_dns_corpus",
+                 True, (*_FRAME, "decode_dns"), None),
+    "dns_ltsv": ("dns_tpu", "", "ltsv", "dns", BATCH, "make_dns_tier_corpus",
+                 True, (*_FRAME, "decode_dns"), None),
+    "auto_dns_ltsv": ("auto_tpu", 'auto_extra_formats = ["dns"]\n', "ltsv",
+                      "auto", BATCH, "make_auto_corpus", True,
+                      (*_FRAME, "classify_auto_dns", "decode_rfc5424_p6",
+                       "decode_rfc3164", "decode_ltsv",
+                       "structural_index_flat_f8", "decode_dns",
+                       "encode_ltsv_out_probe"), None),
+    "ltsv_out_rfc3164": ("rfc3164_tpu", "", "ltsv", "rfc3164", BATCH,
+                         "make_rfc3164_corpus", False,
+                         (*_FRAME, "decode_rfc3164"), None),
+    "ltsv_out_ltsv": ("ltsv_tpu", "", "ltsv", "ltsv", BATCH,
+                      "make_ltsv_corpus", False, (*_FRAME, "decode_ltsv"),
+                      None),
+    "ltsv_out_gelf": ("gelf_tpu", "", "ltsv", "gelf", BATCH,
+                      "make_gelf_corpus", False,
+                      (*_FRAME, "structural_index_flat_f8"), None),
+    "ltsv_out_jsonl": ("jsonl_tpu", "", "ltsv", "jsonl", BATCH,
+                       "make_jsonl_corpus", False,
+                       (*_FRAME, "structural_index_f8"), None),
+    "ltsv_out_schema": ("ltsv_tpu", "LTSV_SCHEMA_10", "ltsv", "ltsv", BATCH,
+                        "make_ltsv_corpus", False, (*_FRAME, "decode_ltsv"),
+                        None),
+}
+_OUT_WRAPPERS = _MIXED_WRAPPERS + ("decode_dns_cuda", "encode_ltsv_out_cuda",
+                                   "fused_ltsv_out_cuda")
+_OUT_LATE = MIXED_LATE + ("decode_dns", "encode_ltsv_out",
+                          "fused_rfc5424_ltsv")
+
+
+def mask_stamps(data: bytes, since: float, output: str) -> bytes:
+    """``data`` with the wall-clock stamps of rows without a timestamp
+    (gelf rows, from ``since`` on) set to 0: ``corpus.mask_wall_stamps``
+    for GELF, the ``time`` field for LTSV."""
+    from flowgger_tpu_torch.corpus import mask_wall_stamps
+
+    if output == "gelf":
+        return mask_wall_stamps(data, since)
+
+    def sub(m):
+        return b"\ttime:0" if float(m.group(1)) >= since else m.group(0)
+
+    return re.sub(rb"\ttime:([0-9][0-9.]*)", sub, data)
+
+
+def _out_config(name: str, tag: str, fuse: str = "auto") -> Path:
+    from flowgger_tpu_torch import corpus
+
+    fmt, keys, output = OUT_PATHS[name][:3]
+    in_t = getattr(corpus, keys) if keys.startswith("LTSV") else ""
+    out = WORK / f"{name}_{tag}.out"
+    cfg = WORK / f"{name}_{tag}.toml"
+    cfg.write_text(
+        f'[input]\ntype = "stdin"\nformat = "{fmt}"\nframing = "line"\n'
+        f'tpu_fuse = "{fuse}"\n' + ("" if in_t else keys) + in_t
+        + f'[output]\ntype = "file"\nformat = "{output}"\n'
+        f'file_path = "{out}"\n')
+    if out.exists():
+        out.unlink()
+    return cfg
+
+
+def ol_screen_share(lines: list) -> float:
+    """The share of ``lines`` outside OL's tier (its screens, the width
+    test, over-length rows), from the plain decode and the plain probe on
+    the card, a batch at a time."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import device_ltsv_out, pack, rfc5424
+
+    out = 0
+    for i in range(0, len(lines), BATCH):
+        b, ln, _, _, orig, n = pack.pack_lines_2d(lines[i:i + BATCH],
+                                                  MAX_LEN)
+        bt = torch.from_numpy(b).cuda()
+        lt = torch.from_numpy(ln.astype("int32")).cuda()
+        dec = rfc5424.decode_rfc5424(bt, lt)
+        base, base_len, _ = device_ltsv_out.encode_rows(
+            bt, lt, dec, suffix=b"\n", assemble=False, n=n)
+        OW = device_ltsv_out.out_width(MAX_LEN, b"\n")
+        tier = (base & (base_len <= OW)).cpu().numpy()[:n]
+        out += int((~(tier & (orig[:n] <= MAX_LEN))).sum())
+    return out / max(len(lines), 1)
+
+
+def e2e_out_inproc(name: str, path: Path, exp, fuse: str):
+    """One in-process run of an OUT_PATHS configuration, every launch
+    count reset just before and read just after: its bytes (wall-clock
+    stamps masked), stderr and stdout notices must be the scalar path's,
+    and it must launch each kernel of its path.  Returns the report."""
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    fmt_in, _, output, kind, n_lines, _, _, need, need_off = OUT_PATHS[name]
+    exp_out, exp_err, exp_notices, since = exp
+    tag = "inproc" if fuse == "auto" else f"inproc_{fuse}"
+    cfg = _out_config(name, tag, fuse)
+    for k in framing.DECLINES:
+        framing.DECLINES[k] = 0
+    kernels.reset_launch_counts()
+    with launch_shapes(_OUT_WRAPPERS) as seen:
+        wall, pipe, errs, said = run_inproc(cfg, path)
+    launches = dict(kernels.LAUNCHES)
+    got = (WORK / f"{name}_{tag}.out").read_bytes()
+    notice = errs[0] if errs and errs[0].startswith(_NOTICE) else None
+    if notice is not None:
+        errs = errs[1:]
+    if (mask_stamps(got, since, output) != mask_stamps(exp_out, since, output)
+            or not same_stderr("rfc3164", errs, exp_err)
+            or said != exp_notices):
+        raise AssertionError(f"{name} ({fuse}): in-process e2e differs from "
+                             f"the scalar path (bytes {len(got)} vs "
+                             f"{len(exp_out)}, stderr lines {len(errs)} vs "
+                             f"{len(exp_err)})")
+    if (notice is None) == (name == "ltsv_out_schema"):
+        raise AssertionError(f"{name}: start-up notice {notice!r}")
+    want = need if fuse == "auto" else need_off
+    missing = [k for k in want if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} ({fuse}): the run launched no "
+                             f"{missing} kernel")
+    if any(framing.DECLINES.values()):
+        raise AssertionError(f"{name}: device framing declined "
+                             f"{framing.DECLINES}")
+    late = {(k, v) for k, v in seen - CHECKED if k.startswith(_OUT_LATE)}
+    if seen - CHECKED - late:
+        raise AssertionError(f"{name}: kernels launched at shapes no phase "
+                             f"checks: {sorted(seen - CHECKED - late)}")
+    LATE.update(late)
+    rstate = pipe._handler.route_state
+    split = _tier_report(rstate.get("rfc5424", {}))
+    fused = _tier_report(rstate.get("fused:rfc5424_ltsv", {}))
+    if fmt_in == "rfc5424_tpu":
+        # one probe a probed batch and one assemble a taken batch, on
+        # each tier
+        if (launches["encode_ltsv_out_probe"]
+                != split["taken"] + split["declined"]
+                or launches["encode_ltsv_out_assemble"] != split["taken"]
+                or launches["fused_rfc5424_ltsv_probe"]
+                != fused["taken"] + fused["declined"]
+                or launches["fused_rfc5424_ltsv_assemble"] != fused["taken"]):
+            raise AssertionError(f"{name} ({fuse}): {launches} for split "
+                                 f"{split} and fused {fused}: not one probe "
+                                 f"a probed batch and one assemble a taken "
+                                 f"batch")
+    if name in COOLING and not all(t["declined"] and t["cooled"]
+                                   for t in (fused, split)):
+        raise AssertionError(f"{name}: the tiers did not decline and then "
+                             f"cool: fused {fused}, split {split}")
+    if name.endswith("_tier"):
+        took, idle = (fused, split) if fuse == "auto" else (split, fused)
+        if (took["declined"] or took["cooled"] or not took["taken"]
+                or any(idle[k] for k in _STATE_KEYS)
+                or took["fetch_bytes_per_tier_row"]
+                >= took["emit_bytes_per_tier_row"]):
+            raise AssertionError(f"{name} ({fuse}): the tier did not take "
+                                 f"every batch under the emitted bytes: "
+                                 f"taker {took}, other {idle}")
+    legs = {leg: {k: st.get(k, 0) for k in _STATE_KEYS}
+            for leg, st in rstate.items()}
+    return {"fuse": fuse, "launches": launches, "fused_route": fused,
+            "split_tier": split, "legs": legs, "startup_notice": notice,
+            "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
+            "inproc_wall_s": wall, "inproc_lines_per_s": n_lines / wall}
+
+
+def phase_e2e_out(name: str, seed: int):
+    """One configuration of :data:`OUT_PATHS` through the CLI (where it has
+    one, started first, while the scalar expectation is made) and in
+    process (the tier mix a second time with the fused route off), each
+    byte-identical to the scalar path; returns the launch counts summed
+    over the in-process runs."""
+    from flowgger_tpu_torch import corpus
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.mergers import LineMerger, NulMerger
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    (fmt_in, keys, output, kind, n_lines, maker, cli, _,
+     need_off) = OUT_PATHS[name]
+    make = getattr(corpus, maker)
+    if maker == "make_auto_corpus":
+        lines, kinds = make(n_lines, seed + 71, dns=True)
+        kinds = [k.split(":")[0] for k in kinds]
+    else:
+        lines, kinds = make(n_lines, seed + 71)
+    data = b"\n".join(lines)
+    path = WORK / f"{name}.in"
+    path.write_bytes(data)
+    in_t = getattr(corpus, keys) if keys.startswith("LTSV") else \
+        ("[input]\n" + keys if keys else "")
+    merger = LineMerger() if output == "ltsv" else NulMerger()
+    since = time.time() - 1.0
+    notices = []
+    report = {"phase": "e2e", "path": name, "format": fmt_in,
+              "output": output, "lines": n_lines, "input_bytes": len(data),
+              "mix": {k: kinds.count(k) for k in sorted(set(kinds))}}
+    if name == "rfc5424_ltsv_line":
+        # over 5 % of its rows outside OL: both tiers must decline and
+        # cool (COOLING lists the path)
+        share = ol_screen_share(lines)
+        report["outside_ol_share"] = share
+        if share <= 0.05:
+            raise AssertionError(f"{name}: only {share:.3f} of the rows fall "
+                                 f"outside OL; COOLING expects its tiers to "
+                                 f"decline")
+
+    def expectation():
+        return corpus.scalar_expectation(
+            data, "line", config=Config.from_string(in_t), merger=merger,
+            fmt=kind, notices=notices, output=output)
+
+    if cli:
+        with CliRun(_out_config(name, "cli"), path) as run:
+            exp_out, exp_err = expectation()
+            rc, cli_out, cli_err, wall_cli = run.result()
+        if rc != 0:
+            raise AssertionError(f"{name}: CLI run failed:\n"
+                                 + cli_err.decode()[-4000:])
+        banner, *cli_said = cli_out.decode().splitlines()
+        got = (WORK / f"{name}_cli.out").read_bytes()
+        if (not banner.startswith("Flowgger")
+                or mask_stamps(got, since, output)
+                != mask_stamps(exp_out, since, output)
+                or not same_stderr("rfc3164", cli_err.decode().splitlines(),
+                                   exp_err) or cli_said != notices):
+            raise AssertionError(f"{name}: CLI e2e differs from the scalar "
+                                 f"path")
+        report.update(cli_wall_s=wall_cli,
+                      cli_lines_per_s=n_lines / wall_cli)
+    else:
+        exp_out, exp_err = expectation()
+    exp = (exp_out, exp_err, notices, since)
+    runs = [e2e_out_inproc(name, path, exp, "auto")]
+    if need_off is not None:
+        runs.append(e2e_out_inproc(name, path, exp, "off"))
+    emit({**report, "output_bytes": len(exp_out),
+          "error_lines": len(exp_err), "notice_lines": len(notices),
+          "runs": runs, "identical_to_scalar_path": True})
+    total = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def phase_late_shapes(seed: int) -> None:
@@ -3127,7 +3741,10 @@ def phase_late_shapes(seed: int) -> None:
     tier mix; from the auto and Record-path runs' legs also D3 and E3 on
     rows of the rfc3164 tier mix, E1 (probe and assemble) on rows of the
     rfc5424 tier mix, K5 (flat on the gelf tier mix, nested on the jsonl
-    mix) and AC on rows of the auto mix; a ``kernel_shape`` line each."""
+    mix) and AC on rows of the auto mix; from the LTSV-output and dns
+    runs DN on rows of the dns mix, OL and FO/ltsv on rows of the → LTSV
+    tier mix and AC+dns on rows of the auto mix with the dns leg; a
+    ``kernel_shape`` line each."""
     import torch
 
     from flowgger_tpu_torch import corpus
@@ -3139,6 +3756,14 @@ def phase_late_shapes(seed: int) -> None:
             continue   # an earlier case of this loop checked it
         assemble = "assemble" in name
         make, tag = {
+            "classify_auto_dns": (functools.partial(corpus.make_auto_corpus,
+                                                    dns=True),
+                                  "auto mix with dns"),
+            "decode_dns": (corpus.make_dns_corpus, "dns mix"),
+            "encode_ltsv_out": (corpus.make_ltsv_out_tier_corpus,
+                                "→ LTSV tier mix"),
+            "fused_rfc5424_ltsv": (corpus.make_ltsv_out_tier_corpus,
+                                   "→ LTSV tier mix"),
             "decode_rfc5424": (corpus.make_corpus, "rfc5424 mix"),
             "decode_ltsv": (corpus.make_ltsv_corpus, "ltsv mix"),
             "decode_rfc3164": (corpus.make_rfc3164_tier_corpus,
@@ -3157,7 +3782,9 @@ def phase_late_shapes(seed: int) -> None:
                                  "gelf tier mix"),
             "fused_gelf_gelf": (corpus.make_gelf_tier_corpus,
                                 "gelf tier mix"),
-        }.get(next((k for k in ("decode_rfc5424", "decode_ltsv",
+        }.get(next((k for k in ("classify_auto_dns", "decode_dns",
+                                "encode_ltsv_out", "fused_rfc5424_ltsv",
+                                "decode_rfc5424", "decode_ltsv",
                                 "decode_rfc3164", "encode_gelf3164",
                                 "encode_gelf_probe", "encode_gelf_assemble",
                                 "structural_index_flat", "structural_index_f",
@@ -3168,7 +3795,14 @@ def phase_late_shapes(seed: int) -> None:
         b, ln, *_ = pack.pack_lines_2d(lines, L)
         batch = torch.from_numpy(b[:rows]).cuda()
         lens_c = torch.from_numpy(ln[:rows].astype("int32")).cuda()
-        if name.startswith("decode_rfc5424"):
+        if name == "classify_auto_dns":
+            row = ac_case(batch, lens_c, rows, dns=True)
+        elif name == "decode_dns":
+            row, _ = dn_case(batch, lens_c, rows)
+        elif name.startswith(("encode_ltsv_out", "fused_rfc5424_ltsv")):
+            kind = "ol" if name.startswith("encode") else "fo"
+            row = ol_case(kind, batch, lens_c, rows, assemble=assemble)[-1]
+        elif name.startswith("decode_rfc5424"):
             row, _ = decode_case("rfc5424", int(name.rsplit("_p", 1)[1]),
                                  batch, lens_c)
         elif name == "decode_ltsv":
@@ -3689,6 +4323,10 @@ def main(argv=None) -> int:
         lap(f"e2e_{name}")
     for name in MIXED_PATHS:
         for k, v in phase_e2e_mixed(name, args.seed).items():
+            total[k] = total.get(k, 0) + v
+        lap(f"e2e_{name}")
+    for name in OUT_PATHS:
+        for k, v in phase_e2e_out(name, args.seed).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")
     phase_late_shapes(args.seed)

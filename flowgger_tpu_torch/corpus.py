@@ -11,6 +11,8 @@ branch of the device paths:
 - :func:`make_tier_corpus` — RFC5424 lines the device encode tier takes
   (:data:`TIER_MIX`): ~97 % 0-6-pair rows, some with characters the
   JSON escape map carries, and ~3 % outside the tier;
+- :func:`make_ltsv_out_tier_corpus` — RFC5424 lines the → LTSV device
+  tier takes (:data:`LTSV_OUT_TIER_MIX`: the tier mix without tabs);
 - :func:`make_jsonl_corpus` — JSON-lines rows (:data:`JSONL_MIX`), every
   one with a numeric ``timestamp``: flat objects, rows for the 24-field
   rescue and beyond it, nested containers within and past the depth cap,
@@ -37,13 +39,18 @@ branch of the device paths:
   ``auto_tpu`` (:data:`AUTO_MIX`): the rfc5424, rfc3164, ltsv and gelf
   corpora interleaved ~40 / 30 / 15 / 15 %, plus the classifier's edge
   rows (:data:`AUTO_EDGE`); with ``tier=True`` from the four tier mixes;
+- :func:`make_dns_corpus` — dnstap-style TSV query logs
+  (:data:`DNS_MIX`), ``ts client qname qtype rcode latency_us``, with
+  ~3 % edge rows (:data:`DNS_EDGE_KINDS`); :func:`make_dns_tier_corpus`
+  the same stream without them;
 - :func:`syslen_stream` — any line list as octet-counted frames
   (``<len> <line>`` back to back), the last frame cut short.
 
-:func:`scalar_expectation` runs the port's scalar decoder and GELF
-encoder over the same bytes with the splitters' semantics — what the
-batched path must reproduce byte for byte, stderr lines included (for
-``auto`` each line's class picks its decoder, as the classifier does).
+:func:`scalar_expectation` runs the port's scalar decoder and encoder
+(GELF or LTSV) over the same bytes with the splitters' semantics — what
+the batched path must reproduce byte for byte, stderr lines included
+(for ``auto`` each line's class picks its decoder, as the classifier
+does).
 """
 
 from __future__ import annotations
@@ -53,9 +60,9 @@ from typing import List, Tuple
 import numpy as np
 
 from .config import Config
-from .decoders import (DecodeError, GelfDecoder, JSONLDecoder,
+from .decoders import (DecodeError, DNSDecoder, GelfDecoder, JSONLDecoder,
                        LTSVDecoder, RFC3164Decoder, RFC5424Decoder)
-from .encoders import EncodeError, GelfEncoder
+from .encoders import EncodeError, GelfEncoder, LTSVEncoder
 from .mergers import NulMerger
 
 # (kind, share) — the line mix
@@ -69,6 +76,7 @@ _WORDS = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
           "GET", "/index.html", "200", "user=42", "timeout", "retry")
 _VALUES = ("v", "a b", "x=y", "[8]", "path/to/x", "42", "", "tab\tsep",
            "semi;colon", "end]")
+_VALUES_NO_TAB = tuple(v for v in _VALUES if "\t" not in v)
 _MALFORMED = (
     "13>1 2015-08-05T15:53:45Z h a p m - no bracket",
     "<13>2 2015-08-05T15:53:45Z h a p m - version",
@@ -158,15 +166,20 @@ def make_line(rng, kind: str) -> bytes:
         return f"{head} - {_msg(rng, 4)}\r".encode()
     if kind == "high":
         return f"{head} - {_msg(rng, 3)} ünïcødé ✓ 日本".encode()
-    if kind == "tier":
+    if kind in ("tier", "ltsv_tier"):
+        # ltsv_tier: no tab anywhere (the → LTSV tier's value-escape
+        # screen), so no "tab\tsep" SD value and no "col\tsep" word
+        clean = kind == "ltsv_tier"
+        vals = _VALUES_NO_TAB if clean else _VALUES
         sd = "-" if rng.random() < 0.2 else \
-            _sd(rng, int(rng.integers(1, 5)), int(rng.integers(0, 7)))
+            _sd(rng, int(rng.integers(1, 5)), int(rng.integers(0, 7)),
+                lambda k: vals[int(rng.integers(0, len(vals)))])
         words = _msg(rng, int(rng.integers(1, 12))).split(" ")
         if rng.random() < 0.2:
             # a character the JSON escape map must carry
             at = int(rng.integers(0, len(words) + 1))
             words.insert(at, ('say "hi"', "C:\\temp\\x", "col\tsep")[
-                int(rng.integers(0, 3))])
+                int(rng.integers(0, 2 if clean else 3))])
         return f"{head} {sd} {' '.join(words)}".encode()
     raise ValueError(kind)
 
@@ -196,6 +209,25 @@ def make_tier_corpus(n_lines: int, seed: int
     rng = np.random.default_rng(seed)
     kinds, shares = zip(*TIER_MIX)
     picks = rng.choice(len(kinds), size=n_lines, p=np.asarray(shares) / sum(shares))
+    lines = [make_line(rng, kinds[int(k)]) for k in picks]
+    return lines, [kinds[int(k)] for k in picks]
+
+
+# the → LTSV tier's mix (device_ltsv_out): TIER_MIX's shares with
+# "ltsv_tier" rows, which carry no tab (an SD value or a message word
+# with a tab needs the LTSV value escape and leaves that tier)
+LTSV_OUT_TIER_MIX = (("ltsv_tier", 0.97), ("malformed", 0.01),
+                     ("high", 0.01), ("rescue", 0.01))
+
+
+def make_ltsv_out_tier_corpus(n_lines: int, seed: int
+                              ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` RFC5424 lines the → LTSV device tier takes, drawn from
+    :data:`LTSV_OUT_TIER_MIX` with ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    kinds, shares = zip(*LTSV_OUT_TIER_MIX)
+    picks = rng.choice(len(kinds), size=n_lines,
+                       p=np.asarray(shares) / sum(shares))
     lines = [make_line(rng, kinds[int(k)]) for k in picks]
     return lines, [kinds[int(k)] for k in picks]
 
@@ -650,6 +682,140 @@ def make_gelf_tier_corpus(n_lines: int, seed: int
 
 
 # ---------------------------------------------------------------------------
+# DNS: dnstap-style TSV query logs
+# ---------------------------------------------------------------------------
+
+# a resolver's query log, one event a line (decoders/dns.py):
+# ``ts client qname qtype rcode latency_us``, ts unix seconds with six
+# fractional digits and increasing, clients IPv4 (70 %) or IPv6, query
+# names of 10-60 bytes from a Zipf-skewed list of a few thousand, the
+# qtype and rcode shares below, latencies of 1-7 digits
+DNS_QTYPES = (("A", 0.60), ("AAAA", 0.25), ("HTTPS", 0.05), ("PTR", 0.04),
+              ("MX", 0.03), ("TXT", 0.02), ("SRV", 0.01))
+DNS_RCODES = (("NOERROR", 0.80), ("NXDOMAIN", 0.15), ("SERVFAIL", 0.03),
+              ("REFUSED", 0.02))
+DNS_NAMES = 3000
+# (kind, share): ~3 % edge rows, each kind present
+DNS_MIX = (("dns", 0.97), ("edge", 0.03))
+# the edge rows: a field count other than six; ts "1." / ".5" / "1e9" /
+# a BOM; a 20-digit latency or one with a leading zero (non-canonical:
+# the oracle); an empty client or qname; a '"' or '\' in qname (off the
+# GELF screen); a raw UTF-8 qname; an empty qtype
+DNS_EDGE_KINDS = ("fields5", "fields7", "ts_dot_end", "ts_dot_start",
+                  "ts_exp", "ts_bom", "lat20", "lat_zero", "no_client",
+                  "no_qname", "quote", "backslash", "utf8", "no_qtype")
+_DNS_LABELS = ("www", "api", "cdn", "mail", "static", "img", "auth", "login",
+               "m", "shop", "blog", "video", "edge", "ns1", "smtp", "app")
+_DNS_ZONES = ("example.com", "example.org", "corp.internal", "akamaiedge.net",
+              "cloudfront.net", "googleapis.com", "in-addr.arpa",
+              "amazonaws.com", "fbcdn.net", "apple.com")
+
+
+def _dns_names(rng) -> List[str]:
+    """The resolver's name population: ``DNS_NAMES`` names of 10-60
+    bytes, in Zipf rank order."""
+    names = []
+    for i in range(DNS_NAMES):
+        zone = _DNS_ZONES[int(rng.integers(0, len(_DNS_ZONES)))]
+        label = _DNS_LABELS[int(rng.integers(0, len(_DNS_LABELS)))]
+        name = f"{label}{i}.{zone}"
+        while len(name) < int(rng.integers(10, 61)):
+            name = f"{_DNS_LABELS[int(rng.integers(0, len(_DNS_LABELS)))]}" \
+                   f"-{int(rng.integers(0, 1000))}.{name}"
+        names.append(name[-60:].lstrip(".-") if len(name) > 60 else name)
+    return names
+
+
+def _dns_client(rng) -> str:
+    if rng.random() < 0.7:
+        return "10.%d.%d.%d" % tuple(int(v) for v in rng.integers(0, 256, 3))
+    return "2001:db8:%x:%x::%x" % tuple(int(v) for v in
+                                        rng.integers(0, 65536, 3))
+
+
+def _dns_pick(rng, table) -> str:
+    names, shares = zip(*table)
+    return names[int(rng.choice(len(names), p=np.asarray(shares)))]
+
+
+def make_dns_line(rng, names, zipf_p, i: int, kind: str = "dns") -> bytes:
+    """One query-log line: event ``i`` of the stream, or an edge row of
+    ``kind`` (one of :data:`DNS_EDGE_KINDS`)."""
+    ts = f"{1760000000 + i // 50}.{(i * 20011) % 1000000:06d}"
+    client = _dns_client(rng)
+    qname = names[int(rng.choice(len(names), p=zipf_p))]
+    qtype = _dns_pick(rng, DNS_QTYPES)
+    rcode = _dns_pick(rng, DNS_RCODES)
+    lat = str(int(rng.integers(1, 10 ** int(rng.integers(1, 8)))))
+    if kind == "ts_dot_end":
+        ts = ts.split(".")[0] + "."
+    elif kind == "ts_dot_start":
+        ts = "." + ts.split(".")[1]
+    elif kind == "ts_exp":
+        ts = "1e9"
+    elif kind == "ts_bom":
+        ts = "\ufeff" + ts
+    elif kind == "lat20":
+        lat = "1" + "0" * 19
+    elif kind == "lat_zero":
+        lat = "0" + lat
+    elif kind == "no_client":
+        client = ""
+    elif kind == "no_qname":
+        qname = ""
+    elif kind == "quote":
+        qname = 'we"ird.' + qname
+    elif kind == "backslash":
+        qname = "back\\slash." + qname
+    elif kind == "utf8":
+        qname = "b\u00fccher." + qname
+    elif kind == "no_qtype":
+        qtype = ""
+    fields = [ts, client, qname, qtype, rcode, lat]
+    if kind == "fields5":
+        fields.pop(3)
+    elif kind == "fields7":
+        fields.insert(5, "DO")
+    return "\t".join(fields).encode("utf-8")
+
+
+def _dns_lines(n_lines: int, seed: int, mix):
+    rng = np.random.default_rng(seed)
+    names = _dns_names(rng)
+    zipf_p = 1.0 / np.arange(1, len(names) + 1) ** 1.1
+    zipf_p /= zipf_p.sum()
+    kinds, shares = zip(*mix)
+    picks = rng.choice(len(kinds), size=n_lines,
+                       p=np.asarray(shares) / sum(shares))
+    lines, out_kinds = [], []
+    n_edge = 0
+    for i, k in enumerate(picks.tolist()):
+        kind = kinds[k]
+        if kind == "edge":
+            # each edge kind in turn, so every kind is present
+            kind = DNS_EDGE_KINDS[n_edge % len(DNS_EDGE_KINDS)]
+            n_edge += 1
+        lines.append(make_dns_line(rng, names, zipf_p, i, kind))
+        out_kinds.append(kind)
+    return lines, out_kinds
+
+
+def make_dns_corpus(n_lines: int, seed: int
+                    ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` query-log lines and their kinds (``"dns"`` or an edge
+    kind), drawn from :data:`DNS_MIX` with
+    ``numpy.random.default_rng(seed)``."""
+    return _dns_lines(n_lines, seed, DNS_MIX)
+
+
+def make_dns_tier_corpus(n_lines: int, seed: int
+                         ) -> Tuple[List[bytes], List[str]]:
+    """``n_lines`` query-log lines of the same stream without edge rows:
+    every one takes both block encoders."""
+    return _dns_lines(n_lines, seed, (("dns", 1.0),))
+
+
+# ---------------------------------------------------------------------------
 # auto_tpu: one collector's mixed stream
 # ---------------------------------------------------------------------------
 
@@ -681,29 +847,51 @@ AUTO_EDGE = (
 )
 
 
-def make_auto_corpus(n_lines: int, seed: int, tier: bool = False
-                     ) -> Tuple[List[bytes], List[str]]:
+# the dns leg's classifier edges (``auto_extra_formats = ["dns"]``):
+# dns-shaped rows behind a BOM, a '{' or a '<' (not dns), a head with a
+# dot at either edge, two dots or a letter (not dns), six tabs (not
+# dns), and a clean one
+AUTO_DNS_EDGE = (
+    b"\xef\xbb\xbf1760000000.5\t10.0.0.1\tbom.example.com\tA\tNOERROR\t12",
+    b"{1760000000.5\t10.0.0.1\tbrace.example.com\tA\tNOERROR\t12",
+    b"<1760000000.5\t10.0.0.1\tangle.example.com\tA\tNOERROR\t12",
+    b"1760000000.\t10.0.0.1\tdot-end.example.com\tA\tNOERROR\t12",
+    b".5\t10.0.0.1\tdot-start.example.com\tA\tNOERROR\t12",
+    b"1.2.3\t10.0.0.1\ttwo-dots.example.com\tA\tNOERROR\t12",
+    b"17e9\t10.0.0.1\tletter.example.com\tA\tNOERROR\t12",
+    b"1760000000\t10.0.0.1\tsix.example.com\tA\tNOERROR\t12\tDO",
+    b"1760000000\t10.0.0.1\tkey:colon.example.com\tA\tNOERROR\t12",
+)
+
+
+def make_auto_corpus(n_lines: int, seed: int, tier: bool = False,
+                     dns: bool = False) -> Tuple[List[bytes], List[str]]:
     """``n_lines`` lines of one mixed stream and their kinds
     (``"<format>:<kind>"``, ``"edge"`` for :data:`AUTO_EDGE`): the four
     formats' corpora (their tier mixes with ``tier=True``) drawn by
     :data:`AUTO_MIX` with ``numpy.random.default_rng(seed)`` and
     interleaved in that draw's order, the edge rows spread through
-    the stream."""
+    the stream.  With ``dns``, the dns mix (:func:`make_dns_corpus`, its
+    tier mix with ``tier``) joins at a share of 0.15 and
+    :data:`AUTO_DNS_EDGE` joins the edge rows."""
     rng = np.random.default_rng(seed)
-    fmts, shares = zip(*AUTO_MIX)
-    n_mix = max(n_lines - len(AUTO_EDGE), 0)
+    mix = AUTO_MIX + ((("dns", 0.15),) if dns else ())
+    edges = AUTO_EDGE + (AUTO_DNS_EDGE if dns else ())
+    fmts, shares = zip(*mix)
+    n_mix = max(n_lines - len(edges), 0)
     picks = rng.choice(len(fmts), size=n_mix,
                        p=np.asarray(shares) / sum(shares))
     makers = ((make_tier_corpus, make_rfc3164_tier_corpus,
-               make_ltsv_tier_corpus, make_gelf_tier_corpus) if tier
+               make_ltsv_tier_corpus, make_gelf_tier_corpus,
+               make_dns_tier_corpus) if tier
               else (make_corpus, make_rfc3164_corpus, make_ltsv_corpus,
-                    make_gelf_corpus))
+                    make_gelf_corpus, make_dns_corpus))[:len(fmts)]
     streams = []
     for i, make in enumerate(makers):
         lines, kinds = make(int((picks == i).sum()), seed + 1 + i)
         streams.append(iter(zip(lines, [f"{fmts[i]}:{k}" for k in kinds])))
     out = [next(streams[int(k)]) for k in picks]
-    edge = list(zip(AUTO_EDGE, ["edge"] * len(AUTO_EDGE)))
+    edge = list(zip(edges, ["edge"] * len(edges)))
     at = np.sort(rng.choice(len(out) + 1, size=min(len(edge), n_lines)))
     for j, pos in enumerate(at[::-1].tolist()):
         out.insert(pos, edge[len(at) - 1 - j])
@@ -763,9 +951,11 @@ def _frames(data: bytes, framing: str):
 def scalar_expectation(data: bytes, framing: str = "line",
                        config: Config = None, merger=NulMerger(),
                        fmt: str = "rfc5424",
-                       notices: List[str] = None) -> Tuple[bytes, List[str]]:
-    """Output bytes (GELF, NUL-framed unless another merger is given;
-    None = no framing) and stderr lines of the reference's per-record
+                       notices: List[str] = None,
+                       output: str = "gelf") -> Tuple[bytes, List[str]]:
+    """Output bytes (``output`` GELF or LTSV, with ``config``'s
+    ``gelf_extra`` or ``ltsv_extra``; NUL-framed unless another merger is
+    given, None = no framing) and stderr lines of the reference's per-record
     path over ``data``: frame (line: one trailing CR stripped; syslen:
     the octet-count scan and its EOF/bad-prefix messages; the trailing
     partial frame of line/NUL included), then decode (``fmt`` is
@@ -788,7 +978,7 @@ def scalar_expectation(data: bytes, framing: str = "line",
 
         extras = auto_extra_formats(config)
         by_class = (RFC5424Decoder(), RFC3164Decoder(), LTSVDecoder(config),
-                    GelfDecoder(), JSONLDecoder())
+                    GelfDecoder(), JSONLDecoder(), DNSDecoder())
 
         def decoder_for(raw):
             return by_class[classify(raw, extras)]
@@ -797,11 +987,12 @@ def scalar_expectation(data: bytes, framing: str = "line",
             decoder = LTSVDecoder(config)
         else:
             decoder = {"jsonl": JSONLDecoder, "rfc3164": RFC3164Decoder,
-                       "gelf": GelfDecoder}.get(fmt, RFC5424Decoder)()
+                       "gelf": GelfDecoder, "dns": DNSDecoder
+                       }.get(fmt, RFC5424Decoder)()
 
         def decoder_for(raw):
             return decoder
-    encoder = GelfEncoder(config)
+    encoder = (LTSVEncoder if output == "ltsv" else GelfEncoder)(config)
     recs, tail = _frames(data, framing)
     out, errs = [], []
     for raw in recs:

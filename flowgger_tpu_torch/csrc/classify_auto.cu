@@ -18,8 +18,15 @@
 //   - any other G[0] == '<'                         -> 1 (RFC3164);
 //   - a tab and a colon among the row's valid bytes -> 2 (LTSV);
 //   - else                                          -> 1 (RFC3164).
-// Equal to the plain version (tpu/autodetect.py classify_plain) on
-// every row.
+// With the dns flag (the template parameter DNS, for
+// input.auto_extra_formats = ["dns"]) it also computes the reference's
+// dns overlay (autodetect._extras_adjust :159-191, numpy on the host
+// there): a row whose class above is 2 or 1, whose first byte (not
+// BOM-stripped) is not '<' or '{', with exactly five tabs among its valid
+// bytes and a non-empty head (the bytes before the first tab) of digits
+// and at most one dot, not at either edge of the head, is 5 (dns).
+// Equal to the plain version (tpu/autodetect.py classify_plain, with
+// dns) on every row.
 //
 // Bound on the H100: bytes (a row's valid bytes up to where both a tab
 // and a colon were seen, its length and one output byte; a few integer
@@ -35,7 +42,12 @@
 // - The tab/colon scan walks the valid bytes 512 a step, 16 a lane (one
 //   16-byte load where rows are 16-byte aligned, else byte loads), bytes
 //   at or past the row's length masked; after each step two ballots
-//   tell the warp whether both were seen, and it stops there.
+//   tell the warp whether both were seen, and it stops there.  With DNS
+//   the scan also sums the tabs (a warp sum a step) and takes their
+//   first position (a warp min), and goes on until it has seen a tab, a
+//   colon and more than five tabs, or the row's end; a row that can be
+//   dns then checks its head 32 bytes a step, one byte a lane, with two
+//   ballots and a warp sum.
 //
 // TPU workarounds not carried over: the BOM-shifted copy of the whole
 // batch, the where-chains over the '>' offsets, and the full [N, L]
@@ -51,15 +63,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStep = 32 * 16;   // bytes a warp scans a step
 
-// whether the 4 bytes of w below `valid` (0..4) hold b
-__device__ __forceinline__ bool word_has(uint32_t w, int valid, uint32_t b) {
-  bool hit = false;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    hit |= k < valid && ((w >> (8 * k)) & 0xffu) == b;
-  return hit;
-}
-
+template <bool DNS>
 __global__ void __launch_bounds__(kThreads)
 classify_auto_kernel(const uint8_t* __restrict__ batch,
                      const int32_t* __restrict__ lens, int8_t* __restrict__ out,
@@ -91,34 +95,50 @@ classify_auto_kernel(const uint8_t* __restrict__ batch,
       g0 == '<' && gt >= 2 && bad == 0 && v1 == '1' && v2 == ' ';
 
   // the tab/colon scan over the valid bytes, stopping once both are seen
+  // (with DNS: and more than five tabs)
   bool tab = false, col = false;
   unsigned tabs = 0, cols = 0;
+  int ntab = 0, ft = len;        // DNS: the tabs and the first one
   for (int base = 0; base < len; base += kStep) {
     const int p = base + lane * 16;
+    int my_tabs = 0, my_first = len;
     if (p < len) {
-      const int valid = len - p;   // > 0; bytes at or past it are masked
+      const int m = len - p < 16 ? len - p : 16;  // valid bytes here
+      uint32_t words[4] = {0u, 0u, 0u, 0u};
       if (vec) {
         const uint4 w = *reinterpret_cast<const uint4*>(r + p);
-        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int vk = valid - 4 * k;
-          const int v = vk < 0 ? 0 : (vk > 4 ? 4 : vk);
-          tab |= word_has(words[k], v, 9u);
-          col |= word_has(words[k], v, 58u);
-        }
+        words[0] = w.x;
+        words[1] = w.y;
+        words[2] = w.z;
+        words[3] = w.w;
       } else {
-        const int m = valid < 16 ? valid : 16;
-        for (int k = 0; k < m; ++k) {
-          const uint8_t c = r[p + k];
-          tab |= c == 9;
-          col |= c == 58;
+        for (int k = 0; k < m; ++k)
+          words[k >> 2] |= (uint32_t)r[p + k] << (8 * (k & 3));
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const uint32_t c = (words[k >> 2] >> (8 * (k & 3))) & 0xffu;
+        const bool is_tab = k < m && c == 9u;
+        tab |= is_tab;
+        col |= k < m && c == 58u;
+        if (DNS && is_tab) {
+          ++my_tabs;
+          if (my_first == len) my_first = p + k;
         }
       }
     }
     tabs = __ballot_sync(kFull, tab);
     cols = __ballot_sync(kFull, col);
-    if (tabs && cols) break;
+    if (DNS) {
+      ntab += (int)__reduce_add_sync(kFull, (unsigned)my_tabs);
+      int f = my_first;
+      for (int o = 16; o > 0; o >>= 1) {
+        const int g2 = __shfl_xor_sync(kFull, f, o);
+        f = g2 < f ? g2 : f;
+      }
+      ft = f < ft ? f : ft;
+    }
+    if (tabs && cols && (!DNS || ntab > 5)) break;
   }
 
   int cls = 1;
@@ -126,6 +146,23 @@ classify_auto_kernel(const uint8_t* __restrict__ batch,
   if (g0 == '<') cls = 1;
   if (is5424) cls = 0;
   if (g0 == '{') cls = 3;
+  if (DNS && ntab == 5 && ft >= 1 && (cls == 1 || cls == 2) && b0 != '<' &&
+      b0 != '{') {
+    // the head [0, ft): digits and at most one dot, at neither edge
+    bool junk = false, edge = false;
+    int dots = 0;
+    for (int base = 0; base < ft; base += 32) {
+      const int p = base + lane;
+      const int c = p < ft ? r[p] : '0';
+      const bool dot = c == '.';
+      junk |= !dot && !(c >= '0' && c <= '9');
+      edge |= dot && (p == 0 || p == ft - 1);
+      dots += dot ? 1 : 0;
+    }
+    if (!__ballot_sync(kFull, junk) && !__ballot_sync(kFull, edge) &&
+        __reduce_add_sync(kFull, (unsigned)dots) <= 1u)
+      cls = 5;
+  }
   if (lane == 0) out[row] = (int8_t)cls;
 }
 
@@ -133,16 +170,17 @@ classify_auto_kernel(const uint8_t* __restrict__ batch,
 
 extern "C" {
 
-// class codes of rows [0, n) of the batch, int8 [n]
+// class codes of rows [0, n) of the batch, int8 [n]; dns != 0 adds the
+// dns overlay
 int fg_classify_auto(const void* batch, const void* lens, void* out, int n,
-                     int L, void* stream) {
+                     int L, int dns, void* stream) {
   if (n <= 0) return 0;
   // 16-byte loads where every row starts on a 16-byte boundary
   const int vec =
       (L % 16 == 0 && (reinterpret_cast<uintptr_t>(batch) & 15) == 0) ? 1 : 0;
   const int grid = (n + kWarps - 1) / kWarps;
-  classify_auto_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto kern = dns ? classify_auto_kernel<true> : classify_auto_kernel<false>;
+  kern<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(batch), static_cast<const int32_t*>(lens),
       static_cast<int8_t*>(out), n, L, vec);
   return (int)cudaGetLastError();

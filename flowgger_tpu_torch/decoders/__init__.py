@@ -1,5 +1,5 @@
 """Scalar (per-line) decoders: the exactness oracle for rows the RFC5424,
-RFC3164, JSON-lines, LTSV and GELF kernels flag ``ok=False`` and for lines longer than
+RFC3164, JSON-lines, LTSV, GELF and DNS kernels flag ``ok=False`` and for lines longer than
 ``input.tpu_max_line_len``.
 
 Parity model: flowgger src/flowgger/decoder/ — trait
@@ -23,11 +23,12 @@ class Decoder:
         raise NotImplementedError
 
 
+from .dns import DNSDecoder  # noqa: E402
 from .gelf import GelfDecoder  # noqa: E402
 from .jsonl import JSONLDecoder  # noqa: E402
 from .ltsv import LTSVDecoder  # noqa: E402
 from .rfc3164 import RFC3164Decoder  # noqa: E402
 from .rfc5424 import RFC5424Decoder  # noqa: E402
 
-__all__ = ["Decoder", "DecodeError", "GelfDecoder", "JSONLDecoder",
+__all__ = ["Decoder", "DecodeError", "DNSDecoder", "GelfDecoder", "JSONLDecoder",
            "LTSVDecoder", "RFC3164Decoder", "RFC5424Decoder"]

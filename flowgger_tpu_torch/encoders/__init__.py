@@ -21,5 +21,6 @@ class Encoder:
 
 
 from .gelf import GelfEncoder  # noqa: E402
+from .ltsv import LTSVEncoder  # noqa: E402
 
-__all__ = ["Encoder", "EncodeError", "GelfEncoder"]
+__all__ = ["Encoder", "EncodeError", "GelfEncoder", "LTSVEncoder"]

@@ -6,10 +6,11 @@ Parity model: flowgger src/flowgger/mod.rs:95-472 and the JAX package's
 the same output-framing inference.  The port runs ``input.type =
 "stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
 ``input.format = "rfc5424_tpu" | "rfc3164_tpu" | "jsonl_tpu" |
-"ltsv_tpu" | "gelf_tpu" | "auto_tpu"``, into ``output.format = "gelf"``
-with ``output.type = "stdout" | "file"``, with any ``[output.gelf_extra]``
-and ``[input.ltsv_schema]`` (the configs the block route cannot take run
-the Record path, as the reference's do).  Anything else raises
+"ltsv_tpu" | "gelf_tpu" | "dns_tpu" | "auto_tpu"``, into ``output.format
+= "gelf" | "ltsv"`` with ``output.type = "stdout" | "file"``, with any
+``[output.gelf_extra]``, ``[output.ltsv_extra]`` and
+``[input.ltsv_schema]`` (the configs the block route cannot take run the
+Record path, as the reference's do).  Anything else raises
 ConfigError naming the later slice; nothing quietly takes a scalar path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
@@ -24,7 +25,7 @@ from typing import Optional
 import torch
 
 from .config import Config, ConfigError
-from .encoders import GelfEncoder
+from .encoders import GelfEncoder, LTSVEncoder
 from .mergers import LineMerger, NulMerger, SyslenMerger
 from .outputs import SHUTDOWN, DebugOutput, FileOutput
 
@@ -36,12 +37,14 @@ DEFAULT_OUTPUT_TYPE = "kafka"
 DEFAULT_QUEUE_SIZE = 10_000_000
 
 _LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu, " \
-    "rfc3164_tpu, jsonl_tpu, ltsv_tpu, gelf_tpu or auto_tpu → GELF; it " \
-    "comes in a later slice)"
+    "rfc3164_tpu, jsonl_tpu, ltsv_tpu, gelf_tpu, dns_tpu or auto_tpu → " \
+    "GELF or LTSV; it comes in a later slice)"
 # input.format → the batch handler's decode route
 _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
             "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf",
-            "auto_tpu": "auto"}
+            "dns_tpu": "dns", "auto_tpu": "auto"}
+# output.format → its encoder (the reference's get_encoder)
+_ENCODERS = {"gelf": GelfEncoder, "ltsv": LTSVEncoder}
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -100,7 +103,7 @@ class Pipeline:
         output_format = config.lookup_str(
             "output.format", "output.format must be a string",
             DEFAULT_OUTPUT_FORMAT)
-        if output_format != "gelf":
+        if output_format not in _ENCODERS:
             raise ConfigError(f'output.format = "{output_format}" {_LATER} '
                               "(ROADMAP queue A item 6, the other output "
                               "formats)")
@@ -112,7 +115,7 @@ class Pipeline:
             self.output = FileOutput(config)
         else:
             raise ConfigError(f'output.type = "{output_type}" {_LATER}')
-        self.encoder = GelfEncoder(config)
+        self.encoder = _ENCODERS[output_format](config)
         output_framing = config.lookup_str(
             "output.framing", "output.framing must be a string")
         if output_framing is None:

@@ -16,14 +16,19 @@ Signature rules (``classify``):
 - TAB and ``:``  in the line → LTSV
 - anything else              → RFC3164 (the lenient legacy decoder)
 
-``input.auto_extra_formats = ["jsonl"]`` re-routes the ``{`` signature
-to the JSON-lines leg; ``"dns"`` (the dnstap-TSV leg) is not ported yet
-and raises ConfigError.
+``input.auto_extra_formats`` opts extra legs in: ``"jsonl"`` re-routes
+the ``{`` signature to the JSON-lines leg; ``"dns"`` adds, ahead of the
+LTSV rule, lines with exactly five tabs whose first field is a unix
+timestamp (``digits[.digits]``): the dnstap-TSV signature (tpu/dns.py).
+With either, the legs block-encode GELF and LTSV only.
 
 On a CUDA batch the classifier is the hand-written kernel AC
 (``kernels.classify_auto_cuda``, ``csrc/classify_auto.cu``), at every
 row count and width; a batch on the CPU takes :func:`classify_plain`,
-the plain PyTorch version of the same function.  (The reference
+the plain PyTorch version of the same function.  With the dns leg both
+also compute the reference's dns overlay (``_extras_adjust`` :159-191)
+over the row's unstripped bytes, on the batch's device: AC's ``dns``
+flag, so the batch is never copied to the host for it.  (The reference
 classifies batches of fewer than 512 rows, or narrower than 19 bytes,
 with numpy on the host, where its auto batches are framed; the port's
 lie on the card, and stay there.)  Rows longer than
@@ -31,11 +36,12 @@ lie on the card, and stay there.)  Rows longer than
 (their tab/colon signature may lie past the clip).
 
 A trimmed copy of the JAX package's ``tpu/autodetect.py``:
-``auto_extra_formats`` (:42), ``classify`` (:74), ``classify_device``
-(:97, here :func:`classify_plain` and AC), ``_extras_adjust`` (:159,
-its jsonl overlay), ``classify_packed`` (:194), ``_class_table`` (:276),
-``decode_auto_packed`` (:286) and ``encode_auto_gelf_blocks`` (:326),
-GELF output only.
+``auto_extra_formats`` (:42), ``_dns_signature`` (:60), ``classify``
+(:74), ``classify_device`` (:97) with the dns overlay of
+``_extras_adjust`` (:159, here :func:`classify_plain` and AC; its jsonl
+overlay stays on the host), ``classify_packed`` (:194), ``_class_table``
+(:276), ``decode_auto_packed`` (:286) and ``encode_auto_gelf_blocks``
+(:326), GELF and LTSV output.
 """
 
 from __future__ import annotations
@@ -56,8 +62,7 @@ _EXTRA_FORMATS = ("jsonl", "dns")
 
 def auto_extra_formats(config: Config) -> Tuple[str, ...]:
     """The validated ``input.auto_extra_formats`` list (empty tuple = the
-    classic four-class table).  ``"dns"`` raises: its leg is a later
-    slice."""
+    classic four-class table)."""
     v = config.lookup("input.auto_extra_formats")
     if v is None:
         return ()
@@ -70,12 +75,21 @@ def auto_extra_formats(config: Config) -> Tuple[str, ...]:
         raise ConfigError(
             f"input.auto_extra_formats: unknown format(s) {bad} "
             f"(expected a subset of {list(_EXTRA_FORMATS)})")
-    if "dns" in v:
-        raise ConfigError(
-            'input.auto_extra_formats = ["dns"] is not ported yet '
-            "(flowgger_tpu_torch has no dns leg; it comes in a later slice, "
-            "ROADMAP queue A item 5)")
     return tuple(x for x in _EXTRA_FORMATS if x in v)
+
+
+def _dns_signature(b: bytes) -> bool:
+    """Exactly five tabs and a ``digits[.digits]`` first field — the
+    dnstap-TSV shape (decoders/dns.py grammar)."""
+    if b.count(b"\t") != 5:
+        return False
+    head = b.split(b"\t", 1)[0]
+    if not head:
+        return False
+    whole, dot, frac = head.partition(b".")
+    if not whole.isdigit():
+        return False
+    return not dot or frac.isdigit()
 
 
 def classify(raw: bytes, extras: Tuple[str, ...] = ()) -> int:
@@ -90,16 +104,26 @@ def classify(raw: bytes, extras: Tuple[str, ...] = ()) -> int:
         if gt > 1 and b[gt + 1:gt + 3] == b"1 " and b[1:gt].isdigit():
             return F_RFC5424
         return F_RFC3164
+    # the dns signature checks the RAW bytes (no BOM strip): a BOM'd first
+    # field is not a clean unix timestamp, and the overlay reads the rows
+    # unstripped, so the two classifiers agree on such rows
+    if "dns" in extras and _dns_signature(raw):
+        return F_DNS
     if b"\t" in b and b":" in b:
         return F_LTSV
     return F_RFC3164
 
 
-def classify_plain(batch: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+def classify_plain(batch: torch.Tensor, lens: torch.Tensor,
+                   dns: bool = False) -> torch.Tensor:
     """The plain version of AC (any device): the ``classify`` decision
     table over each row's valid bytes of a packed ``[N, L]`` batch, one
     int8 class code a row.  Bytes past a row's length, and past ``L``,
-    read as 0."""
+    read as 0.  With ``dns``, the reference's dns overlay
+    (``_extras_adjust`` :170-191): a row with exactly five tabs whose
+    head (the bytes before the first tab) is non-empty ``digits[.digits]``
+    with no dot at either edge, whose base class is LTSV or RFC3164 and
+    whose first byte (unstripped) is not ``<`` or ``{``, is dns."""
     N, L = batch.shape
     lens = lens.to(torch.int64)
     iota = torch.arange(L, device=batch.device)
@@ -141,23 +165,43 @@ def classify_plain(batch: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     cls = torch.where(has_tab & has_col, torch.full_like(cls, F_LTSV), cls)
     cls = torch.where(is_lt, torch.full_like(cls, F_RFC3164), cls)
     cls = torch.where(is5424, torch.full_like(cls, F_RFC5424), cls)
-    return torch.where(is_gelf, torch.full_like(cls, F_GELF), cls)
+    cls = torch.where(is_gelf, torch.full_like(cls, F_GELF), cls)
+    if dns:
+        is_tab = bb == 9
+        five = is_tab.sum(dim=1) == 5
+        ft = torch.where(is_tab, iota[None, :], L).amin(dim=1)
+        in_head = (iota[None, :] < ft[:, None]) & valid
+        is_digit = (bb >= 48) & (bb <= 57)
+        is_dot = bb == ord(".")
+        junk = (in_head & ~is_digit & ~is_dot).any(dim=1)
+        dots = (in_head & is_dot).sum(dim=1)
+        dot_edge = (in_head & is_dot & ((iota[None, :] == 0)
+                                        | (iota[None, :]
+                                           == (ft - 1)[:, None]))).any(dim=1)
+        b0 = col(bb, 0)
+        on = (five & (ft >= 1) & ~junk & (dots <= 1) & ~dot_edge
+              & ((cls == F_LTSV) | (cls == F_RFC3164))
+              & (b0 != ord("<")) & (b0 != ord("{")))
+        cls = torch.where(on, torch.full_like(cls, F_DNS), cls)
+    return cls
 
 
 def classify_rows(batch: torch.Tensor, lens: torch.Tensor,
-                  n: int) -> torch.Tensor:
+                  n: int, dns: bool = False) -> torch.Tensor:
     """The class codes of the first ``n`` rows, int8 [n], on the batch's
-    device: AC on a CUDA batch, the plain version on a CPU one."""
+    device: AC on a CUDA batch, the plain version on a CPU one; ``dns``
+    adds the dns overlay."""
     if batch.is_cuda:
         from .kernels import classify_auto_cuda
 
-        return classify_auto_cuda(batch, lens.to(torch.int32), n)
-    return classify_plain(batch[:n], lens[:n])
+        return classify_auto_cuda(batch, lens.to(torch.int32), n, dns=dns)
+    return classify_plain(batch[:n], lens[:n], dns=dns)
 
 
 def _extras_adjust(cls: np.ndarray, extras) -> None:
-    """The opt-in jsonl leg over a base four-class vector: the ``{``
-    signature re-labels to jsonl."""
+    """The opt-in jsonl leg over a class vector: the ``{`` signature
+    re-labels to jsonl.  (The dns overlay is the classifier's own:
+    :func:`classify_rows` with ``dns``.)"""
     if "jsonl" in extras:
         cls[cls == F_GELF] = F_JSONL
 
@@ -182,7 +226,8 @@ def classify_packed(packed, extras=()) -> np.ndarray:
         return np.zeros(0, dtype=np.int8)
     if not isinstance(batch, torch.Tensor):
         batch, lens = torch.from_numpy(batch), torch.from_numpy(lens)
-    cls = classify_rows(batch, lens, n).cpu().numpy().copy()
+    cls = classify_rows(batch, lens, n,
+                        dns="dns" in extras).cpu().numpy().copy()
     _extras_adjust(cls, extras)
     _reclassify_over(cls, chunk, starts, orig_lens, n, batch.shape[1], extras)
     return cls
@@ -193,6 +238,8 @@ def _class_table(extras: Tuple[str, ...]):
              (F_LTSV, "ltsv"), (F_GELF, "gelf")]
     if "jsonl" in extras:
         table.append((F_JSONL, "jsonl"))
+    if "dns" in extras:
+        table.append((F_DNS, "dns"))
     return table
 
 
@@ -223,15 +270,16 @@ def decode_auto_packed(packed, ltsv_decoder: Optional[LTSVDecoder] = None,
 
 def encode_auto_gelf_blocks(packed, encoder, merger, ltsv_decoder=None,
                             route_state=None, extras=()):
-    """Block-encode a mixed batch into GELF: classify, submit every
-    class's decode on its row subset, run each class's leg (its split
-    device tier, then its host block encoder, each leg under its own
-    decline and cooldown state in ``route_state[format]``), and merge
+    """Block-encode a mixed batch into GELF or LTSV: classify, submit
+    every class's decode on its row subset, run each class's leg (its
+    split device tier, then its host block encoder, each leg under its
+    own decline and cooldown state in ``route_state[format]``), and merge
     the legs' buffers back into input order with one segment gather.
     Returns a BlockResult, or None when a leg cannot apply (a
     ``gelf_extra``, a typed ``ltsv_schema``, an unsupported merger): the
     caller then takes the Record path."""
     from ..block import EncodedBlock
+    from ..encoders import GelfEncoder
     from .assemble import concat_segments, exclusive_cumsum
     from .batch import block_fetch_encode, block_submit
     from .block_common import BlockResult, merger_suffix
@@ -240,7 +288,11 @@ def encode_auto_gelf_blocks(packed, encoder, merger, ltsv_decoder=None,
     if ltsv_decoder is None:
         ltsv_decoder = LTSVDecoder(Config.from_string(""))
     spec = merger_suffix(merger)
-    if spec is None or encoder.extra or ltsv_decoder.schema:
+    if spec is None or ltsv_decoder.schema:
+        return None
+    # gelf_extra needs static placement the gelf leg cannot provide;
+    # ltsv_extra renders inside every leg
+    if type(encoder) is GelfEncoder and encoder.extra:
         return None
     suffix, syslen = spec
 

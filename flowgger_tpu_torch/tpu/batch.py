@@ -1,5 +1,5 @@
 """BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines / LTSV /
-GELF → GELF paths.
+GELF / DNS → GELF and → LTSV paths.
 
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
@@ -13,31 +13,34 @@ down the reference's ladder (its ``_emit_fast`` and
 
 1. device framing (``framing.device_frame_region``: span and gather
    kernels), or the host splitter when the span kernel declines;
-2. for RFC5424, RFC3164, LTSV or GELF into GELF with ``input.tpu_fuse``
-   "auto"
-   (the default) or "on", the fused route (``fused_routes``: decode and
-   encode in one kernel a phase), unless its own cooldown is running,
-   which counts down here, at submit;
-3. on a fused decline (or with ``tpu_fuse = "off"``) the format's
-   decode kernel — RFC5424 (``rfc5424.decode_rfc5424_submit``, 7-16-pair
-   rows re-decoded at 16 pairs on the host path), RFC3164
-   (``rfc3164.decode_rfc3164_submit``), JSON-lines
-   (``jsonl.decode_jsonl_submit``, 9-24-key rows re-decoded at 24
-   fields), LTSV (``ltsv.decode_ltsv_submit``, 24 parts) or GELF
-   (``gelf.decode_gelf_submit``, the flat index; 9-24-key rows
-   re-decoded at 24 fields on the host path);
-4. for RFC5424, RFC3164, LTSV or GELF into GELF, the split device encode
-   tier (``device_gelf`` / ``device_rfc3164`` / ``device_ltsv`` /
-   ``device_gelf_gelf``: probe, timestamp text, assemble, one fetch of
-   the tier rows' bytes) under its own decline state; each tier hands
-   the batch back when more than 5 % of its rows fall outside it (the
-   ltsv tier first tries 16 pairs, the gelf tier 16 fields), and cools
-   down after three such batches in a row;
-5. the format's host block encoder (``encode_gelf_block``,
+2. with ``input.tpu_fuse`` "auto" (the default) or "on", the fused route
+   of the (input, output) pair (``fused_routes``: decode and encode in
+   one kernel a phase; RFC5424, RFC3164, LTSV and GELF into GELF, RFC5424
+   into LTSV), unless its own cooldown is running, which counts down
+   here, at submit;
+3. on a fused decline (or with ``tpu_fuse = "off"``, or for a pair with
+   no fused route) the format's decode kernel — RFC5424
+   (``rfc5424.decode_rfc5424_submit``, 7-16-pair rows re-decoded at 16
+   pairs on the host path), RFC3164 (``rfc3164.decode_rfc3164_submit``),
+   JSON-lines (``jsonl.decode_jsonl_submit``, 9-24-key rows re-decoded at
+   24 fields), LTSV (``ltsv.decode_ltsv_submit``, 24 parts), GELF
+   (``gelf.decode_gelf_submit``, the flat index; 9-24-key rows re-decoded
+   at 24 fields on the host path) or DNS (``dns.decode_dns_submit``);
+4. the split device encode tier of the (input, output) pair
+   (``device_gelf`` / ``device_rfc3164`` / ``device_ltsv`` /
+   ``device_gelf_gelf`` into GELF, ``device_ltsv_out`` for RFC5424 into
+   LTSV: probe, timestamp text, assemble, one fetch of the tier rows'
+   bytes) under its own decline state; each tier hands the batch back
+   when more than 5 % of its rows fall outside it (the ltsv → GELF tier
+   first tries 16 pairs, the gelf tier 16 fields), and cools down after
+   three such batches in a row;
+5. the host block encoder of the pair (``encode_gelf_block``,
    ``encode_rfc3164_gelf_block``, ``encode_jsonl_block``,
-   ``encode_ltsv_gelf_block``, ``encode_gelf_gelf_block``), which runs
-   the scalar oracle for rows the kernel flagged and for over-length
-   lines;
+   ``encode_ltsv_gelf_block``, ``encode_gelf_gelf_block``,
+   ``encode_dns_block`` into GELF; ``encode_ltsv_block``,
+   ``encode_jsonl_block`` and ``encode_dns_block`` into LTSV), which
+   runs the scalar oracle for rows the kernel flagged and for
+   over-length lines;
 6. the merger framing (pre-applied) and the output queue.
 
 ``input.format = "auto_tpu"`` (``fmt = "auto"``) classifies each batch
@@ -48,14 +51,15 @@ state (``autodetect.encode_auto_gelf_blocks``); it has no fused route.
 The Record path (the reference's ``_decode_packed`` and ``_emit_rows``)
 takes a batch when the block route cannot engage for the config
 (``output.gelf_extra`` keys that need dynamic placement, any
-``gelf_extra`` with gelf, jsonl or auto, a typed ``ltsv_schema`` with
-auto: a start-up notice says so, as the reference's does) or when a
-block encoder declines the batch (an ``ltsv_schema`` of more than 8
-keys, a suffix for a schema type): the format's decode kernel, then one
-Record a row (``materialize*``), ``encoder.encode`` and one queue item a
-record, which the output thread frames with the merger.  RFC5424 into
-GELF takes the per-row span encode there instead
-(``encode_gelf.encode_rfc5424_gelf``), as the reference does.
+``gelf_extra`` with gelf, jsonl, dns or auto, a typed ``ltsv_schema``
+with auto, or with ltsv into LTSV: a start-up notice says so, as the
+reference's does) or when a block encoder declines the batch (an
+``ltsv_schema`` of more than 8 keys, a suffix for a schema type): the
+format's decode kernel, then one Record a row (``materialize*``),
+``encoder.encode`` and one queue item a record, which the output thread
+frames with the merger.  RFC5424 into GELF takes the per-row span encode
+there instead (``encode_gelf.encode_rfc5424_gelf``), as the reference
+does.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
 the reference (line_splitter.rs:37-54).  Batches are processed in order
@@ -73,20 +77,27 @@ from typing import List
 import torch
 
 from ..config import Config, ConfigError
-from ..encoders import EncodeError
+from ..encoders import EncodeError, LTSVEncoder
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
 from . import autodetect, device_gelf, device_gelf_gelf, device_ltsv
-from . import device_rfc3164
+from . import device_ltsv_out, device_rfc3164
 from . import framing as _framing
 from . import fused_routes
 from . import pack as _pack
-from . import materialize, materialize_gelf, materialize_jsonl
-from . import materialize_ltsv, materialize_rfc3164
+from . import materialize, materialize_dns, materialize_gelf
+from . import materialize_jsonl, materialize_ltsv, materialize_rfc3164
+from .dns import decode_dns_fetch, decode_dns_submit
+from .encode_dns_block import encode_dns_gelf_block, encode_dns_ltsv_block
 from .encode_gelf import encode_rfc5424_gelf
 from .encode_gelf_block import gelf_extra_slots
 from .encode_gelf_block import encode_rfc5424_gelf_block
 from .encode_gelf_gelf_block import encode_gelf_gelf_block
-from .encode_jsonl_block import encode_jsonl_gelf_block
+from .encode_jsonl_block import (encode_jsonl_gelf_block,
+                                 encode_jsonl_ltsv_block)
+from .encode_ltsv_block import (encode_gelf_ltsv_block,
+                                encode_ltsv_ltsv_block,
+                                encode_rfc3164_ltsv_block,
+                                encode_rfc5424_ltsv_block)
 from .encode_ltsv_gelf_block import (encode_ltsv_gelf_block,
                                      gelf_extra_consts_ltsv)
 from .encode_rfc3164_gelf_block import (encode_rfc3164_gelf_block,
@@ -107,8 +118,8 @@ DEFAULT_MAX_LINE_LEN = 512
 # without limit
 _RAW_REGION_CAP = 4 << 20
 
-# decode → block encode per input format (``input.format`` without its
-# ``_tpu`` suffix)
+# decode → GELF block encode per input format (``input.format`` without
+# its ``_tpu`` suffix)
 _ROUTES = {
     "rfc5424": (decode_rfc5424_submit, decode_rfc5424_fetch,
                 encode_rfc5424_gelf_block),
@@ -118,14 +129,27 @@ _ROUTES = {
               encode_jsonl_gelf_block),
     "ltsv": (decode_ltsv_submit, decode_ltsv_fetch, encode_ltsv_gelf_block),
     "gelf": (decode_gelf_submit, decode_gelf_fetch, encode_gelf_gelf_block),
+    "dns": (decode_dns_submit, decode_dns_fetch, encode_dns_gelf_block),
 }
-# the split device encode tier per input format
+# the LTSV block encoder per input format (the reference's per-encoder
+# dispatch of block_fetch_encode, batch.py:1961-2102, and
+# _encode_block_from_host :2178)
+_LTSV_BLOCK = {"rfc5424": encode_rfc5424_ltsv_block,
+               "rfc3164": encode_rfc3164_ltsv_block,
+               "jsonl": encode_jsonl_ltsv_block,
+               "ltsv": encode_ltsv_ltsv_block,
+               "gelf": encode_gelf_ltsv_block,
+               "dns": encode_dns_ltsv_block}
+# the split device encode tier per input format, into GELF and into LTSV
+# (the reference's _rfc5424_device_module, batch.py:2135, for rfc5424)
 _DEVICE_TIERS = {"rfc5424": device_gelf, "rfc3164": device_rfc3164,
                  "ltsv": device_ltsv, "gelf": device_gelf_gelf}
+_LTSV_TIERS = {"rfc5424": device_ltsv_out}
 # the Record path's materializer of each format that takes no decoder
 _MATERIALIZE = {"rfc3164": materialize_rfc3164.materialize_rfc3164,
                 "gelf": materialize_gelf.materialize_gelf,
-                "jsonl": materialize_jsonl.materialize_jsonl}
+                "jsonl": materialize_jsonl.materialize_jsonl,
+                "dns": materialize_dns.materialize_dns}
 
 
 class BatchHandler(Handler):
@@ -198,11 +222,17 @@ class BatchHandler(Handler):
 
     def _block_route_ok(self) -> bool:
         """Whether the columnar block route can take this config's
-        batches (the reference's ``_block_route_ok``, GELF output): the
-        ``gelf_extra`` keys must place statically for rfc5424, rfc3164
-        and ltsv, and be absent for gelf, jsonl and auto; auto also
-        takes no typed ``ltsv_schema``.  (Every merger the pipeline
-        makes has a block form.)"""
+        batches (the reference's ``_block_route_ok``, GELF and LTSV
+        output).  LTSV: every input, but a typed ``ltsv_schema`` keeps
+        ltsv and auto on the Record path.  GELF: the ``gelf_extra`` keys
+        must place statically for rfc5424, rfc3164 and ltsv, and be
+        absent for gelf, jsonl, dns and auto; auto also takes no typed
+        ``ltsv_schema``.  (Every merger the pipeline makes has a block
+        form.)"""
+        if type(self.encoder) is LTSVEncoder:
+            if self.fmt in ("ltsv", "auto"):
+                return not self.decoder.schema
+            return True
         extra = self.encoder.extra
         if self.fmt == "rfc5424":
             return gelf_extra_slots(extra) is not None
@@ -219,6 +249,8 @@ class BatchHandler(Handler):
         when it does): the reference's ``_route_cliff_reason`` words."""
         if self._block_ok:
             return None
+        if type(self.encoder) is LTSVEncoder:
+            return "input.ltsv_schema is set"
         if self.encoder.extra:
             if self.fmt in ("rfc5424", "rfc3164", "ltsv"):
                 return ("output.gelf_extra keys need dynamic placement "
@@ -229,7 +261,7 @@ class BatchHandler(Handler):
     def _fused_route(self):
         """The fused route for this handler's config, or None: fuse mode
         off, the auto format (its legs take the split path), or no fused
-        program for this (format, encoder, merger)."""
+        program for this (format, output encoder, merger)."""
         if self._fuse_mode == "off" or self.fmt == "auto":
             return None
         return fused_routes.route_for(self.fmt, self.encoder, self.merger,
@@ -446,17 +478,19 @@ def block_submit(fmt: str, packed):
     """Launch the format's decode of one packed batch (on its device);
     pair with :func:`block_fetch_encode`."""
     batch, lens = packed[0], packed[1]
-    if fmt == "ltsv":
-        # the ltsv decode takes the real row count (padding rows unread)
-        return decode_ltsv_submit(batch, lens, packed[5])
+    if fmt in ("ltsv", "dns"):
+        # the ltsv and dns decodes take the real row count (padding rows
+        # unread)
+        return _ROUTES[fmt][0](batch, lens, packed[5])
     return _ROUTES[fmt][0](batch, lens)
 
 
 def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
                        ltsv_decoder=None, route_state=None):
     """The split device encode tier of a submitted decode, then (on its
-    decline, or with no tier for the format) the fetch and the host
-    block encoder.  Returns ``(BlockResult, None)`` from the tier,
+    decline, or with no tier for the format and output) the fetch and the
+    host block encoder of the output encoder's type.  Returns
+    ``(BlockResult, None)`` from the tier,
     ``(BlockResult, channels)`` from the host block encoder, or ``(None,
     channels)`` when the block encoder declines the batch: the caller
     then takes the Record path on the fetched channels.  The tier's
@@ -464,7 +498,8 @@ def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
     auto format's legs never share one."""
     dec = (ltsv_decoder,) if fmt == "ltsv" else ()
     dec_kw = {"decoder": ltsv_decoder} if fmt == "ltsv" else {}
-    tier = _DEVICE_TIERS.get(fmt)
+    to_ltsv = type(encoder) is LTSVEncoder
+    tier = (_LTSV_TIERS if to_ltsv else _DEVICE_TIERS).get(fmt)
     if tier is not None and tier.route_ok(encoder, merger, **dec_kw):
         state = route_state.setdefault(fmt, {}) \
             if route_state is not None else None
@@ -473,6 +508,8 @@ def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
         if res is not None:
             return res, None
     _, fetch, encode = _ROUTES[fmt]
+    if to_ltsv:
+        encode = _LTSV_BLOCK[fmt]
     batch, _, chunk, starts, orig_lens, n_real = packed
     host_out = fetch(handle)
     return encode(chunk, starts, orig_lens, host_out, n_real,

@@ -2,7 +2,7 @@
 scalar-oracle fallback loop, and the splice that interleaves vectorized
 tier runs with per-row fallback output in input order.
 
-Each block encoder (RFC5424, RFC3164, JSON-lines and LTSV to GELF) produces a
+Each block encoder (every input into GELF and into LTSV) produces a
 contiguous ``final_buf`` for its fast-tier rows plus ``row_off``
 boundaries; this module turns that into an EncodedBlock with the
 reference's observable semantics — per-line errors
@@ -30,8 +30,8 @@ from .materialize import _scalar_line, compute_ts
 
 def vals_scratch(vals: np.ndarray, fmt_fn):
     """Deduplicated formatted values: repetitive streams share few
-    distinct stamps, and ``fmt_fn`` (json_f64) is the only per-value
-    Python.  Returns
+    distinct stamps, and ``fmt_fn`` (json_f64, display_f64) is the only
+    per-value Python.  Returns
     (scratch bytes, per-row offsets, per-row lengths)."""
     uniq, inv = np.unique(vals, return_inverse=True)
     strs = [fmt_fn(float(u)).encode("ascii") for u in uniq]
@@ -50,13 +50,27 @@ def ts_scratch(out, n: int, ridx: np.ndarray, fmt_fn):
     return vals_scratch(ts, fmt_fn)
 
 
+def ltsv_extra_blob(extra) -> bytes:
+    """Pre-rendered ``ltsv_extra`` pairs, escaped once per config the
+    way the LTSV encoder's insert does (strip leading '_', tab/newline →
+    space, ':' → '_' in keys), each pair tab-terminated."""
+    parts = []
+    for k, v in extra:
+        k = k[1:] if k.startswith("_") else k
+        k = k.replace("\n", " ").replace("\t", " ").replace(":", "_")
+        v = v.replace("\t", " ").replace("\n", " ")
+        parts.append(f"{k}:{v}\t".encode("utf-8"))
+    return b"".join(parts)
+
+
 def ltsv_special_screen(chunk_arr: np.ndarray, starts64: np.ndarray,
                         part_start: np.ndarray, nlen: np.ndarray,
                         jmask: np.ndarray):
-    """LTSV special-key routing of the LTSV → GELF block encoder:
+    """LTSV special-key routing of the LTSV → GELF and LTSV → LTSV block
+    encoders:
     specials match by NAME (the kernel's *_pos channels only catch the
     last occurrence, but the scalar decoder routes every occurrence of
-    a repeated special), so the block screens by the first 8 key bytes.
+    a repeated special), so the blocks screen by the first 8 key bytes.
     Returns (special_name [n, P] mask, uniq_ok [n] — False where a
     special name repeats and the row must take the oracle)."""
     n, P = part_start.shape
@@ -98,6 +112,71 @@ def span_f64_scratch(chunk_bytes: bytes, tsa, tsb, fmt_fn):
         off[i] = hit[0]
         ln[i] = hit[1]
     return b"".join(pieces), off, ln
+
+
+def gelf_sorted_pairs(chunk_arr, starts64, cand, is_pair, kabs, key_e,
+                      vabs_a, vabs_b, val_t, byte_at, cap: int):
+    """Flat pair table in sorted-ORIGINAL-key Record order for the gelf
+    and jsonl → LTSV routes (the materializers take sorted(obj.keys())).
+    Duplicate-key rows drop out of ``cand`` IN PLACE (dict last-wins
+    semantics go to the oracle).  Returns (rop_s — ORIGINAL row ids —,
+    ns_s stripped name starts so ``'_' + span`` is the final name,
+    ne_s, pv_t, pv_a, pv_b)."""
+    if not int(is_pair.sum()):
+        z = np.zeros(0, dtype=np.int64)
+        return z, z, z, z.copy(), z, z
+    prow, pcol = np.nonzero(is_pair)
+    rop = prow.astype(np.int64)
+    ns_abs = kabs[prow, pcol]
+    ne_abs = starts64[rop] + key_e[prow, pcol]
+    order, dup_rows = sorted_pair_order(chunk_arr, rop, ns_abs, ne_abs,
+                                        cap)
+    if dup_rows.size:
+        cand[dup_rows] = False
+        order = order[cand[rop[order]]]
+    rop_s = rop[order]
+    has_us = byte_at(ns_abs[order]) == ord("_")
+    return (rop_s, ns_abs[order] + has_us, ne_abs[order],
+            val_t[prow, pcol][order], vabs_a[prow, pcol][order],
+            vabs_b[prow, pcol][order])
+
+
+def ltsv_ts_vals(out, n: int, ridx: np.ndarray, chunk_bytes: bytes,
+                 starts64: np.ndarray) -> np.ndarray:
+    """Per-row f64 timestamps for ltsv tier rows: rfc3339 rows combine
+    the calendar channels; unix-literal rows combine the kernel's exact
+    split-integer parse (ts_hi * 1e9 + ts_lo over 10**frac, correctly
+    rounded within 2**53); signed or 17+-digit stamps take an exact
+    per-row ``float(span)`` (ts_meta bit 16 is "has a sign CHARACTER",
+    not "negative")."""
+    kind = np.asarray(out["ts_kind"])[:n][ridx]
+    ts = compute_ts({k: np.where(kind == 0, np.asarray(v)[:n][ridx], 0)
+                     for k, v in out.items()
+                     if k in ("days", "sod", "off", "nanos")})
+    fl = np.flatnonzero(kind == 1)
+    if fl.size:
+        hi = np.asarray(out["ts_hi"])[:n][ridx][fl].astype(np.float64)
+        lo = np.asarray(out["ts_lo"])[:n][ridx][fl].astype(np.float64)
+        meta = np.asarray(out["ts_meta"])[:n][ridx][fl].astype(np.int64)
+        frac = meta & 255
+        ndig = (meta >> 8) & 255
+        signed = ((meta >> 16) & 1) == 1
+        fv = (hi * 1e9 + lo) / np.power(10.0, frac)
+        wide = np.flatnonzero(
+            signed | (ndig > 16)
+            | ((ndig == 16)
+               & ((hi > 9007199.0)
+                  | ((hi == 9007199.0) & (lo > 254740992.0)))))
+        if wide.size:
+            st_fl = starts64[ridx][fl]
+            tsa = (st_fl + np.asarray(out["ts_start"])[:n][ridx][fl]
+                   ).astype(np.int64)
+            tsb = (st_fl + np.asarray(out["ts_end"])[:n][ridx][fl]
+                   ).astype(np.int64)
+            for w in wide.tolist():
+                fv[w] = float(chunk_bytes[tsa[w]:tsb[w]])
+        ts[fl] = fv
+    return ts
 
 
 def sorted_pair_order(chunk_arr: np.ndarray, rop: np.ndarray,

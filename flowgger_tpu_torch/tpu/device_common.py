@@ -165,13 +165,53 @@ def splice_elided_rows(body: np.ndarray, row_off: np.ndarray,
     return out, exclusive_cumsum(lens + h + lb + tl)
 
 
+def splice_rows(body: np.ndarray, row_off: np.ndarray,
+                ins_src: np.ndarray, ins_at: np.ndarray,
+                ins_a: np.ndarray, ins_l: np.ndarray):
+    """Generic per-row insertion splice for constant/computed elision.
+
+    Every row gets K insertions: insertion k of row r takes
+    ``ins_l[r, k]`` bytes from ``ins_src`` at offset ``ins_a[r, k]`` and
+    lands at body-relative offset ``ins_at[r, k]`` (offsets ascending
+    per row, measured in the elided body's coordinates).  One segment
+    gather (2K+1 segments/row, native concat when available) rebuilds
+    the full rows.  :func:`splice_elided_rows` is the fixed
+    head/ts-label/tail specialization; the → LTSV tier uses this one
+    because its elided constants sit at row-dependent offsets (mid-row
+    gaps).  Returns (full body, full row_off)."""
+
+    R = row_off.size - 1
+    K = ins_at.shape[1]
+    lens = np.diff(row_off).astype(np.int64)
+    B = int(np.asarray(body).size)
+    src = np.concatenate([np.asarray(body, dtype=np.uint8),
+                          np.asarray(ins_src, dtype=np.uint8)])
+    seg_src = np.empty((R, 2 * K + 1), dtype=np.int64)
+    seg_len = np.empty((R, 2 * K + 1), dtype=np.int64)
+    r0 = row_off[:-1].astype(np.int64)
+    prev = np.zeros(R, dtype=np.int64)
+    for k in range(K):
+        at = np.minimum(np.asarray(ins_at[:, k], dtype=np.int64), lens)
+        seg_src[:, 2 * k] = r0 + prev
+        seg_len[:, 2 * k] = np.maximum(at - prev, 0)
+        seg_src[:, 2 * k + 1] = B + np.asarray(ins_a[:, k], dtype=np.int64)
+        seg_len[:, 2 * k + 1] = np.asarray(ins_l[:, k], dtype=np.int64)
+        prev = np.maximum(at, prev)
+    seg_src[:, 2 * K] = r0 + prev
+    seg_len[:, 2 * K] = lens - prev
+    out = concat_segments(src, seg_src.ravel(), seg_len.ravel())
+    new_lens = lens + np.asarray(ins_l, dtype=np.int64).sum(axis=1)
+    return out, exclusive_cumsum(new_lens)
+
+
 def _ts_vals(small: Dict[str, np.ndarray]) -> np.ndarray:
     okh = small["ok"].astype(bool)
     return compute_ts({k: np.where(okh, small[k], 0)
                        for k in ("days", "sod", "off", "nanos")})
 
 
-def ts_text_block(small: Dict[str, np.ndarray], ts_vals_fn=None):
+def ts_text_block(small: Dict[str, np.ndarray], ts_vals_fn=None,
+                  render=None):
     """Per-row timestamp text ([R, TS_W] u8) and lengths ([R] int32):
     ``json_f64`` of each row's f64 stamp, formatted by the native host
     tier (``fg_format_f64_json``).  Rows whose ``ok`` is False get the
@@ -179,11 +219,17 @@ def ts_text_block(small: Dict[str, np.ndarray], ts_vals_fn=None):
     ``ts_vals_fn(small, ok_mask) -> float64 array`` overrides the
     days/sod/off/nanos combine for a format whose tier carries other
     timestamp channels (the ltsv float spans: ``device_ltsv.
-    ts_vals_ltsv``)."""
+    ts_vals_ltsv``).  ``render(val) -> bytes`` overrides the json_f64
+    notation for an output whose stamp text is not serde_json's (the →
+    LTSV routes' Rust ``Display`` form), once per distinct stamp, as the
+    reference does (device_common.py:686-726; a text longer than TS_W
+    raises here, where the reference clips it)."""
     from .. import native
 
     vals = (_ts_vals(small) if ts_vals_fn is None
             else ts_vals_fn(small, small["ok"].astype(bool)))
+    if render is not None:
+        return _render_unique(vals, render)
     txt, lens = native.format_f64_json_native(vals, TS_W)
     # fetch_encode_driver's one-probe lengths rest on this bound; the
     # formatter gives a text longer than TS_W length 0
@@ -199,11 +245,17 @@ def _ts_text_block_np(small: Dict[str, np.ndarray], ts_vals_fn=None):
 
     vals = (_ts_vals(small) if ts_vals_fn is None
             else ts_vals_fn(small, small["ok"].astype(bool)))
+    return _render_unique(vals,
+                          lambda v: json_f64(v).encode("ascii"))
+
+
+def _render_unique(vals: np.ndarray, render):
+    """``render`` once per distinct value: ([R, TS_W] u8, [R] int32)."""
     uniq, inv = np.unique(vals, return_inverse=True)
     txt = np.zeros((uniq.size, TS_W), dtype=np.uint8)
     ulen = np.zeros(uniq.size, dtype=np.int32)
     for u, val in enumerate(uniq):
-        s = json_f64(float(val)).encode("ascii")
+        s = render(float(val))
         if len(s) > TS_W:
             raise AssertionError(f"timestamp text {s!r} exceeds TS_W")
         txt[u, :len(s)] = np.frombuffer(s, dtype=np.uint8)
@@ -334,6 +386,22 @@ def gelf_route_ok(encoder, merger, extras_placeable) -> bool:
                                               SyslenMerger)
 
 
+def encode_route_ok(encoder, merger, enc_cls) -> bool:
+    """The gate of the non-GELF device encode tiers (→ LTSV): the exact
+    encoder type over line, NUL or syslen framing (or none), under the
+    same ``FLOWGGER_DEVICE_ENCODE`` switch as the GELF tiers.  Their
+    extras always place statically (``ltsv_extra`` renders to one
+    constant blob), so there is no placement check."""
+    from ..mergers import LineMerger, NulMerger, SyslenMerger
+
+    if os.environ.get("FLOWGGER_DEVICE_ENCODE", "1") == "0":
+        return False
+    if type(encoder) is not enc_cls:
+        return False
+    return merger is None or type(merger) in (LineMerger, NulMerger,
+                                              SyslenMerger)
+
+
 def _count(route_state, key: str, v: int = 1) -> None:
     if route_state is not None:
         route_state[key] = route_state.get(key, 0) + v
@@ -343,7 +411,8 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
                         suffix: bytes, syslen: bool, scalar_fn,
                         fallback_frac: float, decline_limit: int,
                         cooldown: int, wide=None, elide=None,
-                        timings: Optional[dict] = None, ts_vals_fn=None):
+                        timings: Optional[dict] = None, ts_vals_fn=None,
+                        ts_render=None):
     """The device tier's fetch flow (the reference's decisions, in its
     order):
 
@@ -379,7 +448,15 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     ``small_channels() -> (dict, nbytes)`` (the ``ok`` and timestamp
     channels on the host: the reference driver's ``ts_keys``, which the
     row object knows; ``ts_vals_fn`` combines them when they are not the
-    calendar four, as :func:`ts_text_block` says).  Counts go to
+    calendar four, and ``ts_render`` formats them when the output's
+    stamp text is not json_f64, as :func:`ts_text_block` says).  A row
+    object whose ``ts_in_row`` is False (the → LTSV tier) leaves the
+    timestamp text out of its device rows altogether: its ``base_len``
+    is the row's whole device length, the width test is ``base_len <=
+    OW`` and the host splices the text back (``elide`` is then a
+    callable that owns the whole splice: ``elide(body, row_off, small,
+    ts_text, ts_len, ridx) -> (body, row_off)``, the reference's
+    callable form).  Counts go to
     ``route_state``: ``taken``, ``declined``, ``cooled``, ``wide``,
     ``tier_rows``, ``fetch_bytes`` and ``emit_bytes`` beside the
     reference's hysteresis keys; ``timings`` (optional) collects the
@@ -417,9 +494,12 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
             timings[name] = timings.get(name, 0.0) + now - clock[0]
         clock[0] = now
 
+    ts_in_row = getattr(kern, "ts_in_row", True)
+
     def phase1(probed) -> np.ndarray:
         base, base_len = probed
-        return _fetch(base[:n] & (base_len[:n] + TS_W <= kern.OW))
+        ts_w = TS_W if ts_in_row else 0
+        return _fetch(base[:n] & (base_len[:n] + ts_w <= kern.OW))
 
     probed = kern.probe(n)
     tier1_np = phase1(probed)
@@ -466,7 +546,7 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     # only phase-1 candidates get timestamp text; the others carry a
     # placeholder and stay off the tier
     small["ok"] = small["ok"].astype(bool) & cand1
-    ts_np, ts_len_np = ts_text_block(small, ts_vals_fn)
+    ts_np, ts_len_np = ts_text_block(small, ts_vals_fn, ts_render)
     ts_text = torch.zeros((N, TS_W), dtype=torch.uint8)
     ts_len = torch.zeros(N, dtype=torch.int32)
     ts_text[:n] = torch.from_numpy(ts_np)
@@ -475,7 +555,7 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
     ts_len = ts_len.to(kern.device)
     _stage("ts_text")
 
-    len_d = probed[1] + ts_len
+    len_d = probed[1] + ts_len if ts_in_row else probed[1]
     # lengths are bounded by OW: they cross as u16
     len_np = _fetch(len_d[:n].to(torch.int32 if kern.OW > 0xFFFF
                                  else torch.uint16)).astype(np.int64)
@@ -494,7 +574,12 @@ def fetch_encode_driver(kern, packed, encoder, merger, route_state,
         row_off_h = np.zeros(1, dtype=np.int64)
     _stage("assemble_fetch")
 
-    if elide is not None and ridx.size:
+    if callable(elide) and ridx.size:
+        # a row-object splice: the → LTSV tier's constants and stamp sit
+        # mid-row, at offsets its probe reported
+        body, row_off_h = elide(body, row_off_h, small, ts_np,
+                                ts_len_np.astype(np.int64), ridx)
+    elif elide is not None and ridx.size:
         # the head / timestamp-label / tail constants the kernel left
         # out of the transfer, restored byte for byte
         body, row_off_h = splice_elided_rows(

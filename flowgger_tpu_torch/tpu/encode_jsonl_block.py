@@ -1,34 +1,35 @@
-"""Columnar JSON-lines → GELF block encoder: the structural-index span
-tables (tpu/jsonl.py) become framed GELF bytes per batch.
+"""Columnar JSON-lines block encoders: the structural-index span tables
+(tpu/jsonl.py) become framed GELF or LTSV bytes per batch.
 
 The decoder (decoders/jsonl.py) routes timestamp/host/message/level
 into Record fields and everything else into ``_``-prefixed typed SD
 pairs.  On the fast tier every output piece is a raw span or a constant:
 
-- pair keys keep their bytes (conditional ``_`` prefix), sorted by final
-  name;
+- pair keys keep their bytes (conditional ``_`` prefix for GELF, one
+  leading ``_`` stripped for LTSV), sorted by final / original name;
 - clean strings and canonical integers re-emit verbatim;
   true/false/null are constants;
-- ``timestamp`` is float-parsed and re-formatted per row (json_f64
-  through the dedup scratch); missing timestamps — the oracle stamps
-  now() — take the oracle;
-- host/message default to the encoder's "unknown" / "-" constants.
+- ``timestamp`` is float-parsed and re-formatted per row (json_f64 /
+  display_f64 through the dedup scratch); missing timestamps — the
+  oracle stamps now() — take the oracle;
+- host/message default to the GELF encoder's "unknown" / "-" constants.
 
 Everything else — nested-container values, escaped strings, floats,
 huge ints, control bytes, duplicate names, non-ASCII — re-runs the
-scalar oracle, keeping bytes identical to JSONLDecoder → GelfEncoder in
-every case.  The JAX package's LTSV leg of this module is not part of
-the port yet.
+scalar oracle, keeping bytes identical to JSONLDecoder → encoder in
+every case.
 """
 
 from __future__ import annotations
 
-# byte-identity contract (flowcheck FC03): the scalar counterpart this
-# route must stay byte-identical to, and the differential test that
-# enforces it
+# byte-identity contract (flowcheck FC03): the scalar counterpart these
+# routes must stay byte-identical to, and the differential tests that
+# enforce them
 SCALAR_ORACLE = "flowgger_tpu_torch.decoders.jsonl:JSONLDecoder"
-DIFF_TEST = ("tests/test_torch_jsonl.py::"
-             "test_jsonl_gelf_block_matches_scalar_oracle")
+DIFF_TEST = (
+    "tests/test_torch_jsonl.py::test_jsonl_gelf_block_matches_scalar_oracle",
+    "tests/test_torch_ltsv_out.py::test_ltsv_block_matches_reference",
+)
 
 from typing import Dict, Optional
 
@@ -46,6 +47,7 @@ from .block_common import (
     BlockResult,
     apply_syslen_prefix,
     finish_block,
+    gelf_sorted_pairs,
     merger_suffix,
     sorted_pair_order,
     span_f64_scratch,
@@ -412,3 +414,116 @@ def encode_jsonl_gelf_block(
     return finish_block(chunk_bytes, starts64, lens64, n, cand, ridx,
                         final_buf, row_off, prefix_lens_tier, suffix,
                         syslen, merger, encoder, scalar_fn=_scalar_jsonl)
+
+
+def encode_jsonl_ltsv_block(
+    chunk_bytes: bytes,
+    starts: np.ndarray,
+    orig_lens: np.ndarray,
+    out: Dict[str, np.ndarray],
+    n_real: int,
+    max_len: int,
+    encoder,
+    merger: Optional[Merger],
+) -> Optional[BlockResult]:
+    """jsonl→LTSV: pairs in the Record's construction order — sorted
+    by ORIGINAL key with the leading ``_`` stripped back off — then
+    ltsv_extra, host, time, message?, level?.  Names containing ':'
+    (LTSV key escape) take the oracle."""
+    from ..utils.rustfmt import display_f64
+    from .block_common import ltsv_extra_blob, span_f64_scratch
+    from .encode_ltsv_block import _ltsv_core
+
+    spec = merger_suffix(merger)
+    if spec is None:
+        return None
+    suffix, syslen = spec
+
+    s = jsonl_screen(chunk_bytes, starts, orig_lens, out, n_real,
+                     max_len)
+    n, starts64, lens64, cand = (s["n"], s["starts64"], s["lens64"],
+                                 s["cand"])
+    chunk_arr, kabs, key_e = s["chunk_arr"], s["kabs"], s["key_e"]
+    byte_at, vspan_at = s["byte_at"], s["vspan_at"]
+    is_pair = s["is_pair"] & cand[:, None]
+    vabs_a, vabs_b = s["vabs_a"], s["vabs_b"]
+    val_t = s["val_t"]
+
+    # keys needing the LTSV ':'→'_' escape: count per name span
+    if is_pair.any():
+        col_cum = np.cumsum(chunk_arr == ord(":"))
+        ne_all = starts64[:, None] + key_e
+        ncols = np.where(is_pair,
+                         count_in_spans(col_cum, kabs, ne_all), 0)
+        cand &= ncols.sum(axis=1) == 0
+        is_pair = is_pair & cand[:, None]
+
+    # pair table in ORIGINAL-key sorted order (shared helper; drops
+    # duplicate-key rows from cand, returns '_'-stripped name starts)
+    rop_s, ns_s, ne_s, pv_t, pv_a, pv_b = gelf_sorted_pairs(
+        chunk_arr, starts64, cand, is_pair, kabs, key_e, vabs_a, vabs_b,
+        val_t, byte_at, _NAME_CAP)
+
+    ridx = np.flatnonzero(cand)
+    R = ridx.size
+    if not R:
+        return finish_block(chunk_bytes, starts64, lens64, n, cand,
+                            ridx, b"", np.zeros(1, dtype=np.int64),
+                            None, suffix, syslen, merger, encoder,
+                            scalar_fn=_scalar_jsonl)
+
+    scratch, ts_off, ts_len = span_f64_scratch(
+        chunk_bytes, s["tsa_all"][ridx], s["tsb_all"][ridx], display_f64)
+
+    extra_blob = ltsv_extra_blob(encoder.extra)
+    consts, offs = build_source(
+        b":", b"\t", b"host:", b"\ttime:", b"\tmessage:", b"\tlevel:",
+        b"true", b"false", suffix, extra_blob, scratch)
+    (o_col, o_tab, o_host, o_time, o_msg, o_lvl, o_true, o_false,
+     o_sfx, o_extra, o_ts) = offs
+    cbase = int(chunk_arr.size)
+    src = np.concatenate([chunk_arr, consts])
+
+    if rop_s.size:
+        is_txt = (pv_t == VT_STRING) | (pv_t == VT_NUMBER)
+        vs_r = np.where(is_txt, pv_a,
+                        np.where(pv_t == VT_TRUE, cbase + o_true,
+                                 np.where(pv_t == VT_FALSE,
+                                          cbase + o_false, 0)))
+        vln = np.where(is_txt, pv_b - pv_a,
+                       np.where(pv_t == VT_TRUE, 4,
+                                np.where(pv_t == VT_FALSE, 5, 0)))
+        pair_flat = (ns_s, ne_s, vs_r, vs_r + vln)
+        pc = np.bincount(rop_s, minlength=n)[ridx].astype(np.int64)
+    else:
+        pair_flat = None
+        pc = np.zeros(R, dtype=np.int64)
+
+    host_a, host_b = vspan_at(s["host_f"])
+    host_a, host_l = host_a[ridx], (host_b - host_a)[ridx]
+    has_host = s["has_host"][ridx]
+    msg_a, msg_b = vspan_at(s["msg_f"])
+    msg_a, msg_l = msg_a[ridx], (msg_b - msg_a)[ridx]
+    has_msg = s["has_msg"][ridx]
+    lv_a, _lv_b = vspan_at(s["lvl_f"])
+    lv_a = lv_a[ridx]
+    has_lvl = s["has_lvl"][ridx]
+
+    cols = (
+        (cbase + o_extra, len(extra_blob)),
+        (cbase + o_host, len(b"host:")),
+        (host_a, np.where(has_host, host_l, 0)),
+        (cbase + o_time, len(b"\ttime:")),
+        (cbase + o_ts + ts_off, ts_len),
+        (np.where(has_msg, cbase + o_msg, 0),
+         np.where(has_msg, len(b"\tmessage:"), 0)),
+        (msg_a, np.where(has_msg, msg_l, 0)),
+        (np.where(has_lvl, cbase + o_lvl, 0),
+         np.where(has_lvl, len(b"\tlevel:"), 0)),
+        (lv_a, np.where(has_lvl, 1, 0)),
+        (cbase + o_sfx, len(suffix)),
+    )
+    return _ltsv_core(chunk_bytes, starts64, lens64, n, cand, ridx,
+                      src, cbase, pc, pair_flat, o_col, o_tab,
+                      cols, (), suffix, syslen, merger, encoder,
+                      scalar_fn=_scalar_jsonl)

@@ -3,9 +3,10 @@
 the device between the decode and the encode.
 
 A trimmed copy of the JAX package's ``tpu/fused_routes.py`` with its
-four GELF legs of rfc5424, rfc3164, ltsv and gelf input.  The split tier
-(``device_gelf`` / ``device_rfc3164`` / ``device_ltsv`` /
-``device_gelf_gelf``) runs the decode
+four GELF legs of rfc5424, rfc3164, ltsv and gelf input and its
+rfc5424 → LTSV leg.  The split tier (``device_gelf`` / ``device_rfc3164``
+/ ``device_ltsv`` / ``device_gelf_gelf`` / ``device_ltsv_out``) runs the
+decode
 and the encode as two launches with the decode's channel tensor written
 to device memory in between; a fused route decodes and probes in one
 kernel and assembles in a second:
@@ -17,14 +18,17 @@ kernel and assembles in a second:
 - FL, ``ltsv_gelf``: L1's row decode and EL's probe at 6 pairs, then
   EL's assemble;
 - FG, ``gelf_gelf``: K5's flat row decode (8 fields) and EG's probe,
-  then EG's assemble.
+  then EG's assemble;
+- FO/ltsv, ``rfc5424_ltsv``: K1's row decode (6 pairs) and OL's probe,
+  then OL's assemble (``csrc/fused_ltsv_out.cu``).
 
 One decode per taken batch: the probe decodes each row once, keeps the
 channels in shared memory for its encode, and writes the channels the
 encode reads for its tier rows to a device tensor that :class:`_FusedRows`
 keeps until the assemble, which reads them and runs no decode
 (``kernels.FUSED_CARRY`` int32 a row, :func:`carried_columns`): for F1
-and F3 the :data:`DEMAND` channels, for FL what EL's assemble reads
+and F3 the :data:`DEMAND` channels, for FO/ltsv the channels OL's
+assemble reads (:data:`_LTSV_OUT_CARRY`), for FL what EL's assemble reads
 after pair selection and the sort (the sorted pairs' escaped spans, the
 host and message spans, the level), not the 24-part table, and for FG
 what EG's assemble reads after special routing and the sort (the sorted
@@ -56,8 +60,9 @@ reference passes its driver none).
 Left out, on purpose: the fused compile watchdog and
 ``FLOWGGER_FUSED_COMPILE_TIMEOUT_MS`` (the CUDA kernels build once,
 before the first batch, and a failed build raises), the AOT
-``fused_wrap``, the metrics registry and the four other routes of the
-reference's ``ROUTES``.
+``fused_wrap`` and the metrics registry.  The reference's other three
+routes of ``ROUTES`` (``rfc5424_rfc5424``, ``rfc3164_rfc5424``,
+``rfc5424_capnp``) come with their output formats.
 
 Plain versions (the CPU): the format's plain decode, narrowed to
 :data:`DEMAND`, then the split tier's plain encode; the probe's decode is
@@ -74,6 +79,7 @@ DIFF_TEST = (
     "tests/test_torch_fused.py::test_fused_split_scalar_bytes_equal",
     "tests/test_torch_fused.py::test_fused_probe_matches_reference",
     "tests/test_torch_fused_gelf.py::test_fused_gelf_matches_reference",
+    "tests/test_torch_fused_ltsv_out.py::test_fused_probe_matches_reference",
 )
 
 from typing import Dict, Optional
@@ -113,7 +119,23 @@ DEMAND = {
         "ok", "n_fields", "key_start", "key_end", "val_start",
         "val_end", "val_type", "key_esc", "val_esc",
     )),  # the canonicalizing re-encode touches every channel
+    "rfc5424_ltsv": frozenset((
+        "ok", "has_high", "facility", "severity", *_TS4,
+        "host_start", "host_end", "app_start", "app_end",
+        "proc_start", "proc_end", "msgid_start", "msgid_end",
+        "full_start", "msg_trim_start", "trim_end",
+        "pair_count", "name_start", "name_end",
+        "val_start", "val_end", "val_has_esc",
+    )),  # drops: bom, msg_start, sd_count, sid_start/end, pair_sd
 }
+# FO/ltsv's carried row: the DEMAND channels OL's assemble reads (not ok,
+# has_high, the stamp or val_has_esc, which only its probe reads), in
+# K1's packed order; fused_ltsv_out.cu keptO
+_LTSV_OUT_CARRY = frozenset((
+    "facility", "severity", "host_start", "host_end", "app_start",
+    "app_end", "proc_start", "proc_end", "msgid_start", "msgid_end",
+    "pair_count", "full_start", "trim_end", "msg_trim_start",
+    "name_start", "name_end", "val_start", "val_end"))
 # FL's carried row: the row values EL's assemble reads, then each sorted
 # pair's four escaped span ends (fused_gelf.cu kCarryL)
 _LTSV_CARRY_ROW = ("pair_count", "host_s", "host_e", "msg_s", "msg_e",
@@ -146,7 +168,7 @@ def carried_columns(route: str):
 
         return [(k, None) for k in _GELF_CARRY_ROW] + [
             (k, p) for p in range(BASE_FIELDS) for k in _GELF_CARRY_PAIR]
-    demand = DEMAND[route]
+    demand = _LTSV_OUT_CARRY if route == "rfc5424_ltsv" else DEMAND[route]
     if route == "rfc3164_gelf":
         from .rfc3164 import KEYS
 
@@ -210,9 +232,9 @@ class _FusedRows:
     ``device_gelf._Rows``): ``probe`` and ``assemble`` launch the fused
     kernel on a CUDA batch, and run the plain decode and encode on a CPU
     batch; ``small_channels`` hands back the ``ok`` and timestamp
-    channels the probe produced.  The probe's decode (the kernel's
-    carried channels and tier bits, or the plain decode) is kept for the
-    assemble, which raises without it."""
+    channels the probe produced (FO/ltsv: and its gaps).  The probe's
+    decode (the kernel's carried channels and tier bits, or the plain
+    decode) is kept for the assemble, which raises without it."""
 
     def __init__(self, route, batch, lens, suffix, extras, year):
         self.route = route
@@ -221,9 +243,14 @@ class _FusedRows:
         self.device = batch.device
         self.suffix, self.extras, self.year = suffix, extras, year
         self.small = None
+        self.gaps = None       # FO/ltsv's gap0 / gap1 [2, N]
         self.dec = None        # the plain decode, kept from the probe
         self.carried = None    # the kernel's (chan, tier), kept from it
-        if route.fmt == "rfc3164":
+        # the → LTSV rows leave the stamp text to the host splice
+        self.ts_in_row = route.out == "gelf"
+        if route.out == "ltsv":
+            from . import device_ltsv_out as split
+        elif route.fmt == "rfc3164":
             from . import device_rfc3164 as split
         elif route.fmt == "ltsv":
             from . import device_ltsv as split
@@ -260,7 +287,8 @@ class _FusedRows:
         return {k: v for k, v in dec.items() if k in demand}
 
     def _plain_encode(self, dec, **kw):
-        if self.route.fmt in ("rfc3164", "ltsv", "gelf"):
+        if self.route.fmt in ("rfc3164", "ltsv", "gelf") or \
+                self.route.out == "ltsv":
             return self.split.encode_rows(self.batch, self.lens, dec,
                                           suffix=self.suffix,
                                           extras=self.extras, **kw)
@@ -277,6 +305,14 @@ class _FusedRows:
         [5, N]: ok, days, sod, off, nanos; for FL the narrowed buffer of
         ``device_ltsv.small_pack``; for FG EG's int32 [3, N] stamp
         channels, 0 off its tier; 0 past ``n``)."""
+        if self.batch.is_cuda and self.route.out == "ltsv":
+            from .kernels import fused_ltsv_out_cuda
+
+            base, base_len, self.small, chan, self.gaps = \
+                fused_ltsv_out_cuda(self.batch, self.lens, n, self.bank,
+                                    self.table)
+            self.carried = (chan, base)
+            return base, base_len
         if self.batch.is_cuda:
             from .kernels import fused_gelf_cuda
 
@@ -297,12 +333,23 @@ class _FusedRows:
             self.small = torch.stack([
                 torch.where(live, dec[k].to(torch.int32), 0)
                 for k in ("ok",) + _TS4])
+        if self.route.out == "ltsv":
+            base, base_len, self.gaps = self._plain_encode(
+                dec, assemble=False, n=n)
+            return base, base_len
         return self._plain_encode(dec, assemble=False, n=n)
 
     def assemble(self, ts_text, ts_len, row_off, total, n: int):
         if self.carried is None and self.dec is None:
             raise RuntimeError("a fused assemble needs its probe's decode: "
                                "probe the batch first")
+        if self.batch.is_cuda and self.route.out == "ltsv":
+            from .kernels import fused_ltsv_out_cuda
+
+            chan, tier = self.carried
+            return fused_ltsv_out_cuda(
+                self.batch, self.lens, n, self.bank, self.table, OW=self.OW,
+                row_off=row_off, total=total, chan=chan, tier=tier)
         if self.batch.is_cuda:
             from .kernels import fused_gelf_cuda
 
@@ -314,8 +361,9 @@ class _FusedRows:
                 tier=tier)
         from .device_gelf import flat_rows
 
-        rows, out_len, _ = self._plain_encode(self.dec, ts_text=ts_text,
-                                              ts_len=ts_len)
+        kw = {} if self.route.out == "ltsv" else {"ts_text": ts_text,
+                                                  "ts_len": ts_len}
+        rows, out_len, _ = self._plain_encode(self.dec, **kw)
         return flat_rows(rows, out_len, row_off, total)
 
     def small_channels(self, n: int):
@@ -327,23 +375,33 @@ class _FusedRows:
         h = self.small[:, :n].cpu().numpy()
         small = {"ok": h[0] != 0, "days": h[1], "sod": h[2], "off": h[3],
                  "nanos": h[4]}
+        if self.route.out == "ltsv":
+            gaps, gbytes = self.split.gaps_small(self.gaps, n, self.OW)
+            small.update(gaps)
+            return small, h.nbytes + gbytes
         return small, h.nbytes
 
 
 class FusedRoute:
-    """One (in-format → GELF) fused program plus its driver recipe."""
+    """One (in-format → out-format) fused program plus its driver
+    recipe."""
 
-    __slots__ = ("name", "fmt")
+    __slots__ = ("name", "fmt", "out")
 
-    def __init__(self, name: str, fmt: str):
+    def __init__(self, name: str, fmt: str, out: str = "gelf"):
         self.name = name
         self.fmt = fmt
+        self.out = out
 
     def route_ok(self, encoder, merger, decoder=None) -> bool:
-        """The split device tier's gate (GELF output, framing allowlist,
-        extras placement, ``FLOWGGER_DEVICE_ENCODE``, and for ltsv the
-        decoder's schema): a route the split tier would refuse is never
-        fused either."""
+        """The split device tier's gate (output encoder type, framing
+        allowlist, extras placement, ``FLOWGGER_DEVICE_ENCODE``, and for
+        ltsv input the decoder's schema): a route the split tier would
+        refuse is never fused either."""
+        if self.out == "ltsv":
+            from . import device_ltsv_out
+
+            return device_ltsv_out.route_ok(encoder, merger)
         if self.fmt == "rfc3164":
             from . import device_rfc3164
 
@@ -363,14 +421,21 @@ class FusedRoute:
     def make_kernel(self, handle: FusedHandle, encoder, merger,
                     decoder=None):
         """The driver's row object plus its kwargs (scalar oracle, the
-        elided constants, the ltsv stamp combine)."""
+        elided constants or the splice, the ltsv stamp combine, the
+        stamp's text form)."""
         from .block_common import merger_suffix
 
         suffix, syslen = merger_suffix(merger)
         extras = tuple((k, v) for k, v in encoder.extra)
         year = None
         ts_vals_fn = None
-        if self.fmt == "ltsv":
+        ts_render = None
+        if self.out == "ltsv":
+            from .device_ltsv_out import _render_display, make_elide
+            from .materialize import _scalar_line as scalar_fn
+
+            ts_render = _render_display
+        elif self.fmt == "ltsv":
             from .device_ltsv import elide_spec, ts_vals_ltsv
             from .materialize_ltsv import _scalar_ltsv
 
@@ -394,10 +459,11 @@ class FusedRoute:
             from .materialize import _scalar_line as scalar_fn
         kern = _FusedRows(self, handle.batch_dev, handle.lens_dev, suffix,
                           extras, year)
+        elide = make_elide(suffix) if self.out == "ltsv" else \
+            elide_spec(suffix, extras)
         return kern, {"suffix": suffix, "syslen": syslen,
-                      "scalar_fn": scalar_fn,
-                      "elide": elide_spec(suffix, extras),
-                      "ts_vals_fn": ts_vals_fn}
+                      "scalar_fn": scalar_fn, "elide": elide,
+                      "ts_vals_fn": ts_vals_fn, "ts_render": ts_render}
 
 
 ROUTES = {
@@ -405,6 +471,7 @@ ROUTES = {
     "rfc3164": FusedRoute("rfc3164_gelf", "rfc3164"),
     "ltsv": FusedRoute("ltsv_gelf", "ltsv"),
     "gelf": FusedRoute("gelf_gelf", "gelf"),
+    "rfc5424_ltsv": FusedRoute("rfc5424_ltsv", "rfc5424", out="ltsv"),
 }
 
 
@@ -413,10 +480,14 @@ def route_for(fmt: str, encoder, merger,
     """The registered fused route for this (fmt, encoder, merger,
     decoder) config, or None when no fused program applies (the split
     path is then the route — ``input.tpu_fuse = "auto"`` semantics).
-    Every route here is a GELF leg, so its split tier's gate (which
-    takes only the GELF encoder, and for ltsv no typed schema)
+    The → GELF legs keep their format-keyed registrations, the → LTSV
+    leg keys on ``{fmt}_ltsv``; the route's split tier's gate (output
+    encoder type, framing, extras, and for ltsv input no typed schema)
     decides."""
-    route = ROUTES.get(fmt)
+    from ..encoders import LTSVEncoder
+
+    route = ROUTES.get(f"{fmt}_ltsv" if type(encoder) is LTSVEncoder
+                       else fmt)
     if route is None or not route.route_ok(encoder, merger, decoder):
         return None
     return route
@@ -460,4 +531,5 @@ def fetch_encode(handle: FusedHandle, packed, encoder, merger,
         kern, packed, encoder, merger, state, kw["suffix"], kw["syslen"],
         scalar_fn=kw["scalar_fn"], fallback_frac=FALLBACK_FRAC,
         decline_limit=DECLINE_LIMIT, cooldown=COOLDOWN,
-        elide=kw["elide"], timings=timings, ts_vals_fn=kw["ts_vals_fn"])
+        elide=kw["elide"], timings=timings, ts_vals_fn=kw["ts_vals_fn"],
+        ts_render=kw["ts_render"])

@@ -41,12 +41,23 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
   ``_fused_gelf_gelf``;
 - ``classify_auto`` — AC, the auto-detect classifier: one class code a
   row of a mixed batch (replaces the jnp ``autodetect.classify_device``,
-  not a ``pallas_call``).
+  not a ``pallas_call``), with the dns overlay of ``_extras_adjust`` as a
+  flag (AC+dns);
+- ``decode_dns`` — DN, the per-row DNS query-log channels (replaces the
+  jnp ``dns.decode_dns``, not a ``pallas_call``);
+- ``encode_ltsv_out`` — OL, the RFC5424→LTSV encode of the split tier
+  for LTSV output, a probe and an assemble (replaces the jnp
+  ``device_ltsv_out._encode_kernel``);
+- ``fused_ltsv_out`` — FO/ltsv, the fused rfc5424→LTSV route: K1's row
+  decode and OL's probe in one kernel, then OL's assemble from the
+  carried channels (replaces the jnp + Pallas
+  ``fused_routes._fused_rfc5424_ltsv``).
 
 The one-warp-a-row kernels share their device code through headers in
 ``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
 ``decode_rfc3164_row.cuh``, ``encode_gelf_row.cuh``,
-``structural_index_row.cuh``, ``encode_gelf_gelf_row.cuh``, ...); each
+``structural_index_row.cuh``, ``encode_gelf_gelf_row.cuh``,
+``encode_ltsv_out_row.cuh``, ...); each
 ``.cu`` still builds to one library.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
@@ -63,8 +74,9 @@ choose between them by the tensor's device (``framing.sep_spans``,
 ``framing.syslen_spans``, ``framing.gather``,
 ``rfc5424.decode_rfc5424_submit``, ``rfc3164.decode_rfc3164_submit``,
 ``jsonl.decode_jsonl_submit``, ``ltsv.decode_ltsv_submit``,
-``gelf.decode_on``, ``device_gelf._Rows``, ``device_rfc3164._Rows``,
-``device_ltsv._Rows``, ``device_gelf_gelf._Rows``,
+``gelf.decode_on``, ``dns.decode_dns_submit``, ``device_gelf._Rows``,
+``device_rfc3164._Rows``, ``device_ltsv._Rows``,
+``device_gelf_gelf._Rows``, ``device_ltsv_out._Rows``,
 ``fused_routes._FusedRows`` and ``autodetect.classify_rows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
@@ -97,6 +109,9 @@ _SOURCES = {
     "fused_gelf": "fused_gelf.cu",
     "decode_ltsv": "decode_ltsv.cu",
     "classify_auto": "classify_auto.cu",
+    "decode_dns": "decode_dns.cu",
+    "encode_ltsv_out": "encode_ltsv_out.cu",
+    "fused_ltsv_out": "fused_ltsv_out.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,7 +120,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel (the decode kernels count
 # their instantiations apart: 6 and 16 pairs, 8, 16 and 24 fields; K5's
-# flat mode, nested = 0, counts apart from its nested mode as "_flat")
+# flat mode, nested = 0, counts apart from its nested mode as "_flat",
+# and AC with the dns overlay as "classify_auto_dns")
 LAUNCHES: Dict[str, int] = {
     "frame_sep_spans": 0, "frame_syslen_spans": 0, "frame_gather": 0,
     "decode_rfc5424_p6": 0, "decode_rfc5424_p16": 0,
@@ -125,7 +141,9 @@ LAUNCHES: Dict[str, int] = {
     "encode_gelf_gelf_probe_f8": 0, "encode_gelf_gelf_assemble_f8": 0,
     "encode_gelf_gelf_probe_f16": 0, "encode_gelf_gelf_assemble_f16": 0,
     "fused_gelf_gelf_probe": 0, "fused_gelf_gelf_assemble": 0,
-    "classify_auto": 0}
+    "classify_auto": 0, "classify_auto_dns": 0, "decode_dns": 0,
+    "encode_ltsv_out_probe": 0, "encode_ltsv_out_assemble": 0,
+    "fused_rfc5424_ltsv_probe": 0, "fused_rfc5424_ltsv_assemble": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -177,7 +195,23 @@ _SIGNATURES = {
         "fg_decode_rfc3164": (_P, _P, _I, _P, _I, _I, _P),
     },
     "classify_auto": {
-        "fg_classify_auto": (_P, _P, _P, _I, _I, _P),
+        "fg_classify_auto": (_P, _P, _P, _I, _I, _I, _P),
+    },
+    "decode_dns": {
+        "fg_decode_dns": (_P, _P, _P, _I, _I, _I, _P),
+    },
+    "encode_ltsv_out": {
+        "fg_encode_ltsv_out_probe": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                     _P),
+        "fg_encode_ltsv_out_assemble": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _P, _P, _P),
+    },
+    "fused_ltsv_out": {
+        "fg_fused_ltsv_out_carry": (_I,),
+        "fg_fused_ltsv_out_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                    _P, _P),
+        "fg_fused_ltsv_out_assemble": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _P, _P, _P),
     },
     "fused_gelf": {
         "fg_fused_gelf_carry": (_I,),
@@ -217,6 +251,9 @@ _INDEX_STAGING_BYTES = 215 * 1024
 # selection after special routing and the sort (9 row values, 5 x 8 pair
 # values; encode_gelf_gelf_row.cuh kCarryG)
 FUSED_CARRY = {"rfc5424": 56, "rfc3164": 11, "ltsv": 31, "gelf": 49}
+# FO/ltsv: the channels OL's assemble reads (14 row channels, 4 x 6 pair
+# spans; fused_ltsv_out.cu kCarryO, fused_routes._LTSV_OUT_CARRY)
+FUSED_LTSV_OUT_CARRY = 38
 
 
 
@@ -596,10 +633,11 @@ def decode_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
 
 
 def classify_auto_cuda(batch: torch.Tensor, lens: torch.Tensor,
-                       n: int) -> torch.Tensor:
+                       n: int, dns: bool = False) -> torch.Tensor:
     """AC: the auto-detect class code of each of the first ``n`` rows of
     ``batch`` (u8 [N, L]), int8 [n] on the device
-    (``autodetect.classify_plain`` is its plain version)."""
+    (``autodetect.classify_plain`` is its plain version); ``dns`` adds the
+    dns overlay (counted as ``classify_auto_dns``)."""
     _need(batch, "batch", torch.uint8, 2)
     _need(lens, "lens", torch.int32, 1)
     N, L = batch.shape
@@ -608,10 +646,174 @@ def classify_auto_cuda(batch: torch.Tensor, lens: torch.Tensor,
                          f"lens={lens.shape[0]}")
     out = torch.empty(n, dtype=torch.int8, device=batch.device)
     rc = _lib("classify_auto").fg_classify_auto(
-        batch.data_ptr(), lens.data_ptr(), out.data_ptr(), n, L, _stream())
+        batch.data_ptr(), lens.data_ptr(), out.data_ptr(), n, L, int(dns),
+        _stream())
     _check(rc, "classify_auto")
-    LAUNCHES["classify_auto"] += 1
+    LAUNCHES["classify_auto_dns" if dns else "classify_auto"] += 1
     return out
+
+
+def decode_dns_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """DN: the DNS query-log channels of ``batch`` (u8 [N, L]) as one int32
+    ``[14, N]`` tensor on the device (``dns.unpack_channels`` splits it);
+    rows at and past ``n`` are padding (an empty row's channels, their
+    bytes never read)."""
+    from .dns import KEYS
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or not 1 <= L < 1 << 15 or not 0 <= n <= N:
+        raise ValueError(f"bad dns decode geometry L={L} n={n} N={N}")
+    out = torch.empty((len(KEYS), N), dtype=torch.int32, device=batch.device)
+    rc = _lib("decode_dns").fg_decode_dns(
+        batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, n, L, _stream())
+    _check(rc, "decode_dns")
+    LAUNCHES["decode_dns"] += 1
+    return out
+
+
+def encode_ltsv_out_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                         channels: torch.Tensor, n: int, bank: torch.Tensor,
+                         consts, OW: int = 0,
+                         row_off: Optional[torch.Tensor] = None,
+                         total: int = 0):
+    """OL, the device LTSV encode of the first ``n`` rows of an rfc5424
+    ``batch`` (u8 [N, L]) from K1's packed ``channels`` (int32 [C, N] at 4
+    SD elements and 6 pairs) and the constant bank (``consts``:
+    ``device_ltsv_out.kernel_consts``'s table).
+
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
+    gaps int32 [2, N])``, the tier bit before the width test, the elided
+    length (no timestamp text in it) and the gap0 / gap1 splice offsets,
+    0 for rows outside the tier and rows at or past ``n``.  With
+    ``row_off`` (int64 [N]) and the output width ``OW`` it assembles: a
+    u8 [total] buffer holding the elided bytes of each row whose offset
+    is not negative, at that offset."""
+    from .rfc5424 import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(channels, "channels", torch.int32, 2)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if channels.shape != (n_channels(4, 6), N) or lens.shape[0] != N:
+        raise ValueError("channels must be the [C, N] decode output at "
+                         "max_sd=4 and 6 pairs, lens one entry per row")
+    if not 1 <= L < 1 << 15 or not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L} n={n} N={N}")
+    dev = batch.device
+    lib = _lib("encode_ltsv_out")
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        gaps = torch.empty((2, N), dtype=torch.int32, device=dev)
+        rc = lib.fg_encode_ltsv_out_probe(
+            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
+            N, n, L, tier.data_ptr(), base_len.data_ptr(), gaps.data_ptr(),
+            _stream())
+        _check(rc, "encode_ltsv_out probe")
+        LAUNCHES["encode_ltsv_out_probe"] += 1
+        return tier, base_len, gaps
+    _need(row_off, "row_off", torch.int64, 1)
+    if row_off.shape[0] != N or OW < 1:
+        raise ValueError("row_off must have one entry per row and OW be "
+                         "positive")
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    rc = lib.fg_encode_ltsv_out_assemble(
+        batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+        bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
+        flat.data_ptr(), _stream())
+    _check(rc, "encode_ltsv_out assemble")
+    LAUNCHES["encode_ltsv_out_assemble"] += 1
+    return flat
+
+
+def fused_ltsv_out_cuda(batch: torch.Tensor, lens: torch.Tensor, n: int,
+                        bank: torch.Tensor, consts, OW: int = 0,
+                        row_off: Optional[torch.Tensor] = None,
+                        total: int = 0, chan: Optional[torch.Tensor] = None,
+                        tier: Optional[torch.Tensor] = None):
+    """FO/ltsv, the fused rfc5424→LTSV route on the first ``n`` rows of
+    ``batch`` (u8 [N, L]): K1's decode at 6 pairs, then OL (``consts``:
+    ``device_ltsv_out.kernel_consts``'s table).
+
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
+    small int32 [5, N], chan int32 [N, 38], gaps int32 [2, N])``, OL's
+    probe outputs, the ok, days, sod, off and nanos channels (zeros at and
+    past ``n``) and the carried channels: row r of ``chan`` holds the
+    :data:`FUSED_LTSV_OUT_CARRY` channels OL's assemble reads where
+    ``base[r]`` is set, and is not written elsewhere.  With ``row_off``,
+    ``OW`` and the probe's ``chan`` and ``base`` (as ``tier``) it
+    assembles from the carried channels, as :func:`fused_gelf_cuda`
+    does: no decode runs again; it raises ValueError, before any launch,
+    if a row it writes is not a probe tier row, or without ``chan`` or
+    ``tier``."""
+    assembling = row_off is not None
+    if assembling and (chan is None or tier is None):
+        raise ValueError("a fused assemble needs the probe's carried channels "
+                         "(chan) and tier bits (tier): it does not decode "
+                         "again")
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or not 4 <= L < 1 << 15:
+        raise ValueError(f"bad fused geometry L={L} N={N}")
+    if not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad fused geometry n={n} N={N}")
+    C = FUSED_LTSV_OUT_CARRY
+    dev = batch.device
+    name = "fused_rfc5424_ltsv"
+    if not assembling:
+        base = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        gaps = torch.empty((2, N), dtype=torch.int32, device=dev)
+        small = torch.empty((5, N), dtype=torch.int32, device=dev)
+        carried = torch.empty((N, C), dtype=torch.int32, device=dev)
+        rc = _lib("fused_ltsv_out").fg_fused_ltsv_out_probe(
+            batch.data_ptr(), lens.data_ptr(), consts, N, n, L,
+            base.data_ptr(), base_len.data_ptr(), gaps.data_ptr(),
+            small.data_ptr(), carried.data_ptr(), _stream())
+        _check(rc, f"{name} probe")
+        LAUNCHES[f"{name}_probe"] += 1
+        return base, base_len, small, carried, gaps
+    _need(row_off, "row_off", torch.int64, 1)
+    _need(chan, "chan", torch.int32, 2)
+    _need(tier, "tier", torch.bool, 1)
+    if row_off.shape[0] != N or OW < 1:
+        raise ValueError("row_off must have one entry per row and OW be "
+                         "positive")
+    if chan.shape != (N, C) or tier.shape[0] != N:
+        raise ValueError(f"chan must be the probe's [N, {C}] carried channels "
+                         "and tier its [N] tier bits")
+    # the carried channels exist only for the probe's tier rows
+    if bool(((row_off >= 0) & ~tier).any()):
+        raise ValueError(f"{name} assemble: row_off keeps a row outside the "
+                         "probe's tier")
+    return fused_ltsv_out_assemble_launch(batch, lens, n, bank, consts, OW,
+                                          row_off, total, chan)
+
+
+def fused_ltsv_out_assemble_launch(batch, lens, n: int, bank, consts,
+                                   OW: int, row_off, total: int,
+                                   chan) -> torch.Tensor:
+    """The launch behind :func:`fused_ltsv_out_cuda`'s assemble, after
+    its checks (no host synchronization, so a device timing loop can
+    issue it back to back); returns the u8 [total] buffer."""
+    N, L = batch.shape
+    flat = torch.empty(total, dtype=torch.uint8, device=batch.device)
+    if total == 0:
+        return flat
+    rc = _lib("fused_ltsv_out").fg_fused_ltsv_out_assemble(
+        batch.data_ptr(), lens.data_ptr(), chan.data_ptr(), bank.data_ptr(),
+        consts, N, n, L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
+    _check(rc, "fused_rfc5424_ltsv assemble")
+    LAUNCHES["fused_rfc5424_ltsv_assemble"] += 1
+    return flat
 
 
 def _assemble_args(N: int, OW: int, ts_text, ts_len, row_off):

@@ -25,7 +25,15 @@ package.
   decoder's own lines and the rest each in order, since the reference
   prints the first on its fetcher thread; syslen as a multiset, the
   reference prints its end-of-stream line early).
-- ``auto_extra_formats = ["dns"]`` raises ConfigError naming its slice.
+- The dns leg (``auto_extra_formats = ["dns"]``): ``classify`` and
+  ``classify_packed`` against the reference's (its host rule under 512
+  rows, its device rule with the numpy ``_extras_adjust`` overlay at and
+  past 512) on batches with the dns mix and its classifier edges
+  (``corpus.AUTO_DNS_EDGE``: BOM'd, ``{``- and ``<``-first dns-shaped
+  rows, heads with a dot at an edge); ``encode_auto_gelf_blocks`` into
+  GELF and LTSV against the reference's (host tiers); and both CLIs into
+  GELF with the jsonl and dns legs (into LTSV:
+  ``test_torch_ltsv_out_cli.py``).
 """
 
 import contextlib
@@ -45,12 +53,14 @@ import torch
 from flowgger_tpu.config import Config as RConfig
 from flowgger_tpu.decoders.ltsv import LTSVDecoder as RLTSVDecoder
 from flowgger_tpu.encoders.gelf import GelfEncoder as RGelfEncoder
+from flowgger_tpu.encoders.ltsv import LTSVEncoder as RLTSVEncoder
 from flowgger_tpu.mergers import SyslenMerger as RSyslenMerger
 from flowgger_tpu.tpu import autodetect as RA
 
 from flowgger_tpu_torch import pipeline
 from flowgger_tpu_torch.config import Config, ConfigError
-from flowgger_tpu_torch.corpus import (AUTO_EDGE, make_auto_corpus,
+from flowgger_tpu_torch.corpus import (AUTO_DNS_EDGE, AUTO_EDGE,
+                                       make_auto_corpus, make_dns_corpus,
                                        make_gelf_tier_corpus,
                                        make_jsonl_corpus,
                                        make_ltsv_tier_corpus,
@@ -59,7 +69,7 @@ from flowgger_tpu_torch.corpus import (AUTO_EDGE, make_auto_corpus,
                                        make_tier_corpus, mask_wall_stamps,
                                        scalar_expectation, syslen_stream)
 from flowgger_tpu_torch.decoders.ltsv import LTSVDecoder
-from flowgger_tpu_torch.encoders import GelfEncoder
+from flowgger_tpu_torch.encoders import GelfEncoder, LTSVEncoder
 from flowgger_tpu_torch.mergers import LineMerger, SyslenMerger
 from flowgger_tpu_torch.tpu import autodetect as A
 from flowgger_tpu_torch.tpu import pack
@@ -162,8 +172,8 @@ def test_classify_packed_sends_a_card_batch_to_ac(monkeypatch, n, width):
 
     calls = []
 
-    def wrapper(batch, lens, m):
-        assert lens.dtype == torch.int32
+    def wrapper(batch, lens, m, dns=False):
+        assert lens.dtype == torch.int32 and not dns
         calls.append((tuple(batch.shape), m))
         return A.classify_plain(batch.as_subclass(torch.Tensor)[:m],
                                 lens[:m])
@@ -286,16 +296,94 @@ def test_encode_auto_gelf_blocks_matches_reference(monkeypatch, capsys):
 
 
 def test_dns_leg_raises():
-    with pytest.raises(ConfigError, match="queue A item 5"):
-        pipeline.Pipeline(Config.from_string(
-            '[input]\ntype = "stdin"\nformat = "auto_tpu"\n'
-            'auto_extra_formats = ["dns"]\n[output]\ntype = "stdout"\n'),
-            device="cpu")
+    """The extra legs' validation: the dns leg is accepted (a pipeline
+    builds with it), an unknown format or a non-list raises, as in the
+    reference."""
+    pipeline.Pipeline(Config.from_string(
+        '[input]\ntype = "stdin"\nformat = "auto_tpu"\n'
+        'auto_extra_formats = ["dns"]\n[output]\ntype = "stdout"\n'),
+        device="cpu")
+    assert A.auto_extra_formats(Config.from_string(
+        '[input]\nauto_extra_formats = ["dns", "jsonl"]\n')) == \
+        RA.auto_extra_formats(RConfig.from_string(
+            '[input]\nauto_extra_formats = ["dns", "jsonl"]\n')) == \
+        ("jsonl", "dns")
+    with pytest.raises(ConfigError, match="must be a list"):
+        A.auto_extra_formats(Config.from_string(
+            '[input]\nauto_extra_formats = "dns"\n'))
     with pytest.raises(ConfigError, match="unknown format"):
         A.auto_extra_formats(Config.from_string(
             '[input]\nauto_extra_formats = ["capnp"]\n'))
     assert A.auto_extra_formats(Config.from_string(
         '[input]\nauto_extra_formats = ["jsonl"]\n')) == ("jsonl",)
+
+
+def _dns_rows(n: int, seed: int):
+    rows = list(AUTO_DNS_EDGE) + list(AUTO_EDGE)
+    rows += [b"\xef\xbb\xbf" + r for r in make_dns_corpus(10, seed)[0]]
+    rows += [b"{" + r for r in make_dns_corpus(10, seed + 1)[0]]
+    rows += make_auto_corpus(n, seed, dns=True)[0] + _fuzz_rows(n // 4,
+                                                                 seed)
+    return rows[:n]
+
+
+DNS_EXTRAS = [("dns",), ("jsonl", "dns")]
+
+
+def test_classify_dns_matches_reference():
+    rows = _dns_rows(1500, 12)
+    for extras in DNS_EXTRAS:
+        got = [A.classify(r, extras) for r in rows]
+        assert got == [RA.classify(r, extras) for r in rows]
+        assert 5 in got
+
+
+@pytest.mark.parametrize("n", [300, 700])
+@pytest.mark.parametrize("extras", DNS_EXTRAS, ids=["dns", "jsonl_dns"])
+@pytest.mark.parametrize("width", [64, 512])
+def test_classify_packed_dns_matches_reference(n, extras, width):
+    """The dns overlay computed by the classifier (AC's plain version)
+    against the reference's classify_packed: its host rule below 512
+    rows, its device rule and numpy overlay at and past 512; rows past
+    the width from their raw bytes in both."""
+    rows = _dns_rows(n, 3 * n + width)
+    packed = pack.pack_lines_2d(rows, width)
+    want = RA.classify_packed(packed, extras=extras)
+    tp = (torch.from_numpy(packed[0]), torch.from_numpy(packed[1])) \
+        + packed[2:]
+    got = A.classify_packed(tp, extras)
+    assert np.array_equal(got, want) and (got == 5).sum() > 10
+
+
+@pytest.mark.parametrize("output", ["gelf", "ltsv"])
+def test_encode_auto_blocks_dns_matches_reference(monkeypatch, output):
+    """A mixed batch with the dns leg into GELF and LTSV (host tiers on
+    both sides): the block bytes, bounds, errors, emit and error rows of
+    the reference's."""
+    monkeypatch.setenv("FLOWGGER_DEVICE_ENCODE", "0")
+    rows = _dns_rows(700, 13)
+    packed = pack.pack_lines_2d(rows, L)
+    tp = (torch.from_numpy(packed[0]), torch.from_numpy(packed[1])) \
+        + packed[2:]
+    cfg, rcfg = Config.from_string(""), RConfig.from_string("")
+    enc, renc = ((LTSVEncoder(cfg), RLTSVEncoder(rcfg)) if output == "ltsv"
+                 else (GelfEncoder(cfg), RGelfEncoder(rcfg)))
+    said, rsaid = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(said), \
+            contextlib.redirect_stderr(io.StringIO()):
+        got = A.encode_auto_gelf_blocks(tp, enc, SyslenMerger(),
+                                        LTSVDecoder(cfg), {}, ("dns",))
+    with contextlib.redirect_stdout(rsaid), \
+            contextlib.redirect_stderr(io.StringIO()):
+        want = RA.encode_auto_gelf_blocks(packed, renc, RSyslenMerger(),
+                                          RLTSVDecoder(rcfg), {},
+                                          extras=("dns",))
+    assert (mask_wall_stamps(got.block.data, T0)
+            == mask_wall_stamps(want.block.data, T0))
+    assert np.array_equal(got.block.bounds, want.block.bounds)
+    assert got.errors == want.errors and got.error_rows == want.error_rows
+    assert np.array_equal(got.emit, want.emit)
+    assert said.getvalue() == rsaid.getvalue()
 
 
 def _split(lines):
@@ -317,20 +405,26 @@ def _run(pkg, cfg, data):
                           cwd=str(ROOT), timeout=600)
 
 
-@pytest.mark.parametrize("framing", ["line", "nul", "syslen"])
+@pytest.mark.parametrize("framing", ["line", "nul", "syslen", "line_dns"])
 def test_cli_auto_matches_jax_package(tmp_path, framing):
     """One auto_tpu config through both CLIs: the port runs its whole
     ladder (on the CPU the plain versions of AC, the decodes and the
     split tiers, the host tier, the oracle), the reference its host tier
     (its device compiles on the CPU are not what this holds).  The NUL
     run adds the jsonl leg (``auto_extra_formats = ["jsonl"]``) and
-    JSON-lines rows."""
+    JSON-lines rows; line_dns the jsonl and dns legs, their rows and the
+    dns classifier's edges."""
     lines = make_auto_corpus(600, seed=71)[0] \
         + make_auto_corpus(500, seed=72, tier=True)[0]
     extras = ""
     if framing == "nul":
         lines += make_jsonl_corpus(150, seed=73)[0]
         extras = 'auto_extra_formats = ["jsonl"]\n'
+    if framing == "line_dns":
+        framing = "line"
+        lines = (make_auto_corpus(500, seed=74, dns=True)[0]
+                 + make_jsonl_corpus(100, seed=75)[0])
+        extras = 'auto_extra_formats = ["jsonl", "dns"]\n'
 
     if framing == "syslen":
         data = syslen_stream(lines)

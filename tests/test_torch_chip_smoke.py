@@ -424,8 +424,10 @@ def test_gelf_phases_are_named_and_cut():
     assert {"structural_index_flat_f8", "encode_gelf_gelf_probe_f8",
             "encode_gelf_gelf_probe_f16"} <= set(chip_smoke.PATHS["gelf_line"][3])
     assert chip_smoke.GELF_LINES == 4 * chip_smoke.BATCH
-    assert chip_smoke.JSONL_LINES == 4 * chip_smoke.BATCH
-    assert chip_smoke.AB_BATCHES == 2
+    # cut from 4 batches (and AB_BATCHES from 2) when the LTSV-output and
+    # dns paths came
+    assert chip_smoke.JSONL_LINES == 2 * chip_smoke.BATCH
+    assert chip_smoke.AB_BATCHES == 1
 
 
 def test_auto_case_checks_and_records_its_shape(monkeypatch):
@@ -439,7 +441,7 @@ def test_auto_case_checks_and_records_its_shape(monkeypatch):
     from flowgger_tpu_torch.corpus import AUTO_EDGE, make_auto_corpus
     from flowgger_tpu_torch.tpu import autodetect, kernels, pack
 
-    def classify(b, l, n):
+    def classify(b, l, n, dns=False):
         kernels.LAUNCHES["classify_auto"] += 1
         return autodetect.classify_plain(b[:n], l[:n])
 
@@ -461,7 +463,7 @@ def test_auto_case_checks_and_records_its_shape(monkeypatch):
         kernels.classify_auto_cuda(bt, lt, 5)
     assert seen == {("classify_auto", tuple(bt.shape))}
 
-    def wrong(b, l, n):
+    def wrong(b, l, n, dns=False):
         out = classify(b, l, n)
         out[3] = (out[3] + 1) % 4
         return out
@@ -491,10 +493,11 @@ def test_mixed_phases_are_named_and_sized():
     assert chip_smoke.RECORD_LINES == chip_smoke.BATCH
     B = chip_smoke.BATCH
     assert (chip_smoke.LTSV_LINES, chip_smoke.RFC3164_LINES,
-            chip_smoke.RFC5424_LINES, chip_smoke.AB_BATCHES) == \
-        (4 * B, 4 * B, 4 * B, 2)
+            chip_smoke.RFC5424_LINES, chip_smoke.AB_BATCHES,
+            chip_smoke.SYSLEN_LINES) == (4 * B, 4 * B, 4 * B, 1, 2 * B)
     assert set(chip_smoke.COOLING) == {"rfc5424_line", "rfc3164_line",
-                                       "ltsv_line", "gelf_line"}
+                                       "ltsv_line", "gelf_line",
+                                       "rfc5424_ltsv_line"}
 
 
 @pytest.mark.parametrize("name", ["auto_tier", "record_rfc3164"])
@@ -585,3 +588,136 @@ def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
     assert rep["cli_wall_s"] > 0 and rep["output_bytes"] > 0
     assert seen == [(name, "auto", rep["output_bytes"], rep["error_lines"])]
     assert total == {"frame_gather": 1}
+
+
+def test_out_phases_are_named_and_sized():
+    """The LTSV-output and dns e2e paths: their formats, outputs, sizes,
+    which run through the CLI and the kernels each must launch; the
+    rfc5424 line mix into LTSV among the paths whose tiers must cool."""
+    paths = chip_smoke.OUT_PATHS
+    B = chip_smoke.BATCH
+    assert set(paths) == {"rfc5424_ltsv_line", "rfc5424_ltsv_tier",
+                          "dns_line", "dns_ltsv", "auto_dns_ltsv",
+                          "ltsv_out_rfc3164", "ltsv_out_ltsv",
+                          "ltsv_out_gelf", "ltsv_out_jsonl",
+                          "ltsv_out_schema"}
+    for name, (fmt, keys, output, kind, n, maker, cli, need,
+               need_off) in paths.items():
+        assert output == ("gelf" if name == "dns_line" else "ltsv")
+        assert n == (4 * B if name in ("rfc5424_ltsv_line",
+                                       "rfc5424_ltsv_tier", "dns_line")
+                     else B)
+        assert cli == (not name.startswith("ltsv_out_"))
+        assert need[:2] == ("frame_sep_spans", "frame_gather")
+        assert (need_off is None) == (name != "rfc5424_ltsv_tier")
+        assert ("decode_dns" in need) == ("dns" in name)
+    assert "classify_auto_dns" in paths["auto_dns_ltsv"][7]
+    assert paths["rfc5424_ltsv_tier"][8][-2:] == ("encode_ltsv_out_probe",
+                                                  "encode_ltsv_out_assemble")
+    assert "rfc5424_ltsv_line" in chip_smoke.COOLING
+    assert set(chip_smoke.MIXED_CLI) == {"auto_line", "auto_tier",
+                                         "record_rfc5424", "record_auto"}
+
+
+def test_dns_and_ac_dns_cases_check_on_the_cpu(monkeypatch):
+    """DN's and AC+dns's chip checks on the CPU, the wrappers standing in
+    with the plain versions (counting their launches): every channel and
+    class code compared, the shape recorded, a bytes bound; a stand-in
+    that differs fails."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_auto_corpus, make_dns_corpus
+    from flowgger_tpu_torch.tpu import autodetect, dns, kernels, pack
+
+    def decode(b, l, n):
+        kernels.LAUNCHES["decode_dns"] += 1
+        d = dns.decode_dns(b, l, n=n)
+        return torch.stack([d[k].to(torch.int32) for k in dns.KEYS])
+
+    def classify(b, l, n, dns=False):
+        return autodetect.classify_plain(b[:n], l[:n], dns=dns)
+
+    monkeypatch.setattr(kernels, "decode_dns_cuda", decode)
+    monkeypatch.setattr(kernels, "classify_auto_cuda", classify)
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "CHECKED", set())
+    lines = make_dns_corpus(400, seed=5)[0]
+    batch, lens, *_ = pack.pack_lines_2d(lines, 128)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    row, ref = chip_smoke.dn_case(bt, lt, len(lines))
+    assert row["name"] == "decode_dns" and row["max_abs_err"] == 0.0
+    assert row["replaces"] == "flowgger_tpu/tpu/dns.py:44"
+    assert row["bound_by"] == "bytes" and set(ref) == set(dns.KEYS)
+    lines = make_auto_corpus(500, seed=6, dns=True)[0]
+    batch, lens, *_ = pack.pack_lines_2d(lines, 128)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    row = chip_smoke.ac_case(bt, lt, len(lines), dns=True)
+    assert row["name"] == "classify_auto_dns" and row["max_abs_err"] == 0.0
+    assert "/jsonl/dns" in row["shape"]
+    assert chip_smoke.CHECKED == {("decode_dns", (512, 128)),
+                                  ("classify_auto_dns", tuple(bt.shape))}
+
+    def wrong(b, l, n):
+        out = decode(b, l, n)
+        out[3, 0] += 1
+        return out
+
+    monkeypatch.setattr(kernels, "decode_dns_cuda", wrong)
+    with pytest.raises(AssertionError, match="differ"):
+        chip_smoke.dn_case(bt, lt, len(lines))
+
+
+@pytest.mark.parametrize("name", ["dns_ltsv", "ltsv_out_schema"])
+def test_out_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
+    """phase_e2e_out end to end on the CPU at a small size (in process,
+    and through the CLI where the path has one, both with ``--device
+    cpu``; the launch checks, which need the card's kernels, emptied):
+    byte-identical to the scalar path, the start-up notice for the typed
+    schema's Record path."""
+    import contextlib
+    import io
+    import time
+
+    import flowgger_tpu_torch
+
+    fmt, keys, output, kind, _, maker, cli, _, _ = chip_smoke.OUT_PATHS[name]
+    monkeypatch.setitem(chip_smoke.OUT_PATHS, name,
+                        (fmt, keys, output, kind, 1200, maker, cli, (),
+                         None))
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+
+    def run_inproc(cfg, path):
+        err, out = io.StringIO(), io.StringIO()
+        saved = sys.stdin
+        t0 = time.perf_counter()
+        try:
+            with open(path, "rb") as raw, contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(out):
+                sys.stdin = io.TextIOWrapper(io.BufferedReader(raw))
+                pipe = flowgger_tpu_torch.start(str(cfg), device="cpu")
+        finally:
+            sys.stdin = saved
+        return (time.perf_counter() - t0, pipe, err.getvalue().splitlines(),
+                out.getvalue().splitlines())
+
+    real_popen = subprocess.Popen
+
+    def popen(argv, *a, **kw):
+        if "flowgger_tpu_torch" in argv:
+            kw["env"] = dict(kw["env"], OMP_NUM_THREADS="1")
+            argv = [*argv, "--device", "cpu"]
+        return real_popen(argv, *a, **kw)
+
+    monkeypatch.setattr(chip_smoke, "run_inproc", run_inproc)
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
+    emitted = []
+    monkeypatch.setattr(chip_smoke, "emit", emitted.append)
+    chip_smoke.phase_e2e_out(name, 20261016)
+    rep, = emitted
+    assert rep["identical_to_scalar_path"] and rep["lines"] == 1200
+    assert ("cli_wall_s" in rep) == cli
+    run, = rep["runs"]
+    assert (run["startup_notice"] is None) == (name != "ltsv_out_schema")

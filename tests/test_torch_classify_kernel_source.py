@@ -5,7 +5,10 @@ tests/cuda_host, against its plain PyTorch version
 (``corpus.AUTO_EDGE``, each also cut to every length up to 12 bytes and
 moved to every 16-byte residue of its row) and seeded rows built from
 the bytes the decision table reads, at row widths 16, 19, 100 and 512,
-every class code exact.  Rows past ``n`` are never written."""
+every class code exact; and AC+dns (the dns overlay flag) on the auto
+mix with the dns mix and its classifier edges (``corpus.AUTO_DNS_EDGE``)
+and seeded dns-shaped rows, against ``classify_plain(..., dns=True)``.
+Rows past ``n`` are never written."""
 
 import sys
 from pathlib import Path
@@ -14,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from flowgger_tpu_torch.corpus import AUTO_EDGE, make_auto_corpus
+from flowgger_tpu_torch.corpus import (AUTO_DNS_EDGE, AUTO_EDGE,
+                                       make_auto_corpus)
 from flowgger_tpu_torch.tpu import pack
 from flowgger_tpu_torch.tpu.autodetect import classify, classify_plain
 
@@ -62,10 +66,11 @@ def _rows():
     return rows
 
 
-def _kernel(lib, batch, lens, n):
+def _kernel(lib, batch, lens, n, dns=False):
     out = np.full(batch.shape[0] + 4, 99, np.int8)
     assert lib.fg_classify_auto(batch.ctypes.data, lens.ctypes.data,
-                                out.ctypes.data, n, batch.shape[1], None) == 0
+                                out.ctypes.data, n, batch.shape[1],
+                                int(dns), None) == 0
     assert (out[n:] == 99).all()
     return out[:n]
 
@@ -99,5 +104,41 @@ def test_classify_kernel_source_unaligned_rows(lib):
     shifted = buf[1:].reshape(batch.shape)
     shifted[:] = batch
     assert np.array_equal(_kernel(lib, shifted, lens, n),
+                          classify_plain(torch.from_numpy(batch),
+                                         torch.from_numpy(lens)).numpy()[:n])
+
+
+def _dns_rows():
+    """The auto mix with dns, its edges, each cut short, and seeded rows
+    over the bytes the dns rule reads (digits, dots, tabs, the class
+    signatures, a BOM)."""
+    rows = list(AUTO_DNS_EDGE) + make_auto_corpus(200, seed=9, dns=True)[0]
+    for r in AUTO_DNS_EDGE[:5]:
+        rows.extend(r[:k] for k in range(0, 30, 3))
+    rng = np.random.default_rng(20261019)
+    alphabet = np.frombuffer(b"0159..\t\t\t<{:a \xef\xbb\xbf", np.uint8)
+    for _ in range(250):
+        n = int(rng.integers(0, 40))
+        rows.append(alphabet[rng.integers(0, alphabet.size, n)].tobytes())
+    rows.extend(b"1" * k + b"\t" * 5 for k in range(1, 40))
+    return rows
+
+
+@pytest.mark.parametrize("L", [19, 64, 512])
+def test_classify_kernel_source_dns_flag(lib, L):
+    rows = _dns_rows()
+    batch, lens, _, _, orig, n = pack.pack_lines_2d(rows, L)
+    got = _kernel(lib, batch, lens, n, dns=True)
+    want = classify_plain(torch.from_numpy(batch), torch.from_numpy(lens),
+                          dns=True).numpy()[:n]
+    assert np.array_equal(got, want)
+    whole = orig[:n] <= L
+    assert np.array_equal(
+        got[whole],
+        np.array([classify(r, ("dns",)) for r in rows], np.int8)[whole])
+    if L >= 64:
+        assert (got == 5).sum() > 20
+    # without the flag, the four-class table
+    assert np.array_equal(_kernel(lib, batch, lens, n),
                           classify_plain(torch.from_numpy(batch),
                                          torch.from_numpy(lens)).numpy()[:n])

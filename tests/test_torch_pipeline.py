@@ -163,11 +163,11 @@ def test_gelf_extra_static_keys_honored(tmp_path, monkeypatch, capsys):
 BAD_CONFIGS = [
     ('[input]\ntype = "tcp"\nformat = "rfc5424_tpu"\n', "input.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424"\n', "input.format"),
-    ('[input]\ntype = "stdin"\nformat = "dns_tpu"\n', "input.format"),
+    ('[input]\ntype = "stdin"\nformat = "ltsv"\n', "input.format"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "capnp"\n',
      "input.framing"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "stdout"\nformat = "ltsv"\n', "output.format"),
+     'type = "stdout"\nformat = "rfc5424"\n', "output.format"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "kafka"\n', "output.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
@@ -251,9 +251,17 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(tmp_path, monkeypatch):
         main([str(cfg)])
 
 
+# modules of the LTSV output and the dns input, among those the walk
+# must reach
+_NEW_MODULES = ("encoders.ltsv", "decoders.dns", "tpu.dns",
+                "tpu.materialize_dns", "tpu.encode_dns_block",
+                "tpu.encode_ltsv_block", "tpu.device_ltsv_out")
+
+
 def test_import_rule():
     """Every module of the port imports without JAX and without any
-    module of the JAX package."""
+    module of the JAX package (the walk reaches the LTSV output's and the
+    dns input's modules too)."""
     code = (
         "import pkgutil, sys\n"
         "import flowgger_tpu_torch as p\n"
@@ -263,8 +271,10 @@ def test_import_rule():
         "    __import__(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flowgger_tpu' or m.startswith('flowgger_tpu.')]\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        f"new = ['flowgger_tpu_torch.' + m for m in {_NEW_MODULES!r}]\n"
+        "missing = [m for m in new if m not in names]\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=str(ROOT), timeout=120,
                           env=dict(os.environ, PYTHONPATH=str(ROOT)))
