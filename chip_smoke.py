@@ -8,14 +8,14 @@ Phases, each printing JSON lines:
    the SM clock under a spin kernel, the host's CPU model and count;
 2. build  — the native host tier (``csrc/flowgger_host.cpp``, g++; a
    ``host_build`` line with the compiler's version, the flags, the
-   seconds and whether the library was cached), then the thirteen CUDA
+   seconds and whether the library was cached), then the fifteen CUDA
    sources compiled from ``flowgger_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with a ``kernel_build`` line
    for each entry function: registers, shared memory, stack and spill
    bytes as ``nvcc -Xptxas -v`` reports them (E1's, EL's and EG's four
    instantiations, E3's, F1's, F3's, FL's, FG's, OL's, FO/ltsv's and AC's
-   two each, D3, L1, DN and K5 at 8, 16 and 24 fields must be among
-   them);
+   two each, D3, L1, DN, K5 at 8, 16 and 24 fields, and O5's and FO/r5's
+   four each must be among them);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, on every element of every row, with CUDA-event
    times and the bound of each (K2 and K3 checked again on a launch after
@@ -67,7 +67,13 @@ Phases, each printing JSON lines:
    mix (``corpus.make_ltsv_out_tier_corpus``) and on 256 rows; the dns
    decode DN (every channel) on a gathered [16384, 512] batch of the dns
    tier mix and of the dns mix; AC with its dns flag (AC+dns) on a
-   gathered [16384, 512] batch of the auto mix with the dns leg;
+   gathered [16384, 512] batch of the auto mix with the dns leg; the →
+   RFC5424 encodes O5 (from K1's channels) and O5/3164 (from D3's) and
+   their fused routes FO/r5 (probe with fac8 / sev8 — and pri1 and the
+   host length on the rfc3164 leg — the stamp channels and the carried
+   channels, then the assemble from them), each probe and assemble on a
+   gathered [16384, 512] batch of the rfc5424 or rfc3164 tier mix
+   (:func:`r5_case`);
 4. native — each export of the native host tier against its plain
    numpy or Python version, byte for byte, at the e2e runs' shapes (the
    tier path's stamps and constant splice, the jsonl path's body
@@ -95,14 +101,15 @@ Phases, each printing JSON lines:
    ``cuda``: stdin → rfc5424_tpu → GELF (line framing, ``--lines``
    lines), stdin → jsonl_tpu → GELF (line framing, 32 768 lines),
    stdin → rfc5424_tpu → GELF (syslen framing, 32 768), stdin →
-   rfc5424_tpu → GELF over the tier mix (line framing, ``--lines``),
+   rfc5424_tpu → GELF over the tier mix (line framing, 32 768),
    stdin → rfc3164_tpu → GELF (line framing, one day of BSD syslog,
    65 536), stdin → rfc3164_tpu → GELF over the rfc3164 tier mix
-   (65 536), stdin → ltsv_tpu → GELF (line framing, access-log rows
+   (32 768), stdin → ltsv_tpu → GELF (line framing, access-log rows
    with ltsv.org's labels, 65 536), stdin → ltsv_tpu → GELF over
-   the ltsv tier mix (65 536), stdin → gelf_tpu → GELF (line framing,
+   the ltsv tier mix (32 768), stdin → gelf_tpu → GELF (line framing,
    GELF 1.1 payloads, 65 536) and stdin → gelf_tpu → GELF over the gelf
-   tier mix (65 536); ``--lines`` defaults to 65 536.
+   tier mix (32 768); ``--lines`` defaults to 65 536.  A tier mix's
+   batches need not cool, so two flushes do (``TIER_LINES``).
    Each runs first as ``python -m flowgger_tpu_torch cfg.toml`` in a
    subprocess, started while the scalar expectation is made beside it,
    then once in process through
@@ -136,8 +143,8 @@ Phases, each printing JSON lines:
    reset just before and read just after): stdin → auto_tpu → GELF over the four
    line mixes interleaved with the classifier's edge rows
    (``auto_line``) and over the four tier mixes (``auto_tier``, every
-   leg's split tier taking batches), 65 536 lines each; and the Record
-   path, 16 384 lines each: rfc5424 with a dynamic ``gelf_extra``,
+   leg's split tier taking batches), 65 536 and 32 768 lines; and the
+   Record path, 8 192 lines each: rfc5424 with a dynamic ``gelf_extra``,
    rfc3164 with ``level``, ltsv with a 10-key typed schema, gelf and
    jsonl with a ``gelf_extra``, auto with ``_env``.  Each must launch AC
    (auto) and each leg's decode, be byte-identical to the scalar path
@@ -150,16 +157,28 @@ Phases, each printing JSON lines:
    before and read just after; the first five also through the CLI):
    stdin → rfc5424_tpu → LTSV over cell 1's rfc5424 mix (65 536 lines,
    reporting its share of rows outside OL: over 5 %, so both tiers must
-   decline and cool) and over the → LTSV tier mix (65 536, FO/ltsv taking
+   decline and cool) and over the → LTSV tier mix (32 768, FO/ltsv taking
    every batch, and with ``tpu_fuse = "off"`` OL), dns_tpu → GELF (the
-   dns mix, 65 536) and → LTSV (its tier mix, 16 384), auto_tpu with
+   dns mix, 32 768) and → LTSV (its tier mix, 16 384), auto_tpu with
    ``auto_extra_formats = ["dns"]`` → LTSV (the four line mixes and the
    dns mix, 16 384), and rfc3164, ltsv, gelf and jsonl → LTSV and ltsv
-   with ``corpus.LTSV_SCHEMA_10`` → LTSV (the Record path), 16 384 each;
+   with ``corpus.LTSV_SCHEMA_10`` → LTSV (the Record path);
    each byte-identical to the scalar path (LTSV's ``time`` of rows
    stamped with the wall clock masked), each new kernel's launch shapes
-   checked after the runs.  Four of the Record-path configs run in
-   process only (:data:`MIXED_CLI`).
+   checked after the runs.  Then the → RFC5424 and other syslog outputs
+   (:data:`OUT_PATHS` too): rfc5424_tpu → RFC5424 over cell 1's mix
+   (65 536 lines, line framing, in process and through the CLI, its share
+   of rows outside O5 reported: over 5 %, so both tiers must decline and
+   cool), rfc5424_tpu and rfc3164_tpu → RFC5424 over their tier mixes
+   (32 768 each, in process: FO/r5 taking every batch, and with
+   ``tpu_fuse = "off"`` O5 or O5/3164), and in process only, 8 192 lines
+   each: gelf, ltsv and auto → RFC5424, jsonl → RFC5424 (the Record path,
+   its start-up notice), rfc5424 and rfc3164 → passthrough, rfc3164 →
+   RFC3164, rfc5424 → json on stdout (the inferred ``noop`` framing) and
+   rfc5424 → passthrough with ``syslog_prepend_timestamp`` (the Record
+   path, the prefix masked).  The → LTSV runs of rfc3164, ltsv, gelf and
+   jsonl run 8 192 lines since the syslog outputs came.  Five of the
+   Record-path configs run in process only (:data:`MIXED_CLI`).
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -226,9 +245,18 @@ AB_BATCHES = 1              # batches of the breakdowns, encode_ab and
                             # from 4 when the auto and Record-path runs
                             # came, from 2 when the LTSV-output and dns
                             # paths came)
-AUTO_LINES = 4 * BATCH      # lines of each auto_tpu e2e run
-RECORD_LINES = BATCH        # lines of each Record-path e2e run
-DNS_LINES = 4 * BATCH       # lines of the dns → GELF e2e run
+AUTO_LINES = 4 * BATCH      # lines of the auto_tpu line-mix e2e run
+TIER_LINES = 2 * BATCH      # lines of each tier-mix e2e run: its batches
+                            # need not cool, so two flushes do (the tier
+                            # mixes into GELF and LTSV and auto's cut
+                            # from 4 × when the syslog-output paths came)
+OUT_LINES = BATCH // 2      # lines of each in-process-only output path
+                            # (the → LTSV ones cut from BATCH when the
+                            # syslog-output paths came)
+RECORD_LINES = BATCH // 2   # lines of each Record-path e2e run (cut from
+                            # BATCH when the syslog-output paths came)
+DNS_LINES = 2 * BATCH       # lines of the dns → GELF e2e run (cut from
+                            # 4 × when the syslog-output paths came)
 BIG_REGION = 16 << 20       # bytes of K2's many-wave region
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -1071,11 +1099,14 @@ def kernels_encode(seed: int, rows: list, shapes: list):
         if P == lo:
             # the fused route F1 on the same batch
             rows.extend(route_case("f1", batch, lens_c, BATCH))
+            # O5 and FO/r5 (→ RFC5424) on the same batch
+            rows.extend(r5_cases("rfc5424", batch, lens_c, BATCH))
             fb, fl, fn = flush_batch(
                 make_tier_corpus(2 * BATCH, seed + 9)[0], "tier path", shapes)
             fp = kernels.decode_rfc5424_cuda(fb, fl, 4, lo)
             for row in (encode_case(P, fb, fl, fp, fn, *ts_text_of(fp))
-                        + route_case("f1", fb, fl, fn)):
+                        + route_case("f1", fb, fl, fn)
+                        + r5_cases("rfc5424", fb, fl, fn)):
                 shapes.append({**row, "where": "tier path, flush batch"})
             # the smallest batch the tier path takes: the end-of-stream
             # partial frame, one row in a 256-row bucket
@@ -1084,7 +1115,8 @@ def kernels_encode(seed: int, rows: list, shapes: list):
             for row in (encode_case(P, sb, sl,
                                     packed[:, :small_n].contiguous(), 200,
                                     ts_len[:small_n], ts_text[:small_n])
-                        + route_case("f1", sb, sl, 200)):
+                        + route_case("f1", sb, sl, 200)
+                        + r5_cases("rfc5424", sb, sl, 200)):
                 shapes.append({**row, "where": "tier path, end-of-stream "
                                                "batch"})
 
@@ -1376,6 +1408,8 @@ def kernels_rfc3164(seed: int, rows: list, shapes: list):
     rows.append(d3_case(batch, lens_c, year)[0])
     rows.extend(route_case("e3", batch, lens_c, BATCH))
     rows.extend(route_case("f3", batch, lens_c, BATCH))
+    # O5/3164 and FO/r5 rfc3164 (→ RFC5424) on the same batch
+    rows.extend(r5_cases("rfc3164", batch, lens_c, BATCH))
 
     fb, fl, fn = flush_batch(make_rfc3164_corpus(2 * BATCH, seed + 12)[0],
                              "rfc3164 line path", shapes)
@@ -1390,14 +1424,16 @@ def kernels_rfc3164(seed: int, rows: list, shapes: list):
         "rfc3164 tier path", shapes)
     where = "rfc3164 tier path, flush batch"
     shapes.append({**d3_case(fb, fl, year)[0], "where": where})
-    for row in route_case("e3", fb, fl, fn) + route_case("f3", fb, fl, fn):
+    for row in (route_case("e3", fb, fl, fn) + route_case("f3", fb, fl, fn)
+                + r5_cases("rfc3164", fb, fl, fn)):
         shapes.append({**row, "where": where})
 
     small_n = pack.bucket_rows(1)
     sb, sl = batch[:small_n], lens_c[:small_n]
     where = "rfc3164 paths, end-of-stream batch"
     shapes.append({**d3_case(sb, sl, year)[0], "where": where})
-    for row in route_case("e3", sb, sl, 200) + route_case("f3", sb, sl, 200):
+    for row in (route_case("e3", sb, sl, 200) + route_case("f3", sb, sl, 200)
+                + r5_cases("rfc3164", sb, sl, 200)):
         shapes.append({**row, "where": where})
 
 
@@ -2292,6 +2328,248 @@ def kernels_ltsv_out(seed: int, rows: list, shapes: list):
         for row in ol_case(kind, batch[:256].contiguous(),
                            lens_c[:256].contiguous(), 200):
             shapes.append({**row, "where": "end-of-stream batch"})
+
+
+# O5 / O5/3164 (split) and FO/r5 (fused) kinds of r5_case: (input
+# format, kernel name, source, the reference function's file:line)
+R5_KINDS = {
+    "o5": ("rfc5424", "encode_rfc5424_out",
+           "flowgger_tpu_torch/csrc/encode_rfc5424_out.cu",
+           "flowgger_tpu/tpu/device_rfc5424_out.py:220"),
+    "o3": ("rfc3164", "encode_rfc3164_rfc5424",
+           "flowgger_tpu_torch/csrc/encode_rfc5424_out.cu",
+           "flowgger_tpu/tpu/device_rfc5424_out.py:335"),
+    "fo5": ("rfc5424", "fused_rfc5424_rfc5424",
+            "flowgger_tpu_torch/csrc/fused_rfc5424_out.cu",
+            "flowgger_tpu/tpu/fused_routes.py:297"),
+    "fo3": ("rfc3164", "fused_rfc3164_rfc5424",
+            "flowgger_tpu_torch/csrc/fused_rfc5424_out.cu",
+            "flowgger_tpu/tpu/fused_routes.py:313"),
+}
+
+
+def r5_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
+    """O5 (``kind`` "o5": the split rfc5424 → RFC5424 tier's encode, from
+    K1's packed channels at 4 SD blocks and 6 pairs), O5/3164 ("o3", from
+    D3's packed channels) or FO/r5 ("fo5", "fo3": the fused routes, the
+    decode and the probe in one kernel) against its plain version on one
+    batch of ``n`` real rows: the probe's base tier bit, elided length and
+    small channels (fac8, sev8; pri1 and hostl16 on the rfc3164 leg) of
+    every row (zeros at and past ``n``; for FO/r5 also the ok / stamp
+    channels and each tier row's carried channels), and with ``assemble``
+    the assemble's bytes of every tier row (``base & (base_len <= OW)``:
+    the stamp is not in the device row) at its offset, each checked once
+    before and once after its timing loop.  Returns ``[probe row]`` or
+    ``[probe row, assemble row]``."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import (device_gelf, device_rfc5424_out,
+                                        fused_routes, kernels, rfc3164,
+                                        rfc5424)
+    from flowgger_tpu_torch.utils.timeparse import current_year_utc
+
+    fmt, name, source, replaces = R5_KINDS[kind]
+    fused = kind.startswith("fo")
+    r3 = fmt == "rfc3164"
+    suffix = b"\n"
+    N, L = batch.shape
+    dev = batch.device
+    live = torch.arange(N, device=dev) < n
+    year = current_year_utc()
+    bank_b, table = device_rfc5424_out.kernel_consts(suffix)
+    bank = device_gelf._bank_on(bank_b, dev)
+    OW = device_rfc5424_out.out_width(L, suffix)
+    route = f"{fmt}_rfc5424"
+    demand = fused_routes.DEMAND[route]
+    small_keys = ("ok", "days", "sod", "off", "nanos")
+    encode = (device_rfc5424_out.encode_rows_3164 if r3
+              else device_rfc5424_out.encode_rows)
+
+    def plain_decode():
+        dec = (rfc3164.decode_rfc3164(batch, lens_c, year) if r3
+               else rfc5424.decode_rfc5424(batch, lens_c))
+        return {k: v for k, v in dec.items() if k in demand} if fused \
+            else dec
+
+    dec0 = plain_decode()
+    packed = None
+    if not fused:
+        packed = (kernels.decode_rfc3164_cuda(batch, lens_c, year) if r3
+                  else kernels.decode_rfc5424_cuda(batch, lens_c))
+
+    def k_probe():
+        if not fused:
+            return kernels.encode_rfc5424_out_cuda(fmt, batch, lens_c, packed,
+                                                   n, bank, table)
+        base, base_len, small, chan, small8, hostl16 = \
+            kernels.fused_rfc5424_out_cuda(fmt, batch, lens_c, n, bank,
+                                           table, year=year)
+        out = (base, base_len, small8) + ((hostl16,) if r3 else ())
+        return out + (small, chan)
+
+    def p_probe():
+        dec = plain_decode() if fused else dec0
+        res = encode(batch, lens_c, dec, suffix=suffix, assemble=False, n=n)
+        if not fused:
+            return res
+        return tuple(res) + (torch.stack(
+            [torch.where(live, dec[k].to(torch.int32), 0)
+             for k in small_keys]),)
+
+    def as_int(t):
+        return t.to(torch.int32) if t.dtype == torch.uint16 else t
+
+    ref = p_probe()
+    ref_carried = (fused_routes.carried_plain(dec0, route) if fused
+                   else None)
+    probed = {}
+
+    def check_probe():
+        got = k_probe()
+        err = max(max_abs_err(as_int(g), as_int(r))
+                  for g, r in zip(got, ref))
+        if ref_carried is not None:
+            on = ref[0]
+            err = max(err, max_abs_err(got[-1][on], ref_carried[on]))
+            probed["chan"], probed["tier"] = got[-1], got[0]
+        if err:
+            raise AssertionError(f"{name} probe [{N}, {L}] n={n} disagrees "
+                                 f"with its plain version: max_abs_err "
+                                 f"{err}")
+        return err
+
+    err_p = check_probe()
+    ms_p = device_ms(k_probe)
+    check_probe()   # a launch after the timing loop
+    CHECKED.add((f"{name}_probe", (N, L)))
+
+    ref_base = ref[0]
+    real_valid = int(torch.where(live, lens_c, 0).sum())
+    gate = live & dec0["ok"].to(torch.bool) & ~dec0["has_high"].to(torch.bool)
+    n_gate = int(gate.sum())
+    pairs = 0 if r3 else int(torch.where(
+        gate, dec0["pair_count"].to(torch.int64), 0).sum())
+    n_small = 3 if r3 else 2
+    common = {"route": "cuda", "source": source, "replaces": replaces,
+              "library_ms": None}
+    carry = kernels.FUSED_R5_OUT_CARRY[fmt]
+    if not fused:
+        # bytes: the screen's channels of each real row (rfc5424: ok,
+        # has_high, pair and SD counts, fac / sev; rfc3164: its eight),
+        # the span channels of the rows they pass (rfc5424: 10 head, 8 SD
+        # and five a pair), every row's bit, length and small channels;
+        # operations: a few a channel (counted as one a row)
+        probe_bytes = ((32 * n if r3 else 24 * n + 72 * n_gate
+                        + 20 * pairs) + (5 + n_small + 2 * r3) * N)
+        probe_ops = n
+    else:
+        # bytes: each real row's valid bytes and length, every row's
+        # outputs and five stamp channels, the carried channels of each
+        # base tier row; operations: the decode's passes
+        probe_bytes = (real_valid + 4 * n + (25 + n_small + 2 * r3) * N
+                       + 4 * carry * int(ref_base.sum()))
+        probe_ops = (4 if r3 else 9) * real_valid
+    out = [{
+        "name": f"{name}_probe", **common, "max_abs_err": err_p, "ms": ms_p,
+        "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        **bound(probe_bytes, probe_ops),
+        "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
+                 f"{n_gate} rows past ok / has_high, {real_valid} valid "
+                 f"bytes"}]
+    if not assemble:
+        return out
+
+    tier = ref_base & (ref[1] <= OW)
+    gated = torch.where(tier, ref[1].to(torch.int64), 0)
+    row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
+    total = int(gated.sum())
+
+    def k_asm():
+        if not fused:
+            return kernels.encode_rfc5424_out_cuda(
+                fmt, batch, lens_c, packed, n, bank, table, OW,
+                row_off=row_off, total=total)
+        return kernels.fused_rfc5424_out_cuda(
+            fmt, batch, lens_c, n, bank, table, year=year, OW=OW,
+            row_off=row_off, total=total, chan=probed["chan"],
+            tier=probed["tier"])
+
+    def t_asm():
+        # the timed call: FO/r5's launch without its contract check,
+        # which reads a flag back from the card
+        if not fused:
+            return k_asm()
+        return kernels.fused_rfc5424_out_assemble_launch(
+            fmt, batch, lens_c, n, bank, table, OW, row_off, total,
+            probed["chan"])
+
+    def p_asm():
+        rows_, out_len, _ = encode(batch, lens_c, dec0, suffix=suffix)
+        return device_gelf.flat_rows(rows_, out_len, row_off, total)
+
+    ref_flat = p_asm()
+    if fused:
+        # the wrapper's contract: no assemble without the probe's channels,
+        # and none of a row outside the probe's tier
+        def refused(**kw):
+            try:
+                kernels.fused_rfc5424_out_cuda(fmt, batch, lens_c, n, bank,
+                                               table, year=year, OW=OW,
+                                               total=total, **kw)
+            except ValueError:
+                return True
+            return False
+
+        outside = torch.nonzero(live & ~ref_base).flatten()[:1]
+        bad_off = row_off.clone()
+        bad_off[outside] = 0
+        if (not refused(row_off=row_off, chan=None, tier=probed["tier"])
+                or (outside.numel() and not refused(
+                    row_off=bad_off, chan=probed["chan"],
+                    tier=probed["tier"]))):
+            raise AssertionError(f"{name} assemble ran against its contract")
+
+    def check_asm():
+        err = max_abs_err(k_asm(), ref_flat)
+        if err:
+            raise AssertionError(f"{name} assemble [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_a = check_asm()
+    ms_a = device_ms(t_asm)
+    check_asm()   # a launch after the timing loop
+    CHECKED.add((f"{name}_assemble", (N, L)))
+    n_tier = int(tier.sum())
+    tier_valid = int(torch.where(tier, lens_c, 0).sum())
+    tier_pairs = 0 if r3 else int(torch.where(
+        tier, dec0["pair_count"].to(torch.int64), 0).sum())
+    # bytes: the tier rows' valid bytes and lengths, the channels the
+    # assemble reads (O5: 12 row channels, 8 SD spans and five a pair;
+    # O5/3164: three; FO/r5: the carried row), every row's offset, the
+    # output written; operations: one source lookup a byte written
+    if fused:
+        ch_bytes = 4 * carry * n_tier
+    else:
+        ch_bytes = 4 * (3 * n_tier if r3 else 20 * n_tier + 5 * tier_pairs)
+    out.append({
+        "name": f"{name}_assemble", **common, "max_abs_err": err_a,
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        **bound(tier_valid + 4 * n_tier + ch_bytes + 8 * N + total, total),
+        "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
+                 f"bytes"})
+    return out
+
+
+def r5_cases(fmt: str, batch, lens_c, n: int) -> list:
+    """The split → RFC5424 encode of ``fmt``'s leg (O5 or O5/3164) and its
+    fused route (FO/r5), probe and assemble, on one batch; the kernels
+    phase runs them on the batches of the rfc5424 and rfc3164 tier mixes
+    that E1 / F1 and E3 / F3 run on."""
+    kinds = ("o5", "fo5") if fmt == "rfc5424" else ("o3", "fo3")
+    return [row for kind in kinds
+            for row in r5_case(kind, batch, lens_c, n)]
 
 
 def kernels_dns(seed: int, rows: list, shapes: list):
@@ -3194,7 +3472,7 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
 # the line mixes not chosen to engage the tiers: both tiers of each must
 # decline (DECLINE_LIMIT batches) and then cool
 COOLING = ("rfc5424_line", "rfc3164_line", "ltsv_line", "gelf_line",
-           "rfc5424_ltsv_line")
+           "rfc5424_ltsv_line", "rfc5424_r5_line")
 
 
 def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
@@ -3265,7 +3543,7 @@ MIXED_PATHS = {
                   ("frame_sep_spans", "frame_gather", "classify_auto",
                    *_LEGS, "encode_gelf_probe_p6", "encode_gelf3164_probe",
                    "encode_gelf_ltsv_probe_p6", "encode_gelf_gelf_probe_f8")),
-    "auto_tier": ("auto_tpu", "", "", "auto", AUTO_LINES,
+    "auto_tier": ("auto_tpu", "", "", "auto", TIER_LINES,
                   ("frame_sep_spans", "frame_gather", "classify_auto",
                    *_LEGS, "encode_gelf_assemble_p6",
                    "encode_gelf3164_assemble", "encode_gelf_ltsv_assemble_p6",
@@ -3302,9 +3580,10 @@ _MIXED_WRAPPERS = SHAPE_CHECKED + ("structural_index_cuda",
                                    "classify_auto_cuda")
 _NOTICE = "flowgger-tpu: columnar block route disabled for format "
 # the mixed paths that also run through the CLI (the other Record-path
-# configs run in process only since the LTSV-output and dns paths came:
-# their CLI is held by the CPU tests)
-MIXED_CLI = ("auto_line", "auto_tier", "record_rfc5424", "record_auto")
+# configs run in process only since the LTSV-output and dns paths came,
+# and record_rfc5424 since the syslog-output paths came: their CLI is
+# held by the CPU tests)
+MIXED_CLI = ("auto_line", "auto_tier", "record_auto")
 
 
 def _mixed_tables(name: str):
@@ -3480,7 +3759,7 @@ OUT_PATHS = {
                            "decode_rfc5424_p6", "decode_rfc5424_p16",
                            "encode_ltsv_out_probe"), None),
     "rfc5424_ltsv_tier": ("rfc5424_tpu", "", "ltsv", "rfc5424",
-                          RFC5424_LINES, "make_ltsv_out_tier_corpus", True,
+                          TIER_LINES, "make_ltsv_out_tier_corpus", True,
                           (*_FRAME, "fused_rfc5424_ltsv_probe",
                            "fused_rfc5424_ltsv_assemble"),
                           (*_FRAME, "decode_rfc5424_p6",
@@ -3496,41 +3775,144 @@ OUT_PATHS = {
                        "decode_rfc3164", "decode_ltsv",
                        "structural_index_flat_f8", "decode_dns",
                        "encode_ltsv_out_probe"), None),
-    "ltsv_out_rfc3164": ("rfc3164_tpu", "", "ltsv", "rfc3164", BATCH,
+    "ltsv_out_rfc3164": ("rfc3164_tpu", "", "ltsv", "rfc3164", OUT_LINES,
                          "make_rfc3164_corpus", False,
                          (*_FRAME, "decode_rfc3164"), None),
-    "ltsv_out_ltsv": ("ltsv_tpu", "", "ltsv", "ltsv", BATCH,
+    "ltsv_out_ltsv": ("ltsv_tpu", "", "ltsv", "ltsv", OUT_LINES,
                       "make_ltsv_corpus", False, (*_FRAME, "decode_ltsv"),
                       None),
-    "ltsv_out_gelf": ("gelf_tpu", "", "ltsv", "gelf", BATCH,
+    "ltsv_out_gelf": ("gelf_tpu", "", "ltsv", "gelf", OUT_LINES,
                       "make_gelf_corpus", False,
                       (*_FRAME, "structural_index_flat_f8"), None),
-    "ltsv_out_jsonl": ("jsonl_tpu", "", "ltsv", "jsonl", BATCH,
+    "ltsv_out_jsonl": ("jsonl_tpu", "", "ltsv", "jsonl", OUT_LINES,
                        "make_jsonl_corpus", False,
                        (*_FRAME, "structural_index_f8"), None),
-    "ltsv_out_schema": ("ltsv_tpu", "LTSV_SCHEMA_10", "ltsv", "ltsv", BATCH,
+    "ltsv_out_schema": ("ltsv_tpu", "LTSV_SCHEMA_10", "ltsv", "ltsv",
+                        OUT_LINES, "make_ltsv_corpus", False,
+                        (*_FRAME, "decode_ltsv"), None),
+    # cell 1's mix into RFC5424 (line framing): over 5 % of its rows fall
+    # outside O5, so FO/r5 and O5 decline and cool
+    "rfc5424_r5_line": ("rfc5424_tpu", "", "rfc5424", "rfc5424",
+                        RFC5424_LINES, "make_corpus", True,
+                        (*_FRAME, "fused_rfc5424_rfc5424_probe",
+                         "decode_rfc5424_p6", "decode_rfc5424_p16",
+                         "encode_rfc5424_out_probe"), None),
+    # cell 4's and cell 6's tier mixes into RFC5424: FO/r5 takes every
+    # batch; with tpu_fuse = "off" O5 or O5/3164 does
+    "rfc5424_r5_tier": ("rfc5424_tpu", "", "rfc5424", "rfc5424",
+                        TIER_LINES, "make_tier_corpus", False,
+                        (*_FRAME, "fused_rfc5424_rfc5424_probe",
+                         "fused_rfc5424_rfc5424_assemble"),
+                        (*_FRAME, "decode_rfc5424_p6",
+                         "encode_rfc5424_out_probe",
+                         "encode_rfc5424_out_assemble")),
+    "rfc3164_r5_tier": ("rfc3164_tpu", "", "rfc5424", "rfc3164",
+                        TIER_LINES, "make_rfc3164_tier_corpus", False,
+                        (*_FRAME, "fused_rfc3164_rfc5424_probe",
+                         "fused_rfc3164_rfc5424_assemble"),
+                        (*_FRAME, "decode_rfc3164",
+                         "encode_rfc3164_rfc5424_probe",
+                         "encode_rfc3164_rfc5424_assemble")),
+    # the other inputs into RFC5424 and the other syslog outputs, in
+    # process only (the CPU tests hold their CLIs against the JAX package)
+    "syslog_out_gelf": ("gelf_tpu", "", "rfc5424", "gelf", OUT_LINES,
+                        "make_gelf_tier_corpus", False,
+                        (*_FRAME, "structural_index_flat_f8"), None),
+    "syslog_out_ltsv": ("ltsv_tpu", "", "rfc5424", "ltsv", OUT_LINES,
                         "make_ltsv_corpus", False, (*_FRAME, "decode_ltsv"),
                         None),
+    "syslog_out_auto": ("auto_tpu", "", "rfc5424", "auto", OUT_LINES,
+                        "make_auto_corpus", False,
+                        (*_FRAME, "classify_auto", *_LEGS,
+                         "encode_rfc5424_out_probe",
+                         "encode_rfc3164_rfc5424_probe"), None),
+    "syslog_out_jsonl": ("jsonl_tpu", "", "rfc5424", "jsonl", OUT_LINES,
+                         "make_jsonl_corpus", False,
+                         (*_FRAME, "structural_index_f8"), None),
+    "syslog_out_pass5424": ("rfc5424_tpu", "", "passthrough", "rfc5424",
+                            OUT_LINES, "make_corpus", False,
+                            (*_FRAME, "decode_rfc5424_p6"), None),
+    "syslog_out_pass3164": ("rfc3164_tpu", "", "passthrough", "rfc3164",
+                            OUT_LINES, "make_rfc3164_corpus", False,
+                            (*_FRAME, "decode_rfc3164"), None),
+    "syslog_out_rfc3164": ("rfc3164_tpu", "", "rfc3164", "rfc3164",
+                           OUT_LINES, "make_rfc3164_corpus", False,
+                           (*_FRAME, "decode_rfc3164"), None),
+    "syslog_out_json": ("rfc5424_tpu", "", "json", "rfc5424", OUT_LINES,
+                        "make_tier_corpus", False,
+                        (*_FRAME, "fused_rfc5424_gelf_probe",
+                         "fused_rfc5424_gelf_assemble"), None),
+    "syslog_out_prepend": ("rfc5424_tpu", "", "passthrough", "rfc5424",
+                           OUT_LINES, "make_corpus", False,
+                           (*_FRAME, "decode_rfc5424_p6"), None),
+}
+# the [output] keys of a path beside its format (default: line framing
+# into the file; json goes to stdout with the inferred noop framing)
+OUT_KEYS = {
+    "syslog_out_json": 'type = "stdout"\n',
+    "syslog_out_prepend": ('framing = "line"\nsyslog_prepend_timestamp = '
+                           '"[year]-[month]-[day]T[hour]:[minute]:[second]Z '
+                           '"\n'),
+}
+# the paths whose config the block route cannot take: a start-up notice
+NOTICE_PATHS = ("ltsv_out_schema", "syslog_out_jsonl", "syslog_out_prepend")
+# the split tier and fused route of an (input, output) pair whose probes
+# and assembles a run's counts are held against: the kernels' names
+TIER_LAUNCHES = {
+    ("rfc5424", "ltsv"): ("encode_ltsv_out", "fused_rfc5424_ltsv"),
+    ("rfc5424", "rfc5424"): ("encode_rfc5424_out", "fused_rfc5424_rfc5424"),
+    ("rfc3164", "rfc5424"): ("encode_rfc3164_rfc5424",
+                             "fused_rfc3164_rfc5424"),
 }
 _OUT_WRAPPERS = _MIXED_WRAPPERS + ("decode_dns_cuda", "encode_ltsv_out_cuda",
-                                   "fused_ltsv_out_cuda")
+                                   "fused_ltsv_out_cuda",
+                                   "encode_rfc5424_out_cuda",
+                                   "fused_rfc5424_out_cuda")
 _OUT_LATE = MIXED_LATE + ("decode_dns", "encode_ltsv_out",
-                          "fused_rfc5424_ltsv")
+                          "fused_rfc5424_ltsv", "encode_rfc5424_out",
+                          "encode_rfc3164_rfc5424", "fused_rfc5424_rfc5424",
+                          "fused_rfc3164_rfc5424", "fused_rfc5424_gelf",
+                          "fused_rfc3164_gelf")
+_PREPEND_WALL = re.compile(rb"(^|[\n\0])\d{4}-\d\d-\d\dT\d\d:\d\d:\d\dZ ")
+_RFC3339_HEAD = re.compile(rb"(<[0-9]+>1 )([0-9]{4}-[0-9][0-9]-[0-9][0-9]T"
+                           rb"[0-9:.]+Z) ")
 
 
 def mask_stamps(data: bytes, since: float, output: str) -> bytes:
     """``data`` with the wall-clock stamps of rows without a timestamp
-    (gelf rows, from ``since`` on) set to 0: ``corpus.mask_wall_stamps``
-    for GELF, the ``time`` field for LTSV."""
+    (gelf and jsonl rows, from ``since`` on) set to 0:
+    ``corpus.mask_wall_stamps`` for GELF, the ``time`` field for LTSV,
+    the head's stamp for RFC5424; the ``syslog_prepend_timestamp`` prefix
+    of each row (``passthrough_prepend``) masked."""
     from flowgger_tpu_torch.corpus import mask_wall_stamps
+    from flowgger_tpu_torch.utils.timeparse import rfc3339_to_unix
 
-    if output == "gelf":
+    if output in ("gelf", "json"):
         return mask_wall_stamps(data, since)
+    if output == "passthrough_prepend":
+        return _PREPEND_WALL.sub(rb"\1<wall> ", data)
+    if output in ("passthrough", "rfc3164"):
+        return data
+    if output == "rfc5424":
+        def head(m):
+            wall = rfc3339_to_unix(m.group(2).decode()) >= since
+            return m.group(1) + (b"0 " if wall else m.group(2) + b" ")
+
+        return _RFC3339_HEAD.sub(head, data)
 
     def sub(m):
         return b"\ttime:0" if float(m.group(1)) >= since else m.group(0)
 
     return re.sub(rb"\ttime:([0-9][0-9.]*)", sub, data)
+
+
+def _out_keys(name: str) -> str:
+    """The [output] keys of a path beside ``format``, ``type`` and
+    ``file_path``: :data:`OUT_KEYS`, else line framing into a syslog
+    output (inferred: GELF nul, LTSV line)."""
+    output = OUT_PATHS[name][2]
+    return OUT_KEYS.get(name, 'framing = "line"\n' if output in (
+        "rfc5424", "rfc3164", "passthrough") else "")
 
 
 def _out_config(name: str, tag: str, fuse: str = "auto") -> Path:
@@ -3540,23 +3922,28 @@ def _out_config(name: str, tag: str, fuse: str = "auto") -> Path:
     in_t = getattr(corpus, keys) if keys.startswith("LTSV") else ""
     out = WORK / f"{name}_{tag}.out"
     cfg = WORK / f"{name}_{tag}.toml"
+    extra = _out_keys(name)
+    sink = "" if "type =" in extra else \
+        f'type = "file"\nfile_path = "{out}"\n'
     cfg.write_text(
         f'[input]\ntype = "stdin"\nformat = "{fmt}"\nframing = "line"\n'
         f'tpu_fuse = "{fuse}"\n' + ("" if in_t else keys) + in_t
-        + f'[output]\ntype = "file"\nformat = "{output}"\n'
-        f'file_path = "{out}"\n')
+        + f'[output]\nformat = "{output}"\n' + sink + extra)
     if out.exists():
         out.unlink()
     return cfg
 
 
-def ol_screen_share(lines: list) -> float:
-    """The share of ``lines`` outside OL's tier (its screens, the width
-    test, over-length rows), from the plain decode and the plain probe on
-    the card, a batch at a time."""
+def ol_screen_share(lines: list, output: str = "ltsv") -> float:
+    """The share of ``lines`` outside OL's tier (``output`` ltsv) or O5's
+    (rfc5424): its screens, the width test, over-length rows, from the
+    plain decode and the plain probe on the card, a batch at a time."""
     import torch
 
     from flowgger_tpu_torch.tpu import device_ltsv_out, pack, rfc5424
+    from flowgger_tpu_torch.tpu import device_rfc5424_out
+
+    split = device_rfc5424_out if output == "rfc5424" else device_ltsv_out
 
     out = 0
     for i in range(0, len(lines), BATCH):
@@ -3565,9 +3952,9 @@ def ol_screen_share(lines: list) -> float:
         bt = torch.from_numpy(b).cuda()
         lt = torch.from_numpy(ln.astype("int32")).cuda()
         dec = rfc5424.decode_rfc5424(bt, lt)
-        base, base_len, _ = device_ltsv_out.encode_rows(
-            bt, lt, dec, suffix=b"\n", assemble=False, n=n)
-        OW = device_ltsv_out.out_width(MAX_LEN, b"\n")
+        base, base_len = split.encode_rows(
+            bt, lt, dec, suffix=b"\n", assemble=False, n=n)[:2]
+        OW = split.out_width(MAX_LEN, b"\n")
         tier = (base & (base_len <= OW)).cpu().numpy()[:n]
         out += int((~(tier & (orig[:n] <= MAX_LEN))).sum())
     return out / max(len(lines), 1)
@@ -3590,18 +3977,27 @@ def e2e_out_inproc(name: str, path: Path, exp, fuse: str):
     with launch_shapes(_OUT_WRAPPERS) as seen:
         wall, pipe, errs, said = run_inproc(cfg, path)
     launches = dict(kernels.LAUNCHES)
-    got = (WORK / f"{name}_{tag}.out").read_bytes()
+    masking = "passthrough_prepend" if name == "syslog_out_prepend" \
+        else output
+    if 'type = "stdout"' in _out_keys(name):
+        # the records went to stdout, as text
+        got, said = "\n".join(said).encode(), []
+        exp_out = "\n".join(exp_out.decode("utf-8", "replace").splitlines(
+        )).encode()
+    else:
+        got = (WORK / f"{name}_{tag}.out").read_bytes()
     notice = errs[0] if errs and errs[0].startswith(_NOTICE) else None
     if notice is not None:
         errs = errs[1:]
-    if (mask_stamps(got, since, output) != mask_stamps(exp_out, since, output)
+    if (mask_stamps(got, since, masking)
+            != mask_stamps(exp_out, since, masking)
             or not same_stderr("rfc3164", errs, exp_err)
             or said != exp_notices):
         raise AssertionError(f"{name} ({fuse}): in-process e2e differs from "
                              f"the scalar path (bytes {len(got)} vs "
                              f"{len(exp_out)}, stderr lines {len(errs)} vs "
                              f"{len(exp_err)})")
-    if (notice is None) == (name == "ltsv_out_schema"):
+    if (notice is None) == (name in NOTICE_PATHS):
         raise AssertionError(f"{name}: start-up notice {notice!r}")
     want = need if fuse == "auto" else need_off
     missing = [k for k in want if launches[k] == 0]
@@ -3617,17 +4013,21 @@ def e2e_out_inproc(name: str, path: Path, exp, fuse: str):
                              f"checks: {sorted(seen - CHECKED - late)}")
     LATE.update(late)
     rstate = pipe._handler.route_state
-    split = _tier_report(rstate.get("rfc5424", {}))
-    fused = _tier_report(rstate.get("fused:rfc5424_ltsv", {}))
-    if fmt_in == "rfc5424_tpu":
+    split = _tier_report(rstate.get(kind, {}))
+    # json output is GELF (fused_routes.out_key)
+    out = "gelf" if output == "json" else output
+    fused = _tier_report(rstate.get(f"fused:{kind}_{out}", {}))
+    tiers = TIER_LAUNCHES.get((kind, output))
+    if tiers is not None:
         # one probe a probed batch and one assemble a taken batch, on
         # each tier
-        if (launches["encode_ltsv_out_probe"]
+        s_name, f_name = tiers
+        if (launches[f"{s_name}_probe"]
                 != split["taken"] + split["declined"]
-                or launches["encode_ltsv_out_assemble"] != split["taken"]
-                or launches["fused_rfc5424_ltsv_probe"]
+                or launches[f"{s_name}_assemble"] != split["taken"]
+                or launches[f"{f_name}_probe"]
                 != fused["taken"] + fused["declined"]
-                or launches["fused_rfc5424_ltsv_assemble"] != fused["taken"]):
+                or launches[f"{f_name}_assemble"] != fused["taken"]):
             raise AssertionError(f"{name} ({fuse}): {launches} for split "
                                  f"{split} and fused {fused}: not one probe "
                                  f"a probed batch and one assemble a taken "
@@ -3668,7 +4068,7 @@ def phase_e2e_out(name: str, seed: int):
      need_off) = OUT_PATHS[name]
     make = getattr(corpus, maker)
     if maker == "make_auto_corpus":
-        lines, kinds = make(n_lines, seed + 71, dns=True)
+        lines, kinds = make(n_lines, seed + 71, dns="dns" in keys)
         kinds = [k.split(":")[0] for k in kinds]
     else:
         lines, kinds = make(n_lines, seed + 71)
@@ -3677,26 +4077,30 @@ def phase_e2e_out(name: str, seed: int):
     path.write_bytes(data)
     in_t = getattr(corpus, keys) if keys.startswith("LTSV") else \
         ("[input]\n" + keys if keys else "")
-    merger = LineMerger() if output == "ltsv" else NulMerger()
+    out_keys = _out_keys(name)
+    merger = (None if 'type = "stdout"' in out_keys
+              else NulMerger() if output == "gelf" else LineMerger())
     since = time.time() - 1.0
     notices = []
     report = {"phase": "e2e", "path": name, "format": fmt_in,
               "output": output, "lines": n_lines, "input_bytes": len(data),
               "mix": {k: kinds.count(k) for k in sorted(set(kinds))}}
-    if name == "rfc5424_ltsv_line":
-        # over 5 % of its rows outside OL: both tiers must decline and
-        # cool (COOLING lists the path)
-        share = ol_screen_share(lines)
-        report["outside_ol_share"] = share
-        if share <= 0.05:
-            raise AssertionError(f"{name}: only {share:.3f} of the rows fall "
-                                 f"outside OL; COOLING expects its tiers to "
-                                 f"decline")
+    if name in ("rfc5424_ltsv_line", "rfc5424_r5_line", "rfc5424_r5_tier"):
+        # the line mixes: over 5 % of their rows outside OL or O5, so both
+        # tiers must decline and cool (COOLING lists them); the tier mix:
+        # at most 5 %
+        share = ol_screen_share(lines, output)
+        tag = "ol" if output == "ltsv" else "o5"
+        report[f"outside_{tag}_share"] = share
+        if (share > 0.05) != name.endswith("_line"):
+            raise AssertionError(f"{name}: {share:.4f} of the rows fall "
+                                 f"outside {tag.upper()}")
 
     def expectation():
         return corpus.scalar_expectation(
-            data, "line", config=Config.from_string(in_t), merger=merger,
-            fmt=kind, notices=notices, output=output)
+            data, "line",
+            config=Config.from_string(in_t + "[output]\n" + out_keys),
+            merger=merger, fmt=kind, notices=notices, output=output)
 
     if cli:
         with CliRun(_out_config(name, "cli"), path) as run:
@@ -3751,6 +4155,7 @@ def phase_late_shapes(seed: int) -> None:
     from flowgger_tpu_torch.tpu import kernels, pack
     from flowgger_tpu_torch.utils.timeparse import current_year_utc
 
+    packs = {}   # (mix, rows, L) -> the packed rows, shared by kernels
     for name, (rows, L) in sorted(LATE - CHECKED):
         if (name, (rows, L)) in CHECKED:
             continue   # an earlier case of this loop checked it
@@ -3762,6 +4167,18 @@ def phase_late_shapes(seed: int) -> None:
             "decode_dns": (corpus.make_dns_corpus, "dns mix"),
             "encode_ltsv_out": (corpus.make_ltsv_out_tier_corpus,
                                 "→ LTSV tier mix"),
+            "encode_rfc5424_out": (corpus.make_tier_corpus,
+                                   "rfc5424 tier mix"),
+            "fused_rfc5424_rfc5424": (corpus.make_tier_corpus,
+                                      "rfc5424 tier mix"),
+            "fused_rfc5424_gelf": (corpus.make_tier_corpus,
+                                   "rfc5424 tier mix"),
+            "encode_rfc3164_rfc5424": (corpus.make_rfc3164_tier_corpus,
+                                       "rfc3164 tier mix"),
+            "fused_rfc3164_rfc5424": (corpus.make_rfc3164_tier_corpus,
+                                      "rfc3164 tier mix"),
+            "fused_rfc3164_gelf": (corpus.make_rfc3164_tier_corpus,
+                                   "rfc3164 tier mix"),
             "fused_rfc5424_ltsv": (corpus.make_ltsv_out_tier_corpus,
                                    "→ LTSV tier mix"),
             "decode_rfc5424": (corpus.make_corpus, "rfc5424 mix"),
@@ -3784,6 +4201,11 @@ def phase_late_shapes(seed: int) -> None:
                                 "gelf tier mix"),
         }.get(next((k for k in ("classify_auto_dns", "decode_dns",
                                 "encode_ltsv_out", "fused_rfc5424_ltsv",
+                                "encode_rfc5424_out", "fused_rfc5424_rfc5424",
+                                "fused_rfc5424_gelf",
+                                "encode_rfc3164_rfc5424",
+                                "fused_rfc3164_rfc5424",
+                                "fused_rfc3164_gelf",
                                 "decode_rfc5424", "decode_ltsv",
                                 "decode_rfc3164", "encode_gelf3164",
                                 "encode_gelf_probe", "encode_gelf_assemble",
@@ -3791,8 +4213,10 @@ def phase_late_shapes(seed: int) -> None:
                                 "classify_auto", "encode_gelf_gelf",
                                 "fused_gelf_gelf") if name.startswith(k)),
                    None), (corpus.make_ltsv_tier_corpus, "ltsv tier mix"))
-        lines, _ = make(rows, seed + rows)
-        b, ln, *_ = pack.pack_lines_2d(lines, L)
+        if (tag, rows, L) not in packs:
+            packs[(tag, rows, L)] = pack.pack_lines_2d(
+                make(rows, seed + rows)[0], L)
+        b, ln, *_ = packs[(tag, rows, L)]
         batch = torch.from_numpy(b[:rows]).cuda()
         lens_c = torch.from_numpy(ln[:rows].astype("int32")).cuda()
         if name == "classify_auto_dns":
@@ -3802,6 +4226,14 @@ def phase_late_shapes(seed: int) -> None:
         elif name.startswith(("encode_ltsv_out", "fused_rfc5424_ltsv")):
             kind = "ol" if name.startswith("encode") else "fo"
             row = ol_case(kind, batch, lens_c, rows, assemble=assemble)[-1]
+        elif name.rsplit("_", 1)[0] in {v[1] for v in R5_KINDS.values()}:
+            kind = next(k for k, v in R5_KINDS.items()
+                        if v[1] == name.rsplit("_", 1)[0])
+            row = r5_case(kind, batch, lens_c, rows, assemble=assemble)[-1]
+        elif name.startswith(("fused_rfc5424_gelf", "fused_rfc3164_gelf")):
+            kind = "f1" if "5424" in name else "f3"
+            row = route_case(kind, batch, lens_c, rows,
+                             assemble=assemble)[-1]
         elif name.startswith("decode_rfc5424"):
             row, _ = decode_case("rfc5424", int(name.rsplit("_p", 1)[1]),
                                  batch, lens_c)
@@ -4315,9 +4747,10 @@ def main(argv=None) -> int:
     for name in PATHS:
         n = {"rfc5424_syslen": SYSLEN_LINES, "jsonl_line": JSONL_LINES,
              "rfc3164_line": RFC3164_LINES,
-             "rfc3164_tier": RFC3164_LINES, "ltsv_line": LTSV_LINES,
-             "ltsv_tier": LTSV_LINES, "gelf_line": GELF_LINES,
-             "gelf_tier": GELF_LINES}.get(name, args.lines)
+             "rfc3164_tier": TIER_LINES, "ltsv_line": LTSV_LINES,
+             "ltsv_tier": TIER_LINES, "gelf_line": GELF_LINES,
+             "gelf_tier": TIER_LINES,
+             "rfc5424_tier": TIER_LINES}.get(name, args.lines)
         for k, v in phase_e2e(name, n, args.seed, CHECKED).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")

@@ -47,7 +47,7 @@ branch of the device paths:
   (``<len> <line>`` back to back), the last frame cut short.
 
 :func:`scalar_expectation` runs the port's scalar decoder and encoder
-(GELF or LTSV) over the same bytes with the splitters' semantics — what
+(GELF, json, LTSV, RFC5424, RFC3164 or passthrough) over the same bytes with the splitters' semantics — what
 the batched path must reproduce byte for byte, stderr lines included
 (for ``auto`` each line's class picks its decoder, as the classifier
 does).
@@ -62,7 +62,8 @@ import numpy as np
 from .config import Config
 from .decoders import (DecodeError, DNSDecoder, GelfDecoder, JSONLDecoder,
                        LTSVDecoder, RFC3164Decoder, RFC5424Decoder)
-from .encoders import EncodeError, GelfEncoder, LTSVEncoder
+from .encoders import (EncodeError, GelfEncoder, LTSVEncoder,
+                       PassthroughEncoder, RFC3164Encoder, RFC5424Encoder)
 from .mergers import NulMerger
 
 # (kind, share) — the line mix
@@ -948,13 +949,20 @@ def _frames(data: bytes, framing: str):
     return parts, []
 
 
+# output.format → encoder, as the pipeline picks it
+_OUTPUTS = {"gelf": GelfEncoder, "json": GelfEncoder, "ltsv": LTSVEncoder,
+            "rfc5424": RFC5424Encoder, "rfc3164": RFC3164Encoder,
+            "passthrough": PassthroughEncoder}
+
+
 def scalar_expectation(data: bytes, framing: str = "line",
                        config: Config = None, merger=NulMerger(),
                        fmt: str = "rfc5424",
                        notices: List[str] = None,
                        output: str = "gelf") -> Tuple[bytes, List[str]]:
-    """Output bytes (``output`` GELF or LTSV, with ``config``'s
-    ``gelf_extra`` or ``ltsv_extra``; NUL-framed unless another merger is
+    """Output bytes (``output`` GELF, JSON, LTSV, RFC5424, RFC3164 or
+    passthrough, with ``config``'s ``gelf_extra``, ``ltsv_extra`` or
+    ``syslog_prepend_timestamp``; NUL-framed unless another merger is
     given, None = no framing) and stderr lines of the reference's per-record
     path over ``data``: frame (line: one trailing CR stripped; syslen:
     the octet-count scan and its EOF/bad-prefix messages; the trailing
@@ -992,7 +1000,7 @@ def scalar_expectation(data: bytes, framing: str = "line",
 
         def decoder_for(raw):
             return decoder
-    encoder = (LTSVEncoder if output == "ltsv" else GelfEncoder)(config)
+    encoder = _OUTPUTS[output](config)
     recs, tail = _frames(data, framing)
     out, errs = [], []
     for raw in recs:

@@ -8,14 +8,15 @@
 //   the pair sort with kMaxPairs :478-520, the syslen prefix :522-540,
 //   gelf_row_len :558, gelf_row_write :608, run_threaded :664,
 //   fg_gelf_lens_v2 :687, fg_gelf_write_v2 :701);
+//   fg_r5_lens / fg_r5_write :718-885 (the RFC5424 output's row writer,
+//   r5_row_len :754, r5_row_write :784);
 //   fg_concat_segments :887-904;
 //   json_f64_render :908-970 and fg_format_f64_json :976-997.
 // Left out: fg_split_lines, fg_split_syslen and fg_pack_lines :26-120
 // (the port frames on the card; its host framing serves only declines
 // and the end-of-stream record, on numpy and Python), fg_crc32c
-// :122-166 and the snappy codec :168-355 (the Kafka sink's), fg_r5_lens
-// / fg_r5_write :718-885 (RFC5424 output).  The extern "C" blocks are
-// regrouped so that none holds a namespace.
+// :122-166 and the snappy codec :168-355 (the Kafka sink's).  The
+// extern "C" blocks are regrouped so that none holds a namespace.
 //
 // Outputs are contracts held by tests/test_torch_native.py against the
 // numpy and Python versions beside the callers and against the JAX
@@ -389,6 +390,175 @@ void fg_gelf_write_v2(const uint8_t* chunk, const int32_t* meta, int64_t R,
     run_threaded(R, n_threads, [&](int64_t lo, int64_t hi) {
         for (int64_t r = lo; r < hi; r++)
             gelf_row_write(a, r, dst + out_off[r], out_off[r + 1] - out_off[r]);
+    });
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Columnar RFC5424 -> RFC5424 re-encode row assembly
+// (rfc5424_encoder.rs:28-93 semantics, batched): "<pri>1 ts host app
+// proc msgid sd msg" from raw spans — no escaping, no sorting (SD
+// blocks and pairs re-emit in original order, values verbatim per the
+// reference's Display).  Same two-phase contract as the GELF assembler.
+// rowmeta columns (int32, [R, R5_NCOL]); spans row-relative:
+// ---------------------------------------------------------------------------
+
+namespace {
+
+enum {
+    R5_START = 0, R5_PRI, R5_HOST_S, R5_HOST_E, R5_APP_S, R5_APP_E,
+    R5_PROC_S, R5_PROC_E, R5_MSGID_S, R5_MSGID_E, R5_MSG_A, R5_TRIM_E,
+    R5_NSD, R5_NPAIR, R5_TS_OFF, R5_TS_LEN, R5_NCOL
+};
+
+struct R5Args {
+    const uint8_t* chunk;
+    const int32_t* meta;
+    int64_t R;
+    const int32_t* sid_s;   // [R, SD]
+    const int32_t* sid_e;
+    int32_t SD;
+    const int32_t* pns;     // [R, P]
+    const int32_t* pne;
+    const int32_t* pvs;
+    const int32_t* pve;
+    const int32_t* psd;     // pair -> block ordinal
+    int32_t P;
+    const uint8_t* ts_scratch;
+    const uint8_t* suffix;
+    int32_t suffix_len;
+    int32_t syslen;
+};
+
+int64_t r5_row_len(const R5Args& a, int64_t r) {
+    const int32_t* m = a.meta + r * R5_NCOL;
+    int64_t len = 1 + dec_digits(m[R5_PRI]) + 2;     // '<' pri '>' '1'
+    len += 1 + m[R5_TS_LEN];                         // ' ' ts
+    len += 1 + (m[R5_HOST_E] - m[R5_HOST_S]);
+    len += 1 + (m[R5_APP_E] - m[R5_APP_S]);
+    len += 1 + (m[R5_PROC_E] - m[R5_PROC_S]);
+    len += 1 + (m[R5_MSGID_E] - m[R5_MSGID_S]);
+    len += 1;                                        // ' ' before sd
+    int nsd = m[R5_NSD];
+    if (nsd == 0) {
+        len += 1;                                    // '-'
+    } else {
+        const int32_t* ss = a.sid_s + r * a.SD;
+        const int32_t* se = a.sid_e + r * a.SD;
+        for (int k = 0; k < nsd; k++)
+            len += 2 + (se[k] - ss[k]);              // '[' sid ']'
+        const int32_t* ns = a.pns + r * a.P;
+        const int32_t* ne = a.pne + r * a.P;
+        const int32_t* vs = a.pvs + r * a.P;
+        const int32_t* ve = a.pve + r * a.P;
+        for (int j = 0; j < m[R5_NPAIR]; j++)
+            len += 1 + (ne[j] - ns[j]) + 2 + (ve[j] - vs[j]) + 1;
+    }
+    len += 1 + (m[R5_TRIM_E] - m[R5_MSG_A]);         // ' ' msg
+    len += a.suffix_len;
+    if (a.syslen) len += dec_digits(len) + 1;
+    return len;
+}
+
+uint8_t* r5_row_write(const R5Args& a, int64_t r, uint8_t* dst,
+                      int64_t framed_len) {
+    const int32_t* m = a.meta + r * R5_NCOL;
+    const uint8_t* chunk = a.chunk;
+    int64_t base = m[R5_START];
+    if (a.syslen) dst = put_syslen_prefix(dst, framed_len);
+    *dst++ = '<';
+    {
+        char buf[8];
+        int nb = snprintf(buf, sizeof buf, "%d", m[R5_PRI]);
+        dst = put(dst, buf, (size_t)nb);
+    }
+    dst = LIT(dst, ">1 ");
+    dst = put(dst, (const char*)a.ts_scratch + m[R5_TS_OFF],
+              (size_t)m[R5_TS_LEN]);
+    *dst++ = ' ';
+    dst = put(dst, (const char*)chunk + base + m[R5_HOST_S],
+              (size_t)(m[R5_HOST_E] - m[R5_HOST_S]));
+    *dst++ = ' ';
+    dst = put(dst, (const char*)chunk + base + m[R5_APP_S],
+              (size_t)(m[R5_APP_E] - m[R5_APP_S]));
+    *dst++ = ' ';
+    dst = put(dst, (const char*)chunk + base + m[R5_PROC_S],
+              (size_t)(m[R5_PROC_E] - m[R5_PROC_S]));
+    *dst++ = ' ';
+    dst = put(dst, (const char*)chunk + base + m[R5_MSGID_S],
+              (size_t)(m[R5_MSGID_E] - m[R5_MSGID_S]));
+    *dst++ = ' ';
+    int nsd = m[R5_NSD];
+    if (nsd == 0) {
+        *dst++ = '-';
+    } else {
+        const int32_t* ss = a.sid_s + r * a.SD;
+        const int32_t* se = a.sid_e + r * a.SD;
+        const int32_t* ns = a.pns + r * a.P;
+        const int32_t* ne = a.pne + r * a.P;
+        const int32_t* vs = a.pvs + r * a.P;
+        const int32_t* ve = a.pve + r * a.P;
+        const int32_t* psd = a.psd + r * a.P;
+        int npair = m[R5_NPAIR];
+        int j = 0;
+        for (int k = 0; k < nsd; k++) {
+            *dst++ = '[';
+            dst = put(dst, (const char*)chunk + base + ss[k],
+                      (size_t)(se[k] - ss[k]));
+            for (; j < npair && psd[j] == k; j++) {
+                *dst++ = ' ';
+                dst = put(dst, (const char*)chunk + base + ns[j],
+                          (size_t)(ne[j] - ns[j]));
+                dst = LIT(dst, "=\"");
+                dst = put(dst, (const char*)chunk + base + vs[j],
+                          (size_t)(ve[j] - vs[j]));
+                *dst++ = '"';
+            }
+            *dst++ = ']';
+        }
+    }
+    *dst++ = ' ';
+    dst = put(dst, (const char*)chunk + base + m[R5_MSG_A],
+              (size_t)(m[R5_TRIM_E] - m[R5_MSG_A]));
+    if (a.suffix_len)
+        dst = put(dst, (const char*)a.suffix, (size_t)a.suffix_len);
+    return dst;
+}
+
+}  // namespace
+
+extern "C" {
+
+void fg_r5_lens(const uint8_t* chunk, const int32_t* meta, int64_t R,
+                const int32_t* sid_s, const int32_t* sid_e, int32_t SD,
+                const int32_t* pns, const int32_t* pne,
+                const int32_t* pvs, const int32_t* pve,
+                const int32_t* psd, int32_t P,
+                const uint8_t* ts_scratch,
+                const uint8_t* suffix, int32_t suffix_len, int32_t syslen,
+                int64_t* out_lens, int n_threads) {
+    R5Args a{chunk, meta, R, sid_s, sid_e, SD, pns, pne, pvs, pve, psd,
+             P, ts_scratch, suffix, suffix_len, syslen};
+    run_threaded(R, n_threads, [&](int64_t lo, int64_t hi) {
+        for (int64_t r = lo; r < hi; r++) out_lens[r] = r5_row_len(a, r);
+    });
+}
+
+void fg_r5_write(const uint8_t* chunk, const int32_t* meta, int64_t R,
+                 const int32_t* sid_s, const int32_t* sid_e, int32_t SD,
+                 const int32_t* pns, const int32_t* pne,
+                 const int32_t* pvs, const int32_t* pve,
+                 const int32_t* psd, int32_t P,
+                 const uint8_t* ts_scratch,
+                 const uint8_t* suffix, int32_t suffix_len, int32_t syslen,
+                 const int64_t* out_off, uint8_t* dst, int n_threads) {
+    R5Args a{chunk, meta, R, sid_s, sid_e, SD, pns, pne, pvs, pve, psd,
+             P, ts_scratch, suffix, suffix_len, syslen};
+    run_threaded(R, n_threads, [&](int64_t lo, int64_t hi) {
+        for (int64_t r = lo; r < hi; r++)
+            r5_row_write(a, r, dst + out_off[r],
+                         out_off[r + 1] - out_off[r]);
     });
 }
 

@@ -6,6 +6,8 @@ Exports and their callers:
 
 - ``fg_gelf_lens_v2`` / ``fg_gelf_write_v2`` — the GELF row engine of
   ``tpu/encode_gelf_block``;
+- ``fg_r5_lens`` / ``fg_r5_write`` — the RFC5424 row writer of
+  ``tpu/encode_rfc5424_block`` (rfc5424 → RFC5424);
 - ``fg_concat_segments`` — the segment gather of
   ``tpu/assemble.concat_segments`` (both block encoders, the escape view
   and the device tier's splice);
@@ -49,16 +51,22 @@ MAX_PAIRS = 64   # kMaxPairs in flowgger_host.cpp: the row engine's pair cap
 
 # calls of each export since the last reset_calls()
 CALLS: Dict[str, int] = {
-    "fg_gelf_lens_v2": 0, "fg_gelf_write_v2": 0, "fg_concat_segments": 0,
-    "fg_format_f64_json": 0}
+    "fg_gelf_lens_v2": 0, "fg_gelf_write_v2": 0, "fg_r5_lens": 0,
+    "fg_r5_write": 0, "fg_concat_segments": 0, "fg_format_f64_json": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
 _INT = ctypes.c_int
 _GELF_COMMON = [_P, _P, _I64, _P, _P, _P, _P, _P, _I32, _P, _P, _I32, _I32]
+# fg_r5_lens / fg_r5_write: chunk, meta, R, sid_s, sid_e, SD, the five
+# [R, P] pair tables, P, ts scratch, suffix, its length, syslen
+_R5_COMMON = [_P, _P, _I64, _P, _P, _I32, _P, _P, _P, _P, _P, _I32, _P, _P,
+              _I32, _I32]
 _SIGNATURES = {
     "fg_gelf_lens_v2": (None, _GELF_COMMON + [_P, _INT]),
+    "fg_r5_lens": (None, _R5_COMMON + [_P, _INT]),
+    "fg_r5_write": (None, _R5_COMMON + [_P, _P, _INT]),
     "fg_gelf_write_v2": (None, _GELF_COMMON + [_P, _P, _INT]),
     "fg_concat_segments": (None, [_P, _P, _P, _P, _I64, _P, _INT]),
     "fg_format_f64_json": (None, [_P, _I64, _P, _I32, _P, _INT]),
@@ -189,6 +197,59 @@ def gelf_rows_native(chunk: bytes, meta: np.ndarray,
     CALLS["fg_gelf_write_v2"] += 1
     lib.fg_gelf_write_v2(*args, off.ctypes.data, out.ctypes.data,
                          _DEFAULT_THREADS)
+    return out, off
+
+
+def r5_rows_available() -> bool:
+    """True once the library is loaded (loading raises otherwise): the
+    RFC5424 block encoder's engine choice, which its numpy-engine tests
+    patch to False."""
+    _load()
+    return True
+
+
+def r5_rows_native(chunk: bytes, meta: np.ndarray,
+                   sid_s: np.ndarray, sid_e: np.ndarray,
+                   pns: np.ndarray, pne: np.ndarray,
+                   pvs: np.ndarray, pve: np.ndarray, psd: np.ndarray,
+                   ts_scratch: bytes, suffix: bytes, syslen: bool
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(framed buffer u8, row offsets int64[R + 1])`` of the RFC5424
+    re-encode tier rows (``fg_r5_lens`` / ``fg_r5_write``): ``meta`` is
+    ``[R, 16]`` int32 in the column order of flowgger_host.cpp's
+    ``R5_*`` enum (spans row-relative into ``chunk``), the SD tables
+    ``[R, SD]``, the pair tables ``[R, P]`` with ``psd`` each pair's block
+    ordinal (pairs of one block adjacent, blocks in order, as the rfc5424
+    decode attributes them)."""
+    lib = _load()
+    meta = np.ascontiguousarray(meta, dtype=np.int32)
+    R = meta.shape[0]
+    SD = sid_s.shape[1] if sid_s.size else 0
+    P = pns.shape[1] if pns.size else 0
+    sid_s, sid_e, pns, pne, pvs, pve, psd = [
+        np.ascontiguousarray(a, dtype=np.int32)
+        for a in (sid_s, sid_e, pns, pne, pvs, pve, psd)]
+    if R and (int(meta[:, 12].max()) > SD or int(meta[:, 13].max()) > P):
+        raise ValueError("fg_r5 rows: an SD or pair count exceeds its table")
+    cbuf = np.frombuffer(chunk, dtype=np.uint8)
+    tbuf = np.frombuffer(ts_scratch or b"\0", dtype=np.uint8)
+    sbuf = np.frombuffer(suffix or b"\0", dtype=np.uint8)
+    lens = np.empty(R, dtype=np.int64)
+    args = (cbuf.ctypes.data, meta.ctypes.data, R,
+            sid_s.ctypes.data, sid_e.ctypes.data, SD,
+            pns.ctypes.data, pne.ctypes.data, pvs.ctypes.data,
+            pve.ctypes.data, psd.ctypes.data, P,
+            tbuf.ctypes.data, sbuf.ctypes.data, len(suffix),
+            1 if syslen else 0)
+    lib.fg_r5_lens(*args, lens.ctypes.data, _DEFAULT_THREADS)
+    CALLS["fg_r5_lens"] += 1
+    off = np.empty(R + 1, dtype=np.int64)
+    off[0] = 0
+    np.cumsum(lens, out=off[1:])
+    out = np.empty(int(off[-1]), dtype=np.uint8)
+    lib.fg_r5_write(*args, off.ctypes.data, out.ctypes.data,
+                    _DEFAULT_THREADS)
+    CALLS["fg_r5_write"] += 1
     return out, off
 
 

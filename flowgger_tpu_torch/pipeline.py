@@ -7,10 +7,12 @@ the same output-framing inference.  The port runs ``input.type =
 "stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
 ``input.format = "rfc5424_tpu" | "rfc3164_tpu" | "jsonl_tpu" |
 "ltsv_tpu" | "gelf_tpu" | "dns_tpu" | "auto_tpu"``, into ``output.format
-= "gelf" | "ltsv"`` with ``output.type = "stdout" | "file"``, with any
-``[output.gelf_extra]``, ``[output.ltsv_extra]`` and
-``[input.ltsv_schema]`` (the configs the block route cannot take run the
-Record path, as the reference's do).  Anything else raises
+= "gelf" | "json" | "ltsv" | "rfc5424" | "rfc3164" | "passthrough"`` with
+``output.type = "stdout" | "debug" | "file"``, with any
+``[output.gelf_extra]``, ``[output.ltsv_extra]``,
+``output.syslog_prepend_timestamp`` and ``[input.ltsv_schema]`` (the
+configs the block route cannot take run the Record path, as the
+reference's do).  Anything else raises
 ConfigError naming the later slice; nothing quietly takes a scalar path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
@@ -25,7 +27,8 @@ from typing import Optional
 import torch
 
 from .config import Config, ConfigError
-from .encoders import GelfEncoder, LTSVEncoder
+from .encoders import (GelfEncoder, LTSVEncoder, PassthroughEncoder,
+                       RFC3164Encoder, RFC5424Encoder)
 from .mergers import LineMerger, NulMerger, SyslenMerger
 from .outputs import SHUTDOWN, DebugOutput, FileOutput
 
@@ -38,13 +41,17 @@ DEFAULT_QUEUE_SIZE = 10_000_000
 
 _LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu, " \
     "rfc3164_tpu, jsonl_tpu, ltsv_tpu, gelf_tpu, dns_tpu or auto_tpu → " \
-    "GELF or LTSV; it comes in a later slice)"
+    "GELF, JSON, LTSV, RFC5424, RFC3164 or passthrough; it comes in a " \
+    "later slice)"
 # input.format → the batch handler's decode route
 _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
             "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf",
             "dns_tpu": "dns", "auto_tpu": "auto"}
-# output.format → its encoder (the reference's get_encoder)
-_ENCODERS = {"gelf": GelfEncoder, "ltsv": LTSVEncoder}
+# output.format → its encoder (the reference's get_encoder; "json" is
+# GELF there too)
+_ENCODERS = {"gelf": GelfEncoder, "json": GelfEncoder, "ltsv": LTSVEncoder,
+             "rfc5424": RFC5424Encoder, "rfc3164": RFC3164Encoder,
+             "passthrough": PassthroughEncoder}
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -105,11 +112,11 @@ class Pipeline:
             DEFAULT_OUTPUT_FORMAT)
         if output_format not in _ENCODERS:
             raise ConfigError(f'output.format = "{output_format}" {_LATER} '
-                              "(ROADMAP queue A item 6, the other output "
-                              "formats)")
+                              "(ROADMAP queue A item 6b, the capnp "
+                              "output)")
         output_type = config.lookup_str(
             "output.type", "output.type must be a string", DEFAULT_OUTPUT_TYPE)
-        if output_type == "stdout":
+        if output_type in ("stdout", "debug"):
             self.output = DebugOutput(config)
         elif output_type == "file":
             self.output = FileOutput(config)

@@ -1,5 +1,5 @@
 """BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines / LTSV /
-GELF / DNS → GELF and → LTSV paths.
+GELF / DNS → GELF (JSON), LTSV, RFC5424, RFC3164 and passthrough paths.
 
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
@@ -16,8 +16,8 @@ down the reference's ladder (its ``_emit_fast`` and
 2. with ``input.tpu_fuse`` "auto" (the default) or "on", the fused route
    of the (input, output) pair (``fused_routes``: decode and encode in
    one kernel a phase; RFC5424, RFC3164, LTSV and GELF into GELF, RFC5424
-   into LTSV), unless its own cooldown is running, which counts down
-   here, at submit;
+   into LTSV, RFC5424 and RFC3164 into RFC5424), unless its own cooldown
+   is running, which counts down here, at submit;
 3. on a fused decline (or with ``tpu_fuse = "off"``, or for a pair with
    no fused route) the format's decode kernel — RFC5424
    (``rfc5424.decode_rfc5424_submit``, 7-16-pair rows re-decoded at 16
@@ -27,20 +27,24 @@ down the reference's ladder (its ``_emit_fast`` and
    (``gelf.decode_gelf_submit``, the flat index; 9-24-key rows re-decoded
    at 24 fields on the host path) or DNS (``dns.decode_dns_submit``);
 4. the split device encode tier of the (input, output) pair
-   (``device_gelf`` / ``device_rfc3164`` / ``device_ltsv`` /
-   ``device_gelf_gelf`` into GELF, ``device_ltsv_out`` for RFC5424 into
-   LTSV: probe, timestamp text, assemble, one fetch of the tier rows'
-   bytes) under its own decline state; each tier hands the batch back
+   (:data:`_TIERS`: ``device_gelf`` / ``device_rfc3164`` /
+   ``device_ltsv`` / ``device_gelf_gelf`` into GELF, ``device_ltsv_out``
+   for RFC5424 into LTSV, ``device_rfc5424_out`` for RFC5424 and RFC3164
+   into RFC5424: probe, timestamp text, assemble, one fetch of the tier
+   rows' bytes) under its own decline state; each tier hands the batch back
    when more than 5 % of its rows fall outside it (the ltsv → GELF tier
    first tries 16 pairs, the gelf tier 16 fields), and cools down after
    three such batches in a row;
-5. the host block encoder of the pair (``encode_gelf_block``,
-   ``encode_rfc3164_gelf_block``, ``encode_jsonl_block``,
-   ``encode_ltsv_gelf_block``, ``encode_gelf_gelf_block``,
-   ``encode_dns_block`` into GELF; ``encode_ltsv_block``,
-   ``encode_jsonl_block`` and ``encode_dns_block`` into LTSV), which
-   runs the scalar oracle for rows the kernel flagged and for
-   over-length lines;
+5. the host block encoder of the pair (:data:`_ROUTES` into GELF:
+   ``encode_gelf_block``, ``encode_rfc3164_gelf_block``,
+   ``encode_jsonl_block``, ``encode_ltsv_gelf_block``,
+   ``encode_gelf_gelf_block``, ``encode_dns_block``; :data:`_BLOCK` for
+   the other outputs, keyed on (input, ``fused_routes.out_key``):
+   ``encode_ltsv_block``, ``encode_jsonl_block`` and ``encode_dns_block``
+   into LTSV, ``encode_rfc5424_block`` into RFC5424 from rfc5424, rfc3164,
+   ltsv and gelf, ``encode_passthrough_block`` from rfc5424 and rfc3164,
+   ``encode_rfc3164_3164_block``), which runs the scalar oracle for rows
+   the kernel flagged and for over-length lines;
 6. the merger framing (pre-applied) and the output queue.
 
 ``input.format = "auto_tpu"`` (``fmt = "auto"``) classifies each batch
@@ -52,14 +56,17 @@ The Record path (the reference's ``_decode_packed`` and ``_emit_rows``)
 takes a batch when the block route cannot engage for the config
 (``output.gelf_extra`` keys that need dynamic placement, any
 ``gelf_extra`` with gelf, jsonl, dns or auto, a typed ``ltsv_schema``
-with auto, or with ltsv into LTSV: a start-up notice says so, as the
-reference's does) or when a block encoder declines the batch (an
+with auto, or with ltsv into LTSV or RFC5424, jsonl and dns into
+RFC5424, ``auto_extra_formats`` into RFC5424, every input but rfc3164
+into RFC3164, ``syslog_prepend_timestamp`` with passthrough or RFC3164:
+a start-up notice says so, as the reference's does) or when a block
+encoder declines the batch (an
 ``ltsv_schema`` of more than 8 keys, a suffix for a schema type): the
 format's decode kernel, then one Record a row (``materialize*``),
 ``encoder.encode`` and one queue item a record, which the output thread
 frames with the merger.  RFC5424 into GELF takes the per-row span encode
 there instead (``encode_gelf.encode_rfc5424_gelf``), as the reference
-does.
+does; every other encoder of an rfc5424 batch takes the Record path.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
 the reference (line_splitter.rs:37-54).  Batches are processed in order
@@ -77,10 +84,10 @@ from typing import List
 import torch
 
 from ..config import Config, ConfigError
-from ..encoders import EncodeError, LTSVEncoder
+from ..encoders import EncodeError
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
 from . import autodetect, device_gelf, device_gelf_gelf, device_ltsv
-from . import device_ltsv_out, device_rfc3164
+from . import device_ltsv_out, device_rfc3164, device_rfc5424_out
 from . import framing as _framing
 from . import fused_routes
 from . import pack as _pack
@@ -100,8 +107,16 @@ from .encode_ltsv_block import (encode_gelf_ltsv_block,
                                 encode_rfc5424_ltsv_block)
 from .encode_ltsv_gelf_block import (encode_ltsv_gelf_block,
                                      gelf_extra_consts_ltsv)
+from .encode_passthrough_block import (encode_rfc3164_passthrough_block,
+                                       encode_rfc5424_passthrough_block)
+from .encode_rfc3164_3164_block import encode_rfc3164_3164_block
 from .encode_rfc3164_gelf_block import (encode_rfc3164_gelf_block,
                                         gelf_extra_consts_3164)
+from .encode_rfc5424_block import (encode_gelf_rfc5424_block,
+                                   encode_ltsv_rfc5424_block,
+                                   encode_rfc3164_rfc5424_block,
+                                   encode_rfc5424_rfc5424_block)
+from .fused_routes import out_key
 from .gelf import decode_gelf_fetch, decode_gelf_submit
 from .jsonl import decode_jsonl_fetch, decode_jsonl_submit
 from .ltsv import decode_ltsv_fetch, decode_ltsv_submit
@@ -131,20 +146,43 @@ _ROUTES = {
     "gelf": (decode_gelf_submit, decode_gelf_fetch, encode_gelf_gelf_block),
     "dns": (decode_dns_submit, decode_dns_fetch, encode_dns_gelf_block),
 }
-# the LTSV block encoder per input format (the reference's per-encoder
-# dispatch of block_fetch_encode, batch.py:1961-2102, and
-# _encode_block_from_host :2178)
-_LTSV_BLOCK = {"rfc5424": encode_rfc5424_ltsv_block,
-               "rfc3164": encode_rfc3164_ltsv_block,
-               "jsonl": encode_jsonl_ltsv_block,
-               "ltsv": encode_ltsv_ltsv_block,
-               "gelf": encode_gelf_ltsv_block,
-               "dns": encode_dns_ltsv_block}
-# the split device encode tier per input format, into GELF and into LTSV
-# (the reference's _rfc5424_device_module, batch.py:2135, for rfc5424)
-_DEVICE_TIERS = {"rfc5424": device_gelf, "rfc3164": device_rfc3164,
-                 "ltsv": device_ltsv, "gelf": device_gelf_gelf}
-_LTSV_TIERS = {"rfc5424": device_ltsv_out}
+# the host block encoder of every other (input format, output) pair, the
+# output keyed as fused_routes.out_key names it (the reference's
+# per-encoder dispatch of block_fetch_encode, batch.py:1933-2102, and
+# _encode_block_from_host :2178); a pair in neither table has no block
+# encoder and takes the Record path (_block_route_ok)
+_BLOCK = {
+    ("rfc5424", "ltsv"): encode_rfc5424_ltsv_block,
+    ("rfc5424", "rfc5424"): encode_rfc5424_rfc5424_block,
+    ("rfc5424", "passthrough"): encode_rfc5424_passthrough_block,
+    ("rfc3164", "ltsv"): encode_rfc3164_ltsv_block,
+    ("rfc3164", "rfc5424"): encode_rfc3164_rfc5424_block,
+    ("rfc3164", "rfc3164"): encode_rfc3164_3164_block,
+    ("rfc3164", "passthrough"): encode_rfc3164_passthrough_block,
+    ("jsonl", "ltsv"): encode_jsonl_ltsv_block,
+    ("ltsv", "ltsv"): encode_ltsv_ltsv_block,
+    ("ltsv", "rfc5424"): encode_ltsv_rfc5424_block,
+    ("gelf", "ltsv"): encode_gelf_ltsv_block,
+    ("gelf", "rfc5424"): encode_gelf_rfc5424_block,
+    ("dns", "ltsv"): encode_dns_ltsv_block,
+}
+# the split device encode tier of an (input format, output) pair, as
+# (route_ok, fetch_encode) (the reference's _rfc5424_device_module,
+# batch.py:2135, and the rfc3164 leg's tiers :1924-1952)
+_TIERS = {
+    ("rfc5424", "gelf"): (device_gelf.route_ok, device_gelf.fetch_encode),
+    ("rfc3164", "gelf"): (device_rfc3164.route_ok,
+                          device_rfc3164.fetch_encode),
+    ("ltsv", "gelf"): (device_ltsv.route_ok, device_ltsv.fetch_encode),
+    ("gelf", "gelf"): (device_gelf_gelf.route_ok,
+                       device_gelf_gelf.fetch_encode),
+    ("rfc5424", "ltsv"): (device_ltsv_out.route_ok,
+                          device_ltsv_out.fetch_encode),
+    ("rfc5424", "rfc5424"): (device_rfc5424_out.route_ok,
+                             device_rfc5424_out.fetch_encode),
+    ("rfc3164", "rfc5424"): (device_rfc5424_out.route_ok,
+                             device_rfc5424_out.fetch_encode_3164),
+}
 # the Record path's materializer of each format that takes no decoder
 _MATERIALIZE = {"rfc3164": materialize_rfc3164.materialize_rfc3164,
                 "gelf": materialize_gelf.materialize_gelf,
@@ -222,41 +260,72 @@ class BatchHandler(Handler):
 
     def _block_route_ok(self) -> bool:
         """Whether the columnar block route can take this config's
-        batches (the reference's ``_block_route_ok``, GELF and LTSV
-        output).  LTSV: every input, but a typed ``ltsv_schema`` keeps
-        ltsv and auto on the Record path.  GELF: the ``gelf_extra`` keys
-        must place statically for rfc5424, rfc3164 and ltsv, and be
-        absent for gelf, jsonl, dns and auto; auto also takes no typed
-        ``ltsv_schema``.  (Every merger the pipeline makes has a block
-        form.)"""
-        if type(self.encoder) is LTSVEncoder:
-            if self.fmt in ("ltsv", "auto"):
-                return not self.decoder.schema
-            return True
-        extra = self.encoder.extra
-        if self.fmt == "rfc5424":
-            return gelf_extra_slots(extra) is not None
-        if self.fmt == "rfc3164":
-            return gelf_extra_consts_3164(extra) is not None
-        if self.fmt == "ltsv":
-            return gelf_extra_consts_ltsv(extra) is not None
-        if self.fmt == "auto":
-            return not extra and not self.decoder.schema
-        return not extra
+        batches (the reference's ``_block_route_ok``, batch.py:1136-1228,
+        on the output as :func:`fused_routes.out_key` names it).  Every
+        merger the pipeline makes has a block form (``noop``: an empty
+        suffix).
+
+        - GELF: the ``gelf_extra`` keys must place statically for
+          rfc5424, rfc3164 and ltsv, and be absent for gelf, jsonl, dns
+          and auto; auto also takes no typed ``ltsv_schema``.
+        - LTSV and RFC5424: every input but jsonl and dns into RFC5424; a
+          typed ``ltsv_schema`` keeps ltsv and auto on the Record path,
+          and ``auto_extra_formats`` keeps auto off RFC5424.
+        - RFC3164 (from rfc3164 only) and passthrough (from rfc5424 and
+          rfc3164): only while ``syslog_prepend_timestamp`` is unset."""
+        out = out_key(self.encoder)
+        fmt = self.fmt
+        if out == "gelf":
+            extra = self.encoder.extra
+            if fmt == "rfc5424":
+                return gelf_extra_slots(extra) is not None
+            if fmt == "rfc3164":
+                return gelf_extra_consts_3164(extra) is not None
+            if fmt == "ltsv":
+                return gelf_extra_consts_ltsv(extra) is not None
+            if fmt == "auto":
+                return not extra and not self.decoder.schema
+            return not extra
+        if out in ("rfc3164", "passthrough"):
+            return ((fmt, out) in _BLOCK
+                    and self.encoder.header_time_format is None)
+        if fmt == "auto":
+            ok = ("ltsv",) if self._auto_extras else ("ltsv", "rfc5424")
+            return out in ok and not self.decoder.schema
+        if (fmt, out) not in _BLOCK:
+            return False
+        return fmt != "ltsv" or not self.decoder.schema
 
     def _route_cliff_reason(self):
         """Why the block route can never engage for this config (None
-        when it does): the reference's ``_route_cliff_reason`` words."""
+        when it does): the reference's ``_route_cliff_reason`` words
+        (batch.py:1230-1287)."""
         if self._block_ok:
             return None
-        if type(self.encoder) is LTSVEncoder:
-            return "input.ltsv_schema is set"
-        if self.encoder.extra:
-            if self.fmt in ("rfc5424", "rfc3164", "ltsv"):
-                return ("output.gelf_extra keys need dynamic placement "
-                        "(leading '_' or a fixed-key overwrite)")
-            return "output.gelf_extra is set"
-        return "input.ltsv_schema is set"
+        out = out_key(self.encoder)
+        no_columnar = (f"output.format {type(self.encoder).__name__} has "
+                       f"no columnar encoder for input format '{self.fmt}'")
+        if out in ("ltsv", "rfc5424"):
+            if self.fmt == "auto" and self._auto_extras and out == "rfc5424":
+                return ("input.auto_extra_formats is set (the jsonl/dns "
+                        "legs block-encode GELF/LTSV only)")
+            if self.fmt in ("ltsv", "auto"):
+                return "input.ltsv_schema is set"
+            return no_columnar
+        if out == "gelf":
+            if self.encoder.extra:
+                if self.fmt in ("rfc5424", "rfc3164", "ltsv"):
+                    return ("output.gelf_extra keys need dynamic placement "
+                            "(leading '_' or a fixed-key overwrite)")
+                return "output.gelf_extra is set"
+            if self.fmt == "auto" and self.decoder.schema:
+                return "input.ltsv_schema is set"
+            return no_columnar
+        if out == "passthrough" and self.fmt in ("rfc5424", "rfc3164"):
+            return "output.syslog_prepend_timestamp is set"
+        if out == "rfc3164" and self.fmt == "rfc3164":
+            return "output.syslog_prepend_timestamp is set"
+        return no_columnar
 
     def _fused_route(self):
         """The fused route for this handler's config, or None: fuse mode
@@ -418,9 +487,12 @@ class BatchHandler(Handler):
 
     def _emit_record_path(self, packed) -> None:
         """A batch of a config the block route cannot take: rfc5424 into
-        GELF per row from the decode's spans, auto through its per-class
-        Record path, every other format through its Record path."""
-        if self.fmt == "rfc5424":
+        GELF per row from the decode's spans (the reference's
+        ``_encode_packed_rfc5424_gelf``), auto through its per-class
+        Record path, every other format and encoder through its Record
+        path (rfc5424 into RFC3164, and into passthrough with
+        ``syslog_prepend_timestamp`` set, among them)."""
+        if self.fmt == "rfc5424" and out_key(self.encoder) == "gelf":
             batch, lens, chunk, starts, orig_lens, n_real = packed
             self._emit_encoded(encode_rfc5424_gelf(
                 chunk, starts, orig_lens, decode_rfc5424_host(batch, lens),
@@ -498,18 +570,17 @@ def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
     auto format's legs never share one."""
     dec = (ltsv_decoder,) if fmt == "ltsv" else ()
     dec_kw = {"decoder": ltsv_decoder} if fmt == "ltsv" else {}
-    to_ltsv = type(encoder) is LTSVEncoder
-    tier = (_LTSV_TIERS if to_ltsv else _DEVICE_TIERS).get(fmt)
-    if tier is not None and tier.route_ok(encoder, merger, **dec_kw):
+    out = out_key(encoder)
+    tier = _TIERS.get((fmt, out))
+    if tier is not None and tier[0](encoder, merger, **dec_kw):
         state = route_state.setdefault(fmt, {}) \
             if route_state is not None else None
-        res, _ = tier.fetch_encode(handle, packed, encoder, merger, state,
-                                   **dec_kw)
+        res, _ = tier[1](handle, packed, encoder, merger, state, **dec_kw)
         if res is not None:
             return res, None
     _, fetch, encode = _ROUTES[fmt]
-    if to_ltsv:
-        encode = _LTSV_BLOCK[fmt]
+    if out != "gelf":
+        encode = _BLOCK[(fmt, out)]
     batch, _, chunk, starts, orig_lens, n_real = packed
     host_out = fetch(handle)
     return encode(chunk, starts, orig_lens, host_out, n_real,

@@ -2,7 +2,8 @@
 scalar-oracle fallback loop, and the splice that interleaves vectorized
 tier runs with per-row fallback output in input order.
 
-Each block encoder (every input into GELF and into LTSV) produces a
+Each block encoder (every input into GELF, LTSV and RFC5424; rfc5424 and
+rfc3164 into passthrough; rfc3164 into RFC3164) produces a
 contiguous ``final_buf`` for its fast-tier rows plus ``row_off``
 boundaries; this module turns that into an EncodedBlock with the
 reference's observable semantics — per-line errors

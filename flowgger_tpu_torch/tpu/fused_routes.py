@@ -20,15 +20,19 @@ kernel and assembles in a second:
 - FG, ``gelf_gelf``: K5's flat row decode (8 fields) and EG's probe,
   then EG's assemble;
 - FO/ltsv, ``rfc5424_ltsv``: K1's row decode (6 pairs) and OL's probe,
-  then OL's assemble (``csrc/fused_ltsv_out.cu``).
+  then OL's assemble (``csrc/fused_ltsv_out.cu``);
+- FO/r5, ``rfc5424_rfc5424`` and ``rfc3164_rfc5424``: K1's row decode (4
+  SD blocks, 6 pairs) and O5's probe, or D3's row decode and O5/3164's
+  probe, then the assemble of O5 or O5/3164 (``csrc/fused_rfc5424_out.
+  cu``).
 
 One decode per taken batch: the probe decodes each row once, keeps the
 channels in shared memory for its encode, and writes the channels the
 encode reads for its tier rows to a device tensor that :class:`_FusedRows`
 keeps until the assemble, which reads them and runs no decode
 (``kernels.FUSED_CARRY`` int32 a row, :func:`carried_columns`): for F1
-and F3 the :data:`DEMAND` channels, for FO/ltsv the channels OL's
-assemble reads (:data:`_LTSV_OUT_CARRY`), for FL what EL's assemble reads
+and F3 the :data:`DEMAND` channels, for FO/ltsv and FO/r5 the channels
+the assemble of OL, O5 or O5/3164 reads (:data:`_OUT_CARRY`), for FL what EL's assemble reads
 after pair selection and the sort (the sorted pairs' escaped spans, the
 host and message spans, the level), not the 24-part table, and for FG
 what EG's assemble reads after special routing and the sort (the sorted
@@ -60,9 +64,8 @@ reference passes its driver none).
 Left out, on purpose: the fused compile watchdog and
 ``FLOWGGER_FUSED_COMPILE_TIMEOUT_MS`` (the CUDA kernels build once,
 before the first batch, and a failed build raises), the AOT
-``fused_wrap`` and the metrics registry.  The reference's other three
-routes of ``ROUTES`` (``rfc5424_rfc5424``, ``rfc3164_rfc5424``,
-``rfc5424_capnp``) come with their output formats.
+``fused_wrap`` and the metrics registry.  The reference's
+``rfc5424_capnp`` route comes with the capnp output.
 
 Plain versions (the CPU): the format's plain decode, narrowed to
 :data:`DEMAND`, then the split tier's plain encode; the probe's decode is
@@ -80,6 +83,8 @@ DIFF_TEST = (
     "tests/test_torch_fused.py::test_fused_probe_matches_reference",
     "tests/test_torch_fused_gelf.py::test_fused_gelf_matches_reference",
     "tests/test_torch_fused_ltsv_out.py::test_fused_probe_matches_reference",
+    "tests/test_torch_fused_rfc5424_out.py::"
+    "test_fused_probe_matches_reference",
 )
 
 from typing import Dict, Optional
@@ -127,15 +132,38 @@ DEMAND = {
         "pair_count", "name_start", "name_end",
         "val_start", "val_end", "val_has_esc",
     )),  # drops: bom, msg_start, sd_count, sid_start/end, pair_sd
+    "rfc5424_rfc5424": frozenset((
+        "ok", "has_high", "facility", "severity", *_TS4,
+        "host_start", "host_end", "app_start", "app_end",
+        "proc_start", "proc_end", "msgid_start", "msgid_end",
+        "msg_trim_start", "trim_end", "sd_count", "sid_start", "sid_end",
+        "pair_count", "pair_sd", "name_start", "name_end",
+        "val_start", "val_end", "val_has_esc",
+    )),  # drops: bom, full_start, msg_start
+    "rfc3164_rfc5424": frozenset((
+        "ok", "has_pri", "has_high", "facility", "severity", *_TS4,
+        "host_start", "host_end", "msg_start",
+    )),  # the relay upgrade reads every rfc3164 channel
 }
-# FO/ltsv's carried row: the DEMAND channels OL's assemble reads (not ok,
-# has_high, the stamp or val_has_esc, which only its probe reads), in
-# K1's packed order; fused_ltsv_out.cu keptO
+# The carried rows of the non-GELF outputs: the DEMAND channels the
+# assemble reads (not ok, has_high, the stamp, val_has_esc or the
+# facility and severity, which only the probe reads), in the decode's
+# packed order.  FO/ltsv: fused_ltsv_out.cu keptO; FO/r5:
+# fused_rfc5424_out.cu kept5 / kept3.
 _LTSV_OUT_CARRY = frozenset((
     "facility", "severity", "host_start", "host_end", "app_start",
     "app_end", "proc_start", "proc_end", "msgid_start", "msgid_end",
     "pair_count", "full_start", "trim_end", "msg_trim_start",
     "name_start", "name_end", "val_start", "val_end"))
+_OUT_CARRY = {
+    "rfc5424_ltsv": _LTSV_OUT_CARRY,
+    "rfc5424_rfc5424": frozenset((
+        "host_start", "host_end", "app_start", "app_end", "proc_start",
+        "proc_end", "msgid_start", "msgid_end", "sd_count", "pair_count",
+        "trim_end", "msg_trim_start", "sid_start", "sid_end",
+        "name_start", "name_end", "val_start", "val_end", "pair_sd")),
+    "rfc3164_rfc5424": frozenset(("host_start", "host_end", "msg_start")),
+}
 # FL's carried row: the row values EL's assemble reads, then each sorted
 # pair's four escaped span ends (fused_gelf.cu kCarryL)
 _LTSV_CARRY_ROW = ("pair_count", "host_s", "host_e", "msg_s", "msg_e",
@@ -168,8 +196,8 @@ def carried_columns(route: str):
 
         return [(k, None) for k in _GELF_CARRY_ROW] + [
             (k, p) for p in range(BASE_FIELDS) for k in _GELF_CARRY_PAIR]
-    demand = _LTSV_OUT_CARRY if route == "rfc5424_ltsv" else DEMAND[route]
-    if route == "rfc3164_gelf":
+    demand = _OUT_CARRY.get(route, DEMAND.get(route))
+    if route.startswith("rfc3164"):
         from .rfc3164 import KEYS
 
         return [(k, None) for k in KEYS if k in demand]
@@ -244,12 +272,17 @@ class _FusedRows:
         self.suffix, self.extras, self.year = suffix, extras, year
         self.small = None
         self.gaps = None       # FO/ltsv's gap0 / gap1 [2, N]
+        self.small8 = None     # FO/r5's fac8 / sev8 (/ pri1) u8 [2|3, N]
+        self.hostl16 = None    # FO/r5 rfc3164's host lengths, uint16 [N]
         self.dec = None        # the plain decode, kept from the probe
         self.carried = None    # the kernel's (chan, tier), kept from it
-        # the → LTSV rows leave the stamp text to the host splice
+        # the → LTSV and → RFC5424 rows leave the stamp text to the host
+        # splice
         self.ts_in_row = route.out == "gelf"
         if route.out == "ltsv":
             from . import device_ltsv_out as split
+        elif route.out == "rfc5424":
+            from . import device_rfc5424_out as split
         elif route.fmt == "rfc3164":
             from . import device_rfc3164 as split
         elif route.fmt == "ltsv":
@@ -287,8 +320,11 @@ class _FusedRows:
         return {k: v for k, v in dec.items() if k in demand}
 
     def _plain_encode(self, dec, **kw):
+        if self.route.name == "rfc3164_rfc5424":
+            return self.split.encode_rows_3164(self.batch, self.lens, dec,
+                                               suffix=self.suffix, **kw)
         if self.route.fmt in ("rfc3164", "ltsv", "gelf") or \
-                self.route.out == "ltsv":
+                self.route.out in ("ltsv", "rfc5424"):
             return self.split.encode_rows(self.batch, self.lens, dec,
                                           suffix=self.suffix,
                                           extras=self.extras, **kw)
@@ -311,6 +347,15 @@ class _FusedRows:
             base, base_len, self.small, chan, self.gaps = \
                 fused_ltsv_out_cuda(self.batch, self.lens, n, self.bank,
                                     self.table)
+            self.carried = (chan, base)
+            return base, base_len
+        if self.batch.is_cuda and self.route.out == "rfc5424":
+            from .kernels import fused_rfc5424_out_cuda
+
+            (base, base_len, self.small, chan, self.small8,
+             self.hostl16) = fused_rfc5424_out_cuda(
+                self.route.fmt, self.batch, self.lens, n, self.bank,
+                self.table, year=self.year)
             self.carried = (chan, base)
             return base, base_len
         if self.batch.is_cuda:
@@ -337,6 +382,11 @@ class _FusedRows:
             base, base_len, self.gaps = self._plain_encode(
                 dec, assemble=False, n=n)
             return base, base_len
+        if self.route.out == "rfc5424":
+            res = self._plain_encode(dec, assemble=False, n=n)
+            base, base_len, self.small8 = res[:3]
+            self.hostl16 = res[3] if len(res) > 3 else None
+            return base, base_len
         return self._plain_encode(dec, assemble=False, n=n)
 
     def assemble(self, ts_text, ts_len, row_off, total, n: int):
@@ -350,6 +400,14 @@ class _FusedRows:
             return fused_ltsv_out_cuda(
                 self.batch, self.lens, n, self.bank, self.table, OW=self.OW,
                 row_off=row_off, total=total, chan=chan, tier=tier)
+        if self.batch.is_cuda and self.route.out == "rfc5424":
+            from .kernels import fused_rfc5424_out_cuda
+
+            chan, tier = self.carried
+            return fused_rfc5424_out_cuda(
+                self.route.fmt, self.batch, self.lens, n, self.bank,
+                self.table, year=self.year, OW=self.OW, row_off=row_off,
+                total=total, chan=chan, tier=tier)
         if self.batch.is_cuda:
             from .kernels import fused_gelf_cuda
 
@@ -361,7 +419,7 @@ class _FusedRows:
                 tier=tier)
         from .device_gelf import flat_rows
 
-        kw = {} if self.route.out == "ltsv" else {"ts_text": ts_text,
+        kw = {} if self.route.out != "gelf" else {"ts_text": ts_text,
                                                   "ts_len": ts_len}
         rows, out_len, _ = self._plain_encode(self.dec, **kw)
         return flat_rows(rows, out_len, row_off, total)
@@ -379,6 +437,11 @@ class _FusedRows:
             gaps, gbytes = self.split.gaps_small(self.gaps, n, self.OW)
             small.update(gaps)
             return small, h.nbytes + gbytes
+        if self.route.out == "rfc5424":
+            extra, ebytes = self.split.small_probe(self.small8, self.hostl16,
+                                                   n)
+            small.update(extra)
+            return small, h.nbytes + ebytes
         return small, h.nbytes
 
 
@@ -402,6 +465,10 @@ class FusedRoute:
             from . import device_ltsv_out
 
             return device_ltsv_out.route_ok(encoder, merger)
+        if self.out == "rfc5424":
+            from . import device_rfc5424_out
+
+            return device_rfc5424_out.route_ok(encoder, merger)
         if self.fmt == "rfc3164":
             from . import device_rfc3164
 
@@ -426,7 +493,7 @@ class FusedRoute:
         from .block_common import merger_suffix
 
         suffix, syslen = merger_suffix(merger)
-        extras = tuple((k, v) for k, v in encoder.extra)
+        extras = tuple((k, v) for k, v in getattr(encoder, "extra", ()))
         year = None
         ts_vals_fn = None
         ts_render = None
@@ -435,6 +502,19 @@ class FusedRoute:
             from .materialize import _scalar_line as scalar_fn
 
             ts_render = _render_display
+            elide = make_elide(suffix)
+        elif self.out == "rfc5424":
+            from .device_rfc5424_out import _render_rfc3339, elide_spec
+
+            ts_render = _render_rfc3339
+            elide = elide_spec(suffix, self.fmt)
+            if self.fmt == "rfc3164":
+                from ..utils.timeparse import current_year_utc
+                from .materialize_rfc3164 import _scalar_3164 as scalar_fn
+
+                year = current_year_utc()
+            else:
+                from .materialize import _scalar_line as scalar_fn
         elif self.fmt == "ltsv":
             from .device_ltsv import elide_spec, ts_vals_ltsv
             from .materialize_ltsv import _scalar_ltsv
@@ -459,8 +539,8 @@ class FusedRoute:
             from .materialize import _scalar_line as scalar_fn
         kern = _FusedRows(self, handle.batch_dev, handle.lens_dev, suffix,
                           extras, year)
-        elide = make_elide(suffix) if self.out == "ltsv" else \
-            elide_spec(suffix, extras)
+        if self.out == "gelf":
+            elide = elide_spec(suffix, extras)
         return kern, {"suffix": suffix, "syslen": syslen,
                       "scalar_fn": scalar_fn, "elide": elide,
                       "ts_vals_fn": ts_vals_fn, "ts_render": ts_render}
@@ -472,7 +552,27 @@ ROUTES = {
     "ltsv": FusedRoute("ltsv_gelf", "ltsv"),
     "gelf": FusedRoute("gelf_gelf", "gelf"),
     "rfc5424_ltsv": FusedRoute("rfc5424_ltsv", "rfc5424", out="ltsv"),
+    "rfc5424_rfc5424": FusedRoute("rfc5424_rfc5424", "rfc5424",
+                                  out="rfc5424"),
+    "rfc3164_rfc5424": FusedRoute("rfc3164_rfc5424", "rfc3164",
+                                  out="rfc5424"),
 }
+
+
+def out_key(encoder) -> str:
+    """The output leg of an encoder's concrete type (the reference's
+    ``_out_key``, fused_routes.py:611, with the two outputs that have no
+    device tier): gelf (``output.format`` gelf and json), ltsv, rfc5424,
+    rfc3164 or passthrough; "" for any other type."""
+    from ..encoders import (GelfEncoder, LTSVEncoder, PassthroughEncoder,
+                            RFC3164Encoder, RFC5424Encoder)
+
+    for cls, key in ((GelfEncoder, "gelf"), (RFC5424Encoder, "rfc5424"),
+                     (LTSVEncoder, "ltsv"), (RFC3164Encoder, "rfc3164"),
+                     (PassthroughEncoder, "passthrough")):
+        if type(encoder) is cls:
+            return key
+    return ""
 
 
 def route_for(fmt: str, encoder, merger,
@@ -480,14 +580,12 @@ def route_for(fmt: str, encoder, merger,
     """The registered fused route for this (fmt, encoder, merger,
     decoder) config, or None when no fused program applies (the split
     path is then the route — ``input.tpu_fuse = "auto"`` semantics).
-    The → GELF legs keep their format-keyed registrations, the → LTSV
-    leg keys on ``{fmt}_ltsv``; the route's split tier's gate (output
-    encoder type, framing, extras, and for ltsv input no typed schema)
-    decides."""
-    from ..encoders import LTSVEncoder
-
-    route = ROUTES.get(f"{fmt}_ltsv" if type(encoder) is LTSVEncoder
-                       else fmt)
+    The → GELF legs keep their format-keyed registrations, the other
+    output legs key on ``{fmt}_{out}`` (:func:`out_key`); the route's
+    split tier's gate (output encoder type, framing, extras, and for
+    ltsv input no typed schema) decides."""
+    okey = out_key(encoder)
+    route = ROUTES.get(fmt if okey == "gelf" else f"{fmt}_{okey}")
     if route is None or not route.route_ok(encoder, merger, decoder):
         return None
     return route

@@ -51,13 +51,21 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
 - ``fused_ltsv_out`` — FO/ltsv, the fused rfc5424→LTSV route: K1's row
   decode and OL's probe in one kernel, then OL's assemble from the
   carried channels (replaces the jnp + Pallas
-  ``fused_routes._fused_rfc5424_ltsv``).
+  ``fused_routes._fused_rfc5424_ltsv``);
+- ``encode_rfc5424_out`` — O5 and O5/3164, the RFC5424 and RFC3164 →
+  RFC5424 encodes of the split tier for RFC5424 output, a probe and an
+  assemble each (replace the jnp ``device_rfc5424_out._encode_kernel``
+  and ``_encode_kernel_3164``);
+- ``fused_rfc5424_out`` — FO/r5, the fused rfc5424→RFC5424 (K1 + O5)
+  and rfc3164→RFC5424 (D3 + O5/3164) routes (replace the jnp + Pallas
+  ``fused_routes._fused_rfc5424_rfc5424`` and the jnp
+  ``_fused_rfc3164_rfc5424``).
 
 The one-warp-a-row kernels share their device code through headers in
 ``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
 ``decode_rfc3164_row.cuh``, ``encode_gelf_row.cuh``,
 ``structural_index_row.cuh``, ``encode_gelf_gelf_row.cuh``,
-``encode_ltsv_out_row.cuh``, ...); each
+``encode_ltsv_out_row.cuh``, ``encode_rfc5424_out_row.cuh``, ...); each
 ``.cu`` still builds to one library.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
@@ -77,7 +85,8 @@ choose between them by the tensor's device (``framing.sep_spans``,
 ``gelf.decode_on``, ``dns.decode_dns_submit``, ``device_gelf._Rows``,
 ``device_rfc3164._Rows``, ``device_ltsv._Rows``,
 ``device_gelf_gelf._Rows``, ``device_ltsv_out._Rows``,
-``fused_routes._FusedRows`` and ``autodetect.classify_rows``).
+``device_rfc5424_out._Rows``, ``fused_routes._FusedRows`` and
+``autodetect.classify_rows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
 never at import.
@@ -112,6 +121,8 @@ _SOURCES = {
     "decode_dns": "decode_dns.cu",
     "encode_ltsv_out": "encode_ltsv_out.cu",
     "fused_ltsv_out": "fused_ltsv_out.cu",
+    "encode_rfc5424_out": "encode_rfc5424_out.cu",
+    "fused_rfc5424_out": "fused_rfc5424_out.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -143,7 +154,11 @@ LAUNCHES: Dict[str, int] = {
     "fused_gelf_gelf_probe": 0, "fused_gelf_gelf_assemble": 0,
     "classify_auto": 0, "classify_auto_dns": 0, "decode_dns": 0,
     "encode_ltsv_out_probe": 0, "encode_ltsv_out_assemble": 0,
-    "fused_rfc5424_ltsv_probe": 0, "fused_rfc5424_ltsv_assemble": 0}
+    "fused_rfc5424_ltsv_probe": 0, "fused_rfc5424_ltsv_assemble": 0,
+    "encode_rfc5424_out_probe": 0, "encode_rfc5424_out_assemble": 0,
+    "encode_rfc3164_rfc5424_probe": 0, "encode_rfc3164_rfc5424_assemble": 0,
+    "fused_rfc5424_rfc5424_probe": 0, "fused_rfc5424_rfc5424_assemble": 0,
+    "fused_rfc3164_rfc5424_probe": 0, "fused_rfc3164_rfc5424_assemble": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -213,6 +228,27 @@ _SIGNATURES = {
         "fg_fused_ltsv_out_assemble": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _P, _P, _P),
     },
+    "encode_rfc5424_out": {
+        "fg_encode_rfc5424_out_probe": (_P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                        _P, _P),
+        "fg_encode_rfc5424_out_assemble": (_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _P, _P, _P),
+        "fg_encode_rfc3164_rfc5424_probe": (_P, _P, _P, _P, _I, _I, _I, _P,
+                                            _P, _P, _P, _P),
+        "fg_encode_rfc3164_rfc5424_assemble": (_P, _P, _P, _P, _P, _I, _I,
+                                               _I, _I, _P, _P, _P),
+    },
+    "fused_rfc5424_out": {
+        "fg_fused_rfc5424_out_carry": (_I,),
+        "fg_fused_rfc5424_rfc5424_probe": (_P, _P, _P, _I, _I, _I, _P, _P,
+                                           _P, _P, _P, _P),
+        "fg_fused_rfc5424_rfc5424_assemble": (_P, _P, _P, _P, _P, _I, _I,
+                                              _I, _I, _P, _P, _P),
+        "fg_fused_rfc3164_rfc5424_probe": (_P, _P, _I, _P, _I, _I, _I, _P,
+                                           _P, _P, _P, _P, _P, _P),
+        "fg_fused_rfc3164_rfc5424_assemble": (_P, _P, _P, _P, _P, _I, _I,
+                                              _I, _I, _P, _P, _P),
+    },
     "fused_gelf": {
         "fg_fused_gelf_carry": (_I,),
         "fg_fused_rfc5424_gelf_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P,
@@ -254,6 +290,10 @@ FUSED_CARRY = {"rfc5424": 56, "rfc3164": 11, "ltsv": 31, "gelf": 49}
 # FO/ltsv: the channels OL's assemble reads (14 row channels, 4 x 6 pair
 # spans; fused_ltsv_out.cu kCarryO, fused_routes._LTSV_OUT_CARRY)
 FUSED_LTSV_OUT_CARRY = 38
+# FO/r5: the channels the assembles of O5 (12 row channels, 2 x 4 SD
+# spans, 5 x 6 pair channels) and O5/3164 (3) read; fused_rfc5424_out.cu
+# kCarryR5 / kCarryR3, fused_routes._OUT_CARRY
+FUSED_R5_OUT_CARRY = {"rfc5424": 50, "rfc3164": 3}
 
 
 
@@ -813,6 +853,186 @@ def fused_ltsv_out_assemble_launch(batch, lens, n: int, bank, consts,
         consts, N, n, L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "fused_rfc5424_ltsv assemble")
     LAUNCHES["fused_rfc5424_ltsv_assemble"] += 1
+    return flat
+
+
+def encode_rfc5424_out_cuda(leg: str, batch: torch.Tensor,
+                            lens: torch.Tensor, channels: torch.Tensor,
+                            n: int, bank: torch.Tensor, consts, OW: int = 0,
+                            row_off: Optional[torch.Tensor] = None,
+                            total: int = 0):
+    """O5 (``leg = "rfc5424"``, ``channels`` K1's packed int32 [C, N] at
+    4 SD blocks and 6 pairs) or O5/3164 (``leg = "rfc3164"``, D3's packed
+    int32 [12, N]), the device RFC5424 encode of the first ``n`` rows of
+    ``batch`` (u8 [N, L]) with the constant bank (``consts``:
+    ``device_rfc5424_out.kernel_consts``'s table).
+
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
+    small8 u8 [2, N])`` for O5 (fac8, sev8) and ``(base, base_len, small8
+    u8 [3, N], hostl16 uint16 [N])`` for O5/3164 (fac8, sev8, pri1 and the
+    host length): the tier bit before the width test and the elided
+    length, 0 for rows outside the tier, every output 0 for rows at or
+    past ``n``.  With ``row_off`` (int64 [N]) and the output width ``OW``
+    it assembles: a u8 [total] buffer holding the elided bytes of each
+    row whose offset is not negative, at that offset."""
+    from .rfc3164 import KEYS
+    from .rfc5424 import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(channels, "channels", torch.int32, 2)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    r3 = leg == "rfc3164"
+    C = len(KEYS) if r3 else n_channels(4, 6)
+    if leg not in ("rfc5424", "rfc3164"):
+        raise ValueError(f"no O5 leg {leg!r}")
+    if channels.shape != (C, N) or lens.shape[0] != N:
+        raise ValueError(f"channels must be the [{C}, N] {leg} decode "
+                         "output, lens one entry per row")
+    if not 1 <= L < 1 << 15 or not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L} n={n} N={N}")
+    dev = batch.device
+    lib = _lib("encode_rfc5424_out")
+    name = "encode_rfc3164_rfc5424" if r3 else "encode_rfc5424_out"
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        small8 = torch.empty((3 if r3 else 2, N), dtype=torch.uint8,
+                             device=dev)
+        if r3:
+            hostl16 = torch.empty(N, dtype=torch.uint16, device=dev)
+            rc = lib.fg_encode_rfc3164_rfc5424_probe(
+                batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+                consts, N, n, L, tier.data_ptr(), base_len.data_ptr(),
+                small8.data_ptr(), hostl16.data_ptr(), _stream())
+        else:
+            rc = lib.fg_encode_rfc5424_out_probe(
+                batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+                consts, N, n, L, tier.data_ptr(), base_len.data_ptr(),
+                small8.data_ptr(), _stream())
+        _check(rc, f"{name} probe")
+        LAUNCHES[f"{name}_probe"] += 1
+        return (tier, base_len, small8, hostl16) if r3 else \
+            (tier, base_len, small8)
+    _need(row_off, "row_off", torch.int64, 1)
+    if row_off.shape[0] != N or OW < 1:
+        raise ValueError("row_off must have one entry per row and OW be "
+                         "positive")
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    fn = lib.fg_encode_rfc3164_rfc5424_assemble if r3 else \
+        lib.fg_encode_rfc5424_out_assemble
+    rc = fn(batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+            bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
+            flat.data_ptr(), _stream())
+    _check(rc, f"{name} assemble")
+    LAUNCHES[f"{name}_assemble"] += 1
+    return flat
+
+
+def fused_rfc5424_out_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
+                           n: int, bank: torch.Tensor, consts, year: int = 0,
+                           OW: int = 0, row_off: Optional[torch.Tensor] = None,
+                           total: int = 0,
+                           chan: Optional[torch.Tensor] = None,
+                           tier: Optional[torch.Tensor] = None):
+    """FO/r5, the fused ``fmt`` (rfc5424 or rfc3164) → RFC5424 route on
+    the first ``n`` rows of ``batch`` (u8 [N, L]): K1's decode at 4 SD
+    blocks and 6 pairs then O5, or D3's decode for ``year`` then O5/3164
+    (``consts``: ``device_rfc5424_out.kernel_consts``'s table).
+
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
+    small int32 [5, N], chan int32 [N, C], small8 u8 [2|3, N], hostl16
+    uint16 [N] or None)``: the split tier's probe outputs, the ok, days,
+    sod, off and nanos channels (zeros at and past ``n``) and the carried
+    channels: row r of ``chan`` holds the :data:`FUSED_R5_OUT_CARRY`
+    channels the leg's assemble reads where ``base[r]`` is set, and is not
+    written elsewhere.  With ``row_off``, ``OW`` and the probe's ``chan``
+    and ``base`` (as ``tier``) it assembles from the carried channels, as
+    :func:`fused_gelf_cuda` does: no decode runs again; it raises
+    ValueError, before any launch, if a row it writes is not a probe tier
+    row, or without ``chan`` or ``tier``."""
+    assembling = row_off is not None
+    if fmt not in FUSED_R5_OUT_CARRY:
+        raise ValueError(f"no fused {fmt} → RFC5424 route")
+    if assembling and (chan is None or tier is None):
+        raise ValueError("a fused assemble needs the probe's carried channels "
+                         "(chan) and tier bits (tier): it does not decode "
+                         "again")
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or not 4 <= L < 1 << 15:
+        raise ValueError(f"bad fused geometry L={L} N={N}")
+    if not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad fused geometry n={n} N={N}")
+    r3 = fmt == "rfc3164"
+    C = FUSED_R5_OUT_CARRY[fmt]
+    dev = batch.device
+    name = f"fused_{fmt}_rfc5424"
+    lib = _lib("fused_rfc5424_out")
+    if not assembling:
+        base = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        small = torch.empty((5, N), dtype=torch.int32, device=dev)
+        small8 = torch.empty((3 if r3 else 2, N), dtype=torch.uint8,
+                             device=dev)
+        carried = torch.empty((N, C), dtype=torch.int32, device=dev)
+        hostl16 = None
+        if r3:
+            hostl16 = torch.empty(N, dtype=torch.uint16, device=dev)
+            rc = lib.fg_fused_rfc3164_rfc5424_probe(
+                batch.data_ptr(), lens.data_ptr(), int(year), consts, N, n,
+                L, base.data_ptr(), base_len.data_ptr(), small.data_ptr(),
+                small8.data_ptr(), hostl16.data_ptr(), carried.data_ptr(),
+                _stream())
+        else:
+            rc = lib.fg_fused_rfc5424_rfc5424_probe(
+                batch.data_ptr(), lens.data_ptr(), consts, N, n, L,
+                base.data_ptr(), base_len.data_ptr(), small.data_ptr(),
+                small8.data_ptr(), carried.data_ptr(), _stream())
+        _check(rc, f"{name} probe")
+        LAUNCHES[f"{name}_probe"] += 1
+        return base, base_len, small, carried, small8, hostl16
+    _need(row_off, "row_off", torch.int64, 1)
+    _need(chan, "chan", torch.int32, 2)
+    _need(tier, "tier", torch.bool, 1)
+    if row_off.shape[0] != N or OW < 1:
+        raise ValueError("row_off must have one entry per row and OW be "
+                         "positive")
+    if chan.shape != (N, C) or tier.shape[0] != N:
+        raise ValueError(f"chan must be the probe's [N, {C}] carried channels "
+                         "and tier its [N] tier bits")
+    # the carried channels exist only for the probe's tier rows
+    if bool(((row_off >= 0) & ~tier).any()):
+        raise ValueError(f"{name} assemble: row_off keeps a row outside the "
+                         "probe's tier")
+    return fused_rfc5424_out_assemble_launch(fmt, batch, lens, n, bank,
+                                             consts, OW, row_off, total,
+                                             chan)
+
+
+def fused_rfc5424_out_assemble_launch(fmt: str, batch, lens, n: int, bank,
+                                      consts, OW: int, row_off, total: int,
+                                      chan) -> torch.Tensor:
+    """The launch behind :func:`fused_rfc5424_out_cuda`'s assemble, after
+    its checks (no host synchronization, so a device timing loop can
+    issue it back to back); returns the u8 [total] buffer."""
+    N, L = batch.shape
+    flat = torch.empty(total, dtype=torch.uint8, device=batch.device)
+    if total == 0:
+        return flat
+    lib = _lib("fused_rfc5424_out")
+    fn = lib.fg_fused_rfc3164_rfc5424_assemble if fmt == "rfc3164" else \
+        lib.fg_fused_rfc5424_rfc5424_assemble
+    rc = fn(batch.data_ptr(), lens.data_ptr(), chan.data_ptr(),
+            bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
+            flat.data_ptr(), _stream())
+    _check(rc, f"fused_{fmt}_rfc5424 assemble")
+    LAUNCHES[f"fused_{fmt}_rfc5424_assemble"] += 1
     return flat
 
 

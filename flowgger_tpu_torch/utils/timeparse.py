@@ -1,7 +1,9 @@
 """Calendar math, RFC3339 parsing for the scalar RFC5424 oracle, the
 BSD-syslog date parse of the scalar RFC3164 oracle, the Apache-style
-date parse of the scalar LTSV oracle, and the receive-time stamp of the
-JSON-lines oracle.
+date parse of the scalar LTSV oracle, the receive-time stamp of the
+JSON-lines oracle, and the renderers of the syslog outputs (the
+millisecond RFC3339 stamp of RFC5424, the BSD header of RFC3164 and the
+``syslog_prepend_timestamp`` format description).
 
 Behavioral model: the reference's use of the ``time`` crate — RFC3339 →
 unix f64 with nanosecond precision (rfc5424_decoder.rs:94-103,
@@ -125,6 +127,104 @@ def rfc3339_to_unix(s: str) -> float:
     days = days_from_civil(year, month, day)
     total = days * 86400 + hour * 3600 + minute * 60 + sec - offset_secs
     return (total * 1_000_000_000 + nanos) / 1e9
+
+
+def civil_from_days(z: int) -> Tuple[int, int, int]:
+    """(year, month, day) of day ``z`` since 1970-01-01 (Hinnant's
+    inverse of :func:`days_from_civil`)."""
+    z += 719468
+    era = (z if z >= 0 else z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + (3 if mp < 10 else -9)
+    return y + (m <= 2), m, d
+
+
+def unix_to_rfc3339_ms(ts: float) -> str:
+    """Format unix seconds as RFC3339 after millisecond truncation —
+    ``((ts*1000.) as i128)*1_000_000`` then time-crate Rfc3339 formatting
+    (rfc5424_encoder.rs:43-55): subsecond printed as 9 digits with
+    trailing zeros trimmed, omitted entirely when zero, UTC rendered as
+    ``Z``.  The product stays a Python float64 and ``divmod`` floors, so
+    ``.002`` comes out ``.001`` and pre-1970 stamps round down, as in the
+    reference.
+    """
+    total_ns = int(ts * 1000.0) * 1_000_000
+    secs, nanos = divmod(total_ns, 1_000_000_000)
+    y, m, d = civil_from_days(secs // 86400)
+    sod = secs % 86400
+    hh, rem = divmod(sod, 3600)
+    mm, ss = divmod(rem, 60)
+    out = f"{y:04d}-{m:02d}-{d:02d}T{hh:02d}:{mm:02d}:{ss:02d}"
+    if nanos:
+        frac = f"{nanos:09d}".rstrip("0")
+        out += f".{frac}"
+    return out + "Z"
+
+
+def format_time_description(fmt: str, ts: Optional[float] = None) -> str:
+    """Render a (subset of the) time-crate format-description string —
+    the config surface of ``output.syslog_prepend_timestamp``
+    (encoder/mod.rs:31).
+
+    Supported components: [year] [month] [month repr:short] [day]
+    [day padding:none] [hour] [minute] [second]; literal text passes
+    through.  Raises ValueError on an unknown component.
+    """
+    if ts is None:
+        ts = now_precise()
+    secs = int(ts)
+    y, m, d = civil_from_days(secs // 86400)
+    sod = secs % 86400
+    hh, rem = divmod(sod, 3600)
+    mm, ss = divmod(rem, 60)
+    out = []
+    i = 0
+    while i < len(fmt):
+        c = fmt[i]
+        if c != "[":
+            out.append(c)
+            i += 1
+            continue
+        j = fmt.find("]", i)
+        if j < 0:
+            raise ValueError("unterminated format component")
+        comp = fmt[i + 1:j].strip()
+        if comp == "year":
+            out.append(f"{y:04d}")
+        elif comp == "month":
+            out.append(f"{m:02d}")
+        elif comp == "month repr:short":
+            out.append(MONTH_ABBR[m - 1])
+        elif comp == "day":
+            out.append(f"{d:02d}")
+        elif comp == "day padding:none":
+            out.append(str(d))
+        elif comp == "hour":
+            out.append(f"{hh:02d}")
+        elif comp == "minute":
+            out.append(f"{mm:02d}")
+        elif comp == "second":
+            out.append(f"{ss:02d}")
+        else:
+            raise ValueError(f"unsupported format component: [{comp}]")
+        i = j + 1
+    return "".join(out)
+
+
+def format_rfc3164_header_ts(ts: float) -> str:
+    """``[month repr:short]  [day padding:none] [hh]:[mm]:[ss] `` — note
+    the double space before the unpadded day (rfc3164_encoder.rs:55-58)."""
+    secs = int(ts)
+    y, m, d = civil_from_days(secs // 86400)
+    sod = secs % 86400
+    hh, rem = divmod(sod, 3600)
+    mm, ss = divmod(rem, 60)
+    return f"{MONTH_ABBR[m - 1]}  {d} {hh:02d}:{mm:02d}:{ss:02d} "
 
 
 def now_precise() -> float:

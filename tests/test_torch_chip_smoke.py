@@ -484,20 +484,23 @@ def test_mixed_phases_are_named_and_sized():
                           "record_jsonl", "record_auto"}
     for name, (fmt, in_t, out_t, kind, n, need) in paths.items():
         assert fmt == ("auto_tpu" if kind == "auto" else f"{kind}_tpu")
-        assert n == (chip_smoke.AUTO_LINES if name.startswith("auto")
+        assert n == (chip_smoke.AUTO_LINES if name == "auto_line"
+                     else chip_smoke.TIER_LINES if name == "auto_tier"
                      else chip_smoke.RECORD_LINES)
         assert "frame_sep_spans" in need
         assert ("classify_auto" in need) == (kind == "auto")
     assert chip_smoke._mixed_tables("record_ltsv")[0].count(" = ") == 10
     assert chip_smoke.AUTO_LINES == 4 * chip_smoke.BATCH
-    assert chip_smoke.RECORD_LINES == chip_smoke.BATCH
+    assert chip_smoke.RECORD_LINES == chip_smoke.BATCH // 2
+    assert chip_smoke.TIER_LINES == 2 * chip_smoke.BATCH
     B = chip_smoke.BATCH
     assert (chip_smoke.LTSV_LINES, chip_smoke.RFC3164_LINES,
             chip_smoke.RFC5424_LINES, chip_smoke.AB_BATCHES,
             chip_smoke.SYSLEN_LINES) == (4 * B, 4 * B, 4 * B, 1, 2 * B)
     assert set(chip_smoke.COOLING) == {"rfc5424_line", "rfc3164_line",
                                        "ltsv_line", "gelf_line",
-                                       "rfc5424_ltsv_line"}
+                                       "rfc5424_ltsv_line",
+                                       "rfc5424_r5_line"}
 
 
 @pytest.mark.parametrize("name", ["auto_tier", "record_rfc3164"])
@@ -591,32 +594,53 @@ def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
 
 
 def test_out_phases_are_named_and_sized():
-    """The LTSV-output and dns e2e paths: their formats, outputs, sizes,
-    which run through the CLI and the kernels each must launch; the
-    rfc5424 line mix into LTSV among the paths whose tiers must cool."""
+    """The LTSV-output, dns and syslog-output e2e paths: their formats,
+    outputs, sizes, which run through the CLI and the kernels each must
+    launch; the rfc5424 line mix into LTSV and into RFC5424 among the
+    paths whose tiers must cool."""
     paths = chip_smoke.OUT_PATHS
     B = chip_smoke.BATCH
+    r5 = {"rfc5424_r5_line", "rfc5424_r5_tier", "rfc3164_r5_tier"}
+    syslog = {"syslog_out_gelf", "syslog_out_ltsv", "syslog_out_auto",
+              "syslog_out_jsonl", "syslog_out_pass5424",
+              "syslog_out_pass3164", "syslog_out_rfc3164", "syslog_out_json",
+              "syslog_out_prepend"}
     assert set(paths) == {"rfc5424_ltsv_line", "rfc5424_ltsv_tier",
                           "dns_line", "dns_ltsv", "auto_dns_ltsv",
                           "ltsv_out_rfc3164", "ltsv_out_ltsv",
                           "ltsv_out_gelf", "ltsv_out_jsonl",
-                          "ltsv_out_schema"}
+                          "ltsv_out_schema"} | r5 | syslog
+    tiers = ("rfc5424_ltsv_tier", "rfc5424_r5_tier", "rfc3164_r5_tier")
     for name, (fmt, keys, output, kind, n, maker, cli, need,
                need_off) in paths.items():
-        assert output == ("gelf" if name == "dns_line" else "ltsv")
+        if name in r5 or name in syslog:
+            assert output in ("rfc5424", "passthrough", "rfc3164", "json")
+        else:
+            assert output == ("gelf" if name == "dns_line" else "ltsv")
         assert n == (4 * B if name in ("rfc5424_ltsv_line",
-                                       "rfc5424_ltsv_tier", "dns_line")
+                                       "rfc5424_r5_line")
+                     else 2 * B if name in r5 or name in (
+                         "rfc5424_ltsv_tier", "dns_line")
+                     else B // 2 if name.startswith(("ltsv_out_", "syslog"))
                      else B)
-        assert cli == (not name.startswith("ltsv_out_"))
+        assert cli == (not name.startswith(("ltsv_out_", "syslog_out_"))
+                       and name not in tiers[1:])
         assert need[:2] == ("frame_sep_spans", "frame_gather")
-        assert (need_off is None) == (name != "rfc5424_ltsv_tier")
+        assert (need_off is None) == (name not in tiers)
         assert ("decode_dns" in need) == ("dns" in name)
     assert "classify_auto_dns" in paths["auto_dns_ltsv"][7]
     assert paths["rfc5424_ltsv_tier"][8][-2:] == ("encode_ltsv_out_probe",
                                                   "encode_ltsv_out_assemble")
+    assert paths["rfc5424_r5_tier"][8][-2:] == (
+        "encode_rfc5424_out_probe", "encode_rfc5424_out_assemble")
+    assert paths["rfc3164_r5_tier"][8][-2:] == (
+        "encode_rfc3164_rfc5424_probe", "encode_rfc3164_rfc5424_assemble")
     assert "rfc5424_ltsv_line" in chip_smoke.COOLING
+    assert "rfc5424_r5_line" in chip_smoke.COOLING
+    assert set(chip_smoke.NOTICE_PATHS) == {
+        "ltsv_out_schema", "syslog_out_jsonl", "syslog_out_prepend"}
     assert set(chip_smoke.MIXED_CLI) == {"auto_line", "auto_tier",
-                                         "record_rfc5424", "record_auto"}
+                                         "record_auto"}
 
 
 def test_dns_and_ac_dns_cases_check_on_the_cpu(monkeypatch):
@@ -670,7 +694,9 @@ def test_dns_and_ac_dns_cases_check_on_the_cpu(monkeypatch):
         chip_smoke.dn_case(bt, lt, len(lines))
 
 
-@pytest.mark.parametrize("name", ["dns_ltsv", "ltsv_out_schema"])
+@pytest.mark.parametrize("name", ["dns_ltsv", "ltsv_out_schema",
+                                  "syslog_out_pass3164", "syslog_out_json",
+                                  "syslog_out_prepend"])
 def test_out_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
     """phase_e2e_out end to end on the CPU at a small size (in process,
     and through the CLI where the path has one, both with ``--device
@@ -720,4 +746,5 @@ def test_out_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
     assert rep["identical_to_scalar_path"] and rep["lines"] == 1200
     assert ("cli_wall_s" in rep) == cli
     run, = rep["runs"]
-    assert (run["startup_notice"] is None) == (name != "ltsv_out_schema")
+    assert (run["startup_notice"] is None) == (
+        name not in chip_smoke.NOTICE_PATHS)

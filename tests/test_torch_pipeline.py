@@ -167,7 +167,7 @@ BAD_CONFIGS = [
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "capnp"\n',
      "input.framing"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "stdout"\nformat = "rfc5424"\n', "output.format"),
+     'type = "stdout"\nformat = "capnp"\n', "output.format"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "kafka"\n', "output.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
@@ -255,13 +255,17 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(tmp_path, monkeypatch):
 # must reach
 _NEW_MODULES = ("encoders.ltsv", "decoders.dns", "tpu.dns",
                 "tpu.materialize_dns", "tpu.encode_dns_block",
-                "tpu.encode_ltsv_block", "tpu.device_ltsv_out")
+                "tpu.encode_ltsv_block", "tpu.device_ltsv_out",
+                "encoders.rfc5424", "encoders.rfc3164",
+                "encoders.passthrough", "tpu.encode_rfc5424_block",
+                "tpu.encode_passthrough_block",
+                "tpu.encode_rfc3164_3164_block", "tpu.device_rfc5424_out")
 
 
 def test_import_rule():
     """Every module of the port imports without JAX and without any
-    module of the JAX package (the walk reaches the LTSV output's and the
-    dns input's modules too)."""
+    module of the JAX package (the walk reaches the LTSV output's, the
+    dns input's and the syslog outputs' modules too)."""
     code = (
         "import pkgutil, sys\n"
         "import flowgger_tpu_torch as p\n"
