@@ -110,9 +110,11 @@ Phases, each printing JSON lines:
    GELF 1.1 payloads, 65 536) and stdin → gelf_tpu → GELF over the gelf
    tier mix (32 768); ``--lines`` defaults to 65 536.  A tier mix's
    batches need not cool, so two flushes do (``TIER_LINES``).
-   Each runs first as ``python -m flowgger_tpu_torch cfg.toml`` in a
-   subprocess, started while the scalar expectation is made beside it,
-   then once in process through
+   Each line mix runs first as ``python -m flowgger_tpu_torch cfg.toml``
+   in a subprocess, started while the scalar expectation is made beside
+   it (the tier mixes skip it since the capnp paths came: their line
+   mixes drive the same configurations through the CLI), then each
+   configuration once in process through
    ``flowgger_tpu_torch.start`` with every kernel launch count reset
    just before and read just after (the run must launch each kernel of
    its path; the syslen run must decline no region; on the rfc5424,
@@ -138,9 +140,9 @@ Phases, each printing JSON lines:
    (none for the other formats; the CLI's banner line first).
    Each reports the fused route's and the split device tier's batches
    taken, declined and cooled, their rows, and their fetched and
-   emitted bytes a tier row.  Then eight more (:data:`MIXED_PATHS`, each
-   through the CLI as above and in process with the launch counts
-   reset just before and read just after): stdin → auto_tpu → GELF over the four
+   emitted bytes a tier row.  Then eight more (:data:`MIXED_PATHS`, in
+   process with the launch counts reset just before and read just after,
+   and those in :data:`MIXED_CLI` through the CLI as above): stdin → auto_tpu → GELF over the four
    line mixes interleaved with the classifier's edge rows
    (``auto_line``) and over the four tier mixes (``auto_tier``, every
    leg's split tier taking batches), 65 536 and 32 768 lines; and the
@@ -154,7 +156,8 @@ Phases, each printing JSON lines:
    sub-batch shapes the kernels phase did not check are checked after
    the runs with the others (:func:`phase_late_shapes`).  Then ten more
    (:data:`OUT_PATHS`, in process with the launch counts reset just
-   before and read just after; the first five also through the CLI):
+   before and read just after; rfc5424 → LTSV's line mix and dns → GELF
+   also through the CLI):
    stdin → rfc5424_tpu → LTSV over cell 1's rfc5424 mix (65 536 lines,
    reporting its share of rows outside OL: over 5 %, so both tiers must
    decline and cool) and over the → LTSV tier mix (32 768, FO/ltsv taking
@@ -167,18 +170,34 @@ Phases, each printing JSON lines:
    stamped with the wall clock masked), each new kernel's launch shapes
    checked after the runs.  Then the → RFC5424 and other syslog outputs
    (:data:`OUT_PATHS` too): rfc5424_tpu → RFC5424 over cell 1's mix
-   (65 536 lines, line framing, in process and through the CLI, its share
-   of rows outside O5 reported: over 5 %, so both tiers must decline and
-   cool), rfc5424_tpu and rfc3164_tpu → RFC5424 over their tier mixes
-   (32 768 each, in process: FO/r5 taking every batch, and with
-   ``tpu_fuse = "off"`` O5 or O5/3164), and in process only, 8 192 lines
-   each: gelf, ltsv and auto → RFC5424, jsonl → RFC5424 (the Record path,
+   (65 536 lines, line framing, in process (its CLI run dropped when the
+   capnp paths came), its share of rows outside O5 reported: over 5 %, so
+   both tiers must decline and cool), rfc5424_tpu and rfc3164_tpu →
+   RFC5424 over their tier mixes (32 768 each, in process: FO/r5 taking
+   every batch, and with ``tpu_fuse = "off"`` O5 or O5/3164), and in
+   process only, 4 096 lines each (8 192 before the capnp paths came):
+   gelf, ltsv and auto → RFC5424, jsonl → RFC5424 (the Record path,
    its start-up notice), rfc5424 and rfc3164 → passthrough, rfc3164 →
    RFC3164, rfc5424 → json on stdout (the inferred ``noop`` framing) and
    rfc5424 → passthrough with ``syslog_prepend_timestamp`` (the Record
    path, the prefix masked).  The → LTSV runs of rfc3164, ltsv, gelf and
    jsonl run 8 192 lines since the syslog outputs came.  Five of the
-   Record-path configs run in process only (:data:`MIXED_CLI`).
+   Record-path configs run in process only (:data:`MIXED_CLI`).  Then the
+   capnp output (:data:`OUT_PATHS` too, the inferred ``noop`` framing unless
+   a path sets one): rfc5424_tpu → capnp over cell 1's mix (65 536
+   lines, in process and through the CLI, its share of rows outside OC
+   reported: over 5 %, so both tiers must decline and cool) and over the
+   tier mix (32 768, in process: FO/capnp taking every batch, and with
+   ``tpu_fuse = "off"`` OC), and in process only, 8 192 lines each:
+   rfc3164, ltsv, gelf and auto → capnp, rfc5424 → capnp with a
+   two-pair ``capnp_extra`` and syslen framing, jsonl → capnp (the
+   Record path, its notice); the messages' stamps at or past the run's
+   start (rows without a timestamp) masked by
+   ``corpus.mask_capnp_stamps``.  The kernels phase holds OC (probe and
+   assemble at 6 and 16 pairs) and FO/capnp against their plain
+   versions on the rfc5424 tier batch, its flush batch and its
+   end-of-stream batch, without and with a ``capnp_extra``
+   (:func:`oc_cases`).
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -253,6 +272,8 @@ TIER_LINES = 2 * BATCH      # lines of each tier-mix e2e run: its batches
 OUT_LINES = BATCH // 2      # lines of each in-process-only output path
                             # (the → LTSV ones cut from BATCH when the
                             # syslog-output paths came)
+SYSLOG_OUT_LINES = BATCH // 4  # lines of each syslog_out_* path (cut from
+                               # BATCH // 2 when the capnp paths came)
 RECORD_LINES = BATCH // 2   # lines of each Record-path e2e run (cut from
                             # BATCH when the syslog-output paths came)
 DNS_LINES = 2 * BATCH       # lines of the dns → GELF e2e run (cut from
@@ -1101,6 +1122,8 @@ def kernels_encode(seed: int, rows: list, shapes: list):
             rows.extend(route_case("f1", batch, lens_c, BATCH))
             # O5 and FO/r5 (→ RFC5424) on the same batch
             rows.extend(r5_cases("rfc5424", batch, lens_c, BATCH))
+            # OC and FO/capnp (→ capnp) on the same batch
+            oc_cases(batch, lens_c, BATCH, rows, shapes)
             fb, fl, fn = flush_batch(
                 make_tier_corpus(2 * BATCH, seed + 9)[0], "tier path", shapes)
             fp = kernels.decode_rfc5424_cuda(fb, fl, 4, lo)
@@ -1108,6 +1131,7 @@ def kernels_encode(seed: int, rows: list, shapes: list):
                         + route_case("f1", fb, fl, fn)
                         + r5_cases("rfc5424", fb, fl, fn)):
                 shapes.append({**row, "where": "tier path, flush batch"})
+            oc_cases(fb, fl, fn, rows, shapes, "tier path, flush batch")
             # the smallest batch the tier path takes: the end-of-stream
             # partial frame, one row in a 256-row bucket
             small_n = pack.bucket_rows(1)
@@ -1119,6 +1143,8 @@ def kernels_encode(seed: int, rows: list, shapes: list):
                         + r5_cases("rfc5424", sb, sl, 200)):
                 shapes.append({**row, "where": "tier path, end-of-stream "
                                                "batch"})
+            oc_cases(sb, sl, 200, rows, shapes,
+                     "tier path, end-of-stream batch")
 
 
 def d3_case(batch, lens_c, year: int):
@@ -2572,6 +2598,248 @@ def r5_cases(fmt: str, batch, lens_c, n: int) -> list:
             for row in r5_case(kind, batch, lens_c, n)]
 
 
+# OC (split, 6 or 16 pairs) and FO/capnp (fused) kinds of oc_case: (kernel
+# name, source, the reference function's file:line)
+OC_KINDS = {
+    "oc": ("encode_capnp", "flowgger_tpu_torch/csrc/encode_capnp.cu",
+           "flowgger_tpu/tpu/device_capnp.py:148"),
+    "fo": ("fused_rfc5424_capnp", "flowgger_tpu_torch/csrc/fused_capnp_out.cu",
+           "flowgger_tpu/tpu/fused_routes.py:346"),
+}
+# the capnp_extra of the kernels phase's extra cases and of capnp_out_extra
+CAPNP_EXTRA = (("env", "prod"), ("dc", "eu-west-1"))
+
+
+def oc_case(kind: str, batch, lens_c, n: int, P: int = 6, extras=(),
+            assemble: bool = True):
+    """OC (``kind`` "oc": the split rfc5424 → capnp tier's encode, from
+    K1's packed channels at 4 SD blocks and ``P`` pairs) or FO/capnp
+    ("fo": the fused route, the decode and the probe in one kernel, 6
+    pairs) against its plain version on one batch of ``n`` real rows,
+    with the ``capnp_extra`` pairs ``extras``: the probe's base tier bit,
+    elided length and fac8 / sev8 of every row (zeros at and past ``n``;
+    for FO/capnp also the ok / stamp channels and each tier row's carried
+    channels), and with ``assemble`` the assemble's bytes of every tier
+    row (``base & (base_len <= OW)``) at its offset, each checked once
+    before and once after its timing loop.  Returns ``[probe row]`` or
+    ``[probe row, assemble row]``; the rows' names carry ``_p6`` /
+    ``_p16`` for OC as its launch counts do."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import (device_capnp, device_gelf,
+                                        fused_routes, kernels, rfc5424)
+
+    base_name, source, replaces = OC_KINDS[kind]
+    fused = kind == "fo"
+    tag = "" if fused else f"_p{P}"
+    suffix = b""
+    N, L = batch.shape
+    dev = batch.device
+    live = torch.arange(N, device=dev) < n
+    bank_b, table = device_capnp.kernel_consts(suffix, extras)
+    bank = device_gelf._bank_on(bank_b, dev)
+    OW = device_capnp.out_width(L, suffix, extras, P)
+    route = "rfc5424_capnp"
+    demand = fused_routes.DEMAND[route]
+    small_keys = ("ok", "days", "sod", "off", "nanos")
+
+    def plain_decode():
+        dec = rfc5424.decode_rfc5424(batch, lens_c, max_pairs=P)
+        return {k: v for k, v in dec.items() if k in demand} if fused \
+            else dec
+
+    dec0 = plain_decode()
+    packed = None if fused else kernels.decode_rfc5424_cuda(batch, lens_c,
+                                                            4, P)
+
+    def k_probe():
+        if not fused:
+            return kernels.encode_capnp_cuda(batch, lens_c, packed, n, bank,
+                                             table)
+        base, base_len, small, chan, small8 = kernels.fused_capnp_out_cuda(
+            batch, lens_c, n, bank, table)
+        return base, base_len, small8, small, chan
+
+    def p_probe():
+        dec = plain_decode() if fused else dec0
+        res = device_capnp.encode_rows(batch, lens_c, dec, suffix=suffix,
+                                       extras=extras, assemble=False, n=n)
+        if not fused:
+            return res
+        return tuple(res) + (torch.stack(
+            [torch.where(live, dec[k].to(torch.int32), 0)
+             for k in small_keys]),)
+
+    ref = p_probe()
+    ref_carried = (fused_routes.carried_plain(dec0, route) if fused
+                   else None)
+    probed = {}
+
+    def check_probe():
+        got = k_probe()
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        if ref_carried is not None:
+            on = ref[0]
+            err = max(err, max_abs_err(got[-1][on], ref_carried[on]))
+            probed["chan"], probed["tier"] = got[-1], got[0]
+        if err:
+            raise AssertionError(f"{base_name}{tag} probe [{N}, {L}] n={n} "
+                                 f"disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_p = check_probe()
+    ms_p = device_ms(k_probe)
+    check_probe()   # a launch after the timing loop
+    CHECKED.add((f"{base_name}_probe{tag}", (N, L)))
+
+    ref_base = ref[0]
+    real_valid = int(torch.where(live, lens_c, 0).sum())
+    gate = live & dec0["ok"].to(torch.bool) & ~dec0["has_high"].to(torch.bool)
+    n_gate = int(gate.sum())
+    # the pair slots below each row's pair_count, and those of them that
+    # are sd[0]'s (the only pairs whose spans the encode loads)
+    in_pc = (torch.arange(P, device=dev)[None, :]
+             < dec0["pair_count"].to(torch.int64)[:, None])
+    sd0 = in_pc & (dec0["pair_sd"] == 0)
+
+    def pair_slots(rows, m=in_pc):
+        return int((m & rows.to(torch.bool)[:, None]).sum())
+
+    common = {"route": "cuda", "source": source, "replaces": replaces,
+              "library_ms": None}
+    carry = kernels.FUSED_CAPNP_CARRY
+    if not fused:
+        # bytes: the screen's channels of each real row (ok, has_high,
+        # pair_count, fac / sev) and the escape flags of its pairs below
+        # pair_count; of each row past the screen its 14 row channels
+        # (the host, app, proc and msgid spans, msg_trim_start, trim_end,
+        # full_start, sd_count, sd[0]'s id span), pair_sd of each pair
+        # below pair_count and the name and value spans of sd[0]'s pairs;
+        # every row's bit, length and fac8 / sev8; operations: a few a
+        # channel (counted as one a row)
+        probe_bytes = (20 * n + 4 * pair_slots(gate)
+                       + 56 * int(ref_base.sum()) + 4 * pair_slots(ref_base)
+                       + 16 * pair_slots(ref_base, sd0) + 7 * N)
+        probe_ops = n
+    else:
+        # bytes: each real row's valid bytes and length, every row's
+        # outputs and five stamp channels, the carried channels of each
+        # base tier row; operations: the decode's passes
+        probe_bytes = (real_valid + 4 * n + 27 * N
+                       + 4 * carry * int(ref_base.sum()))
+        probe_ops = 9 * real_valid
+    what = ", capnp_extra 2 pairs" if extras else ""
+    out = [{
+        "name": f"{base_name}_probe{tag}", **common, "max_abs_err": err_p,
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        **bound(probe_bytes, probe_ops),
+        "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
+                 f"{n_gate} rows past ok / has_high, {real_valid} valid "
+                 f"bytes{what}"}]
+    if not assemble:
+        return out
+
+    tier = ref_base & (ref[1] <= OW)
+    gated = torch.where(tier, ref[1].to(torch.int64), 0)
+    row_off = torch.where(tier, torch.cumsum(gated, 0) - gated, -1)
+    total = int(gated.sum())
+
+    def k_asm():
+        if not fused:
+            return kernels.encode_capnp_cuda(batch, lens_c, packed, n, bank,
+                                             table, OW, row_off=row_off,
+                                             total=total)
+        return kernels.fused_capnp_out_cuda(
+            batch, lens_c, n, bank, table, OW=OW, row_off=row_off,
+            total=total, chan=probed["chan"], tier=probed["tier"])
+
+    def t_asm():
+        # the timed call: FO/capnp's launch without its contract check,
+        # which reads a flag back from the card
+        if not fused:
+            return k_asm()
+        return kernels.fused_capnp_out_assemble_launch(
+            batch, lens_c, n, bank, table, OW, row_off, total,
+            probed["chan"])
+
+    def p_asm():
+        rows_, out_len, _ = device_capnp.encode_rows(
+            batch, lens_c, dec0, suffix=suffix, extras=extras)
+        return device_gelf.flat_rows(rows_, out_len, row_off, total)
+
+    ref_flat = p_asm()
+    if fused:
+        # the wrapper's contract: no assemble without the probe's channels,
+        # and none of a row outside the probe's tier
+        def refused(**kw):
+            try:
+                kernels.fused_capnp_out_cuda(batch, lens_c, n, bank, table,
+                                             OW=OW, total=total, **kw)
+            except ValueError:
+                return True
+            return False
+
+        outside = torch.nonzero(live & ~ref_base).flatten()[:1]
+        bad_off = row_off.clone()
+        bad_off[outside] = 0
+        if (not refused(row_off=row_off, chan=None, tier=probed["tier"])
+                or (outside.numel() and not refused(
+                    row_off=bad_off, chan=probed["chan"],
+                    tier=probed["tier"]))):
+            raise AssertionError(f"{base_name} assemble ran against its "
+                                 f"contract")
+
+    def check_asm():
+        err = max_abs_err(k_asm(), ref_flat)
+        if err:
+            raise AssertionError(f"{base_name}{tag} assemble [{N}, {L}] "
+                                 f"n={n} disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        return err
+
+    err_a = check_asm()
+    ms_a = device_ms(t_asm)
+    check_asm()   # a launch after the timing loop
+    CHECKED.add((f"{base_name}_assemble{tag}", (N, L)))
+    n_tier = int(tier.sum())
+    tier_valid = int(torch.where(tier, lens_c, 0).sum())
+    # bytes: the tier rows' valid bytes and lengths, the channels the
+    # assemble reads (OC: 15 row channels, pair_sd of each pair below
+    # pair_count and the name and value spans of sd[0]'s pairs; FO/capnp:
+    # the carried row), the blob a tier row, every row's offset, the
+    # output written; operations: one store a byte written
+    blob = len(device_capnp._bank(suffix, tuple(extras))[2]["blob"])
+    ch_bytes = (4 * carry * n_tier if fused
+                else 60 * n_tier + 4 * pair_slots(tier)
+                + 16 * pair_slots(tier, sd0))
+    out.append({
+        "name": f"{base_name}_assemble{tag}", **common, "max_abs_err": err_a,
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        **bound(tier_valid + 4 * n_tier + ch_bytes + blob * n_tier + 8 * N
+                + total, total),
+        "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
+                 f"bytes{what}"})
+    return out
+
+
+def oc_cases(batch, lens_c, n: int, rows: list, shapes: list,
+             where: str = "") -> None:
+    """OC at 6 and 16 pairs and FO/capnp, probe and assemble, on one
+    rfc5424 batch, without a ``capnp_extra`` and with :data:`CAPNP_EXTRA`:
+    into ``rows`` (the kernel table's rows: the tier batch, no extra) when
+    ``where`` is empty, else into ``shapes`` as ``kernel_shape`` lines;
+    the extra cases always go to ``shapes``."""
+    for kind, P in (("oc", 6), ("oc", 16), ("fo", 6)):
+        for extras in ((), CAPNP_EXTRA):
+            got = oc_case(kind, batch, lens_c, n, P=P, extras=extras)
+            if not where and not extras:
+                rows.extend(got)
+            else:
+                shapes.extend({**r, "where": where or "rfc5424 tier batch"}
+                              for r in got)
+
+
 def kernels_dns(seed: int, rows: list, shapes: list):
     """DN on a gathered [16384, 512] batch of the dns tier mix (and on the
     dns mix, edge rows included, as a shape line); AC with the dns flag on
@@ -3472,14 +3740,17 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
 # the line mixes not chosen to engage the tiers: both tiers of each must
 # decline (DECLINE_LIMIT batches) and then cool
 COOLING = ("rfc5424_line", "rfc3164_line", "ltsv_line", "gelf_line",
-           "rfc5424_ltsv_line", "rfc5424_r5_line")
+           "rfc5424_ltsv_line", "rfc5424_r5_line", "rfc5424_capnp_line")
 
 
 def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     """One configuration through the CLI (started first, while the scalar
-    expectation is made) and then in process (counts reset just before,
-    read just after; the tier mixes a second time with the fused route
-    off); returns the launch counts summed over the in-process runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
+    expectation is made; the line mixes only: a tier mix runs in process
+    only since the capnp paths came, its line mix driving the same
+    configuration through the CLI) and then in process (counts reset just
+    before, read just after; the tier mixes a second time with the fused
+    route off); returns the launch counts summed over the in-process
+    runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
     fails if a run launched E1, D3, E3, F1 or F3 at a batch shape not
     checked there (the unchecked shapes of K1 and the ltsv kernels go
     to :data:`LATE`)."""
@@ -3488,12 +3759,16 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     kind = PATHS[name][2]
 
     # (a) the CLI in a subprocess, beside the scalar expectation's making
-    with CliRun(_config(name, "cli"), path) as cli:
+    cli = not name.endswith("_tier")
+    if cli:
+        with CliRun(_config(name, "cli"), path) as run:
+            exp_out, exp_err = _expectation(name, data)
+            rc, cli_out, cli_err, wall_cli = run.result()
+        if rc != 0:
+            raise AssertionError(f"{name}: CLI run failed:\n"
+                                 + cli_err.decode()[-4000:])
+    else:
         exp_out, exp_err = _expectation(name, data)
-        rc, cli_out, cli_err, wall_cli = cli.result()
-    if rc != 0:
-        raise AssertionError(f"{name}: CLI run failed:\n"
-                             + cli_err.decode()[-4000:])
 
     # (b) in process, through the library entry point, counts reset
     runs = [e2e_inproc(name, path, exp_out, exp_err, checked, "auto")]
@@ -3502,23 +3777,27 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     for r in runs:
         r["inproc_lines_per_s"] = n_lines / r["inproc_wall_s"]
 
-    got = (WORK / f"{name}_cli.out").read_bytes()
-    errs = cli_err.decode().splitlines()
-    # stdout: the CLI's banner, then the ltsv decoder's notices
-    banner, *notices = cli_out.decode().splitlines()
-    if (not same_bytes(name, got, exp_out)
-            or not same_stderr(kind, errs, exp_err[0])
-            or not banner.startswith("Flowgger") or notices != exp_err[1]):
-        raise AssertionError(
-            f"{name}: CLI e2e differs from the scalar path: bytes equal="
-            f"{same_bytes(name, got, exp_out)}; stderr lines {len(errs)} vs "
-            f"{len(exp_err[0])}; stdout lines {len(notices)} vs "
-            f"{len(exp_err[1])}")
+    cli_report = {}
+    if cli:
+        got = (WORK / f"{name}_cli.out").read_bytes()
+        errs = cli_err.decode().splitlines()
+        # stdout: the CLI's banner, then the ltsv decoder's notices
+        banner, *notices = cli_out.decode().splitlines()
+        if (not same_bytes(name, got, exp_out)
+                or not same_stderr(kind, errs, exp_err[0])
+                or not banner.startswith("Flowgger")
+                or notices != exp_err[1]):
+            raise AssertionError(
+                f"{name}: CLI e2e differs from the scalar path: bytes equal="
+                f"{same_bytes(name, got, exp_out)}; stderr lines "
+                f"{len(errs)} vs {len(exp_err[0])}; stdout lines "
+                f"{len(notices)} vs {len(exp_err[1])}")
+        cli_report = {"cli_wall_s": wall_cli,
+                      "cli_lines_per_s": n_lines / wall_cli}
     emit({"phase": "e2e", "path": name, "lines": n_lines,
           "input_bytes": len(data), "output_bytes": len(exp_out),
           "error_lines": len(exp_err[0]), "notice_lines": len(exp_err[1]),
-          "mix": mix, "runs": runs,
-          "cli_wall_s": wall_cli, "cli_lines_per_s": n_lines / wall_cli,
+          "mix": mix, "runs": runs, **cli_report,
           "identical_to_scalar_path": True})
     total = {}
     for r in runs:
@@ -3582,8 +3861,9 @@ _NOTICE = "flowgger-tpu: columnar block route disabled for format "
 # the mixed paths that also run through the CLI (the other Record-path
 # configs run in process only since the LTSV-output and dns paths came,
 # and record_rfc5424 since the syslog-output paths came: their CLI is
-# held by the CPU tests)
-MIXED_CLI = ("auto_line", "auto_tier", "record_auto")
+# held by the CPU tests, and auto_tier since the capnp paths came:
+# auto_line drives its configuration through the CLI)
+MIXED_CLI = ("auto_line", "record_auto")
 
 
 def _mixed_tables(name: str):
@@ -3750,7 +4030,11 @@ def phase_e2e_mixed(name: str, seed: int):
 # GELF (DN and the host block encoder), dns_ltsv the dns tier mix into
 # LTSV, auto_dns_ltsv cell 11's four line mixes and the dns mix into
 # LTSV; the ltsv_out_* runs the other inputs into LTSV (ltsv_out_schema:
-# the Record path), in process only
+# the Record path), in process only.  rfc5424_ltsv_tier, dns_ltsv and
+# auto_dns_ltsv run in process only since the capnp paths came: the CLI
+# drives the LTSV output in rfc5424_ltsv_line, the dns input in dns_line
+# and auto in auto_line, and the CPU tests hold each configuration's CLI
+# against the JAX package
 _FRAME = ("frame_sep_spans", "frame_gather")
 OUT_PATHS = {
     "rfc5424_ltsv_line": ("rfc5424_tpu", "", "ltsv", "rfc5424",
@@ -3759,7 +4043,7 @@ OUT_PATHS = {
                            "decode_rfc5424_p6", "decode_rfc5424_p16",
                            "encode_ltsv_out_probe"), None),
     "rfc5424_ltsv_tier": ("rfc5424_tpu", "", "ltsv", "rfc5424",
-                          TIER_LINES, "make_ltsv_out_tier_corpus", True,
+                          TIER_LINES, "make_ltsv_out_tier_corpus", False,
                           (*_FRAME, "fused_rfc5424_ltsv_probe",
                            "fused_rfc5424_ltsv_assemble"),
                           (*_FRAME, "decode_rfc5424_p6",
@@ -3768,9 +4052,9 @@ OUT_PATHS = {
     "dns_line": ("dns_tpu", "", "gelf", "dns", DNS_LINES, "make_dns_corpus",
                  True, (*_FRAME, "decode_dns"), None),
     "dns_ltsv": ("dns_tpu", "", "ltsv", "dns", BATCH, "make_dns_tier_corpus",
-                 True, (*_FRAME, "decode_dns"), None),
+                 False, (*_FRAME, "decode_dns"), None),
     "auto_dns_ltsv": ("auto_tpu", 'auto_extra_formats = ["dns"]\n', "ltsv",
-                      "auto", BATCH, "make_auto_corpus", True,
+                      "auto", BATCH, "make_auto_corpus", False,
                       (*_FRAME, "classify_auto_dns", "decode_rfc5424_p6",
                        "decode_rfc3164", "decode_ltsv",
                        "structural_index_flat_f8", "decode_dns",
@@ -3791,9 +4075,11 @@ OUT_PATHS = {
                         OUT_LINES, "make_ltsv_corpus", False,
                         (*_FRAME, "decode_ltsv"), None),
     # cell 1's mix into RFC5424 (line framing): over 5 % of its rows fall
-    # outside O5, so FO/r5 and O5 decline and cool
+    # outside O5, so FO/r5 and O5 decline and cool (in process only since
+    # the capnp paths came: the CPU tests hold its CLI against the JAX
+    # package)
     "rfc5424_r5_line": ("rfc5424_tpu", "", "rfc5424", "rfc5424",
-                        RFC5424_LINES, "make_corpus", True,
+                        RFC5424_LINES, "make_corpus", False,
                         (*_FRAME, "fused_rfc5424_rfc5424_probe",
                          "decode_rfc5424_p6", "decode_rfc5424_p16",
                          "encode_rfc5424_out_probe"), None),
@@ -3815,36 +4101,76 @@ OUT_PATHS = {
                          "encode_rfc3164_rfc5424_assemble")),
     # the other inputs into RFC5424 and the other syslog outputs, in
     # process only (the CPU tests hold their CLIs against the JAX package)
-    "syslog_out_gelf": ("gelf_tpu", "", "rfc5424", "gelf", OUT_LINES,
-                        "make_gelf_tier_corpus", False,
+    "syslog_out_gelf": ("gelf_tpu", "", "rfc5424", "gelf",
+                        SYSLOG_OUT_LINES, "make_gelf_tier_corpus", False,
                         (*_FRAME, "structural_index_flat_f8"), None),
-    "syslog_out_ltsv": ("ltsv_tpu", "", "rfc5424", "ltsv", OUT_LINES,
-                        "make_ltsv_corpus", False, (*_FRAME, "decode_ltsv"),
-                        None),
-    "syslog_out_auto": ("auto_tpu", "", "rfc5424", "auto", OUT_LINES,
-                        "make_auto_corpus", False,
+    "syslog_out_ltsv": ("ltsv_tpu", "", "rfc5424", "ltsv",
+                        SYSLOG_OUT_LINES, "make_ltsv_corpus", False,
+                        (*_FRAME, "decode_ltsv"), None),
+    "syslog_out_auto": ("auto_tpu", "", "rfc5424", "auto",
+                        SYSLOG_OUT_LINES, "make_auto_corpus", False,
                         (*_FRAME, "classify_auto", *_LEGS,
                          "encode_rfc5424_out_probe",
                          "encode_rfc3164_rfc5424_probe"), None),
-    "syslog_out_jsonl": ("jsonl_tpu", "", "rfc5424", "jsonl", OUT_LINES,
-                         "make_jsonl_corpus", False,
+    "syslog_out_jsonl": ("jsonl_tpu", "", "rfc5424", "jsonl",
+                         SYSLOG_OUT_LINES, "make_jsonl_corpus", False,
                          (*_FRAME, "structural_index_f8"), None),
     "syslog_out_pass5424": ("rfc5424_tpu", "", "passthrough", "rfc5424",
-                            OUT_LINES, "make_corpus", False,
+                            SYSLOG_OUT_LINES, "make_corpus", False,
                             (*_FRAME, "decode_rfc5424_p6"), None),
     "syslog_out_pass3164": ("rfc3164_tpu", "", "passthrough", "rfc3164",
-                            OUT_LINES, "make_rfc3164_corpus", False,
+                            SYSLOG_OUT_LINES, "make_rfc3164_corpus", False,
                             (*_FRAME, "decode_rfc3164"), None),
     "syslog_out_rfc3164": ("rfc3164_tpu", "", "rfc3164", "rfc3164",
-                           OUT_LINES, "make_rfc3164_corpus", False,
+                           SYSLOG_OUT_LINES, "make_rfc3164_corpus", False,
                            (*_FRAME, "decode_rfc3164"), None),
-    "syslog_out_json": ("rfc5424_tpu", "", "json", "rfc5424", OUT_LINES,
-                        "make_tier_corpus", False,
+    "syslog_out_json": ("rfc5424_tpu", "", "json", "rfc5424",
+                        SYSLOG_OUT_LINES, "make_tier_corpus", False,
                         (*_FRAME, "fused_rfc5424_gelf_probe",
                          "fused_rfc5424_gelf_assemble"), None),
     "syslog_out_prepend": ("rfc5424_tpu", "", "passthrough", "rfc5424",
-                           OUT_LINES, "make_corpus", False,
+                           SYSLOG_OUT_LINES, "make_corpus", False,
                            (*_FRAME, "decode_rfc5424_p6"), None),
+    # cell 1's mix into capnp (the inferred noop framing): over 5 % of its
+    # rows fall outside OC, so FO/capnp and OC decline and cool
+    "rfc5424_capnp_line": ("rfc5424_tpu", "", "capnp", "rfc5424",
+                           RFC5424_LINES, "make_corpus", True,
+                           (*_FRAME, "fused_rfc5424_capnp_probe",
+                            "decode_rfc5424_p6", "decode_rfc5424_p16",
+                            "encode_capnp_probe_p6"), None),
+    # cell 4's tier mix into capnp: FO/capnp takes every batch; with
+    # tpu_fuse = "off" OC does
+    "rfc5424_capnp_tier": ("rfc5424_tpu", "", "capnp", "rfc5424",
+                           TIER_LINES, "make_tier_corpus", False,
+                           (*_FRAME, "fused_rfc5424_capnp_probe",
+                            "fused_rfc5424_capnp_assemble"),
+                           (*_FRAME, "decode_rfc5424_p6",
+                            "encode_capnp_probe_p6",
+                            "encode_capnp_assemble_p6")),
+    # the other inputs into capnp, in process only (the CPU tests hold
+    # their CLIs against the JAX package): the host block encoders, auto's
+    # legs (its rfc5424 leg probes OC), rfc5424 with a capnp_extra and
+    # syslen framing (FO/capnp takes the tier mix), jsonl (the Record path)
+    "capnp_out_rfc3164": ("rfc3164_tpu", "", "capnp", "rfc3164", OUT_LINES,
+                          "make_rfc3164_corpus", False,
+                          (*_FRAME, "decode_rfc3164"), None),
+    "capnp_out_ltsv": ("ltsv_tpu", "", "capnp", "ltsv", OUT_LINES,
+                       "make_ltsv_corpus", False, (*_FRAME, "decode_ltsv"),
+                       None),
+    "capnp_out_gelf": ("gelf_tpu", "", "capnp", "gelf", OUT_LINES,
+                       "make_gelf_corpus", False,
+                       (*_FRAME, "structural_index_flat_f8"), None),
+    "capnp_out_auto": ("auto_tpu", "", "capnp", "auto", OUT_LINES,
+                       "make_auto_corpus", False,
+                       (*_FRAME, "classify_auto", *_LEGS,
+                        "encode_capnp_probe_p6"), None),
+    "capnp_out_extra": ("rfc5424_tpu", "", "capnp", "rfc5424", OUT_LINES,
+                        "make_tier_corpus", False,
+                        (*_FRAME, "fused_rfc5424_capnp_probe",
+                         "fused_rfc5424_capnp_assemble"), None),
+    "capnp_out_jsonl": ("jsonl_tpu", "", "capnp", "jsonl", OUT_LINES,
+                        "make_jsonl_corpus", False,
+                        (*_FRAME, "structural_index_f8"), None),
 }
 # the [output] keys of a path beside its format (default: line framing
 # into the file; json goes to stdout with the inferred noop framing)
@@ -3853,9 +4179,12 @@ OUT_KEYS = {
     "syslog_out_prepend": ('framing = "line"\nsyslog_prepend_timestamp = '
                            '"[year]-[month]-[day]T[hour]:[minute]:[second]Z '
                            '"\n'),
+    "capnp_out_extra": ('framing = "syslen"\n[output.capnp_extra]\n'
+                        + "".join(f'{k} = "{v}"\n' for k, v in CAPNP_EXTRA)),
 }
 # the paths whose config the block route cannot take: a start-up notice
-NOTICE_PATHS = ("ltsv_out_schema", "syslog_out_jsonl", "syslog_out_prepend")
+NOTICE_PATHS = ("ltsv_out_schema", "syslog_out_jsonl", "syslog_out_prepend",
+                "capnp_out_jsonl")
 # the split tier and fused route of an (input, output) pair whose probes
 # and assembles a run's counts are held against: the kernels' names
 TIER_LAUNCHES = {
@@ -3863,16 +4192,20 @@ TIER_LAUNCHES = {
     ("rfc5424", "rfc5424"): ("encode_rfc5424_out", "fused_rfc5424_rfc5424"),
     ("rfc3164", "rfc5424"): ("encode_rfc3164_rfc5424",
                              "fused_rfc3164_rfc5424"),
+    ("rfc5424", "capnp"): ("encode_capnp", "fused_rfc5424_capnp"),
 }
 _OUT_WRAPPERS = _MIXED_WRAPPERS + ("decode_dns_cuda", "encode_ltsv_out_cuda",
                                    "fused_ltsv_out_cuda",
                                    "encode_rfc5424_out_cuda",
-                                   "fused_rfc5424_out_cuda")
+                                   "fused_rfc5424_out_cuda",
+                                   "encode_capnp_cuda",
+                                   "fused_capnp_out_cuda")
 _OUT_LATE = MIXED_LATE + ("decode_dns", "encode_ltsv_out",
                           "fused_rfc5424_ltsv", "encode_rfc5424_out",
                           "encode_rfc3164_rfc5424", "fused_rfc5424_rfc5424",
                           "fused_rfc3164_rfc5424", "fused_rfc5424_gelf",
-                          "fused_rfc3164_gelf")
+                          "fused_rfc3164_gelf", "encode_capnp",
+                          "fused_rfc5424_capnp")
 _PREPEND_WALL = re.compile(rb"(^|[\n\0])\d{4}-\d\d-\d\dT\d\d:\d\d:\d\dZ ")
 _RFC3339_HEAD = re.compile(rb"(<[0-9]+>1 )([0-9]{4}-[0-9][0-9]-[0-9][0-9]T"
                            rb"[0-9:.]+Z) ")
@@ -3882,11 +4215,16 @@ def mask_stamps(data: bytes, since: float, output: str) -> bytes:
     """``data`` with the wall-clock stamps of rows without a timestamp
     (gelf and jsonl rows, from ``since`` on) set to 0:
     ``corpus.mask_wall_stamps`` for GELF, the ``time`` field for LTSV,
-    the head's stamp for RFC5424; the ``syslog_prepend_timestamp`` prefix
-    of each row (``passthrough_prepend``) masked."""
-    from flowgger_tpu_torch.corpus import mask_wall_stamps
+    the head's stamp for RFC5424, the root struct's stamp for capnp
+    (``capnp:<framing>``: ``corpus.mask_capnp_stamps``); the
+    ``syslog_prepend_timestamp`` prefix of each row
+    (``passthrough_prepend``) masked."""
+    from flowgger_tpu_torch.corpus import mask_capnp_stamps, mask_wall_stamps
     from flowgger_tpu_torch.utils.timeparse import rfc3339_to_unix
 
+    if output.startswith("capnp"):
+        # "capnp:<framing>": the messages' raw f64 stamps
+        return mask_capnp_stamps(data, since, output.partition(":")[2])
     if output in ("gelf", "json"):
         return mask_wall_stamps(data, since)
     if output == "passthrough_prepend":
@@ -3915,6 +4253,28 @@ def _out_keys(name: str) -> str:
         "rfc5424", "rfc3164", "passthrough") else "")
 
 
+def _out_framing(name: str) -> str:
+    """The output framing of a path: its ``framing`` key, else the one
+    the pipeline infers (stdout and capnp: noop; GELF: nul; LTSV: line)."""
+    m = re.search(r'framing = "(\w+)"', _out_keys(name))
+    if m:
+        return m.group(1)
+    output = OUT_PATHS[name][2]
+    if 'type = "stdout"' in _out_keys(name) or output == "capnp":
+        return "noop"
+    return "nul" if output == "gelf" else "line"
+
+
+def _masking(name: str) -> str:
+    """The ``output`` argument of :func:`mask_stamps` for a path."""
+    output = OUT_PATHS[name][2]
+    if name == "syslog_out_prepend":
+        return "passthrough_prepend"
+    if output == "capnp":
+        return f"capnp:{_out_framing(name)}"
+    return output
+
+
 def _out_config(name: str, tag: str, fuse: str = "auto") -> Path:
     from flowgger_tpu_torch import corpus
 
@@ -3935,15 +4295,17 @@ def _out_config(name: str, tag: str, fuse: str = "auto") -> Path:
 
 
 def ol_screen_share(lines: list, output: str = "ltsv") -> float:
-    """The share of ``lines`` outside OL's tier (``output`` ltsv) or O5's
-    (rfc5424): its screens, the width test, over-length rows, from the
-    plain decode and the plain probe on the card, a batch at a time."""
+    """The share of ``lines`` outside OL's tier (``output`` ltsv), O5's
+    (rfc5424) or OC's (capnp): its screens, the width test, over-length
+    rows, from the plain decode and the plain probe on the card, a batch
+    at a time."""
     import torch
 
     from flowgger_tpu_torch.tpu import device_ltsv_out, pack, rfc5424
-    from flowgger_tpu_torch.tpu import device_rfc5424_out
+    from flowgger_tpu_torch.tpu import device_capnp, device_rfc5424_out
 
-    split = device_rfc5424_out if output == "rfc5424" else device_ltsv_out
+    split = {"rfc5424": device_rfc5424_out,
+             "capnp": device_capnp}.get(output, device_ltsv_out)
 
     out = 0
     for i in range(0, len(lines), BATCH):
@@ -3977,8 +4339,7 @@ def e2e_out_inproc(name: str, path: Path, exp, fuse: str):
     with launch_shapes(_OUT_WRAPPERS) as seen:
         wall, pipe, errs, said = run_inproc(cfg, path)
     launches = dict(kernels.LAUNCHES)
-    masking = "passthrough_prepend" if name == "syslog_out_prepend" \
-        else output
+    masking = _masking(name)
     if 'type = "stdout"' in _out_keys(name):
         # the records went to stdout, as text
         got, said = "\n".join(said).encode(), []
@@ -4022,12 +4383,17 @@ def e2e_out_inproc(name: str, path: Path, exp, fuse: str):
         # one probe a probed batch and one assemble a taken batch, on
         # each tier
         s_name, f_name = tiers
-        if (launches[f"{s_name}_probe"]
-                != split["taken"] + split["declined"]
-                or launches[f"{s_name}_assemble"] != split["taken"]
-                or launches[f"{f_name}_probe"]
+
+        def count(prefix):
+            # OC counts its pair widths apart (_p6, _p16)
+            return sum(v for k, v in launches.items()
+                       if k.startswith(prefix))
+
+        if (count(f"{s_name}_probe") != split["taken"] + split["declined"]
+                or count(f"{s_name}_assemble") != split["taken"]
+                or count(f"{f_name}_probe")
                 != fused["taken"] + fused["declined"]
-                or launches[f"{f_name}_assemble"] != fused["taken"]):
+                or count(f"{f_name}_assemble") != fused["taken"]):
             raise AssertionError(f"{name} ({fuse}): {launches} for split "
                                  f"{split} and fused {fused}: not one probe "
                                  f"a probed batch and one assemble a taken "
@@ -4061,7 +4427,8 @@ def phase_e2e_out(name: str, seed: int):
     over the in-process runs."""
     from flowgger_tpu_torch import corpus
     from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.mergers import LineMerger, NulMerger
+    from flowgger_tpu_torch.mergers import (LineMerger, NulMerger,
+                                            SyslenMerger)
 
     WORK.mkdir(parents=True, exist_ok=True)
     (fmt_in, keys, output, kind, n_lines, maker, cli, _,
@@ -4078,19 +4445,20 @@ def phase_e2e_out(name: str, seed: int):
     in_t = getattr(corpus, keys) if keys.startswith("LTSV") else \
         ("[input]\n" + keys if keys else "")
     out_keys = _out_keys(name)
-    merger = (None if 'type = "stdout"' in out_keys
-              else NulMerger() if output == "gelf" else LineMerger())
+    merger = {"noop": None, "nul": NulMerger(), "line": LineMerger(),
+              "syslen": SyslenMerger()}[_out_framing(name)]
     since = time.time() - 1.0
     notices = []
     report = {"phase": "e2e", "path": name, "format": fmt_in,
               "output": output, "lines": n_lines, "input_bytes": len(data),
               "mix": {k: kinds.count(k) for k in sorted(set(kinds))}}
-    if name in ("rfc5424_ltsv_line", "rfc5424_r5_line", "rfc5424_r5_tier"):
-        # the line mixes: over 5 % of their rows outside OL or O5, so both
-        # tiers must decline and cool (COOLING lists them); the tier mix:
-        # at most 5 %
+    if name in ("rfc5424_ltsv_line", "rfc5424_r5_line", "rfc5424_r5_tier",
+                "rfc5424_capnp_line", "rfc5424_capnp_tier"):
+        # the line mixes: over 5 % of their rows outside OL, O5 or OC, so
+        # both tiers must decline and cool (COOLING lists them); the tier
+        # mixes: at most 5 %
         share = ol_screen_share(lines, output)
-        tag = "ol" if output == "ltsv" else "o5"
+        tag = {"ltsv": "ol", "rfc5424": "o5", "capnp": "oc"}[output]
         report[f"outside_{tag}_share"] = share
         if (share > 0.05) != name.endswith("_line"):
             raise AssertionError(f"{name}: {share:.4f} of the rows fall "
@@ -4112,8 +4480,8 @@ def phase_e2e_out(name: str, seed: int):
         banner, *cli_said = cli_out.decode().splitlines()
         got = (WORK / f"{name}_cli.out").read_bytes()
         if (not banner.startswith("Flowgger")
-                or mask_stamps(got, since, output)
-                != mask_stamps(exp_out, since, output)
+                or mask_stamps(got, since, _masking(name))
+                != mask_stamps(exp_out, since, _masking(name))
                 or not same_stderr("rfc3164", cli_err.decode().splitlines(),
                                    exp_err) or cli_said != notices):
             raise AssertionError(f"{name}: CLI e2e differs from the scalar "
@@ -4171,6 +4539,9 @@ def phase_late_shapes(seed: int) -> None:
                                    "rfc5424 tier mix"),
             "fused_rfc5424_rfc5424": (corpus.make_tier_corpus,
                                       "rfc5424 tier mix"),
+            "encode_capnp": (corpus.make_tier_corpus, "rfc5424 tier mix"),
+            "fused_rfc5424_capnp": (corpus.make_tier_corpus,
+                                    "rfc5424 tier mix"),
             "fused_rfc5424_gelf": (corpus.make_tier_corpus,
                                    "rfc5424 tier mix"),
             "encode_rfc3164_rfc5424": (corpus.make_rfc3164_tier_corpus,
@@ -4202,6 +4573,7 @@ def phase_late_shapes(seed: int) -> None:
         }.get(next((k for k in ("classify_auto_dns", "decode_dns",
                                 "encode_ltsv_out", "fused_rfc5424_ltsv",
                                 "encode_rfc5424_out", "fused_rfc5424_rfc5424",
+                                "encode_capnp", "fused_rfc5424_capnp",
                                 "fused_rfc5424_gelf",
                                 "encode_rfc3164_rfc5424",
                                 "fused_rfc3164_rfc5424",
@@ -4226,6 +4598,11 @@ def phase_late_shapes(seed: int) -> None:
         elif name.startswith(("encode_ltsv_out", "fused_rfc5424_ltsv")):
             kind = "ol" if name.startswith("encode") else "fo"
             row = ol_case(kind, batch, lens_c, rows, assemble=assemble)[-1]
+        elif name.startswith(("encode_capnp", "fused_rfc5424_capnp")):
+            kind = "fo" if name.startswith("fused") else "oc"
+            P = int(name.rsplit("_p", 1)[1]) if kind == "oc" else 6
+            row = oc_case(kind, batch, lens_c, rows, P=P,
+                          assemble=assemble)[-1]
         elif name.rsplit("_", 1)[0] in {v[1] for v in R5_KINDS.values()}:
             kind = next(k for k, v in R5_KINDS.items()
                         if v[1] == name.rsplit("_", 1)[0])

@@ -62,7 +62,7 @@ import numpy as np
 from .config import Config
 from .decoders import (DecodeError, DNSDecoder, GelfDecoder, JSONLDecoder,
                        LTSVDecoder, RFC3164Decoder, RFC5424Decoder)
-from .encoders import (EncodeError, GelfEncoder, LTSVEncoder,
+from .encoders import (CapnpEncoder, EncodeError, GelfEncoder, LTSVEncoder,
                        PassthroughEncoder, RFC3164Encoder, RFC5424Encoder)
 from .mergers import NulMerger
 
@@ -914,6 +914,45 @@ def mask_wall_stamps(data: bytes, since: float) -> bytes:
     return re.sub(rb'"timestamp":(-?[0-9][0-9.eE+-]*)', sub, data)
 
 
+def capnp_messages(data: bytes, framing: str = "noop"):
+    """The ``(start, end)`` byte offsets of each Cap'n Proto message in
+    ``data``, framed by ``framing`` (noop, line, nul or syslen): steps
+    message by message through the segment tables."""
+    import struct
+
+    spans = []
+    pos = 0
+    while pos < len(data):
+        if framing == "syslen":
+            pos = data.index(b" ", pos) + 1
+        nseg = struct.unpack_from("<I", data, pos)[0] + 1
+        sizes = struct.unpack_from(f"<{nseg}I", data, pos + 4)
+        end = pos + 8 * ((4 + 4 * nseg + 7) // 8) + 8 * sum(sizes)
+        spans.append((pos, end))
+        pos = end + (framing != "noop")
+    return spans
+
+
+def mask_capnp_stamps(data: bytes, since: float,
+                      framing: str = "noop") -> bytes:
+    """``data`` (Cap'n Proto messages framed by ``framing``) with the stamp
+    of every message whose stamp is at or past ``since`` set to 0: a gelf
+    or jsonl row without a timestamp is stamped with the wall clock, as
+    in GELF (:func:`mask_wall_stamps`).  The stamp is the root struct's
+    first data word."""
+    import struct
+
+    out = bytearray(data)
+    for start, _ in capnp_messages(data, framing):
+        nseg = struct.unpack_from("<I", data, start)[0] + 1
+        seg0 = start + 8 * ((4 + 4 * nseg + 7) // 8)
+        root = struct.unpack_from("<I", data, seg0)[0]
+        stamp = seg0 + 8 * (1 + (root >> 2))
+        if struct.unpack_from("<d", data, stamp)[0] >= since:
+            out[stamp:stamp + 8] = bytes(8)
+    return bytes(out)
+
+
 def syslen_stream(lines: List[bytes], cut: int = 3) -> bytes:
     """``lines`` as octet-counted frames, back to back; the last frame
     loses its final ``cut`` bytes (a short read at EOF)."""
@@ -952,7 +991,7 @@ def _frames(data: bytes, framing: str):
 # output.format → encoder, as the pipeline picks it
 _OUTPUTS = {"gelf": GelfEncoder, "json": GelfEncoder, "ltsv": LTSVEncoder,
             "rfc5424": RFC5424Encoder, "rfc3164": RFC3164Encoder,
-            "passthrough": PassthroughEncoder}
+            "passthrough": PassthroughEncoder, "capnp": CapnpEncoder}
 
 
 def scalar_expectation(data: bytes, framing: str = "line",

@@ -69,6 +69,7 @@ from .ltsv import LTSVEncoder  # noqa: E402
 from .rfc5424 import RFC5424Encoder  # noqa: E402
 from .rfc3164 import RFC3164Encoder  # noqa: E402
 from .passthrough import PassthroughEncoder  # noqa: E402
+from .capnp import CapnpEncoder  # noqa: E402
 
 __all__ = [
     "Encoder",
@@ -78,6 +79,7 @@ __all__ = [
     "RFC5424Encoder",
     "RFC3164Encoder",
     "PassthroughEncoder",
+    "CapnpEncoder",
     "config_get_prepend_ts",
     "build_prepend_ts",
     "validate_time_format_input",

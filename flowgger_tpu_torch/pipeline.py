@@ -7,13 +7,15 @@ the same output-framing inference.  The port runs ``input.type =
 "stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
 ``input.format = "rfc5424_tpu" | "rfc3164_tpu" | "jsonl_tpu" |
 "ltsv_tpu" | "gelf_tpu" | "dns_tpu" | "auto_tpu"``, into ``output.format
-= "gelf" | "json" | "ltsv" | "rfc5424" | "rfc3164" | "passthrough"`` with
-``output.type = "stdout" | "debug" | "file"``, with any
-``[output.gelf_extra]``, ``[output.ltsv_extra]``,
+= "gelf" | "json" | "ltsv" | "rfc5424" | "rfc3164" | "passthrough" |
+"capnp"`` with ``output.type = "stdout" | "debug" | "file"``, with any
+``[output.gelf_extra]``, ``[output.ltsv_extra]``, ``[output.capnp_extra]``,
 ``output.syslog_prepend_timestamp`` and ``[input.ltsv_schema]`` (the
 configs the block route cannot take run the Record path, as the
-reference's do).  Anything else raises
-ConfigError naming the later slice; nothing quietly takes a scalar path.
+reference's do).  An unknown ``output.format`` raises the reference's
+ConfigError; any other input or output the port does not run yet raises
+ConfigError naming the later slice; nothing quietly takes a scalar
+path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where no GPU is present raises.
@@ -27,8 +29,8 @@ from typing import Optional
 import torch
 
 from .config import Config, ConfigError
-from .encoders import (GelfEncoder, LTSVEncoder, PassthroughEncoder,
-                       RFC3164Encoder, RFC5424Encoder)
+from .encoders import (CapnpEncoder, GelfEncoder, LTSVEncoder,
+                       PassthroughEncoder, RFC3164Encoder, RFC5424Encoder)
 from .mergers import LineMerger, NulMerger, SyslenMerger
 from .outputs import SHUTDOWN, DebugOutput, FileOutput
 
@@ -41,8 +43,7 @@ DEFAULT_QUEUE_SIZE = 10_000_000
 
 _LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu, " \
     "rfc3164_tpu, jsonl_tpu, ltsv_tpu, gelf_tpu, dns_tpu or auto_tpu → " \
-    "GELF, JSON, LTSV, RFC5424, RFC3164 or passthrough; it comes in a " \
-    "later slice)"
+    "stdout, debug or file; it comes in a later slice)"
 # input.format → the batch handler's decode route
 _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
             "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf",
@@ -51,7 +52,7 @@ _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
 # GELF there too)
 _ENCODERS = {"gelf": GelfEncoder, "json": GelfEncoder, "ltsv": LTSVEncoder,
              "rfc5424": RFC5424Encoder, "rfc3164": RFC3164Encoder,
-             "passthrough": PassthroughEncoder}
+             "passthrough": PassthroughEncoder, "capnp": CapnpEncoder}
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -111,9 +112,8 @@ class Pipeline:
             "output.format", "output.format must be a string",
             DEFAULT_OUTPUT_FORMAT)
         if output_format not in _ENCODERS:
-            raise ConfigError(f'output.format = "{output_format}" {_LATER} '
-                              "(ROADMAP queue A item 6b, the capnp "
-                              "output)")
+            # the reference's get_encoder words (mod.rs:429-437)
+            raise ConfigError(f"Unknown output format: {output_format}")
         output_type = config.lookup_str(
             "output.type", "output.type must be a string", DEFAULT_OUTPUT_TYPE)
         if output_type in ("stdout", "debug"):

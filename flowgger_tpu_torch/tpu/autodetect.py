@@ -270,12 +270,12 @@ def decode_auto_packed(packed, ltsv_decoder: Optional[LTSVDecoder] = None,
 
 def encode_auto_gelf_blocks(packed, encoder, merger, ltsv_decoder=None,
                             route_state=None, extras=()):
-    """Block-encode a mixed batch into GELF, LTSV or RFC5424: classify,
-    submit every class's decode on its row subset, run each class's leg
-    (its split device tier, then its host block encoder, each leg under
-    its own decline and cooldown state in ``route_state[format]``), and
-    merge the legs' buffers back into input order with one segment
-    gather.
+    """Block-encode a mixed batch into GELF, LTSV, RFC5424 or capnp:
+    classify, submit every class's decode on its row subset, run each
+    class's leg (its split device tier, then its host block encoder, each
+    leg under its own decline and cooldown state in
+    ``route_state[format]``), and merge the legs' buffers back into input
+    order with one segment gather.
     Returns a BlockResult, or None when a leg cannot apply (a
     ``gelf_extra``, a typed ``ltsv_schema``, an unsupported merger): the
     caller then takes the Record path."""
@@ -292,7 +292,7 @@ def encode_auto_gelf_blocks(packed, encoder, merger, ltsv_decoder=None,
     if spec is None or ltsv_decoder.schema:
         return None
     # gelf_extra needs static placement the gelf leg cannot provide;
-    # ltsv_extra renders inside every leg
+    # ltsv_extra and capnp_extra render inside every leg
     if type(encoder) is GelfEncoder and encoder.extra:
         return None
     if extras and type(encoder) not in (GelfEncoder, LTSVEncoder):

@@ -1,5 +1,6 @@
 """BatchHandler: the port's batched RFC5424 / RFC3164 / JSON-lines / LTSV /
-GELF / DNS → GELF (JSON), LTSV, RFC5424, RFC3164 and passthrough paths.
+GELF / DNS → GELF (JSON), LTSV, RFC5424, RFC3164, passthrough and Cap'n
+Proto paths.
 
 Raw transport chunks reach the handler through one :class:`_RawSession`
 per stream.  At flush — when ``input.tpu_batch_size`` records are
@@ -16,8 +17,8 @@ down the reference's ladder (its ``_emit_fast`` and
 2. with ``input.tpu_fuse`` "auto" (the default) or "on", the fused route
    of the (input, output) pair (``fused_routes``: decode and encode in
    one kernel a phase; RFC5424, RFC3164, LTSV and GELF into GELF, RFC5424
-   into LTSV, RFC5424 and RFC3164 into RFC5424), unless its own cooldown
-   is running, which counts down here, at submit;
+   into LTSV, RFC5424 and RFC3164 into RFC5424, RFC5424 into capnp),
+   unless its own cooldown is running, which counts down here, at submit;
 3. on a fused decline (or with ``tpu_fuse = "off"``, or for a pair with
    no fused route) the format's decode kernel — RFC5424
    (``rfc5424.decode_rfc5424_submit``, 7-16-pair rows re-decoded at 16
@@ -30,8 +31,9 @@ down the reference's ladder (its ``_emit_fast`` and
    (:data:`_TIERS`: ``device_gelf`` / ``device_rfc3164`` /
    ``device_ltsv`` / ``device_gelf_gelf`` into GELF, ``device_ltsv_out``
    for RFC5424 into LTSV, ``device_rfc5424_out`` for RFC5424 and RFC3164
-   into RFC5424: probe, timestamp text, assemble, one fetch of the tier
-   rows' bytes) under its own decline state; each tier hands the batch back
+   into RFC5424, ``device_capnp`` for RFC5424 into capnp: probe,
+   timestamp text, assemble, one fetch of the tier rows' bytes) under its
+   own decline state; each tier hands the batch back
    when more than 5 % of its rows fall outside it (the ltsv → GELF tier
    first tries 16 pairs, the gelf tier 16 fields), and cools down after
    three such batches in a row;
@@ -43,7 +45,8 @@ down the reference's ladder (its ``_emit_fast`` and
    ``encode_ltsv_block``, ``encode_jsonl_block`` and ``encode_dns_block``
    into LTSV, ``encode_rfc5424_block`` into RFC5424 from rfc5424, rfc3164,
    ltsv and gelf, ``encode_passthrough_block`` from rfc5424 and rfc3164,
-   ``encode_rfc3164_3164_block``), which runs the scalar oracle for rows
+   ``encode_rfc3164_3164_block``, ``encode_capnp_block`` into capnp from
+   rfc5424, rfc3164, ltsv and gelf), which runs the scalar oracle for rows
    the kernel flagged and for over-length lines;
 6. the merger framing (pre-applied) and the output queue.
 
@@ -56,12 +59,12 @@ The Record path (the reference's ``_decode_packed`` and ``_emit_rows``)
 takes a batch when the block route cannot engage for the config
 (``output.gelf_extra`` keys that need dynamic placement, any
 ``gelf_extra`` with gelf, jsonl, dns or auto, a typed ``ltsv_schema``
-with auto, or with ltsv into LTSV or RFC5424, jsonl and dns into
-RFC5424, ``auto_extra_formats`` into RFC5424, every input but rfc3164
-into RFC3164, ``syslog_prepend_timestamp`` with passthrough or RFC3164:
-a start-up notice says so, as the reference's does) or when a block
-encoder declines the batch (an
-``ltsv_schema`` of more than 8 keys, a suffix for a schema type): the
+with auto, or with ltsv into LTSV, RFC5424 or capnp, jsonl and dns into
+RFC5424 and capnp, ``auto_extra_formats`` into RFC5424 and capnp, every
+input but rfc3164 into RFC3164, ``syslog_prepend_timestamp`` with
+passthrough or RFC3164: a start-up notice says so, as the reference's
+does) or when a block encoder declines the batch (an ``ltsv_schema`` of
+more than 8 keys, a suffix for a schema type): the
 format's decode kernel, then one Record a row (``materialize*``),
 ``encoder.encode`` and one queue item a record, which the output thread
 frames with the merger.  RFC5424 into GELF takes the per-row span encode
@@ -87,13 +90,18 @@ from ..config import Config, ConfigError
 from ..encoders import EncodeError
 from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
 from . import autodetect, device_gelf, device_gelf_gelf, device_ltsv
-from . import device_ltsv_out, device_rfc3164, device_rfc5424_out
+from . import device_capnp, device_ltsv_out, device_rfc3164
+from . import device_rfc5424_out
 from . import framing as _framing
 from . import fused_routes
 from . import pack as _pack
 from . import materialize, materialize_dns, materialize_gelf
 from . import materialize_jsonl, materialize_ltsv, materialize_rfc3164
 from .dns import decode_dns_fetch, decode_dns_submit
+from .encode_capnp_block import (encode_gelf_capnp_block,
+                                 encode_ltsv_capnp_block,
+                                 encode_rfc3164_capnp_block,
+                                 encode_rfc5424_capnp_block)
 from .encode_dns_block import encode_dns_gelf_block, encode_dns_ltsv_block
 from .encode_gelf import encode_rfc5424_gelf
 from .encode_gelf_block import gelf_extra_slots
@@ -165,6 +173,10 @@ _BLOCK = {
     ("gelf", "ltsv"): encode_gelf_ltsv_block,
     ("gelf", "rfc5424"): encode_gelf_rfc5424_block,
     ("dns", "ltsv"): encode_dns_ltsv_block,
+    ("rfc5424", "capnp"): encode_rfc5424_capnp_block,
+    ("rfc3164", "capnp"): encode_rfc3164_capnp_block,
+    ("ltsv", "capnp"): encode_ltsv_capnp_block,
+    ("gelf", "capnp"): encode_gelf_capnp_block,
 }
 # the split device encode tier of an (input format, output) pair, as
 # (route_ok, fetch_encode) (the reference's _rfc5424_device_module,
@@ -182,6 +194,7 @@ _TIERS = {
                              device_rfc5424_out.fetch_encode),
     ("rfc3164", "rfc5424"): (device_rfc5424_out.route_ok,
                              device_rfc5424_out.fetch_encode_3164),
+    ("rfc5424", "capnp"): (device_capnp.route_ok, device_capnp.fetch_encode),
 }
 # the Record path's materializer of each format that takes no decoder
 _MATERIALIZE = {"rfc3164": materialize_rfc3164.materialize_rfc3164,
@@ -268,9 +281,10 @@ class BatchHandler(Handler):
         - GELF: the ``gelf_extra`` keys must place statically for
           rfc5424, rfc3164 and ltsv, and be absent for gelf, jsonl, dns
           and auto; auto also takes no typed ``ltsv_schema``.
-        - LTSV and RFC5424: every input but jsonl and dns into RFC5424; a
-          typed ``ltsv_schema`` keeps ltsv and auto on the Record path,
-          and ``auto_extra_formats`` keeps auto off RFC5424.
+        - LTSV, RFC5424 and capnp: every input but jsonl and dns into
+          RFC5424 and capnp; a typed ``ltsv_schema`` keeps ltsv and auto
+          on the Record path, and ``auto_extra_formats`` keeps auto off
+          RFC5424 and capnp.
         - RFC3164 (from rfc3164 only) and passthrough (from rfc5424 and
           rfc3164): only while ``syslog_prepend_timestamp`` is unset."""
         out = out_key(self.encoder)
@@ -290,7 +304,8 @@ class BatchHandler(Handler):
             return ((fmt, out) in _BLOCK
                     and self.encoder.header_time_format is None)
         if fmt == "auto":
-            ok = ("ltsv",) if self._auto_extras else ("ltsv", "rfc5424")
+            ok = ("ltsv",) if self._auto_extras else ("ltsv", "rfc5424",
+                                                       "capnp")
             return out in ok and not self.decoder.schema
         if (fmt, out) not in _BLOCK:
             return False
@@ -305,8 +320,9 @@ class BatchHandler(Handler):
         out = out_key(self.encoder)
         no_columnar = (f"output.format {type(self.encoder).__name__} has "
                        f"no columnar encoder for input format '{self.fmt}'")
-        if out in ("ltsv", "rfc5424"):
-            if self.fmt == "auto" and self._auto_extras and out == "rfc5424":
+        if out in ("ltsv", "rfc5424", "capnp"):
+            if (self.fmt == "auto" and self._auto_extras
+                    and out in ("rfc5424", "capnp")):
                 return ("input.auto_extra_formats is set (the jsonl/dns "
                         "legs block-encode GELF/LTSV only)")
             if self.fmt in ("ltsv", "auto"):

@@ -360,6 +360,27 @@ class _Rows:
         return small, nbytes + gbytes
 
 
+# the fused route FO/ltsv's leg (fused_routes._FusedRows)
+ts_render = _render_display
+
+
+def fused_cuda(fmt, batch, lens, n, bank, consts, year=None, **asm):
+    """FO/ltsv's probe, or with the assemble's keywords its assemble
+    (``kernels.fused_ltsv_out_cuda``)."""
+    from .kernels import fused_ltsv_out_cuda
+
+    return fused_ltsv_out_cuda(batch, lens, n, bank, consts, **asm)
+
+
+def fused_elide(suffix: bytes, fmt: str):
+    return make_elide(suffix)
+
+
+def fused_small(extra, n: int, OW: int):
+    """gap0 / gap1 of the first ``n`` rows on the host, and their bytes."""
+    return gaps_small(extra[0], n, OW)
+
+
 def route_ok(encoder, merger) -> bool:
     """LTSV output over line, NUL or syslen framing (or none); the
     ``ltsv_extra`` pairs always render to one static blob."""

@@ -484,6 +484,26 @@ class _Rows:
         return small, nbytes + ebytes
 
 
+# the fused routes FO/r5's leg (fused_routes._FusedRows)
+ts_render = _render_rfc3339
+fused_elide = elide_spec
+
+
+def fused_cuda(fmt, batch, lens, n, bank, consts, year=None, **asm):
+    """FO/r5's probe, or with the assemble's keywords its assemble
+    (``kernels.fused_rfc5424_out_cuda``)."""
+    from .kernels import fused_rfc5424_out_cuda
+
+    return fused_rfc5424_out_cuda(fmt, batch, lens, n, bank, consts,
+                                  year=year, **asm)
+
+
+def fused_small(extra, n: int, OW: int):
+    """fac8 / sev8 (/ pri1, the host lengths) of the first ``n`` rows on
+    the host, and their bytes."""
+    return small_probe(extra[0], extra[1] if len(extra) > 1 else None, n)
+
+
 def route_ok(encoder, merger) -> bool:
     """RFC5424 output over line, NUL or syslen framing (or none); the
     encoder has no extras."""

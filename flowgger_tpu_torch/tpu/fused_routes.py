@@ -4,12 +4,12 @@ the device between the decode and the encode.
 
 A trimmed copy of the JAX package's ``tpu/fused_routes.py`` with its
 four GELF legs of rfc5424, rfc3164, ltsv and gelf input and its
-rfc5424 → LTSV leg.  The split tier (``device_gelf`` / ``device_rfc3164``
-/ ``device_ltsv`` / ``device_gelf_gelf`` / ``device_ltsv_out``) runs the
-decode
-and the encode as two launches with the decode's channel tensor written
-to device memory in between; a fused route decodes and probes in one
-kernel and assembles in a second:
+rfc5424 → LTSV, RFC5424 and capnp and rfc3164 → RFC5424 legs.  The split
+tier (``device_gelf`` / ``device_rfc3164`` / ``device_ltsv`` /
+``device_gelf_gelf`` / ``device_ltsv_out`` / ``device_rfc5424_out`` /
+``device_capnp``) runs the decode and the encode as two launches with
+the decode's channel tensor written to device memory in between; a fused
+route decodes and probes in one kernel and assembles in a second:
 
 - F1, ``rfc5424_gelf``: K1's row decode (6 pairs) and E1's probe in one
   warp, then E1's assemble (``csrc/fused_gelf.cu``);
@@ -24,16 +24,19 @@ kernel and assembles in a second:
 - FO/r5, ``rfc5424_rfc5424`` and ``rfc3164_rfc5424``: K1's row decode (4
   SD blocks, 6 pairs) and O5's probe, or D3's row decode and O5/3164's
   probe, then the assemble of O5 or O5/3164 (``csrc/fused_rfc5424_out.
-  cu``).
+  cu``);
+- FO/capnp, ``rfc5424_capnp``: K1's row decode (4 SD blocks, 6 pairs)
+  and OC's probe, then OC's assemble (``csrc/fused_capnp_out.cu``).
 
 One decode per taken batch: the probe decodes each row once, keeps the
 channels in shared memory for its encode, and writes the channels the
 encode reads for its tier rows to a device tensor that :class:`_FusedRows`
 keeps until the assemble, which reads them and runs no decode
 (``kernels.FUSED_CARRY`` int32 a row, :func:`carried_columns`): for F1
-and F3 the :data:`DEMAND` channels, for FO/ltsv and FO/r5 the channels
-the assemble of OL, O5 or O5/3164 reads (:data:`_OUT_CARRY`), for FL what EL's assemble reads
-after pair selection and the sort (the sorted pairs' escaped spans, the
+and F3 the :data:`DEMAND` channels, for FO/ltsv, FO/r5 and FO/capnp the
+channels the assemble of OL, O5, O5/3164 or OC reads
+(:data:`_OUT_CARRY`), for FL what EL's assemble reads after pair
+selection and the sort (the sorted pairs' escaped spans, the
 host and message spans, the level), not the 24-part table, and for FG
 what EG's assemble reads after special routing and the sort (the sorted
 pairs' spans and value classes, the special fields' spans), not the
@@ -64,8 +67,7 @@ reference passes its driver none).
 Left out, on purpose: the fused compile watchdog and
 ``FLOWGGER_FUSED_COMPILE_TIMEOUT_MS`` (the CUDA kernels build once,
 before the first batch, and a failed build raises), the AOT
-``fused_wrap`` and the metrics registry.  The reference's
-``rfc5424_capnp`` route comes with the capnp output.
+``fused_wrap`` and the metrics registry.
 
 Plain versions (the CPU): the format's plain decode, narrowed to
 :data:`DEMAND`, then the split tier's plain encode; the probe's decode is
@@ -85,6 +87,7 @@ DIFF_TEST = (
     "tests/test_torch_fused_ltsv_out.py::test_fused_probe_matches_reference",
     "tests/test_torch_fused_rfc5424_out.py::"
     "test_fused_probe_matches_reference",
+    "tests/test_torch_fused_capnp.py::test_fused_probe_matches_reference",
 )
 
 from typing import Dict, Optional
@@ -144,12 +147,22 @@ DEMAND = {
         "ok", "has_pri", "has_high", "facility", "severity", *_TS4,
         "host_start", "host_end", "msg_start",
     )),  # the relay upgrade reads every rfc3164 channel
+    "rfc5424_capnp": frozenset((
+        "ok", "has_high", "facility", "severity", *_TS4,
+        "host_start", "host_end", "app_start", "app_end",
+        "proc_start", "proc_end", "msgid_start", "msgid_end",
+        "full_start", "msg_trim_start", "trim_end",
+        "sd_count", "sid_start", "sid_end",
+        "pair_count", "pair_sd", "name_start", "name_end",
+        "val_start", "val_end", "val_has_esc",
+    )),  # drops: bom, msg_start
 }
 # The carried rows of the non-GELF outputs: the DEMAND channels the
 # assemble reads (not ok, has_high, the stamp, val_has_esc or the
 # facility and severity, which only the probe reads), in the decode's
 # packed order.  FO/ltsv: fused_ltsv_out.cu keptO; FO/r5:
-# fused_rfc5424_out.cu kept5 / kept3.
+# fused_rfc5424_out.cu kept5 / kept3; FO/capnp: fused_capnp_out.cu keptc
+# (sd[0]'s id only: :data:`_SD_WIDTH`).
 _LTSV_OUT_CARRY = frozenset((
     "facility", "severity", "host_start", "host_end", "app_start",
     "app_end", "proc_start", "proc_end", "msgid_start", "msgid_end",
@@ -163,7 +176,14 @@ _OUT_CARRY = {
         "trim_end", "msg_trim_start", "sid_start", "sid_end",
         "name_start", "name_end", "val_start", "val_end", "pair_sd")),
     "rfc3164_rfc5424": frozenset(("host_start", "host_end", "msg_start")),
+    "rfc5424_capnp": frozenset((
+        "host_start", "host_end", "app_start", "app_end", "proc_start",
+        "proc_end", "msgid_start", "msgid_end", "sd_count", "pair_count",
+        "full_start", "trim_end", "msg_trim_start", "sid_start", "sid_end",
+        "name_start", "name_end", "val_start", "val_end", "pair_sd")),
 }
+# the SD slots a route's carried row keeps (capnp emits sd[0] only)
+_SD_WIDTH = {"rfc5424_capnp": 1}
 # FL's carried row: the row values EL's assemble reads, then each sorted
 # pair's four escaped span ends (fused_gelf.cu kCarryL)
 _LTSV_CARRY_ROW = ("pair_count", "host_s", "host_e", "msg_s", "msg_e",
@@ -205,7 +225,7 @@ def carried_columns(route: str):
                           DEFAULT_MAX_SD)
 
     cols = [(k, None) for k in _KEYS_1D if k in demand]
-    for keys, width in ((_KEYS_SD, DEFAULT_MAX_SD),
+    for keys, width in ((_KEYS_SD, _SD_WIDTH.get(route, DEFAULT_MAX_SD)),
                         (_KEYS_PAIR, DEFAULT_MAX_PAIRS)):
         cols += [(k, s) for k in keys if k in demand for s in range(width)]
     return cols
@@ -255,14 +275,34 @@ class FusedHandle:
         self.lens_dev = lens_dev
 
 
+# The split tier behind each fused route: its plain encode, consts and
+# gate, and for the non-GELF outputs the route's leg (``fused_cuda``, the
+# kernels' wrapper; ``ts_render``; ``fused_elide``; ``fused_small``, the
+# host fetch of the probe's extra outputs).  Keyed on the output, then,
+# into GELF, on the input format.
+_SPLIT_OUT = {"ltsv": "device_ltsv_out", "rfc5424": "device_rfc5424_out",
+              "capnp": "device_capnp"}
+_SPLIT_GELF = {"rfc5424": "device_gelf", "rfc3164": "device_rfc3164",
+               "ltsv": "device_ltsv", "gelf": "device_gelf_gelf"}
+
+
+def split_tier(fmt: str, out: str):
+    """The split tier module of the fused route from ``fmt`` into
+    ``out``."""
+    from importlib import import_module
+
+    name = _SPLIT_GELF[fmt] if out == "gelf" else _SPLIT_OUT[out]
+    return import_module(f"{__package__}.{name}")
+
+
 class _FusedRows:
     """One fused batch as the fetch driver sees it (the contract of
     ``device_gelf._Rows``): ``probe`` and ``assemble`` launch the fused
     kernel on a CUDA batch, and run the plain decode and encode on a CPU
     batch; ``small_channels`` hands back the ``ok`` and timestamp
-    channels the probe produced (FO/ltsv: and its gaps).  The probe's
-    decode (the kernel's carried channels and tier bits, or the plain
-    decode) is kept for the assemble, which raises without it."""
+    channels the probe produced, and the output leg's extra ones.  The
+    probe's decode (the kernel's carried channels and tier bits, or the
+    plain decode) is kept for the assemble, which raises without it."""
 
     def __init__(self, route, batch, lens, suffix, extras, year):
         self.route = route
@@ -271,31 +311,26 @@ class _FusedRows:
         self.device = batch.device
         self.suffix, self.extras, self.year = suffix, extras, year
         self.small = None
-        self.gaps = None       # FO/ltsv's gap0 / gap1 [2, N]
-        self.small8 = None     # FO/r5's fac8 / sev8 (/ pri1) u8 [2|3, N]
-        self.hostl16 = None    # FO/r5 rfc3164's host lengths, uint16 [N]
+        # the probe's outputs past the stamp channels, for the leg's
+        # fused_small: FO/ltsv's gap0 / gap1 [2, N]; FO/r5's and
+        # FO/capnp's fac8 / sev8 (/ pri1), and FO/r5 rfc3164's host
+        # lengths
+        self.extra = ()
         self.dec = None        # the plain decode, kept from the probe
         self.carried = None    # the kernel's (chan, tier), kept from it
-        # the → LTSV and → RFC5424 rows leave the stamp text to the host
-        # splice
+        # the → LTSV, → RFC5424 and → capnp rows leave the stamp to the
+        # host splice
         self.ts_in_row = route.out == "gelf"
-        if route.out == "ltsv":
-            from . import device_ltsv_out as split
-        elif route.out == "rfc5424":
-            from . import device_rfc5424_out as split
-        elif route.fmt == "rfc3164":
-            from . import device_rfc3164 as split
-        elif route.fmt == "ltsv":
-            from . import device_ltsv as split
-        elif route.fmt == "gelf":
-            from . import device_gelf_gelf as split
-        else:
-            from . import device_gelf as split
-        self.split = split
+        self.split = split = split_tier(route.fmt, route.out)
         self.OW = split.out_width(batch.shape[1], suffix, extras)
         if batch.is_cuda:
             from .device_gelf import _bank_on
 
+            if self.ts_in_row:
+                from .kernels import fused_gelf_cuda as fused_cuda
+            else:
+                fused_cuda = split.fused_cuda
+            self.fused_cuda = fused_cuda
             bank, self.table = split.kernel_consts(suffix, extras)
             self.bank = _bank_on(bank, batch.device)
 
@@ -323,8 +358,7 @@ class _FusedRows:
         if self.route.name == "rfc3164_rfc5424":
             return self.split.encode_rows_3164(self.batch, self.lens, dec,
                                                suffix=self.suffix, **kw)
-        if self.route.fmt in ("rfc3164", "ltsv", "gelf") or \
-                self.route.out in ("ltsv", "rfc5424"):
+        if self.route.name != "rfc5424_gelf":
             return self.split.encode_rows(self.batch, self.lens, dec,
                                           suffix=self.suffix,
                                           extras=self.extras, **kw)
@@ -340,30 +374,13 @@ class _FusedRows:
         tier's probe; keeps the ``ok`` and timestamp channels (int32
         [5, N]: ok, days, sod, off, nanos; for FL the narrowed buffer of
         ``device_ltsv.small_pack``; for FG EG's int32 [3, N] stamp
-        channels, 0 off its tier; 0 past ``n``)."""
-        if self.batch.is_cuda and self.route.out == "ltsv":
-            from .kernels import fused_ltsv_out_cuda
-
-            base, base_len, self.small, chan, self.gaps = \
-                fused_ltsv_out_cuda(self.batch, self.lens, n, self.bank,
-                                    self.table)
-            self.carried = (chan, base)
-            return base, base_len
-        if self.batch.is_cuda and self.route.out == "rfc5424":
-            from .kernels import fused_rfc5424_out_cuda
-
-            (base, base_len, self.small, chan, self.small8,
-             self.hostl16) = fused_rfc5424_out_cuda(
-                self.route.fmt, self.batch, self.lens, n, self.bank,
-                self.table, year=self.year)
-            self.carried = (chan, base)
-            return base, base_len
+        channels, 0 off its tier; 0 past ``n``) and the leg's extra
+        outputs."""
         if self.batch.is_cuda:
-            from .kernels import fused_gelf_cuda
-
-            base, base_len, self.small, chan = fused_gelf_cuda(
-                self.route.fmt, self.batch, self.lens, n, self.bank,
-                self.table, year=self.year)
+            res = self.fused_cuda(self.route.fmt, self.batch, self.lens, n,
+                                  self.bank, self.table, year=self.year)
+            base, base_len, self.small, chan = res[:4]
+            self.extra = tuple(res[4:])
             self.carried = (chan, base)
             return base, base_len
         dec = self.dec = self._plain_decode()
@@ -378,50 +395,25 @@ class _FusedRows:
             self.small = torch.stack([
                 torch.where(live, dec[k].to(torch.int32), 0)
                 for k in ("ok",) + _TS4])
-        if self.route.out == "ltsv":
-            base, base_len, self.gaps = self._plain_encode(
-                dec, assemble=False, n=n)
-            return base, base_len
-        if self.route.out == "rfc5424":
-            res = self._plain_encode(dec, assemble=False, n=n)
-            base, base_len, self.small8 = res[:3]
-            self.hostl16 = res[3] if len(res) > 3 else None
-            return base, base_len
-        return self._plain_encode(dec, assemble=False, n=n)
+        res = self._plain_encode(dec, assemble=False, n=n)
+        self.extra = tuple(res[2:])
+        return res[0], res[1]
 
     def assemble(self, ts_text, ts_len, row_off, total, n: int):
         if self.carried is None and self.dec is None:
             raise RuntimeError("a fused assemble needs its probe's decode: "
                                "probe the batch first")
-        if self.batch.is_cuda and self.route.out == "ltsv":
-            from .kernels import fused_ltsv_out_cuda
-
+        ts = {"ts_text": ts_text, "ts_len": ts_len} if self.ts_in_row \
+            else {}
+        if self.batch.is_cuda:
             chan, tier = self.carried
-            return fused_ltsv_out_cuda(
-                self.batch, self.lens, n, self.bank, self.table, OW=self.OW,
-                row_off=row_off, total=total, chan=chan, tier=tier)
-        if self.batch.is_cuda and self.route.out == "rfc5424":
-            from .kernels import fused_rfc5424_out_cuda
-
-            chan, tier = self.carried
-            return fused_rfc5424_out_cuda(
+            return self.fused_cuda(
                 self.route.fmt, self.batch, self.lens, n, self.bank,
                 self.table, year=self.year, OW=self.OW, row_off=row_off,
-                total=total, chan=chan, tier=tier)
-        if self.batch.is_cuda:
-            from .kernels import fused_gelf_cuda
-
-            chan, tier = self.carried
-            return fused_gelf_cuda(
-                self.route.fmt, self.batch, self.lens, n, self.bank,
-                self.table, year=self.year, OW=self.OW, ts_text=ts_text,
-                ts_len=ts_len, row_off=row_off, total=total, chan=chan,
-                tier=tier)
+                total=total, chan=chan, tier=tier, **ts)
         from .device_gelf import flat_rows
 
-        kw = {} if self.route.out != "gelf" else {"ts_text": ts_text,
-                                                  "ts_len": ts_len}
-        rows, out_len, _ = self._plain_encode(self.dec, **kw)
+        rows, out_len, _ = self._plain_encode(self.dec, **ts)
         return flat_rows(rows, out_len, row_off, total)
 
     def small_channels(self, n: int):
@@ -433,16 +425,11 @@ class _FusedRows:
         h = self.small[:, :n].cpu().numpy()
         small = {"ok": h[0] != 0, "days": h[1], "sod": h[2], "off": h[3],
                  "nanos": h[4]}
-        if self.route.out == "ltsv":
-            gaps, gbytes = self.split.gaps_small(self.gaps, n, self.OW)
-            small.update(gaps)
-            return small, h.nbytes + gbytes
-        if self.route.out == "rfc5424":
-            extra, ebytes = self.split.small_probe(self.small8, self.hostl16,
-                                                   n)
-            small.update(extra)
-            return small, h.nbytes + ebytes
-        return small, h.nbytes
+        if not self.extra:
+            return small, h.nbytes
+        extra, ebytes = self.split.fused_small(self.extra, n, self.OW)
+        small.update(extra)
+        return small, h.nbytes + ebytes
 
 
 class FusedRoute:
@@ -461,29 +448,10 @@ class FusedRoute:
         allowlist, extras placement, ``FLOWGGER_DEVICE_ENCODE``, and for
         ltsv input the decoder's schema): a route the split tier would
         refuse is never fused either."""
-        if self.out == "ltsv":
-            from . import device_ltsv_out
-
-            return device_ltsv_out.route_ok(encoder, merger)
-        if self.out == "rfc5424":
-            from . import device_rfc5424_out
-
-            return device_rfc5424_out.route_ok(encoder, merger)
-        if self.fmt == "rfc3164":
-            from . import device_rfc3164
-
-            return device_rfc3164.route_ok(encoder, merger)
+        split = split_tier(self.fmt, self.out)
         if self.fmt == "ltsv":
-            from . import device_ltsv
-
-            return device_ltsv.route_ok(encoder, merger, decoder)
-        if self.fmt == "gelf":
-            from . import device_gelf_gelf
-
-            return device_gelf_gelf.route_ok(encoder, merger)
-        from . import device_gelf
-
-        return device_gelf.route_ok(encoder, merger)
+            return split.route_ok(encoder, merger, decoder)
+        return split.route_ok(encoder, merger)
 
     def make_kernel(self, handle: FusedHandle, encoder, merger,
                     decoder=None):
@@ -496,51 +464,30 @@ class FusedRoute:
         extras = tuple((k, v) for k, v in getattr(encoder, "extra", ()))
         year = None
         ts_vals_fn = None
-        ts_render = None
-        if self.out == "ltsv":
-            from .device_ltsv_out import _render_display, make_elide
-            from .materialize import _scalar_line as scalar_fn
-
-            ts_render = _render_display
-            elide = make_elide(suffix)
-        elif self.out == "rfc5424":
-            from .device_rfc5424_out import _render_rfc3339, elide_spec
-
-            ts_render = _render_rfc3339
-            elide = elide_spec(suffix, self.fmt)
-            if self.fmt == "rfc3164":
-                from ..utils.timeparse import current_year_utc
-                from .materialize_rfc3164 import _scalar_3164 as scalar_fn
-
-                year = current_year_utc()
-            else:
-                from .materialize import _scalar_line as scalar_fn
-        elif self.fmt == "ltsv":
-            from .device_ltsv import elide_spec, ts_vals_ltsv
+        if self.fmt == "ltsv":
+            from .device_ltsv import ts_vals_ltsv as ts_vals_fn
             from .materialize_ltsv import _scalar_ltsv
 
             def scalar_fn(line):
                 return _scalar_ltsv(decoder, line)
-
-            ts_vals_fn = ts_vals_ltsv
         elif self.fmt == "gelf":
-            from .device_gelf_gelf import elide_spec, ts_vals_gelf
+            from .device_gelf_gelf import ts_vals_gelf as ts_vals_fn
             from .materialize_gelf import _scalar_gelf as scalar_fn
-
-            ts_vals_fn = ts_vals_gelf
         elif self.fmt == "rfc3164":
             from ..utils.timeparse import current_year_utc
-            from .device_rfc3164 import elide_spec
             from .materialize_rfc3164 import _scalar_3164 as scalar_fn
 
             year = current_year_utc()
         else:
-            from .device_gelf import elide_spec
             from .materialize import _scalar_line as scalar_fn
         kern = _FusedRows(self, handle.batch_dev, handle.lens_dev, suffix,
                           extras, year)
+        split = kern.split
         if self.out == "gelf":
-            elide = elide_spec(suffix, extras)
+            elide, ts_render = split.elide_spec(suffix, extras), None
+        else:
+            elide = split.fused_elide(suffix, self.fmt)
+            ts_render = split.ts_render
         return kern, {"suffix": suffix, "syslen": syslen,
                       "scalar_fn": scalar_fn, "elide": elide,
                       "ts_vals_fn": ts_vals_fn, "ts_render": ts_render}
@@ -556,6 +503,7 @@ ROUTES = {
                                   out="rfc5424"),
     "rfc3164_rfc5424": FusedRoute("rfc3164_rfc5424", "rfc3164",
                                   out="rfc5424"),
+    "rfc5424_capnp": FusedRoute("rfc5424_capnp", "rfc5424", out="capnp"),
 }
 
 
@@ -563,12 +511,14 @@ def out_key(encoder) -> str:
     """The output leg of an encoder's concrete type (the reference's
     ``_out_key``, fused_routes.py:611, with the two outputs that have no
     device tier): gelf (``output.format`` gelf and json), ltsv, rfc5424,
-    rfc3164 or passthrough; "" for any other type."""
-    from ..encoders import (GelfEncoder, LTSVEncoder, PassthroughEncoder,
-                            RFC3164Encoder, RFC5424Encoder)
+    capnp, rfc3164 or passthrough; "" for any other type."""
+    from ..encoders import (CapnpEncoder, GelfEncoder, LTSVEncoder,
+                            PassthroughEncoder, RFC3164Encoder,
+                            RFC5424Encoder)
 
     for cls, key in ((GelfEncoder, "gelf"), (RFC5424Encoder, "rfc5424"),
-                     (LTSVEncoder, "ltsv"), (RFC3164Encoder, "rfc3164"),
+                     (LTSVEncoder, "ltsv"), (CapnpEncoder, "capnp"),
+                     (RFC3164Encoder, "rfc3164"),
                      (PassthroughEncoder, "passthrough")):
         if type(encoder) is cls:
             return key

@@ -59,13 +59,21 @@ Kernels (sources in ``flowgger_tpu_torch/csrc``, one shared library each):
 - ``fused_rfc5424_out`` — FO/r5, the fused rfc5424→RFC5424 (K1 + O5)
   and rfc3164→RFC5424 (D3 + O5/3164) routes (replace the jnp + Pallas
   ``fused_routes._fused_rfc5424_rfc5424`` and the jnp
-  ``_fused_rfc3164_rfc5424``).
+  ``_fused_rfc3164_rfc5424``);
+- ``encode_capnp`` — OC, the rfc5424→Cap'n Proto encode of the split tier
+  for capnp output at 6 and 16 pairs, a probe and an assemble (replaces
+  the jnp ``device_capnp._encode_kernel``);
+- ``fused_capnp_out`` — FO/capnp, the fused rfc5424→capnp route: K1's
+  row decode and OC's probe in one kernel, then OC's assemble from the
+  carried channels (replaces the jnp + Pallas
+  ``fused_routes._fused_rfc5424_capnp``).
 
 The one-warp-a-row kernels share their device code through headers in
 ``csrc`` (``warp_common.cuh``, ``decode_rfc5424_row.cuh``,
 ``decode_rfc3164_row.cuh``, ``encode_gelf_row.cuh``,
 ``structural_index_row.cuh``, ``encode_gelf_gelf_row.cuh``,
-``encode_ltsv_out_row.cuh``, ``encode_rfc5424_out_row.cuh``, ...); each
+``encode_ltsv_out_row.cuh``, ``encode_rfc5424_out_row.cuh``,
+``encode_capnp_row.cuh``, ...); each
 ``.cu`` still builds to one library.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
@@ -85,7 +93,8 @@ choose between them by the tensor's device (``framing.sep_spans``,
 ``gelf.decode_on``, ``dns.decode_dns_submit``, ``device_gelf._Rows``,
 ``device_rfc3164._Rows``, ``device_ltsv._Rows``,
 ``device_gelf_gelf._Rows``, ``device_ltsv_out._Rows``,
-``device_rfc5424_out._Rows``, ``fused_routes._FusedRows`` and
+``device_rfc5424_out._Rows``, ``device_capnp._Rows``,
+``fused_routes._FusedRows`` and
 ``autodetect.classify_rows``).
 
 ``nvcc`` and the card are only touched inside the functions below,
@@ -123,6 +132,8 @@ _SOURCES = {
     "fused_ltsv_out": "fused_ltsv_out.cu",
     "encode_rfc5424_out": "encode_rfc5424_out.cu",
     "fused_rfc5424_out": "fused_rfc5424_out.cu",
+    "encode_capnp": "encode_capnp.cu",
+    "fused_capnp_out": "fused_capnp_out.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -158,7 +169,10 @@ LAUNCHES: Dict[str, int] = {
     "encode_rfc5424_out_probe": 0, "encode_rfc5424_out_assemble": 0,
     "encode_rfc3164_rfc5424_probe": 0, "encode_rfc3164_rfc5424_assemble": 0,
     "fused_rfc5424_rfc5424_probe": 0, "fused_rfc5424_rfc5424_assemble": 0,
-    "fused_rfc3164_rfc5424_probe": 0, "fused_rfc3164_rfc5424_assemble": 0}
+    "fused_rfc3164_rfc5424_probe": 0, "fused_rfc3164_rfc5424_assemble": 0,
+    "encode_capnp_probe_p6": 0, "encode_capnp_assemble_p6": 0,
+    "encode_capnp_probe_p16": 0, "encode_capnp_assemble_p16": 0,
+    "fused_rfc5424_capnp_probe": 0, "fused_rfc5424_capnp_assemble": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -249,6 +263,20 @@ _SIGNATURES = {
         "fg_fused_rfc3164_rfc5424_assemble": (_P, _P, _P, _P, _P, _I, _I,
                                               _I, _I, _P, _P, _P),
     },
+    "encode_capnp": {
+        **{f"fg_encode_capnp_probe_p{p}": (_P, _P, _P, _P, _I, _I, _I, _P,
+                                           _P, _P, _P) for p in (6, 16)},
+        **{f"fg_encode_capnp_assemble_p{p}": (_P, _P, _P, _P, _P, _I, _I,
+                                              _I, _I, _P, _P, _P)
+           for p in (6, 16)},
+    },
+    "fused_capnp_out": {
+        "fg_fused_capnp_out_carry": (),
+        "fg_fused_rfc5424_capnp_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                         _P, _P, _P),
+        "fg_fused_rfc5424_capnp_assemble": (_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _P, _P, _P),
+    },
     "fused_gelf": {
         "fg_fused_gelf_carry": (_I,),
         "fg_fused_rfc5424_gelf_probe": (_P, _P, _P, _I, _I, _I, _P, _P, _P,
@@ -294,6 +322,10 @@ FUSED_LTSV_OUT_CARRY = 38
 # spans, 5 x 6 pair channels) and O5/3164 (3) read; fused_rfc5424_out.cu
 # kCarryR5 / kCarryR3, fused_routes._OUT_CARRY
 FUSED_R5_OUT_CARRY = {"rfc5424": 50, "rfc3164": 3}
+# FO/capnp: the channels OC's assemble reads (13 row channels, sd[0]'s id
+# span, 5 x 6 pair channels); fused_capnp_out.cu kCarryC,
+# fused_routes._OUT_CARRY
+FUSED_CAPNP_CARRY = 45
 
 
 
@@ -1033,6 +1065,152 @@ def fused_rfc5424_out_assemble_launch(fmt: str, batch, lens, n: int, bank,
             flat.data_ptr(), _stream())
     _check(rc, f"fused_{fmt}_rfc5424 assemble")
     LAUNCHES[f"fused_{fmt}_rfc5424_assemble"] += 1
+    return flat
+
+
+def encode_capnp_cuda(batch: torch.Tensor, lens: torch.Tensor,
+                      channels: torch.Tensor, n: int, bank: torch.Tensor,
+                      consts, OW: int = 0,
+                      row_off: Optional[torch.Tensor] = None,
+                      total: int = 0):
+    """OC, the device capnp encode of the first ``n`` rows of an rfc5424
+    ``batch`` (u8 [N, L]) from K1's packed ``channels`` (int32 [C, N] at 4
+    SD blocks and 6 or 16 pairs) and the bank holding the ``capnp_extra``
+    blob (``consts``: ``device_capnp.kernel_consts``'s table).
+
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
+    small8 u8 [2, N])``, the tier bit before the width test, the elided
+    length (0 for rows outside the tier) and fac8 / sev8, every output 0
+    for rows at or past ``n``.  With ``row_off`` (int64 [N], each kept
+    offset a multiple of 8: capnp rows are whole words, and the kernel
+    writes their pointer words as aligned 32-bit stores) and the output
+    width ``OW`` it assembles: a u8 [total] buffer holding the elided
+    bytes of each row whose offset is not negative, at that offset."""
+    from .rfc5424 import n_channels
+
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(channels, "channels", torch.int32, 2)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    P = {n_channels(4, p): p for p in (6, 16)}.get(channels.shape[0])
+    if P is None or channels.shape[1] != N or lens.shape[0] != N:
+        raise ValueError("channels must be the [C, N] decode output at "
+                         "max_sd=4 and 6 or 16 pairs, lens one entry per "
+                         "row")
+    if not 1 <= L < 1 << 15 or not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad encode geometry L={L} n={n} N={N}")
+    dev = batch.device
+    lib = _lib("encode_capnp")
+    if row_off is None:
+        tier = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        small8 = torch.empty((2, N), dtype=torch.uint8, device=dev)
+        rc = getattr(lib, f"fg_encode_capnp_probe_p{P}")(
+            batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
+            N, n, L, tier.data_ptr(), base_len.data_ptr(),
+            small8.data_ptr(), _stream())
+        _check(rc, "encode_capnp probe")
+        LAUNCHES[f"encode_capnp_probe_p{P}"] += 1
+        return tier, base_len, small8
+    _need(row_off, "row_off", torch.int64, 1)
+    if row_off.shape[0] != N or OW < 1:
+        raise ValueError("row_off must have one entry per row and OW be "
+                         "positive")
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    if total == 0:
+        return flat
+    rc = getattr(lib, f"fg_encode_capnp_assemble_p{P}")(
+        batch.data_ptr(), lens.data_ptr(), channels.data_ptr(),
+        bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
+        flat.data_ptr(), _stream())
+    _check(rc, "encode_capnp assemble")
+    LAUNCHES[f"encode_capnp_assemble_p{P}"] += 1
+    return flat
+
+
+def fused_capnp_out_cuda(batch: torch.Tensor, lens: torch.Tensor, n: int,
+                         bank: torch.Tensor, consts, OW: int = 0,
+                         row_off: Optional[torch.Tensor] = None,
+                         total: int = 0, chan: Optional[torch.Tensor] = None,
+                         tier: Optional[torch.Tensor] = None):
+    """FO/capnp, the fused rfc5424→capnp route on the first ``n`` rows of
+    ``batch`` (u8 [N, L]): K1's decode at 4 SD blocks and 6 pairs, then OC
+    (``consts``: ``device_capnp.kernel_consts``'s table).
+
+    Without ``row_off`` it probes: ``(base bool [N], base_len int32 [N],
+    small int32 [5, N], chan int32 [N, 45], small8 u8 [2, N])``: OC's
+    probe outputs, the ok, days, sod, off and nanos channels (zeros at and
+    past ``n``) and the carried channels: row r of ``chan`` holds the
+    :data:`FUSED_CAPNP_CARRY` channels OC's assemble reads where
+    ``base[r]`` is set, and is not written elsewhere.  With ``row_off``
+    (each kept offset a multiple of 8, as :func:`encode_capnp_cuda`
+    needs), ``OW`` and the probe's ``chan`` and ``base`` (as ``tier``) it
+    assembles from the carried channels, as :func:`fused_gelf_cuda` does:
+    no decode runs again; it raises ValueError, before any launch, if a
+    row it writes is not a probe tier row, or without ``chan`` or
+    ``tier``."""
+    assembling = row_off is not None
+    if assembling and (chan is None or tier is None):
+        raise ValueError("a fused assemble needs the probe's carried channels "
+                         "(chan) and tier bits (tier): it does not decode "
+                         "again")
+    _need(batch, "batch", torch.uint8, 2)
+    _need(lens, "lens", torch.int32, 1)
+    _need(bank, "bank", torch.uint8, 1)
+    N, L = batch.shape
+    if lens.shape[0] != N or not 4 <= L < 1 << 15:
+        raise ValueError(f"bad fused geometry L={L} N={N}")
+    if not 0 <= n <= N or bank.device != batch.device:
+        raise ValueError(f"bad fused geometry n={n} N={N}")
+    C = FUSED_CAPNP_CARRY
+    dev = batch.device
+    name = "fused_rfc5424_capnp"
+    if not assembling:
+        base = torch.empty(N, dtype=torch.bool, device=dev)
+        base_len = torch.empty(N, dtype=torch.int32, device=dev)
+        small = torch.empty((5, N), dtype=torch.int32, device=dev)
+        small8 = torch.empty((2, N), dtype=torch.uint8, device=dev)
+        carried = torch.empty((N, C), dtype=torch.int32, device=dev)
+        rc = _lib("fused_capnp_out").fg_fused_rfc5424_capnp_probe(
+            batch.data_ptr(), lens.data_ptr(), consts, N, n, L,
+            base.data_ptr(), base_len.data_ptr(), small.data_ptr(),
+            small8.data_ptr(), carried.data_ptr(), _stream())
+        _check(rc, f"{name} probe")
+        LAUNCHES[f"{name}_probe"] += 1
+        return base, base_len, small, carried, small8
+    _need(row_off, "row_off", torch.int64, 1)
+    _need(chan, "chan", torch.int32, 2)
+    _need(tier, "tier", torch.bool, 1)
+    if row_off.shape[0] != N or OW < 1:
+        raise ValueError("row_off must have one entry per row and OW be "
+                         "positive")
+    if chan.shape != (N, C) or tier.shape[0] != N:
+        raise ValueError(f"chan must be the probe's [N, {C}] carried channels "
+                         "and tier its [N] tier bits")
+    # the carried channels exist only for the probe's tier rows
+    if bool(((row_off >= 0) & ~tier).any()):
+        raise ValueError(f"{name} assemble: row_off keeps a row outside the "
+                         "probe's tier")
+    return fused_capnp_out_assemble_launch(batch, lens, n, bank, consts, OW,
+                                           row_off, total, chan)
+
+
+def fused_capnp_out_assemble_launch(batch, lens, n: int, bank, consts,
+                                    OW: int, row_off, total: int,
+                                    chan) -> torch.Tensor:
+    """The launch behind :func:`fused_capnp_out_cuda`'s assemble, after
+    its checks (no host synchronization, so a device timing loop can
+    issue it back to back); returns the u8 [total] buffer."""
+    N, L = batch.shape
+    flat = torch.empty(total, dtype=torch.uint8, device=batch.device)
+    if total == 0:
+        return flat
+    rc = _lib("fused_capnp_out").fg_fused_rfc5424_capnp_assemble(
+        batch.data_ptr(), lens.data_ptr(), chan.data_ptr(), bank.data_ptr(),
+        consts, N, n, L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
+    _check(rc, "fused_rfc5424_capnp assemble")
+    LAUNCHES["fused_rfc5424_capnp_assemble"] += 1
     return flat
 
 

@@ -500,17 +500,18 @@ def test_mixed_phases_are_named_and_sized():
     assert set(chip_smoke.COOLING) == {"rfc5424_line", "rfc3164_line",
                                        "ltsv_line", "gelf_line",
                                        "rfc5424_ltsv_line",
-                                       "rfc5424_r5_line"}
+                                       "rfc5424_r5_line",
+                                       "rfc5424_capnp_line"}
 
 
 @pytest.mark.parametrize("name", ["auto_tier", "record_rfc3164"])
 def test_mixed_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
-    """phase_e2e_mixed end to end on the CPU at a small size (in process
-    and through the CLI, both with ``--device cpu``; the launch checks,
-    which need the card's kernels, emptied): both runs byte-identical to
-    the scalar path, the start-up notice where the block route cannot
-    engage, and on the auto tier mix every leg's split tier taking a
-    batch."""
+    """phase_e2e_mixed end to end on the CPU at a small size (in process,
+    with ``--device cpu``, and through the CLI only for the paths in
+    ``MIXED_CLI``: neither of these; the launch checks, which need the
+    card's kernels, emptied): the run byte-identical to the scalar path,
+    the start-up notice where the block route cannot engage, and on the
+    auto tier mix every leg's split tier taking a batch."""
     import io
     import contextlib
     import time
@@ -554,6 +555,7 @@ def test_mixed_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
     chip_smoke.phase_e2e_mixed(name, 20261016)
     rep, = emitted
     assert rep["identical_to_scalar_path"] and rep["lines"] == n
+    assert "cli_wall_s" not in rep
     assert (rep["startup_notice"] is None) == (name == "auto_tier")
     if name == "auto_tier":
         assert all(rep["legs"][leg]["taken"] for leg in
@@ -593,14 +595,47 @@ def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
     assert total == {"frame_gather": 1}
 
 
+@pytest.mark.parametrize("name", ["rfc3164_tier", "gelf_tier"])
+def test_e2e_tier_mix_runs_in_process_only(monkeypatch, tmp_path, name):
+    """phase_e2e on a tier mix starts no CLI run (its line mix drives the
+    same configuration through the CLI): the scalar expectation is made
+    alone, and the in-process runs, which need the card's kernels, stood
+    in for, take it with the fused route on and off."""
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+
+    def popen(*a, **kw):
+        raise AssertionError("a tier mix started a CLI run")
+
+    seen = []
+
+    def e2e_inproc(nm, path, exp_out, exp_err, checked, fuse):
+        seen.append((nm, fuse, len(exp_out), len(exp_err[0])))
+        return {"launches": {"frame_gather": 1}, "inproc_wall_s": 1.0}
+
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
+    monkeypatch.setattr(chip_smoke, "e2e_inproc", e2e_inproc)
+    emitted = []
+    monkeypatch.setattr(chip_smoke, "emit", emitted.append)
+    total = chip_smoke.phase_e2e(name, 1200, 20261016)
+    rep, = emitted
+    assert rep["identical_to_scalar_path"] and rep["output_bytes"] > 0
+    assert "cli_wall_s" not in rep
+    assert seen == [(name, f, rep["output_bytes"], rep["error_lines"])
+                    for f in ("auto", "off")]
+    assert total == {"frame_gather": 2}
+
+
 def test_out_phases_are_named_and_sized():
-    """The LTSV-output, dns and syslog-output e2e paths: their formats,
-    outputs, sizes, which run through the CLI and the kernels each must
-    launch; the rfc5424 line mix into LTSV and into RFC5424 among the
-    paths whose tiers must cool."""
+    """The LTSV-output, dns, syslog-output and capnp-output e2e paths:
+    their formats, outputs, sizes, which run through the CLI and the
+    kernels each must launch; the rfc5424 line mix into LTSV, RFC5424 and
+    capnp among the paths whose tiers must cool."""
     paths = chip_smoke.OUT_PATHS
     B = chip_smoke.BATCH
     r5 = {"rfc5424_r5_line", "rfc5424_r5_tier", "rfc3164_r5_tier"}
+    capnp = {"rfc5424_capnp_line", "rfc5424_capnp_tier", "capnp_out_rfc3164",
+             "capnp_out_ltsv", "capnp_out_gelf", "capnp_out_auto",
+             "capnp_out_extra", "capnp_out_jsonl"}
     syslog = {"syslog_out_gelf", "syslog_out_ltsv", "syslog_out_auto",
               "syslog_out_jsonl", "syslog_out_pass5424",
               "syslog_out_pass3164", "syslog_out_rfc3164", "syslog_out_json",
@@ -609,10 +644,19 @@ def test_out_phases_are_named_and_sized():
                           "dns_line", "dns_ltsv", "auto_dns_ltsv",
                           "ltsv_out_rfc3164", "ltsv_out_ltsv",
                           "ltsv_out_gelf", "ltsv_out_jsonl",
-                          "ltsv_out_schema"} | r5 | syslog
-    tiers = ("rfc5424_ltsv_tier", "rfc5424_r5_tier", "rfc3164_r5_tier")
+                          "ltsv_out_schema"} | r5 | syslog | capnp
+    tiers = ("rfc5424_ltsv_tier", "rfc5424_r5_tier", "rfc3164_r5_tier",
+             "rfc5424_capnp_tier")
     for name, (fmt, keys, output, kind, n, maker, cli, need,
                need_off) in paths.items():
+        if name in capnp:
+            assert output == "capnp"
+            assert n == {"rfc5424_capnp_line": 4 * B,
+                         "rfc5424_capnp_tier": 2 * B}.get(name, B // 2)
+            assert cli == (name == "rfc5424_capnp_line")
+            assert need[:2] == ("frame_sep_spans", "frame_gather")
+            assert (need_off is None) == (name not in tiers)
+            continue
         if name in r5 or name in syslog:
             assert output in ("rfc5424", "passthrough", "rfc3164", "json")
         else:
@@ -621,10 +665,10 @@ def test_out_phases_are_named_and_sized():
                                        "rfc5424_r5_line")
                      else 2 * B if name in r5 or name in (
                          "rfc5424_ltsv_tier", "dns_line")
-                     else B // 2 if name.startswith(("ltsv_out_", "syslog"))
+                     else B // 4 if name.startswith("syslog_out_")
+                     else B // 2 if name.startswith("ltsv_out_")
                      else B)
-        assert cli == (not name.startswith(("ltsv_out_", "syslog_out_"))
-                       and name not in tiers[1:])
+        assert cli == (name in ("rfc5424_ltsv_line", "dns_line"))
         assert need[:2] == ("frame_sep_spans", "frame_gather")
         assert (need_off is None) == (name not in tiers)
         assert ("decode_dns" in need) == ("dns" in name)
@@ -636,11 +680,18 @@ def test_out_phases_are_named_and_sized():
     assert paths["rfc3164_r5_tier"][8][-2:] == (
         "encode_rfc3164_rfc5424_probe", "encode_rfc3164_rfc5424_assemble")
     assert "rfc5424_ltsv_line" in chip_smoke.COOLING
+    assert paths["rfc5424_capnp_tier"][8][-2:] == (
+        "encode_capnp_probe_p6", "encode_capnp_assemble_p6")
+    assert "encode_capnp_probe_p6" in paths["capnp_out_auto"][7]
     assert "rfc5424_r5_line" in chip_smoke.COOLING
+    assert "rfc5424_capnp_line" in chip_smoke.COOLING
     assert set(chip_smoke.NOTICE_PATHS) == {
-        "ltsv_out_schema", "syslog_out_jsonl", "syslog_out_prepend"}
-    assert set(chip_smoke.MIXED_CLI) == {"auto_line", "auto_tier",
-                                         "record_auto"}
+        "ltsv_out_schema", "syslog_out_jsonl", "syslog_out_prepend",
+        "capnp_out_jsonl"}
+    assert chip_smoke._out_framing("capnp_out_extra") == "syslen"
+    assert chip_smoke._masking("capnp_out_gelf") == "capnp:noop"
+    assert chip_smoke._masking("rfc5424_capnp_line") == "capnp:noop"
+    assert set(chip_smoke.MIXED_CLI) == {"auto_line", "record_auto"}
 
 
 def test_dns_and_ac_dns_cases_check_on_the_cpu(monkeypatch):
@@ -696,7 +747,8 @@ def test_dns_and_ac_dns_cases_check_on_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("name", ["dns_ltsv", "ltsv_out_schema",
                                   "syslog_out_pass3164", "syslog_out_json",
-                                  "syslog_out_prepend"])
+                                  "syslog_out_prepend", "capnp_out_extra",
+                                  "capnp_out_gelf", "capnp_out_jsonl"])
 def test_out_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
     """phase_e2e_out end to end on the CPU at a small size (in process,
     and through the CLI where the path has one, both with ``--device
@@ -713,6 +765,7 @@ def test_out_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
     monkeypatch.setitem(chip_smoke.OUT_PATHS, name,
                         (fmt, keys, output, kind, 1200, maker, cli, (),
                          None))
+    monkeypatch.setattr(chip_smoke, "TIER_LAUNCHES", {})
     monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
 
     def run_inproc(cfg, path):
@@ -748,3 +801,109 @@ def test_out_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
     run, = rep["runs"]
     assert (run["startup_notice"] is None) == (
         name not in chip_smoke.NOTICE_PATHS)
+
+
+def test_oc_cases_check_and_record_their_shapes(monkeypatch):
+    """OC's and FO/capnp's chip checks on the CPU, each wrapper standing in
+    with the plain version (and counting its launch): the probe, the
+    assemble and the fused route's carried channels go through the
+    comparisons at 6 and 16 pairs, with and without a capnp_extra, the
+    rows carry the pair width in their names and a bytes bound, the
+    checked shapes are recorded, and a stand-in that differs from the
+    plain version fails the check."""
+    import torch
+
+    from flowgger_tpu_torch.corpus import make_tier_corpus
+    from flowgger_tpu_torch.tpu import (device_capnp, device_gelf,
+                                        fused_routes, kernels, pack,
+                                        rfc5424)
+
+    def packed_of(dec):
+        keys = [*rfc5424._KEYS_1D, *rfc5424._KEYS_SD, *rfc5424._KEYS_PAIR]
+        N = dec["ok"].shape[0]
+        return torch.cat([dec[k].to(torch.int32).reshape(N, -1).t()
+                          for k in keys]).contiguous()
+
+    def decode(b, l, max_sd=4, P=6):
+        return packed_of(rfc5424.decode_rfc5424(b, l, max_sd, P))
+
+    def extras_of(table):
+        return chip_smoke.CAPNP_EXTRA if table[2] else ()
+
+    def encode(b, l, ch, n, bank, table, OW=0, row_off=None, total=0):
+        P = (ch.shape[0] - 31) // 6
+        dec = rfc5424.unpack_channels(ch, 4, P)
+        kw = {"suffix": b"", "extras": extras_of(table)}
+        if row_off is None:
+            kernels.LAUNCHES[f"encode_capnp_probe_p{P}"] += 1
+            return device_capnp.encode_rows(b, l, dec, assemble=False, n=n,
+                                            **kw)
+        kernels.LAUNCHES[f"encode_capnp_assemble_p{P}"] += 1
+        rows, out_len, _ = device_capnp.encode_rows(b, l, dec, **kw)
+        return device_gelf.flat_rows(rows, out_len, row_off, total)
+
+    def fused(b, l, n, bank, table, OW=0, row_off=None, total=0, chan=None,
+              tier=None):
+        dec = rfc5424.decode_rfc5424(b, l)
+        if row_off is not None:
+            # the wrapper's contract checks
+            if chan is None or bool(((row_off >= 0) & ~tier).any()):
+                raise ValueError("against the contract")
+            return launch(b, l, n, bank, table, OW, row_off, total, chan)
+        kernels.LAUNCHES["fused_rfc5424_capnp_probe"] += 1
+        base, base_len, small8 = device_capnp.encode_rows(
+            b, l, dec, suffix=b"", extras=extras_of(table), assemble=False,
+            n=n)
+        live = torch.arange(b.shape[0]) < n
+        small = torch.stack([torch.where(live, dec[k].to(torch.int32), 0)
+                             for k in ("ok", "days", "sod", "off", "nanos")])
+        carried = fused_routes.carried_plain(dec, "rfc5424_capnp")
+        return (base, base_len, small,
+                torch.where(base[:, None], carried, -1), small8)
+
+    def launch(b, l, n, bank, table, OW, row_off, total, chan):
+        kernels.LAUNCHES["fused_rfc5424_capnp_assemble"] += 1
+        rows, out_len, _ = device_capnp.encode_rows(
+            b, l, rfc5424.decode_rfc5424(b, l), suffix=b"",
+            extras=extras_of(table))
+        return device_gelf.flat_rows(rows, out_len, row_off, total)
+
+    monkeypatch.setattr(kernels, "decode_rfc5424_cuda", decode)
+    monkeypatch.setattr(kernels, "encode_capnp_cuda", encode)
+    monkeypatch.setattr(kernels, "fused_capnp_out_cuda", fused)
+    monkeypatch.setattr(kernels, "fused_capnp_out_assemble_launch", launch)
+    monkeypatch.setattr(device_gelf, "_bank_on",
+                        lambda bank, dev: torch.frombuffer(
+                            bytearray(bank), dtype=torch.uint8))
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, **kw: fn() is None or 0.0)
+    monkeypatch.setattr(chip_smoke, "CHECKED", set())
+    lines, _ = make_tier_corpus(300, seed=8)
+    batch, lens, *_ = pack.pack_lines_2d(lines, 256)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lens)
+    rows, shapes = [], []
+    chip_smoke.oc_cases(bt, lt, 280, rows, shapes)
+    assert [r["name"] for r in rows] == [
+        "encode_capnp_probe_p6", "encode_capnp_assemble_p6",
+        "encode_capnp_probe_p16", "encode_capnp_assemble_p16",
+        "fused_rfc5424_capnp_probe", "fused_rfc5424_capnp_assemble"]
+    assert len(shapes) == 6 and all("capnp_extra" in r["shape"]
+                                    for r in shapes)
+    for r in rows + shapes:
+        assert r["max_abs_err"] == 0.0 and r["bound_by"] == "bytes"
+        assert r["replaces"].startswith(("flowgger_tpu/tpu/device_capnp.py",
+                                         "flowgger_tpu/tpu/fused_routes.py"))
+    N = bt.shape[0]
+    assert chip_smoke.CHECKED == {(r["name"], (N, 256)) for r in rows}
+
+    def wrong(*a, **kw):
+        out = encode(*a, **kw)
+        if kw.get("row_off") is None:
+            out[1][3] += 8
+        return out
+
+    monkeypatch.setattr(kernels, "encode_capnp_cuda", wrong)
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.oc_case("oc", bt, lt, 280)

@@ -297,15 +297,17 @@ def test_gelf_gelf_block_matches_reference(merger, jmerger):
 
 @pytest.mark.parametrize("text,words", [
     ('[input]\ntype = "stdin"\nformat = "gelf_tpu"\n[output]\n'
-     'type = "stdout"\nformat = "capnp"\n',
-     ("output.format", "queue A item 6")),
+     'type = "kafka"\nformat = "capnp"\n',
+     ("output.type", "kafka")),
 ], ids=["capnp_output"])
 def test_gelf_configs_the_slice_refuses(text, words):
-    """gelf_tpu into an output the port does not write yet (capnp) is a
-    later slice: it raises.  (A gelf_extra, which takes the reference's
-    Record path, runs: test_cli_gelf_extra_matches_jax_package; LTSV
-    output runs: test_torch_ltsv_out_cli.py; RFC5424 output:
-    test_torch_rfc5424_out_cli.py.)"""
+    """gelf_tpu into capnp over an output type the port does not have yet
+    (kafka, the reference's default for capnp) is a later slice: it
+    raises.  (A gelf_extra, which takes the reference's Record path, runs:
+    test_cli_gelf_extra_matches_jax_package; LTSV output runs:
+    test_torch_ltsv_out_cli.py; RFC5424 output:
+    test_torch_rfc5424_out_cli.py; capnp into a file or stdout:
+    test_torch_capnp_out_more_cli.py.)"""
     with pytest.raises(ConfigError, match="later slice") as exc:
         pipeline.Pipeline(Config.from_string(text), device="cpu")
     for w in words:

@@ -166,8 +166,10 @@ BAD_CONFIGS = [
     ('[input]\ntype = "stdin"\nformat = "ltsv"\n', "input.format"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "capnp"\n',
      "input.framing"),
-    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "stdout"\nformat = "capnp"\n', "output.format"),
+    # the capnp output runs (test_torch_capnp_out*.py); the capnp input
+    # is a later slice
+    ('[input]\ntype = "stdin"\nformat = "capnp"\n[output]\n'
+     'type = "stdout"\nformat = "capnp"\n', "input.format"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "kafka"\n', "output.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
@@ -182,6 +184,24 @@ def test_later_slice_configs_raise(text, key):
     with pytest.raises(ConfigError, match="later slice") as exc:
         pipeline.Pipeline(Config.from_string(text), device="cpu")
     assert key in str(exc.value)
+
+
+@pytest.mark.parametrize("name", ["avro", "gelf_tpu", ""])
+def test_unknown_output_format_raises_reference_words(name):
+    """An output.format no encoder has raises the reference's own
+    ConfigError words (the JAX package's get_encoder)."""
+    from flowgger_tpu.config import Config as RConfig
+    from flowgger_tpu.config import ConfigError as RConfigError
+    from flowgger_tpu.pipeline import get_encoder
+
+    text = ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+            f'type = "stdout"\nformat = "{name}"\n')
+    with pytest.raises(ConfigError) as exc:
+        pipeline.Pipeline(Config.from_string(text), device="cpu")
+    with pytest.raises(RConfigError) as rexc:
+        get_encoder(name, RConfig.from_string(text))
+    assert str(exc.value) == str(rexc.value) == \
+        f"Unknown output format: {name}"
 
 
 # configs that take the Record path in both packages (they raised
@@ -259,13 +279,16 @@ _NEW_MODULES = ("encoders.ltsv", "decoders.dns", "tpu.dns",
                 "encoders.rfc5424", "encoders.rfc3164",
                 "encoders.passthrough", "tpu.encode_rfc5424_block",
                 "tpu.encode_passthrough_block",
-                "tpu.encode_rfc3164_3164_block", "tpu.device_rfc5424_out")
+                "tpu.encode_rfc3164_3164_block", "tpu.device_rfc5424_out",
+                "capnp_wire", "encoders.capnp", "tpu.encode_capnp_block",
+                "tpu.device_capnp")
 
 
 def test_import_rule():
     """Every module of the port imports without JAX and without any
     module of the JAX package (the walk reaches the LTSV output's, the
-    dns input's and the syslog outputs' modules too)."""
+    dns input's, the syslog outputs' and the capnp output's modules
+    too)."""
     code = (
         "import pkgutil, sys\n"
         "import flowgger_tpu_torch as p\n"

@@ -300,8 +300,9 @@ def test_device_encode_matches_reference(suffix, extras):
 def test_route_ok_and_config_gates(monkeypatch):
     """rfc3164_tpu runs into GELF, with gelf_extra keys this layout
     places and with keys it cannot (``level``: the Record path, as in the
-    reference, test_cli_rfc3164_level_extra_matches_jax_package); the
-    capnp output raises ConfigError naming the later slice."""
+    reference, test_cli_rfc3164_level_extra_matches_jax_package); capnp
+    into kafka (a later slice's output type) raises ConfigError naming
+    the later slice."""
     enc = GelfEncoder(Config.from_string(""))
     assert D3.route_ok(enc, LineMerger()) and D3.route_ok(enc, None)
     for extra in ('zone = "eu"\n', 'level = "9"\n'):
@@ -314,9 +315,9 @@ def test_route_ok_and_config_gates(monkeypatch):
     with pytest.raises(ConfigError, match="later slice") as exc:
         pipeline.Pipeline(Config.from_string(
             '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
-            '[output]\ntype = "stdout"\nformat = "capnp"\n'),
+            '[output]\ntype = "kafka"\nformat = "capnp"\n'),
             device="cpu")
-    assert "output.format" in str(exc.value)
+    assert "output.type" in str(exc.value)
     monkeypatch.setenv("FLOWGGER_DEVICE_ENCODE", "0")
     assert not D3.route_ok(enc, LineMerger())
 
