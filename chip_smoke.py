@@ -197,7 +197,27 @@ Phases, each printing JSON lines:
    assemble at 6 and 16 pairs) and FO/capnp against their plain
    versions on the rfc5424 tier batch, its flush batch and its
    end-of-stream batch, without and with a ``capnp_extra``
-   (:func:`oc_cases`).
+   (:func:`oc_cases`).  Every e2e run goes through the overlap executor
+   at its defaults (one lane, ``input.tpu_inflight = 2``, the route
+   economics on): the economics' switch notices are split off stderr
+   and reported (:func:`econ_split`) with each lane's snapshot, and the
+   batches it sends past a tier are counted apart.  The tier mixes'
+   two taker runs are the exception: they set
+   ``input.tpu_encode_economics = false``, so that the taker must take
+   every batch and the other tier see none (:func:`check_tier_mix`);
+   a third in-process run of each, with the fused route off and the
+   economics on, is held to the bytes and reported.  The syslen and
+   jsonl line mixes (and ``record_auto``) run in process only since the
+   executor came (8 CLI runs left);
+7. overlap_ab — the main path (rfc5424 / line, 65 536 lines) and the
+   rfc5424 tier mix (32 768) in process at ``input.tpu_inflight = 0``,
+   at the default window and at ``input.tpu_lanes = 2``, in turns forth
+   and back, on the e2e runs' inputs, each byte-identical to the scalar
+   path: lines/s, the overlap share (1 − wall ÷ (ingest-thread busy
+   seconds + the lanes' pop seconds), :func:`executor_clock`), each
+   lane's economics snapshot, and the CUDA streams the wrappers launched
+   on (:func:`launch_streams`: one non-default stream a lane, the lanes'
+   own, or the phase fails); then ``late_shapes``, one corpus a mix.
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -3392,6 +3412,17 @@ SHAPE_CHECKED = ("encode_gelf_cuda", "encode_gelf3164_cuda",
 LATE_PREFIXES = ("decode_rfc5424_p", "decode_ltsv", "encode_gelf_ltsv",
                  "fused_ltsv_gelf", "encode_gelf_gelf", "fused_gelf_gelf")
 LATE: set = set()
+# the PATHS that run in process only: the tier mixes (their line mixes
+# drive the same configurations through the CLI), and since the overlap
+# executor came the syslen and jsonl line mixes (rfc5424_line drives the
+# GELF output's CLI; the CPU tests hold their CLIs against the JAX
+# package)
+INPROC_ONLY = ("rfc5424_tier", "rfc3164_tier", "ltsv_tier", "gelf_tier",
+               "rfc5424_syslen", "jsonl_line")
+# the OVERLAP_PATHS runs' inputs and scalar expectations, for
+# phase_overlap_ab: name -> (lines, seed, input path, input bytes, bytes,
+# (stderr, stdout))
+EXPECTED: dict = {}
 
 
 def _write_input(name: str, n_lines: int, seed: int):
@@ -3458,13 +3489,14 @@ def same_bytes(name: str, got: bytes, want: bytes) -> bool:
     return mask_wall_stamps(got, since) == mask_wall_stamps(want, since)
 
 
-def _config(name: str, tag: str, fuse: str = "auto") -> Path:
+def _config(name: str, tag: str, fuse: str = "auto",
+            extra: str = "") -> Path:
     fmt, framing, _, _, _ = PATHS[name]
     out = WORK / f"{name}_{tag}.out"
     cfg = WORK / f"{name}_{tag}.toml"
     cfg.write_text(
         f'[input]\ntype = "stdin"\nformat = "{fmt}"\nframing = "{framing}"\n'
-        f'tpu_fuse = "{fuse}"\n'
+        f'tpu_fuse = "{fuse}"\n' + extra +
         f'[output]\ntype = "file"\nformat = "gelf"\nfile_path = "{out}"\n')
     if out.exists():
         out.unlink()
@@ -3494,29 +3526,45 @@ def same_stderr(kind: str, got: list, want: list) -> bool:
 def launch_shapes(wrappers=SHAPE_CHECKED):
     """Collects the (kernel name, batch shape) of each launch made inside
     the block by ``wrappers`` (default :data:`SHAPE_CHECKED`; the
-    wrapper's count says which entry ran)."""
+    launches the wrapper counted on its own thread say which entry ran:
+    the ingest thread and the lanes' fetcher threads launch at once)."""
     import torch
 
     from flowgger_tpu_torch.tpu import kernels
 
     seen = set()
     saved = {w: getattr(kernels, w) for w in wrappers}
+    launched = kernels._launched
+    local = threading.local()
+
+    def logging_launched(name):
+        launched(name)
+        log = getattr(local, "log", None)
+        if log is not None:
+            log.append(name)
 
     def recording(launch):
         def run(*args, **kw):
             batch = next(a for a in args if isinstance(a, torch.Tensor))
-            before = dict(kernels.LAUNCHES)
-            res = launch(*args, **kw)
-            seen.update((k, tuple(batch.shape)) for k, v in
-                        kernels.LAUNCHES.items() if v != before.get(k, 0))
+            outer = getattr(local, "log", None)
+            local.log = []
+            try:
+                res = launch(*args, **kw)
+                seen.update((k, tuple(batch.shape)) for k in local.log)
+            finally:
+                if outer is not None:
+                    outer.extend(local.log)
+                local.log = outer
             return res
         return run
 
+    kernels._launched = logging_launched
     for w, fn in saved.items():
         setattr(kernels, w, recording(fn))
     try:
         yield seen
     finally:
+        kernels._launched = launched
         for w, fn in saved.items():
             setattr(kernels, w, fn)
 
@@ -3587,14 +3635,25 @@ def run_inproc(cfg: Path, path: Path):
 
 
 _STATE_KEYS = ("taken", "declined", "cooled", "wide", "tier_rows")
+_ECON = "route economics ["
+
+
+def econ_split(lines: list):
+    """A run's stderr lines without the route-economics switch notices
+    (they follow the measured speeds, not the records), and the notices
+    apart."""
+    return ([ln for ln in lines if not ln.startswith(_ECON)],
+            [ln for ln in lines if ln.startswith(_ECON)])
 
 
 def _tier_report(state: dict) -> dict:
     """One tier's batches taken, declined (over 5 % of rows outside it)
-    and skipped in cooldown, its rows, and bytes fetched and emitted a
-    tier row."""
+    and skipped in cooldown, its rows, the batches the route economics
+    sent past it (``econ``: to the host tier, or from the fused route to
+    the split path), and bytes fetched and emitted a tier row."""
     rows = state.get("tier_rows", 0)
     rep = {k: state.get(k, 0) for k in _STATE_KEYS}
+    rep["econ"] = state.get("econ_host", 0) + state.get("econ_split", 0)
     rep.update(
         fetch_bytes=state.get("fetch_bytes", 0),
         fetch_bytes_per_tier_row=state.get("fetch_bytes", 0) / max(rows, 1),
@@ -3602,10 +3661,20 @@ def _tier_report(state: dict) -> dict:
     return rep
 
 
+# the key a tier mix's taker runs add: the taker must take every batch
+ECON_OFF = "tpu_encode_economics = false\n"
+
+
+def _econ_tag(fuse: str, econ: bool) -> str:
+    return ("inproc" if fuse == "auto" else f"inproc_{fuse}") + \
+        ("" if econ else "_noecon")
+
+
 def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
-               checked, fuse: str):
+               checked, fuse: str, econ: bool = True):
     """One in-process run of a configuration with ``input.tpu_fuse =
-    fuse``, every launch count reset just before and read just after;
+    fuse`` (and ``input.tpu_encode_economics = false`` unless ``econ``),
+    every launch count reset just before and read just after;
     fails unless its bytes and stderr are the scalar path's, it launched
     every kernel of its path, and the tiers' counts agree with the
     launches.  Returns the report."""
@@ -3614,8 +3683,8 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
     from flowgger_tpu_torch.tpu import framing, kernels
 
     fmt_in, _, kind, need, need_split = PATHS[name]
-    tag = "inproc" if fuse == "auto" else f"inproc_{fuse}"
-    cfg = _config(name, tag, fuse)
+    tag = _econ_tag(fuse, econ)
+    cfg = _config(name, tag, fuse, "" if econ else ECON_OFF)
     for k in framing.DECLINES:
         framing.DECLINES[k] = 0
     kernels.reset_launch_counts()
@@ -3636,6 +3705,7 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
             wall, pipe, errs, notices = run_inproc(cfg, path)
     finally:
         batch_mod._ROUTES[kind] = (submit, fetch, encode)
+    errs, econ_notices = econ_split(errs)
     exp_err, exp_notices = exp_err
     launches = dict(kernels.LAUNCHES)
     calls = dict(native.CALLS)
@@ -3707,7 +3777,7 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
             or calls["fg_gelf_lens_v2"] != calls["fg_gelf_write_v2"]
             or (kind in ("rfc5424", "rfc3164", "ltsv", "gelf")
                 and host_tier["batches"]
-                != split["declined"] + split["cooled"])
+                != split["declined"] + split["cooled"] + split["econ"])
             or calls["fg_format_f64_json"]
             != split["taken"] + fused["taken"]):
         raise AssertionError(f"{name} ({fuse}): native calls {calls} for "
@@ -3722,19 +3792,32 @@ def e2e_inproc(name: str, path: Path, exp_out: bytes, exp_err: tuple,
         # tier sees none), or with the fused route off the split tier
         # does; fewer bytes fetched than emitted a tier row
         took, idle = (fused, split) if fuse == "auto" else (split, fused)
-        if (took["declined"] or took["cooled"] or not took["taken"]
-                or any(idle[k] for k in _STATE_KEYS)
-                or took["fetch_bytes_per_tier_row"]
-                >= took["emit_bytes_per_tier_row"]):
-            raise AssertionError(f"{name} ({fuse}): the tier did not take "
-                                 f"every batch under the emitted bytes: "
-                                 f"taker {took}, other {idle}")
-    return {"fuse": fuse, "launches": launches, "framing_declines": declines,
+        if not econ:
+            check_tier_mix(f"{name} ({fuse})", took, idle)
+    return {"fuse": fuse, "economics_on": econ, "launches": launches,
+            "framing_declines": declines,
             "fused_route": fused, "split_tier": split, "native_calls": calls,
             "host_tier_batches": host_tier,
+            "economics": pipe._handler.economics(),
+            "economics_notices": econ_notices,
             "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
             "inproc_wall_s": wall,
             "inproc_lines_per_s": None}
+
+
+def check_tier_mix(what: str, took: dict, idle: dict) -> None:
+    """A tier mix, run with the route economics off: the tier that takes
+    it takes every batch (it declines none, cools none and sends none
+    past itself), the other tier sees none, and the taker fetches fewer
+    bytes than it emits a tier row."""
+    if (took["declined"] or took["cooled"] or took["econ"]
+            or not took["taken"]
+            or any(idle[k] for k in _STATE_KEYS + ("econ",))
+            or took["fetch_bytes_per_tier_row"]
+            >= took["emit_bytes_per_tier_row"]):
+        raise AssertionError(f"{what}: the tier did not take every batch "
+                             f"under the emitted bytes: taker {took}, "
+                             f"other {idle}")
 
 
 # the line mixes not chosen to engage the tiers: both tiers of each must
@@ -3759,7 +3842,7 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     kind = PATHS[name][2]
 
     # (a) the CLI in a subprocess, beside the scalar expectation's making
-    cli = not name.endswith("_tier")
+    cli = name not in INPROC_ONLY
     if cli:
         with CliRun(_config(name, "cli"), path) as run:
             exp_out, exp_err = _expectation(name, data)
@@ -3769,10 +3852,19 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
                                  + cli_err.decode()[-4000:])
     else:
         exp_out, exp_err = _expectation(name, data)
+    if name in OVERLAP_PATHS:
+        EXPECTED[name] = (n_lines, seed, path, data, exp_out, exp_err)
 
-    # (b) in process, through the library entry point, counts reset
-    runs = [e2e_inproc(name, path, exp_out, exp_err, checked, "auto")]
+    # (b) in process, through the library entry point, counts reset; a
+    # tier mix's taker runs with the economics off, then once with the
+    # fused route off and the economics on, reported
+    tier = name.endswith("_tier")
+    runs = [e2e_inproc(name, path, exp_out, exp_err, checked, "auto",
+                       econ=not tier)]
     if PATHS[name][4] is not None:
+        runs.append(e2e_inproc(name, path, exp_out, exp_err, checked, "off",
+                               econ=not tier))
+    if tier:
         runs.append(e2e_inproc(name, path, exp_out, exp_err, checked, "off"))
     for r in runs:
         r["inproc_lines_per_s"] = n_lines / r["inproc_wall_s"]
@@ -3780,7 +3872,7 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     cli_report = {}
     if cli:
         got = (WORK / f"{name}_cli.out").read_bytes()
-        errs = cli_err.decode().splitlines()
+        errs, cli_econ = econ_split(cli_err.decode().splitlines())
         # stdout: the CLI's banner, then the ltsv decoder's notices
         banner, *notices = cli_out.decode().splitlines()
         if (not same_bytes(name, got, exp_out)
@@ -3793,7 +3885,8 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
                 f"{len(errs)} vs {len(exp_err[0])}; stdout lines "
                 f"{len(notices)} vs {len(exp_err[1])}")
         cli_report = {"cli_wall_s": wall_cli,
-                      "cli_lines_per_s": n_lines / wall_cli}
+                      "cli_lines_per_s": n_lines / wall_cli,
+                      "cli_economics_notices": cli_econ}
     emit({"phase": "e2e", "path": name, "lines": n_lines,
           "input_bytes": len(data), "output_bytes": len(exp_out),
           "error_lines": len(exp_err[0]), "notice_lines": len(exp_err[1]),
@@ -3863,7 +3956,7 @@ _NOTICE = "flowgger-tpu: columnar block route disabled for format "
 # and record_rfc5424 since the syslog-output paths came: their CLI is
 # held by the CPU tests, and auto_tier since the capnp paths came:
 # auto_line drives its configuration through the CLI)
-MIXED_CLI = ("auto_line", "record_auto")
+MIXED_CLI = ("auto_line",)
 
 
 def _mixed_tables(name: str):
@@ -3961,6 +4054,7 @@ def phase_e2e_mixed(name: str, seed: int):
     kernels.reset_launch_counts()
     with launch_shapes(_MIXED_WRAPPERS) as seen:
         wall, pipe, errs, said = run_inproc(cfg, path)
+    errs, econ_notices = econ_split(errs)
     launches = dict(kernels.LAUNCHES)
     got = (WORK / f"{name}_inproc.out").read_bytes()
     if not _mixed_same(got, errs, said, exp):
@@ -3994,7 +4088,7 @@ def phase_e2e_mixed(name: str, seed: int):
     cli_report = {}
     if cli:
         banner, *cli_said = cli_out.decode().splitlines()
-        cli_errs = cli_err.decode().splitlines()
+        cli_errs = econ_split(cli_err.decode().splitlines())[0]
         if (not banner.startswith("Flowgger")
                 or not _mixed_same((WORK / f"{name}_cli.out").read_bytes(),
                                    cli_errs, cli_said, exp)
@@ -4011,6 +4105,7 @@ def phase_e2e_mixed(name: str, seed: int):
           "mix": {k: kinds.count(k) for k in sorted(set(kinds))},
           "launches": launches, "classify_auto_launches":
               launches["classify_auto"], "legs": legs,
+          "economics_notices": econ_notices,
           "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
           "inproc_wall_s": wall, "inproc_lines_per_s": n_lines / wall,
           **cli_report, "identical_to_scalar_path": True})
@@ -4275,7 +4370,8 @@ def _masking(name: str) -> str:
     return output
 
 
-def _out_config(name: str, tag: str, fuse: str = "auto") -> Path:
+def _out_config(name: str, tag: str, fuse: str = "auto",
+                input_keys: str = "") -> Path:
     from flowgger_tpu_torch import corpus
 
     fmt, keys, output = OUT_PATHS[name][:3]
@@ -4287,7 +4383,8 @@ def _out_config(name: str, tag: str, fuse: str = "auto") -> Path:
         f'type = "file"\nfile_path = "{out}"\n'
     cfg.write_text(
         f'[input]\ntype = "stdin"\nformat = "{fmt}"\nframing = "line"\n'
-        f'tpu_fuse = "{fuse}"\n' + ("" if in_t else keys) + in_t
+        f'tpu_fuse = "{fuse}"\n' + input_keys + ("" if in_t else keys)
+        + in_t
         + f'[output]\nformat = "{output}"\n' + sink + extra)
     if out.exists():
         out.unlink()
@@ -4322,22 +4419,25 @@ def ol_screen_share(lines: list, output: str = "ltsv") -> float:
     return out / max(len(lines), 1)
 
 
-def e2e_out_inproc(name: str, path: Path, exp, fuse: str):
-    """One in-process run of an OUT_PATHS configuration, every launch
-    count reset just before and read just after: its bytes (wall-clock
+def e2e_out_inproc(name: str, path: Path, exp, fuse: str,
+                   econ: bool = True):
+    """One in-process run of an OUT_PATHS configuration (the economics
+    off unless ``econ``), every launch count reset just before and read
+    just after: its bytes (wall-clock
     stamps masked), stderr and stdout notices must be the scalar path's,
     and it must launch each kernel of its path.  Returns the report."""
     from flowgger_tpu_torch.tpu import framing, kernels
 
     fmt_in, _, output, kind, n_lines, _, _, need, need_off = OUT_PATHS[name]
     exp_out, exp_err, exp_notices, since = exp
-    tag = "inproc" if fuse == "auto" else f"inproc_{fuse}"
-    cfg = _out_config(name, tag, fuse)
+    tag = _econ_tag(fuse, econ)
+    cfg = _out_config(name, tag, fuse, "" if econ else ECON_OFF)
     for k in framing.DECLINES:
         framing.DECLINES[k] = 0
     kernels.reset_launch_counts()
     with launch_shapes(_OUT_WRAPPERS) as seen:
         wall, pipe, errs, said = run_inproc(cfg, path)
+    errs, econ_notices = econ_split(errs)
     launches = dict(kernels.LAUNCHES)
     masking = _masking(name)
     if 'type = "stdout"' in _out_keys(name):
@@ -4402,19 +4502,16 @@ def e2e_out_inproc(name: str, path: Path, exp, fuse: str):
                                    for t in (fused, split)):
         raise AssertionError(f"{name}: the tiers did not decline and then "
                              f"cool: fused {fused}, split {split}")
-    if name.endswith("_tier"):
+    if name.endswith("_tier") and not econ:
         took, idle = (fused, split) if fuse == "auto" else (split, fused)
-        if (took["declined"] or took["cooled"] or not took["taken"]
-                or any(idle[k] for k in _STATE_KEYS)
-                or took["fetch_bytes_per_tier_row"]
-                >= took["emit_bytes_per_tier_row"]):
-            raise AssertionError(f"{name} ({fuse}): the tier did not take "
-                                 f"every batch under the emitted bytes: "
-                                 f"taker {took}, other {idle}")
+        check_tier_mix(f"{name} ({fuse})", took, idle)
     legs = {leg: {k: st.get(k, 0) for k in _STATE_KEYS}
             for leg, st in rstate.items()}
-    return {"fuse": fuse, "launches": launches, "fused_route": fused,
-            "split_tier": split, "legs": legs, "startup_notice": notice,
+    return {"fuse": fuse, "economics_on": econ, "launches": launches,
+            "fused_route": fused, "split_tier": split, "legs": legs,
+            "startup_notice": notice,
+            "economics": pipe._handler.economics(),
+            "economics_notices": econ_notices,
             "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
             "inproc_wall_s": wall, "inproc_lines_per_s": n_lines / wall}
 
@@ -4482,8 +4579,9 @@ def phase_e2e_out(name: str, seed: int):
         if (not banner.startswith("Flowgger")
                 or mask_stamps(got, since, _masking(name))
                 != mask_stamps(exp_out, since, _masking(name))
-                or not same_stderr("rfc3164", cli_err.decode().splitlines(),
-                                   exp_err) or cli_said != notices):
+                or not same_stderr(
+                    "rfc3164", econ_split(cli_err.decode().splitlines())[0],
+                    exp_err) or cli_said != notices):
             raise AssertionError(f"{name}: CLI e2e differs from the scalar "
                                  f"path")
         report.update(cli_wall_s=wall_cli,
@@ -4491,8 +4589,11 @@ def phase_e2e_out(name: str, seed: int):
     else:
         exp_out, exp_err = expectation()
     exp = (exp_out, exp_err, notices, since)
-    runs = [e2e_out_inproc(name, path, exp, "auto")]
+    tier = name.endswith("_tier")
+    runs = [e2e_out_inproc(name, path, exp, "auto", econ=not tier)]
     if need_off is not None:
+        runs.append(e2e_out_inproc(name, path, exp, "off", econ=not tier))
+    if tier:
         runs.append(e2e_out_inproc(name, path, exp, "off"))
     emit({**report, "output_bytes": len(exp_out),
           "error_lines": len(exp_err), "notice_lines": len(notices),
@@ -4502,6 +4603,234 @@ def phase_e2e_out(name: str, seed: int):
         for k, v in r["launches"].items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+# the executors overlap_ab holds against each other: input.tpu_inflight
+# 0 (strictly serial), the default window (one lane, depth 2) and two
+# lanes (two streams on the one card, depth 2 each)
+OVERLAP_EXECUTORS = (("inflight0", "tpu_inflight = 0\n", 1),
+                     ("inflight2", "", 1),
+                     ("lanes2", "tpu_lanes = 2\n", 2))
+OVERLAP_PATHS = ("rfc5424_line", "rfc5424_tier")
+
+
+@contextlib.contextmanager
+def executor_clock():
+    """Busy seconds of the executor's threads inside the block: the
+    ingest thread's seconds blocked in the lane set (a full window's
+    backpressure, a fence, and at depth 0 the inline pops) and each
+    lane's pop seconds (fetch and encode, then the emit closure; the
+    sequencer's wait for the batch's turn left out)."""
+    from flowgger_tpu_torch.tpu import batch as batch_mod
+    from flowgger_tpu_torch.tpu import overlap
+
+    clock = {"blocked_s": 0.0, "pop_s": {}, "pops": 0}
+    lock = threading.Lock()
+    ingest = threading.current_thread()
+    pop = batch_mod.BatchHandler._pop_emit
+    submit, fence = overlap.LaneSet.submit, overlap.LaneSet.fence
+
+    def add_pop(lane, secs):
+        with lock:
+            clock["pop_s"][lane] = clock["pop_s"].get(lane, 0.0) + secs
+
+    def timed_pop(self, payload, lane=0):
+        t0 = time.perf_counter()
+        emit = pop(self, payload, lane)
+        add_pop(lane, time.perf_counter() - t0)
+        with lock:
+            clock["pops"] += 1
+
+        def finish():
+            t1 = time.perf_counter()
+            emit()
+            add_pop(lane, time.perf_counter() - t1)
+        return finish
+
+    def blocking(fn):
+        def run(self, *a, **k):
+            if threading.current_thread() is not ingest:
+                return fn(self, *a, **k)
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                clock["blocked_s"] += time.perf_counter() - t0
+        return run
+
+    batch_mod.BatchHandler._pop_emit = timed_pop
+    overlap.LaneSet.submit = blocking(submit)
+    overlap.LaneSet.fence = blocking(fence)
+    try:
+        yield clock
+    finally:
+        batch_mod.BatchHandler._pop_emit = pop
+        overlap.LaneSet.submit, overlap.LaneSet.fence = submit, fence
+
+
+@contextlib.contextmanager
+def launch_streams():
+    """The set of CUDA stream handles the kernel wrappers launched on
+    inside the block: each wrapper asks ``kernels._stream`` for the
+    calling thread's current stream as it launches."""
+    from flowgger_tpu_torch.tpu import kernels
+
+    seen = set()
+    lock = threading.Lock()
+    stream = kernels._stream
+
+    def recording():
+        handle = stream()
+        with lock:
+            seen.add(handle)
+        return handle
+
+    kernels._stream = recording
+    try:
+        yield seen
+    finally:
+        kernels._stream = stream
+
+
+def phase_overlap_ab(seed: int):
+    """The main path (rfc5424 / line, cell 1's mix) and the rfc5424 →
+    GELF tier mix in process at ``input.tpu_inflight = 0``, at the default
+    window and at ``input.tpu_lanes = 2``, in turns forth and back, on the
+    inputs of their e2e runs (:data:`EXPECTED`): each run byte for byte
+    the scalar path's, stderr
+    included (the economics notices reported apart).  Reports lines/s,
+    the executor's overlap share, 1 − wall ÷ (ingest-thread busy seconds
+    + the lanes' pop seconds), each lane's economics snapshot and the
+    CUDA streams the kernel wrappers launched on (:func:`launch_streams`):
+    one non-default stream a lane, the lanes' own.  Returns the launch
+    counts summed over the runs."""
+    import torch
+
+    from flowgger_tpu_torch.tpu import kernels
+
+    total = {}
+    for name in OVERLAP_PATHS:
+        n_lines, _, path, data, exp_out, exp_err = EXPECTED[name]
+        kind = PATHS[name][2]
+        runs = []
+        # in turns, forth and back (a, b, c, c, b, a): the host's speed
+        # drifts within a call, so each executor is timed on both sides
+        for tag, keys, lanes in OVERLAP_EXECUTORS + OVERLAP_EXECUTORS[::-1]:
+            cfg = _config(name, f"overlap_{tag}", extra=keys)
+            kernels.reset_launch_counts()
+            with executor_clock() as clock, launch_streams() as seen:
+                wall, pipe, errs, notices = run_inproc(cfg, path)
+            launches = dict(kernels.LAUNCHES)
+            streams = sorted(seen)
+            errs, econ_notices = econ_split(errs)
+            got = (WORK / f"{name}_overlap_{tag}.out").read_bytes()
+            if (not same_bytes(name, got, exp_out)
+                    or not same_stderr(kind, errs, exp_err[0])
+                    or notices != exp_err[1]):
+                raise AssertionError(
+                    f"overlap_ab {name} {tag}: differs from the scalar path "
+                    f"(bytes {len(got)} vs {len(exp_out)}, stderr lines "
+                    f"{len(errs)} vs {len(exp_err[0])})")
+            h = pipe._handler
+            own = sorted(ln.stream.cuda_stream for ln in h._lanes)
+            default = torch.cuda.default_stream().cuda_stream
+            if (len(h._lanes) != lanes or streams != own
+                    or default in streams or len(set(streams)) != lanes):
+                raise AssertionError(
+                    f"overlap_ab {name} {tag}: kernels launched on streams "
+                    f"{streams}, the lanes' are {own} (default {default})")
+            busy = (wall - clock["blocked_s"]) + sum(clock["pop_s"].values())
+            runs.append({
+                "executor": tag, "lanes": lanes,
+                "inflight": h._window.depth, "wall_s": wall,
+                "lines_per_s": n_lines / wall,
+                "ingest_busy_s": wall - clock["blocked_s"],
+                "ingest_blocked_s": clock["blocked_s"],
+                "lane_pop_s": {str(k): v for k, v in
+                               sorted(clock["pop_s"].items())},
+                "batches": clock["pops"],
+                "overlap_share": 1.0 - wall / busy if busy else None,
+                "economics": h.economics(),
+                "economics_notices": econ_notices,
+                "streams": streams, "default_stream": default,
+                "fused_route": _tier_report(
+                    h.route_state.get(f"fused:{kind}_gelf", {})),
+                "split_tier": _tier_report(h.route_state.get(kind, {})),
+                "launches": {k: v for k, v in launches.items() if v}})
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        emit({"phase": "overlap_ab", "path": name, "lines": n_lines,
+              "input_bytes": len(data), "runs": runs,
+              "lines_per_s": {
+                  tag: statistics.median(r["lines_per_s"] for r in runs
+                                         if r["executor"] == tag)
+                  for tag, _, _ in OVERLAP_EXECUTORS},
+              "identical_to_scalar_path": True})
+    return total
+
+
+def _late_corpus(name: str):
+    """(corpus maker, mix name) of the rows a late shape of kernel
+    ``name`` is checked on."""
+    from flowgger_tpu_torch import corpus
+
+    return {
+        "classify_auto_dns": (functools.partial(corpus.make_auto_corpus,
+                                                dns=True),
+                              "auto mix with dns"),
+        "decode_dns": (corpus.make_dns_corpus, "dns mix"),
+        "encode_ltsv_out": (corpus.make_ltsv_out_tier_corpus,
+                            "→ LTSV tier mix"),
+        "encode_rfc5424_out": (corpus.make_tier_corpus,
+                               "rfc5424 tier mix"),
+        "fused_rfc5424_rfc5424": (corpus.make_tier_corpus,
+                                  "rfc5424 tier mix"),
+        "encode_capnp": (corpus.make_tier_corpus, "rfc5424 tier mix"),
+        "fused_rfc5424_capnp": (corpus.make_tier_corpus,
+                                "rfc5424 tier mix"),
+        "fused_rfc5424_gelf": (corpus.make_tier_corpus,
+                               "rfc5424 tier mix"),
+        "encode_rfc3164_rfc5424": (corpus.make_rfc3164_tier_corpus,
+                                   "rfc3164 tier mix"),
+        "fused_rfc3164_rfc5424": (corpus.make_rfc3164_tier_corpus,
+                                  "rfc3164 tier mix"),
+        "fused_rfc3164_gelf": (corpus.make_rfc3164_tier_corpus,
+                               "rfc3164 tier mix"),
+        "fused_rfc5424_ltsv": (corpus.make_ltsv_out_tier_corpus,
+                               "→ LTSV tier mix"),
+        "decode_rfc5424": (corpus.make_corpus, "rfc5424 mix"),
+        "decode_ltsv": (corpus.make_ltsv_corpus, "ltsv mix"),
+        "decode_rfc3164": (corpus.make_rfc3164_tier_corpus,
+                           "rfc3164 tier mix"),
+        "encode_gelf3164": (corpus.make_rfc3164_tier_corpus,
+                            "rfc3164 tier mix"),
+        "encode_gelf_probe": (corpus.make_tier_corpus,
+                              "rfc5424 tier mix"),
+        "encode_gelf_assemble": (corpus.make_tier_corpus,
+                                 "rfc5424 tier mix"),
+        "structural_index_flat": (corpus.make_gelf_tier_corpus,
+                                  "gelf tier mix"),
+        "structural_index_f": (corpus.make_jsonl_corpus, "jsonl mix"),
+        "classify_auto": (corpus.make_auto_corpus, "auto mix"),
+        "encode_gelf_gelf": (corpus.make_gelf_tier_corpus,
+                             "gelf tier mix"),
+        "fused_gelf_gelf": (corpus.make_gelf_tier_corpus,
+                            "gelf tier mix"),
+    }.get(next((k for k in ("classify_auto_dns", "decode_dns",
+                            "encode_ltsv_out", "fused_rfc5424_ltsv",
+                            "encode_rfc5424_out", "fused_rfc5424_rfc5424",
+                            "encode_capnp", "fused_rfc5424_capnp",
+                            "fused_rfc5424_gelf",
+                            "encode_rfc3164_rfc5424",
+                            "fused_rfc3164_rfc5424",
+                            "fused_rfc3164_gelf",
+                            "decode_rfc5424", "decode_ltsv",
+                            "decode_rfc3164", "encode_gelf3164",
+                            "encode_gelf_probe", "encode_gelf_assemble",
+                            "structural_index_flat", "structural_index_f",
+                            "classify_auto", "encode_gelf_gelf",
+                            "fused_gelf_gelf") if name.startswith(k)),
+               None), (corpus.make_ltsv_tier_corpus, "ltsv tier mix"))
 
 
 def phase_late_shapes(seed: int) -> None:
@@ -4519,75 +4848,28 @@ def phase_late_shapes(seed: int) -> None:
     ``kernel_shape`` line each."""
     import torch
 
-    from flowgger_tpu_torch import corpus
     from flowgger_tpu_torch.tpu import kernels, pack
     from flowgger_tpu_torch.utils.timeparse import current_year_utc
 
+    # one corpus a mix, made once at the largest shape it serves (the
+    # shapes of a mix take prefixes of it)
+    shapes = sorted(LATE - CHECKED)
+    biggest = {}
+    for name, (rows, L) in shapes:
+        tag = _late_corpus(name)[1]
+        biggest[tag] = max(biggest.get(tag, 0), rows)
+    corpora = {}
     packs = {}   # (mix, rows, L) -> the packed rows, shared by kernels
-    for name, (rows, L) in sorted(LATE - CHECKED):
+    for name, (rows, L) in shapes:
         if (name, (rows, L)) in CHECKED:
             continue   # an earlier case of this loop checked it
         assemble = "assemble" in name
-        make, tag = {
-            "classify_auto_dns": (functools.partial(corpus.make_auto_corpus,
-                                                    dns=True),
-                                  "auto mix with dns"),
-            "decode_dns": (corpus.make_dns_corpus, "dns mix"),
-            "encode_ltsv_out": (corpus.make_ltsv_out_tier_corpus,
-                                "→ LTSV tier mix"),
-            "encode_rfc5424_out": (corpus.make_tier_corpus,
-                                   "rfc5424 tier mix"),
-            "fused_rfc5424_rfc5424": (corpus.make_tier_corpus,
-                                      "rfc5424 tier mix"),
-            "encode_capnp": (corpus.make_tier_corpus, "rfc5424 tier mix"),
-            "fused_rfc5424_capnp": (corpus.make_tier_corpus,
-                                    "rfc5424 tier mix"),
-            "fused_rfc5424_gelf": (corpus.make_tier_corpus,
-                                   "rfc5424 tier mix"),
-            "encode_rfc3164_rfc5424": (corpus.make_rfc3164_tier_corpus,
-                                       "rfc3164 tier mix"),
-            "fused_rfc3164_rfc5424": (corpus.make_rfc3164_tier_corpus,
-                                      "rfc3164 tier mix"),
-            "fused_rfc3164_gelf": (corpus.make_rfc3164_tier_corpus,
-                                   "rfc3164 tier mix"),
-            "fused_rfc5424_ltsv": (corpus.make_ltsv_out_tier_corpus,
-                                   "→ LTSV tier mix"),
-            "decode_rfc5424": (corpus.make_corpus, "rfc5424 mix"),
-            "decode_ltsv": (corpus.make_ltsv_corpus, "ltsv mix"),
-            "decode_rfc3164": (corpus.make_rfc3164_tier_corpus,
-                               "rfc3164 tier mix"),
-            "encode_gelf3164": (corpus.make_rfc3164_tier_corpus,
-                                "rfc3164 tier mix"),
-            "encode_gelf_probe": (corpus.make_tier_corpus,
-                                  "rfc5424 tier mix"),
-            "encode_gelf_assemble": (corpus.make_tier_corpus,
-                                     "rfc5424 tier mix"),
-            "structural_index_flat": (corpus.make_gelf_tier_corpus,
-                                      "gelf tier mix"),
-            "structural_index_f": (corpus.make_jsonl_corpus, "jsonl mix"),
-            "classify_auto": (corpus.make_auto_corpus, "auto mix"),
-            "encode_gelf_gelf": (corpus.make_gelf_tier_corpus,
-                                 "gelf tier mix"),
-            "fused_gelf_gelf": (corpus.make_gelf_tier_corpus,
-                                "gelf tier mix"),
-        }.get(next((k for k in ("classify_auto_dns", "decode_dns",
-                                "encode_ltsv_out", "fused_rfc5424_ltsv",
-                                "encode_rfc5424_out", "fused_rfc5424_rfc5424",
-                                "encode_capnp", "fused_rfc5424_capnp",
-                                "fused_rfc5424_gelf",
-                                "encode_rfc3164_rfc5424",
-                                "fused_rfc3164_rfc5424",
-                                "fused_rfc3164_gelf",
-                                "decode_rfc5424", "decode_ltsv",
-                                "decode_rfc3164", "encode_gelf3164",
-                                "encode_gelf_probe", "encode_gelf_assemble",
-                                "structural_index_flat", "structural_index_f",
-                                "classify_auto", "encode_gelf_gelf",
-                                "fused_gelf_gelf") if name.startswith(k)),
-                   None), (corpus.make_ltsv_tier_corpus, "ltsv tier mix"))
+        make, tag = _late_corpus(name)
+        if tag not in corpora:
+            corpora[tag] = make(biggest[tag], seed + 7)[0]
         if (tag, rows, L) not in packs:
-            packs[(tag, rows, L)] = pack.pack_lines_2d(
-                make(rows, seed + rows)[0], L)
+            packs[(tag, rows, L)] = pack.pack_lines_2d(corpora[tag][:rows],
+                                                       L)
         b, ln, *_ = packs[(tag, rows, L)]
         batch = torch.from_numpy(b[:rows]).cuda()
         lens_c = torch.from_numpy(ln[:rows].astype("int32")).cuda()
@@ -5139,6 +5421,9 @@ def main(argv=None) -> int:
         for k, v in phase_e2e_out(name, args.seed).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")
+    for k, v in phase_overlap_ab(args.seed).items():
+        total[k] = total.get(k, 0) + v
+    lap("overlap_ab")
     phase_late_shapes(args.seed)
     lap("late_shapes")
     emit({"phase": "phase_seconds", **seconds,

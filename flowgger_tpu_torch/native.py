@@ -73,12 +73,20 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_calls() -> None:
-    for name in CALLS:
-        CALLS[name] = 0
+    with _count_lock:
+        for name in CALLS:
+            CALLS[name] = 0
+
+
+def _called(name: str) -> None:
+    # the lanes' fetcher threads call the engine at once
+    with _count_lock:
+        CALLS[name] += 1
 
 
 def build_dir() -> Path:
@@ -188,13 +196,13 @@ def gelf_rows_native(chunk: bytes, meta: np.ndarray,
             pne.ctypes.data, pvs.ctypes.data, pve.ctypes.data,
             pesc.ctypes.data, P, tbuf.ctypes.data, sbuf.ctypes.data,
             len(suffix), 1 if syslen else 0)
-    CALLS["fg_gelf_lens_v2"] += 1
+    _called("fg_gelf_lens_v2")
     lib.fg_gelf_lens_v2(*args, lens.ctypes.data, _DEFAULT_THREADS)
     off = np.empty(R + 1, dtype=np.int64)
     off[0] = 0
     np.cumsum(lens, out=off[1:])
     out = np.empty(int(off[-1]), dtype=np.uint8)
-    CALLS["fg_gelf_write_v2"] += 1
+    _called("fg_gelf_write_v2")
     lib.fg_gelf_write_v2(*args, off.ctypes.data, out.ctypes.data,
                          _DEFAULT_THREADS)
     return out, off
@@ -242,14 +250,14 @@ def r5_rows_native(chunk: bytes, meta: np.ndarray,
             tbuf.ctypes.data, sbuf.ctypes.data, len(suffix),
             1 if syslen else 0)
     lib.fg_r5_lens(*args, lens.ctypes.data, _DEFAULT_THREADS)
-    CALLS["fg_r5_lens"] += 1
+    _called("fg_r5_lens")
     off = np.empty(R + 1, dtype=np.int64)
     off[0] = 0
     np.cumsum(lens, out=off[1:])
     out = np.empty(int(off[-1]), dtype=np.uint8)
     lib.fg_r5_write(*args, off.ctypes.data, out.ctypes.data,
                     _DEFAULT_THREADS)
-    CALLS["fg_r5_write"] += 1
+    _called("fg_r5_write")
     return out, off
 
 
@@ -321,7 +329,7 @@ def concat_segments_native(src: np.ndarray, seg_src: np.ndarray,
             raise ValueError(f"concat of {nseg} segments from {src.size} "
                              f"into {total} bytes: a segment lies outside")
         lib = _load()
-        CALLS["fg_concat_segments"] += 1
+        _called("fg_concat_segments")
         lib.fg_concat_segments(src.ctypes.data, seg_src.ctypes.data,
                                seg_len.ctypes.data, dst_off.ctypes.data,
                                nseg, out.ctypes.data, _DEFAULT_THREADS)
@@ -339,7 +347,7 @@ def format_f64_json_native(vals: np.ndarray, width: int
     lens = np.empty(n, dtype=np.int32)
     if n:
         lib = _load()
-        CALLS["fg_format_f64_json"] += 1
+        _called("fg_format_f64_json")
         lib.fg_format_f64_json(vals.ctypes.data, n, txt.ctypes.data, width,
                                lens.ctypes.data, _DEFAULT_THREADS)
     return txt, lens

@@ -161,7 +161,17 @@ class Pipeline:
         try:
             self.input.accept(self.handler_factory)
             if self._handler is not None:
+                # drain every lane (flush fences) and stop the fetcher
+                # threads before SHUTDOWN goes on the queue: a fetcher's
+                # last emit must not land after the output thread stopped
                 self._handler.flush()
+                self._handler.close()
+        except BaseException:
+            # a kernel failure ends the run, but the batches submitted
+            # before it still reach the sink, in order
+            if self._handler is not None:
+                self._handler.drain_after_failure()
+            raise
         finally:
             # drain: every queued block reaches the sink before exit
             self.tx.put(SHUTDOWN)

@@ -278,7 +278,9 @@ def encode_auto_gelf_blocks(packed, encoder, merger, ltsv_decoder=None,
     order with one segment gather.
     Returns a BlockResult, or None when a leg cannot apply (a
     ``gelf_extra``, a typed ``ltsv_schema``, an unsupported merger): the
-    caller then takes the Record path."""
+    caller then takes the Record path.  The handler runs it on a lane's
+    fetcher thread, inside the lane's stream, so AC and every leg's
+    kernels launch there; the route economics does not govern the legs."""
     from ..block import EncodedBlock
     from ..encoders import GelfEncoder, LTSVEncoder
     from .assemble import concat_segments, exclusive_cumsum

@@ -50,6 +50,25 @@ down the reference's ladder (its ``_emit_fast`` and
    the kernel flagged and for over-length lines;
 6. the merger framing (pre-applied) and the output queue.
 
+The ladder runs in the overlapped executor of :mod:`.overlap` (the
+reference's ``_emit_fast`` / ``_pop_emit`` split).  On the ingest thread,
+each batch reserves a lane (``LaneSet.next_lane``), is framed on that
+lane's device and stream, and is *submitted*: the fused route's
+cooldown count-down and its economics arm (``allow_fused``), then the
+fused inputs or the split decode launched on the lane's stream, then the
+lane's in-flight window (``input.tpu_inflight``, default 2).  On the
+lane's fetcher thread, under the same stream, the batch is *popped*: the
+fused route's fetch and encode (a decline re-submits the split decode on
+the same lane), or the split tier, gated by the economics arm
+``allow_device``, or the host block encoder; the pop returns an emit
+closure, which the lane set's sequencer runs in submit order, feeding
+the lane's ``RouteEconomics`` with the route's measured seconds.  So
+framing and decode of batch N+1 overlap the host encode of batch N, and
+with ``input.tpu_lanes`` > 1 the lanes' encodes overlap each other.  A
+size- or region-triggered flush submits and returns (``drain=False``);
+a timer flush, the end of a stream and every synchronous-emit path (the
+Record path) fence every lane first.
+
 ``input.format = "auto_tpu"`` (``fmt = "auto"``) classifies each batch
 (``autodetect.classify_packed``: the AC kernel on the card) and runs
 steps 3-5 on each class's row subset, each leg under its own decline
@@ -72,17 +91,23 @@ there instead (``encode_gelf.encode_rfc5424_gelf``), as the reference
 does; every other encoder of an rfc5424 batch takes the Record path.
 
 Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
-the reference (line_splitter.rs:37-54).  Batches are processed in order
-under one decode lock, so a timer flush racing a size flush cannot
-reorder output.  A device or kernel failure raises: there is no scalar
-fallback for a whole batch on this path.
+the reference (line_splitter.rs:37-54).  Flushes are serialized by one
+decode lock, so a timer flush racing a size flush cannot reorder
+output, and the sequencer emits every batch in submit order whatever
+the lane count.  A device or kernel failure raises: there is no breaker
+and no scalar fallback for a whole batch on this path.  A failure on a
+fetcher thread is stashed, its ticket released, and it is raised again
+on the ingest thread at the next submit or fence, after the batches
+before it have been emitted; one that a timer flush's fence meets is
+kept for the ingest thread in the same way.
 """
 
 from __future__ import annotations
 
 import sys
 import threading
-from typing import List
+import time
+from typing import List, Optional
 
 import torch
 
@@ -93,7 +118,9 @@ from . import autodetect, device_gelf, device_gelf_gelf, device_ltsv
 from . import device_capnp, device_ltsv_out, device_rfc3164
 from . import device_rfc5424_out
 from . import framing as _framing
+from .device_common import _count
 from . import fused_routes
+from . import overlap
 from . import pack as _pack
 from . import materialize, materialize_dns, materialize_gelf
 from . import materialize_jsonl, materialize_ltsv, materialize_rfc3164
@@ -211,7 +238,6 @@ class BatchHandler(Handler):
         self.fmt = fmt
         self.encoder = encoder
         self.merger = merger
-        self.device = device
         self.batch_size = config.lookup_int(
             "input.tpu_batch_size", "input.tpu_batch_size must be an integer",
             DEFAULT_BATCH_SIZE)
@@ -238,9 +264,14 @@ class BatchHandler(Handler):
         self._raw_est = 0
         self._lock = threading.Lock()
         # serializes flushes so a timer flush racing a size flush cannot
-        # reorder output
-        self._decode_lock = threading.Lock()
+        # reorder output (reentrant: the timer's callback holds it across
+        # its flush)
+        self._decode_lock = threading.RLock()
         self._timer = None
+        # a failure the timer's flush met (its fence raises what a
+        # fetcher stashed): kept here for the ingest thread, which raises
+        # it at its next push or flush
+        self._timer_exc: Optional[BaseException] = None
         # the device encode tiers' decline hysteresis and counts: the
         # split tier's under the input format (the auto format's legs
         # each under theirs), the fused route's under "fused:<route>"
@@ -254,6 +285,19 @@ class BatchHandler(Handler):
             "input.tpu_fuse", "input.tpu_fuse must be a string", "auto")
         if self._fuse_mode not in ("auto", "on", "off"):
             raise ConfigError("input.tpu_fuse must be auto, on or off")
+        # the overlap executor (tpu/overlap.py): one lane a card when
+        # several are visible (or input.tpu_lanes), each with its own
+        # stream, pinned staging, fetcher thread, in-flight window and
+        # route economics; the sequencer emits in strict batch order
+        nlanes, lane_devs = overlap.resolve_lanes(config, device)
+        self._lanes = [overlap.Lane(d) for d in lane_devs]
+        self._econs = [
+            overlap.RouteEconomics.from_config(
+                config, label=f"lane{i}" if nlanes > 1 else None)
+            for i in range(nlanes)]
+        self._window = overlap.LaneSet(
+            overlap.inflight_depth_from_config(config), self._pop_emit,
+            lanes=nlanes, name=f"tpu-{fmt}")
         # the columnar block route is config-static: when it can never
         # engage, every batch takes the Record path, and the reference
         # says so once at startup (batch.py:284-292)
@@ -361,32 +405,63 @@ class BatchHandler(Handler):
 
     def handle_bytes(self, raw: bytes) -> None:
         """One already-framed record (the end-of-stream partial frame)."""
+        self._raise_timer_exc()
         with self._lock:
             self._lines.append(raw)
             full = self._pending_locked() >= self.batch_size
             if not full:
                 self._arm_timer_locked()
         if full:
-            self.flush()
+            self.flush(drain=False)
 
     def _pending_locked(self) -> int:
         return len(self._lines) + self._raw_est
 
     def _arm_timer_locked(self) -> None:
         if self._timer is None and self._start_timer:
-            self._timer = threading.Timer(self.flush_ms / 1000.0, self.flush)
+            self._timer = threading.Timer(self.flush_ms / 1000.0,
+                                          self._timer_flush)
             self._timer.daemon = True
             self._timer.start()
 
+    def _timer_flush(self) -> None:
+        """The flush timer's callback.  A failure it meets (a kernel or
+        fetch failure its fence raises) is kept for the ingest thread:
+        raised here it would end only the timer's thread, and the run
+        would go on without the batch."""
+        with self._decode_lock:
+            # kept before the decode lock is let go, so no flush after
+            # it submits a batch behind the failed one
+            try:
+                self.flush()
+            except BaseException as e:  # noqa: BLE001 - raised on ingest
+                with self._lock:
+                    if self._timer_exc is None:
+                        self._timer_exc = e
+
+    def _raise_timer_exc(self) -> None:
+        """Raise, on the calling (ingest) thread, a failure the timer's
+        flush kept."""
+        if self._timer_exc is not None:
+            with self._lock:
+                exc, self._timer_exc = self._timer_exc, None
+            if exc is not None:
+                raise exc
+
     # -- flush ---------------------------------------------------------------
-    def flush(self) -> None:
-        """Decode, encode and enqueue everything pending, in order."""
+    def flush(self, drain: bool = True) -> None:
+        """Frame and submit everything pending, in order.  The lanes'
+        fetcher threads fetch, encode and enqueue behind us;
+        ``drain=True`` (a timer flush, the end of a stream) also fences
+        every lane, so every submitted batch has reached the queue when
+        it returns."""
         with self._lock:
             lines, self._lines = self._lines, []
             if self._timer is not None:
                 self._timer.cancel()
                 self._timer = None
         with self._decode_lock:
+            self._raise_timer_exc()
             # raw sessions snapshot inside the decode lock: each session's
             # carry chains across flushes, so snapshot order must equal
             # processing order whichever thread flushes
@@ -400,7 +475,40 @@ class BatchHandler(Handler):
             for s, chunks in raw:
                 self._decode_raw(s, chunks)
             if lines:
-                self._dispatch(_pack.pack_lines_2d(lines, self.max_len))
+                self._submit(_pack.pack_lines_2d(lines, self.max_len))
+            if drain:
+                self._window.fence()
+
+    def close(self) -> None:
+        """Fence every lane and stop their fetcher threads (the pipeline's
+        drain); a later submit starts them again."""
+        self._window.close()
+
+    def drain_after_failure(self) -> None:
+        """Fence every lane after a failure has ended the run, so the
+        batches submitted before it are emitted; a further failure met
+        while draining is reported on stderr (the first one is the one
+        the caller raises)."""
+        try:
+            self._window.fence()
+        except Exception as e:  # noqa: BLE001 - the first failure is raised
+            print(f"flowgger-tpu: a further batch failed while draining "
+                  f"({type(e).__name__}: {e})", file=sys.stderr)
+        self._window.close()
+
+    def economics(self) -> list:
+        """Each lane's route-economics snapshot."""
+        return [e.snapshot() for e in self._econs]
+
+    def _frame(self, region: bytes, framing: str, n_records: int,
+               lane: int):
+        """Device framing of one region on ``lane``'s device, from its
+        pinned staging, on its stream (the caller is inside the lane's
+        scope)."""
+        ln = self._lanes[lane]
+        return _framing.device_frame_region(
+            region, framing, self.max_len, n_records=n_records,
+            device=ln.device, staging=ln.staging)
 
     def _decode_raw(self, sess: "_RawSession", chunks: List[bytes]) -> None:
         region = sess.carry + b"".join(chunks)
@@ -416,32 +524,36 @@ class BatchHandler(Handler):
             return
         framed, sess.carry = region[:cut + 1], region[cut + 1:]
         n = framed.count(sess.sep)
-        try:
-            packed, _consumed, _err = _framing.device_frame_region(
-                framed, sess.framing, self.max_len, n_records=n,
-                device=self.device)
-        except _framing.FramingDeclined:
-            # more records than the separator count sized the spans
-            # for: the same bytes framed on the host
-            packed = _pack.pack_region_2d(framed, self.max_len,
-                                          sep=sess.sep[0],
-                                          strip_cr=sess.framing == "line")
-        self._dispatch(packed)
+        # the lane is reserved before framing, so the batch is framed on
+        # its device and stream
+        lane = self._window.next_lane()
+        with self._lanes[lane].scope():
+            try:
+                packed, _consumed, _err = self._frame(framed, sess.framing,
+                                                      n, lane)
+            except _framing.FramingDeclined:
+                # more records than the separator count sized the spans
+                # for: the same bytes framed on the host
+                packed = _pack.pack_region_2d(
+                    framed, self.max_len, sep=sess.sep[0],
+                    strip_cr=sess.framing == "line")
+            self._submit(packed, lane)
 
     def _decode_raw_syslen(self, sess: "_RawSession", region: bytes) -> None:
         """Octet-count framing of one session region on the card; a
         decline (a prefix over 9 digits, or more frames than spaces)
         re-frames the same bytes with the host scan."""
-        try:
-            packed, consumed, err = _framing.device_frame_region(
-                region, "syslen", self.max_len,
-                n_records=max(region.count(b" "), 1), device=self.device)
-        except _framing.FramingDeclined:
-            starts, lens, n, consumed, err = _scan_syslen_region(region)
-            packed = _pack.pack_spans_2d(region[:consumed], starts, lens,
-                                         self.max_len)
-        if packed[5]:
-            self._dispatch(packed)
+        lane = self._window.next_lane()
+        with self._lanes[lane].scope():
+            try:
+                packed, consumed, err = self._frame(
+                    region, "syslen", max(region.count(b" "), 1), lane)
+            except _framing.FramingDeclined:
+                starts, lens, n, consumed, err = _scan_syslen_region(region)
+                packed = _pack.pack_spans_2d(region[:consumed], starts,
+                                             lens, self.max_len)
+            if packed[5]:
+                self._submit(packed, lane)
         sess.carry = region[consumed:]
         if err:
             # host-scan parity: a malformed length prefix ends the stream
@@ -451,55 +563,123 @@ class BatchHandler(Handler):
             sess.carry = b""
 
     def _dispatch(self, packed) -> None:
-        """The block route — the fused route, or the split decode → the
-        split device encode tier, or fetch (+ the wider rescue) → host
-        block encode — or the Record path; then enqueue."""
-        batch, lens, chunk, starts, orig_lens, n_real = packed
-        if not isinstance(batch, torch.Tensor):
-            batch = torch.from_numpy(batch).to(self.device)
-            lens = torch.from_numpy(lens).to(self.device)
-            packed = (batch, lens, chunk, starts, orig_lens, n_real)
-        if not self._block_ok:
-            self._emit_record_path(packed)
-            return
+        """One packed batch down the ladder, emitted before this
+        returns: submit, then fence every lane."""
+        self._submit(packed)
+        self._window.fence()
+
+    def _submit(self, packed, lane=None) -> None:
+        """The submit half of the ladder (the reference's ``_emit_fast``),
+        on the ingest thread under the lane's stream: the Record path
+        (fenced, synchronous), or the lane's window — auto's batches as
+        they are, the fused route's inputs (its cooldown counted down
+        here, its economics arm consulted), or the split decode."""
+        if lane is None:
+            lane = self._window.next_lane()
+        ln = self._lanes[lane]
+        with ln.scope():
+            batch, lens, chunk, starts, orig_lens, n_real = packed
+            if not isinstance(batch, torch.Tensor):
+                batch = torch.from_numpy(batch).to(ln.device)
+                lens = torch.from_numpy(lens).to(ln.device)
+                packed = (batch, lens, chunk, starts, orig_lens, n_real)
+            if not self._block_ok:
+                # a synchronous emit keeps its place behind the in-flight
+                # batches of every lane
+                self._window.fence()
+                _framing.host_ready(packed)
+                self._emit_record_path(packed)
+                return
+            if self.fmt == "auto":
+                # the classifier and the per-class legs run on the lane's
+                # fetcher thread
+                self._window.submit(lane, (None, packed))
+                return
+            route = self._fused_route()
+            if route is not None:
+                state = fused_routes.cooldown_state(self.route_state, route)
+                if state.get("cooldown", 0) > 0:
+                    # fused route cooling down after declines: the split
+                    # path takes this batch
+                    state["cooldown"] -= 1
+                    state["cooled"] = state.get("cooled", 0) + 1
+                elif self._econs[lane].allow_fused():
+                    handle = fused_routes.submit(route, (batch, lens))
+                    self._window.submit(lane, (handle, packed))
+                    return
+                else:
+                    # the economics measured the split path cheaper
+                    _count(state, "econ_split")
+            self._window.submit(lane, (block_submit(self.fmt, packed),
+                                       packed))
+
+    def _pop_emit(self, payload, lane: int = 0):
+        """The pop half (the reference's ``_pop_emit``), on the lane's
+        fetcher thread under its stream: fetch and encode one batch, and
+        return the emit closure the sequencer runs in submit order, which
+        feeds the lane's economics with the route's measured seconds (a
+        declined attempt's seconds taken out)."""
+        handle, packed = payload
+        econ = self._econs[lane]
+        stats: dict = {}
+        with self._lanes[lane].scope():
+            # the span arrays device framing copies back without blocking
+            _framing.host_ready(packed)
+            t0 = time.perf_counter()
+            emit = self._pop_emit_inner(handle, packed, stats, econ)
+            compute_s = (time.perf_counter() - t0
+                         - stats.get("declined_s", 0.0))
+        path = stats.get("path")
+
+        def finish():
+            emit()
+            if path is not None:
+                econ.observe(path, int(packed[5]), compute_s)
+
+        return finish
+
+    def _pop_emit_inner(self, handle, packed, stats, econ):
+        """Fetch and encode one batch; returns a zero-argument emit
+        closure."""
         if self.fmt == "auto":
+            # economics does not govern auto's legs: each keeps its own
+            # decline / cooldown hysteresis only
             res = autodetect.encode_auto_gelf_blocks(
                 packed, self.encoder, self.merger, self.decoder,
                 self.route_state, self._auto_extras)
             if res is None:
-                self._emit(autodetect.decode_auto_packed(
-                    packed, self.decoder, self._auto_extras))
-            else:
-                self._emit_block(res)
-            return
-        route = self._fused_route()
-        if route is not None:
-            state = fused_routes.cooldown_state(self.route_state, route)
-            if state.get("cooldown", 0) > 0:
-                # fused route cooling down after declines: the split
-                # path takes this batch
-                state["cooldown"] -= 1
-                state["cooled"] = state.get("cooled", 0) + 1
-            else:
-                handle = fused_routes.submit(route, (batch, lens))
-                res, _ = fused_routes.fetch_encode(
-                    handle, packed, self.encoder, self.merger,
-                    self.route_state, decoder=self.decoder)
-                if res is not None:
-                    self._emit_block(res)
-                    return
-        handle = block_submit(self.fmt, packed)
+                results = autodetect.decode_auto_packed(
+                    packed, self.decoder, self._auto_extras)
+                return lambda: self._emit(results)
+            return lambda: self._emit_block(res)
+        fused_declined_s = 0.0
+        if isinstance(handle, fused_routes.FusedHandle):
+            tf0 = time.perf_counter()
+            res, _fetch_s = fused_routes.fetch_encode(
+                handle, packed, self.encoder, self.merger,
+                self.route_state, decoder=self.decoder)
+            if res is not None:
+                stats["path"] = "fused"
+                return lambda: self._emit_block(res)
+            # the fused route declined: the split decode, submitted again
+            # on this lane's stream, takes the batch; the declined
+            # attempt's seconds are not the split path's
+            fused_declined_s = time.perf_counter() - tf0
+            handle = block_submit(self.fmt, packed)
         res, host_out = block_fetch_encode(
             self.fmt, handle, packed, self.encoder, self.merger,
-            self.decoder, self.route_state)
+            self.decoder, self.route_state,
+            allow_device=econ.allow_device(), stats=stats)
+        stats["declined_s"] = stats.get("declined_s", 0.0) + fused_declined_s
         if res is None:
             # the block encoder declined the batch after the fact (an
             # ltsv_schema of more than 8 keys, a suffix for a schema
-            # type): the Record path, on the channels already fetched
-            self._emit(_materialize_packed(self.fmt, packed, host_out,
-                                           self.decoder))
-            return
-        self._emit_block(res)
+            # type): the Record path, on the channels already fetched,
+            # emitted in the batch's turn
+            results = _materialize_packed(self.fmt, packed, host_out,
+                                          self.decoder)
+            return lambda: self._emit(results)
+        return lambda: self._emit_block(res)
 
     def _emit_record_path(self, packed) -> None:
         """A batch of a config the block route cannot take: rfc5424 into
@@ -574,16 +754,23 @@ def block_submit(fmt: str, packed):
 
 
 def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
-                       ltsv_decoder=None, route_state=None):
+                       ltsv_decoder=None, route_state=None,
+                       allow_device: bool = True, stats=None):
     """The split device encode tier of a submitted decode, then (on its
-    decline, or with no tier for the format and output) the fetch and the
-    host block encoder of the output encoder's type.  Returns
-    ``(BlockResult, None)`` from the tier,
+    decline, with ``allow_device`` False — the route economics measured
+    the host path as cheaper — or with no tier for the format and
+    output) the fetch and the host block encoder of the output encoder's
+    type.  Returns ``(BlockResult, None)`` from the tier,
     ``(BlockResult, channels)`` from the host block encoder, or ``(None,
     channels)`` when the block encoder declines the batch: the caller
     then takes the Record path on the fetched channels.  The tier's
     decline and cooldown state lives in ``route_state[fmt]``, so the
-    auto format's legs never share one."""
+    auto format's legs never share one.  ``stats`` (a dict, optional)
+    gets the reference's ``path`` (``"device"`` or ``"host"``, for
+    whichever tier made the block), ``fetch_s`` and ``declined_s``, the
+    seconds a declined device attempt cost."""
+    t0 = time.perf_counter()
+    declined_s = 0.0
     dec = (ltsv_decoder,) if fmt == "ltsv" else ()
     dec_kw = {"decoder": ltsv_decoder} if fmt == "ltsv" else {}
     out = out_key(encoder)
@@ -591,16 +778,34 @@ def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
     if tier is not None and tier[0](encoder, merger, **dec_kw):
         state = route_state.setdefault(fmt, {}) \
             if route_state is not None else None
-        res, _ = tier[1](handle, packed, encoder, merger, state, **dec_kw)
+        if not allow_device:
+            # the economics measured the host path cheaper
+            _count(state, "econ_host")
+            tier = None
+    else:
+        tier = None
+    if tier is not None:
+        res, fetch_s = tier[1](handle, packed, encoder, merger, state,
+                               **dec_kw)
         if res is not None:
+            if stats is not None:
+                stats.update(path="device", fetch_s=fetch_s, declined_s=0.0)
             return res, None
+        declined_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
     _, fetch, encode = _ROUTES[fmt]
     if out != "gelf":
         encode = _BLOCK[(fmt, out)]
     batch, _, chunk, starts, orig_lens, n_real = packed
     host_out = fetch(handle)
-    return encode(chunk, starts, orig_lens, host_out, n_real,
-                  batch.shape[1], encoder, merger, *dec), host_out
+    fetch_s = time.perf_counter() - t0
+    res = encode(chunk, starts, orig_lens, host_out, n_real, batch.shape[1],
+                 encoder, merger, *dec)
+    if stats is not None:
+        stats.update(fetch_s=fetch_s, declined_s=declined_s)
+        if res is not None:
+            stats["path"] = "host"
+    return res, host_out
 
 
 def _decode_packed(fmt: str, packed, decoder=None):
@@ -652,6 +857,7 @@ class _RawSession:
         if self.dead:
             return False
         h = self.handler
+        h._raise_timer_exc()
         est = chunk.count(b" " if self.framing == "syslen" else self.sep)
         with h._lock:
             self.chunks.append(chunk)
@@ -663,7 +869,7 @@ class _RawSession:
             if not full:
                 h._arm_timer_locked()
         if full:
-            h.flush()
+            h.flush(drain=False)
         return not self.dead
 
     def finish(self, idle: bool = False) -> None:

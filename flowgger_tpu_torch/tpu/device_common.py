@@ -23,6 +23,7 @@ every row.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from functools import lru_cache
 from typing import Dict, Optional
@@ -402,9 +403,15 @@ def encode_route_ok(encoder, merger, enc_cls) -> bool:
                                               SyslenMerger)
 
 
+# lanes share a handler's route_state (as the reference's lanes share
+# its _device_route_state): one lock keeps the counts whole
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(route_state, key: str, v: int = 1) -> None:
     if route_state is not None:
-        route_state[key] = route_state.get(key, 0) + v
+        with _COUNT_LOCK:
+            route_state[key] = route_state.get(key, 0) + v
 
 
 def fetch_encode_driver(kern, packed, encoder, merger, route_state,

@@ -43,6 +43,7 @@ DIFF_TEST = ("tests/test_torch_device_gelf.py::"
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -276,6 +277,7 @@ def flat_rows(rows: torch.Tensor, out_len: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _BANKS: Dict[Tuple[bytes, str], torch.Tensor] = {}
+_BANKS_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -290,12 +292,21 @@ def kernel_consts(suffix: bytes, extras: Tuple[Tuple[str, str], ...] = ()):
 
 
 def _bank_on(bank: bytes, device: torch.device) -> torch.Tensor:
-    """The bank on ``device``, uploaded once per bank and device."""
+    """The bank on ``device``, uploaded once per bank and device.  Lanes
+    read it from several streams: it is made under a lock and its upload
+    completes before any stream sees it (never freed, so no stream's
+    later use can race the allocator)."""
     key = (bank, str(device))
     t = _BANKS.get(key)
     if t is None:
-        t = torch.tensor(list(bank), dtype=torch.uint8, device=device)
-        _BANKS[key] = t
+        with _BANKS_LOCK:
+            t = _BANKS.get(key)
+            if t is None:
+                t = torch.tensor(list(bank), dtype=torch.uint8,
+                                 device=device)
+                if t.is_cuda:
+                    torch.cuda.current_stream(t.device).synchronize()
+                _BANKS[key] = t
     return t
 
 

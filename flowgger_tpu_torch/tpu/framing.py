@@ -32,6 +32,8 @@ that lies on the CPU.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import pack as _pack
@@ -60,6 +62,7 @@ _FRAMING = {"line": (10, True), "nul": (0, False)}
 # regions declined to the host re-frame, per framing, since the last
 # reset (a data condition, not a kernel failure; chip_smoke.py reads it)
 DECLINES = {"line": 0, "nul": 0, "syslen": 0}
+_declines_lock = threading.Lock()
 
 
 class FramingDeclined(Exception):
@@ -255,8 +258,31 @@ def gather(region: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
 # host wrapper: region bytes -> packed tuple
 # ---------------------------------------------------------------------------
 
+class Packed(tuple):
+    """A packed tuple from device framing on a CUDA device: its host span
+    arrays (``starts``, ``orig_lens``) are pinned buffers that a copy on
+    the lane's stream is still filling; ``ready`` is the event recorded
+    after that copy (see :func:`host_ready`)."""
+
+    ready = None
+
+    def __new__(cls, items, ready):
+        t = super().__new__(cls, items)
+        t.ready = ready
+        return t
+
+
+def host_ready(packed) -> None:
+    """Block until a packed tuple's host span arrays have landed (a no-op
+    for a tuple framed on the host or on the CPU)."""
+    ev = getattr(packed, "ready", None)
+    if ev is not None:
+        ev.synchronize()
+
+
 def device_frame_region(region: bytes, framing: str, max_len: int,
-                        n_records: int, device: torch.device):
+                        n_records: int, device: torch.device,
+                        staging=None):
     """Frame one raw region on ``device`` and return
     ``(packed, consumed, err)`` with the packed contract ``(batch,
     clipped_lens, chunk, starts, orig_lens, n_real)`` — batch and
@@ -268,12 +294,33 @@ def device_frame_region(region: bytes, framing: str, max_len: int,
     syslen ``n_records`` is the region's space count, an upper bound on
     its frames (each frame's own delimiter is one), and the kernel finds
     ``consumed`` and ``err`` itself.  Raises :class:`FramingDeclined` on
-    a span overflow or an over-long syslen prefix."""
+    a span overflow or an over-long syslen prefix.
+
+    On a CUDA device the region goes up from pinned memory without
+    blocking, on the current stream: through ``staging`` (a lane's
+    :class:`~.overlap.PinnedStaging`, which never rewrites a buffer whose
+    copy has not completed) or a pinned buffer of its own.  Only what the
+    host needs to cut the batch — ``n``, ``consumed``, ``err`` and the
+    decline flag — is copied back synchronously; ``starts`` and
+    ``orig_lens`` come back without blocking into pinned memory.  With a
+    ``staging`` the packed tuple is a :class:`Packed` whose ``ready``
+    event the consumer waits on (:func:`host_ready`) before it reads
+    them; without one this call waits for them itself."""
     nbytes = len(region)
-    buf = torch.zeros(region_bucket(nbytes), dtype=torch.uint8)
-    if nbytes:
-        buf[:nbytes] = torch.frombuffer(bytearray(region), dtype=torch.uint8)
-    region_dev = buf.to(device)
+    size = region_bucket(nbytes)
+    cuda = torch.device(device).type == "cuda"
+    wait = staging is None
+    if cuda:
+        if staging is None:
+            from .overlap import PinnedStaging
+
+            staging = PinnedStaging(torch.device(device))
+        region_dev = staging.upload(region, size)
+    else:
+        region_dev = torch.zeros(size, dtype=torch.uint8)
+        if nbytes:
+            region_dev[:nbytes] = torch.frombuffer(bytearray(region),
+                                                   dtype=torch.uint8)
     ncap = _pack.bucket_rows(max(n_records, 1))
     if framing == "syslen":
         spans = syslen_spans(region_dev, nbytes, ncap=ncap)
@@ -283,19 +330,32 @@ def device_frame_region(region: bytes, framing: str, max_len: int,
         spans = sep_spans(region_dev, nbytes, sep=sep, strip_cr=strip_cr,
                           ncap=ncap)
         flags = (torch.zeros_like(spans["overflow"]), spans["overflow"])
-    # the span metadata is the only device-to-host copy of this stage
+    # the one blocking device-to-host copy of this stage: what cuts the
+    # batch
     n, consumed, err, declined = (int(v) for v in torch.stack(
         [spans["n"], spans["consumed"], flags[0].to(torch.int32),
          flags[1].to(torch.int32)]).cpu())
     if declined:
-        DECLINES[framing] += 1
+        with _declines_lock:
+            DECLINES[framing] += 1
         raise FramingDeclined("span overflow or oversized prefix")  # flowcheck: disable=FC08 -- the port journals no events; the caller re-frames the same bytes on the host
     # slots past n are zero, so the first bucket_rows(n) span slots are
     # the batch's rows (ncap is only an upper bound for syslen)
     rows = _pack.bucket_rows(max(n, 1))
     starts_dev, lens_dev = spans["starts"][:rows], spans["lens"][:rows]
-    starts_np = starts_dev.cpu().numpy()
-    lens_np = lens_dev[:n].cpu().numpy()
     batch_dev, lens_c_dev = gather(region_dev, starts_dev, lens_dev, max_len)
-    return ((batch_dev, lens_c_dev, region, starts_np, lens_np, n),
-            consumed, bool(err))
+    if not cuda:
+        return ((batch_dev, lens_c_dev, region, starts_dev.numpy(),
+                 lens_dev[:n].numpy(), n), consumed, bool(err))
+    starts_h = torch.empty(rows, dtype=torch.int32, pin_memory=True)
+    lens_h = torch.empty(n, dtype=torch.int32, pin_memory=True)
+    starts_h.copy_(starts_dev, non_blocking=True)
+    lens_h.copy_(lens_dev[:n], non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    packed = (batch_dev, lens_c_dev, region, starts_h.numpy(),
+              lens_h.numpy(), n)
+    if wait:
+        ready.synchronize()
+        return packed, consumed, bool(err)
+    return Packed(packed, ready), consumed, bool(err)

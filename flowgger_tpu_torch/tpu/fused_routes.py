@@ -550,8 +550,10 @@ def cooldown_state(route_state: dict, route: FusedRoute) -> dict:
 
 
 def submit(route: FusedRoute, packed, device=None) -> FusedHandle:
-    """Put one packed tuple's inputs on the device.  No kernel runs
-    here: the fused kernels launch in :func:`fetch_encode`."""
+    """Put one packed tuple's inputs on the device, on the calling
+    thread's current stream (the handler's ingest thread, inside its
+    lane's stream).  No kernel runs here: the fused kernels launch in
+    :func:`fetch_encode`, on the lane's fetcher thread and stream."""
     batch, lens = packed[0], packed[1]
     if not isinstance(batch, torch.Tensor):
         batch = torch.from_numpy(batch)

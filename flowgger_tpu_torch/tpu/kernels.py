@@ -339,6 +339,7 @@ def _rfc5424_stage_bytes(L: int) -> int:
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
+_count_lock = threading.Lock()
 # frame_sep_spans' look-back scratch per (device, stream): int64 word 0
 # holds its two uint32 counters, words 1.. one status word a tile.  It is
 # zeroed once, at allocation, and every launch leaves it zero again.
@@ -346,8 +347,16 @@ _sep_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _launched(name: str) -> None:
+    # lanes launch from several threads at once: one lock keeps the
+    # counts whole
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def build_dir() -> Path:
@@ -430,6 +439,8 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _stream() -> int:
+    # the calling thread's current stream: a lane's ingest and fetcher
+    # threads each enter the lane's stream (overlap.Lane.scope)
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -485,7 +496,7 @@ def frame_sep_spans_cuda(region: torch.Tensor, rlen: int, sep: int = 10,
         scratch.data_ptr(), scratch[1:].data_ptr(), starts.data_ptr(),
         lens.data_ptr(), meta.data_ptr(), stream)
     _check(rc, "frame_sep_spans")
-    LAUNCHES["frame_sep_spans"] += 1
+    _launched("frame_sep_spans")
     return {"starts": starts, "lens": lens, "meta": meta}
 
 
@@ -506,7 +517,7 @@ def frame_syslen_spans_cuda(region: torch.Tensor, rlen: int,
         region.data_ptr(), rlen, ncap, starts.data_ptr(), lens.data_ptr(),
         meta.data_ptr(), _stream())
     _check(rc, "frame_syslen_spans")
-    LAUNCHES["frame_syslen_spans"] += 1
+    _launched("frame_syslen_spans")
     return {"starts": starts, "lens": lens, "meta": meta}
 
 
@@ -528,7 +539,7 @@ def frame_gather_cuda(region: torch.Tensor, starts: torch.Tensor,
         lens.data_ptr(), rows, max_len, out.data_ptr(), lens_c.data_ptr(),
         _stream())
     _check(rc, "frame_gather")
-    LAUNCHES["frame_gather"] += 1
+    _launched("frame_gather")
     return out, lens_c
 
 
@@ -556,7 +567,7 @@ def decode_rfc5424_cuda(batch: torch.Tensor, lens: torch.Tensor,
     fn = getattr(_lib("decode_rfc5424"), f"fg_decode_rfc5424_sd4_p{max_pairs}")
     rc = fn(batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, L, _stream())
     _check(rc, "decode_rfc5424")
-    LAUNCHES[f"decode_rfc5424_p{max_pairs}"] += 1
+    _launched(f"decode_rfc5424_p{max_pairs}")
     return out
 
 
@@ -592,8 +603,8 @@ def structural_index_cuda(batch: torch.Tensor, lens: torch.Tensor,
     rc = fn(batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, L, nested,
             _stream())
     _check(rc, "structural_index")
-    LAUNCHES[f"structural_index{'_flat' if nested == 0 else ''}"
-             f"_f{max_fields}"] += 1
+    _launched(f"structural_index{'_flat' if nested == 0 else ''}"
+              f"_f{max_fields}")
     return out
 
 
@@ -640,7 +651,7 @@ def encode_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
             batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
             N, n, L, max_sd, tier.data_ptr(), base_len.data_ptr(), _stream())
         _check(rc, "encode_gelf probe")
-        LAUNCHES[f"encode_gelf_probe_p{max_pairs}"] += 1
+        _launched(f"encode_gelf_probe_p{max_pairs}")
         return tier, base_len
     _assemble_args(N, OW, ts_text, ts_len, row_off)
     flat = torch.empty(total, dtype=torch.uint8, device=dev)
@@ -651,7 +662,7 @@ def encode_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
         ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
         L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "encode_gelf assemble")
-    LAUNCHES[f"encode_gelf_assemble_p{max_pairs}"] += 1
+    _launched(f"encode_gelf_assemble_p{max_pairs}")
     return flat
 
 
@@ -675,7 +686,7 @@ def decode_rfc3164_cuda(batch: torch.Tensor, lens: torch.Tensor,
         batch.data_ptr(), lens.data_ptr(), int(year), out.data_ptr(), N, L,
         _stream())
     _check(rc, "decode_rfc3164")
-    LAUNCHES["decode_rfc3164"] += 1
+    _launched("decode_rfc3164")
     return out
 
 
@@ -700,7 +711,7 @@ def decode_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
     rc = _lib("decode_ltsv").fg_decode_ltsv(
         batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, n, L, _stream())
     _check(rc, "decode_ltsv")
-    LAUNCHES["decode_ltsv"] += 1
+    _launched("decode_ltsv")
     return out
 
 
@@ -721,7 +732,7 @@ def classify_auto_cuda(batch: torch.Tensor, lens: torch.Tensor,
         batch.data_ptr(), lens.data_ptr(), out.data_ptr(), n, L, int(dns),
         _stream())
     _check(rc, "classify_auto")
-    LAUNCHES["classify_auto_dns" if dns else "classify_auto"] += 1
+    _launched("classify_auto_dns" if dns else "classify_auto")
     return out
 
 
@@ -742,7 +753,7 @@ def decode_dns_cuda(batch: torch.Tensor, lens: torch.Tensor,
     rc = _lib("decode_dns").fg_decode_dns(
         batch.data_ptr(), lens.data_ptr(), out.data_ptr(), N, n, L, _stream())
     _check(rc, "decode_dns")
-    LAUNCHES["decode_dns"] += 1
+    _launched("decode_dns")
     return out
 
 
@@ -786,7 +797,7 @@ def encode_ltsv_out_cuda(batch: torch.Tensor, lens: torch.Tensor,
             N, n, L, tier.data_ptr(), base_len.data_ptr(), gaps.data_ptr(),
             _stream())
         _check(rc, "encode_ltsv_out probe")
-        LAUNCHES["encode_ltsv_out_probe"] += 1
+        _launched("encode_ltsv_out_probe")
         return tier, base_len, gaps
     _need(row_off, "row_off", torch.int64, 1)
     if row_off.shape[0] != N or OW < 1:
@@ -800,7 +811,7 @@ def encode_ltsv_out_cuda(batch: torch.Tensor, lens: torch.Tensor,
         bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
         flat.data_ptr(), _stream())
     _check(rc, "encode_ltsv_out assemble")
-    LAUNCHES["encode_ltsv_out_assemble"] += 1
+    _launched("encode_ltsv_out_assemble")
     return flat
 
 
@@ -851,7 +862,7 @@ def fused_ltsv_out_cuda(batch: torch.Tensor, lens: torch.Tensor, n: int,
             base.data_ptr(), base_len.data_ptr(), gaps.data_ptr(),
             small.data_ptr(), carried.data_ptr(), _stream())
         _check(rc, f"{name} probe")
-        LAUNCHES[f"{name}_probe"] += 1
+        _launched(f"{name}_probe")
         return base, base_len, small, carried, gaps
     _need(row_off, "row_off", torch.int64, 1)
     _need(chan, "chan", torch.int32, 2)
@@ -884,7 +895,7 @@ def fused_ltsv_out_assemble_launch(batch, lens, n: int, bank, consts,
         batch.data_ptr(), lens.data_ptr(), chan.data_ptr(), bank.data_ptr(),
         consts, N, n, L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "fused_rfc5424_ltsv assemble")
-    LAUNCHES["fused_rfc5424_ltsv_assemble"] += 1
+    _launched("fused_rfc5424_ltsv_assemble")
     return flat
 
 
@@ -944,7 +955,7 @@ def encode_rfc5424_out_cuda(leg: str, batch: torch.Tensor,
                 consts, N, n, L, tier.data_ptr(), base_len.data_ptr(),
                 small8.data_ptr(), _stream())
         _check(rc, f"{name} probe")
-        LAUNCHES[f"{name}_probe"] += 1
+        _launched(f"{name}_probe")
         return (tier, base_len, small8, hostl16) if r3 else \
             (tier, base_len, small8)
     _need(row_off, "row_off", torch.int64, 1)
@@ -960,7 +971,7 @@ def encode_rfc5424_out_cuda(leg: str, batch: torch.Tensor,
             bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
             flat.data_ptr(), _stream())
     _check(rc, f"{name} assemble")
-    LAUNCHES[f"{name}_assemble"] += 1
+    _launched(f"{name}_assemble")
     return flat
 
 
@@ -1027,7 +1038,7 @@ def fused_rfc5424_out_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
                 base.data_ptr(), base_len.data_ptr(), small.data_ptr(),
                 small8.data_ptr(), carried.data_ptr(), _stream())
         _check(rc, f"{name} probe")
-        LAUNCHES[f"{name}_probe"] += 1
+        _launched(f"{name}_probe")
         return base, base_len, small, carried, small8, hostl16
     _need(row_off, "row_off", torch.int64, 1)
     _need(chan, "chan", torch.int32, 2)
@@ -1064,7 +1075,7 @@ def fused_rfc5424_out_assemble_launch(fmt: str, batch, lens, n: int, bank,
             bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
             flat.data_ptr(), _stream())
     _check(rc, f"fused_{fmt}_rfc5424 assemble")
-    LAUNCHES[f"fused_{fmt}_rfc5424_assemble"] += 1
+    _launched(f"fused_{fmt}_rfc5424_assemble")
     return flat
 
 
@@ -1111,7 +1122,7 @@ def encode_capnp_cuda(batch: torch.Tensor, lens: torch.Tensor,
             N, n, L, tier.data_ptr(), base_len.data_ptr(),
             small8.data_ptr(), _stream())
         _check(rc, "encode_capnp probe")
-        LAUNCHES[f"encode_capnp_probe_p{P}"] += 1
+        _launched(f"encode_capnp_probe_p{P}")
         return tier, base_len, small8
     _need(row_off, "row_off", torch.int64, 1)
     if row_off.shape[0] != N or OW < 1:
@@ -1125,7 +1136,7 @@ def encode_capnp_cuda(batch: torch.Tensor, lens: torch.Tensor,
         bank.data_ptr(), consts, N, n, L, OW, row_off.data_ptr(),
         flat.data_ptr(), _stream())
     _check(rc, "encode_capnp assemble")
-    LAUNCHES[f"encode_capnp_assemble_p{P}"] += 1
+    _launched(f"encode_capnp_assemble_p{P}")
     return flat
 
 
@@ -1177,7 +1188,7 @@ def fused_capnp_out_cuda(batch: torch.Tensor, lens: torch.Tensor, n: int,
             base.data_ptr(), base_len.data_ptr(), small.data_ptr(),
             small8.data_ptr(), carried.data_ptr(), _stream())
         _check(rc, f"{name} probe")
-        LAUNCHES[f"{name}_probe"] += 1
+        _launched(f"{name}_probe")
         return base, base_len, small, carried, small8
     _need(row_off, "row_off", torch.int64, 1)
     _need(chan, "chan", torch.int32, 2)
@@ -1210,7 +1221,7 @@ def fused_capnp_out_assemble_launch(batch, lens, n: int, bank, consts,
         batch.data_ptr(), lens.data_ptr(), chan.data_ptr(), bank.data_ptr(),
         consts, N, n, L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "fused_rfc5424_capnp assemble")
-    LAUNCHES["fused_rfc5424_capnp_assemble"] += 1
+    _launched("fused_rfc5424_capnp_assemble")
     return flat
 
 
@@ -1260,7 +1271,7 @@ def encode_gelf3164_cuda(batch: torch.Tensor, lens: torch.Tensor,
             batch.data_ptr(), lens.data_ptr(), channels.data_ptr(), consts,
             N, n, L, tier.data_ptr(), base_len.data_ptr(), _stream())
         _check(rc, "encode_gelf3164 probe")
-        LAUNCHES["encode_gelf3164_probe"] += 1
+        _launched("encode_gelf3164_probe")
         return tier, base_len
     _assemble_args(N, OW, ts_text, ts_len, row_off)
     flat = torch.empty(total, dtype=torch.uint8, device=dev)
@@ -1271,7 +1282,7 @@ def encode_gelf3164_cuda(batch: torch.Tensor, lens: torch.Tensor,
         ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
         L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "encode_gelf3164 assemble")
-    LAUNCHES["encode_gelf3164_assemble"] += 1
+    _launched("encode_gelf3164_assemble")
     return flat
 
 
@@ -1318,7 +1329,7 @@ def encode_gelf_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
             N, n, L, tier.data_ptr(), base_len.data_ptr(), small.data_ptr(),
             _stream())
         _check(rc, "encode_gelf_ltsv probe")
-        LAUNCHES[f"encode_gelf_ltsv_probe_p{max_pairs}"] += 1
+        _launched(f"encode_gelf_ltsv_probe_p{max_pairs}")
         return tier, base_len, small
     _assemble_args(N, OW, ts_text, ts_len, row_off)
     flat = torch.empty(total, dtype=torch.uint8, device=dev)
@@ -1329,7 +1340,7 @@ def encode_gelf_ltsv_cuda(batch: torch.Tensor, lens: torch.Tensor,
         ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
         L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "encode_gelf_ltsv assemble")
-    LAUNCHES[f"encode_gelf_ltsv_assemble_p{max_pairs}"] += 1
+    _launched(f"encode_gelf_ltsv_assemble_p{max_pairs}")
     return flat
 
 
@@ -1376,7 +1387,7 @@ def encode_gelf_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
             N, n, L, tier.data_ptr(), base_len.data_ptr(), small.data_ptr(),
             _stream())
         _check(rc, "encode_gelf_gelf probe")
-        LAUNCHES[f"encode_gelf_gelf_probe_f{max_fields}"] += 1
+        _launched(f"encode_gelf_gelf_probe_f{max_fields}")
         return tier, base_len, small
     _assemble_args(N, OW, ts_text, ts_len, row_off)
     flat = torch.empty(total, dtype=torch.uint8, device=dev)
@@ -1387,7 +1398,7 @@ def encode_gelf_gelf_cuda(batch: torch.Tensor, lens: torch.Tensor,
         ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
         L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, "encode_gelf_gelf assemble")
-    LAUNCHES[f"encode_gelf_gelf_assemble_f{max_fields}"] += 1
+    _launched(f"encode_gelf_gelf_assemble_f{max_fields}")
     return flat
 
 
@@ -1461,7 +1472,7 @@ def fused_gelf_cuda(fmt: str, batch: torch.Tensor, lens: torch.Tensor,
             base.data_ptr(), base_len.data_ptr(), small.data_ptr(),
             carried.data_ptr(), _stream())
         _check(rc, f"{name} probe")
-        LAUNCHES[f"{name}_probe"] += 1
+        _launched(f"{name}_probe")
         return base, base_len, small, carried
     _assemble_args(N, OW, ts_text, ts_len, row_off)
     _need(chan, "chan", torch.int32, 2)
@@ -1493,7 +1504,7 @@ def fused_assemble_launch(fmt: str, batch, lens, n: int, bank, consts,
         ts_text.data_ptr(), ts_len.data_ptr(), bank.data_ptr(), consts, N, n,
         L, OW, row_off.data_ptr(), flat.data_ptr(), _stream())
     _check(rc, f"{name} assemble")
-    LAUNCHES[f"{name}_assemble"] += 1
+    _launched(f"{name}_assemble")
     return flat
 
 

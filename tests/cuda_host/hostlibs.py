@@ -18,6 +18,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 PROBES = {
     "probe": ("intrinsics_probe", {"fg_probe_intrinsics": (P, P, P)}),
     "lookback": ("lookback_probe", {"fg_probe_lookback": (P, P, I, P)}),
+    "barriers": ("barrier_probe", {"fg_probe_barriers": (I, P)}),
 }
 
 

@@ -300,7 +300,8 @@ def test_dns_leg_raises():
     builds with it), an unknown format or a non-list raises, as in the
     reference."""
     pipeline.Pipeline(Config.from_string(
-        '[input]\ntype = "stdin"\nformat = "auto_tpu"\n'
+        '[input]\ntpu_encode_economics = false\n'
+        'type = "stdin"\nformat = "auto_tpu"\n'
         'auto_extra_formats = ["dns"]\n[output]\ntype = "stdout"\n'),
         device="cpu")
     assert A.auto_extra_formats(Config.from_string(
@@ -436,7 +437,8 @@ def test_cli_auto_matches_jax_package(tmp_path, framing):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "auto_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "auto_tpu"\n'
             f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 512\n' + extras
             + '[output]\ntype = "file"\nformat = "gelf"\n'

@@ -4,6 +4,7 @@ The kernels' timings and checks need the card and run only there."""
 
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -114,7 +115,7 @@ def test_encode_case_bound_counts_only_the_channels_needed(monkeypatch):
 
     def plain(batch, lens, ch, n, bank, table, max_sd, P, OW=0, **kw):
         assert bank.numel() and len(table) and not kw
-        kernels.LAUNCHES[f"encode_gelf_probe_p{P}"] += 1
+        kernels._launched(f"encode_gelf_probe_p{P}")
         return device_gelf.encode_rows(
             batch, lens, rfc5424.unpack_channels(ch, max_sd, P),
             suffix=b"\0", max_sd=max_sd, assemble=False, n=n)
@@ -218,7 +219,7 @@ def test_ltsv_cases_check_and_record_their_shapes(monkeypatch):
                          + [dec[k].t() for k in ltsv.KEYS_PART]).contiguous()
 
     def decode(b, l, n):
-        kernels.LAUNCHES["decode_ltsv"] += 1
+        kernels._launched("decode_ltsv")
         return packed_of(ltsv.decode_ltsv(b, l, n=n))
 
     def encode(b, l, ch, n, bank, table, P, OW=0, ts_text=None, ts_len=None,
@@ -226,12 +227,12 @@ def test_ltsv_cases_check_and_record_their_shapes(monkeypatch):
         dec = ltsv.unpack_channels(ch)
         kw = {"suffix": b"\0", "max_pairs": P}
         if row_off is None:
-            kernels.LAUNCHES[f"encode_gelf_ltsv_probe_p{P}"] += 1
+            kernels._launched(f"encode_gelf_ltsv_probe_p{P}")
             base, base_len = device_ltsv.encode_rows(b, l, dec,
                                                      assemble=False, n=n,
                                                      **kw)
             return base, base_len, device_ltsv.small_pack(dec, n)
-        kernels.LAUNCHES[f"encode_gelf_ltsv_assemble_p{P}"] += 1
+        kernels._launched(f"encode_gelf_ltsv_assemble_p{P}")
         rows, out_len, _ = device_ltsv.encode_rows(b, l, dec, ts_text,
                                                    ts_len, **kw)
         return device_gelf.flat_rows(rows, out_len, row_off, total)
@@ -242,7 +243,7 @@ def test_ltsv_cases_check_and_record_their_shapes(monkeypatch):
         if row_off is not None:
             return assemble_launch(fmt, b, l, n, bank, table, OW, ts_text,
                                    ts_len, row_off, total, chan)
-        kernels.LAUNCHES["fused_ltsv_gelf_probe"] += 1
+        kernels._launched("fused_ltsv_gelf_probe")
         base, base_len = device_ltsv.encode_rows(
             b, l, dec, suffix=b"\0", assemble=False, n=n)
         carried = fused_routes.carried_plain(dec, "ltsv_gelf", b, l)
@@ -251,7 +252,7 @@ def test_ltsv_cases_check_and_record_their_shapes(monkeypatch):
 
     def assemble_launch(fmt, b, l, n, bank, table, OW, ts_text, ts_len,
                         row_off, total, chan):
-        kernels.LAUNCHES["fused_ltsv_gelf_assemble"] += 1
+        kernels._launched("fused_ltsv_gelf_assemble")
         rows, out_len, _ = device_ltsv.encode_rows(
             b, l, ltsv.decode_ltsv(b, l, n=n), ts_text, ts_len,
             suffix=b"\0")
@@ -327,17 +328,17 @@ def test_gelf_cases_check_and_record_their_shapes(monkeypatch):
 
     def index(b, l, F, nested):
         assert nested == 0
-        kernels.LAUNCHES[f"structural_index_flat_f{F}"] += 1
+        kernels._launched(f"structural_index_flat_f{F}")
         return packed_of(gelf.decode_gelf(b, l, F), F)
 
     def encode(b, l, ch, n, bank, table, F, OW=0, ts_text=None, ts_len=None,
                row_off=None, total=0):
         dec = jsonidx.unpack_channels(ch, F)
         if row_off is None:
-            kernels.LAUNCHES[f"encode_gelf_gelf_probe_f{F}"] += 1
+            kernels._launched(f"encode_gelf_gelf_probe_f{F}")
             return device_gelf_gelf.encode_rows(b, l, dec, assemble=False,
                                                 n=n, suffix=b"\0")
-        kernels.LAUNCHES[f"encode_gelf_gelf_assemble_f{F}"] += 1
+        kernels._launched(f"encode_gelf_gelf_assemble_f{F}")
         rows, out_len, _ = device_gelf_gelf.encode_rows(
             b, l, dec, ts_text, ts_len, suffix=b"\0")
         return device_gelf.flat_rows(rows, out_len, row_off, total)
@@ -348,7 +349,7 @@ def test_gelf_cases_check_and_record_their_shapes(monkeypatch):
         if row_off is not None:
             return assemble_launch(fmt, b, l, n, bank, table, OW, ts_text,
                                    ts_len, row_off, total, chan)
-        kernels.LAUNCHES["fused_gelf_gelf_probe"] += 1
+        kernels._launched("fused_gelf_gelf_probe")
         dec = gelf.decode_gelf(b, l)
         base, base_len, small = device_gelf_gelf.encode_rows(
             b, l, dec, suffix=b"\0", assemble=False, n=n)
@@ -357,7 +358,7 @@ def test_gelf_cases_check_and_record_their_shapes(monkeypatch):
 
     def assemble_launch(fmt, b, l, n, bank, table, OW, ts_text, ts_len,
                         row_off, total, chan):
-        kernels.LAUNCHES["fused_gelf_gelf_assemble"] += 1
+        kernels._launched("fused_gelf_gelf_assemble")
         rows, out_len, _ = device_gelf_gelf.encode_rows(
             b, l, gelf.decode_gelf(b, l), ts_text, ts_len, suffix=b"\0")
         return device_gelf.flat_rows(rows, out_len, row_off, total)
@@ -442,7 +443,7 @@ def test_auto_case_checks_and_records_its_shape(monkeypatch):
     from flowgger_tpu_torch.tpu import autodetect, kernels, pack
 
     def classify(b, l, n, dns=False):
-        kernels.LAUNCHES["classify_auto"] += 1
+        kernels._launched("classify_auto")
         return autodetect.classify_plain(b[:n], l[:n])
 
     monkeypatch.setattr(kernels, "classify_auto_cuda", classify)
@@ -579,8 +580,8 @@ def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
 
     seen = []
 
-    def e2e_inproc(nm, path, exp_out, exp_err, checked, fuse):
-        seen.append((nm, fuse, len(exp_out), len(exp_err[0])))
+    def e2e_inproc(nm, path, exp_out, exp_err, checked, fuse, econ=True):
+        seen.append((nm, fuse, econ, len(exp_out), len(exp_err[0])))
         return {"launches": {"frame_gather": 1}, "inproc_wall_s": 1.0}
 
     monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
@@ -591,7 +592,8 @@ def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
     rep, = emitted
     assert rep["identical_to_scalar_path"] and rep["lines"] == 1200
     assert rep["cli_wall_s"] > 0 and rep["output_bytes"] > 0
-    assert seen == [(name, "auto", rep["output_bytes"], rep["error_lines"])]
+    assert seen == [(name, "auto", True, rep["output_bytes"],
+                     rep["error_lines"])]
     assert total == {"frame_gather": 1}
 
 
@@ -600,7 +602,8 @@ def test_e2e_tier_mix_runs_in_process_only(monkeypatch, tmp_path, name):
     """phase_e2e on a tier mix starts no CLI run (its line mix drives the
     same configuration through the CLI): the scalar expectation is made
     alone, and the in-process runs, which need the card's kernels, stood
-    in for, take it with the fused route on and off."""
+    in for, take it with the fused route on and off (the economics off),
+    and then with the fused route off and the economics on."""
     monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
 
     def popen(*a, **kw):
@@ -608,8 +611,8 @@ def test_e2e_tier_mix_runs_in_process_only(monkeypatch, tmp_path, name):
 
     seen = []
 
-    def e2e_inproc(nm, path, exp_out, exp_err, checked, fuse):
-        seen.append((nm, fuse, len(exp_out), len(exp_err[0])))
+    def e2e_inproc(nm, path, exp_out, exp_err, checked, fuse, econ=True):
+        seen.append((nm, fuse, econ, len(exp_out), len(exp_err[0])))
         return {"launches": {"frame_gather": 1}, "inproc_wall_s": 1.0}
 
     monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
@@ -620,9 +623,12 @@ def test_e2e_tier_mix_runs_in_process_only(monkeypatch, tmp_path, name):
     rep, = emitted
     assert rep["identical_to_scalar_path"] and rep["output_bytes"] > 0
     assert "cli_wall_s" not in rep
-    assert seen == [(name, f, rep["output_bytes"], rep["error_lines"])
-                    for f in ("auto", "off")]
-    assert total == {"frame_gather": 2}
+    # the taker runs with the economics off, then the split path with
+    # it on, reported
+    assert seen == [(name, f, e, rep["output_bytes"], rep["error_lines"])
+                    for f, e in (("auto", False), ("off", False),
+                                 ("off", True))]
+    assert total == {"frame_gather": 3}
 
 
 def test_out_phases_are_named_and_sized():
@@ -691,7 +697,9 @@ def test_out_phases_are_named_and_sized():
     assert chip_smoke._out_framing("capnp_out_extra") == "syslen"
     assert chip_smoke._masking("capnp_out_gelf") == "capnp:noop"
     assert chip_smoke._masking("rfc5424_capnp_line") == "capnp:noop"
-    assert set(chip_smoke.MIXED_CLI) == {"auto_line", "record_auto"}
+    # record_auto's CLI run went to pay for overlap_ab (the CPU tests
+    # hold the Record path's CLI against the JAX package)
+    assert set(chip_smoke.MIXED_CLI) == {"auto_line"}
 
 
 def test_dns_and_ac_dns_cases_check_on_the_cpu(monkeypatch):
@@ -705,7 +713,7 @@ def test_dns_and_ac_dns_cases_check_on_the_cpu(monkeypatch):
     from flowgger_tpu_torch.tpu import autodetect, dns, kernels, pack
 
     def decode(b, l, n):
-        kernels.LAUNCHES["decode_dns"] += 1
+        kernels._launched("decode_dns")
         d = dns.decode_dns(b, l, n=n)
         return torch.stack([d[k].to(torch.int32) for k in dns.KEYS])
 
@@ -835,10 +843,10 @@ def test_oc_cases_check_and_record_their_shapes(monkeypatch):
         dec = rfc5424.unpack_channels(ch, 4, P)
         kw = {"suffix": b"", "extras": extras_of(table)}
         if row_off is None:
-            kernels.LAUNCHES[f"encode_capnp_probe_p{P}"] += 1
+            kernels._launched(f"encode_capnp_probe_p{P}")
             return device_capnp.encode_rows(b, l, dec, assemble=False, n=n,
                                             **kw)
-        kernels.LAUNCHES[f"encode_capnp_assemble_p{P}"] += 1
+        kernels._launched(f"encode_capnp_assemble_p{P}")
         rows, out_len, _ = device_capnp.encode_rows(b, l, dec, **kw)
         return device_gelf.flat_rows(rows, out_len, row_off, total)
 
@@ -850,7 +858,7 @@ def test_oc_cases_check_and_record_their_shapes(monkeypatch):
             if chan is None or bool(((row_off >= 0) & ~tier).any()):
                 raise ValueError("against the contract")
             return launch(b, l, n, bank, table, OW, row_off, total, chan)
-        kernels.LAUNCHES["fused_rfc5424_capnp_probe"] += 1
+        kernels._launched("fused_rfc5424_capnp_probe")
         base, base_len, small8 = device_capnp.encode_rows(
             b, l, dec, suffix=b"", extras=extras_of(table), assemble=False,
             n=n)
@@ -862,7 +870,7 @@ def test_oc_cases_check_and_record_their_shapes(monkeypatch):
                 torch.where(base[:, None], carried, -1), small8)
 
     def launch(b, l, n, bank, table, OW, row_off, total, chan):
-        kernels.LAUNCHES["fused_rfc5424_capnp_assemble"] += 1
+        kernels._launched("fused_rfc5424_capnp_assemble")
         rows, out_len, _ = device_capnp.encode_rows(
             b, l, rfc5424.decode_rfc5424(b, l), suffix=b"",
             extras=extras_of(table))
@@ -907,3 +915,102 @@ def test_oc_cases_check_and_record_their_shapes(monkeypatch):
     monkeypatch.setattr(kernels, "encode_capnp_cuda", wrong)
     with pytest.raises(AssertionError, match="disagrees"):
         chip_smoke.oc_case("oc", bt, lt, 280)
+
+
+def test_overlap_ab_is_named_and_cut():
+    """overlap_ab drives the main path and the rfc5424 tier mix at depth
+    0, at the default window and at two lanes; to pay for it the syslen
+    and jsonl line mixes (and the tier mixes, as before) run in process
+    only, rfc5424_line keeping the GELF output's CLI run."""
+    assert chip_smoke.OVERLAP_PATHS == ("rfc5424_line", "rfc5424_tier")
+    assert [(t, k, n) for t, k, n in chip_smoke.OVERLAP_EXECUTORS] == [
+        ("inflight0", "tpu_inflight = 0\n", 1), ("inflight2", "", 1),
+        ("lanes2", "tpu_lanes = 2\n", 2)]
+    assert set(chip_smoke.INPROC_ONLY) == {
+        "rfc5424_tier", "rfc3164_tier", "ltsv_tier", "gelf_tier",
+        "rfc5424_syslen", "jsonl_line"}
+    assert "rfc5424_line" not in chip_smoke.INPROC_ONLY
+    assert chip_smoke.RFC5424_LINES == 4 * chip_smoke.BATCH
+
+
+def test_economics_notices_are_split_from_the_records_lines():
+    lines = ["e1: [x]", "route economics [lane0/split]: device -> host "
+             "(measured 2e-05 s/row vs 1e-05)", "e2: [y]",
+             "route economics [lane1/fused]: fused -> split (measured 1e-05 "
+             "s/row vs 3e-05)"]
+    rest, notices = chip_smoke.econ_split(lines)
+    assert rest == ["e1: [x]", "e2: [y]"] and notices == [lines[1], lines[3]]
+
+
+def test_tier_mix_check_holds_the_taker_to_every_batch():
+    """A tier mix's taker runs with the economics off: it must take every
+    batch, send none past itself, and the other tier must see none."""
+    took = {"taken": 3, "declined": 0, "cooled": 0, "econ": 0, "wide": 0,
+            "tier_rows": 90, "fetch_bytes_per_tier_row": 10.0,
+            "emit_bytes_per_tier_row": 20.0}
+    idle = {"taken": 0, "declined": 0, "cooled": 0, "econ": 0, "wide": 0,
+            "tier_rows": 0}
+    chip_smoke.check_tier_mix("ok", took, idle)
+    for bad_took, bad_idle in (({**took, "econ": 1}, idle),
+                               (took, {**idle, "taken": 1}),
+                               (took, {**idle, "econ": 1}),
+                               ({**took, "declined": 1}, idle),
+                               ({**took, "taken": 0}, idle),
+                               (took, {**idle, "declined": 1}),
+                               ({**took, "fetch_bytes_per_tier_row": 30.0},
+                                idle)):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_tier_mix("bad", bad_took, bad_idle)
+
+
+def test_launch_streams_records_each_launchs_stream(monkeypatch):
+    """launch_streams collects the handles ``kernels._stream`` returns
+    inside the block, from every thread, and puts ``_stream`` back."""
+    from flowgger_tpu_torch.tpu import kernels
+
+    handles = iter([11, 22, 11])
+    monkeypatch.setattr(kernels, "_stream", lambda: next(handles))
+    fake = kernels._stream
+    with chip_smoke.launch_streams() as seen:
+        assert kernels._stream() == 11
+        t = threading.Thread(target=kernels._stream)
+        t.start()
+        t.join()
+        kernels._stream()
+    assert seen == {11, 22} and kernels._stream is fake
+
+
+def test_executor_clock_counts_pops_and_ingest_blocking():
+    """executor_clock on the CPU: a two-lane handler's pops are timed a
+    lane and the ingest thread's seconds in the lane set's submit and
+    fence are its blocked seconds; the class methods come back after."""
+    import queue
+
+    import torch
+
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.corpus import make_tier_corpus
+    from flowgger_tpu_torch.encoders import GelfEncoder
+    from flowgger_tpu_torch.mergers import LineMerger
+    from flowgger_tpu_torch.tpu import batch as B
+    from flowgger_tpu_torch.tpu import overlap
+
+    before = (B.BatchHandler._pop_emit, overlap.LaneSet.submit,
+              overlap.LaneSet.fence)
+    cfg = Config.from_string("[input]\ntpu_lanes = 2\ntpu_batch_size = 64\n"
+                             "tpu_encode_economics = false\n")
+    tx = queue.Queue()
+    lines, _ = make_tier_corpus(256, seed=5)
+    with chip_smoke.executor_clock() as clock:
+        # made inside the block, as run_inproc makes its pipeline's: the
+        # lane set binds the handler's pop at construction
+        h = B.BatchHandler(tx, GelfEncoder(cfg), cfg, LineMerger(),
+                           torch.device("cpu"), start_timer=False)
+        for ln in lines:
+            h.handle_bytes(ln)
+        h.flush()
+    h.close()
+    assert (B.BatchHandler._pop_emit, overlap.LaneSet.submit,
+            overlap.LaneSet.fence) == before
+    assert clock["pops"] == 4 and set(clock["pop_s"]) == {0, 1}
+    assert clock["blocked_s"] > 0 and tx.qsize() == 4

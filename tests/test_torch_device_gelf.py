@@ -256,7 +256,8 @@ def test_handler_matches_reference_batch_for_batch(capsys, monkeypatch):
     ref_enc = RGelfEncoder(RConfig.from_string(""))
     ref_state = {}
     # the split tier, as block_fetch_encode runs it: the fused route off
-    cfg = Config.from_string(f"[input]\ntpu_max_line_len = {L}\n"
+    cfg = Config.from_string(f"[input]\ntpu_encode_economics = false\n"
+                             f"tpu_max_line_len = {L}\n"
                              "tpu_batch_size = 100000\n"
                              'tpu_fuse = "off"\n')
     tx = queue.Queue()
@@ -347,7 +348,8 @@ def test_entry_point_engages_the_tier(tmp_path, monkeypatch, capsys,
     out = tmp_path / "out.gelf"
     cfg = tmp_path / "cfg.toml"
     cfg.write_text(
-        '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+        '[input]\ntpu_encode_economics = false\n'
+        'type = "stdin"\nformat = "rfc5424_tpu"\n'
         'tpu_batch_size = 128\ntpu_flush_ms = 600000\ntpu_fuse = "off"\n'
         '[output]\ntype = "file"\nformat = "gelf"\nframing = "syslen"\n'
         f'file_path = "{out}"\n[output.gelf_extra]\nx-origin = "port"\n')

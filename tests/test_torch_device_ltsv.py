@@ -162,6 +162,11 @@ def test_fetch_encode_matches_reference(monkeypatch):
     BlockResult bytes, errors and oracle rows, and the same hysteresis
     state (declines, cooldown, wide_cooldown) after every batch."""
     monkeypatch.setattr(RDL, "_encode_kernel", _plain_kernel)
+    # the reference's compile watchdog off: its device encode compiles
+    # inline, so a compile another test left in flight on this worker
+    # (the watchdog's single-flight slot) cannot turn its taken batches
+    # into declines
+    monkeypatch.setenv("FLOWGGER_COMPILE_TIMEOUT_MS", "0")
     tier, _ = make_ltsv_tier_corpus(240, seed=94)
     mixed, _ = make_ltsv_corpus(240, seed=95)
     batches = ([tier, _wide_lines(240, 96)] + [mixed] * 4 + [tier] * 2)
@@ -233,7 +238,8 @@ def test_typed_schema_handler_takes_the_host_tier():
     tiers would take, and writes the scalar path's bytes."""
     import queue
 
-    toml = '[input.ltsv_schema]\nstatus = "u64"\nreqtime = "f64"\n'
+    toml = ('[input]\ntpu_encode_economics = false\n'
+            '[input.ltsv_schema]\nstatus = "u64"\nreqtime = "f64"\n')
     config = Config.from_string(toml)
     tx = queue.Queue()
     h = BatchHandler(tx, GelfEncoder(config), config, NulMerger(),

@@ -187,7 +187,8 @@ def test_handler_matches_scalar_path(output):
     the scalar path's bytes and stderr lines, in order."""
     lines = _lines(700, 64)
     data = b"\n".join(lines) + b"\n1\tc\tq\tA\tR\t5"
-    config = Config.from_string("[input]\ntpu_batch_size = 256\n")
+    config = Config.from_string("[input]\ntpu_encode_economics = false\n"
+                                "tpu_batch_size = 256\n")
     enc = (LTSVEncoder if output == "ltsv" else GelfEncoder)(config)
     tx = queue.Queue()
     h = BatchHandler(tx, enc, config, LineMerger(), torch.device("cpu"),

@@ -71,7 +71,8 @@ def _one_thread():
 
 
 def _handler(fmt, fuse=None, batch_size=100000, merger=None):
-    text = "[input]\ntpu_batch_size = %d\n" % batch_size
+    text = ("[input]\ntpu_encode_economics = false\n"
+            "tpu_batch_size = %d\n" % batch_size)
     if fuse is not None:
         text += f'tpu_fuse = "{fuse}"\n'
     cfg = Config.from_string(text)
@@ -196,7 +197,7 @@ def test_tpu_fuse_validation(value, message):
     from flowgger_tpu.encoders.gelf import GelfEncoder as RGelfEncoder
     from flowgger_tpu.tpu.batch import BatchHandler as RBatchHandler
 
-    text = f"[input]\ntpu_fuse = {value}\n"
+    text = f"[input]\ntpu_encode_economics = false\ntpu_fuse = {value}\n"
     cfg = Config.from_string(text)
     with pytest.raises(ConfigError) as exc:
         BatchHandler(queue.Queue(), GelfEncoder(cfg), cfg, NulMerger(),
@@ -230,7 +231,8 @@ def test_on_notice_matches_the_reference_cli(tmp_path):
     for pkg in ("flowgger_tpu_torch", "flowgger_tpu"):
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "jsonl_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "jsonl_tpu"\n'
             'tpu_fuse = "on"\n'
             '[output]\ntype = "stdout"\nformat = "gelf"\n'
             'framing = "line"\n')
@@ -295,7 +297,8 @@ def test_entry_point_engages_the_fused_route(tmp_path, monkeypatch, capsys):
     out = tmp_path / "out.gelf"
     cfg = tmp_path / "cfg.toml"
     cfg.write_text(
-        '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+        '[input]\ntpu_encode_economics = false\n'
+        'type = "stdin"\nformat = "rfc3164_tpu"\n'
         'tpu_batch_size = 256\ntpu_flush_ms = 600000\n'
         '[output]\ntype = "file"\nformat = "gelf"\nframing = "line"\n'
         f'file_path = "{out}"\n')

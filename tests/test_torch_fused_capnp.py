@@ -149,7 +149,7 @@ def test_fused_route_end_to_end(fuse):
     batch, with off the split tier (OC) does; every byte and error is
     the scalar path's."""
     lines, _ = make_tier_corpus(3 * 1024, seed=243)
-    text = f'[input]\ntpu_fuse = "{fuse}"\n' + (
+    text = f'[input]\ntpu_encode_economics = false\ntpu_fuse = "{fuse}"\n' + (
         '[output.capnp_extra]\nenv = "prod"\n' if fuse == "on" else "")
     config = Config.from_string(text)
     merger = SyslenMerger() if fuse != "off" else NulMerger()

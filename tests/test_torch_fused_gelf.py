@@ -118,7 +118,8 @@ def test_fused_gelf_matches_reference():
 
 
 def _run(lines, fuse):
-    cfg = Config.from_string(f'[input]\ntpu_batch_size = 64\n'
+    cfg = Config.from_string(f'[input]\ntpu_encode_economics = false\n'
+                             f'tpu_batch_size = 64\n'
                              f'tpu_fuse = "{fuse}"\n')
     tx = queue.Queue()
     handler = BatchHandler(tx, GelfEncoder(cfg), cfg, NulMerger(),

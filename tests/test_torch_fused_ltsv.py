@@ -191,7 +191,7 @@ def test_fused_route_end_to_end():
     """A handler's batches through FL on the CPU: the tier mix is taken
     by the fused route, the sourced mix declines it (and the split tier)
     and cools down; every byte, error and notice is the scalar path's."""
-    config = Config.from_string("")
+    config = Config.from_string("[input]\ntpu_encode_economics = false\n")
     for make, taken in ((make_ltsv_tier_corpus, True),
                         (make_ltsv_corpus, False)):
         tx = queue.Queue()

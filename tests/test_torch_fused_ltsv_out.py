@@ -138,7 +138,8 @@ def test_carried_plain_rfc5424_ltsv(fused):
 
 
 def _run(fuse, lines, fmt="rfc5424"):
-    config = Config.from_string(f'[input]\ntpu_fuse = "{fuse}"\n')
+    config = Config.from_string(f'[input]\ntpu_encode_economics = false\n'
+                                f'tpu_fuse = "{fuse}"\n')
     tx = queue.Queue()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):

@@ -167,7 +167,8 @@ def test_carried_plain(fused):
 
 
 def _run(fuse, lines, fmt, merger):
-    config = Config.from_string(f'[input]\ntpu_fuse = "{fuse}"\n')
+    config = Config.from_string(f'[input]\ntpu_encode_economics = false\n'
+                                f'tpu_fuse = "{fuse}"\n')
     tx = queue.Queue()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):

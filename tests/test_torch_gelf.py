@@ -296,7 +296,8 @@ def test_gelf_gelf_block_matches_reference(merger, jmerger):
 
 
 @pytest.mark.parametrize("text,words", [
-    ('[input]\ntype = "stdin"\nformat = "gelf_tpu"\n[output]\n'
+    ('[input]\ntpu_encode_economics = false\n'
+     'type = "stdin"\nformat = "gelf_tpu"\n[output]\n'
      'type = "kafka"\nformat = "capnp"\n',
      ("output.type", "kafka")),
 ], ids=["capnp_output"])
@@ -341,7 +342,8 @@ def test_cli_gelf_matches_jax_package(tmp_path):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "gelf_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "gelf_tpu"\n'
             'framing = "line"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 128\n'
             + ('tpu_fuse = "off"\n' if pkg == "flowgger_tpu" else "")
@@ -370,7 +372,8 @@ def test_cli_gelf_extra_matches_jax_package(tmp_path):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "gelf_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "gelf_tpu"\n'
             'framing = "line"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 128\n'
             '[output]\ntype = "file"\nformat = "gelf"\n'

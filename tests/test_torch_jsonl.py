@@ -329,7 +329,8 @@ def _stream(framing, n_lines=500, seed=8):
 def test_batch_handler_jsonl_across_chunk_and_flush_boundaries(
         capsys, framing, chunk, batch):
     data = _stream(framing)
-    cfg = Config.from_string(f"[input]\ntpu_batch_size = {batch}\n")
+    cfg = Config.from_string(f"[input]\ntpu_encode_economics = false\n"
+                             f"tpu_batch_size = {batch}\n")
     tx = queue.Queue()
     handler = BatchHandler(tx, GelfEncoder(cfg), cfg, NulMerger(),
                            torch.device("cpu"), start_timer=False,
@@ -380,7 +381,8 @@ def test_cli_jsonl_matches_jax_package(tmp_path, framing, out_type):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "jsonl_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "jsonl_tpu"\n'
             f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
             'tpu_fuse = "off"\n'
             f'[output]\ntype = "{out_type}"\nformat = "gelf"\n'

@@ -59,7 +59,8 @@ def _ptr(a: np.ndarray) -> int:
 def libs(tmp_path_factory):
     if not host_build.gxx_available():
         pytest.skip("g++ is needed to compile the kernel sources for the CPU")
-    return hostlibs.load(("decode_rfc5424", "fused_gelf", "probe"),
+    return hostlibs.load(("decode_rfc5424", "fused_gelf", "probe",
+                          "barriers"),
                          tmp_path_factory.mktemp("cuda_host"))
 
 
@@ -99,6 +100,34 @@ def test_emulated_intrinsics_match_definitions(libs):
         ]
         assert list(out[t]) == [int(a) for a in want], t
     assert list(acc) == [int(u[k::4].sum()) & 0xFFFFFFFF for k in range(4)]
+
+
+@pytest.mark.parametrize("mode,message", [
+    (0, None), (1, "lanes of a warp at different warp barriers"),
+    (2, "lanes wait at a warp barrier the others never reach"), (3, None)],
+    ids=["whole_warps", "skipped_shuffle", "skipped_syncthreads",
+         "early_return"])
+def test_emulation_fails_a_lane_that_skips_a_barrier(libs, capfd, mode,
+                                                      message):
+    """Every lane of a warp must reach each warp intrinsic and barrier at
+    the same call site: a lane that skips one fails the launch with a
+    message naming the warp (it does not hang), a lane that returns early
+    leaves its barriers, and a launch that keeps the rule runs."""
+    out = np.full(64, -7, np.int32)
+    rc = libs["barriers"].fg_probe_barriers(mode, _ptr(out))
+    err = capfd.readouterr().err
+    if message is not None:
+        assert rc != 0 and message in err and "block 0 warp 1" in err
+        # the failure does not stick: the next launch runs
+        assert libs["barriers"].fg_probe_barriers(0, _ptr(out)) == 0
+        return
+    assert rc == 0 and err == ""
+    t = np.arange(64)
+    x = t ^ 1
+    v = 2 * (x + np.where(t % 32 < 31, np.roll(x, -1), x))
+    want = np.where(t % 32 == 31, -v, v)
+    warps = slice(0, 64) if mode == 0 else slice(0, 32)
+    assert list(out[warps]) == list(want[warps])
 
 
 def _lines():

@@ -320,7 +320,8 @@ def test_config_gates(toml, record_path):
     cannot place keep the block route off for the whole run (neither
     package's block encoder takes them).  The CLI pairs of the four:
     test_cli_ltsv_record_path_matches_jax_package."""
-    text = ('[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n'
+    text = ('[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "ltsv_tpu"\n'
             '[output]\ntype = "stdout"\n' + toml)
     config = Config.from_string(text)
     pipeline.Pipeline(config, device="cpu")
@@ -382,7 +383,8 @@ def test_cli_ltsv_matches_jax_package(tmp_path, framing, fuse, toml):
             if toml.startswith("[input]") else ""
         out_tables = toml if toml.startswith("[output") else ""
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "ltsv_tpu"\n'
             f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 256\n'
             + f'tpu_fuse = "{"off" if pkg == "flowgger_tpu" else fuse}"\n'
@@ -450,7 +452,8 @@ def test_cli_ltsv_record_path_matches_jax_package(tmp_path, name):
         in_tables = toml if toml.startswith("[input") else ""
         out_tables = toml if toml.startswith("[output") else ""
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "ltsv_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "ltsv_tpu"\n'
             'framing = "nul"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 256\n' + in_tables
             + '[output]\ntype = "file"\nformat = "gelf"\n'

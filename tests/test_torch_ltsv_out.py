@@ -227,7 +227,8 @@ def test_ltsv_encoder_matches_reference(extra):
 
 
 def _handler(fmt, toml, lines, framing="line"):
-    config = Config.from_string("[input]\ntpu_batch_size = 256\n" + toml)
+    config = Config.from_string("[input]\ntpu_encode_economics = false\n"
+                                "tpu_batch_size = 256\n" + toml)
     tx = queue.Queue()
     data = b"\n".join(lines) + b"\n"
     err, said = io.StringIO(), io.StringIO()

@@ -71,7 +71,8 @@ def test_cli_matches_jax_package(tmp_path, framing, out_type, out_framing):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "rfc5424_tpu"\n'
             f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
             'tpu_fuse = "off"\n'
             f'[output]\ntype = "{out_type}"\nformat = "gelf"\n'
@@ -131,7 +132,8 @@ def test_batch_handler_across_chunk_and_flush_boundaries(capsys, framing,
     """Small reads split records across chunks and a small batch size
     forces flushes mid-stream, so the session carry crosses both."""
     data = _input(framing, n_lines=400, seed=8)
-    cfg = Config.from_string("[input]\ntpu_batch_size = 64\n")
+    cfg = Config.from_string("[input]\ntpu_encode_economics = false\n"
+                             "tpu_batch_size = 64\n")
     tx = queue.Queue()
     handler = BatchHandler(tx, GelfEncoder(cfg), cfg, NulMerger(),
                            torch.device("cpu"), start_timer=False)
@@ -147,7 +149,8 @@ def test_gelf_extra_static_keys_honored(tmp_path, monkeypatch, capsys):
     cfg_path = tmp_path / "cfg.toml"
     out = tmp_path / "out.gelf"
     cfg_path.write_text(
-        '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+        '[input]\ntpu_encode_economics = false\n'
+        'type = "stdin"\nformat = "rfc5424_tpu"\n'
         '[output]\ntype = "file"\nformat = "gelf"\n'
         f'file_path = "{out}"\n[output.gelf_extra]\nx-origin = "port"\n'
         'zzz = "last"\n')
@@ -194,7 +197,8 @@ def test_unknown_output_format_raises_reference_words(name):
     from flowgger_tpu.config import ConfigError as RConfigError
     from flowgger_tpu.pipeline import get_encoder
 
-    text = ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+    text = ('[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
             f'type = "stdout"\nformat = "{name}"\n')
     with pytest.raises(ConfigError) as exc:
         pipeline.Pipeline(Config.from_string(text), device="cpu")
@@ -233,7 +237,8 @@ def test_cli_record_path_matches_jax_package(tmp_path, name):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            f'[input]\ntype = "stdin"\nformat = "{fmt}"\n'
+            f'[input]\ntpu_encode_economics = false\n'
+            f'type = "stdin"\nformat = "{fmt}"\n'
             f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 256\n'
             '[output]\ntype = "file"\nformat = "gelf"\n'
@@ -263,7 +268,8 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline.resolve_device(None)
     cfg = tmp_path / "cfg.toml"
-    cfg.write_text('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+    cfg.write_text('[input]\ntpu_encode_economics = false\n'
+                   'type = "stdin"\nformat = "rfc5424_tpu"\n'
                    '[output]\ntype = "stdout"\n')
     from flowgger_tpu_torch.__main__ import main
 
@@ -281,14 +287,14 @@ _NEW_MODULES = ("encoders.ltsv", "decoders.dns", "tpu.dns",
                 "tpu.encode_passthrough_block",
                 "tpu.encode_rfc3164_3164_block", "tpu.device_rfc5424_out",
                 "capnp_wire", "encoders.capnp", "tpu.encode_capnp_block",
-                "tpu.device_capnp")
+                "tpu.device_capnp", "tpu.overlap")
 
 
 def test_import_rule():
     """Every module of the port imports without JAX and without any
     module of the JAX package (the walk reaches the LTSV output's, the
-    dns input's, the syslog outputs' and the capnp output's modules
-    too)."""
+    dns input's, the syslog outputs', the capnp output's and the overlap
+    executor's modules too), and so does ``chip_smoke.py``."""
     code = (
         "import pkgutil, sys\n"
         "import flowgger_tpu_torch as p\n"
@@ -296,6 +302,7 @@ def test_import_rule():
         "p.__name__ + '.')]\n"
         "for n in names:\n"
         "    __import__(n)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flowgger_tpu' or m.startswith('flowgger_tpu.')]\n"
         f"new = ['flowgger_tpu_torch.' + m for m in {_NEW_MODULES!r}]\n"

@@ -249,7 +249,8 @@ def test_handler_record_path_matches_scalar_path(name, capsys):
         lines = make_auto_corpus(500, seed=93)[0]
     else:
         lines = _lines(fmt, seed=3) + _lines(fmt, seed=4)
-    cfg = Config.from_string(f"[input]\ntpu_max_line_len = {L}\n"
+    cfg = Config.from_string(f"[input]\ntpu_encode_economics = false\n"
+                             f"tpu_max_line_len = {L}\n"
                              "tpu_batch_size = 150\n" + toml)
     merger = merger_cls()
     tx = queue.Queue()
@@ -324,7 +325,8 @@ def test_cli_auto_record_path_matches_jax_package(tmp_path, toml):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "auto_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "auto_tpu"\n'
             'framing = "line"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 256\n' + in_tables
             + '[output]\ntype = "file"\nformat = "gelf"\n'

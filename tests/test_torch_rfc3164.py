@@ -307,14 +307,16 @@ def test_route_ok_and_config_gates(monkeypatch):
     assert D3.route_ok(enc, LineMerger()) and D3.route_ok(enc, None)
     for extra in ('zone = "eu"\n', 'level = "9"\n'):
         pipeline.Pipeline(Config.from_string(
-            '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "rfc3164_tpu"\n'
             '[output]\ntype = "stdout"\n[output.gelf_extra]\n' + extra),
             device="cpu")
     assert not D3.route_ok(GelfEncoder(Config.from_string(
         '[output.gelf_extra]\nlevel = "9"\n')), LineMerger())
     with pytest.raises(ConfigError, match="later slice") as exc:
         pipeline.Pipeline(Config.from_string(
-            '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "rfc3164_tpu"\n'
             '[output]\ntype = "kafka"\nformat = "capnp"\n'),
             device="cpu")
     assert "output.type" in str(exc.value)
@@ -349,7 +351,8 @@ def test_cli_rfc3164_matches_jax_package(tmp_path, framing, out_type):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "rfc3164_tpu"\n'
             f'framing = "{framing}"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 256\n'
             + ('tpu_fuse = "off"\n' if pkg == "flowgger_tpu" else "")
@@ -384,7 +387,8 @@ def test_cli_rfc3164_level_extra_matches_jax_package(tmp_path):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "rfc3164_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "rfc3164_tpu"\n'
             'framing = "line"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 256\n'
             '[output]\ntype = "file"\nformat = "gelf"\n'

@@ -216,7 +216,8 @@ def test_syslen_splitter_stderr_parity(capsys, name):
     jerr = capsys.readouterr().err.splitlines()
     want = [jtx.get_nowait() for _ in range(jtx.qsize())]
 
-    cfg = Config.from_string("[input]\ntpu_batch_size = 2\n")
+    cfg = Config.from_string("[input]\ntpu_encode_economics = false\n"
+                             "tpu_batch_size = 2\n")
     tx = queue.Queue()
     handler = BatchHandler(tx, GelfEncoder(cfg), cfg, None,
                            torch.device("cpu"), start_timer=False)
@@ -244,7 +245,8 @@ def test_batch_handler_syslen_across_chunk_and_flush_boundaries(
     data = syslen_stream(lines)
     # a narrow batch keeps the CPU decode of every small flush cheap;
     # longer lines take the scalar oracle
-    cfg = Config.from_string(f"[input]\ntpu_batch_size = {batch}\n"
+    cfg = Config.from_string(f"[input]\ntpu_encode_economics = false\n"
+                             f"tpu_batch_size = {batch}\n"
                              "tpu_max_line_len = 128\n")
     tx = queue.Queue()
     handler = BatchHandler(tx, GelfEncoder(cfg), cfg, NulMerger(),
@@ -293,7 +295,8 @@ def test_cli_syslen_matches_jax_package(tmp_path):
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\nformat = "rfc5424_tpu"\n'
             'framing = "syslen"\ntpu_flush_ms = 600000\ntpu_fuse = "off"\n'
             '[output]\ntype = "file"\nformat = "gelf"\n'
             f'file_path = "{out}"\n')

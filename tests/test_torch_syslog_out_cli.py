@@ -97,7 +97,8 @@ def test_cli_syslog_output_matches_jax_package(tmp_path, name):
         keys = out_keys + (f'file_path = "{out}"\n'
                            if 'type = "file"' in out_keys else "")
         cfg.write_text(
-            '[input]\ntype = "stdin"\ntpu_flush_ms = 600000\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\ntpu_flush_ms = 600000\n'
             'tpu_batch_size = 256\n'
             f'tpu_fuse = "{"off" if pkg == "flowgger_tpu" else "auto"}"\n'
             f'format = "{fmt}"\nframing = "line"\n[output]\n' + keys)

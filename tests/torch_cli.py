@@ -44,7 +44,8 @@ def cli_pair(tmp_path: Path, data: bytes, in_keys: str, out_keys: str,
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
         cfg.write_text(
-            '[input]\ntype = "stdin"\ntpu_flush_ms = 600000\n'
+            '[input]\ntpu_encode_economics = false\n'
+            'type = "stdin"\ntpu_flush_ms = 600000\n'
             f'tpu_batch_size = {batch_size}\n'
             f'tpu_fuse = "{"off" if pkg == "flowgger_tpu" else fuse}"\n'
             + in_keys + in_tables
