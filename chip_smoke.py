@@ -156,8 +156,9 @@ Phases, each printing JSON lines:
    sub-batch shapes the kernels phase did not check are checked after
    the runs with the others (:func:`phase_late_shapes`).  Then ten more
    (:data:`OUT_PATHS`, in process with the launch counts reset just
-   before and read just after; rfc5424 → LTSV's line mix and dns → GELF
-   also through the CLI):
+   before and read just after; dns → GELF also through the CLI, and
+   rfc5424 → LTSV's line mix until the transports came, whose
+   tcp_cli_sigterm is the LTSV output's CLI run since):
    stdin → rfc5424_tpu → LTSV over cell 1's rfc5424 mix (65 536 lines,
    reporting its share of rows outside OL: over 5 %, so both tiers must
    decline and cool) and over the → LTSV tier mix (32 768, FO/ltsv taking
@@ -217,13 +218,44 @@ Phases, each printing JSON lines:
    seconds + the lanes' pop seconds), :func:`executor_clock`), each
    lane's economics snapshot, and the CUDA streams the wrappers launched
    on (:func:`launch_streams`: one non-default stream a lane, the lanes'
-   own, or the phase fails); then ``late_shapes``, one corpus a mix.
+   own, or the phase fails);
+8. transports — the network inputs on ``cuda`` (:func:`phase_transports`),
+   each in process through ``Pipeline.run`` on a thread and
+   ``Pipeline.shutdown`` (the drain) unless said, launch counts reset
+   just before and read just after, a ``transport`` line each with
+   lines/s, wall, batches submitted, mean rows a batch, batches a flush,
+   launches per kernel and byte identity: ``tcp_line`` (rfc5424_line's
+   65 536-line input over one tcp connection, byte-identical to its
+   expectation, which is reused; its lines/s beside rfc5424_line's from
+   the same call), ``tcp_conns`` (the same lines over 8 connections at
+   once, 8 192 each: the records as a multiset, each connection's in
+   its order; one shared batch handler frames each connection's session
+   on its own, so a flush submits a batch a session), ``udp_dgram``
+   (16 384 paced datagrams of the same corpus, every 16th
+   zlib-compressed, through the recvmmsg path into the batch handler's
+   span ingest: every received record its datagram's expected record,
+   at most 1 % lost, the lost count reported, no rate), ``scalar_tcp``
+   (``input.format = "rfc5424"``, the host path, 4 096 lines: no kernel
+   may launch, and its bytes and stderr are rfc5424_tpu's over tcp on
+   the same lines) and ``tcp_cli_sigterm`` (``python3 -m
+   flowgger_tpu_torch`` with a tcp input into the LTSV output, started
+   before udp_dgram so that it boots beside udp_dgram and scalar_tcp:
+   16 384 lines on one connection, closed, then SIGTERM: exit 0,
+   "Received signal 15", the scalar path's LTSV bytes).  The TLS and file inputs run in the CPU tests
+   only (their card path is the shared handler these drive); then
+   ``late_shapes``, one corpus a mix, also at the transport runs' new
+   launch shapes.  Since the transports came, the ltsv and gelf line
+   mixes and rfc5424 → LTSV run in process only (5 CLI runs left in the
+   e2e phases: rfc5424_line, rfc3164_line, auto_line, dns_line,
+   rfc5424_capnp_line; tcp_cli_sigterm drives the LTSV output's CLI).
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
 ``plain_ms`` is one call of the plain version between two events on an
-idle stream (:func:`cuda_ms`), so it also holds the host's time to issue
-it, tens of microseconds against its milliseconds.  To time only the
+idle stream (:func:`cuda_ms`; K2 and K3 the median of 10 after 2
+warm-ups, the others one call after one, :data:`PLAIN_TIMING`), so it
+also holds the host's time to issue it, tens of microseconds against
+its milliseconds.  To time only the
 kernels of a tree, call the first three phases from its root:
 ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build();
 c.phase_kernels(20261016)"``.
@@ -250,6 +282,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -299,6 +332,10 @@ RECORD_LINES = BATCH // 2   # lines of each Record-path e2e run (cut from
 DNS_LINES = 2 * BATCH       # lines of the dns → GELF e2e run (cut from
                             # 4 × when the syslog-output paths came)
 BIG_REGION = 16 << 20       # bytes of K2's many-wave region
+# how each plain version's time is taken, K2's and K3's apart (10 calls
+# after 2): one call after one warm-up (cut from 5 after 1 when the
+# transports came, their calls passing 550 s on a slow host)
+PLAIN_TIMING = {"iters": 1, "warmup": 1}
 WORK = ROOT / "build" / "chip_smoke"
 
 
@@ -683,7 +720,7 @@ def decode_case(kind: str, width: int, batch, lens_c):
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "max_abs_err": err, "ms": device_ms(kern),
-        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        "plain_ms": cuda_ms(plain, **PLAIN_TIMING),
         # bytes: each row's valid bytes (the definitions mask everything
         # past its length), the lengths and the int32 channels written;
         # operations: one per valid byte for each pass the definitions
@@ -744,7 +781,7 @@ def syslen_case(data: bytes, ncap: int, frames: int = 0):
         "source": "flowgger_tpu_torch/csrc/frame_syslen_spans.cu",
         "replaces": "flowgger_tpu/tpu/pallas_kernels.py:343",
         "max_abs_err": max(errs), "ms": device_ms(k4),
-        "plain_ms": cuda_ms(p4, iters=5, warmup=1),
+        "plain_ms": cuda_ms(p4, **PLAIN_TIMING),
         # one classify per region byte
         **bound(rlen + 8 * ncap + 16, rlen), "library_ms": None,
         "shape": f"region {rlen} B, ncap {ncap}, {meta[0]} frames"}, \
@@ -1032,7 +1069,7 @@ def encode_case(P: int, batch, lens_c, packed, n: int, ts_len=None,
     shape = f"[{N}, {L}], n={n}, {n_base} base tier rows, {valid} valid bytes"
     out = [{
         "name": f"encode_gelf_probe_p{P}", **common, "max_abs_err": err_p,
-        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, **PLAIN_TIMING),
         # bytes: each real row's valid bytes, length and the channels it
         # needs, every row's bit and length; operations: one escape test
         # per valid byte
@@ -1077,7 +1114,7 @@ def encode_case(P: int, batch, lens_c, packed, n: int, ts_len=None,
     ts_bytes = int(torch.where(tier, ts_len, 0).sum())
     out.append({
         "name": f"encode_gelf_assemble_p{P}", **common, "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, **PLAIN_TIMING),
         # bytes: the tier rows' valid bytes, lengths, channels, timestamp
         # text and lengths, every row's offset, and the output written;
         # operations: one escape test per valid byte of a tier row
@@ -1190,7 +1227,7 @@ def d3_case(batch, lens_c, year: int):
         "source": "flowgger_tpu_torch/csrc/decode_rfc3164.cu",
         "replaces": "flowgger_tpu/tpu/rfc3164.py:55",
         "max_abs_err": err, "ms": ms,
-        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        "plain_ms": cuda_ms(plain, **PLAIN_TIMING),
         # bytes: each row's valid bytes, its length and its 12 int32
         # channels; operations: one per valid byte (one pass settles
         # every whole-row reduction)
@@ -1332,7 +1369,7 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         probe_ops = (7 if fmt == "rfc5424" else 2) * real_valid
     out = [{
         "name": f"{name}_probe", **common, "max_abs_err": err_p, "ms": ms_p,
-        "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        "plain_ms": cuda_ms(p_probe, **PLAIN_TIMING),
         **bound(probe_bytes, probe_ops),
         "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
                  f"{real_valid} valid bytes"}]
@@ -1423,7 +1460,7 @@ def route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
     ch_bytes = (28 if kind == "e3" else 4 * kernels.FUSED_CARRY[fmt]) * n_tier
     out.append({
         "name": f"{name}_assemble", **common, "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, **PLAIN_TIMING),
         **bound(tier_valid + 8 * n_tier + ch_bytes + ts_bytes + 8 * N + total,
                 tier_valid),
         "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
@@ -1510,7 +1547,7 @@ def l1_case(batch, lens_c, n: int):
         "source": "flowgger_tpu_torch/csrc/decode_ltsv.cu",
         "replaces": "flowgger_tpu/tpu/ltsv.py:68",
         "max_abs_err": err, "ms": ms,
-        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        "plain_ms": cuda_ms(plain, **PLAIN_TIMING),
         # bytes: each real row's valid bytes and length, every row's 94
         # int32 channels; operations: one per valid byte (one pass settles
         # the part table and the key matches)
@@ -1630,7 +1667,7 @@ def ltsv_route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         probe_ops = gated_valid
     out = [{
         "name": f"{name}_probe{tag}", **common, "max_abs_err": err_p,
-        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, **PLAIN_TIMING),
         **bound(probe_bytes, probe_ops),
         "shape": f"[{N}, {L}], n={n}, {n_base} base tier rows, "
                  f"{real_valid} valid bytes"}]
@@ -1702,7 +1739,7 @@ def ltsv_route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         ch_bytes = int(torch.where(tier, 4 * (12 + 3 * pc), 0).sum())
     out.append({
         "name": f"{name}_assemble{tag}", **common, "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, **PLAIN_TIMING),
         # bytes: the tier rows' valid bytes, lengths and channels (or
         # carried selection), timestamp text and lengths, every row's
         # offset, the output written; operations: one escape test a byte
@@ -1864,7 +1901,7 @@ def gelf_route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         probe_ops = gated_valid
     out = [{
         "name": f"{name}_probe{tag}", **common, "max_abs_err": err_p,
-        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, **PLAIN_TIMING),
         **bound(probe_bytes, probe_ops),
         "shape": f"[{N}, {L}], n={n}, {n_base} base tier rows, "
                  f"{real_valid} valid bytes"}]
@@ -1933,7 +1970,7 @@ def gelf_route_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         ch_bytes = int(torch.where(tier, 8 + 28 * nf, 0).sum())
     out.append({
         "name": f"{name}_assemble{tag}", **common, "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, **PLAIN_TIMING),
         # bytes: the tier rows' valid bytes and lengths, channels (or
         # carried selection), timestamp text and lengths, every row's
         # offset, the output written; operations: one per valid byte
@@ -2063,7 +2100,7 @@ def ac_case(batch, lens_c, n: int, dns: bool = False):
         "replaces": "flowgger_tpu/tpu/autodetect.py:97" + (
             " + :159" if dns else ""),
         "max_abs_err": err, "ms": ms,
-        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        "plain_ms": cuda_ms(plain, **PLAIN_TIMING),
         **bound(scanned + 4 * n + n, 2 * scanned + 40 * n),
         "library_ms": None,
         "registers": res.get("registers"),
@@ -2141,7 +2178,7 @@ def dn_case(batch, lens_c, n: int):
         "source": "flowgger_tpu_torch/csrc/decode_dns.cu",
         "replaces": "flowgger_tpu/tpu/dns.py:44",
         "max_abs_err": err, "ms": ms,
-        "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+        "plain_ms": cuda_ms(plain, **PLAIN_TIMING),
         # bytes: each real row's valid bytes and length, every row's 14
         # int32 channels; operations: a tab compare in the first pass, a
         # digit / dot class in the second, per valid byte
@@ -2260,7 +2297,7 @@ def ol_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         probe_ops = 9 * real_valid
     out = [{
         "name": f"{name}_probe", **common, "max_abs_err": err_p, "ms": ms_p,
-        "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        "plain_ms": cuda_ms(p_probe, **PLAIN_TIMING),
         **bound(probe_bytes, probe_ops),
         "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
                  f"{real_valid} valid bytes"}]
@@ -2341,7 +2378,7 @@ def ol_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
                 else 4 * kernels.FUSED_LTSV_OUT_CARRY * n_tier)
     out.append({
         "name": f"{name}_assemble", **common, "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, **PLAIN_TIMING),
         **bound(tier_valid + 4 * n_tier + ch_bytes + 8 * N + total, total),
         "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
                  f"bytes"})
@@ -2517,7 +2554,7 @@ def r5_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         probe_ops = (4 if r3 else 9) * real_valid
     out = [{
         "name": f"{name}_probe", **common, "max_abs_err": err_p, "ms": ms_p,
-        "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        "plain_ms": cuda_ms(p_probe, **PLAIN_TIMING),
         **bound(probe_bytes, probe_ops),
         "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
                  f"{n_gate} rows past ok / has_high, {real_valid} valid "
@@ -2601,7 +2638,7 @@ def r5_case(kind: str, batch, lens_c, n: int, assemble: bool = True):
         ch_bytes = 4 * (3 * n_tier if r3 else 20 * n_tier + 5 * tier_pairs)
     out.append({
         "name": f"{name}_assemble", **common, "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, **PLAIN_TIMING),
         **bound(tier_valid + 4 * n_tier + ch_bytes + 8 * N + total, total),
         "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
                  f"bytes"})
@@ -2752,7 +2789,7 @@ def oc_case(kind: str, batch, lens_c, n: int, P: int = 6, extras=(),
     what = ", capnp_extra 2 pairs" if extras else ""
     out = [{
         "name": f"{base_name}_probe{tag}", **common, "max_abs_err": err_p,
-        "ms": ms_p, "plain_ms": cuda_ms(p_probe, iters=5, warmup=1),
+        "ms": ms_p, "plain_ms": cuda_ms(p_probe, **PLAIN_TIMING),
         **bound(probe_bytes, probe_ops),
         "shape": f"[{N}, {L}], n={n}, {int(ref_base.sum())} base tier rows, "
                  f"{n_gate} rows past ok / has_high, {real_valid} valid "
@@ -2835,7 +2872,7 @@ def oc_case(kind: str, batch, lens_c, n: int, P: int = 6, extras=(),
                 + 16 * pair_slots(tier, sd0))
     out.append({
         "name": f"{base_name}_assemble{tag}", **common, "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": cuda_ms(p_asm, iters=5, warmup=1),
+        "ms": ms_a, "plain_ms": cuda_ms(p_asm, **PLAIN_TIMING),
         **bound(tier_valid + 4 * n_tier + ch_bytes + blob * n_tier + 8 * N
                 + total, total),
         "shape": f"[{N}, {L}], n={n}, {n_tier} tier rows, {total} output "
@@ -3413,12 +3450,12 @@ LATE_PREFIXES = ("decode_rfc5424_p", "decode_ltsv", "encode_gelf_ltsv",
                  "fused_ltsv_gelf", "encode_gelf_gelf", "fused_gelf_gelf")
 LATE: set = set()
 # the PATHS that run in process only: the tier mixes (their line mixes
-# drive the same configurations through the CLI), and since the overlap
-# executor came the syslen and jsonl line mixes (rfc5424_line drives the
-# GELF output's CLI; the CPU tests hold their CLIs against the JAX
-# package)
+# drive the same configurations through the CLI), since the overlap
+# executor came the syslen and jsonl line mixes, and since the transports
+# came the ltsv and gelf line mixes (rfc5424_line drives the GELF
+# output's CLI; the CPU tests hold their CLIs against the JAX package)
 INPROC_ONLY = ("rfc5424_tier", "rfc3164_tier", "ltsv_tier", "gelf_tier",
-               "rfc5424_syslen", "jsonl_line")
+               "rfc5424_syslen", "jsonl_line", "ltsv_line", "gelf_line")
 # the OVERLAP_PATHS runs' inputs and scalar expectations, for
 # phase_overlap_ab: name -> (lines, seed, input path, input bytes, bytes,
 # (stderr, stdout))
@@ -3473,6 +3510,10 @@ def _expectation(name: str, data: bytes):
 
 # when each path's scalar expectation was made (_write_input)
 STAMPED_SINCE: dict = {}
+# lines/s of in-process runs the transports phase reports beside its own:
+# "e2e_<path>" (the e2e run, fused route auto) and "overlap_<path>" (the
+# overlap_ab medians at the default window)
+RATES: dict = {}
 
 
 def same_bytes(name: str, got: bytes, want: bytes) -> bool:
@@ -3868,6 +3909,7 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
         runs.append(e2e_inproc(name, path, exp_out, exp_err, checked, "off"))
     for r in runs:
         r["inproc_lines_per_s"] = n_lines / r["inproc_wall_s"]
+    RATES[f"e2e_{name}"] = runs[0]["inproc_lines_per_s"]
 
     cli_report = {}
     if cli:
@@ -4126,14 +4168,15 @@ def phase_e2e_mixed(name: str, seed: int):
 # LTSV, auto_dns_ltsv cell 11's four line mixes and the dns mix into
 # LTSV; the ltsv_out_* runs the other inputs into LTSV (ltsv_out_schema:
 # the Record path), in process only.  rfc5424_ltsv_tier, dns_ltsv and
-# auto_dns_ltsv run in process only since the capnp paths came: the CLI
-# drives the LTSV output in rfc5424_ltsv_line, the dns input in dns_line
+# auto_dns_ltsv run in process only since the capnp paths came, and
+# rfc5424_ltsv_line since the transports came: the CLI drives the LTSV
+# output in the transports' tcp_cli_sigterm, the dns input in dns_line
 # and auto in auto_line, and the CPU tests hold each configuration's CLI
 # against the JAX package
 _FRAME = ("frame_sep_spans", "frame_gather")
 OUT_PATHS = {
     "rfc5424_ltsv_line": ("rfc5424_tpu", "", "ltsv", "rfc5424",
-                          RFC5424_LINES, "make_corpus", True,
+                          RFC5424_LINES, "make_corpus", False,
                           (*_FRAME, "fused_rfc5424_ltsv_probe",
                            "decode_rfc5424_p6", "decode_rfc5424_p16",
                            "encode_ltsv_out_probe"), None),
@@ -4626,7 +4669,8 @@ def executor_clock():
 
     clock = {"blocked_s": 0.0, "pop_s": {}, "pops": 0}
     lock = threading.Lock()
-    ingest = threading.current_thread()
+    # the pipeline's accept thread ingests (its caller waits for it)
+    ingest = "input-accept"
     pop = batch_mod.BatchHandler._pop_emit
     submit, fence = overlap.LaneSet.submit, overlap.LaneSet.fence
 
@@ -4649,7 +4693,7 @@ def executor_clock():
 
     def blocking(fn):
         def run(self, *a, **k):
-            if threading.current_thread() is not ingest:
+            if threading.current_thread().name != ingest:
                 return fn(self, *a, **k)
             t0 = time.perf_counter()
             try:
@@ -4759,13 +4803,515 @@ def phase_overlap_ab(seed: int):
                 "launches": {k: v for k, v in launches.items() if v}})
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
+        medians = {tag: statistics.median(r["lines_per_s"] for r in runs
+                                          if r["executor"] == tag)
+                   for tag, _, _ in OVERLAP_EXECUTORS}
+        RATES[f"overlap_{name}"] = medians["inflight2"]
         emit({"phase": "overlap_ab", "path": name, "lines": n_lines,
               "input_bytes": len(data), "runs": runs,
-              "lines_per_s": {
-                  tag: statistics.median(r["lines_per_s"] for r in runs
-                                         if r["executor"] == tag)
-                  for tag, _, _ in OVERLAP_EXECUTORS},
-              "identical_to_scalar_path": True})
+              "lines_per_s": medians, "identical_to_scalar_path": True})
+    return total
+
+
+TCP_CONNS = 8                 # connections of tcp_conns, at once
+UDP_DGRAMS = BATCH            # datagrams of udp_dgram
+UDP_ZLIB_EVERY = 16           # every 16th datagram zlib-compressed
+UDP_MAX_LOST = 0.01           # the share of datagrams udp_dgram may lose
+SCALAR_TCP_LINES = BATCH // 4  # lines of scalar_tcp (and its *_tpu twin)
+SIGTERM_LINES = BATCH         # lines of tcp_cli_sigterm
+NET_WAIT = 120.0              # bound on every wait of a transport run
+
+
+def _net_config(name: str, in_keys: str, fmt: str = "rfc5424_tpu",
+                out_keys: str = 'format = "gelf"\n') -> Path:
+    out = WORK / f"{name}.out"
+    cfg = WORK / f"{name}.toml"
+    cfg.write_text(f'[input]\nformat = "{fmt}"\n' + in_keys
+                   + '[output]\ntype = "file"\n' + out_keys
+                   + f'file_path = "{out}"\n')
+    if out.exists():
+        out.unlink()
+    return cfg
+
+
+def _wait_for(cond, what: str, wait: float = NET_WAIT) -> None:
+    deadline = time.monotonic() + wait
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {wait} s waiting for "
+                                 f"{what}")
+        time.sleep(0.01)
+
+
+@contextlib.contextmanager
+def batch_counts():
+    """The batches the handler submits inside the block (rows summed) and
+    how many each flush that submitted any submitted: a network input
+    frames each connection's session on its own, so a flush submits one
+    batch a session with data."""
+    from flowgger_tpu_torch.tpu import batch as batch_mod
+
+    counts = {"batches": 0, "rows": 0, "per_flush": []}
+    lock = threading.Lock()
+    local = threading.local()
+    submit = batch_mod.BatchHandler._submit
+    flush = batch_mod.BatchHandler.flush
+
+    def counted_submit(self, packed, lane=None):
+        with lock:
+            counts["batches"] += 1
+            counts["rows"] += int(packed[5])
+        local.n = getattr(local, "n", 0) + 1
+        return submit(self, packed, lane)
+
+    def counted_flush(self, drain=True):
+        local.n = 0
+        try:
+            return flush(self, drain)
+        finally:
+            if local.n:
+                with lock:
+                    counts["per_flush"].append(local.n)
+
+    batch_mod.BatchHandler._submit = counted_submit
+    batch_mod.BatchHandler.flush = counted_flush
+    try:
+        yield counts
+    finally:
+        batch_mod.BatchHandler._submit = submit
+        batch_mod.BatchHandler.flush = flush
+
+
+def net_run(cfg: Path, drive) -> dict:
+    """One in-process run of a network input's ``cfg`` on ``cuda``: the
+    pipeline on a thread (``Pipeline.run``), ``drive(pipe)`` sending its
+    traffic and waiting until the pipeline has it, then
+    ``Pipeline.shutdown`` (the drain); launch counts reset just before
+    and read just after, stdout and stderr captured.  The wall runs from
+    the first byte sent to the drain's end."""
+    import torch
+
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.pipeline import Pipeline
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    pipe = Pipeline(Config.from_path(str(cfg)), device="cuda")
+    exc = []
+
+    def run():
+        try:
+            pipe.run()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            exc.append(e)
+
+    for k in framing.DECLINES:
+        framing.DECLINES[k] = 0
+    kernels.reset_launch_counts()
+    err_buf, out_buf = io.StringIO(), io.StringIO()
+    thread = threading.Thread(target=run, name="net-run")
+    with contextlib.redirect_stderr(err_buf), \
+            contextlib.redirect_stdout(out_buf), \
+            launch_shapes() as seen, batch_counts() as counts:
+        thread.start()
+        try:
+            _wait_for(lambda: pipe.input.bound_port is not None or exc,
+                      "the listener")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drive(pipe)
+        finally:
+            pipe.shutdown(timeout=NET_WAIT)
+            thread.join(NET_WAIT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if thread.is_alive():
+        raise AssertionError(f"{cfg.stem}: the pipeline's run did not end")
+    if exc:
+        raise exc[0]
+    if any(framing.DECLINES.values()):
+        raise AssertionError(f"{cfg.stem}: device framing declined "
+                             f"{dict(framing.DECLINES)}")
+    late = {(k, v) for k, v in seen - CHECKED}
+    LATE.update(late)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    per_flush = counts["per_flush"]
+    return {"wall_s": wall, "pipe": pipe,
+            "errs": err_buf.getvalue().splitlines(),
+            "stdout": out_buf.getvalue().splitlines(),
+            "out": (WORK / f"{cfg.stem}.out").read_bytes(),
+            "report": {
+                "wall_s": wall, "batches": counts["batches"],
+                "rows_per_batch": counts["rows"] / max(counts["batches"], 1),
+                "flushes": len(per_flush),
+                "batches_per_flush": (sum(per_flush) / len(per_flush)
+                                      if per_flush else 0.0),
+                "max_batches_a_flush": max(per_flush, default=0),
+                "launches": launches,
+                "late_shapes": sorted(f"{k} {list(v)}" for k, v in late)}}
+
+
+def _need_rfc5424(name: str, launches: dict, framed: bool = True) -> None:
+    """A rfc5424_tpu run decoded on the card (F1's probe or K1), and over
+    a line-framed transport (``framed``) framed there too (K2, K3)."""
+    if ((framed and not (launches.get("frame_sep_spans")
+                         and launches.get("frame_gather")))
+            or not (launches.get("fused_rfc5424_gelf_probe")
+                    or launches.get("decode_rfc5424_p6"))):
+        raise AssertionError(f"{name}: the run did not frame and decode on "
+                             f"the card: {launches}")
+
+
+def _wait_output(name: str, size: int) -> None:
+    """Wait until the run's output file holds ``size`` bytes (its whole
+    expectation: every connection has been read, framed, decoded and
+    written)."""
+    out = WORK / f"{name}.out"
+    _wait_for(lambda: out.exists() and out.stat().st_size >= size,
+              f"{name}'s {size} output bytes")
+
+
+def _records(out: bytes) -> list:
+    return out.split(b"\0")[:-1]
+
+
+def _send_tcp(port: int, data: bytes) -> None:
+    with socket.create_connection(("127.0.0.1", port), timeout=NET_WAIT) as s:
+        s.sendall(data)
+
+
+def _tcp_line(expected) -> dict:
+    """tcp_line: rfc5424_line's input over one tcp connection, its
+    expectation reused."""
+    n_lines, _, path, data, exp_out, exp_err = expected
+
+    def drive(pipe):
+        _send_tcp(pipe.input.bound_port, data)
+        _wait_output("tcp_line", len(exp_out))
+
+    r = net_run(_net_config("tcp_line", 'type = "tcp"\n'
+                            'listen = "127.0.0.1:0"\n'), drive)
+    errs, econ = econ_split(r["errs"])
+    same = r["out"] == exp_out and same_stderr("rfc5424", errs, exp_err[0])
+    if not same:
+        raise AssertionError(f"tcp_line: differs from rfc5424_line's "
+                             f"expectation (bytes {len(r['out'])} vs "
+                             f"{len(exp_out)}, stderr lines {len(errs)} vs "
+                             f"{len(exp_err[0])})")
+    _need_rfc5424("tcp_line", r["report"]["launches"])
+    rep = r["report"]
+    emit({"phase": "transport", "run": "tcp_line", "lines": n_lines,
+          "connections": 1, "lines_per_s": n_lines / rep["wall_s"],
+          "rfc5424_line_lines_per_s": {
+              "e2e_inproc": RATES.get("e2e_rfc5424_line"),
+              "overlap_ab_default_window": RATES.get(
+                  "overlap_rfc5424_line")},
+          **rep, "economics_notices": econ,
+          "identical_to_expectation": same})
+    return rep
+
+
+def _is_subsequence(want: list, got: list) -> bool:
+    it = iter(got)
+    return all(any(g == w for g in it) for w in want)
+
+
+def _tcp_conns(expected, single: dict) -> dict:
+    """tcp_conns: the same corpus over TCP_CONNS connections at once, one
+    slice each; the records as a multiset, and each connection's in its
+    order."""
+    from collections import Counter
+
+    from flowgger_tpu_torch.corpus import scalar_expectation
+
+    n_lines, _, path, data, exp_out, exp_err = expected
+    lines = data.split(b"\n")[:n_lines]
+    per = n_lines // TCP_CONNS
+    slices = [b"".join(ln + b"\n" for ln in lines[c * per:(c + 1) * per])
+              for c in range(TCP_CONNS)]
+    exps = [scalar_expectation(sl) for sl in slices]
+
+    def drive(pipe):
+        port = pipe.input.bound_port
+        barrier = threading.Barrier(TCP_CONNS)
+
+        def send(sl):
+            barrier.wait(NET_WAIT)
+            _send_tcp(port, sl)
+
+        senders = [threading.Thread(target=send, args=(sl,))
+                   for sl in slices]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join(NET_WAIT)
+        _wait_output("tcp_conns", sum(len(out) for out, _ in exps))
+
+    r = net_run(_net_config("tcp_conns", 'type = "tcp"\n'
+                            'listen = "127.0.0.1:0"\n'), drive)
+    got = _records(r["out"])
+    want = [rec for out, _ in exps for rec in _records(out)]
+    errs, econ = econ_split(r["errs"])
+    same = (Counter(got) == Counter(want)
+            and all(_is_subsequence(_records(out), got) for out, _ in exps)
+            and Counter(errs) == Counter(e for _, es in exps for e in es))
+    if not same:
+        raise AssertionError(f"tcp_conns: {len(got)} records vs {len(want)} "
+                             f"expected, or a connection out of order, or "
+                             f"stderr {len(errs)} lines differ")
+    _need_rfc5424("tcp_conns", r["report"]["launches"])
+    rep = r["report"]
+    emit({"phase": "transport", "run": "tcp_conns", "lines": per * TCP_CONNS,
+          "connections": TCP_CONNS,
+          "lines_per_s": per * TCP_CONNS / rep["wall_s"], **rep,
+          "against_tcp_line": {
+              k: single[k] for k in ("batches", "rows_per_batch",
+                                     "batches_per_flush", "launches")},
+          "economics_notices": econ,
+          "identical_as_multiset_and_in_order_a_connection": same})
+    return rep
+
+
+def _udp_dgram(expected) -> dict:
+    """udp_dgram: UDP_DGRAMS paced datagrams of the rfc5424_line corpus,
+    every UDP_ZLIB_EVERY-th zlib-compressed, through the recvmmsg path
+    into the batch handler's span ingest; every received record must be
+    its datagram's expected record (the scalar path, one datagram at a
+    time), and at most UDP_MAX_LOST of them may be lost (counted)."""
+    import zlib
+    from collections import Counter
+
+    from flowgger_tpu_torch.config import Config
+    from flowgger_tpu_torch.decoders import RFC5424Decoder
+    from flowgger_tpu_torch.encoders import GelfEncoder
+    from flowgger_tpu_torch.splitters import ScalarHandler
+    from flowgger_tpu_torch.tpu import batch as batch_mod
+    from flowgger_tpu_torch.utils import recvmmsg
+
+    if not recvmmsg.available():
+        raise AssertionError("udp_dgram: recvmmsg is not available")
+    lines = expected[3].split(b"\n")[:UDP_DGRAMS]
+    dgrams = [zlib.compress(ln) if i % UDP_ZLIB_EVERY == 0 else ln
+              for i, ln in enumerate(lines)]
+
+    class _Tx(list):
+        put = list.append
+
+    tx = _Tx()
+    scalar = ScalarHandler(tx, RFC5424Decoder(),
+                           GelfEncoder(Config.from_string("")))
+    scalar.bare_errors = True
+    err_buf = io.StringIO()
+    with contextlib.redirect_stderr(err_buf):
+        for ln in lines:
+            scalar.handle_bytes(ln)
+    want = Counter(rec + b"\0" for rec in tx)
+    want_errs = Counter(err_buf.getvalue().splitlines())
+    spans = {"calls": 0, "datagrams": 0}
+    ingest = batch_mod.BatchHandler.ingest_spans
+
+    def counted(self, chunk, starts, lens):
+        spans["calls"] += 1
+        spans["datagrams"] += len(starts)
+        return ingest(self, chunk, starts, lens)
+
+    def drive(pipe):
+        port = pipe.input.bound_port
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            for i, d in enumerate(dgrams):
+                s.sendto(d, ("127.0.0.1", port))
+                if i % 32 == 31:
+                    time.sleep(0.001)  # paced: a burst overflows loopback
+        out = WORK / "udp_dgram.out"
+        last = [-1, time.monotonic()]
+
+        def settled():
+            n = out.stat().st_size if out.exists() else 0
+            if n != last[0]:
+                last[:] = [n, time.monotonic()]
+            return n > 0 and time.monotonic() - last[1] > 0.5
+
+        _wait_for(settled, "the datagrams' records")
+
+    batch_mod.BatchHandler.ingest_spans = counted
+    try:
+        r = net_run(_net_config("udp_dgram", 'type = "udp"\n'
+                                'listen = "127.0.0.1:0"\n'), drive)
+    finally:
+        batch_mod.BatchHandler.ingest_spans = ingest
+    got = Counter(rec + b"\0" for rec in _records(r["out"]))
+    errs, econ = econ_split(r["errs"])
+    got_errs = Counter(errs)
+    differ = sum((got - want).values())
+    lost = sum(want.values()) - sum(got.values())
+    if differ or got_errs - want_errs:
+        raise AssertionError(f"udp_dgram: {differ} received records differ "
+                             f"from their datagrams' expected records "
+                             f"({list(got - want)[:3]}), stderr lines not "
+                             f"expected: {list(got_errs - want_errs)[:5]}")
+    if lost > UDP_MAX_LOST * len(dgrams):
+        raise AssertionError(f"udp_dgram: {lost} of {len(dgrams)} datagrams "
+                             f"lost")
+    if not spans["calls"]:
+        raise AssertionError("udp_dgram: ingest_spans took no datagram")
+    _need_rfc5424("udp_dgram", r["report"]["launches"], framed=False)
+    rep = r["report"]
+    emit({"phase": "transport", "run": "udp_dgram", "datagrams": len(dgrams),
+          "zlib_every": UDP_ZLIB_EVERY, "expected_records":
+          sum(want.values()), "received_records": sum(got.values()),
+          "lost_records": lost, "ingest_spans": spans, **rep,
+          "economics_notices": econ, "received_records_identical": True})
+    return rep
+
+
+def _scalar_tcp(expected) -> dict:
+    """scalar_tcp: the scalar rfc5424 format over tcp (host only: no
+    kernel may launch), SCALAR_TCP_LINES lines, against rfc5424_tpu over
+    tcp on the same lines in the same call."""
+    from flowgger_tpu_torch.corpus import scalar_expectation
+
+    lines = expected[3].split(b"\n")[:SCALAR_TCP_LINES]
+    data = b"".join(ln + b"\n" for ln in lines)
+    size = len(scalar_expectation(data)[0])
+    runs = {}
+    for fmt in ("rfc5424", "rfc5424_tpu"):
+        def drive(pipe, name=f"scalar_tcp_{fmt}"):
+            _send_tcp(pipe.input.bound_port, data)
+            _wait_output(name, size)
+
+        runs[fmt] = net_run(_net_config(
+            f"scalar_tcp_{fmt}", 'type = "tcp"\nlisten = "127.0.0.1:0"\n',
+            fmt), drive)
+    scalar, tpu = runs["rfc5424"], runs["rfc5424_tpu"]
+    if scalar["report"]["launches"]:
+        raise AssertionError(f"scalar_tcp: the scalar format launched "
+                             f"{scalar['report']['launches']}")
+    errs, econ = econ_split(tpu["errs"])
+    if scalar["out"] != tpu["out"] or scalar["errs"] != errs:
+        raise AssertionError(f"scalar_tcp: the scalar format's bytes "
+                             f"({len(scalar['out'])}) or stderr differ from "
+                             f"rfc5424_tpu's ({len(tpu['out'])})")
+    _need_rfc5424("scalar_tcp", tpu["report"]["launches"])
+    emit({"phase": "transport", "run": "scalar_tcp", "lines": len(lines),
+          "scalar": {"lines_per_s": len(lines) / scalar["wall_s"],
+                     "wall_s": scalar["wall_s"]},
+          "rfc5424_tpu": {"lines_per_s": len(lines) / tpu["wall_s"],
+                          **tpu["report"]},
+          "economics_notices": econ, "identical_to_rfc5424_tpu": True})
+    return tpu["report"]
+
+
+class SigtermCli:
+    """tcp_cli_sigterm: ``python3 -m flowgger_tpu_torch cfg.toml`` with a
+    tcp input into the LTSV output (line framing), started first (it
+    boots while other runs go on, as the e2e phase's CLI runs boot beside
+    their expectations); :meth:`run` sends SIGTERM_LINES lines on one
+    connection, closes it, then (the output complete) SIGTERM: exit 0,
+    the "Received signal 15" line, the output byte-identical to the
+    scalar path's LTSV bytes.  It is the LTSV output's CLI run on the
+    card since rfc5424_ltsv_line's was cut."""
+
+    def __init__(self):
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            self.port = probe.getsockname()[1]
+        cfg = _net_config("tcp_cli_sigterm",
+                          f'type = "tcp"\nlisten = "127.0.0.1:{self.port}"\n',
+                          out_keys='format = "ltsv"\nframing = "line"\n')
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "flowgger_tpu_torch", str(cfg)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+            cwd=str(ROOT))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def run(self, expected) -> None:
+        _tcp_cli_sigterm(self, expected)
+
+
+def _tcp_cli_sigterm(cli: SigtermCli, expected) -> None:
+    import signal
+
+    from flowgger_tpu_torch.corpus import scalar_expectation
+    from flowgger_tpu_torch.mergers import LineMerger
+
+    lines = expected[3].split(b"\n")[:SIGTERM_LINES]
+    data = b"".join(ln + b"\n" for ln in lines)
+    exp_out, exp_err = scalar_expectation(data, merger=LineMerger(),
+                                          output="ltsv")
+    port, proc, t0 = cli.port, cli.proc, cli.t0
+    out = WORK / "tcp_cli_sigterm.out"
+    try:
+        deadline = time.monotonic() + NET_WAIT
+        while True:
+            try:
+                conn = socket.create_connection(("127.0.0.1", port),
+                                                timeout=NET_WAIT)
+                break
+            except OSError:
+                if time.monotonic() > deadline or proc.poll() is not None:
+                    raise AssertionError("tcp_cli_sigterm: the CLI never "
+                                         "listened")
+                time.sleep(0.05)
+        t_listen = time.perf_counter() - t0
+        t_send = time.perf_counter()
+        with conn:
+            conn.sendall(data)
+        _wait_for(lambda: out.exists() and out.stat().st_size
+                  >= len(exp_out), "the CLI's output")
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=NET_WAIT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t_end = time.perf_counter()
+    errs = stderr.decode().splitlines()
+    rest, econ = econ_split([e for e in errs if not e.startswith(
+        "Received signal ")])
+    ok = (proc.returncode == 0 and out.read_bytes() == exp_out
+          and "Received signal 15, draining and exiting" in errs
+          and rest == exp_err)
+    if not ok:
+        raise AssertionError(f"tcp_cli_sigterm: exit {proc.returncode}, "
+                             f"bytes equal={out.read_bytes() == exp_out}, "
+                             f"stderr:\n" + stderr.decode()[-3000:])
+    emit({"phase": "transport", "run": "tcp_cli_sigterm",
+          "lines": len(lines), "output": "ltsv", "exit_code": proc.returncode,
+          "listening_after_s": t_listen, "send_to_exit_s": t_end - t_send,
+          "wall_s": t_end - t0,
+          "stdout_lines": stdout.decode().splitlines()[:3],
+          "economics_notices": econ, "identical_to_expectation": True})
+
+
+def phase_transports(seed: int):
+    """The network inputs on ``cuda`` (after ``overlap_ab``, on the e2e
+    runs' rfc5424_line input, :data:`EXPECTED`): ``tcp_line``,
+    ``tcp_conns``, ``udp_dgram``, ``scalar_tcp`` in process through
+    ``Pipeline.run`` / ``Pipeline.shutdown``, and ``tcp_cli_sigterm``
+    through the CLI; a ``transport`` line each.  Launch shapes the
+    kernels phase did not check are checked after, with the others
+    (:func:`phase_late_shapes`).  Returns the in-process runs' launch
+    counts summed."""
+    expected = EXPECTED["rfc5424_line"]
+    total = {}
+    single = _tcp_line(expected)
+    reps = [single, _tcp_conns(expected, single)]
+    # the CLI boots beside the two runs that follow (the rates of
+    # tcp_line and tcp_conns are taken without it)
+    with SigtermCli() as cli:
+        reps += [_udp_dgram(expected), _scalar_tcp(expected)]
+        cli.run(expected)
+    for rep in reps:
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -5424,6 +5970,9 @@ def main(argv=None) -> int:
     for k, v in phase_overlap_ab(args.seed).items():
         total[k] = total.get(k, 0) + v
     lap("overlap_ab")
+    for k, v in phase_transports(args.seed).items():
+        total[k] = total.get(k, 0) + v
+    lap("transports")
     phase_late_shapes(args.seed)
     lap("late_shapes")
     emit({"phase": "phase_seconds", **seconds,

@@ -1,5 +1,6 @@
-"""Scalar (per-line) decoders: the exactness oracle for rows the RFC5424,
-RFC3164, JSON-lines, LTSV, GELF and DNS kernels flag ``ok=False`` and for lines longer than
+"""Scalar (per-line) decoders: the scalar input formats' path, and the
+exactness oracle for rows the RFC5424, RFC3164, JSON-lines, LTSV, GELF
+and DNS kernels flag ``ok=False`` and for lines longer than
 ``input.tpu_max_line_len``.
 
 Parity model: flowgger src/flowgger/decoder/ — trait
@@ -23,6 +24,17 @@ class Decoder:
         raise NotImplementedError
 
 
+class InvalidDecoder(Decoder):
+    """Placeholder paired with the capnp splitter, which never calls the
+    decoder (decoder/invalid_decoder.rs:14-18, mod.rs:413-416)."""
+
+    def __init__(self, config=None):
+        pass
+
+    def decode(self, line: str) -> Record:
+        raise RuntimeError("The capnp decoder cannot be used for this input format")
+
+
 from .dns import DNSDecoder  # noqa: E402
 from .gelf import GelfDecoder  # noqa: E402
 from .jsonl import JSONLDecoder  # noqa: E402
@@ -30,5 +42,6 @@ from .ltsv import LTSVDecoder  # noqa: E402
 from .rfc3164 import RFC3164Decoder  # noqa: E402
 from .rfc5424 import RFC5424Decoder  # noqa: E402
 
-__all__ = ["Decoder", "DecodeError", "DNSDecoder", "GelfDecoder", "JSONLDecoder",
-           "LTSVDecoder", "RFC3164Decoder", "RFC5424Decoder"]
+__all__ = ["Decoder", "DecodeError", "InvalidDecoder", "DNSDecoder",
+           "GelfDecoder", "JSONLDecoder", "LTSVDecoder", "RFC3164Decoder",
+           "RFC5424Decoder"]

@@ -1,38 +1,60 @@
 """Orchestrator: config → components → queue → run, for the slice of
-the JAX package's pipeline that the port runs on the card.
+the JAX package's pipeline that the port runs.
 
 Parity model: flowgger src/flowgger/mod.rs:95-472 and the JAX package's
 ``pipeline.py``: the same TOML file, the same key names and defaults,
-the same output-framing inference.  The port runs ``input.type =
-"stdin"`` with ``input.framing = "line" | "nul" | "syslen"`` and
-``input.format = "rfc5424_tpu" | "rfc3164_tpu" | "jsonl_tpu" |
-"ltsv_tpu" | "gelf_tpu" | "dns_tpu" | "auto_tpu"``, into ``output.format
-= "gelf" | "json" | "ltsv" | "rfc5424" | "rfc3164" | "passthrough" |
-"capnp"`` with ``output.type = "stdout" | "debug" | "file"``, with any
-``[output.gelf_extra]``, ``[output.ltsv_extra]``, ``[output.capnp_extra]``,
-``output.syslog_prepend_timestamp`` and ``[input.ltsv_schema]`` (the
-configs the block route cannot take run the Record path, as the
-reference's do).  An unknown ``output.format`` raises the reference's
-ConfigError; any other input or output the port does not run yet raises
-ConfigError naming the later slice; nothing quietly takes a scalar
-path.
+the same factories and output-framing inference.  The port runs
+``input.type = "stdin" | "tcp" | "tcp_co" | "tls" | "tls_co" | "udp" |
+"file"`` (and the reference's aliases), every ``input.framing`` (line,
+nul, syslen, capnp) and every ``input.format``: the ``*_tpu`` formats on
+the card (``rfc5424_tpu``, ``rfc3164_tpu``, ``jsonl_tpu``, ``ltsv_tpu``,
+``gelf_tpu``, ``dns_tpu``, ``auto_tpu``) through ONE batch handler that
+every connection, datagram stream and tailed file shares, and the
+scalar formats (``rfc5424`` — the default —, ``rfc3164``, ``gelf``,
+``ltsv``, ``jsonl``, ``dns``, and ``capnp``, whose records come off the
+wire) on the host, through a ``ScalarHandler`` a connection.  Outputs:
+``output.format = "gelf" | "json" | "ltsv" | "rfc5424" | "rfc3164" |
+"passthrough" | "capnp"`` with ``output.type = "stdout" | "debug" |
+"file"``, with any ``[output.gelf_extra]``, ``[output.ltsv_extra]``,
+``[output.capnp_extra]``, ``output.syslog_prepend_timestamp`` and
+``[input.ltsv_schema]`` (the configs the block route cannot take run the
+Record path, as the reference's do).  An unknown input type, input
+format, output format or output type raises the reference's ConfigError;
+``input.type = "redis"`` and ``output.type = "kafka" | "tls" |
+"syslog-tls"`` raise ConfigError naming the later slice; nothing quietly
+takes a scalar path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where no GPU is present raises.
+
+A failure on any ingest thread — a connection's, a file worker's, the
+accept loop's, or one the batch handler's flush timer keeps — ends the
+run: the pipeline keeps the first, stops the input, emits the batches
+submitted before it, stops the sink and raises it (where the reference
+restarts its input under a supervisor).  SIGTERM and SIGINT drain and
+exit 0 (the reference's ``_drain``, without its fleet, durability,
+control, SLO and metrics legs); :meth:`Pipeline.shutdown` is the same
+drain for an in-process run.
 """
 
 from __future__ import annotations
 
+import os
 import queue
+import sys
+import threading
 from typing import Optional
 
 import torch
 
 from .config import Config, ConfigError
+from .decoders import (DNSDecoder, GelfDecoder, InvalidDecoder, JSONLDecoder,
+                       LTSVDecoder, RFC3164Decoder, RFC5424Decoder)
 from .encoders import (CapnpEncoder, GelfEncoder, LTSVEncoder,
                        PassthroughEncoder, RFC3164Encoder, RFC5424Encoder)
 from .mergers import LineMerger, NulMerger, SyslenMerger
 from .outputs import SHUTDOWN, DebugOutput, FileOutput
+from .splitters import ScalarHandler
 
 # mod.rs:101-109 defaults
 DEFAULT_INPUT_FORMAT = "rfc5424"
@@ -41,9 +63,9 @@ DEFAULT_OUTPUT_FORMAT = "gelf"
 DEFAULT_OUTPUT_TYPE = "kafka"
 DEFAULT_QUEUE_SIZE = 10_000_000
 
-_LATER = "is not ported yet (flowgger_tpu_torch runs stdin → rfc5424_tpu, " \
-    "rfc3164_tpu, jsonl_tpu, ltsv_tpu, gelf_tpu, dns_tpu or auto_tpu → " \
-    "stdout, debug or file; it comes in a later slice)"
+_LATER = "is not ported yet (flowgger_tpu_torch runs the stdin, tcp, " \
+    "tcp_co, tls, tls_co, udp and file inputs into stdout, debug or file; " \
+    "the redis input and the kafka and tls outputs come in a later slice)"
 # input.format → the batch handler's decode route
 _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
             "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf",
@@ -64,6 +86,73 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
                            "is available (pass --device cpu to run the plain "
                            "PyTorch versions on the CPU)")
     return dev
+
+
+def get_input(input_type: str, config: Config):
+    """Input factory (mod.rs:181-193)."""
+    if input_type == "redis":
+        raise ConfigError(f'input.type = "{input_type}" {_LATER}')
+    if input_type == "stdin":
+        from .inputs import StdinInput
+
+        return StdinInput(config)
+    if input_type in ("tcp", "syslog-tcp"):
+        from .inputs.tcp_input import TcpInput
+
+        return TcpInput(config)
+    if input_type in ("tcp_co", "tcpco", "syslog-tcp_co", "syslog-tcpco"):
+        from .inputs.tcp_input import TcpCoInput
+
+        return TcpCoInput(config)
+    if input_type in ("tls", "syslog-tls"):
+        from .inputs.tls_input import TlsInput
+
+        return TlsInput(config)
+    if input_type in ("tls_co", "tlsco", "syslog-tls_co", "syslog-tlsco"):
+        from .inputs.tls_input import TlsCoInput
+
+        return TlsCoInput(config)
+    if input_type == "udp":
+        from .inputs.udp_input import UdpInput
+
+        return UdpInput(config)
+    if input_type == "file":
+        from .inputs.file_input import FileInput
+
+        return FileInput(config)
+    raise ConfigError(f"Invalid input type: {input_type}")
+
+
+def get_decoder(input_format: str, config: Config):
+    """Decoder factory (mod.rs:413-422), with the *_tpu formats: their
+    scalar decoder is built too (its config errors are the format's)."""
+    base = _FORMATS.get(input_format, input_format)
+    if input_format == "capnp":
+        return InvalidDecoder(config)
+    if base == "gelf":
+        return GelfDecoder(config)
+    if base == "ltsv":
+        return LTSVDecoder(config)
+    if base == "jsonl":
+        return JSONLDecoder(config)
+    if base == "dns":
+        return DNSDecoder(config)
+    if base in ("rfc5424", "auto"):
+        return RFC5424Decoder(config)
+    if base == "rfc3164":
+        return RFC3164Decoder(config)
+    raise ConfigError(f"Unknown input format: {input_format}")
+
+
+def get_output(output_type: str, config: Config):
+    """Output factory (mod.rs:235-243)."""
+    if output_type in ("stdout", "debug"):
+        return DebugOutput(config)
+    if output_type == "file":
+        return FileOutput(config)
+    if output_type in ("kafka", "tls", "syslog-tls"):
+        raise ConfigError(f'output.type = "{output_type}" {_LATER}')
+    raise ConfigError(f"Invalid output type: {output_type}")
 
 
 def get_merger(output_framing: str):
@@ -91,52 +180,40 @@ def infer_output_framing(output_format: str, output_type: str) -> str:
 
 
 class Pipeline:
-    """Wired-but-not-yet-running pipeline; ``run()`` blocks on the input
-    and drains the queue through the sink before returning."""
+    """Wired-but-not-yet-running pipeline; ``run()`` blocks until the
+    input ends (or :meth:`shutdown`, or a failure) and drains the queue
+    through the sink before returning."""
 
     def __init__(self, config: Config, device: Optional[str] = None):
-        from .inputs import StdinInput
-
-        input_type = config.lookup_str(
-            "input.type", "input.type must be a string", DEFAULT_INPUT_TYPE)
-        if input_type != "stdin":
-            raise ConfigError(f'input.type = "{input_type}" {_LATER}')
         input_format = config.lookup_str(
             "input.format", "input.format must be a string",
             DEFAULT_INPUT_FORMAT)
-        if input_format not in _FORMATS:
-            raise ConfigError(f'input.format = "{input_format}" {_LATER}')
-        self.fmt = _FORMATS[input_format]
-        self.input = StdinInput(config)
+        input_type = config.lookup_str(
+            "input.type", "input.type must be a string", DEFAULT_INPUT_TYPE)
+        self.input = get_input(input_type, config)
+        self.decoder = get_decoder(input_format, config)
+        # the batch handler's decode route, or None: a scalar format
+        self.fmt = _FORMATS.get(input_format)
         output_format = config.lookup_str(
             "output.format", "output.format must be a string",
             DEFAULT_OUTPUT_FORMAT)
         if output_format not in _ENCODERS:
             # the reference's get_encoder words (mod.rs:429-437)
             raise ConfigError(f"Unknown output format: {output_format}")
+        self.encoder = _ENCODERS[output_format](config)
         output_type = config.lookup_str(
             "output.type", "output.type must be a string", DEFAULT_OUTPUT_TYPE)
-        if output_type in ("stdout", "debug"):
-            self.output = DebugOutput(config)
-        elif output_type == "file":
-            self.output = FileOutput(config)
-        else:
-            raise ConfigError(f'output.type = "{output_type}" {_LATER}')
-        self.encoder = _ENCODERS[output_format](config)
+        self.output = get_output(output_type, config)
         output_framing = config.lookup_str(
             "output.framing", "output.framing must be a string")
         if output_framing is None:
             output_framing = infer_output_framing(output_format, output_type)
         self.merger = get_merger(output_framing)
-        if self.fmt in ("ltsv", "auto"):
-            # the decoder's own ConfigErrors (schema, suffixes) at
-            # construction, as the reference's pipeline builds it
-            from .decoders.ltsv import LTSVDecoder
-
-            LTSVDecoder(config)
         if self.fmt == "auto":
+            # the ltsv leg's schema and suffix errors, and the extra legs'
             from .tpu.autodetect import auto_extra_formats
 
+            LTSVDecoder(config)
             auto_extra_formats(config)
         queue_size = config.lookup_int(
             "input.queuesize", "input.queuesize must be a size integer",
@@ -145,37 +222,170 @@ class Pipeline:
         self.config = config
         self.device = resolve_device(device)
         self._handler = None
+        self._handler_lock = threading.Lock()
+        # the run's first failure on any ingest thread, and the wake-up
+        # of run(): set when the input has ended, or a failure was kept
+        self._failure: Optional[BaseException] = None
+        self._fail_lock = threading.Lock()
+        self._wake = threading.Event()
+        self._ending = False
+        self._running = False
+        self._finished = threading.Event()
 
-    def handler_factory(self):
-        """ONE batch handler for the input (stdin has one stream)."""
-        if self._handler is None:
-            from .tpu.batch import BatchHandler
+    def handler_factory(self, peer=None):
+        """One connection's handler.  A ``*_tpu`` format hands every
+        connection the SAME batch handler, built once (batches then fill
+        across connections; each connection frames its own stream
+        through a session of its own).  A scalar format gets a new
+        ``ScalarHandler`` a call.  ``peer`` (the transport's source) is
+        taken and not used: tenancy is a later slice."""
+        if self.fmt is None:
+            return ScalarHandler(self.tx, self.decoder, self.encoder)
+        with self._handler_lock:
+            if self._handler is None:
+                from .tpu.batch import BatchHandler
 
-            self._handler = BatchHandler(self.tx, self.encoder, self.config,
-                                         self.merger, self.device,
-                                         fmt=self.fmt)
-        return self._handler
+                handler = BatchHandler(self.tx, self.encoder, self.config,
+                                       self.merger, self.device,
+                                       fmt=self.fmt)
+                handler.on_failure = self._fail
+                self._handler = handler
+            return self._handler
 
-    def run(self) -> None:
-        thread = self.output.start(self.tx, self.merger)
+    # -- failure and shutdown ------------------------------------------------
+    def _fail(self, exc: BaseException) -> None:
+        """Keep the run's first failure (from any thread) and stop the
+        input; run() then ends the run and raises it."""
+        with self._fail_lock:
+            first = self._failure is None
+            if first:
+                self._failure = exc
+        if first:
+            self._wake.set()
+            self.input.stop()
+
+    def shutdown(self, timeout: float = 60.0) -> None:
+        """Stop a running pipeline from another thread: the input stops
+        (listeners close, workers stop), and run() drains as at the
+        input's end.  Waits up to ``timeout`` seconds for run() to
+        return (it raises a failure, if one ended the run)."""
+        self.input.stop()
+        if self._running:
+            self._finished.wait(timeout)
+
+    def _accept(self) -> None:
+        """The input's accept loop, on its own thread."""
         try:
             self.input.accept(self.handler_factory)
-            if self._handler is not None:
-                # drain every lane (flush fences) and stop the fetcher
-                # threads before SHUTDOWN goes on the queue: a fetcher's
-                # last emit must not land after the output thread stopped
-                self._handler.flush()
-                self._handler.close()
-        except BaseException:
-            # a kernel failure ends the run, but the batches submitted
-            # before it still reach the sink, in order
-            if self._handler is not None:
-                self._handler.drain_after_failure()
-            raise
+        except BaseException as e:  # flowcheck: disable=FC04 -- kept; run() raises it
+            self._fail(e)
         finally:
-            # drain: every queued block reaches the sink before exit
-            self.tx.put(SHUTDOWN)
-            thread.join()
+            self._wake.set()
+
+    def _drain(self) -> None:
+        """The reference's ``_drain`` (pipeline.py:420) without its fleet,
+        durability, control, SLO and metrics legs: wait (at most 2 s) for
+        the connection threads, flush and close the shared handler (the
+        flush fences every lane, so every batch reaches the queue in
+        order), then wait for the sink to consume the queue.  Connection
+        threads still alive after the wait stay daemonized, silently (the
+        reference counts them in a metric; the port emits no metrics)."""
+        self.input.join_handlers(timeout=2.0)
+        if self._handler is not None:
+            self._handler.flush()
+            self._handler.close()
+        self._await_queue_drain()
+
+    def _await_queue_drain(self, deadline_s: float = 30.0) -> None:
+        """Block until the sink has consumed and ``task_done``'d every
+        enqueued item; a sink that cannot drain within ``deadline_s`` is
+        reported, not waited on forever."""
+        import time
+
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < deadline_s:
+            if self.tx.unfinished_tasks == 0:
+                return
+            time.sleep(0.01)
+        print(f"drain: queue barrier timed out after {deadline_s:.0f}s "
+              f"({self.tx.unfinished_tasks} item(s) still in flight)",
+              file=sys.stderr)
+
+    def _end(self, sink: threading.Thread) -> Optional[BaseException]:
+        """Drain, or after a failure emit what was submitted before it;
+        then stop the sink.  Returns the failure that ended the run."""
+        self._ending = True
+        failure = self._failure
+        if failure is None:
+            try:
+                self._drain()
+            except BaseException as e:  # flowcheck: disable=FC04 -- kept; the caller raises it
+                self._fail(e)
+                failure = self._failure
+        if failure is not None and self._handler is not None:
+            self._handler.drain_after_failure()
+        self.tx.put(SHUTDOWN)
+        sink.join(timeout=30)
+        if sink.is_alive():
+            print(f"drain: 1 output thread(s) still alive after 30s, "
+                  f"abandoning: [{sink.name}]", file=sys.stderr)
+        return failure
+
+    def _install_signal_handlers(self, sink: threading.Thread):
+        """SIGTERM and SIGINT drain and exit 0 (the reference's
+        ``_install_signal_handlers``, pipeline.py:565, without its SIGUSR2
+        profiler).  Only the main thread can install them; returns the
+        callable that puts the previous handlers back."""
+        import signal
+
+        if threading.current_thread() is not threading.main_thread():
+            return lambda: None
+
+        def handle(signum, frame):
+            print(f"Received signal {signum}, draining and exiting",
+                  file=sys.stderr)
+            if self._ending:
+                # the run is draining already; it exits when it is done
+                return
+            failure = self._end(sink)
+            if failure is not None:
+                import traceback
+
+                traceback.print_exception(failure)
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1 if failure is not None else 0)
+
+        saved = {s: signal.signal(s, handle)
+                 for s in (signal.SIGTERM, signal.SIGINT)}
+
+        def restore():
+            for s, h in saved.items():
+                signal.signal(s, h)
+
+        return restore
+
+    def run(self) -> None:
+        self._running = True
+        sink = self.output.start(self.tx, self.merger)
+        restore = self._install_signal_handlers(sink)
+        self.input.on_failure = self._fail
+        accept = threading.Thread(target=self._accept, name="input-accept",
+                                  daemon=True)
+        try:
+            accept.start()
+            # the main thread waits here, holding no lock, so a signal's
+            # drain can take every lock it needs
+            self._wake.wait()
+            failure = self._end(sink)
+            # the accept loop has returned (or, stdin blocked in a read
+            # after a failure, is left to the process's exit)
+            accept.join(timeout=2.0)
+        finally:
+            restore()
+            self._finished.set()
+        if failure is not None:
+            raise failure
 
 
 def start(config_file: str, device: Optional[str] = None) -> Pipeline:

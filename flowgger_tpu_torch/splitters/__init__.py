@@ -4,11 +4,14 @@ through a Handler.
 Parity model: flowgger src/flowgger/splitter/ — trait
 ``Splitter<T> { run(BufReader<T>, tx, decoder, encoder) }``
 (splitter/mod.rs:18-26).  The port's batch handler frames on the card:
-the line, NUL and syslen splitters hand it *raw* transport chunks
-through a per-stream session (``handler.open_raw``) and do no scanning
-of their own; record boundaries — including records split across
-chunks — are resolved at flush.  ``ScalarHandler`` reproduces the reference's
-per-line semantics and serves the rows the kernel sends to the oracle.
+when ``handler.wants_raw(framing)`` the line, NUL and syslen splitters
+hand it *raw* transport chunks through a per-stream session
+(``handler.open_raw``) and do no scanning of their own; record
+boundaries — including records split across chunks — are resolved at
+flush.  Any other handler (``ScalarHandler``, the scalar input formats'
+path) gets one frame at a time from the host splitters, with the
+reference's per-line semantics.  ``CapnpSplitter`` builds Records from
+the Cap'n Proto wire and bypasses the decoder (``handle_record``).
 
 Stream contract: a binary file-like with ``read(n)`` returning ``b""`` on
 EOF; idle timeouts surface as ``TimeoutError`` and end the stream like
@@ -17,10 +20,14 @@ the reference's ``WouldBlock``.
 
 from __future__ import annotations
 
+import struct as _struct
 import sys
+from typing import Optional
 
+from .. import capnp_wire
 from ..decoders import DecodeError
 from ..encoders import EncodeError
+from ..record import FACILITY_MAX, Record, SEVERITY_MAX, StructuredData
 
 _CHUNK = 1 << 16
 
@@ -34,8 +41,18 @@ class Handler:
     def handle_bytes(self, raw: bytes) -> None:
         raise NotImplementedError
 
+    def handle_record(self, record: Record) -> None:
+        """Used by the capnp splitter, which bypasses the decoder."""
+        raise NotImplementedError
+
     def flush(self) -> None:
         """Called at end-of-stream (and by batching handlers on timers)."""
+
+    def wants_raw(self, framing: str) -> bool:
+        """A handler that returns True gets *raw* transport chunks via a
+        per-stream session (``open_raw``) and finds record boundaries
+        itself; the default is the host splitters."""
+        return False
 
 
 class ScalarHandler(Handler):
@@ -72,6 +89,44 @@ class ScalarHandler(Handler):
         if not (self.quiet_empty and not stripped):
             print(f"{e}: [{stripped}]", file=sys.stderr)
 
+    def handle_record(self, record: Record) -> None:
+        try:
+            encoded = self.encoder.encode(record)
+        except EncodeError as e:
+            print(e, file=sys.stderr)
+            return
+        self.tx.put(encoded)
+
+
+class LineAssembler:
+    """Carry-over framing: split incoming chunks on a separator, holding
+    the partial tail until the next chunk.  Shared by the host stream
+    splitters and the file tailer."""
+
+    def __init__(self, handler: Handler, sep: bytes = b"\n",
+                 strip_cr: bool = True):
+        self.handler = handler
+        self.sep = sep
+        self.strip_cr = strip_cr
+        self.carry = b""
+
+    def push(self, chunk: bytes) -> None:
+        parts = (self.carry + chunk).split(self.sep)
+        self.carry = parts.pop()
+        for part in parts:
+            if self.strip_cr and part.endswith(b"\r"):
+                part = part[:-1]
+            self.handler.handle_bytes(part)
+
+    def finish(self) -> None:
+        """Emit the trailing partial line (BufRead::lines yields it too)."""
+        if self.carry:
+            part = self.carry
+            self.carry = b""
+            if self.strip_cr and part.endswith(b"\r"):
+                part = part[:-1]
+            self.handler.handle_bytes(part)
+
 
 def _read_stream(stream):
     """Yield chunks until EOF; an idle timeout prints the reference's
@@ -99,6 +154,17 @@ def _run_raw_sep(stream, handler, framing: str) -> None:
     for chunk in _read_stream(stream):
         sess.push(chunk)
     sess.finish()
+    handler.flush()
+
+
+def _read_chunks_split(stream, handler: Handler, sep: bytes,
+                       strip_cr: bool) -> None:
+    """The host path for line / NUL framing: each chunk split with one
+    ``bytes.split``, the partial tail carried to the next chunk."""
+    asm = LineAssembler(handler, sep, strip_cr)
+    for chunk in _read_stream(stream):
+        asm.push(chunk)
+    asm.finish()
     handler.flush()
 
 
@@ -173,7 +239,10 @@ class LineSplitter(Splitter):
     """``\\n`` framing with trailing-``\\r`` strip (line_splitter.rs:9-41)."""
 
     def run(self, stream, handler) -> None:
-        _run_raw_sep(stream, handler, "line")
+        if handler.wants_raw("line"):
+            _run_raw_sep(stream, handler, "line")
+        else:
+            _read_chunks_split(stream, handler, b"\n", strip_cr=True)
 
 
 class NulSplitter(Splitter):
@@ -182,7 +251,10 @@ class NulSplitter(Splitter):
 
     def run(self, stream, handler) -> None:
         handler.quiet_empty = True
-        _run_raw_sep(stream, handler, "nul")
+        if handler.wants_raw("nul"):
+            _run_raw_sep(stream, handler, "nul")
+        else:
+            _read_chunks_split(stream, handler, b"\0", strip_cr=False)
 
 
 class SyslenSplitter(Splitter):
@@ -190,7 +262,10 @@ class SyslenSplitter(Splitter):
     exactly that many bytes (syslen_splitter.rs:10-69)."""
 
     def run(self, stream, handler) -> None:
-        _run_raw_syslen(stream, handler)
+        if handler.wants_raw("syslen"):
+            _run_raw_syslen(stream, handler)
+        else:
+            self._run_scalar(stream, handler)
 
     @staticmethod
     def _mid_body(buf: bytes) -> bool:
@@ -199,17 +274,159 @@ class SyslenSplitter(Splitter):
         sp = buf.find(b" ")
         return sp > 0 and buf[:sp].isdigit()
 
+    @staticmethod
+    def _run_scalar(stream, handler) -> None:
+        buf = b""
+        while True:
+            # read the length prefix up to the space
+            sp = buf.find(b" ")
+            while sp < 0:
+                try:
+                    chunk = stream.read(_CHUNK)
+                except TimeoutError:
+                    print(
+                        "Client hasn't sent any data for a while - Closing idle connection",
+                        file=sys.stderr,
+                    )
+                    handler.flush()
+                    return
+                except OSError:
+                    chunk = b""
+                if not chunk:
+                    if buf:
+                        print("Can't read message's length", file=sys.stderr)
+                    handler.flush()
+                    return
+                buf += chunk
+                sp = buf.find(b" ")
+            len_s = buf[:sp]
+            if not len_s.isdigit():
+                print("Can't read message's length", file=sys.stderr)
+                handler.flush()
+                return
+            size = int(len_s)
+            buf = buf[sp + 1:]
+            while len(buf) < size:
+                try:
+                    chunk = stream.read(_CHUNK)
+                except (TimeoutError, OSError):
+                    chunk = b""
+                if not chunk:
+                    print("failed to fill whole buffer", file=sys.stderr)
+                    handler.flush()
+                    return
+                buf += chunk
+            msg, buf = buf[:size], buf[size:]
+            handler.handle_bytes(msg)
+
+
+class CapnpSplitter(Splitter):
+    """Binary Cap'n Proto stream; builds Records directly from the wire
+    (bypassing the decoder) and hands them to the handler
+    (capnp_splitter.rs:15-167)."""
+
+    def run(self, stream, handler) -> None:
+        buf = b""
+
+        def read_exact(n: int) -> Optional[bytes]:
+            nonlocal buf
+            while len(buf) < n:
+                try:
+                    chunk = stream.read(_CHUNK)
+                except TimeoutError:
+                    print(
+                        "Client hasn't sent any data for a while - Closing idle connection",
+                        file=sys.stderr,
+                    )
+                    return None
+                except OSError:
+                    return None
+                if not chunk:
+                    return None
+                buf += chunk
+            out, buf = buf[:n], buf[n:]
+            return out
+
+        while True:
+            head = read_exact(4)
+            if head is None:
+                break
+            nseg = _struct.unpack("<I", head)[0] + 1
+            table_rest = read_exact(4 * nseg + (4 * nseg + 4) % 8)
+            if table_rest is None:
+                print("Capnp decoding error: truncated segment table",
+                      file=sys.stderr)
+                break
+            sizes = _struct.unpack_from(f"<{nseg}I", table_rest, 0)
+            body = read_exact(8 * sum(sizes))
+            if body is None:
+                print("Capnp decoding error: truncated message",
+                      file=sys.stderr)
+                break
+            try:
+                reader = capnp_wire.parse_message(head + table_rest + body)
+                record = _record_from_capnp(reader)
+            except _MessageError as e:
+                print(e, file=sys.stderr)
+                continue
+            except (capnp_wire.CapnpDecodeError, _struct.error, IndexError,
+                    ValueError, UnicodeDecodeError) as e:
+                # malformed wire data ends the stream: the reference logs
+                # and closes (capnp_splitter.rs:27-31)
+                print(f"Capnp decoding error: {e}", file=sys.stderr)
+                break
+            handler.handle_record(record)
+        handler.flush()
+
+
+class _MessageError(Exception):
+    pass
+
+
+def _record_from_capnp(reader: "capnp_wire.RecordReader") -> Record:
+    """handle_message + get_sd + get_pairs (capnp_splitter.rs:65-167):
+    nan/non-positive ts rejected; facility/severity above their max read
+    as missing; pairs get the ``_`` prefix; extra pairs only keep string
+    values; sd is always present (capnp null text reads as "")."""
+    ts = reader.get_ts()
+    if ts != ts or ts <= 0.0:
+        raise _MessageError("Missing timestamp")
+    facility = reader.get_facility()
+    severity = reader.get_severity()
+    pairs = []
+    for name, value in reader.get_pairs():
+        if not name.startswith("_"):
+            name = f"_{name}"
+        pairs.append((name, value))
+    for name, value in reader.get_extra():
+        if value.kind == value.STRING:
+            pairs.append((name, value))
+    sd = StructuredData(reader.get_sd_id())
+    sd.pairs = pairs
+    return Record(
+        ts=ts,
+        hostname=reader.get_hostname(),
+        facility=facility if facility <= FACILITY_MAX else None,
+        severity=severity if severity <= SEVERITY_MAX else None,
+        appname=reader.get_appname(),
+        procid=reader.get_procid(),
+        msgid=reader.get_msgid(),
+        msg=reader.get_msg(),
+        full_msg=reader.get_full_msg(),
+        sd=[sd],
+    )
+
 
 def get_splitter(framing: str) -> Splitter:
     """Framing-name → splitter (stdin_input.rs:56-63 match arms)."""
+    if framing == "capnp":
+        return CapnpSplitter()
     if framing == "line":
         return LineSplitter()
-    if framing == "nul":
-        return NulSplitter()
     if framing == "syslen":
         return SyslenSplitter()
+    if framing == "nul":
+        return NulSplitter()
     from ..config import ConfigError
 
-    raise ConfigError(f'input.framing = "{framing}" is not ported yet '
-                      "(capnp framing comes in a later slice of "
-                      "flowgger_tpu_torch)")
+    raise ConfigError("Unsupported framing scheme")

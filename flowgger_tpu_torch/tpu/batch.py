@@ -69,6 +69,16 @@ size- or region-triggered flush submits and returns (``drain=False``);
 a timer flush, the end of a stream and every synchronous-emit path (the
 Record path) fence every lane first.
 
+A network input shares ONE handler among all its connections (the
+pipeline's ``handler_factory``): each connection has its own session,
+framed on its own at flush, so a flush submits one batch a session with
+data.  Any thread that flushes submits under the reserved lane's scope
+(its stream), whichever connection it serves.  The UDP input's recvmmsg
+path hands regions with one span a datagram (:meth:`BatchHandler.
+ingest_spans`, packed on the host at flush); the capnp splitter hands
+whole records (:meth:`BatchHandler.handle_record`, encoded on the host
+behind a fence).
+
 ``input.format = "auto_tpu"`` (``fmt = "auto"``) classifies each batch
 (``autodetect.classify_packed``: the AC kernel on the card) and runs
 steps 3-5 on each class's row subset, each leg under its own decline
@@ -109,6 +119,7 @@ import threading
 import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..config import Config, ConfigError
@@ -260,6 +271,10 @@ class BatchHandler(Handler):
         self._auto_extras = (autodetect.auto_extra_formats(config)
                              if fmt == "auto" else ())
         self._lines: List[bytes] = []
+        # regions with their frame spans (the UDP input's recvmmsg path)
+        self._span_chunks: List[bytes] = []
+        self._span_sets: list = []
+        self._span_count = 0
         self._raw_sessions: List["_RawSession"] = []
         self._raw_est = 0
         self._lock = threading.Lock()
@@ -272,6 +287,10 @@ class BatchHandler(Handler):
         # fetcher stashed): kept here for the ingest thread, which raises
         # it at its next push or flush
         self._timer_exc: Optional[BaseException] = None
+        # told of such a failure as soon as the timer keeps it (the
+        # pipeline, which then stops its input: a network input's ingest
+        # threads may push nothing more)
+        self.on_failure = None
         # the device encode tiers' decline hysteresis and counts: the
         # split tier's under the input format (the auto format's legs
         # each under theirs), the fused route's under "fused:<route>"
@@ -397,6 +416,11 @@ class BatchHandler(Handler):
                                       self.decoder)
 
     # -- ingest --------------------------------------------------------------
+    def wants_raw(self, framing: str) -> bool:
+        """The port frames line, NUL and syslen streams on the card: the
+        splitter hands raw chunks to a session (:meth:`open_raw`)."""
+        return framing in ("line", "nul", "syslen")
+
     def open_raw(self, framing: str) -> "_RawSession":
         sess = _RawSession(self, framing)
         with self._lock:
@@ -414,8 +438,39 @@ class BatchHandler(Handler):
         if full:
             self.flush(drain=False)
 
+    def ingest_spans(self, chunk: bytes, starts, lens) -> None:
+        """A region and the spans of its frames (the UDP input's recvmmsg
+        path: one datagram a span).  At flush the spans are packed on the
+        host into one batch, which decodes on the card (the reference's
+        ``ingest_spans`` and ``_decode_spans``, batch.py:448-466,
+        713-730)."""
+        self._raise_timer_exc()
+        with self._lock:
+            self._span_chunks.append(chunk)
+            self._span_sets.append((starts, lens))
+            self._span_count += len(starts)
+            full = self._pending_locked() >= self.batch_size
+            if not full:
+                self._arm_timer_locked()
+        if full:
+            self.flush(drain=False)
+
+    def handle_record(self, record) -> None:
+        """One record the capnp splitter built: every lane is fenced
+        first, so it keeps its place behind the batches in flight, then
+        it is encoded on the host (the reference's ``handle_record``,
+        batch.py:505-507)."""
+        self._raise_timer_exc()
+        self._window.fence()
+        try:
+            encoded = self.encoder.encode(record)
+        except EncodeError as e:
+            print(e, file=sys.stderr)
+            return
+        self.tx.put(encoded)
+
     def _pending_locked(self) -> int:
-        return len(self._lines) + self._raw_est
+        return len(self._lines) + self._span_count + self._raw_est
 
     def _arm_timer_locked(self) -> None:
         if self._timer is None and self._start_timer:
@@ -438,6 +493,8 @@ class BatchHandler(Handler):
                 with self._lock:
                     if self._timer_exc is None:
                         self._timer_exc = e
+                if self.on_failure is not None:
+                    self.on_failure(e)
 
     def _raise_timer_exc(self) -> None:
         """Raise, on the calling (ingest) thread, a failure the timer's
@@ -457,6 +514,9 @@ class BatchHandler(Handler):
         it returns."""
         with self._lock:
             lines, self._lines = self._lines, []
+            span_chunks, self._span_chunks = self._span_chunks, []
+            span_sets, self._span_sets = self._span_sets, []
+            self._span_count = 0
             if self._timer is not None:
                 self._timer.cancel()
                 self._timer = None
@@ -474,6 +534,9 @@ class BatchHandler(Handler):
                     s.est = 0
             for s, chunks in raw:
                 self._decode_raw(s, chunks)
+            if span_chunks:
+                self._submit(_pack_spans(span_chunks, span_sets,
+                                         self.max_len))
             if lines:
                 self._submit(_pack.pack_lines_2d(lines, self.max_len))
             if drain:
@@ -740,6 +803,19 @@ class BatchHandler(Handler):
                 self._print_error(res.error, res.line)
                 continue
             self.tx.put(res.encoded)
+
+
+def _pack_spans(chunks: List[bytes], span_sets: list, max_len: int):
+    """The spans of several regions as one batch packed on the host (the
+    reference's ``pack.pack_spans_2d`` of a chunk list)."""
+    if len(chunks) == 1:
+        starts, lens = span_sets[0]
+        return _pack.pack_spans_2d(chunks[0], starts, lens, max_len)
+    offs = np.cumsum([0] + [len(c) for c in chunks[:-1]])
+    starts = np.concatenate([np.asarray(s, np.int64) + o
+                             for (s, _), o in zip(span_sets, offs)])
+    lens = np.concatenate([np.asarray(ln) for _, ln in span_sets])
+    return _pack.pack_spans_2d(b"".join(chunks), starts, lens, max_len)
 
 
 def block_submit(fmt: str, packed):

@@ -567,13 +567,17 @@ def test_mixed_e2e_runs_on_the_cpu(monkeypatch, tmp_path, name):
 def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
     """phase_e2e's CLI run (``--device cpu``, started while the scalar
     expectation is made) against that expectation at a small size: its
-    bytes (gelf: wall-clock stamps masked), stderr and stdout; the
-    in-process runs, which need the card's kernels, stood in for."""
+    bytes, stderr and stdout; the in-process runs, which need the card's
+    kernels, stood in for.  gelf_line's CLI run was cut when the
+    transports came (it runs in process only): no CLI process starts."""
     monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
     real_popen = subprocess.Popen
 
+    started = []
+
     def popen(argv, *a, **kw):
         if "flowgger_tpu_torch" in argv:
+            started.append(argv)
             kw["env"] = dict(kw["env"], OMP_NUM_THREADS="1")
             argv = [*argv, "--device", "cpu"]
         return real_popen(argv, *a, **kw)
@@ -591,7 +595,12 @@ def test_e2e_cli_runs_beside_the_expectation(monkeypatch, tmp_path, name):
     total = chip_smoke.phase_e2e(name, 1200, 20261016)
     rep, = emitted
     assert rep["identical_to_scalar_path"] and rep["lines"] == 1200
-    assert rep["cli_wall_s"] > 0 and rep["output_bytes"] > 0
+    if name in chip_smoke.INPROC_ONLY:
+        assert not started and "cli_wall_s" not in rep
+    else:
+        assert len(started) == 1
+        assert rep["cli_wall_s"] > 0 and rep["output_bytes"] > 0
+    assert rep["output_bytes"] > 0
     assert seen == [(name, "auto", True, rep["output_bytes"],
                      rep["error_lines"])]
     assert total == {"frame_gather": 1}
@@ -633,9 +642,10 @@ def test_e2e_tier_mix_runs_in_process_only(monkeypatch, tmp_path, name):
 
 def test_out_phases_are_named_and_sized():
     """The LTSV-output, dns, syslog-output and capnp-output e2e paths:
-    their formats, outputs, sizes, which run through the CLI and the
-    kernels each must launch; the rfc5424 line mix into LTSV, RFC5424 and
-    capnp among the paths whose tiers must cool."""
+    their formats, outputs, sizes, which run through the CLI (since the
+    transports came, rfc5424_capnp_line and dns_line) and the kernels
+    each must launch; the rfc5424 line mix into LTSV, RFC5424 and capnp among the
+    paths whose tiers must cool."""
     paths = chip_smoke.OUT_PATHS
     B = chip_smoke.BATCH
     r5 = {"rfc5424_r5_line", "rfc5424_r5_tier", "rfc3164_r5_tier"}
@@ -674,7 +684,9 @@ def test_out_phases_are_named_and_sized():
                      else B // 4 if name.startswith("syslog_out_")
                      else B // 2 if name.startswith("ltsv_out_")
                      else B)
-        assert cli == (name in ("rfc5424_ltsv_line", "dns_line"))
+        # rfc5424_ltsv_line's CLI run was cut when the transports came
+        # (their tcp_cli_sigterm drives the LTSV output's CLI)
+        assert cli == (name == "dns_line")
         assert need[:2] == ("frame_sep_spans", "frame_gather")
         assert (need_off is None) == (name not in tiers)
         assert ("decode_dns" in need) == ("dns" in name)
@@ -921,14 +933,15 @@ def test_overlap_ab_is_named_and_cut():
     """overlap_ab drives the main path and the rfc5424 tier mix at depth
     0, at the default window and at two lanes; to pay for it the syslen
     and jsonl line mixes (and the tier mixes, as before) run in process
-    only, rfc5424_line keeping the GELF output's CLI run."""
+    only, and to pay for the transports phase the ltsv and gelf line
+    mixes too, rfc5424_line keeping the GELF output's CLI run."""
     assert chip_smoke.OVERLAP_PATHS == ("rfc5424_line", "rfc5424_tier")
     assert [(t, k, n) for t, k, n in chip_smoke.OVERLAP_EXECUTORS] == [
         ("inflight0", "tpu_inflight = 0\n", 1), ("inflight2", "", 1),
         ("lanes2", "tpu_lanes = 2\n", 2)]
     assert set(chip_smoke.INPROC_ONLY) == {
         "rfc5424_tier", "rfc3164_tier", "ltsv_tier", "gelf_tier",
-        "rfc5424_syslen", "jsonl_line"}
+        "rfc5424_syslen", "jsonl_line", "ltsv_line", "gelf_line"}
     assert "rfc5424_line" not in chip_smoke.INPROC_ONLY
     assert chip_smoke.RFC5424_LINES == 4 * chip_smoke.BATCH
 
@@ -983,7 +996,9 @@ def test_launch_streams_records_each_launchs_stream(monkeypatch):
 def test_executor_clock_counts_pops_and_ingest_blocking():
     """executor_clock on the CPU: a two-lane handler's pops are timed a
     lane and the ingest thread's seconds in the lane set's submit and
-    fence are its blocked seconds; the class methods come back after."""
+    fence are its blocked seconds (the ingest thread is the pipeline's
+    accept thread, ``input-accept``: a thread of that name pushes here);
+    the class methods come back after."""
     import queue
 
     import torch
@@ -1006,11 +1021,73 @@ def test_executor_clock_counts_pops_and_ingest_blocking():
         # lane set binds the handler's pop at construction
         h = B.BatchHandler(tx, GelfEncoder(cfg), cfg, LineMerger(),
                            torch.device("cpu"), start_timer=False)
-        for ln in lines:
-            h.handle_bytes(ln)
-        h.flush()
+
+        def ingest():
+            for ln in lines:
+                h.handle_bytes(ln)
+            h.flush()
+
+        t = threading.Thread(target=ingest, name="input-accept")
+        t.start()
+        t.join(60)
     h.close()
     assert (B.BatchHandler._pop_emit, overlap.LaneSet.submit,
             overlap.LaneSet.fence) == before
     assert clock["pops"] == 4 and set(clock["pop_s"]) == {0, 1}
     assert clock["blocked_s"] > 0 and tx.qsize() == 4
+
+
+def test_transports_phase_at_a_small_size_on_the_cpu(monkeypatch, tmp_path):
+    """phase_transports end to end on the CPU at a small size (the
+    pipelines on ``cpu``, the CLI with ``--device cpu``): each run's
+    bytes against its expectation, tcp_conns' records a connection in
+    order, udp_dgram's datagrams through ``ingest_spans``, scalar_tcp
+    launching nothing, tcp_cli_sigterm exiting 0.  Launch counts stay 0
+    on the CPU, so the on-card checks are stood in for."""
+    import torch
+
+    from flowgger_tpu_torch import pipeline as P
+    from flowgger_tpu_torch.corpus import make_corpus, scalar_expectation
+
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    monkeypatch.setattr(P, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    needs = []
+    monkeypatch.setattr(chip_smoke, "_need_rfc5424",
+                        lambda name, launches, framed=True:
+                        needs.append((name, framed)))
+    real_popen = subprocess.Popen
+
+    def popen(argv, *a, **kw):
+        if "flowgger_tpu_torch" in argv:
+            kw["env"] = dict(kw["env"], OMP_NUM_THREADS="1")
+            argv = [*argv, "--device", "cpu"]
+        return real_popen(argv, *a, **kw)
+
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
+    for name, n in (("UDP_DGRAMS", 400), ("SCALAR_TCP_LINES", 300),
+                    ("SIGTERM_LINES", 400)):
+        monkeypatch.setattr(chip_smoke, name, n)
+    emitted = []
+    monkeypatch.setattr(chip_smoke, "emit", emitted.append)
+    lines, _ = make_corpus(1024, 9)
+    data = b"\n".join(lines)
+    exp_out, exp_err = scalar_expectation(data)
+    monkeypatch.setitem(chip_smoke.EXPECTED, "rfc5424_line",
+                        (1024, 9, None, data, exp_out, (exp_err, [])))
+    monkeypatch.setattr(chip_smoke, "LATE", set())
+    chip_smoke.phase_transports(9)
+    runs = {r["run"]: r for r in emitted}
+    assert list(runs) == ["tcp_line", "tcp_conns", "udp_dgram",
+                          "scalar_tcp", "tcp_cli_sigterm"]
+    assert runs["tcp_line"]["identical_to_expectation"]
+    assert runs["tcp_conns"]["identical_as_multiset_and_in_order_a_connection"]
+    assert runs["tcp_conns"]["batches"] >= runs["tcp_line"]["batches"]
+    assert runs["udp_dgram"]["ingest_spans"]["datagrams"] > 300
+    assert runs["udp_dgram"]["lost_records"] <= 4
+    assert runs["scalar_tcp"]["identical_to_rfc5424_tpu"]
+    assert runs["tcp_cli_sigterm"]["exit_code"] == 0
+    assert runs["tcp_cli_sigterm"]["output"] == "ltsv"
+    assert needs == [("tcp_line", True), ("tcp_conns", True),
+                     ("udp_dgram", False), ("scalar_tcp", True)]

@@ -142,8 +142,9 @@ def test_rfc5424_every_executor_matches_the_reference(
     if executor.startswith("lanes3"):
         assert lanes == {0, 1, 2} and len(threads) == 3
     elif executor == "inflight0":
-        # strictly serial: every pop on the ingest thread
-        assert lanes == {0} and threads == {threading.current_thread().name}
+        # strictly serial: every pop on the ingest thread (the pipeline's
+        # accept thread: the caller's thread waits for it)
+        assert lanes == {0} and threads == {"input-accept"}
     else:
         assert lanes == {0} and len(threads) == 1 \
             and threading.current_thread().name not in threads

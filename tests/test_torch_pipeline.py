@@ -163,30 +163,68 @@ def test_gelf_extra_static_keys_honored(tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().err.splitlines() == errs
 
 
+# (config, the key its error names, the case's id).  The transports and
+# the scalar and capnp inputs run since the port's network-input slice
+# (test_torch_transports.py, test_torch_scalar_inputs.py): the five cases
+# that pinned them were retargeted at configs that still raise.  Each
+# keeps its test id, so the ids of those five no longer name what they
+# check: the comment above each says what it does, and a failure prints
+# the key and the error
 BAD_CONFIGS = [
-    ('[input]\ntype = "tcp"\nformat = "rfc5424_tpu"\n', "input.type"),
-    ('[input]\ntype = "stdin"\nformat = "rfc5424"\n', "input.format"),
-    ('[input]\ntype = "stdin"\nformat = "ltsv"\n', "input.format"),
-    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "capnp"\n',
-     "input.framing"),
-    # the capnp output runs (test_torch_capnp_out*.py); the capnp input
-    # is a later slice
-    ('[input]\ntype = "stdin"\nformat = "capnp"\n[output]\n'
-     'type = "stdout"\nformat = "capnp"\n', "input.format"),
+    # checks input.type = "redis" with a *_tpu format
+    ('[input]\ntype = "redis"\nformat = "rfc5424_tpu"\n', "input.type",
+     "input.type"),
+    # checks input.type = "redis" with a scalar format
+    ('[input]\ntype = "redis"\nformat = "ltsv"\n', "input.type",
+     "input.format0"),
+    # checks output.type = "tls"
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "kafka"\n', "output.type"),
+     'type = "tls"\n', "output.type", "input.format1"),
+    # checks output.type = "syslog-tls"
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+     'type = "syslog-tls"\n', "output.type", "input.framing"),
+    # checks output.type = "kafka" behind a tcp input of a scalar format
+    ('[input]\ntype = "tcp"\nformat = "ltsv"\n[output]\n'
+     'type = "kafka"\n', "output.type", "input.format2"),
+    ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
+     'type = "kafka"\n', "output.type", "output.type"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "file"\nfile_path = "x"\nfile_rotation_size = 10\n',
-     "file_rotation_size"),
+     "file_rotation_size", "file_rotation_size"),
 ]
 
 
-@pytest.mark.parametrize("text,key", BAD_CONFIGS,
-                         ids=[k for _, k in BAD_CONFIGS])
+@pytest.mark.parametrize("text,key", [c[:2] for c in BAD_CONFIGS],
+                         ids=[c[2] for c in BAD_CONFIGS])
 def test_later_slice_configs_raise(text, key):
     with pytest.raises(ConfigError, match="later slice") as exc:
         pipeline.Pipeline(Config.from_string(text), device="cpu")
-    assert key in str(exc.value)
+    assert key in str(exc.value), (key, str(exc.value))
+
+
+@pytest.mark.parametrize("text,words", [
+    ('[input]\ntype = "carrier-pigeon"\n', "Invalid input type: "
+     "carrier-pigeon"),
+    ('[input]\ntype = "stdin"\nformat = "avro"\n',
+     "Unknown input format: avro"),
+    ('[input]\ntype = "stdin"\nformat = "bogus_tpu"\n',
+     "Unknown input format: bogus_tpu"),
+    ('[input]\ntype = "stdin"\n[output]\ntype = "pigeon"\n',
+     "Invalid output type: pigeon"),
+])
+def test_unknown_input_type_and_format_raise_reference_words(text, words):
+    """An input type, input format or output type that no factory has
+    raises the reference's own ConfigError words (the JAX package's
+    Pipeline, whose factories run in the same order)."""
+    from flowgger_tpu.config import Config as RConfig
+    from flowgger_tpu.config import ConfigError as RConfigError
+    from flowgger_tpu.pipeline import Pipeline as RPipeline
+
+    with pytest.raises(ConfigError) as exc:
+        pipeline.Pipeline(Config.from_string(text), device="cpu")
+    with pytest.raises(RConfigError) as rexc:
+        RPipeline(RConfig.from_string(text))
+    assert str(exc.value) == str(rexc.value) == words
 
 
 @pytest.mark.parametrize("name", ["avro", "gelf_tpu", ""])
@@ -287,14 +325,17 @@ _NEW_MODULES = ("encoders.ltsv", "decoders.dns", "tpu.dns",
                 "tpu.encode_passthrough_block",
                 "tpu.encode_rfc3164_3164_block", "tpu.device_rfc5424_out",
                 "capnp_wire", "encoders.capnp", "tpu.encode_capnp_block",
-                "tpu.device_capnp", "tpu.overlap")
+                "tpu.device_capnp", "tpu.overlap", "inputs.tcp_input",
+                "inputs.tls_input", "inputs.udp_input", "inputs.file_input",
+                "utils.recvmmsg", "utils.inotify")
 
 
 def test_import_rule():
     """Every module of the port imports without JAX and without any
     module of the JAX package (the walk reaches the LTSV output's, the
     dns input's, the syslog outputs', the capnp output's and the overlap
-    executor's modules too), and so does ``chip_smoke.py``."""
+    executor's modules, the transports' and their utilities too), and
+    so does ``chip_smoke.py``."""
     code = (
         "import pkgutil, sys\n"
         "import flowgger_tpu_torch as p\n"

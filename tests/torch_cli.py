@@ -19,27 +19,33 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGES = ("flowgger_tpu_torch", "flowgger_tpu")
 
 
-def run(pkg: str, cfg: Path, data: bytes) -> subprocess.CompletedProcess:
+def argv_env(pkg: str, cfg: Path):
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT))
     extra = ("--device", "cpu") if pkg == "flowgger_tpu_torch" else ()
     if pkg == "flowgger_tpu":
         env["FLOWGGER_DEVICE_ENCODE"] = "0"
-    return subprocess.run([sys.executable, "-m", pkg, str(cfg), *extra],
-                          input=data, capture_output=True, env=env,
+    return [sys.executable, "-m", pkg, str(cfg), *extra], env
+
+
+def run(pkg: str, cfg: Path, data: bytes) -> subprocess.CompletedProcess:
+    argv, env = argv_env(pkg, cfg)
+    return subprocess.run(argv, input=data, capture_output=True, env=env,
                           cwd=str(ROOT), timeout=600)
 
 
 def cli_pair(tmp_path: Path, data: bytes, in_keys: str, out_keys: str,
              in_tables: str = "", out_tables: str = "",
-             fuse: str = "auto", batch_size: int = 256) -> dict:
+             fuse: str = "auto", batch_size: int = 256,
+             concurrent: bool = False) -> dict:
     """``{pkg: (output file bytes, stdout, stderr lines)}`` of both CLIs
     over ``data``, each exiting 0.  The config: ``[input]`` with stdin,
     ``batch_size``-row batches, no timer flush and ``in_keys``, then
     ``in_tables``,
     then ``[output]`` into a file with ``out_keys``, then
-    ``out_tables``."""
-    outs = {}
+    ``out_tables``.  ``concurrent`` runs the two CLIs at once (for pairs
+    whose wall is the processes' start)."""
+    cfgs = {}
     for pkg in PACKAGES:
         out = tmp_path / f"{pkg}.out"
         cfg = tmp_path / f"{pkg}.toml"
@@ -51,8 +57,31 @@ def cli_pair(tmp_path: Path, data: bytes, in_keys: str, out_keys: str,
             + in_keys + in_tables
             + f'[output]\ntype = "file"\nfile_path = "{out}"\n'
             + out_keys + out_tables)
-        proc = run(pkg, cfg, data)
-        assert proc.returncode == 0, (pkg, proc.stderr.decode()[-2000:])
-        outs[pkg] = (out.read_bytes(), proc.stdout,
-                     proc.stderr.decode().splitlines())
+        cfgs[pkg] = (cfg, out)
+    procs = {}
+    if concurrent:
+        running = {}
+        for pkg in PACKAGES:
+            argv, env = argv_env(pkg, cfgs[pkg][0])
+            running[pkg] = subprocess.Popen(
+                argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, env=env, cwd=str(ROOT))
+        for pkg, proc in running.items():
+            try:
+                stdout, stderr = proc.communicate(data, timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            procs[pkg] = (proc.returncode, stdout, stderr)
+    else:
+        for pkg in PACKAGES:
+            proc = run(pkg, cfgs[pkg][0], data)
+            procs[pkg] = (proc.returncode, proc.stdout, proc.stderr)
+    outs = {}
+    for pkg in PACKAGES:
+        rc, stdout, stderr = procs[pkg]
+        assert rc == 0, (pkg, stderr.decode()[-2000:])
+        outs[pkg] = (cfgs[pkg][1].read_bytes(), stdout,
+                     stderr.decode().splitlines())
     return outs
