@@ -247,7 +247,26 @@ Phases, each printing JSON lines:
    launch shapes.  Since the transports came, the ltsv and gelf line
    mixes and rfc5424 → LTSV run in process only (5 CLI runs left in the
    e2e phases: rfc5424_line, rfc3164_line, auto_line, dns_line,
-   rfc5424_capnp_line; tcp_cli_sigterm drives the LTSV output's CLI).
+   rfc5424_capnp_line; tcp_cli_sigterm drives the LTSV output's CLI);
+9. sinks — :func:`phase_sinks`, in process: ``redis_kafka`` (16 384
+   lines of cell 1's corpus in a fake Redis list, :class:`RespFake`,
+   through the redis input, ``rfc5424_tpu`` on the card and the Kafka
+   sink — capnp, snappy, ``kafka_coalesce = 1000``, ``kafka_acks = 1``
+   — into a fake broker, :class:`KafkaFake`, which checks each record
+   batch's CRC32C and decompresses it in Python: the records in order
+   are the scalar path's capnp records; lines/s, Produce requests,
+   batches, records a batch, RESP commands a line, launches) and
+   ``file_rotate`` (rfc5424_line's input into GELF in a file rotating at
+   4 MiB behind a 64 KiB buffer: the files, oldest to newest, are
+   rfc5424_line's expectation; file count, lines/s).  The TLS sink runs
+   in the CPU tests only.
+
+Every e2e path's input and scalar expectation (the host's record-by-
+record reference path) is made before the build by a pool of worker
+processes (spawn; one intra-op thread each; the cores less two), and
+each e2e phase waits only for its own (``expectation_wait`` in
+``phase_seconds``, with the pool's size), checking the input file's
+SHA-256 against the one the expectation was made from.
 
 Kernel times: ``ms`` is the device time of one launch (calls issued back
 to back behind a spin kernel that holds the stream, :func:`device_ms`);
@@ -3462,53 +3481,283 @@ INPROC_ONLY = ("rfc5424_tier", "rfc3164_tier", "ltsv_tier", "gelf_tier",
 EXPECTED: dict = {}
 
 
-def _write_input(name: str, n_lines: int, seed: int):
-    from flowgger_tpu_torch.corpus import (make_corpus, make_gelf_corpus,
-                                           make_gelf_tier_corpus,
-                                           make_jsonl_corpus,
-                                           make_ltsv_corpus,
-                                           make_ltsv_tier_corpus,
-                                           make_rfc3164_corpus,
-                                           make_rfc3164_tier_corpus,
-                                           make_tier_corpus, syslen_stream)
+# -- the scalar expectations, made in worker processes ----------------------
+# Each e2e path's input and its scalar expectation (the host's reference
+# path, record by record in Python) are made by a pool of worker
+# processes started before the build (start_expectations), so that they
+# overlap the build, kernels, native and A/B phases; an e2e phase then
+# waits only for its own result (expected()), its CLI run and its
+# in-process runs.  A job is a plain dict (name, family, lines, seed, the
+# path's table entry and the scratch directory), so a worker needs none
+# of the parent's state.  The worker writes <name>.in, <name>.exp (the
+# expected bytes) and <name>.exp.json (stderr and stdout lines, the
+# input's SHA-256, when its wall-clock window began, the mix); the
+# parent checks the hash against the input file it runs and fails on a
+# mismatch.  The pool uses the spawn start method (the parent holds a
+# CUDA context by then, and forking one is unsafe), one intra-op thread
+# a worker, and leaves two cores to the parent's build and kernels.
+POOL: dict = {"executor": None, "jobs": {}, "workers": 0, "wait_s": 0.0,
+        "started": 0.0, "done": 0.0}
 
-    fmt, framing, kind, _, _ = PATHS[name]
-    make = {"jsonl_line": make_jsonl_corpus, "rfc5424_tier": make_tier_corpus,
-            "rfc3164_line": make_rfc3164_corpus,
-            "rfc3164_tier": make_rfc3164_tier_corpus,
-            "ltsv_line": make_ltsv_corpus,
-            "ltsv_tier": make_ltsv_tier_corpus,
-            "gelf_line": make_gelf_corpus,
-            "gelf_tier": make_gelf_tier_corpus}.get(name, make_corpus)
-    lines, kinds = make(n_lines, seed)
-    if framing == "syslen":
+
+def _pool_init() -> None:
+    """A worker's start: one intra-op thread (set before torch loads)."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def pool_workers() -> int:
+    """Cores this process may use, less two for the parent's build and
+    kernel phases; at least one."""
+    return max(1, len(os.sched_getaffinity(0)) - 2)
+
+
+def _job_key(job: dict) -> str:
+    return json.dumps(job, sort_keys=True, default=str)
+
+
+def submit_expectation(job: dict) -> None:
+    """Queue ``job`` on the pool (started with one worker if no pool
+    runs); a job already queued is not queued again."""
+    key = _job_key(job)
+    if key in POOL["jobs"]:
+        return
+    if POOL["executor"] is None:
+        start_expectations([], workers=1)
+    future = POOL["executor"].submit(make_expected, job)
+    # when the pool's last job so far finished, from the pool's start
+    future.add_done_callback(lambda f: POOL.update(
+        done=max(POOL["done"], time.perf_counter() - POOL["started"])))
+    POOL["jobs"][key] = future
+
+
+def start_expectations(jobs: list, workers: int = 0) -> int:
+    """Start the pool (``workers`` processes, default
+    :func:`pool_workers`) and queue ``jobs`` in the order the phases
+    take them; returns the pool's size."""
+    import concurrent.futures
+    import multiprocessing
+
+    if POOL["executor"] is None:
+        POOL["workers"] = workers or pool_workers()
+        POOL["started"] = time.perf_counter()
+        POOL["executor"] = concurrent.futures.ProcessPoolExecutor(
+            max_workers=POOL["workers"],
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_pool_init)
+    for job in jobs:
+        submit_expectation(job)
+    return POOL["workers"]
+
+
+def wait_expectations() -> None:
+    """Block until every queued job is done (the seconds blocked add to
+    ``POOL["wait_s"]``), so that the pool's workers load no core while a
+    phase takes its host-clock rates."""
+    import concurrent.futures
+
+    t0 = time.perf_counter()
+    concurrent.futures.wait(list(POOL["jobs"].values()))
+    POOL["wait_s"] += time.perf_counter() - t0
+
+
+def close_expectations() -> None:
+    """Stop the pool's processes (queued jobs are cancelled)."""
+    executor = POOL["executor"]
+    POOL.update(executor=None, jobs={}, workers=0, done=0.0)
+    if executor is not None:
+        executor.shutdown(wait=True, cancel_futures=True)
+
+
+def _paths_job(name: str, n_lines: int, seed: int) -> dict:
+    return {"family": "paths", "name": name, "lines": n_lines, "seed": seed,
+            "entry": list(PATHS[name][:3]), "work": str(WORK)}
+
+
+def _mixed_job(name: str, seed: int) -> dict:
+    fmt, _, _, kind, n_lines, _ = MIXED_PATHS[name]
+    in_t, out_t = _mixed_tables(name)
+    return {"family": "mixed", "name": name, "lines": n_lines, "seed": seed,
+            "entry": [fmt, kind, in_t, out_t], "work": str(WORK)}
+
+
+def _out_job(name: str, seed: int) -> dict:
+    from flowgger_tpu_torch import corpus
+
+    fmt_in, keys, output, kind, n_lines, maker = OUT_PATHS[name][:6]
+    in_t = getattr(corpus, keys) if keys.startswith("LTSV") else \
+        ("[input]\n" + keys if keys else "")
+    return {"family": "out", "name": name, "lines": n_lines, "seed": seed,
+            "entry": [keys, output, kind, maker, in_t, _out_keys(name),
+                      _out_framing(name)], "work": str(WORK)}
+
+
+def _sinks_job(seed: int) -> dict:
+    return {"family": "redis_kafka", "name": "redis_kafka",
+            "lines": REDIS_KAFKA_LINES, "seed": seed, "entry": [],
+            "work": str(WORK)}
+
+
+def expectation_jobs(seed: int, lines: int) -> list:
+    """Every e2e path's job, in the order the phases take them: PATHS,
+    MIXED_PATHS, OUT_PATHS, then the sinks phase's redis_kafka."""
+    return ([_paths_job(name, path_lines(name, lines), seed)
+             for name in PATHS]
+            + [_mixed_job(name, seed) for name in MIXED_PATHS]
+            + [_out_job(name, seed) for name in OUT_PATHS]
+            + [_sinks_job(seed)])
+
+
+def _write_input(job: dict):
+    """A job's input: written to ``<work>/<name>.in``; returns (path,
+    bytes, mix: {row kind: count})."""
+    from flowgger_tpu_torch import corpus
+
+    name, n_lines, seed = job["name"], job["lines"], job["seed"]
+    family = job["family"]
+    if family == "paths":
+        fmt, framing, kind = job["entry"]
+        make = {"jsonl_line": corpus.make_jsonl_corpus,
+                "rfc5424_tier": corpus.make_tier_corpus,
+                "rfc3164_line": corpus.make_rfc3164_corpus,
+                "rfc3164_tier": corpus.make_rfc3164_tier_corpus,
+                "ltsv_line": corpus.make_ltsv_corpus,
+                "ltsv_tier": corpus.make_ltsv_tier_corpus,
+                "gelf_line": corpus.make_gelf_corpus,
+                "gelf_tier": corpus.make_gelf_tier_corpus
+                }.get(name, corpus.make_corpus)
+        lines, kinds = make(n_lines, seed)
+    elif family == "mixed":
+        kind = job["entry"][1]
+        if kind == "auto":
+            lines, kinds = corpus.make_auto_corpus(
+                n_lines, seed + 51, tier=name == "auto_tier")
+            kinds = [k.split(":")[0] for k in kinds]
+        else:
+            lines, kinds = {"rfc5424": corpus.make_corpus,
+                            "rfc3164": corpus.make_rfc3164_corpus,
+                            "ltsv": corpus.make_ltsv_corpus,
+                            "gelf": corpus.make_gelf_corpus,
+                            "jsonl": corpus.make_jsonl_corpus
+                            }[kind](n_lines, seed + 52)
+    elif family == "out":
+        keys, maker = job["entry"][0], job["entry"][3]
+        make = getattr(corpus, maker)
+        if maker == "make_auto_corpus":
+            lines, kinds = make(n_lines, seed + 71, dns="dns" in keys)
+            kinds = [k.split(":")[0] for k in kinds]
+        else:
+            lines, kinds = make(n_lines, seed + 71)
+    else:
+        lines, kinds = corpus.make_corpus(n_lines, seed)
+    if family == "paths" and job["entry"][1] == "syslen":
         # the last frame is cut short: a short read at EOF
-        data = syslen_stream(lines)
+        data = corpus.syslen_stream(lines)
+    elif family == "redis_kafka":
+        # one message a list element: NUL-joined, so that the records
+        # keep their CRs (no line framing strips them)
+        data = b"\0".join(lines)
     else:
         # the last record has no newline: the end-of-stream partial frame
         data = b"\n".join(lines)
-    path = WORK / f"{name}.in"
+    path = Path(job["work"]) / f"{name}.in"
     path.write_bytes(data)
-    # a gelf row without a timestamp is stamped with the wall clock from
-    # here on (the CLI run starts next)
-    STAMPED_SINCE[name] = time.time()
     mix = {k: kinds.count(k) for k in sorted(set(kinds))}
     return path, data, mix
 
 
-def _expectation(name: str, data: bytes):
-    """The scalar path's bytes, and its stderr and stdout lines (the ltsv
-    decoder's "Missing value" notices go to stdout)."""
+def _expectation(job: dict, data: bytes):
+    """The scalar path's bytes, stderr lines and stdout lines (the ltsv
+    decoder's "Missing value" notices) for a job's input."""
+    from flowgger_tpu_torch.config import Config
     from flowgger_tpu_torch.corpus import scalar_expectation
+    from flowgger_tpu_torch.mergers import (LineMerger, NulMerger,
+                                            SyslenMerger)
 
-    _, framing, kind, _, _ = PATHS[name]
     notices = []
-    exp_out, exp_err = scalar_expectation(data, framing, fmt=kind,
-                                          notices=notices)
-    return exp_out, (exp_err, notices)
+    family = job["family"]
+    if family == "paths":
+        _, framing, kind = job["entry"]
+        exp_out, exp_err = scalar_expectation(data, framing, fmt=kind,
+                                              notices=notices)
+    elif family == "mixed":
+        _, kind, in_t, out_t = job["entry"]
+        exp_out, exp_err = scalar_expectation(
+            data, "line", config=Config.from_string(in_t + out_t), fmt=kind,
+            notices=notices)
+    elif family == "out":
+        _, output, kind, _, in_t, out_keys, framing = job["entry"]
+        merger = {"noop": None, "nul": NulMerger(), "line": LineMerger(),
+                  "syslen": SyslenMerger()}[framing]
+        exp_out, exp_err = scalar_expectation(
+            data, "line",
+            config=Config.from_string(in_t + "[output]\n" + out_keys),
+            merger=merger, fmt=kind, notices=notices, output=output)
+    else:
+        # redis_kafka: each list element reaches the handler whole
+        exp_out, exp_err = scalar_expectation(data, "message", merger=None,
+                                              output="capnp")
+    return exp_out, exp_err, notices
 
 
-# when each path's scalar expectation was made (_write_input)
+def make_expected(job: dict) -> str:
+    """A worker's job: the input and its scalar expectation, written next
+    to it (the bytes last but one, the JSON last: its presence says the
+    rest is whole)."""
+    import hashlib
+
+    path, data, mix = _write_input(job)
+    # a row without a timestamp is stamped with the wall clock from here
+    # on (the runs that read this come later)
+    since = time.time()
+    exp_out, exp_err, notices = _expectation(job, data)
+    meta = {"job": job, "sha256": hashlib.sha256(data).hexdigest(),
+            "since": since, "stderr": exp_err, "stdout": notices,
+            "mix": mix, "input_bytes": len(data)}
+    for suffix, payload in ((".exp", exp_out),
+                            (".exp.json", json.dumps(meta).encode())):
+        dst = path.with_suffix(suffix)
+        tmp = dst.with_name(dst.name + ".tmp")
+        tmp.write_bytes(payload)
+        os.replace(tmp, dst)
+    return str(path)
+
+
+def expected(job: dict):
+    """A job's result for the phase that runs it, waiting for the pool
+    (the seconds blocked add to ``POOL["wait_s"]``): (input path, input
+    bytes, expected bytes, stderr lines, stdout lines, wall-clock window
+    start, mix).  Fails if the input file's SHA-256 is not the one the
+    expectation was made from."""
+    import hashlib
+
+    submit_expectation(job)
+    t0 = time.perf_counter()
+    path = Path(POOL["jobs"][_job_key(job)].result())
+    POOL["wait_s"] += time.perf_counter() - t0
+    meta = json.loads(path.with_suffix(".exp.json").read_text())
+    data = path.read_bytes()
+    if (hashlib.sha256(data).hexdigest() != meta["sha256"]
+            or meta["job"] != job):
+        raise AssertionError(f"{job['name']}: the input file is not the one "
+                             f"its scalar expectation was made from")
+    return (path, data, path.with_suffix(".exp").read_bytes(),
+            meta["stderr"], meta["stdout"], meta["since"], meta["mix"])
+
+
+def path_lines(name: str, lines: int) -> int:
+    """The lines of a PATHS run (``lines``: the rfc5424 line runs')."""
+    return {"rfc5424_syslen": SYSLEN_LINES, "jsonl_line": JSONL_LINES,
+            "rfc3164_line": RFC3164_LINES,
+            "rfc3164_tier": TIER_LINES, "ltsv_line": LTSV_LINES,
+            "ltsv_tier": TIER_LINES, "gelf_line": GELF_LINES,
+            "gelf_tier": TIER_LINES,
+            "rfc5424_tier": TIER_LINES}.get(name, lines)
+
+
+# when each path's wall-clock window began (its worker's expectation)
 STAMPED_SINCE: dict = {}
 # lines/s of in-process runs the transports phase reports beside its own:
 # "e2e_<path>" (the e2e run, fused route auto) and "overlap_<path>" (the
@@ -3612,10 +3861,9 @@ def launch_shapes(wrappers=SHAPE_CHECKED):
 
 class CliRun:
     """``python -m flowgger_tpu_torch cfg`` with ``path`` as stdin, started
-    in a subprocess at once so that the caller makes the scalar
-    expectation meanwhile (one busy Python thread beside it: the CLI's
-    wall is taken so).  :meth:`result` waits for it; leaving the
-    ``with`` block kills it if it still runs."""
+    in a subprocess at once, so that the caller can do other work
+    meanwhile.  :meth:`result` waits for it; leaving the ``with`` block
+    kills it if it still runs."""
 
     def __init__(self, cfg: Path, path: Path):
         env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -3868,10 +4116,9 @@ COOLING = ("rfc5424_line", "rfc3164_line", "ltsv_line", "gelf_line",
 
 
 def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
-    """One configuration through the CLI (started first, while the scalar
-    expectation is made; the line mixes only: a tier mix runs in process
-    only since the capnp paths came, its line mix driving the same
-    configuration through the CLI) and then in process (counts reset just
+    """One configuration through the CLI (the line mixes only: a tier mix
+    runs in process only since the capnp paths came, its line mix
+    driving the same configuration through the CLI) and then in process (counts reset just
     before, read just after; the tier mixes a second time with the fused
     route off); returns the launch counts summed over the in-process
     runs.  With ``checked`` (the kernels phase's :data:`CHECKED`) it
@@ -3879,20 +4126,21 @@ def phase_e2e(name: str, n_lines: int, seed: int, checked=None):
     checked there (the unchecked shapes of K1 and the ltsv kernels go
     to :data:`LATE`)."""
     WORK.mkdir(parents=True, exist_ok=True)
-    path, data, mix = _write_input(name, n_lines, seed)
+    # the input and its scalar expectation, from the pool's worker
+    path, data, exp_out, errs, notices, since, mix = expected(
+        _paths_job(name, n_lines, seed))
+    STAMPED_SINCE[name] = since
+    exp_err = (errs, notices)
     kind = PATHS[name][2]
 
-    # (a) the CLI in a subprocess, beside the scalar expectation's making
+    # (a) the CLI in a subprocess
     cli = name not in INPROC_ONLY
     if cli:
         with CliRun(_config(name, "cli"), path) as run:
-            exp_out, exp_err = _expectation(name, data)
             rc, cli_out, cli_err, wall_cli = run.result()
         if rc != 0:
             raise AssertionError(f"{name}: CLI run failed:\n"
                                  + cli_err.decode()[-4000:])
-    else:
-        exp_out, exp_err = _expectation(name, data)
     if name in OVERLAP_PATHS:
         EXPECTED[name] = (n_lines, seed, path, data, exp_out, exp_err)
 
@@ -4038,55 +4286,30 @@ def _mixed_same(got, errs, notices, exp) -> bool:
 
 
 def phase_e2e_mixed(name: str, seed: int):
-    """One auto_tpu or Record-path configuration through the CLI (started
-    first, while the scalar expectation is made) and in process (every
-    launch count reset just before, read just after: each kernel of its
-    path launched), both byte-identical to the scalar path; reports lines/s, each leg's split tier taken / declined /
-    cooled and AC's launches, and returns the in-process launch
-    counts.  The launch shapes not checked by the kernels phase go to
-    :data:`LATE`."""
-    from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.corpus import (make_auto_corpus, make_corpus,
-                                           make_gelf_corpus,
-                                           make_jsonl_corpus,
-                                           make_ltsv_corpus,
-                                           make_rfc3164_corpus,
-                                           scalar_expectation)
+    """One auto_tpu or Record-path configuration through the CLI (the
+    paths in :data:`MIXED_CLI`) and in process (every launch count reset
+    just before, read just after: each kernel of its path launched), both
+    byte-identical to the scalar path (made by the pool's worker); reports
+    lines/s, each leg's split tier taken / declined / cooled and AC's
+    launches, and returns the in-process launch counts.  The launch
+    shapes not checked by the kernels phase go to :data:`LATE`."""
     from flowgger_tpu_torch.tpu import framing, kernels
 
     WORK.mkdir(parents=True, exist_ok=True)
-    fmt_in, _, _, kind, n_lines, need = MIXED_PATHS[name]
-    if kind == "auto":
-        lines, kinds = make_auto_corpus(n_lines, seed + 51,
-                                        tier=name == "auto_tier")
-        kinds = [k.split(":")[0] for k in kinds]
-    else:
-        lines, kinds = {"rfc5424": make_corpus, "rfc3164": make_rfc3164_corpus,
-                        "ltsv": make_ltsv_corpus, "gelf": make_gelf_corpus,
-                        "jsonl": make_jsonl_corpus}[kind](n_lines, seed + 52)
-    data = b"\n".join(lines)
-    path = WORK / f"{name}.in"
-    path.write_bytes(data)
+    fmt_in, _, _, _, n_lines, need = MIXED_PATHS[name]
+    path, data, exp_out, exp_err, notices, since, mix = expected(
+        _mixed_job(name, seed))
+    since -= 1.0
     in_t, out_t = _mixed_tables(name)
-    since = time.time() - 1.0
-    notices = []
 
-    def expectation():
-        return scalar_expectation(
-            data, "line", config=Config.from_string(in_t + out_t), fmt=kind,
-            notices=notices)
-
-    # (a) the CLI in a subprocess, beside the scalar expectation's making
+    # (a) the CLI in a subprocess
     cli = name in MIXED_CLI
     if cli:
         with CliRun(_mixed_config(name, "cli"), path) as run:
-            exp_out, exp_err = expectation()
             rc, cli_out, cli_err, wall_cli = run.result()
         if rc != 0:
             raise AssertionError(f"{name}: CLI run failed:\n"
                                  + cli_err.decode()[-4000:])
-    else:
-        exp_out, exp_err = expectation()
     exp = (exp_out, exp_err, notices, since)
 
     # (b) in process, counts reset just before
@@ -4143,8 +4366,7 @@ def phase_e2e_mixed(name: str, seed: int):
           "config_tables": in_t + out_t, "lines": n_lines,
           "input_bytes": len(data), "output_bytes": len(exp_out),
           "error_lines": len(exp_err), "notice_lines": len(notices),
-          "startup_notice": notice,
-          "mix": {k: kinds.count(k) for k in sorted(set(kinds))},
+          "startup_notice": notice, "mix": mix,
           "launches": launches, "classify_auto_launches":
               launches["classify_auto"], "legs": legs,
           "economics_notices": econ_notices,
@@ -4561,58 +4783,31 @@ def e2e_out_inproc(name: str, path: Path, exp, fuse: str,
 
 def phase_e2e_out(name: str, seed: int):
     """One configuration of :data:`OUT_PATHS` through the CLI (where it has
-    one, started first, while the scalar expectation is made) and in
-    process (the tier mix a second time with the fused route off), each
-    byte-identical to the scalar path; returns the launch counts summed
-    over the in-process runs."""
-    from flowgger_tpu_torch import corpus
-    from flowgger_tpu_torch.config import Config
-    from flowgger_tpu_torch.mergers import (LineMerger, NulMerger,
-                                            SyslenMerger)
-
+    one) and in process (the tier mix a second time with the fused route
+    off), each byte-identical to the scalar path (made by the pool's
+    worker); returns the launch counts summed over the in-process runs."""
     WORK.mkdir(parents=True, exist_ok=True)
-    (fmt_in, keys, output, kind, n_lines, maker, cli, _,
-     need_off) = OUT_PATHS[name]
-    make = getattr(corpus, maker)
-    if maker == "make_auto_corpus":
-        lines, kinds = make(n_lines, seed + 71, dns="dns" in keys)
-        kinds = [k.split(":")[0] for k in kinds]
-    else:
-        lines, kinds = make(n_lines, seed + 71)
-    data = b"\n".join(lines)
-    path = WORK / f"{name}.in"
-    path.write_bytes(data)
-    in_t = getattr(corpus, keys) if keys.startswith("LTSV") else \
-        ("[input]\n" + keys if keys else "")
-    out_keys = _out_keys(name)
-    merger = {"noop": None, "nul": NulMerger(), "line": LineMerger(),
-              "syslen": SyslenMerger()}[_out_framing(name)]
-    since = time.time() - 1.0
-    notices = []
+    fmt_in, _, output, _, n_lines, _, cli, _, need_off = OUT_PATHS[name]
+    path, data, exp_out, exp_err, notices, since, mix = expected(
+        _out_job(name, seed))
+    since -= 1.0
     report = {"phase": "e2e", "path": name, "format": fmt_in,
               "output": output, "lines": n_lines, "input_bytes": len(data),
-              "mix": {k: kinds.count(k) for k in sorted(set(kinds))}}
+              "mix": mix}
     if name in ("rfc5424_ltsv_line", "rfc5424_r5_line", "rfc5424_r5_tier",
                 "rfc5424_capnp_line", "rfc5424_capnp_tier"):
         # the line mixes: over 5 % of their rows outside OL, O5 or OC, so
         # both tiers must decline and cool (COOLING lists them); the tier
         # mixes: at most 5 %
-        share = ol_screen_share(lines, output)
+        share = ol_screen_share(data.split(b"\n"), output)
         tag = {"ltsv": "ol", "rfc5424": "o5", "capnp": "oc"}[output]
         report[f"outside_{tag}_share"] = share
         if (share > 0.05) != name.endswith("_line"):
             raise AssertionError(f"{name}: {share:.4f} of the rows fall "
                                  f"outside {tag.upper()}")
 
-    def expectation():
-        return corpus.scalar_expectation(
-            data, "line",
-            config=Config.from_string(in_t + "[output]\n" + out_keys),
-            merger=merger, fmt=kind, notices=notices, output=output)
-
     if cli:
         with CliRun(_out_config(name, "cli"), path) as run:
-            exp_out, exp_err = expectation()
             rc, cli_out, cli_err, wall_cli = run.result()
         if rc != 0:
             raise AssertionError(f"{name}: CLI run failed:\n"
@@ -4629,8 +4824,6 @@ def phase_e2e_out(name: str, seed: int):
                                  f"path")
         report.update(cli_wall_s=wall_cli,
                       cli_lines_per_s=n_lines / wall_cli)
-    else:
-        exp_out, exp_err = expectation()
     exp = (exp_out, exp_err, notices, since)
     tier = name.endswith("_tier")
     runs = [e2e_out_inproc(name, path, exp, "auto", econ=not tier)]
@@ -4882,13 +5075,16 @@ def batch_counts():
         batch_mod.BatchHandler.flush = flush
 
 
-def net_run(cfg: Path, drive) -> dict:
+def net_run(cfg: Path, drive,
+            ready=lambda pipe: pipe.input.bound_port is not None,
+            wrappers=SHAPE_CHECKED) -> dict:
     """One in-process run of a network input's ``cfg`` on ``cuda``: the
     pipeline on a thread (``Pipeline.run``), ``drive(pipe)`` sending its
     traffic and waiting until the pipeline has it, then
     ``Pipeline.shutdown`` (the drain); launch counts reset just before
     and read just after, stdout and stderr captured.  The wall runs from
-    the first byte sent to the drain's end."""
+    the first byte sent (once ``ready(pipe)``: the listener is up) to
+    the drain's end."""
     import torch
 
     from flowgger_tpu_torch.config import Config
@@ -4911,11 +5107,10 @@ def net_run(cfg: Path, drive) -> dict:
     thread = threading.Thread(target=run, name="net-run")
     with contextlib.redirect_stderr(err_buf), \
             contextlib.redirect_stdout(out_buf), \
-            launch_shapes() as seen, batch_counts() as counts:
+            launch_shapes(wrappers) as seen, batch_counts() as counts:
         thread.start()
         try:
-            _wait_for(lambda: pipe.input.bound_port is not None or exc,
-                      "the listener")
+            _wait_for(lambda: ready(pipe) or exc, "the listener")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             drive(pipe)
@@ -4935,10 +5130,11 @@ def net_run(cfg: Path, drive) -> dict:
     LATE.update(late)
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     per_flush = counts["per_flush"]
+    out = WORK / f"{cfg.stem}.out"
     return {"wall_s": wall, "pipe": pipe,
             "errs": err_buf.getvalue().splitlines(),
             "stdout": out_buf.getvalue().splitlines(),
-            "out": (WORK / f"{cfg.stem}.out").read_bytes(),
+            "out": out.read_bytes() if out.exists() else b"",
             "report": {
                 "wall_s": wall, "batches": counts["batches"],
                 "rows_per_batch": counts["rows"] / max(counts["batches"], 1),
@@ -5310,6 +5506,867 @@ def phase_transports(seed: int):
         reps += [_udp_dgram(expected), _scalar_tcp(expected)]
         cli.run(expected)
     for rep in reps:
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# -- the sinks phase: redis → Kafka, and the rotating file ------------------
+REDIS_KAFKA_LINES = BATCH      # lines of redis_kafka (cell 1's corpus)
+RESP_LOOP_LINES = 2048         # lines of redis_kafka's loop-alone control
+ROTATE_SIZE = 4 << 20          # file_rotate's output.file_rotation_size
+ROTATE_MAXFILES = 1000         # file_rotate's file_rotation_maxfiles
+ROTATE_BUFFER = 64 << 10       # file_rotate's output.file_buffer_size
+
+
+def _resp_bulk(v: bytes) -> bytes:
+    return b"$%d\r\n%s\r\n" % (len(v), v)
+
+
+def _resp_array(items) -> bytes:
+    return b"*%d\r\n" % len(items) + b"".join(
+        b":%d\r\n" % v if isinstance(v, int) else _resp_bulk(v)
+        for v in items)
+
+
+def _resp_encode(parts) -> bytes:
+    out = [b"*%d\r\n" % len(parts)]
+    for p in parts:
+        p = p.encode() if isinstance(p, str) else p
+        out.append(_resp_bulk(p))
+    return b"".join(out)
+
+
+def _resp_items(buf: bytearray, end: int):
+    """The items of a RESP array reply whose header ends at ``end``
+    (integers and bulk strings), or None while it is incomplete."""
+    n, pos, items = int(buf[1:end]), end + 2, []
+    while len(items) < max(n, 0):
+        e = buf.find(b"\r\n", pos)
+        if e < 0:
+            return None
+        if buf[pos:pos + 1] == b":":
+            items.append(int(buf[pos + 1:e]))
+            pos = e + 2
+            continue
+        size = int(buf[pos + 1:e])
+        if len(buf) < e + 4 + size:
+            return None
+        items.append(bytes(buf[e + 2:e + 2 + size]))
+        pos = e + 4 + size
+    return items
+
+
+def _resp_parse(buf: bytearray):
+    """One RESP array of bulk strings off the front of ``buf``: (its
+    parts, bytes used), or None while it is incomplete."""
+    end = buf.find(b"\r\n")
+    if end < 0:
+        return None
+    if buf[:1] != b"*":
+        raise ValueError("not a RESP array")
+    pos, parts = end + 2, []
+    for _ in range(int(buf[1:end])):
+        end = buf.find(b"\r\n", pos)
+        if end < 0:
+            return None
+        n = int(buf[pos + 1:end])
+        if len(buf) < end + 2 + n + 2:
+            return None
+        parts.append(bytes(buf[end + 2:end + 2 + n]))
+        pos = end + 4 + n
+    return parts, pos
+
+
+_GONE = object()   # a fake's reply: the connection ends, unanswered
+
+
+class _RespServer:
+    """RespFake's server, one thread in its own process: a selector over
+    the listener and the connections; a BRPOPLPUSH on an empty list parks
+    its connection until a push (or its timeout), FIFO."""
+
+    def __init__(self, sock, drop_at_lrem: int):
+        import selectors
+        from collections import deque
+
+        self.sel = selectors.DefaultSelector()
+        self.sock = sock
+        self.deque = deque
+        self.lists: dict = {}
+        self.drop_at_lrem = drop_at_lrem
+        self.stats = {"commands": 0, "popped": 0, "connections": 0}
+        self.state: dict = {}     # conn -> {"buf", "brpops", "control"}
+        self.parked: list = []    # (conn, src, dst, deadline or None)
+        self.running = True
+        sock.setblocking(False)
+        self.sel.register(sock, selectors.EVENT_READ)
+
+    def serve(self) -> None:
+        while self.running:
+            for key, _ in self.sel.select(0.05):
+                if key.fileobj is self.sock:
+                    self._accept()
+                else:
+                    self._read(key.fileobj)
+            self._wake_parked(timeouts=True)
+        for conn in list(self.state):
+            self._drop(conn)
+        self.sel.close()
+        self.sock.close()
+
+    def _accept(self) -> None:
+        import selectors
+
+        try:
+            conn, _ = self.sock.accept()
+        except OSError:
+            return
+        conn.setblocking(True)
+        self.state[conn] = {"buf": bytearray(), "brpops": 0,
+                            "control": False}
+        self.sel.register(conn, selectors.EVENT_READ)
+
+    def _drop(self, conn) -> None:
+        self.state.pop(conn, None)
+        self.parked = [p for p in self.parked if p[0] is not conn]
+        try:
+            self.sel.unregister(conn)
+        except (KeyError, ValueError):  # flowcheck: disable=FC04 -- already unregistered; the close below ends it
+            pass
+        conn.close()
+
+    def _read(self, conn) -> None:
+        try:
+            chunk = conn.recv(65536)
+        except OSError:
+            chunk = b""
+        if not chunk:
+            self._drop(conn)
+            return
+        self.state[conn]["buf"] += chunk
+        self._run(conn)
+
+    def _run(self, conn) -> None:
+        """Answer the complete commands a connection has sent, unless it
+        is parked on a BRPOPLPUSH."""
+        st = self.state.get(conn)
+        while st is not None and not any(p[0] is conn for p in self.parked):
+            got = _resp_parse(st["buf"])
+            if got is None:
+                return
+            parts, used = got
+            del st["buf"][:used]
+            reply = self._execute(conn, st, parts)
+            if reply is _GONE:
+                self._drop(conn)
+                return
+            if reply is not None:
+                try:
+                    conn.sendall(reply)
+                except OSError:
+                    self._drop(conn)
+                    return
+
+    def _move(self, src: bytes, dst: bytes):
+        dq = self.lists.get(src)
+        if not dq:
+            return None
+        v = dq.pop()
+        self.lists.setdefault(dst, self.deque()).appendleft(v)
+        self.stats["popped"] += 1
+        return v
+
+    def _wake_parked(self, timeouts: bool = False) -> None:
+        now = time.monotonic()
+        for p in list(self.parked):
+            conn, src, dst, deadline = p
+            v = self._move(src, dst)
+            if v is None and not (timeouts and deadline is not None
+                                  and now > deadline):
+                continue
+            self.parked.remove(p)
+            try:
+                conn.sendall(b"*-1\r\n" if v is None else _resp_bulk(v))
+            except OSError:
+                self._drop(conn)
+                continue
+            self._run(conn)
+
+    def _execute(self, conn, st: dict, parts: list):
+        name, args = parts[0].upper(), parts[1:]
+        if name == b"FAKECONTROL":      # the test's own connection
+            st["control"] = True
+            return b"+OK\r\n"
+        if name == b"FAKEINFO":
+            return _resp_array([self.stats[k] for k in
+                                ("commands", "popped", "connections")])
+        if name == b"FAKESTOP":
+            self.running = False
+            return b"+OK\r\n"
+        if not st["control"]:
+            self.stats["commands"] += 1
+            if not st.get("seen"):
+                st["seen"] = True
+                self.stats["connections"] += 1
+        if name == b"LREM" and self.drop_at_lrem \
+                and st["brpops"] == self.drop_at_lrem:
+            self.drop_at_lrem = 0
+            return _GONE
+        if name == b"BRPOPLPUSH":
+            st["brpops"] += 1
+            v = self._move(args[0], args[1])
+            if v is not None:
+                return _resp_bulk(v)
+            timeout = float(args[2])
+            self.parked.append((conn, args[0], args[1],
+                                time.monotonic() + timeout if timeout
+                                else None))
+            return None
+        if name == b"RPOPLPUSH":
+            v = self._move(args[0], args[1])
+            return b"$-1\r\n" if v is None else _resp_bulk(v)
+        if name in (b"LPUSH", b"RPUSH"):
+            dq = self.lists.setdefault(args[0], self.deque())
+            if name == b"LPUSH":
+                dq.extendleft(args[1:])
+            else:
+                dq.extend(args[1:])
+            n = len(dq)
+            self._wake_parked()
+            return b":%d\r\n" % n
+        if name == b"LREM":
+            dq = self.lists.get(args[0], self.deque())
+            count, value = int(args[1]), args[2]
+            items = list(dq) if count >= 0 else list(dq)[::-1]
+            kept, removed = [], 0
+            for v in items:
+                if v == value and (count == 0 or removed < abs(count)):
+                    removed += 1
+                else:
+                    kept.append(v)
+            dq.clear()
+            dq.extend(kept if count >= 0 else kept[::-1])
+            return b":%d\r\n" % removed
+        if name == b"LLEN":
+            return b":%d\r\n" % len(self.lists.get(args[0], ()))
+        if name == b"LRANGE":
+            items = list(self.lists.get(args[0], ()))
+            lo, hi = int(args[1]), int(args[2])
+            return _resp_array(items[lo:(None if hi == -1 else hi + 1)])
+        if name == b"DEL":
+            return b":%d\r\n" % int(self.lists.pop(args[0], None)
+                                    is not None)
+        return b"-ERR unknown command\r\n"
+
+
+def _resp_fake_main(sock, drop_at_lrem: int) -> None:
+    """RespFake's process: serve on the listener the parent bound."""
+    _RespServer(sock, drop_at_lrem).serve()
+
+
+class RespFake:
+    """A Redis server in miniature, in a process of its own (so that its
+    loop shares no interpreter lock with the pipeline it feeds; the
+    listener is bound here and handed down), on a loopback port: lists of bytes and the commands the
+    redis input and its tests send (RPOPLPUSH, BRPOPLPUSH with its
+    blocking wait, LREM, LPUSH, RPUSH, LRANGE, LLEN, DEL), RESP2 on the
+    wire.  ``drop_at_lrem = k`` closes a connection without a reply at
+    the LREM that follows its k-th BRPOPLPUSH (once): the worker then
+    reconnects.  The test side talks to it over a control connection:
+    :meth:`lpush`, :meth:`llen`, :meth:`lrange`, and the counts
+    ``commands`` (the commands the other connections sent), ``popped``
+    (the BRPOPLPUSH / RPOPLPUSH replies that moved a message) and
+    ``connections``."""
+
+    def __init__(self, drop_at_lrem: int = 0):
+        listener = socket.create_server(("127.0.0.1", 0))
+        self.port = listener.getsockname()[1]
+        code = ("import socket, sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke._resp_fake_main("
+                "socket.socket(fileno=int(sys.argv[2])), int(sys.argv[3]))")
+        try:
+            self._proc = subprocess.Popen(
+                [sys.executable, "-c", code, str(ROOT),
+                 str(listener.fileno()), str(drop_at_lrem)],
+                pass_fds=(listener.fileno(),), cwd=str(ROOT))
+        finally:
+            listener.close()
+        self._ctl = socket.create_connection(("127.0.0.1", self.port),
+                                             timeout=NET_WAIT)
+        self._command("FAKECONTROL")
+
+    @property
+    def connect(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def _command(self, *parts):
+        """Send one command on the control connection and read its reply
+        (a status, an error, an integer, or an array)."""
+        self._ctl.sendall(_resp_encode(parts))
+        buf = bytearray()
+        while True:
+            end = buf.find(b"\r\n")
+            if end >= 0:
+                head, kind = bytes(buf[:end]), buf[:1]
+                if kind == b"-":
+                    raise AssertionError(head.decode())
+                if kind == b":":
+                    return int(head[1:])
+                if kind == b"+":
+                    return head[1:]
+                items = _resp_items(buf, end)
+                if items is not None:
+                    return items
+            chunk = self._ctl.recv(1 << 20)
+            if not chunk:
+                raise AssertionError("the RESP fake closed its control "
+                                     "connection")
+            buf += chunk
+
+    # -- the test's side ---------------------------------------------------
+    def lpush(self, key: str, values) -> None:
+        """LPUSH each value in turn: the first comes out of BRPOPLPUSH
+        first."""
+        self._command("LPUSH", key, *values)
+
+    def llen(self, key: str) -> int:
+        return self._command("LLEN", key)
+
+    def lrange(self, key: str) -> list:
+        return self._command("LRANGE", key, "0", "-1")
+
+    def _info(self) -> dict:
+        return dict(zip(("commands", "popped", "connections"),
+                        self._command("FAKEINFO")))
+
+    @property
+    def commands(self) -> int:
+        return self._info()["commands"]
+
+    @property
+    def popped(self) -> int:
+        return self._info()["popped"]
+
+    @property
+    def connections(self) -> int:
+        return self._info()["connections"]
+
+    def close(self) -> None:
+        """Stop the fake's process (every connection closes with it)."""
+        try:
+            self._command("FAKESTOP")
+        except (OSError, AssertionError):  # flowcheck: disable=FC04 -- the process is gone already; the join below reaps it
+            pass
+        self._ctl.close()
+        try:
+            self._proc.wait(NET_WAIT)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            self._proc.wait(NET_WAIT)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+_CRC32C_TABLE: list = []
+
+
+def crc32c_py(data: bytes) -> int:
+    """CRC32C (Castagnoli), table-driven in Python: the broker fake's own
+    check of a record batch, apart from the port's native one."""
+    if not _CRC32C_TABLE:
+        for i in range(256):
+            c = i
+            for _ in range(8):
+                c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+            _CRC32C_TABLE.append(c)
+    t = _CRC32C_TABLE
+    c = 0xFFFFFFFF
+    for b in data:
+        c = (c >> 8) ^ t[(c ^ b) & 0xFF]
+    return c ^ 0xFFFFFFFF
+
+
+def snappy_decompress_py(data: bytes) -> bytes:
+    """A raw snappy block decoded in Python (every element type): the
+    broker fake's own decoder, apart from the port's native one."""
+    ulen, pos, shift = 0, 0, 0
+    while True:
+        b = data[pos]
+        pos += 1
+        ulen |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            break
+    out = bytearray()
+    n = len(data)
+    while pos < n:
+        tag = data[pos]
+        pos += 1
+        kind = tag & 3
+        if kind == 0:
+            ln = (tag >> 2) + 1
+            if ln > 60:
+                nb = ln - 60
+                ln = int.from_bytes(data[pos:pos + nb], "little") + 1
+                pos += nb
+            out += data[pos:pos + ln]
+            pos += ln
+            continue
+        if kind == 1:
+            ln = ((tag >> 2) & 7) + 4
+            off = ((tag >> 5) << 8) | data[pos]
+            pos += 1
+        else:
+            nb = 2 if kind == 2 else 4
+            ln = (tag >> 2) + 1
+            off = int.from_bytes(data[pos:pos + nb], "little")
+            pos += nb
+        if not 0 < off <= len(out):
+            raise AssertionError("snappy: a copy's offset lies outside")
+        while ln > 0:   # an overlapping copy repeats its period
+            step = min(ln, off)
+            out += out[len(out) - off:len(out) - off + step]
+            ln -= step
+    if len(out) != ulen:
+        raise AssertionError("snappy: the block's length disagrees")
+    return bytes(out)
+
+
+def _varint_at(data: bytes, pos: int):
+    """A zigzag varint at ``pos``: (value, next position)."""
+    v, shift = 0, 0
+    while True:
+        b = data[pos]
+        pos += 1
+        v |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return (v >> 1) ^ -(v & 1), pos
+
+
+class KafkaFake:
+    """A one-partition Kafka broker that leads itself, on a loopback port:
+    ApiVersions v0 (Produce 0-8, Metadata 0-9), Metadata v0 / v4 and
+    Produce v0 / v3.  Each Produce's record set is kept as sent and
+    acknowledged (unless acks = 0); :meth:`records` then checks each set
+    (a v2 batch: magic, its CRC32C over the post-CRC bytes, the offset
+    deltas; a v0 message: its CRC32), decompresses it (snappy, gzip) and
+    returns the values in order.  ``legacy`` closes the connection on
+    ApiVersions (a broker older than 0.10) and speaks v0;
+    ``fail_produce`` closes it on every Produce (a broker that stays
+    down)."""
+
+    def __init__(self, legacy: bool = False, fail_produce: bool = False):
+        self.legacy = legacy
+        self.fail_produce = fail_produce
+        self.sets: list = []      # (Produce version, record set bytes)
+        self.requests: dict = {}  # api key -> requests
+        self._lock = threading.Lock()
+        self._threads: list = []
+        self._conns: set = set()
+        self._sock = socket.create_server(("127.0.0.1", 0))
+        self.port = self._sock.getsockname()[1]
+        self._accept = threading.Thread(target=self._serve,
+                                        name="kafka-fake", daemon=True)
+        self._accept.start()
+
+    @property
+    def broker(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def close(self) -> None:
+        """Stop serving: the listener and every connection close, and
+        the fake's threads end."""
+        with self._lock:
+            conns = list(self._conns)
+        # a shutdown wakes the blocked accept (a close alone does not)
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:  # flowcheck: disable=FC04 -- not listening any more; the close below ends it
+            pass
+        self._sock.close()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:  # flowcheck: disable=FC04 -- already disconnected; the close below ends it
+                pass
+            conn.close()
+        self._accept.join(NET_WAIT)
+        for t in self._threads:
+            t.join(NET_WAIT)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _serve(self) -> None:
+        while True:
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            with self._lock:
+                self._conns.add(conn)
+            t = threading.Thread(target=self._client, args=(conn,),
+                                 name="kafka-fake-client", daemon=True)
+            self._threads.append(t)
+            t.start()
+
+    @staticmethod
+    def _read(rfile, n: int) -> bytes:
+        data = rfile.read(n)
+        if len(data) != n:
+            raise EOFError
+        return data
+
+    def _client(self, conn) -> None:
+        import struct
+
+        rfile = conn.makefile("rb")
+        try:
+            while True:
+                size = struct.unpack(">i", self._read(rfile, 4))[0]
+                req = self._read(rfile, size)
+                api, ver, corr, clen = struct.unpack_from(">hhih", req, 0)
+                body = req[10 + max(clen, 0):]
+                with self._lock:
+                    self.requests[api] = self.requests.get(api, 0) + 1
+                reply = self._answer(api, ver, body)
+                if reply is _GONE:
+                    return
+                if reply is not None:
+                    payload = struct.pack(">i", corr) + reply
+                    conn.sendall(struct.pack(">i", len(payload)) + payload)
+        except (OSError, EOFError, struct.error):
+            return
+        finally:
+            with self._lock:
+                self._conns.discard(conn)
+            rfile.close()
+            conn.close()
+
+    def _answer(self, api: int, ver: int, body: bytes):
+        import struct
+
+        def string(s: bytes) -> bytes:
+            return struct.pack(">h", len(s)) + s
+
+        if api == 18:   # ApiVersions
+            if self.legacy:
+                return _GONE
+            ranges = ((0, 0, 8), (3, 0, 9), (18, 0, 3))
+            return struct.pack(">hi", 0, len(ranges)) + b"".join(
+                struct.pack(">hhh", *r) for r in ranges)
+        if api == 3:    # Metadata
+            n = struct.unpack_from(">i", body, 0)[0]
+            tlen = struct.unpack_from(">h", body, 4)[0]
+            topic = body[6:6 + tlen] if n > 0 else b"logs"
+            node = struct.pack(">i", 0) + string(b"127.0.0.1") + \
+                struct.pack(">i", self.port)
+            part = struct.pack(">hiiii", 0, 0, 0, 1, 0) + \
+                struct.pack(">ii", 1, 0)
+            if ver >= 4:
+                return (struct.pack(">ii", 0, 1) + node
+                        + struct.pack(">h", -1)            # rack
+                        + struct.pack(">h", -1)            # cluster id
+                        + struct.pack(">ii", 0, 1)         # controller
+                        + struct.pack(">h", 0) + string(topic)
+                        + struct.pack(">b", 0)             # internal
+                        + struct.pack(">i", 1) + part)
+            return (struct.pack(">i", 1) + node + struct.pack(">ih", 1, 0)
+                    + string(topic) + struct.pack(">i", 1) + part)
+        if api == 0:    # Produce
+            if self.fail_produce:
+                return _GONE
+            pos = 0
+            if ver >= 3:
+                tid = struct.unpack_from(">h", body, 0)[0]
+                pos = 2 + max(tid, 0)
+            acks, _ = struct.unpack_from(">hi", body, pos)
+            pos += 6
+            out = b""
+            for _ in range(struct.unpack_from(">i", body, pos)[0]):
+                tlen = struct.unpack_from(">h", body, pos + 4)[0]
+                topic = body[pos + 6:pos + 6 + tlen]
+                pos += 6 + tlen
+                nparts = struct.unpack_from(">i", body, pos)[0]
+                pos += 4
+                parts = b""
+                for _ in range(nparts):
+                    pid, size = struct.unpack_from(">ii", body, pos)
+                    with self._lock:
+                        self.sets.append((ver, body[pos + 8:pos + 8 + size]))
+                    pos += 8 + size
+                    parts += struct.pack(">ihq", pid, 0, 0) + (
+                        struct.pack(">q", -1) if ver >= 3 else b"")
+                out += string(topic) + struct.pack(">i", nparts) + parts
+            if acks == 0:
+                return None
+            return struct.pack(">i", 1) + out + (
+                struct.pack(">i", 0) if ver >= 3 else b"")
+        return _GONE
+
+    # -- the check ---------------------------------------------------------
+    def records(self) -> tuple:
+        """(values in order, a report: sets, batches, records a batch,
+        compression codes seen, every checksum valid).  Raises
+        AssertionError on a bad checksum, magic or offset delta."""
+        import gzip
+        import struct
+        import zlib
+
+        with self._lock:
+            sets = list(self.sets)
+        values, batches, codecs = [], 0, set()
+
+        def message_set(data: bytes) -> None:
+            pos = 0
+            while pos < len(data):
+                size = struct.unpack_from(">i", data, pos + 8)[0]
+                msg = data[pos + 12:pos + 12 + size]
+                crc, magic, attrs = struct.unpack_from(">Ibb", msg, 0)
+                if zlib.crc32(msg[4:]) != crc or magic != 0:
+                    raise AssertionError("kafka v0: a message's CRC32 or "
+                                         "magic is wrong")
+                klen = struct.unpack_from(">i", msg, 6)[0]
+                vpos = 10 + max(klen, 0)
+                vlen = struct.unpack_from(">i", msg, vpos)[0]
+                value = msg[vpos + 4:vpos + 4 + vlen]
+                codecs.add(attrs & 7)
+                if attrs & 7 == 1:
+                    message_set(gzip.decompress(value))
+                else:
+                    values.append(value)
+                pos += 12 + size
+
+        for ver, data in sets:
+            if ver < 3:
+                batches += 1
+                message_set(data)
+                continue
+            pos = 0
+            while pos < len(data):
+                batches += 1
+                blen = struct.unpack_from(">i", data, pos + 8)[0]
+                end = pos + 12 + blen
+                magic, crc = struct.unpack_from(">bI", data, pos + 16)
+                post = data[pos + 21:end]
+                if magic != 2 or crc32c_py(post) != crc:
+                    raise AssertionError("kafka v2: a batch's magic or "
+                                         "CRC32C is wrong")
+                attrs, last_delta = struct.unpack_from(">hi", post, 0)
+                count = struct.unpack_from(">i", post, 36)[0]
+                recs = post[40:]
+                codecs.add(attrs & 7)
+                if attrs & 7 == 1:
+                    recs = gzip.decompress(recs)
+                elif attrs & 7 == 2:
+                    recs = snappy_decompress_py(recs)
+                rpos = 0
+                for i in range(count):
+                    rlen, rpos = _varint_at(recs, rpos)
+                    rend = rpos + rlen
+                    _, q = _varint_at(recs, rpos + 1)       # ts delta
+                    delta, q = _varint_at(recs, q)
+                    klen, q = _varint_at(recs, q)
+                    q += max(klen, 0)
+                    vlen, q = _varint_at(recs, q)
+                    if delta != i:
+                        raise AssertionError("kafka v2: offset deltas out "
+                                             "of order")
+                    values.append(recs[q:q + vlen])
+                    rpos = rend
+                if last_delta != count - 1:
+                    raise AssertionError("kafka v2: lastOffsetDelta is not "
+                                         "the record count less one")
+                pos = end
+        return values, {"sets": len(sets), "batches": batches,
+                        "records_per_batch": len(values) / max(batches, 1),
+                        "compression": sorted(codecs),
+                        "checksums_valid": True}
+
+
+def resp_loop_rate(resp: "RespFake", lines: list) -> float:
+    """Lines/s of the redis worker's loop alone (BRPOPLPUSH, then LREM,
+    with the port's RESP client) over ``lines`` against ``resp``, in this
+    process with no pipeline running: the bound the redis input's round
+    trips set, beside which redis_kafka's rate is read."""
+    from flowgger_tpu_torch.utils.resp import RespClient
+
+    resp.lpush("loop", lines)
+    cnx = RespClient.from_connect_string(resp.connect, timeout=NET_WAIT)
+    try:
+        t0 = time.perf_counter()
+        for _ in lines:
+            cnx.lrem("loop.tmp", 1, cnx.brpoplpush("loop", "loop.tmp", 0))
+        return len(lines) / (time.perf_counter() - t0)
+    finally:
+        cnx.close()
+
+
+def _need_capnp(name: str, launches: dict) -> None:
+    """A rfc5424_tpu → capnp run decoded on the card (K1 p6) and probed
+    OC or FO/capnp there."""
+    if not (launches.get("decode_rfc5424_p6")
+            and (launches.get("encode_capnp_probe_p6")
+                 or launches.get("fused_rfc5424_capnp_probe"))):
+        raise AssertionError(f"{name}: the run did not decode and probe "
+                             f"capnp on the card: {launches}")
+
+
+def _redis_kafka(seed: int) -> dict:
+    """redis_kafka: cell 1's corpus (REDIS_KAFKA_LINES lines, one list
+    element each) in a RespFake's list, through the redis input
+    (``redis_threads = 1``), ``rfc5424_tpu`` on the card and the Kafka
+    sink into a KafkaFake (capnp, snappy, coalesce 1000, acks 1), in
+    process; the broker's records, in order, must be the scalar path's
+    capnp records (the pool's expectation), every batch's CRC32C valid."""
+    from flowgger_tpu_torch import native
+    from flowgger_tpu_torch.corpus import capnp_messages, mask_capnp_stamps
+
+    _, data, exp_out, exp_err, _, since, mix = expected(_sinks_job(seed))
+    lines = data.split(b"\0")
+    want = [mask_capnp_stamps(exp_out[a:b], since - 1.0)
+            for a, b in capnp_messages(exp_out)]
+    cfg = WORK / "redis_kafka.toml"
+    with RespFake() as resp, KafkaFake() as kafka:
+        loop_rate = resp_loop_rate(resp, lines[:RESP_LOOP_LINES])
+        before = resp.commands
+        resp.lpush("logs", lines)
+        cfg.write_text(
+            f'[input]\ntype = "redis"\nredis_connect = "{resp.connect}"\n'
+            'redis_queue_key = "logs"\nredis_threads = 1\n'
+            'format = "rfc5424_tpu"\n'
+            '[output]\ntype = "kafka"\nformat = "capnp"\n'
+            f'kafka_brokers = ["{kafka.broker}"]\nkafka_topic = "logs"\n'
+            'kafka_compression = "snappy"\nkafka_coalesce = 1000\n'
+            'kafka_acks = 1\n')
+
+        def drive(pipe):
+            _wait_for(lambda: resp.popped >= len(lines)
+                      and not resp.llen("logs")
+                      and not resp.llen("logs.tmp.0"),
+                      "the list's every message popped and removed")
+
+        native.reset_calls()
+        r = net_run(cfg, drive, ready=lambda pipe: True,
+                    wrappers=_OUT_WRAPPERS)
+        calls = dict(native.CALLS)
+        got, broker = kafka.records()
+        commands = resp.commands - before
+        requests = dict(kafka.requests)
+    got = [mask_capnp_stamps(v, since - 1.0) for v in got]
+    errs, econ = econ_split(r["errs"])
+    if got != want:
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+        raise AssertionError(f"redis_kafka: {len(got)} records against the "
+                             f"scalar path's {len(want)}, the first "
+                             f"difference at {first}")
+    connected = [f"Connected to Redis [{resp.connect}], pulling messages "
+                 f"from key [logs]"]
+    if not same_stderr("rfc5424", errs, exp_err) or r["stdout"] != connected:
+        first = next((i for i, (a, b) in enumerate(zip(errs, exp_err))
+                      if a != b), min(len(errs), len(exp_err)))
+        raise AssertionError(f"redis_kafka: {len(errs)} stderr lines against "
+                             f"the scalar path's {len(exp_err)}, the first "
+                             f"difference at {first}; stdout {r['stdout']}")
+    _need_capnp("redis_kafka", r["report"]["launches"])
+    if calls["fg_crc32c"] != broker["batches"] or not calls[
+            "fg_snappy_compress"]:
+        raise AssertionError(f"redis_kafka: native calls {calls} for "
+                             f"{broker['batches']} batches")
+    rep = r["report"]
+    emit({"phase": "sinks", "run": "redis_kafka", "lines": len(lines),
+          "records": len(got), "mix": mix,
+          "lines_per_s": len(lines) / rep["wall_s"],
+          "produce_requests": requests.get(0, 0),
+          "resp_commands": commands, "resp_round_trips_per_line":
+              commands / len(lines),
+          "resp_loop_alone_lines_per_s": loop_rate,
+          "kafka": broker, "native_calls": calls, **rep,
+          "error_lines": len(errs), "scalar_error_lines": len(exp_err),
+          "economics_notices": econ, "stdout": r["stdout"],
+          "records_identical_in_order": True})
+    return rep
+
+
+def _file_rotate() -> dict:
+    """file_rotate: rfc5424_line's input (stdin, ``rfc5424_tpu``) into
+    GELF in a file that rotates at ROTATE_SIZE bytes behind a
+    ROTATE_BUFFER-byte buffer, in process; the files, oldest to newest,
+    must concatenate to rfc5424_line's expectation, with one "reached
+    size limit" line a rotation."""
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    n_lines, _, path, _, exp_out, exp_err = EXPECTED["rfc5424_line"]
+    base = WORK / "file_rotate.out"
+    for old in WORK.glob("file_rotate.*"):
+        old.unlink()
+    cfg = WORK / "file_rotate.toml"
+    cfg.write_text(
+        '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\nframing = "line"\n'
+        '[output]\ntype = "file"\nformat = "gelf"\n'
+        f'file_path = "{base}"\nfile_rotation_size = {ROTATE_SIZE}\n'
+        f'file_rotation_maxfiles = {ROTATE_MAXFILES}\n'
+        f'file_buffer_size = {ROTATE_BUFFER}\n')
+    for k in framing.DECLINES:
+        framing.DECLINES[k] = 0
+    kernels.reset_launch_counts()
+    with launch_shapes() as seen:
+        wall, _, errs, _ = run_inproc(cfg, path)
+    LATE.update(seen - CHECKED)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    rotated = [base.with_suffix(f".{i}") for i in range(ROTATE_MAXFILES)]
+    files = [f for f in reversed(rotated) if f.exists()] + [base]
+    got = b"".join(f.read_bytes() for f in files)
+    # the sink thread prints a rotation line while the handler prints
+    # error lines, and a print writes its text and its newline apart: each
+    # rotation line is taken out whole, wherever it landed
+    limit = f"File {base} reached size limit {ROTATE_SIZE}, rotating"
+    text = "\n".join(errs)
+    rotations = text.count(limit)
+    errs, econ = econ_split([ln for ln in text.replace(limit, "\n").split("\n")
+                             if ln])
+    if (got != exp_out or not same_stderr("rfc5424", errs, exp_err[0])
+            or rotations != len(files) - 1 or len(files) < 2):
+        raise AssertionError(f"file_rotate: {len(files)} files of "
+                             f"{len(got)} bytes against the expectation's "
+                             f"{len(exp_out)} (equal={got == exp_out}), "
+                             f"{rotations} rotations")
+    _need_rfc5424("file_rotate", launches)
+    if any(framing.DECLINES.values()):
+        raise AssertionError(f"file_rotate: device framing declined "
+                             f"{dict(framing.DECLINES)}")
+    rep = {"launches": launches}
+    emit({"phase": "sinks", "run": "file_rotate", "lines": n_lines,
+          "files": len(files), "file_bytes": [f.stat().st_size
+                                              for f in files],
+          "rotation_size": ROTATE_SIZE, "buffer_size": ROTATE_BUFFER,
+          "wall_s": wall, "lines_per_s": n_lines / wall,
+          "rfc5424_line_lines_per_s": RATES.get("e2e_rfc5424_line"),
+          "launches": launches, "economics_notices": econ,
+          "launch_shapes": sorted(f"{k} {list(v)}" for k, v in seen),
+          "concatenation_identical": True})
+    return rep
+
+
+def phase_sinks(seed: int):
+    """The sinks on ``cuda`` (after the transports): ``redis_kafka`` and
+    ``file_rotate``, both in process through ``Pipeline.run`` /
+    ``Pipeline.shutdown``; a ``sinks`` line each.  Launch shapes the
+    kernels phase did not check are checked after, with the others
+    (:func:`phase_late_shapes`).  Returns the runs' launch counts
+    summed."""
+    total = {}
+    for rep in (_redis_kafka(seed), _file_rotate()):
         for k, v in rep["launches"].items():
             total[k] = total.get(k, 0) + v
     return total
@@ -5924,6 +6981,23 @@ def main(argv=None) -> int:
         seconds[name] = seconds.get(name, 0.0) + now - clock[0]
         clock[0] = now
 
+    try:
+        return run_phases(args, seconds, lap)
+    finally:
+        close_expectations()
+
+
+def run_phases(args, seconds: dict, lap) -> int:
+    """The phases of a run, in order (:func:`main`'s body)."""
+    import torch
+
+    if not args.host_ab:
+        # the scalar expectations of every e2e path, made in worker
+        # processes beside the build and kernels phases
+        jobs = expectation_jobs(args.seed, args.lines)
+        WORK.mkdir(parents=True, exist_ok=True)
+        emit({"phase": "expectations", "workers": start_expectations(jobs),
+              "jobs": len(jobs), "start_method": "spawn"})
     smi_line = phase_device()
     phase_build()
     lap("device_build")
@@ -5933,6 +7007,10 @@ def main(argv=None) -> int:
         return 0
     rows = phase_kernels(args.seed)
     lap("kernels")
+    # the native, breakdown and A/B phases read host-clock rates: the
+    # pool is done before them
+    wait_expectations()
+    lap("expectations")
     phase_native(args.seed)
     lap("native")
     if (phase_breakdown(args.seed, "rfc5424")
@@ -5950,13 +7028,8 @@ def main(argv=None) -> int:
     lap("fuse_ab")
     total = {}
     for name in PATHS:
-        n = {"rfc5424_syslen": SYSLEN_LINES, "jsonl_line": JSONL_LINES,
-             "rfc3164_line": RFC3164_LINES,
-             "rfc3164_tier": TIER_LINES, "ltsv_line": LTSV_LINES,
-             "ltsv_tier": TIER_LINES, "gelf_line": GELF_LINES,
-             "gelf_tier": TIER_LINES,
-             "rfc5424_tier": TIER_LINES}.get(name, args.lines)
-        for k, v in phase_e2e(name, n, args.seed, CHECKED).items():
+        for k, v in phase_e2e(name, path_lines(name, args.lines), args.seed,
+                              CHECKED).items():
             total[k] = total.get(k, 0) + v
         lap(f"e2e_{name}")
     for name in MIXED_PATHS:
@@ -5973,10 +7046,19 @@ def main(argv=None) -> int:
     for k, v in phase_transports(args.seed).items():
         total[k] = total.get(k, 0) + v
     lap("transports")
+    for k, v in phase_sinks(args.seed).items():
+        total[k] = total.get(k, 0) + v
+    lap("sinks")
     phase_late_shapes(args.seed)
     lap("late_shapes")
+    # expectation_wait: the seconds spent blocked on the pool, in the
+    # "expectations" entry and inside the e2e phases' own entries (so not
+    # added to the total)
     emit({"phase": "phase_seconds", **seconds,
-          "total": sum(seconds.values())})
+          "total": sum(seconds.values()),
+          "expectation_wait": POOL["wait_s"],
+          "expectation_workers": POOL["workers"],
+          "expectations_done_s": POOL["done"]})
     for r in rows:
         r["launches"] = total[r["name"]]
     emit({"kernels": [

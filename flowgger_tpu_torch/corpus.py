@@ -979,6 +979,10 @@ def _frames(data: bytes, framing: str):
         else:
             tail = []
         return recs, tail
+    if framing == "message":
+        # a message queue's elements, NUL-joined: each is handed to the
+        # handler whole (nothing stripped, an empty one not skipped)
+        return data.split(b"\0"), []
     sep = b"\0" if framing == "nul" else b"\n"
     parts = data.split(sep)
     if parts and parts[-1] == b"":
@@ -1005,7 +1009,8 @@ def scalar_expectation(data: bytes, framing: str = "line",
     given, None = no framing) and stderr lines of the reference's per-record
     path over ``data``: frame (line: one trailing CR stripped; syslen:
     the octet-count scan and its EOF/bad-prefix messages; the trailing
-    partial frame of line/NUL included), then decode (``fmt`` is
+    partial frame of line/NUL included; message: the elements of a
+    NUL-joined message list, as the redis input hands them on), then decode (``fmt`` is
     ``rfc5424``, ``rfc3164``, ``jsonl``, ``ltsv`` or ``gelf``, the LTSV decoder
     with ``config``'s schema and suffixes; or ``auto``, each line's
     ``autodetect.classify`` class picking its decoder, with ``config``'s

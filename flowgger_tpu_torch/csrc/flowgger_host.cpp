@@ -11,12 +11,14 @@
 //   fg_r5_lens / fg_r5_write :718-885 (the RFC5424 output's row writer,
 //   r5_row_len :754, r5_row_write :784);
 //   fg_concat_segments :887-904;
-//   json_f64_render :908-970 and fg_format_f64_json :976-997.
+//   json_f64_render :908-970 and fg_format_f64_json :976-997;
+//   fg_crc32c :122-166 and the snappy codec fg_snappy_max_compressed /
+//   fg_snappy_compress / fg_snappy_decompress :168-355 (the Kafka
+//   sink's record batches v2), at the end of this file.
 // Left out: fg_split_lines, fg_split_syslen and fg_pack_lines :26-120
 // (the port frames on the card; its host framing serves only declines
-// and the end-of-stream record, on numpy and Python), fg_crc32c
-// :122-166 and the snappy codec :168-355 (the Kafka sink's).  The
-// extern "C" blocks are regrouped so that none holds a namespace.
+// and the end-of-stream record, on numpy and Python).  The extern "C"
+// blocks are regrouped so that none holds a namespace.
 //
 // Outputs are contracts held by tests/test_torch_native.py against the
 // numpy and Python versions beside the callers and against the JAX
@@ -676,6 +678,241 @@ void fg_format_f64_json(const double* vals, int64_t n, uint8_t* out,
             out_len[i] = (int32_t)len;
         }
     }, 16384);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// CRC32C (Castagnoli) — required by the Kafka record-batch v2 format.
+// Table-driven, slicing-by-4.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct Crc32cTables {
+    uint32_t t[4][256];
+    Crc32cTables() {
+        const uint32_t poly = 0x82F63B78u;  // reflected 0x1EDC6F41
+        for (uint32_t i = 0; i < 256; i++) {
+            uint32_t c = i;
+            for (int k = 0; k < 8; k++)
+                c = (c & 1) ? (c >> 1) ^ poly : c >> 1;
+            t[0][i] = c;
+        }
+        for (uint32_t i = 0; i < 256; i++) {
+            t[1][i] = (t[0][i] >> 8) ^ t[0][t[0][i] & 0xFF];
+            t[2][i] = (t[1][i] >> 8) ^ t[0][t[1][i] & 0xFF];
+            t[3][i] = (t[2][i] >> 8) ^ t[0][t[2][i] & 0xFF];
+        }
+    }
+};
+const Crc32cTables kCrc;
+
+}  // namespace
+
+extern "C" {
+
+uint32_t fg_crc32c(const uint8_t* data, int64_t len, uint32_t init) {
+    uint32_t c = ~init;
+    int64_t i = 0;
+    for (; i + 4 <= len; i += 4) {
+        c ^= (uint32_t)data[i] | ((uint32_t)data[i + 1] << 8)
+             | ((uint32_t)data[i + 2] << 16) | ((uint32_t)data[i + 3] << 24);
+        c = kCrc.t[3][c & 0xFF] ^ kCrc.t[2][(c >> 8) & 0xFF]
+            ^ kCrc.t[1][(c >> 16) & 0xFF] ^ kCrc.t[0][c >> 24];
+    }
+    for (; i < len; i++)
+        c = (c >> 8) ^ kCrc.t[0][(c ^ data[i]) & 0xFF];
+    return ~c;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Snappy block format (raw, no framing) — the compression codec Kafka
+// record batches use for attributes=2.  Greedy 64KB-block hash matching
+// per the public format description; decompressor handles every element
+// type.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+inline int put_varint(uint8_t* dst, uint64_t v) {
+    int n = 0;
+    while (v >= 0x80) {
+        dst[n++] = (uint8_t)(v | 0x80);
+        v >>= 7;
+    }
+    dst[n++] = (uint8_t)v;
+    return n;
+}
+
+inline uint8_t* emit_literal(uint8_t* op, const uint8_t* s, int64_t len) {
+    int64_t n = len - 1;
+    if (n < 60) {
+        *op++ = (uint8_t)(n << 2);
+    } else if (n < 256) {
+        *op++ = (uint8_t)(60 << 2);
+        *op++ = (uint8_t)n;
+    } else if (n < 65536) {
+        *op++ = (uint8_t)(61 << 2);
+        *op++ = (uint8_t)n;
+        *op++ = (uint8_t)(n >> 8);
+    } else if (n < (1 << 24)) {
+        *op++ = (uint8_t)(62 << 2);
+        *op++ = (uint8_t)n;
+        *op++ = (uint8_t)(n >> 8);
+        *op++ = (uint8_t)(n >> 16);
+    } else {
+        *op++ = (uint8_t)(63 << 2);
+        *op++ = (uint8_t)n;
+        *op++ = (uint8_t)(n >> 8);
+        *op++ = (uint8_t)(n >> 16);
+        *op++ = (uint8_t)(n >> 24);
+    }
+    memcpy(op, s, (size_t)len);
+    return op + len;
+}
+
+inline uint8_t* emit_copy(uint8_t* op, int64_t offset, int64_t len) {
+    // len 4..11 with offset < 2048: 1-byte-offset form
+    while (len >= 68) {
+        *op++ = (uint8_t)((63 << 2) | 2);  // copy-2, len 64
+        *op++ = (uint8_t)offset;
+        *op++ = (uint8_t)(offset >> 8);
+        len -= 64;
+    }
+    if (len > 64) {
+        *op++ = (uint8_t)((59 << 2) | 2);  // len 60
+        *op++ = (uint8_t)offset;
+        *op++ = (uint8_t)(offset >> 8);
+        len -= 60;
+    }
+    if (len >= 12 || offset >= 2048) {
+        *op++ = (uint8_t)(((len - 1) << 2) | 2);
+        *op++ = (uint8_t)offset;
+        *op++ = (uint8_t)(offset >> 8);
+    } else {
+        *op++ = (uint8_t)(((offset >> 8) << 5) | ((len - 4) << 2) | 1);
+        *op++ = (uint8_t)offset;
+    }
+    return op;
+}
+
+inline uint32_t snappy_hash(uint32_t v) { return (v * 0x1E35A7BDu) >> 18; }
+
+}  // namespace
+
+extern "C" {
+
+int64_t fg_snappy_max_compressed(int64_t n) {
+    return 32 + n + n / 6;
+}
+
+// Compress src into dst (sized >= fg_snappy_max_compressed); returns the
+// compressed size.
+int64_t fg_snappy_compress(const uint8_t* src, int64_t n, uint8_t* dst) {
+    uint8_t* op = dst;
+    op += put_varint(op, (uint64_t)n);
+    const int64_t kBlock = 1 << 16;
+    std::vector<uint16_t> table(1 << 14);
+    for (int64_t base = 0; base < n; base += kBlock) {
+        int64_t blen = std::min(kBlock, n - base);
+        const uint8_t* p = src + base;
+        std::fill(table.begin(), table.end(), 0);
+        int64_t ip = 0;
+        int64_t lit_start = 0;
+        while (ip + 4 <= blen) {
+            uint32_t v;
+            memcpy(&v, p + ip, 4);
+            uint32_t h = snappy_hash(v);
+            int64_t cand = table[h];
+            table[h] = (uint16_t)ip;
+            uint32_t cv;
+            memcpy(&cv, p + cand, 4);
+            if (cand < ip && cv == v) {
+                // extend the match
+                int64_t len = 4;
+                while (ip + len < blen && p[cand + len] == p[ip + len]
+                       && len < (int64_t)0xFFFF)
+                    len++;
+                if (ip > lit_start)
+                    op = emit_literal(op, p + lit_start, ip - lit_start);
+                op = emit_copy(op, ip - cand, len);
+                ip += len;
+                lit_start = ip;
+            } else {
+                ip++;
+            }
+        }
+        if (blen > lit_start)
+            op = emit_literal(op, p + lit_start, blen - lit_start);
+    }
+    return op - dst;
+}
+
+// Decompress src into dst (sized to the preamble's uncompressed length).
+// Returns the decompressed size, or -1 on malformed input.
+int64_t fg_snappy_decompress(const uint8_t* src, int64_t n,
+                             uint8_t* dst, int64_t dst_cap) {
+    int64_t ip = 0;
+    uint64_t ulen = 0;
+    int shift = 0;
+    while (ip < n) {
+        uint8_t b = src[ip++];
+        ulen |= (uint64_t)(b & 0x7F) << shift;
+        if (!(b & 0x80)) break;
+        shift += 7;
+        if (shift > 35) return -1;
+    }
+    if ((int64_t)ulen > dst_cap) return -1;
+    int64_t op = 0;
+    while (ip < n) {
+        uint8_t tag = src[ip++];
+        int type = tag & 3;
+        if (type == 0) {  // literal
+            int64_t len = (tag >> 2) + 1;
+            if (len > 60) {
+                int nb = (int)len - 60;
+                if (ip + nb > n) return -1;
+                len = 0;
+                for (int k = 0; k < nb; k++)
+                    len |= (int64_t)src[ip + k] << (8 * k);
+                len += 1;
+                ip += nb;
+            }
+            if (ip + len > n || op + len > (int64_t)ulen) return -1;
+            memcpy(dst + op, src + ip, (size_t)len);
+            ip += len;
+            op += len;
+            continue;
+        }
+        int64_t len, offset;
+        if (type == 1) {
+            if (ip >= n) return -1;
+            len = ((tag >> 2) & 7) + 4;
+            offset = ((int64_t)(tag >> 5) << 8) | src[ip++];
+        } else if (type == 2) {
+            if (ip + 2 > n) return -1;
+            len = (tag >> 2) + 1;
+            offset = (int64_t)src[ip] | ((int64_t)src[ip + 1] << 8);
+            ip += 2;
+        } else {
+            if (ip + 4 > n) return -1;
+            len = (tag >> 2) + 1;
+            offset = (int64_t)src[ip] | ((int64_t)src[ip + 1] << 8)
+                     | ((int64_t)src[ip + 2] << 16)
+                     | ((int64_t)src[ip + 3] << 24);
+            ip += 4;
+        }
+        if (offset == 0 || offset > op || op + len > (int64_t)ulen) return -1;
+        // overlapping copies are byte-serial by definition
+        for (int64_t k = 0; k < len; k++) {
+            dst[op + k] = dst[op + k - offset];
+        }
+        op += len;
+    }
+    return op == (int64_t)ulen ? op : -1;
 }
 
 }  // extern "C"

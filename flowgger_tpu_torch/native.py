@@ -12,7 +12,13 @@ Exports and their callers:
   ``tpu/assemble.concat_segments`` (both block encoders, the escape view
   and the device tier's splice);
 - ``fg_format_f64_json`` — the timestamp text of
-  ``tpu/device_common.ts_text_block``.
+  ``tpu/device_common.ts_text_block``;
+- ``fg_crc32c`` — the CRC32C of a Kafka record batch v2
+  (``utils/kafka_wire._record_batch``);
+- ``fg_snappy_max_compressed`` / ``fg_snappy_compress`` /
+  ``fg_snappy_decompress`` — the snappy block codec of
+  ``utils/snappy.py`` (record batches with ``kafka_compression =
+  "snappy"``).
 
 The source is compiled with ``g++`` (the flags of the JAX package's
 ``native/Makefile``) into ``build/host`` next to the package at first
@@ -52,7 +58,8 @@ MAX_PAIRS = 64   # kMaxPairs in flowgger_host.cpp: the row engine's pair cap
 # calls of each export since the last reset_calls()
 CALLS: Dict[str, int] = {
     "fg_gelf_lens_v2": 0, "fg_gelf_write_v2": 0, "fg_r5_lens": 0,
-    "fg_r5_write": 0, "fg_concat_segments": 0, "fg_format_f64_json": 0}
+    "fg_r5_write": 0, "fg_concat_segments": 0, "fg_format_f64_json": 0,
+    "fg_crc32c": 0, "fg_snappy_compress": 0, "fg_snappy_decompress": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -70,6 +77,10 @@ _SIGNATURES = {
     "fg_gelf_write_v2": (None, _GELF_COMMON + [_P, _P, _INT]),
     "fg_concat_segments": (None, [_P, _P, _P, _P, _I64, _P, _INT]),
     "fg_format_f64_json": (None, [_P, _I64, _P, _I32, _P, _INT]),
+    "fg_crc32c": (ctypes.c_uint32, [_P, _I64, ctypes.c_uint32]),
+    "fg_snappy_max_compressed": (_I64, [_I64]),
+    "fg_snappy_compress": (_I64, [_P, _I64, _P]),
+    "fg_snappy_decompress": (_I64, [_P, _I64, _P, _I64]),
 }
 
 _lock = threading.Lock()
@@ -351,3 +362,38 @@ def format_f64_json_native(vals: np.ndarray, width: int
         lib.fg_format_f64_json(vals.ctypes.data, n, txt.ctypes.data, width,
                                lens.ctypes.data, _DEFAULT_THREADS)
     return txt, lens
+
+
+def crc32c(data: bytes, init: int = 0) -> int:
+    """CRC32C (Castagnoli) of ``data``, continuing from ``init``: the
+    checksum of a Kafka record batch v2."""
+    lib = _load()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    _called("fg_crc32c")
+    return int(lib.fg_crc32c(buf.ctypes.data if len(data) else None,
+                             len(data), init))
+
+
+def snappy_compress(data: bytes) -> bytes:
+    """``data`` as one raw snappy block (greedy 64 KiB-block hash
+    matching)."""
+    lib = _load()
+    src = np.frombuffer(data, dtype=np.uint8)
+    dst = np.empty(int(lib.fg_snappy_max_compressed(len(data))),
+                   dtype=np.uint8)
+    _called("fg_snappy_compress")
+    n = lib.fg_snappy_compress(src.ctypes.data if len(data) else None,
+                               len(data), dst.ctypes.data)
+    return dst[:n].tobytes()
+
+
+def snappy_decompress(data: bytes, ulen: int) -> Optional[bytes]:
+    """The ``ulen`` bytes a raw snappy block holds (``ulen`` from its
+    preamble), or None when the block is malformed."""
+    lib = _load()
+    src = np.frombuffer(data, dtype=np.uint8)
+    dst = np.empty(max(ulen, 1), dtype=np.uint8)
+    _called("fg_snappy_decompress")
+    n = lib.fg_snappy_decompress(src.ctypes.data if len(data) else None,
+                                 len(data), dst.ctypes.data, ulen)
+    return None if n < 0 else dst[:n].tobytes()

@@ -3,7 +3,13 @@
 Parity model: flowgger src/flowgger/output/ — trait
 ``Output { start(arx, merger) }`` (output/mod.rs:21-30): ``start`` spawns
 the worker thread and returns it; a ``None`` item is the shutdown
-sentinel.  This slice ports the file and stdout sinks.
+sentinel.  The port has the file (buffered and rotating), stdout /
+debug, TLS and Kafka sinks; the TLS and Kafka sinks start
+``tls_threads`` / ``kafka_threads`` workers and return the list.
+
+A sink thread that dies of an exception hands it to ``on_failure`` (the
+pipeline's keeper of the run's first failure, which then ends the run
+non-zero), where the reference's supervisor would restart the sink.
 """
 
 from __future__ import annotations
@@ -28,14 +34,26 @@ def stream_bytes(item, merger: Optional[Merger]) -> bytes:
 
 
 class Output:
-    def start(self, arx, merger: Optional[Merger]) -> threading.Thread:
+    # the pipeline's failure keeper (None: the thread dies with it)
+    on_failure = None
+
+    def start(self, arx, merger: Optional[Merger]):
+        """Start the sink's worker threads; returns the list of them."""
         raise NotImplementedError
 
-    @staticmethod
-    def spawn(target, name: str) -> threading.Thread:
-        t = threading.Thread(target=target, name=name, daemon=True)
+    def spawn(self, target, name: str) -> threading.Thread:
+        t = threading.Thread(target=self._guarded, args=(target,),
+                             name=name, daemon=True)
         t.start()
         return t
+
+    def _guarded(self, target) -> None:
+        try:
+            target()
+        except BaseException as e:  # flowcheck: disable=FC04 -- handed to the pipeline, which ends the run and raises it
+            if self.on_failure is None:
+                raise
+            self.on_failure(e)
 
 
 from .debug_output import DebugOutput  # noqa: E402

@@ -28,4 +28,4 @@ class DebugOutput(Output):
                 sys.stdout.flush()
                 arx.task_done()
 
-        return self.spawn(run, "debug-output")
+        return [self.spawn(run, "debug-output")]

@@ -5,8 +5,9 @@ Parity model: flowgger src/flowgger/mod.rs:95-472 and the JAX package's
 ``pipeline.py``: the same TOML file, the same key names and defaults,
 the same factories and output-framing inference.  The port runs
 ``input.type = "stdin" | "tcp" | "tcp_co" | "tls" | "tls_co" | "udp" |
-"file"`` (and the reference's aliases), every ``input.framing`` (line,
-nul, syslen, capnp) and every ``input.format``: the ``*_tpu`` formats on
+"file" | "redis"`` (and the reference's aliases), every
+``input.framing`` (line, nul, syslen, capnp) and every
+``input.format``: the ``*_tpu`` formats on
 the card (``rfc5424_tpu``, ``rfc3164_tpu``, ``jsonl_tpu``, ``ltsv_tpu``,
 ``gelf_tpu``, ``dns_tpu``, ``auto_tpu``) through ONE batch handler that
 every connection, datagram stream and tailed file shares, and the
@@ -15,26 +16,28 @@ scalar formats (``rfc5424`` — the default —, ``rfc3164``, ``gelf``,
 wire) on the host, through a ``ScalarHandler`` a connection.  Outputs:
 ``output.format = "gelf" | "json" | "ltsv" | "rfc5424" | "rfc3164" |
 "passthrough" | "capnp"`` with ``output.type = "stdout" | "debug" |
-"file"``, with any ``[output.gelf_extra]``, ``[output.ltsv_extra]``,
+"file" | "tls" | "syslog-tls" | "kafka"`` (Kafka is the default type;
+the TLS and Kafka sinks start ``tls_threads`` / ``kafka_threads``
+workers, and the drain puts one ``SHUTDOWN`` a worker), with any
+``[output.gelf_extra]``, ``[output.ltsv_extra]``,
 ``[output.capnp_extra]``, ``output.syslog_prepend_timestamp`` and
 ``[input.ltsv_schema]`` (the configs the block route cannot take run the
 Record path, as the reference's do).  An unknown input type, input
 format, output format or output type raises the reference's ConfigError;
-``input.type = "redis"`` and ``output.type = "kafka" | "tls" |
-"syslog-tls"`` raise ConfigError naming the later slice; nothing quietly
-takes a scalar path.
+nothing quietly takes a scalar path.
 
 The port runs on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where no GPU is present raises.
 
-A failure on any ingest thread — a connection's, a file worker's, the
-accept loop's, or one the batch handler's flush timer keeps — ends the
-run: the pipeline keeps the first, stops the input, emits the batches
-submitted before it, stops the sink and raises it (where the reference
-restarts its input under a supervisor).  SIGTERM and SIGINT drain and
-exit 0 (the reference's ``_drain``, without its fleet, durability,
-control, SLO and metrics legs); :meth:`Pipeline.shutdown` is the same
-drain for an in-process run.
+A failure on any ingest thread — a connection's, a file or redis
+worker's, the accept loop's, or one the batch handler's flush timer
+keeps — or on a sink thread ends the run: the pipeline keeps the first,
+stops the input, emits the batches submitted before it, stops the sinks
+and raises it (where the reference restarts its input or sink under a
+supervisor).  SIGTERM and SIGINT drain and exit 0 (the reference's
+``_drain``, without its fleet, durability, control, SLO and metrics
+legs); :meth:`Pipeline.shutdown` is the same drain for an in-process
+run.
 """
 
 from __future__ import annotations
@@ -63,9 +66,6 @@ DEFAULT_OUTPUT_FORMAT = "gelf"
 DEFAULT_OUTPUT_TYPE = "kafka"
 DEFAULT_QUEUE_SIZE = 10_000_000
 
-_LATER = "is not ported yet (flowgger_tpu_torch runs the stdin, tcp, " \
-    "tcp_co, tls, tls_co, udp and file inputs into stdout, debug or file; " \
-    "the redis input and the kafka and tls outputs come in a later slice)"
 # input.format → the batch handler's decode route
 _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
             "jsonl_tpu": "jsonl", "ltsv_tpu": "ltsv", "gelf_tpu": "gelf",
@@ -91,7 +91,9 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
 def get_input(input_type: str, config: Config):
     """Input factory (mod.rs:181-193)."""
     if input_type == "redis":
-        raise ConfigError(f'input.type = "{input_type}" {_LATER}')
+        from .inputs.redis_input import RedisInput
+
+        return RedisInput(config)
     if input_type == "stdin":
         from .inputs import StdinInput
 
@@ -150,8 +152,14 @@ def get_output(output_type: str, config: Config):
         return DebugOutput(config)
     if output_type == "file":
         return FileOutput(config)
-    if output_type in ("kafka", "tls", "syslog-tls"):
-        raise ConfigError(f'output.type = "{output_type}" {_LATER}')
+    if output_type == "kafka":
+        from .outputs.kafka_output import KafkaOutput
+
+        return KafkaOutput(config)
+    if output_type in ("tls", "syslog-tls"):
+        from .outputs.tls_output import TlsOutput
+
+        return TlsOutput(config)
     raise ConfigError(f"Invalid output type: {output_type}")
 
 
@@ -304,34 +312,40 @@ class Pipeline:
 
         t0 = time.monotonic()
         while time.monotonic() - t0 < deadline_s:
-            if self.tx.unfinished_tasks == 0:
+            if self.tx.unfinished_tasks == 0 or self._failure is not None:
+                # drained, or a sink failed: nothing drains it any more
                 return
             time.sleep(0.01)
         print(f"drain: queue barrier timed out after {deadline_s:.0f}s "
               f"({self.tx.unfinished_tasks} item(s) still in flight)",
               file=sys.stderr)
 
-    def _end(self, sink: threading.Thread) -> Optional[BaseException]:
+    def _end(self, sinks: list) -> Optional[BaseException]:
         """Drain, or after a failure emit what was submitted before it;
-        then stop the sink.  Returns the failure that ended the run."""
+        then stop the sink threads (one ``SHUTDOWN`` each).  Returns the
+        failure that ended the run (a sink's too, kept while it drained
+        or at its last flush)."""
         self._ending = True
-        failure = self._failure
-        if failure is None:
+        if self._failure is None:
             try:
                 self._drain()
             except BaseException as e:  # flowcheck: disable=FC04 -- kept; the caller raises it
                 self._fail(e)
-                failure = self._failure
+        failure = self._failure
         if failure is not None and self._handler is not None:
             self._handler.drain_after_failure()
-        self.tx.put(SHUTDOWN)
-        sink.join(timeout=30)
-        if sink.is_alive():
-            print(f"drain: 1 output thread(s) still alive after 30s, "
-                  f"abandoning: [{sink.name}]", file=sys.stderr)
-        return failure
+        for _ in sinks:
+            self.tx.put(SHUTDOWN)
+        for t in sinks:
+            t.join(timeout=30)
+        stragglers = [t for t in sinks if t.is_alive()]
+        if stragglers:
+            names = ", ".join(t.name for t in stragglers)
+            print(f"drain: {len(stragglers)} output thread(s) still alive "
+                  f"after 30s, abandoning: [{names}]", file=sys.stderr)
+        return self._failure
 
-    def _install_signal_handlers(self, sink: threading.Thread):
+    def _install_signal_handlers(self, sinks: list):
         """SIGTERM and SIGINT drain and exit 0 (the reference's
         ``_install_signal_handlers``, pipeline.py:565, without its SIGUSR2
         profiler).  Only the main thread can install them; returns the
@@ -347,7 +361,10 @@ class Pipeline:
             if self._ending:
                 # the run is draining already; it exits when it is done
                 return
-            failure = self._end(sink)
+            # the input stops first: workers blocked on a server (redis's
+            # BRPOPLPUSH) return, and the drain's join waits for them
+            self.input.stop()
+            failure = self._end(sinks)
             if failure is not None:
                 import traceback
 
@@ -367,8 +384,9 @@ class Pipeline:
 
     def run(self) -> None:
         self._running = True
-        sink = self.output.start(self.tx, self.merger)
-        restore = self._install_signal_handlers(sink)
+        self.output.on_failure = self._fail
+        sinks = self.output.start(self.tx, self.merger)
+        restore = self._install_signal_handlers(sinks)
         self.input.on_failure = self._fail
         accept = threading.Thread(target=self._accept, name="input-accept",
                                   daemon=True)
@@ -377,7 +395,7 @@ class Pipeline:
             # the main thread waits here, holding no lock, so a signal's
             # drain can take every lock it needs
             self._wake.wait()
-            failure = self._end(sink)
+            failure = self._end(sinks)
             # the accept loop has returned (or, stdin blocked in a read
             # after a failure, is left to the process's exit)
             accept.join(timeout=2.0)

@@ -25,6 +25,14 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _close_the_expectation_pool():
+    """The e2e helpers start chip_smoke's expectation pool on demand: stop
+    its worker processes with the file, not at the interpreter's exit."""
+    yield
+    chip_smoke.close_expectations()
+
+
 ROOT = Path(__file__).resolve().parent.parent
 
 # the shape of nvcc 12's -Xptxas -v report for one source with two
@@ -1091,3 +1099,127 @@ def test_transports_phase_at_a_small_size_on_the_cpu(monkeypatch, tmp_path):
     assert runs["tcp_cli_sigterm"]["output"] == "ltsv"
     assert needs == [("tcp_line", True), ("tcp_conns", True),
                      ("udp_dgram", False), ("scalar_tcp", True)]
+
+
+def test_expectation_pool_checks_the_inputs_hash(monkeypatch, tmp_path):
+    """A pool worker writes a path's input and its scalar expectation
+    (the same bytes the parent made before the pool came); the pick-up
+    fails once the input file differs from the one the expectation was
+    made from."""
+    from flowgger_tpu_torch.corpus import scalar_expectation
+
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    job = chip_smoke._paths_job("rfc5424_line", 300, 7)
+    path, data, exp_out, errs, notices, since, mix = chip_smoke.expected(job)
+    assert path == tmp_path / "rfc5424_line.in"
+    assert (exp_out, errs) == scalar_expectation(data)
+    assert notices == [] and sum(mix.values()) == 300
+    assert since <= chip_smoke.time.time()
+    path.write_bytes(data.replace(b"<", b"[", 1))
+    with pytest.raises(AssertionError, match="not the one its scalar"):
+        chip_smoke.expected(job)
+
+
+def test_redis_kafka_expectation_takes_each_element_whole():
+    """redis_kafka's expectation hands each list element to the decoder
+    whole, as the redis input hands it to its handler: an empty element
+    prints its error line (a NUL splitter would skip it)."""
+    from flowgger_tpu_torch.corpus import capnp_messages
+
+    ok = b"<13>1 2015-08-05T15:53:45Z h a p m - ok"
+    data = b"\0".join([ok, b"", ok])
+    out, errs, notices = chip_smoke._expectation(chip_smoke._sinks_job(3),
+                                                 data)
+    assert errs == ["Unsupported BOM: []"] and notices == []
+    assert len(capnp_messages(out)) == 2
+
+
+def test_wait_expectations_blocks_until_the_pool_is_done(monkeypatch,
+                                                         tmp_path):
+    """wait_expectations returns once every queued job is done, and adds
+    the seconds it blocked to the pool's wait."""
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    before = chip_smoke.POOL["wait_s"]
+    chip_smoke.submit_expectation(chip_smoke._paths_job("rfc5424_line", 64,
+                                                        5))
+    chip_smoke.wait_expectations()
+    assert all(f.done() for f in chip_smoke.POOL["jobs"].values())
+    assert chip_smoke.POOL["wait_s"] > before
+
+
+def test_expectation_jobs_cover_every_e2e_path():
+    """The pool is queued with every e2e path and the sinks phase's
+    redis_kafka, in the order the phases take them, at their sizes."""
+    jobs = chip_smoke.expectation_jobs(20261016, 65536)
+    names = [j["name"] for j in jobs]
+    assert names == [*chip_smoke.PATHS, *chip_smoke.MIXED_PATHS,
+                     *chip_smoke.OUT_PATHS, "redis_kafka"]
+    by = {j["name"]: j for j in jobs}
+    assert by["jsonl_line"]["lines"] == chip_smoke.JSONL_LINES
+    assert by["rfc5424_line"]["lines"] == 65536
+    assert by["redis_kafka"]["lines"] == chip_smoke.REDIS_KAFKA_LINES
+    assert chip_smoke.pool_workers() >= 1
+
+
+def test_sinks_phase_at_a_small_size_on_the_cpu(monkeypatch, tmp_path):
+    """phase_sinks end to end on the CPU at a small size (the pipelines
+    on ``cpu``): redis_kafka's records, from the RespFake through the
+    redis input and the Kafka sink into the KafkaFake, in order against
+    the pool's scalar expectation, every batch's CRC32C checked and
+    snappy-decompressed by the fake; file_rotate's files concatenating
+    to rfc5424_line's expectation.  Launch counts stay 0 on the CPU, so
+    the on-card checks are stood in for."""
+    from flowgger_tpu_torch import pipeline as P
+    from flowgger_tpu_torch.corpus import make_corpus, scalar_expectation
+
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    monkeypatch.setattr(P, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    needs = []
+    monkeypatch.setattr(chip_smoke, "_need_rfc5424",
+                        lambda name, launches, framed=True:
+                        needs.append(name))
+    monkeypatch.setattr(chip_smoke, "_need_capnp",
+                        lambda name, launches: needs.append(name))
+    for name, n in (("REDIS_KAFKA_LINES", 256), ("ROTATE_SIZE", 48 << 10),
+                    ("ROTATE_BUFFER", 4096), ("RESP_LOOP_LINES", 64)):
+        monkeypatch.setattr(chip_smoke, name, n)
+    emitted = []
+    monkeypatch.setattr(chip_smoke, "emit", emitted.append)
+    lines, _ = make_corpus(1024, 9)
+    data = b"\n".join(lines)
+    path = tmp_path / "rfc5424_line.in"
+    path.write_bytes(data)
+    exp_out, exp_err = scalar_expectation(data)
+    monkeypatch.setitem(chip_smoke.EXPECTED, "rfc5424_line",
+                        (1024, 9, path, data, exp_out, (exp_err, [])))
+    monkeypatch.setattr(chip_smoke, "LATE", set())
+    chip_smoke.phase_sinks(9)
+    runs = {r["run"]: r for r in emitted}
+    assert list(runs) == ["redis_kafka", "file_rotate"]
+    rk = runs["redis_kafka"]
+    assert rk["records_identical_in_order"] and rk["lines"] == 256
+    assert rk["kafka"]["checksums_valid"] and rk["kafka"]["compression"] == [2]
+    assert rk["produce_requests"] == rk["kafka"]["batches"] >= 1
+    assert rk["resp_round_trips_per_line"] >= 2
+    assert rk["resp_loop_alone_lines_per_s"] > 0
+    fr = runs["file_rotate"]
+    assert fr["concatenation_identical"] and fr["files"] >= 3
+    assert sum(fr["file_bytes"]) == len(exp_out)
+    assert needs == ["redis_kafka", "file_rotate"]
+
+
+def test_kafka_fake_refuses_a_bad_crc32c():
+    """KafkaFake's own check: a record batch whose CRC32C does not match
+    its post-CRC bytes fails :meth:`KafkaFake.records`."""
+    from flowgger_tpu_torch.utils.kafka_wire import _record_batch
+
+    batch = bytearray(_record_batch([b"a", b"bc"], "snappy", now_ms=5))
+    with chip_smoke.KafkaFake() as fake:
+        fake.sets.append((3, bytes(batch)))
+        assert fake.records()[0] == [b"a", b"bc"]
+        batch[-1] ^= 1
+        fake.sets[:] = [(3, bytes(batch))]
+        with pytest.raises(AssertionError, match="CRC32C"):
+            fake.records()

@@ -163,42 +163,61 @@ def test_gelf_extra_static_keys_honored(tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().err.splitlines() == errs
 
 
-# (config, the key its error names, the case's id).  The transports and
-# the scalar and capnp inputs run since the port's network-input slice
-# (test_torch_transports.py, test_torch_scalar_inputs.py): the five cases
-# that pinned them were retargeted at configs that still raise.  Each
-# keeps its test id, so the ids of those five no longer name what they
-# check: the comment above each says what it does, and a failure prints
-# the key and the error
+# (config, the key the reference's error names or None where the
+# reference runs it, the case's id).  The transports and the scalar and
+# capnp inputs run since the port's network-input slice, and the redis
+# input and the kafka, tls and rotating-file sinks since the sinks slice
+# (test_torch_sinks.py, test_torch_sinks_cli.py): these configs raised
+# "later slice" until then, and now must do what the reference's do —
+# raise its ConfigError for the key left out (output.kafka_brokers: a
+# config without output.type runs into Kafka; output.connect), or run.
+# Each keeps its test id, so the ids no longer name what they check: the
+# comment above each says what it does
 BAD_CONFIGS = [
-    # checks input.type = "redis" with a *_tpu format
-    ('[input]\ntype = "redis"\nformat = "rfc5424_tpu"\n', "input.type",
-     "input.type"),
+    # checks input.type = "redis" with a *_tpu format (into the default
+    # Kafka output, which needs its brokers)
+    ('[input]\ntype = "redis"\nformat = "rfc5424_tpu"\n',
+     "output.kafka_brokers", "input.type"),
     # checks input.type = "redis" with a scalar format
-    ('[input]\ntype = "redis"\nformat = "ltsv"\n', "input.type",
+    ('[input]\ntype = "redis"\nformat = "ltsv"\n', "output.kafka_brokers",
      "input.format0"),
     # checks output.type = "tls"
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "tls"\n', "output.type", "input.format1"),
+     'type = "tls"\n', "output.connect", "input.format1"),
     # checks output.type = "syslog-tls"
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "syslog-tls"\n', "output.type", "input.framing"),
+     'type = "syslog-tls"\n', "output.connect", "input.framing"),
     # checks output.type = "kafka" behind a tcp input of a scalar format
     ('[input]\ntype = "tcp"\nformat = "ltsv"\n[output]\n'
-     'type = "kafka"\n', "output.type", "input.format2"),
+     'type = "kafka"\n', "output.kafka_brokers", "input.format2"),
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
-     'type = "kafka"\n', "output.type", "output.type"),
+     'type = "kafka"\n', "output.kafka_brokers", "output.type"),
+    # the rotating file: runs
     ('[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n[output]\n'
      'type = "file"\nfile_path = "x"\nfile_rotation_size = 10\n',
-     "file_rotation_size", "file_rotation_size"),
+     None, "file_rotation_size"),
 ]
 
 
 @pytest.mark.parametrize("text,key", [c[:2] for c in BAD_CONFIGS],
                          ids=[c[2] for c in BAD_CONFIGS])
 def test_later_slice_configs_raise(text, key):
-    with pytest.raises(ConfigError, match="later slice") as exc:
+    """The port builds each config as the JAX package does: the same
+    ConfigError words, or a pipeline."""
+    from flowgger_tpu.config import Config as JConfig
+    from flowgger_tpu.config import ConfigError as JConfigError
+    from flowgger_tpu.pipeline import Pipeline as JPipeline
+
+    if key is None:
+        JPipeline(JConfig.from_string(text))
+        pipe = pipeline.Pipeline(Config.from_string(text), device="cpu")
+        assert pipe.output.rotation_size == 10
+        return
+    with pytest.raises(JConfigError) as ref:
+        JPipeline(JConfig.from_string(text))
+    with pytest.raises(ConfigError) as exc:
         pipeline.Pipeline(Config.from_string(text), device="cpu")
+    assert str(exc.value) == str(ref.value)
     assert key in str(exc.value), (key, str(exc.value))
 
 
@@ -327,15 +346,18 @@ _NEW_MODULES = ("encoders.ltsv", "decoders.dns", "tpu.dns",
                 "capnp_wire", "encoders.capnp", "tpu.encode_capnp_block",
                 "tpu.device_capnp", "tpu.overlap", "inputs.tcp_input",
                 "inputs.tls_input", "inputs.udp_input", "inputs.file_input",
-                "utils.recvmmsg", "utils.inotify")
+                "utils.recvmmsg", "utils.inotify", "utils.retry",
+                "utils.resp", "utils.rotating_file", "utils.snappy",
+                "utils.kafka_wire", "inputs.redis_input",
+                "outputs.tls_output", "outputs.kafka_output")
 
 
 def test_import_rule():
     """Every module of the port imports without JAX and without any
     module of the JAX package (the walk reaches the LTSV output's, the
     dns input's, the syslog outputs', the capnp output's and the overlap
-    executor's modules, the transports' and their utilities too), and
-    so does ``chip_smoke.py``."""
+    executor's modules, the transports' and their utilities, the redis
+    input's and the sinks' too), and so does ``chip_smoke.py``."""
     code = (
         "import pkgutil, sys\n"
         "import flowgger_tpu_torch as p\n"
