@@ -259,7 +259,28 @@ Phases, each printing JSON lines:
    ``file_rotate`` (rfc5424_line's input into GELF in a file rotating at
    4 MiB behind a 64 KiB buffer: the files, oldest to newest, are
    rfc5424_line's expectation; file count, lines/s).  The TLS sink runs
-   in the CPU tests only.
+   in the CPU tests only;
+10. serving — :func:`phase_serving`, in process at cell 1's widths
+   (``tpu_batch_size`` 16 384 unless said, lines of up to 512 bytes,
+   cell 1's mix): ``tenants_tcp`` (three tcp connections at once from
+   127.0.0.2 — a tenant limited to 5 000 lines/s, ``drop_oldest`` —,
+   127.0.0.3 — weight 8, ``block`` — and 127.0.0.1, the catch-all,
+   65 536 lines each, into GELF through the fair queue: each tenant's
+   records an in-order subsequence of its expectation, the unlimited
+   tenants' all there, the limited one's shed in whole regions; K1, K2
+   and K3 launched), ``templates_enrich`` (rfc5424_line's input with
+   ``tenant.template_enrich``: the scalar path with the same miner, byte
+   for byte) and ``templates_mine`` (mining only: rfc5424_line's
+   expectation, byte for byte, with no fused route or device tier
+   launched), ``breaker_trip`` (40 960 rows over 512 bytes, then 16 384
+   of cell 1's mix, at ``tpu_batch_size`` 4 096, ``tpu_breaker_window =
+   4``, ``tpu_breaker_cooldown_ms = 100``: byte-identical, one trip, the
+   probes re-opening it until the clean tail closes it, K1 launched in a
+   probe) and ``queue_drop`` (rfc5424_line's input at ``tpu_batch_size``
+   4 096 with ``drop_newest`` and ``queue_pressure = "every:4"``: the
+   output is the expectation less exactly the shed items); then how
+   many earlier in-process runs were held to a closed breaker with no
+   trip (every run of the e2e, overlap, transports and sinks phases).
 
 Every e2e path's input and scalar expectation (the host's record-by-
 record reference path) is made before the build by a pool of worker
@@ -3602,12 +3623,13 @@ def _sinks_job(seed: int) -> dict:
 
 def expectation_jobs(seed: int, lines: int) -> list:
     """Every e2e path's job, in the order the phases take them: PATHS,
-    MIXED_PATHS, OUT_PATHS, then the sinks phase's redis_kafka."""
+    MIXED_PATHS, OUT_PATHS, the sinks phase's redis_kafka, then the
+    serving phase's."""
     return ([_paths_job(name, path_lines(name, lines), seed)
              for name in PATHS]
             + [_mixed_job(name, seed) for name in MIXED_PATHS]
             + [_out_job(name, seed) for name in OUT_PATHS]
-            + [_sinks_job(seed)])
+            + [_sinks_job(seed)] + serving_jobs(seed, lines))
 
 
 def _write_input(job: dict):
@@ -3650,6 +3672,8 @@ def _write_input(job: dict):
             kinds = [k.split(":")[0] for k in kinds]
         else:
             lines, kinds = make(n_lines, seed + 71)
+    elif family == "serving":
+        lines, kinds, newline = _serving_input(job)
     else:
         lines, kinds = corpus.make_corpus(n_lines, seed)
     if family == "paths" and job["entry"][1] == "syslen":
@@ -3659,6 +3683,8 @@ def _write_input(job: dict):
         # one message a list element: NUL-joined, so that the records
         # keep their CRs (no line framing strips them)
         data = b"\0".join(lines)
+    elif family == "serving" and newline:
+        data = b"\n".join(lines) + b"\n"
     else:
         # the last record has no newline: the end-of-stream partial frame
         data = b"\n".join(lines)
@@ -3695,6 +3721,10 @@ def _expectation(job: dict, data: bytes):
             data, "line",
             config=Config.from_string(in_t + "[output]\n" + out_keys),
             merger=merger, fmt=kind, notices=notices, output=output)
+    elif family == "serving":
+        exp_out, exp_err = scalar_expectation(
+            data, record_hook=(serving_enricher()
+                               if job["name"] == "serving_enrich" else None))
     else:
         # redis_kafka: each list element reaches the handler whole
         exp_out, exp_err = scalar_expectation(data, "message", merger=None,
@@ -3899,10 +3929,31 @@ class CliRun:
         self._stdin.close()
 
 
-def run_inproc(cfg: Path, path: Path):
+# the in-process runs held to a closed decode breaker with no trip
+BREAKER_CLOSED: list = []
+
+
+def breaker_closed(pipe, name: str) -> None:
+    """Fail unless a run's batch handler (a ``*_tpu`` pipeline's) kept its
+    decode breaker — on by default — closed with no trip: the breaker
+    moves no configuration of the e2e, transports and sinks phases off
+    the card."""
+    handler = getattr(pipe, "_handler", None)
+    if handler is None:
+        return
+    br = handler._breaker
+    if br is None or br.state != "closed" or br.trips:
+        raise AssertionError(f"{name}: the decode breaker is "
+                             f"{br and br.state} after {br and br.trips} "
+                             f"trips")
+    BREAKER_CLOSED.append(name)
+
+
+def run_inproc(cfg: Path, path: Path, breaker: bool = True):
     """One run through ``flowgger_tpu_torch.start`` on ``cuda`` with
     ``path`` as stdin: (wall seconds, pipeline, stderr lines, stdout
-    lines: the ltsv decoder's notices)."""
+    lines: the ltsv decoder's notices).  Unless ``breaker`` is False, the
+    run's decode breaker must have stayed closed (:func:`breaker_closed`)."""
     import torch
 
     import flowgger_tpu_torch
@@ -3919,7 +3970,10 @@ def run_inproc(cfg: Path, path: Path):
     finally:
         sys.stdin = saved_stdin
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0, pipe, err_buf.getvalue().splitlines(),
+    wall = time.perf_counter() - t0
+    if breaker:
+        breaker_closed(pipe, cfg.stem)
+    return (wall, pipe, err_buf.getvalue().splitlines(),
             out_buf.getvalue().splitlines())
 
 
@@ -5123,6 +5177,7 @@ def net_run(cfg: Path, drive,
         raise AssertionError(f"{cfg.stem}: the pipeline's run did not end")
     if exc:
         raise exc[0]
+    breaker_closed(pipe, cfg.stem)
     if any(framing.DECLINES.values()):
         raise AssertionError(f"{cfg.stem}: device framing declined "
                              f"{dict(framing.DECLINES)}")
@@ -6372,6 +6427,392 @@ def phase_sinks(seed: int):
     return total
 
 
+# -- the serving phase: tenancy, templates, the breaker, the queue ----------
+SERVING_LINES = 4 * BATCH      # lines a tenant of tenants_tcp
+SERVING_TENANTS = (("127.0.0.2", "limited", 91), ("127.0.0.3", "heavy", 92),
+                   ("127.0.0.1", "default", 93))
+# the limited tenant's admission rate (lines/s; burst: 2 s of it), far
+# under what one connection sends, so that regions are shed
+SERVING_RATE = 5000
+BREAKER_BATCH = BATCH // 4     # breaker_trip's tpu_batch_size: its eight
+#                                oracle-bound batches are 32 768 rows of
+#                                600-odd bytes, not 131 072
+BREAKER_HEAD = 10 * BREAKER_BATCH  # oracle-bound rows (over MAX_LEN)
+BREAKER_TAIL = 4 * BREAKER_BATCH   # clean rows after them (cell 1's mix)
+QUEUE_EVERY = 4                # queue_drop's queue_pressure = "every:4"
+QUEUE_BATCH = BATCH // 4       # queue_drop's tpu_batch_size: ~16 items put
+_TENANT_NOTICE = "tenant [limited] over admission rate; shedding"
+_BREAKER_LINE = "device-decode breaker"
+
+
+def _serving_job(name: str, seed: int, lines: int) -> dict:
+    return {"family": "serving", "name": name, "lines": lines,
+            "seed": seed, "entry": [], "work": str(WORK)}
+
+
+def serving_jobs(seed: int, lines: int) -> list:
+    """The serving phase's inputs and expectations: each tenant's lines,
+    the enrichment run's (rfc5424_line's input, mined), and the breaker
+    run's."""
+    return ([_serving_job(f"serving_{tenant}", seed + off, SERVING_LINES)
+             for _, tenant, off in SERVING_TENANTS]
+            + [_serving_job("serving_enrich", seed, lines),
+               _serving_job("serving_breaker", seed + 94,
+                            BREAKER_HEAD + BREAKER_TAIL)])
+
+
+def oracle_lines(n: int, seed: int) -> list:
+    """``n`` valid RFC5424 lines of 600-odd bytes: longer than MAX_LEN,
+    so every one takes the scalar oracle."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = [w.encode() for w in ("GET", "POST", "/api/v1/items", "200",
+                                  "404", "user", "session", "latency",
+                                  "upstream", "retry", "cache", "miss")]
+    out = []
+    for i in range(n):
+        body = b" ".join(words[int(k)] for k in rng.integers(0, len(words),
+                                                             110))
+        out.append(b"<14>1 2026-10-19T10:%02d:%02d.%03dZ web%d app %d req%d "
+                   b"- %s" % (i // 60 % 60, i % 60, i % 1000, i % 7,
+                              1000 + i % 50, i, body[:600]))
+    return out
+
+
+def _serving_input(job: dict):
+    from flowgger_tpu_torch import corpus
+
+    name, n_lines, seed = job["name"], job["lines"], job["seed"]
+    if name == "serving_breaker":
+        lines = oracle_lines(BREAKER_HEAD, seed)
+        tail, kinds = corpus.make_corpus(BREAKER_TAIL, seed)
+        return lines + tail, ["oracle"] * BREAKER_HEAD + kinds, True
+    lines, kinds = corpus.make_corpus(n_lines, seed)
+    # a tenant's connection ends on a newline; the enrichment run reads
+    # rfc5424_line's input (its last record has none)
+    return lines, kinds, name != "serving_enrich"
+
+
+def serving_enricher():
+    """The enrichment run's miner as a scalar record hook (the defaults
+    of tenant.templates = "on", as the run's config has them)."""
+    from flowgger_tpu_torch.tenancy.templates import (TemplateMinerSet,
+                                                      make_gelf_enricher)
+
+    return make_gelf_enricher(TemplateMinerSet(enrich=True))
+
+
+def _need_serving(name: str, launches: dict, need) -> None:
+    """A serving run launched each kernel of ``need`` on the card."""
+    if not all(launches.get(k) for k in need):
+        raise AssertionError(f"{name}: the run launched none of "
+                             f"{[k for k in need if not launches.get(k)]} "
+                             f"on the card: {launches}")
+
+
+def _owned(got: list, exps: dict) -> dict:
+    """Each tenant's records of ``got`` in output order (a record that two
+    tenants' expectations share is left out of both, and returned apart);
+    fails on a record no tenant sent."""
+    owner = {}
+    for tenant, recs in exps.items():
+        for rec in recs:
+            owner[rec] = tenant if owner.get(rec, tenant) == tenant else None
+    stray = [g for g in got if g not in owner]
+    if stray:
+        raise AssertionError(f"tenants_tcp: {len(stray)} records no tenant "
+                             f"sent")
+    shared = {rec for rec, t in owner.items() if t is None}
+    return {t: [g for g in got if owner[g] == t] for t in exps}, shared
+
+
+def _tenants_tcp(seed: int) -> dict:
+    """tenants_tcp: three tcp connections at once, from 127.0.0.2 (a
+    tenant limited to SERVING_RATE lines/s, drop_oldest), 127.0.0.3
+    (weight 8, block) and 127.0.0.1 (the catch-all), SERVING_LINES lines
+    of cell 1's mix each, into GELF: each tenant's records an in-order
+    subsequence of its expectation, the unlimited tenants' all there,
+    the limited tenant's shed in whole regions."""
+    from collections import Counter
+
+    exps = {tenant: expected(_serving_job(f"serving_{tenant}", seed + off,
+                                          SERVING_LINES))
+            for _, tenant, off in SERVING_TENANTS}
+    tenants = (f'[tenants.limited]\npeers = ["127.0.0.2"]\n'
+               f'rate = {SERVING_RATE}\nqueue_policy = "drop_oldest"\n'
+               '[tenants.heavy]\npeers = ["127.0.0.3"]\nweight = 8\n'
+               'queue_policy = "block"\n')
+    cfg = _net_config("tenants_tcp", 'type = "tcp"\n'
+                      'listen = "127.0.0.1:0"\n')
+    cfg.write_text(cfg.read_text() + tenants)
+    full = sum(len(exps[t][2]) for t in ("heavy", "default"))
+
+    def drive(pipe):
+        port = pipe.input.bound_port
+        barrier = threading.Barrier(len(SERVING_TENANTS))
+
+        def send(src, data):
+            barrier.wait(NET_WAIT)
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=NET_WAIT,
+                                          source_address=(src, 0)) as s:
+                s.sendall(data)
+
+        senders = [threading.Thread(target=send, args=(src, exps[t][1]))
+                   for src, t, _ in SERVING_TENANTS]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join(NET_WAIT)
+        _wait_output("tenants_tcp", full)
+        if pipe.input.join_handlers(timeout=NET_WAIT):
+            raise AssertionError("tenants_tcp: a connection did not end")
+
+    r = net_run(cfg, drive)
+    pipe = r["pipe"]
+    got = _records(r["out"])
+    want = {t: _records(e[2]) for t, e in exps.items()}
+    mine, shared = _owned(got, want)
+    ok = True
+    for t, recs in mine.items():
+        ok &= _is_subsequence(recs, want[t])
+        if t == "limited":
+            ok &= len(recs) < len(want[t])
+        else:
+            ok &= Counter(recs) == Counter(w for w in want[t]
+                                           if w not in shared)
+    errs, econ = econ_split(r["errs"])
+    notices = [e for e in errs if e.startswith(_TENANT_NOTICE)]
+    errs = [e for e in errs if not e.startswith(_TENANT_NOTICE)]
+    all_errs = Counter(e for ex in exps.values() for e in ex[3])
+    unlimited = sum(len(exps[t][3]) for t in ("heavy", "default"))
+    ok &= (not (Counter(errs) - all_errs) and len(errs) >= unlimited
+           and len(notices) >= 1)
+    limited = pipe.tenants.state("limited")
+    launches = r["report"]["launches"]
+    _need_serving("tenants_tcp", launches, ("decode_rfc5424_p6",
+                                            "frame_sep_spans",
+                                            "frame_gather"))
+    if not ok or not limited.drops:
+        raise AssertionError(
+            f"tenants_tcp: records per tenant "
+            f"{ {t: len(v) for t, v in mine.items()} } of "
+            f"{ {t: len(v) for t, v in want.items()} }, "
+            f"{limited.drops} lines shed, {len(errs)} stderr lines, "
+            f"launches {launches}")
+    rep = r["report"]
+    delivered = len(got)
+    emit({"phase": "serving", "run": "tenants_tcp",
+          "lines_sent": SERVING_LINES * len(SERVING_TENANTS),
+          "records_written": delivered,
+          "records_per_tenant": {t: len(v) for t, v in mine.items()},
+          "limited_rate": SERVING_RATE, "limited_lines_shed": limited.drops,
+          "admission_notices": len(notices),
+          "records_per_s": delivered / rep["wall_s"],
+          "queue": type(pipe.tx).__name__, **rep,
+          "economics_notices": econ,
+          "in_order_subsequence_a_tenant": True})
+    return rep
+
+
+def _templates_enrich(seed: int, lines: int) -> dict:
+    """templates_enrich: rfc5424_line's input with ``tenant.templates =
+    "on"`` and ``template_enrich = true`` (the Record path): the port's
+    scalar expectation with the same miner, byte for byte; then the same
+    input with mining only (the host block path pinned): rfc5424_line's
+    expectation, byte for byte, no fused route or device tier launched."""
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    path, _, exp_out, exp_err, _, _, _ = expected(
+        _serving_job("serving_enrich", seed, lines))
+    reps = {}
+    for run, keys, want_out, want_err in (
+            ("templates_enrich", 'templates = "on"\ntemplate_enrich = true\n',
+             exp_out, exp_err),
+            ("templates_mine", 'templates = "on"\n',
+             EXPECTED["rfc5424_line"][4], EXPECTED["rfc5424_line"][5][0])):
+        cfg = _net_config(run, 'type = "stdin"\nframing = "line"\n')
+        cfg.write_text(cfg.read_text() + "[tenant]\n" + keys)
+        for k in framing.DECLINES:
+            framing.DECLINES[k] = 0
+        kernels.reset_launch_counts()
+        with launch_shapes() as seen:
+            wall, pipe, errs, _ = run_inproc(cfg, path)
+        LATE.update(seen - CHECKED)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        errs, econ = econ_split(errs)
+        notice = errs[:1] if run == "templates_enrich" else []
+        errs = errs[len(notice):]
+        out = (WORK / f"{run}.out").read_bytes()
+        h = pipe._handler
+        miner = h._miners.miner("default")
+        host_pinned = not any(k.startswith(("fused_", "encode_gelf"))
+                              for k in launches)
+        _need_serving(run, launches, ("decode_rfc5424_p6",))
+        if (out != want_out or errs != want_err
+                or not host_pinned or miner.distinct() < 2
+                or (run == "templates_enrich" and not notice)):
+            raise AssertionError(
+                f"{run}: {len(out)} bytes vs {len(want_out)} (equal="
+                f"{out == want_out}), stderr equal={errs == want_err}, "
+                f"launches {launches}, {miner.distinct()} templates")
+        reps[run] = {"launches": launches}
+        emit({"phase": "serving", "run": run, "lines": lines,
+              "wall_s": wall, "lines_per_s": lines / wall,
+              "rfc5424_line_lines_per_s": RATES.get("e2e_rfc5424_line"),
+              "templates": miner.distinct(), "notice": notice,
+              "launches": launches, "economics_notices": econ,
+              "identical_to_expectation": True})
+    total = {}
+    for rep in reps.values():
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return {"launches": total}
+
+
+def _breaker_trip(seed: int) -> dict:
+    """breaker_trip: BREAKER_HEAD rows over MAX_LEN (every one an oracle
+    row), then BREAKER_TAIL rows of cell 1's mix, stdin → rfc5424_tpu →
+    GELF with ``tpu_breaker_window = 4`` and ``tpu_breaker_cooldown_ms =
+    100`` (``tpu_batch_size = BREAKER_BATCH``): byte-identical to the
+    scalar path; exactly one trip; the probes re-open the breaker until
+    the clean tail closes it, and a probe batch launched K1."""
+    from flowgger_tpu_torch.tpu import breaker as breaker_mod
+    from flowgger_tpu_torch.tpu import framing, kernels
+
+    path, _, exp_out, exp_err, _, _, _ = expected(_serving_job(
+        "serving_breaker", seed + 94, BREAKER_HEAD + BREAKER_TAIL))
+    cfg = _net_config("breaker_trip", 'type = "stdin"\nframing = "line"\n'
+                      f"tpu_batch_size = {BREAKER_BATCH}\n"
+                      "tpu_breaker_window = 4\n"
+                      "tpu_breaker_cooldown_ms = 100\n")
+    marks = []   # (state entered, K1 launches then)
+    transition = breaker_mod.DecodeBreaker._transition
+
+    def marking(self, new, count_trip=True):
+        transition(self, new, count_trip)
+        marks.append((new, kernels.LAUNCHES.get("decode_rfc5424_p6", 0)))
+
+    for k in framing.DECLINES:
+        framing.DECLINES[k] = 0
+    kernels.reset_launch_counts()
+    breaker_mod.DecodeBreaker._transition = marking
+    try:
+        with launch_shapes() as seen:
+            wall, pipe, errs, _ = run_inproc(cfg, path, breaker=False)
+    finally:
+        breaker_mod.DecodeBreaker._transition = transition
+    LATE.update(seen - CHECKED)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    said = [e for e in errs if e.startswith(_BREAKER_LINE)]
+    errs, econ = econ_split([e for e in errs
+                             if not e.startswith(_BREAKER_LINE)])
+    out = (WORK / "breaker_trip.out").read_bytes()
+    br = pipe._handler._breaker
+    probe_k1 = sum(b[1] - a[1] for a, b in zip(marks, marks[1:])
+                   if a[0] == breaker_mod.HALF_OPEN)
+    _need_serving("breaker_trip", {"decode_rfc5424_p6 in a probe": probe_k1},
+                  ("decode_rfc5424_p6 in a probe",))
+    if (out != exp_out or errs != exp_err or br.trips != 1
+            or br.state != breaker_mod.CLOSED or br.probes < 1):
+        raise AssertionError(
+            f"breaker_trip: {len(out)} bytes vs {len(exp_out)} (equal="
+            f"{out == exp_out}), stderr equal={errs == exp_err}, "
+            f"{br.trips} trips, ends {br.state}, {br.probes} probes, "
+            f"{probe_k1} K1 launches in probes: {said}")
+    rows = BREAKER_HEAD + BREAKER_TAIL
+    emit({"phase": "serving", "run": "breaker_trip", "lines": rows,
+          "oracle_rows": BREAKER_HEAD, "tpu_batch_size": BREAKER_BATCH,
+          "wall_s": wall, "lines_per_s": rows / wall, "trips": br.trips,
+          "probes": br.probes, "k1_launches_in_probes": probe_k1,
+          "transitions": [m[0] for m in marks], "stderr_breaker": said,
+          "launches": launches, "economics_notices": econ,
+          "identical_to_expectation": True})
+    return {"launches": launches}
+
+
+def _queue_drop(seed: int) -> dict:
+    """queue_drop: rfc5424_line's input with ``input.queue_policy =
+    "drop_newest"`` and ``[faults] queue_pressure = "every:4"``
+    (``tpu_batch_size = QUEUE_BATCH``): every fourth item put on the
+    queue (a batch's block) is shed; the output is the expectation less
+    exactly those items."""
+    from flowgger_tpu_torch.tpu import framing, kernels
+    from flowgger_tpu_torch.utils import bounded_queue, faultinject
+
+    n_lines, _, path, _, exp_out, exp_err = EXPECTED["rfc5424_line"]
+    cfg = _net_config("queue_drop", 'type = "stdin"\nframing = "line"\n'
+                      'queue_policy = "drop_newest"\n'
+                      f"tpu_batch_size = {QUEUE_BATCH}\n")
+    cfg.write_text(cfg.read_text()
+                   + f'[faults]\nqueue_pressure = "every:{QUEUE_EVERY}"\n')
+    puts = []   # (item, shed)
+    put = bounded_queue.PolicyQueue.put
+
+    def recording(self, item, block=True, timeout=None):
+        before = self.dropped
+        put(self, item, block, timeout)
+        if item is not None:
+            puts.append((item, self.dropped > before))
+
+    for k in framing.DECLINES:
+        framing.DECLINES[k] = 0
+    kernels.reset_launch_counts()
+    bounded_queue.PolicyQueue.put = recording
+    try:
+        with launch_shapes() as seen:
+            wall, pipe, errs, _ = run_inproc(cfg, path)
+    finally:
+        bounded_queue.PolicyQueue.put = put
+        faultinject.reset()
+    LATE.update(seen - CHECKED)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    errs, econ = econ_split(errs)
+    out = (WORK / "queue_drop.out").read_bytes()
+
+    def data(item):
+        return getattr(item, "data", item)
+
+    shed = [i for i, (_, s) in enumerate(puts) if s]
+    kept = b"".join(data(it) for it, s in puts if not s)
+    plan = [f"faultinject: active plan {{'queue_pressure': "
+            f"'every:{QUEUE_EVERY}'}}"]
+    if (b"".join(data(it) for it, _ in puts) != exp_out or out != kept
+            or shed != list(range(QUEUE_EVERY - 1, len(puts), QUEUE_EVERY))
+            or not shed or pipe.tx.dropped != len(shed)
+            or errs != plan + exp_err[0]):
+        raise AssertionError(
+            f"queue_drop: {len(puts)} items put, shed {shed}, "
+            f"{pipe.tx.dropped} counted, output equal to the kept items="
+            f"{out == kept}, launches {launches}")
+    _need_serving("queue_drop", launches, ("decode_rfc5424_p6",))
+    emit({"phase": "serving", "run": "queue_drop", "lines": n_lines,
+          "items_put": len(puts), "items_shed": len(shed),
+          "records_shed": sum(len(it) for it, s in puts if s),
+          "wall_s": wall, "lines_per_s": n_lines / wall,
+          "launches": launches, "economics_notices": econ,
+          "output_is_expectation_less_the_shed_items": True})
+    return {"launches": launches}
+
+
+def phase_serving(seed: int, lines: int):
+    """The serving front on ``cuda`` (after the sinks): ``tenants_tcp``,
+    ``templates_enrich`` (and ``templates_mine``), ``breaker_trip`` and
+    ``queue_drop``, in process; a ``serving`` line each; and how many
+    earlier in-process runs were held to a closed breaker with no trip
+    (:func:`breaker_closed`).  Returns the runs' launch counts summed."""
+    total = {}
+    for rep in (_tenants_tcp(seed), _templates_enrich(seed, lines),
+                _breaker_trip(seed), _queue_drop(seed)):
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+    emit({"phase": "serving", "run": "breaker_closed",
+          "runs_held_closed": len(BREAKER_CLOSED),
+          "runs": sorted(set(BREAKER_CLOSED))})
+    return total
+
+
 def _late_corpus(name: str):
     """(corpus maker, mix name) of the rows a late shape of kernel
     ``name`` is checked on."""
@@ -7049,6 +7490,9 @@ def run_phases(args, seconds: dict, lap) -> int:
     for k, v in phase_sinks(args.seed).items():
         total[k] = total.get(k, 0) + v
     lap("sinks")
+    for k, v in phase_serving(args.seed, args.lines).items():
+        total[k] = total.get(k, 0) + v
+    lap("serving")
     phase_late_shapes(args.seed)
     lap("late_shapes")
     # expectation_wait: the seconds spent blocked on the pool, in the

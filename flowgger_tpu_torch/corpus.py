@@ -1002,7 +1002,8 @@ def scalar_expectation(data: bytes, framing: str = "line",
                        config: Config = None, merger=NulMerger(),
                        fmt: str = "rfc5424",
                        notices: List[str] = None,
-                       output: str = "gelf") -> Tuple[bytes, List[str]]:
+                       output: str = "gelf",
+                       record_hook=None) -> Tuple[bytes, List[str]]:
     """Output bytes (``output`` GELF, JSON, LTSV, RFC5424, RFC3164 or
     passthrough, with ``config``'s ``gelf_extra``, ``ltsv_extra`` or
     ``syslog_prepend_timestamp``; NUL-framed unless another merger is
@@ -1020,7 +1021,10 @@ def scalar_expectation(data: bytes, framing: str = "line",
     of a row both of its layouts reject; those come in row order here
     (the batched path prints a batch's before its error lines).  The
     LTSV decoder's "Missing value for name" notices go to stdout; with
-    ``notices`` (a list) they are appended to it, in row order."""
+    ``notices`` (a list) they are appended to it, in row order.
+    ``record_hook`` runs on each decoded record before the encode, as
+    ``ScalarHandler.record_hook`` does (template mining and
+    enrichment)."""
     import contextlib
     import io
 
@@ -1062,6 +1066,8 @@ def scalar_expectation(data: bytes, framing: str = "line",
                 finally:
                     if notices is not None:
                         notices.extend(told.getvalue().splitlines())
+            if record_hook is not None:
+                record_hook(record)
             payload = encoder.encode(record)
             out.append(merger.frame(payload) if merger is not None
                        else payload)

@@ -43,7 +43,6 @@ run.
 from __future__ import annotations
 
 import os
-import queue
 import sys
 import threading
 from typing import Optional
@@ -58,6 +57,13 @@ from .encoders import (CapnpEncoder, GelfEncoder, LTSVEncoder,
 from .mergers import LineMerger, NulMerger, SyslenMerger
 from .outputs import SHUTDOWN, DebugOutput, FileOutput
 from .splitters import ScalarHandler
+from .tenancy import current_or_default
+from .tenancy.admission import AdmissionHandler
+from .tenancy.fairqueue import WeightedFairQueue
+from .tenancy.registry import TenantRegistry
+from .tenancy.templates import TemplateMinerSet, make_gelf_enricher
+from .utils import faultinject
+from .utils.bounded_queue import POLICIES, PolicyQueue
 
 # mod.rs:101-109 defaults
 DEFAULT_INPUT_FORMAT = "rfc5424"
@@ -75,6 +81,54 @@ _FORMATS = {"rfc5424_tpu": "rfc5424", "rfc3164_tpu": "rfc3164",
 _ENCODERS = {"gelf": GelfEncoder, "json": GelfEncoder, "ltsv": LTSVEncoder,
              "rfc5424": RFC5424Encoder, "rfc3164": RFC3164Encoder,
              "passthrough": PassthroughEncoder, "capnp": CapnpEncoder}
+
+
+def _later(what: str, slice_: str) -> ConfigError:
+    return ConfigError(f"{what} is not supported by the port yet (a later "
+                       f"slice: {slice_})")
+
+
+def _check_durability(config: Config, input_format: str, fmt) -> None:
+    """``durability.mode``: the reference's refusals (pipeline.py:237-262,
+    durability/manager.py:97-102).  A scalar format prints the
+    reference's notice for a mode other than "off" and runs without a
+    spill tier ("require" refuses to start); a ``*_tpu`` format checks
+    the mode's words, and a spill tier is a later slice."""
+    words = 'durability.mode must be "off", "spill" or "require"'
+    mode = config.lookup_str("durability.mode", words, "off")
+    if fmt is None:
+        if mode != "off":
+            msg = (f'durability.mode = "{mode}" requires a *_tpu input '
+                   f"format (got '{input_format}')")
+            if mode == "require":
+                raise ConfigError(msg)
+            print(f"{msg}; the spill tier is disabled", file=sys.stderr)
+        return
+    if mode not in ("off", "spill", "require"):
+        raise ConfigError(words)
+    if mode != "off":
+        raise _later(f'durability.mode = "{mode}"',
+                     "durability, ROADMAP A8.3")
+
+
+def _refuse_later_slices(config: Config) -> None:
+    """The serving layers still to port: a config that sets them raises,
+    naming the slice, rather than run without them."""
+    for table, value, slice_ in (
+            ("control", config.lookup("control"), "control, ROADMAP A8.6"),
+            ("metrics", config.lookup("metrics"),
+             "observability, ROADMAP A8.4"),
+            ("slo", config.lookup("slo"), "observability, ROADMAP A8.4"),
+            ("supervisor", config.lookup("supervisor"),
+             "the supervisor, ROADMAP A8.7")):
+        if value:
+            raise _later(f"[{table}]", slice_)
+    inp = config.lookup("input")
+    if isinstance(inp, dict):
+        fleet = sorted(k for k in inp if k.startswith("tpu_fleet")
+                       and (k != "tpu_fleet" or inp[k] is not False))
+        if fleet:
+            raise _later(f"input.{fleet[0]}", "the fleet, ROADMAP A8.5")
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -226,7 +280,33 @@ class Pipeline:
         queue_size = config.lookup_int(
             "input.queuesize", "input.queuesize must be a size integer",
             DEFAULT_QUEUE_SIZE)
-        self.tx: "queue.Queue" = queue.Queue(maxsize=queue_size)
+        queue_policy = config.lookup_str(
+            "input.queue_policy",
+            'input.queue_policy must be "block", "drop_newest" or '
+            '"drop_oldest"', "block")
+        if queue_policy not in POLICIES:
+            raise ConfigError(
+                'input.queue_policy must be "block", "drop_newest" or '
+                '"drop_oldest"')
+        # multi-tenant serving: a [tenants] table (or a tenant.default_*
+        # rate) builds the tenant registry, swaps the bounded queue for
+        # the weighted-fair multi-queue and wraps every connection's
+        # handler in token-bucket admission; unconfigured, the pipeline
+        # builds the pre-tenancy objects
+        self.tenants = TenantRegistry.from_config(
+            config, fallback_policy=queue_policy)
+        if self.tenants is not None:
+            self.tx = WeightedFairQueue(maxsize=queue_size,
+                                        registry=self.tenants)
+        else:
+            self.tx = PolicyQueue(maxsize=queue_size, policy=queue_policy)
+        _check_durability(config, input_format, self.fmt)
+        # template mining for a scalar pipeline (the batch handler builds
+        # its own miner set)
+        self._scalar_miners = (TemplateMinerSet.from_config(config)
+                               if self.fmt is None else None)
+        faultinject.configure_from(config)
+        _refuse_later_slices(config)
         self.config = config
         self.device = resolve_device(device)
         self._handler = None
@@ -245,10 +325,20 @@ class Pipeline:
         connection the SAME batch handler, built once (batches then fill
         across connections; each connection frames its own stream
         through a session of its own).  A scalar format gets a new
-        ``ScalarHandler`` a call.  ``peer`` (the transport's source) is
-        taken and not used: tenancy is a later slice."""
+        ``ScalarHandler`` a call.  ``peer`` is the transport's source
+        (the peer IP for tcp / tls / udp, the path for a file input,
+        None for stdin and redis): with tenancy configured it selects
+        the tenant whose admission buckets the connection charges."""
+        handler = self._base_handler()
+        if self.tenants is not None:
+            return AdmissionHandler(handler, self.tenants.resolve(peer))
+        return handler
+
+    def _base_handler(self):
         if self.fmt is None:
-            return ScalarHandler(self.tx, self.decoder, self.encoder)
+            handler = ScalarHandler(self.tx, self.decoder, self.encoder)
+            handler.record_hook = self._scalar_record_hook()
+            return handler
         with self._handler_lock:
             if self._handler is None:
                 from .tpu.batch import BatchHandler
@@ -259,6 +349,21 @@ class Pipeline:
                 handler.on_failure = self._fail
                 self._handler = handler
             return self._handler
+
+    def _scalar_record_hook(self):
+        """Template mining (and, into GELF, enrichment) for a scalar
+        pipeline (the reference's ``_scalar_record_hook``)."""
+        miners = self._scalar_miners
+        if miners is None:
+            return None
+        if miners.enrich and type(self.encoder) is GelfEncoder:
+            return make_gelf_enricher(miners)
+
+        def mine(record, tenant=None):
+            miners.observe_msg(tenant or current_or_default(),
+                               record.msg or "")
+
+        return mine
 
     # -- failure and shutdown ------------------------------------------------
     def _fail(self, exc: BaseException) -> None:
@@ -298,6 +403,8 @@ class Pipeline:
         order), then wait for the sink to consume the queue.  Connection
         threads still alive after the wait stay daemonized, silently (the
         reference counts them in a metric; the port emits no metrics)."""
+        # from here on the queue's sheds happen during the drain
+        self.tx.mark_draining()
         self.input.join_handlers(timeout=2.0)
         if self._handler is not None:
             self._handler.flush()

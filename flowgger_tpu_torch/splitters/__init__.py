@@ -60,6 +60,10 @@ class ScalarHandler(Handler):
     enqueue; errors go to stderr and drop the message
     (line_splitter.rs:17-54)."""
 
+    # applied to every decoded Record before encode (tenancy's template
+    # mining and enrichment, tenancy/templates.py); None = no-op
+    record_hook = None
+
     def __init__(self, tx, decoder, encoder):
         self.tx = tx
         self.decoder = decoder
@@ -75,7 +79,10 @@ class ScalarHandler(Handler):
 
     def handle_line(self, line: str) -> None:
         try:
-            encoded = self.encoder.encode(self.decoder.decode(line))
+            record = self.decoder.decode(line)
+            if self.record_hook is not None:
+                self.record_hook(record)
+            encoded = self.encoder.encode(record)
         except (DecodeError, EncodeError) as e:
             self._report_error(e, line)
             return
@@ -91,6 +98,8 @@ class ScalarHandler(Handler):
 
     def handle_record(self, record: Record) -> None:
         try:
+            if self.record_hook is not None:
+                self.record_hook(record)
             encoded = self.encoder.encode(record)
         except EncodeError as e:
             print(e, file=sys.stderr)

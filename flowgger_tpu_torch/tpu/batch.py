@@ -104,12 +104,33 @@ Per-line errors go to stderr as ``<err>: [<line>]`` in input order, like
 the reference (line_splitter.rs:37-54).  Flushes are serialized by one
 decode lock, so a timer flush racing a size flush cannot reorder
 output, and the sequencer emits every batch in submit order whatever
-the lane count.  A device or kernel failure raises: there is no breaker
-and no scalar fallback for a whole batch on this path.  A failure on a
-fetcher thread is stashed, its ticket released, and it is raised again
-on the ingest thread at the next submit or fence, after the batches
-before it have been emitted; one that a timer flush's fence meets is
-kept for the ingest thread in the same way.
+the lane count.  A device or kernel failure raises: nothing catches it
+and no batch is re-decoded on the host.  A failure on a fetcher thread
+is stashed, its ticket released, and it is raised again on the ingest
+thread at the next submit or fence, after the batches before it have
+been emitted; one that a timer flush's fence meets is kept for the
+ingest thread in the same way.
+
+The decode circuit breaker (``tpu/breaker.py``, on unless
+``input.tpu_breaker = false``) is the reference's batch-level route for
+a stream that sends nearly every row to the scalar oracle anyway: each
+emitted block feeds it its oracle share, and after ``window`` batches
+all above ``fallback_ratio`` it opens (stderr says so).  While it is
+open each batch is framed on the host and goes through the scalar
+oracle behind a fence, in its turn; after ``cooldown_ms`` one batch
+probes the card again.
+
+The serving front (``tenancy/``): a raw session opened by the admission
+wrapper carries the connection's tenant tag and a ``RawCharge``, which
+is charged once a framed region before dispatch (a denied region is
+dropped whole); the pending lines and spans keep ingest-order (tenant,
+rows) runs, which ride each batch to its emit, where the Record path
+attributes each row to its tenant (the fair queue's lane, the miner).
+With ``tenant.templates = "on"`` the miner reads each batch's fetched
+decode channels (``block_fetch_encode``'s column tap; the fused route
+and the device tiers are off while it mines) and observes them in the
+sequenced emit; ``tenant.template_enrich`` sends GELF onto the Record
+path, where each record gets its ``_template_id``.
 """
 
 from __future__ import annotations
@@ -122,13 +143,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import tenancy as _tenancy
 from ..config import Config, ConfigError
-from ..encoders import EncodeError
-from ..splitters import Handler, SyslenSplitter, _scan_syslen_region
+from ..encoders import EncodeError, GelfEncoder
+from ..splitters import (Handler, ScalarHandler, SyslenSplitter,
+                         _scan_syslen_region)
+from ..tenancy.templates import TemplateMinerSet, make_gelf_enricher
 from . import autodetect, device_gelf, device_gelf_gelf, device_ltsv
 from . import device_capnp, device_ltsv_out, device_rfc3164
 from . import device_rfc5424_out
+from . import encode_passthrough
 from . import framing as _framing
+from .breaker import DecodeBreaker
 from .device_common import _count
 from . import fused_routes
 from . import overlap
@@ -270,11 +296,41 @@ class BatchHandler(Handler):
         # the opt-in extra auto legs (input.auto_extra_formats)
         self._auto_extras = (autodetect.auto_extra_formats(config)
                              if fmt == "auto" else ())
+        self._cfg = config
+        # the decode circuit breaker (tpu/breaker.py): whole batches take
+        # the scalar oracle while nearly every row goes there anyway
+        # (None: input.tpu_breaker = false)
+        self._breaker = DecodeBreaker.from_config(config)
+        # the scalar oracle of a breaker-open batch (auto: one a class)
+        self.scalar = ScalarHandler(tx, self._scalar_decoder(fmt), encoder)
+        self._auto_scalars: dict = {}
+        # online template mining (tenancy/templates.py): None unless
+        # tenant.templates = "on"
+        self._miners = TemplateMinerSet.from_config(config)
+        # template-ID enrichment rides the Record path (per-row JSON
+        # fields do not fit the block encoders), GELF output only
+        self._enrich_hook = None
+        if (self._miners is not None and self._miners.enrich
+                and type(encoder) is GelfEncoder):
+            self._enrich_hook = make_gelf_enricher(self._miners)
+            self.scalar.record_hook = self._enrich_hook
+        # mining reads the fetched decode channels: the host block path
+        # is pinned while it is on (no fused route, no device tier)
+        self._mine_block = (self._miners is not None
+                            and fmt in ("rfc5424", "rfc3164", "ltsv",
+                                        "jsonl", "dns"))
         self._lines: List[bytes] = []
         # regions with their frame spans (the UDP input's recvmmsg path)
         self._span_chunks: List[bytes] = []
         self._span_sets: list = []
         self._span_count = 0
+        # ingest-order (tenant, rows) runs beside the pending lines and
+        # spans, so rows attribute to the tenant whose connection sent
+        # them (mining, and the fair queue's lane on a Record-path emit);
+        # kept while mining or while the ingest thread has a tenant tag
+        self._line_runs: list = []
+        self._span_runs: list = []
+        self._next_runs = None
         self._raw_sessions: List["_RawSession"] = []
         self._raw_est = 0
         self._lock = threading.Lock()
@@ -350,6 +406,9 @@ class BatchHandler(Handler):
           RFC5424 and capnp.
         - RFC3164 (from rfc3164 only) and passthrough (from rfc5424 and
           rfc3164): only while ``syslog_prepend_timestamp`` is unset."""
+        if self._enrich_hook is not None:
+            # per-row _template_id fields ride the Record path
+            return False
         out = out_key(self.encoder)
         fmt = self.fmt
         if out == "gelf":
@@ -380,6 +439,9 @@ class BatchHandler(Handler):
         (batch.py:1230-1287)."""
         if self._block_ok:
             return None
+        if self._enrich_hook is not None:
+            return ("tenant.template_enrich is set (per-record "
+                    "_template_id rides the Record path)")
         out = out_key(self.encoder)
         no_columnar = (f"output.format {type(self.encoder).__name__} has "
                        f"no columnar encoder for input format '{self.fmt}'")
@@ -409,8 +471,11 @@ class BatchHandler(Handler):
     def _fused_route(self):
         """The fused route for this handler's config, or None: fuse mode
         off, the auto format (its legs take the split path), or no fused
-        program for this (format, output encoder, merger)."""
-        if self._fuse_mode == "off" or self.fmt == "auto":
+        program for this (format, output encoder, merger), or template
+        mining on (the miner reads the fetched decode channels, which a
+        fused route never fetches)."""
+        if (self._fuse_mode == "off" or self.fmt == "auto"
+                or self._mine_block):
             return None
         return fused_routes.route_for(self.fmt, self.encoder, self.merger,
                                       self.decoder)
@@ -430,8 +495,15 @@ class BatchHandler(Handler):
     def handle_bytes(self, raw: bytes) -> None:
         """One already-framed record (the end-of-stream partial frame)."""
         self._raise_timer_exc()
+        tag = _tenancy.current_name()
         with self._lock:
             self._lines.append(raw)
+            if self._miners is not None or tag is not None:
+                tenant = tag or _tenancy.DEFAULT_TENANT
+                if self._line_runs and self._line_runs[-1][0] == tenant:
+                    self._line_runs[-1][1] += 1
+                else:
+                    self._line_runs.append([tenant, 1])
             full = self._pending_locked() >= self.batch_size
             if not full:
                 self._arm_timer_locked()
@@ -445,10 +517,14 @@ class BatchHandler(Handler):
         ``ingest_spans`` and ``_decode_spans``, batch.py:448-466,
         713-730)."""
         self._raise_timer_exc()
+        tag = _tenancy.current_name()
         with self._lock:
             self._span_chunks.append(chunk)
             self._span_sets.append((starts, lens))
             self._span_count += len(starts)
+            if self._miners is not None or tag is not None:
+                self._span_runs.append(
+                    (tag or _tenancy.DEFAULT_TENANT, len(starts)))
             full = self._pending_locked() >= self.batch_size
             if not full:
                 self._arm_timer_locked()
@@ -517,6 +593,8 @@ class BatchHandler(Handler):
             span_chunks, self._span_chunks = self._span_chunks, []
             span_sets, self._span_sets = self._span_sets, []
             self._span_count = 0
+            line_runs, self._line_runs = self._line_runs, []
+            span_runs, self._span_runs = self._span_runs, []
             if self._timer is not None:
                 self._timer.cancel()
                 self._timer = None
@@ -535,10 +613,26 @@ class BatchHandler(Handler):
             for s, chunks in raw:
                 self._decode_raw(s, chunks)
             if span_chunks:
-                self._submit(_pack_spans(span_chunks, span_sets,
-                                         self.max_len))
+                if self._device_allowed():
+                    self._submit_with(_pack_spans(span_chunks, span_sets,
+                                                  self.max_len),
+                                      None, span_runs or None)
+                else:
+                    # breaker open: the scalar oracle, behind a fence
+                    self._window.fence()
+                    for chunk, (starts, lens) in zip(span_chunks, span_sets):
+                        for st, ln in zip(np.asarray(starts).tolist(),
+                                          np.asarray(lens).tolist()):
+                            self._scalar_handle(chunk[st:st + ln])
             if lines:
-                self._submit(_pack.pack_lines_2d(lines, self.max_len))
+                if self._device_allowed():
+                    self._submit_with(
+                        _pack.pack_lines_2d(lines, self.max_len), None,
+                        line_runs or None)
+                else:
+                    self._window.fence()
+                    for raw_line in lines:
+                        self._scalar_handle(raw_line)
             if drain:
                 self._window.fence()
 
@@ -578,8 +672,12 @@ class BatchHandler(Handler):
         sess.carry = b""
         if not region or sess.dead:
             return
+        runs_tag = None
+        if self._miners is not None or sess.tag is not None:
+            runs_tag = sess.tag or _tenancy.DEFAULT_TENANT
+        breaker_open = not self._device_allowed()
         if sess.framing == "syslen":
-            self._decode_raw_syslen(sess, region)
+            self._decode_raw_syslen(sess, region, breaker_open, runs_tag)
             return
         cut = region.rfind(sess.sep)
         if cut < 0:
@@ -587,6 +685,19 @@ class BatchHandler(Handler):
             return
         framed, sess.carry = region[:cut + 1], region[cut + 1:]
         n = framed.count(sess.sep)
+        # record-aligned admission: the tenant pays what the host
+        # splitter would have charged, all or nothing a framed region
+        # (the carry stays; it is charged when it frames)
+        if (sess.charge is not None and n
+                and not sess.charge.admit_region(n, len(framed))):
+            return
+        if breaker_open:
+            # the scalar oracle, behind a fence so the batches in flight
+            # keep their place
+            self._window.fence()
+            self._scalar_raw_lines(framed, sess.sep, sess.framing == "line")
+            return
+        runs = [(runs_tag, n)] if runs_tag is not None else None
         # the lane is reserved before framing, so the batch is framed on
         # its device and stream
         lane = self._window.next_lane()
@@ -600,23 +711,57 @@ class BatchHandler(Handler):
                 packed = _pack.pack_region_2d(
                     framed, self.max_len, sep=sess.sep[0],
                     strip_cr=sess.framing == "line")
-            self._submit(packed, lane)
+            self._submit_with(packed, lane, runs)
 
-    def _decode_raw_syslen(self, sess: "_RawSession", region: bytes) -> None:
+    def _decode_raw_syslen(self, sess: "_RawSession", region: bytes,
+                           breaker_open: bool, runs_tag) -> None:
         """Octet-count framing of one session region on the card; a
         decline (a prefix over 9 digits, or more frames than spaces)
-        re-frames the same bytes with the host scan."""
-        lane = self._window.next_lane()
-        with self._lanes[lane].scope():
-            try:
-                packed, consumed, err = self._frame(
-                    region, "syslen", max(region.count(b" "), 1), lane)
-            except _framing.FramingDeclined:
-                starts, lens, n, consumed, err = _scan_syslen_region(region)
-                packed = _pack.pack_spans_2d(region[:consumed], starts,
-                                             lens, self.max_len)
-            if packed[5]:
-                self._submit(packed, lane)
+        re-frames the same bytes with the host scan, as does an open
+        breaker (whose records then take the scalar oracle)."""
+        charge = sess.charge
+        lane = None
+        if not breaker_open:
+            lane = self._window.next_lane()
+            with self._lanes[lane].scope():
+                try:
+                    packed, consumed, err = self._frame(
+                        region, "syslen", max(region.count(b" "), 1), lane)
+                except _framing.FramingDeclined:
+                    pass
+                else:
+                    n = int(packed[5])
+                    if n and charge is not None:
+                        _framing.host_ready(packed)
+                        if not charge.admit_region(
+                                n, int(np.asarray(packed[4][:n]).sum())):
+                            # the framed records drop as a unit; the
+                            # carry stays with the session
+                            n = 0
+                    if n:
+                        runs = [(runs_tag, n)] if runs_tag is not None \
+                            else None
+                        self._submit_with(packed, lane, runs)
+                    self._finish_raw_syslen(sess, region, consumed, err)
+                    return
+        starts, lens, n, consumed, err = _scan_syslen_region(region)
+        if n and charge is not None and not charge.admit_region(
+                int(n), int(lens.sum())):
+            self._finish_raw_syslen(sess, region, consumed, err)
+            return
+        if breaker_open:
+            self._window.fence()
+            for st, ln in zip(starts.tolist(), lens.tolist()):
+                self._scalar_handle(region[st:st + ln])
+        elif n:
+            packed = _pack.pack_spans_2d(region[:consumed], starts, lens,
+                                         self.max_len)
+            runs = [(runs_tag, n)] if runs_tag is not None else None
+            self._submit_with(packed, lane, runs)
+        self._finish_raw_syslen(sess, region, consumed, err)
+
+    def _finish_raw_syslen(self, sess: "_RawSession", region: bytes,
+                           consumed: int, err: bool) -> None:
         sess.carry = region[consumed:]
         if err:
             # host-scan parity: a malformed length prefix ends the stream
@@ -625,18 +770,85 @@ class BatchHandler(Handler):
             sess.dead = True
             sess.carry = b""
 
+    # -- the breaker's scalar path -------------------------------------------
+    def _device_allowed(self) -> bool:
+        return self._breaker is None or self._breaker.allow()
+
+    def _scalar_decoder(self, fmt: str):
+        """The scalar oracle's decoder of a format (auto: its rfc5424
+        class; the other classes build theirs at first use)."""
+        from .. import decoders
+
+        if fmt in ("ltsv", "auto"):
+            return self.decoder if fmt == "ltsv" else \
+                decoders.RFC5424Decoder(self._cfg)
+        return {"rfc5424": decoders.RFC5424Decoder,
+                "rfc3164": decoders.RFC3164Decoder,
+                "jsonl": decoders.JSONLDecoder,
+                "gelf": decoders.GelfDecoder,
+                "dns": decoders.DNSDecoder}[fmt](self._cfg)
+
+    def _scalar_handle(self, raw: bytes) -> None:
+        """One record through its format's scalar oracle, with the
+        splitter's flags set on this handler."""
+        handler = (self._auto_scalar_for(raw) if self.fmt == "auto"
+                   else self.scalar)
+        handler.quiet_empty = self.quiet_empty
+        handler.bare_errors = self.bare_errors
+        handler.handle_bytes(raw)
+
+    def _auto_scalar_for(self, raw: bytes) -> ScalarHandler:
+        """auto: classify the record on the host (the classifier's own
+        table) and take that class's scalar oracle, so the breaker's
+        path stays byte-identical to the batched one."""
+        from .. import decoders
+
+        cls = autodetect.classify(raw, self._auto_extras)
+        handler = self._auto_scalars.get(cls)
+        if handler is None:
+            decoder = {
+                autodetect.F_RFC5424: lambda: self.scalar.decoder,
+                autodetect.F_LTSV: lambda: self.decoder,
+                autodetect.F_GELF: lambda: decoders.GelfDecoder(self._cfg),
+                autodetect.F_JSONL: lambda: decoders.JSONLDecoder(self._cfg),
+                autodetect.F_DNS: lambda: decoders.DNSDecoder(self._cfg),
+            }.get(cls, lambda: decoders.RFC3164Decoder(self._cfg))()
+            handler = ScalarHandler(self.tx, decoder, self.encoder)
+            handler.record_hook = self.scalar.record_hook
+            self._auto_scalars[cls] = handler
+        return handler
+
+    def _scalar_raw_lines(self, framed: bytes, sep: bytes,
+                          strip_cr: bool) -> None:
+        lines = framed.split(sep)
+        lines.pop()  # framed regions end with the separator
+        for raw in lines:
+            if strip_cr and raw.endswith(b"\r"):
+                raw = raw[:-1]
+            self._scalar_handle(raw)
+
     def _dispatch(self, packed) -> None:
         """One packed batch down the ladder, emitted before this
         returns: submit, then fence every lane."""
         self._submit(packed)
         self._window.fence()
 
+    def _submit_with(self, packed, lane, runs) -> None:
+        """:meth:`_submit` of a batch with its ingest-order (tenant, rows)
+        runs (None: no tenant attribution).  The runs ride an attribute
+        that ``_submit`` takes at once: flushes are serialized by the
+        decode lock."""
+        self._next_runs = runs
+        self._submit(packed, lane)
+
     def _submit(self, packed, lane=None) -> None:
         """The submit half of the ladder (the reference's ``_emit_fast``),
         on the ingest thread under the lane's stream: the Record path
         (fenced, synchronous), or the lane's window — auto's batches as
         they are, the fused route's inputs (its cooldown counted down
-        here, its economics arm consulted), or the split decode."""
+        here, its economics arm consulted), or the split decode; the
+        batch's runs (:meth:`_submit_with`) ride along."""
+        runs, self._next_runs = self._next_runs, None
         if lane is None:
             lane = self._window.next_lane()
         ln = self._lanes[lane]
@@ -651,12 +863,14 @@ class BatchHandler(Handler):
                 # batches of every lane
                 self._window.fence()
                 _framing.host_ready(packed)
-                self._emit_record_path(packed)
+                self._emit_record_path(packed, runs)
+                if self._breaker is not None:
+                    self._breaker.record_success()
                 return
             if self.fmt == "auto":
                 # the classifier and the per-class legs run on the lane's
                 # fetcher thread
-                self._window.submit(lane, (None, packed))
+                self._window.submit(lane, (None, packed, runs))
                 return
             route = self._fused_route()
             if route is not None:
@@ -668,42 +882,46 @@ class BatchHandler(Handler):
                     state["cooled"] = state.get("cooled", 0) + 1
                 elif self._econs[lane].allow_fused():
                     handle = fused_routes.submit(route, (batch, lens))
-                    self._window.submit(lane, (handle, packed))
+                    self._window.submit(lane, (handle, packed, runs))
                     return
                 else:
                     # the economics measured the split path cheaper
                     _count(state, "econ_split")
             self._window.submit(lane, (block_submit(self.fmt, packed),
-                                       packed))
+                                       packed, runs))
 
     def _pop_emit(self, payload, lane: int = 0):
         """The pop half (the reference's ``_pop_emit``), on the lane's
         fetcher thread under its stream: fetch and encode one batch, and
         return the emit closure the sequencer runs in submit order, which
         feeds the lane's economics with the route's measured seconds (a
-        declined attempt's seconds taken out)."""
-        handle, packed = payload
+        declined attempt's seconds taken out) and tells the breaker of
+        the emitted batch (a half-open probe closes it here)."""
+        handle, packed, runs = payload
         econ = self._econs[lane]
         stats: dict = {}
         with self._lanes[lane].scope():
             # the span arrays device framing copies back without blocking
             _framing.host_ready(packed)
             t0 = time.perf_counter()
-            emit = self._pop_emit_inner(handle, packed, stats, econ)
+            emit = self._pop_emit_inner(handle, packed, stats, econ, runs)
             compute_s = (time.perf_counter() - t0
                          - stats.get("declined_s", 0.0))
         path = stats.get("path")
 
         def finish():
             emit()
+            if self._breaker is not None:
+                self._breaker.record_success()
             if path is not None:
                 econ.observe(path, int(packed[5]), compute_s)
 
         return finish
 
-    def _pop_emit_inner(self, handle, packed, stats, econ):
+    def _pop_emit_inner(self, handle, packed, stats, econ, runs=None):
         """Fetch and encode one batch; returns a zero-argument emit
         closure."""
+        n_real = int(packed[5])
         if self.fmt == "auto":
             # economics does not govern auto's legs: each keeps its own
             # decline / cooldown hysteresis only
@@ -713,8 +931,8 @@ class BatchHandler(Handler):
             if res is None:
                 results = autodetect.decode_auto_packed(
                     packed, self.decoder, self._auto_extras)
-                return lambda: self._emit(results)
-            return lambda: self._emit_block(res)
+                return lambda: self._emit(results, runs)
+            return lambda: self._emit_block(res, n_real)
         fused_declined_s = 0.0
         if isinstance(handle, fused_routes.FusedHandle):
             tf0 = time.perf_counter()
@@ -723,16 +941,27 @@ class BatchHandler(Handler):
                 self.route_state, decoder=self.decoder)
             if res is not None:
                 stats["path"] = "fused"
-                return lambda: self._emit_block(res)
+                return lambda: self._emit_block(res, n_real)
             # the fused route declined: the split decode, submitted again
             # on this lane's stream, takes the batch; the declined
             # attempt's seconds are not the split path's
             fused_declined_s = time.perf_counter() - tf0
             handle = block_submit(self.fmt, packed)
+        mined: list = []
+        column_tap = None
+        if self._mine_block:
+            # extraction only, on this (concurrent) fetcher thread; the
+            # miner observes inside the sequenced emit, so template IDs
+            # are assigned in batch order at every lane count
+            column_tap = lambda host_out: mined.append(  # noqa: E731
+                self._miners.extract_block(self.fmt, packed, host_out))
         res, host_out = block_fetch_encode(
             self.fmt, handle, packed, self.encoder, self.merger,
             self.decoder, self.route_state,
-            allow_device=econ.allow_device(), stats=stats)
+            # mining reads the fetched decode channels: the host block
+            # path is pinned while it is on
+            allow_device=econ.allow_device() and not self._mine_block,
+            stats=stats, column_tap=column_tap)
         stats["declined_s"] = stats.get("declined_s", 0.0) + fused_declined_s
         if res is None:
             # the block encoder declined the batch after the fact (an
@@ -741,26 +970,41 @@ class BatchHandler(Handler):
             # emitted in the batch's turn
             results = _materialize_packed(self.fmt, packed, host_out,
                                           self.decoder)
-            return lambda: self._emit(results)
-        return lambda: self._emit_block(res)
+            return lambda: self._emit(results, runs)
+        if mined and mined[0] is not None:
+            def emit_mined():
+                self._miners.observe_rows(mined[0], runs)
+                self._emit_block(res, n_real)
 
-    def _emit_record_path(self, packed) -> None:
+            return emit_mined
+        return lambda: self._emit_block(res, n_real)
+
+    def _emit_record_path(self, packed, runs=None) -> None:
         """A batch of a config the block route cannot take: rfc5424 into
         GELF per row from the decode's spans (the reference's
-        ``_encode_packed_rfc5424_gelf``), auto through its per-class
-        Record path, every other format and encoder through its Record
-        path (rfc5424 into RFC3164, and into passthrough with
+        ``_encode_packed_rfc5424_gelf``), and into passthrough without a
+        prepend format per row too (``encode_passthrough``); auto through
+        its per-class Record path; every other format and encoder, and
+        rfc5424 with template enrichment (every row gets its
+        ``_template_id`` before the encode), through its Record path
+        (rfc5424 into RFC3164, and into passthrough with
         ``syslog_prepend_timestamp`` set, among them)."""
-        if self.fmt == "rfc5424" and out_key(self.encoder) == "gelf":
+        out = out_key(self.encoder)
+        if self.fmt == "rfc5424" and self._enrich_hook is None and (
+                out == "gelf" or (out == "passthrough"
+                                  and self.encoder.header_time_format
+                                  is None)):
             batch, lens, chunk, starts, orig_lens, n_real = packed
-            self._emit_encoded(encode_rfc5424_gelf(
+            encode = (encode_rfc5424_gelf if out == "gelf" else
+                      encode_passthrough.encode_rfc5424_passthrough)
+            self._emit_encoded(encode(
                 chunk, starts, orig_lens, decode_rfc5424_host(batch, lens),
-                n_real, batch.shape[1], self.encoder))
+                n_real, batch.shape[1], self.encoder), runs)
         elif self.fmt == "auto":
             self._emit(autodetect.decode_auto_packed(
-                packed, self.decoder, self._auto_extras))
+                packed, self.decoder, self._auto_extras), runs)
         else:
-            self._emit(_decode_packed(self.fmt, packed, self.decoder))
+            self._emit(_decode_packed(self.fmt, packed, self.decoder), runs)
 
     def _print_error(self, error: str, line: str) -> None:
         if error == "__utf8__":
@@ -772,37 +1016,78 @@ class BatchHandler(Handler):
             if not (self.quiet_empty and not stripped):
                 print(f"{error}: [{stripped}]", file=sys.stderr)
 
-    def _emit_block(self, res) -> None:
+    def _emit_block(self, res, n_real: int) -> None:
+        if self._breaker is not None:
+            self._breaker.observe_batch(n_real, res.fallback_rows)
         for error, line in res.errors:
             self._print_error(error, line)
         if len(res.block):
             self.tx.put(res.block)
 
-    def _emit(self, results) -> None:
-        """Record-path rows in order: a decode error's line, or the
-        record encoded into one queue item (the output thread frames it
-        with the merger), or an encode error's line."""
-        for res in results:
-            if res.record is None:
-                self._print_error(res.error, res.line)
-                continue
-            try:
-                encoded = self.encoder.encode(res.record)
-            except EncodeError as e:
-                stripped = res.line.strip()
-                if not (self.quiet_empty and not stripped):
-                    print(f"{e}: [{stripped}]", file=sys.stderr)
-                continue
-            self.tx.put(encoded)
+    @staticmethod
+    def _expand_runs(runs, n_rows: int):
+        """One tenant a row from the ingest-order runs, or None when the
+        runs do not cover the batch."""
+        if runs and sum(n for _, n in runs) == n_rows:
+            return [t for t, n in runs for _ in range(n)]
+        return None
 
-    def _emit_encoded(self, results) -> None:
+    def _emit(self, results, runs=None) -> None:
+        """Record-path rows in order: a decode error's line, or the
+        record (mined, and enriched with its ``_template_id``, when
+        mining is on) encoded into one queue item (the output thread
+        frames it with the merger), or an encode error's line.  With
+        runs covering the batch, each row is attributed to its own
+        tenant: for mining, and for the fair queue's lane (the put rides
+        the row's tag, not the flusher's)."""
+        expanded = self._expand_runs(runs, len(results))
+        default_tenant = None
+        if self._miners is not None and expanded is None:
+            default_tenant = _tenancy.current_or_default()
+        prev_tag = _tenancy.current_name() if expanded is not None else None
+        try:
+            for i, res in enumerate(results):
+                if res.record is None:
+                    self._print_error(res.error, res.line)
+                    continue
+                if self._miners is not None:
+                    tenant = (expanded[i] if expanded is not None
+                              else default_tenant)
+                    if self._enrich_hook is not None:
+                        self._enrich_hook(res.record, tenant)
+                    else:
+                        self._miners.observe_msg(tenant,
+                                                 res.record.msg or "")
+                try:
+                    encoded = self.encoder.encode(res.record)
+                except EncodeError as e:
+                    stripped = res.line.strip()
+                    if not (self.quiet_empty and not stripped):
+                        print(f"{e}: [{stripped}]", file=sys.stderr)
+                    continue
+                if expanded is not None:
+                    _tenancy.set_current(expanded[i])
+                self.tx.put(encoded)
+        finally:
+            if expanded is not None:
+                _tenancy.set_current(prev_tag)
+
+    def _emit_encoded(self, results, runs=None) -> None:
         """The per-row span encode's rows in order: an error's line, or
-        the encoded bytes as one queue item."""
-        for res in results:
-            if res.encoded is None:
-                self._print_error(res.error, res.line)
-                continue
-            self.tx.put(res.encoded)
+        the encoded bytes as one queue item (on its row's tenant lane)."""
+        expanded = self._expand_runs(runs, len(results))
+        prev_tag = _tenancy.current_name() if expanded is not None else None
+        try:
+            for i, res in enumerate(results):
+                if res.encoded is None:
+                    self._print_error(res.error, res.line)
+                    continue
+                if expanded is not None:
+                    _tenancy.set_current(expanded[i])
+                self.tx.put(res.encoded)
+        finally:
+            if expanded is not None:
+                _tenancy.set_current(prev_tag)
 
 
 def _pack_spans(chunks: List[bytes], span_sets: list, max_len: int):
@@ -831,7 +1116,8 @@ def block_submit(fmt: str, packed):
 
 def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
                        ltsv_decoder=None, route_state=None,
-                       allow_device: bool = True, stats=None):
+                       allow_device: bool = True, stats=None,
+                       column_tap=None):
     """The split device encode tier of a submitted decode, then (on its
     decline, with ``allow_device`` False — the route economics measured
     the host path as cheaper — or with no tier for the format and
@@ -844,7 +1130,10 @@ def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
     auto format's legs never share one.  ``stats`` (a dict, optional)
     gets the reference's ``path`` (``"device"`` or ``"host"``, for
     whichever tier made the block), ``fetch_s`` and ``declined_s``, the
-    seconds a declined device attempt cost."""
+    seconds a declined device attempt cost.  ``column_tap`` (template
+    mining) is called with the fetched decode channels on the host path;
+    its caller passes ``allow_device=False``, so the channels are
+    fetched.  A tap failure is reported, never a lost batch."""
     t0 = time.perf_counter()
     declined_s = 0.0
     dec = (ltsv_decoder,) if fmt == "ltsv" else ()
@@ -875,6 +1164,12 @@ def block_fetch_encode(fmt: str, handle, packed, encoder, merger,
     batch, _, chunk, starts, orig_lens, n_real = packed
     host_out = fetch(handle)
     fetch_s = time.perf_counter() - t0
+    if column_tap is not None:
+        try:
+            column_tap(host_out)
+        except Exception as e:  # noqa: BLE001 - mining never costs the batch
+            print(f"template column tap failed ({type(e).__name__}: {e}); "
+                  "batch not mined", file=sys.stderr)
     res = encode(chunk, starts, orig_lens, host_out, n_real, batch.shape[1],
                  encoder, merger, *dec)
     if stats is not None:
@@ -927,6 +1222,10 @@ class _RawSession:
         self.est = 0
         self.nbytes = 0
         self.dead = False
+        # the connection's tenant (one stream, one tenant) and its
+        # admission charge (tenancy/admission.RawCharge), or None
+        self.tag = _tenancy.current_name()
+        self.charge = None
 
     def push(self, chunk: bytes) -> bool:
         """Buffer one raw chunk; returns False once the session died."""
@@ -977,4 +1276,9 @@ class _RawSession:
         if carry:
             if self.framing == "line" and carry.endswith(b"\r"):
                 carry = carry[:-1]
+            if self.charge is not None and not self.charge.admit_region(
+                    1, len(carry)):
+                # the end-of-stream partial frame is charged as the host
+                # splitter's handle_bytes would be: one record
+                return
             h.handle_bytes(carry)

@@ -1153,11 +1153,16 @@ def test_expectation_jobs_cover_every_e2e_path():
     jobs = chip_smoke.expectation_jobs(20261016, 65536)
     names = [j["name"] for j in jobs]
     assert names == [*chip_smoke.PATHS, *chip_smoke.MIXED_PATHS,
-                     *chip_smoke.OUT_PATHS, "redis_kafka"]
+                     *chip_smoke.OUT_PATHS, "redis_kafka",
+                     "serving_limited", "serving_heavy", "serving_default",
+                     "serving_enrich", "serving_breaker"]
     by = {j["name"]: j for j in jobs}
     assert by["jsonl_line"]["lines"] == chip_smoke.JSONL_LINES
     assert by["rfc5424_line"]["lines"] == 65536
     assert by["redis_kafka"]["lines"] == chip_smoke.REDIS_KAFKA_LINES
+    assert by["serving_enrich"]["lines"] == 65536
+    assert by["serving_breaker"]["lines"] == (chip_smoke.BREAKER_HEAD
+                                              + chip_smoke.BREAKER_TAIL)
     assert chip_smoke.pool_workers() >= 1
 
 
@@ -1208,6 +1213,61 @@ def test_sinks_phase_at_a_small_size_on_the_cpu(monkeypatch, tmp_path):
     assert fr["concatenation_identical"] and fr["files"] >= 3
     assert sum(fr["file_bytes"]) == len(exp_out)
     assert needs == ["redis_kafka", "file_rotate"]
+
+
+def test_serving_phase_at_a_small_size_on_the_cpu(monkeypatch, tmp_path):
+    """phase_serving end to end on the CPU at a small size (the pipelines
+    on ``cpu``): tenants_tcp's three tenants from 127.0.0.1/.2/.3 (the
+    limited one shed, in whole regions, the others whole and in order),
+    the enrichment run against the scalar path with the same miner and
+    the mining-only run against rfc5424_line's expectation, breaker_trip's
+    one trip, probes and close, queue_drop's shed items.  Launch counts
+    stay 0 on the CPU, so the on-card checks are stood in for."""
+    from flowgger_tpu_torch import pipeline as P
+    from flowgger_tpu_torch.corpus import make_corpus, scalar_expectation
+
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    monkeypatch.setattr(P, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    needs = []
+    monkeypatch.setattr(chip_smoke, "_need_serving",
+                        lambda name, launches, need: needs.append(name))
+    for name, n in (("SERVING_LINES", 600), ("SERVING_RATE", 100),
+                    ("BREAKER_BATCH", 64), ("BREAKER_HEAD", 640),
+                    ("BREAKER_TAIL", 1500), ("QUEUE_BATCH", 64)):
+        monkeypatch.setattr(chip_smoke, name, n)
+    emitted = []
+    monkeypatch.setattr(chip_smoke, "emit", emitted.append)
+    lines, _ = make_corpus(1024, 9)
+    data = b"\n".join(lines)
+    path = tmp_path / "rfc5424_line.in"
+    path.write_bytes(data)
+    exp_out, exp_err = scalar_expectation(data)
+    monkeypatch.setitem(chip_smoke.EXPECTED, "rfc5424_line",
+                        (1024, 9, path, data, exp_out, (exp_err, [])))
+    monkeypatch.setattr(chip_smoke, "LATE", set())
+    monkeypatch.setattr(chip_smoke, "BREAKER_CLOSED", ["e2e"])
+    chip_smoke.phase_serving(9, 1024)
+    runs = {r["run"]: r for r in emitted}
+    assert list(runs) == ["tenants_tcp", "templates_enrich",
+                          "templates_mine", "breaker_trip", "queue_drop",
+                          "breaker_closed"]
+    tt = runs["tenants_tcp"]
+    assert tt["in_order_subsequence_a_tenant"]
+    assert tt["records_per_tenant"]["limited"] < 600
+    assert tt["limited_lines_shed"] > 0
+    assert tt["queue"] == "WeightedFairQueue"
+    assert runs["templates_enrich"]["notice"] and \
+        runs["templates_mine"]["notice"] == []
+    bt = runs["breaker_trip"]
+    assert bt["trips"] == 1 and bt["probes"] >= 1
+    assert bt["transitions"][0] == "open" and bt["transitions"][-1] == "closed"
+    qd = runs["queue_drop"]
+    assert qd["items_shed"] >= 1 and qd["output_is_expectation_less_the_shed_items"]
+    assert runs["breaker_closed"]["runs_held_closed"] >= 4
+    assert needs == ["tenants_tcp", "templates_enrich", "templates_mine",
+                     "breaker_trip", "queue_drop"]
 
 
 def test_kafka_fake_refuses_a_bad_crc32c():

@@ -221,6 +221,107 @@ def test_later_slice_configs_raise(text, key):
     assert key in str(exc.value), (key, str(exc.value))
 
 
+# the serving layers' keys (config, what the port must do): "ref" —
+# raise the JAX package's own ConfigError words; "later" — raise a
+# ConfigError naming the slice that ports the key, where the reference
+# runs the config; "never" — the device_decode fault site, refused for
+# good; "runs" — build, as the reference does (the value: the queue
+# class and policy the port builds, or the stderr notice it prints)
+_STDIN_TPU = '[input]\ntype = "stdin"\nformat = "rfc5424_tpu"\n'
+_STDIN_SCALAR = '[input]\ntype = "stdin"\nformat = "rfc5424"\n'
+SERVING_CONFIGS = [
+    (_STDIN_TPU + 'queue_policy = "bogus"\n', "ref", "queue_policy_bogus"),
+    (_STDIN_TPU + "queue_policy = 3\n", "ref", "queue_policy_type"),
+    (_STDIN_TPU + 'queue_policy = "drop_newest"\n',
+     ("runs", "PolicyQueue", "drop_newest"), "queue_policy_drop_newest"),
+    (_STDIN_SCALAR + 'queue_policy = "drop_oldest"\n',
+     ("runs", "PolicyQueue", "drop_oldest"), "queue_policy_scalar"),
+    (_STDIN_SCALAR + '[durability]\nmode = "require"\n', "ref",
+     "durability_require_scalar"),
+    (_STDIN_SCALAR + '[durability]\nmode = "spill"\n',
+     ("runs", 'durability.mode = "spill" requires a *_tpu input format '
+      "(got 'rfc5424'); the spill tier is disabled"),
+     "durability_spill_scalar"),
+    (_STDIN_TPU + '[durability]\nmode = "bogus"\n', "ref",
+     "durability_bogus_tpu"),
+    (_STDIN_TPU + '[durability]\nmode = "spill"\n', "later",
+     "durability_spill_tpu"),
+    (_STDIN_TPU + '[durability]\nmode = "require"\n', "later",
+     "durability_require_tpu"),
+    (_STDIN_TPU + '[tenants.a]\npeers = ["10.0.0.0/8"]\nweight = 0\n',
+     "ref", "tenants_weight"),
+    (_STDIN_TPU + '[tenant]\ndefault_queue_policy = "x"\n[tenants.a]\n',
+     "ref", "tenant_default_policy"),
+    (_STDIN_TPU + '[tenants.a]\npeers = ["10.0.0.0/8"]\n',
+     ("runs", "WeightedFairQueue", None), "tenants_fair_queue"),
+    (_STDIN_TPU + '[faults]\nsink_write = "once:1"\n', "later",
+     "faults_sink_write"),
+    (_STDIN_TPU + '[faults]\nspill_io = "every:2"\n', "later",
+     "faults_spill_io"),
+    (_STDIN_TPU + '[faults]\ndevice_decode = "every:2"\n', "never",
+     "faults_device_decode"),
+    (_STDIN_TPU + '[faults]\nqueue_pressure = "sometimes"\n', "ref",
+     "faults_bad_spec"),
+    (_STDIN_TPU + '[control]\ninterval_ms = 1000\n', "later", "control"),
+    (_STDIN_TPU + "tpu_fleet = true\n", "later", "fleet"),
+    (_STDIN_TPU + "tpu_fleet_port = 8733\n", "later", "fleet_port"),
+    (_STDIN_TPU + "[metrics]\ninterval = 10\n", "later", "metrics"),
+    (_STDIN_TPU + "[slo.lat]\nobjective = 0.99\n", "later", "slo"),
+    (_STDIN_TPU + "[supervisor]\nmax_restarts = 3\n", "later",
+     "supervisor"),
+]
+
+
+@pytest.mark.parametrize("text,expect", [c[:2] for c in SERVING_CONFIGS],
+                         ids=[c[2] for c in SERVING_CONFIGS])
+def test_serving_configs_match_reference(capsys, text, expect):
+    """The serving layers' keys no longer run silently: the port raises
+    the reference's words where it refuses, names the later slice where
+    the port cannot run the key yet, and builds what the reference
+    builds where it runs (C1 of the roadmap's faults)."""
+    from flowgger_tpu.config import Config as JConfig
+    from flowgger_tpu.pipeline import Pipeline as JPipeline
+    from flowgger_tpu.utils import faultinject as JFI
+    from flowgger_tpu_torch.utils import faultinject as FI
+
+    text += '[output]\ntype = "stdout"\n'
+    try:
+        if expect == "ref":
+            with pytest.raises(Exception) as ref:
+                JPipeline(JConfig.from_string(text))
+            with pytest.raises(Exception) as exc:
+                pipeline.Pipeline(Config.from_string(text), device="cpu")
+            assert type(exc.value).__name__ == type(ref.value).__name__
+            assert str(exc.value) == str(ref.value)
+            return
+        if expect == "later":
+            with pytest.raises(ConfigError, match="later slice") as exc:
+                pipeline.Pipeline(Config.from_string(text), device="cpu")
+            assert "ROADMAP A8." in str(exc.value)
+            return
+        if expect == "never":
+            # a kernel failure ends the port's run: nothing to inject
+            with pytest.raises(ConfigError, match="is not ported: a device "
+                               "or kernel failure ends the port's run"):
+                pipeline.Pipeline(Config.from_string(text), device="cpu")
+            JPipeline(JConfig.from_string(text))
+            return
+        capsys.readouterr()
+        pipe = pipeline.Pipeline(Config.from_string(text), device="cpu")
+        port_err = capsys.readouterr().err
+        ref = JPipeline(JConfig.from_string(text))
+        ref_err = capsys.readouterr().err
+        if len(expect) == 2:
+            assert port_err == ref_err == expect[1] + "\n"
+            return
+        assert type(pipe.tx).__name__ == type(ref.tx).__name__ == expect[1]
+        if expect[2] is not None:
+            assert pipe.tx.policy == ref.tx.policy == expect[2]
+    finally:
+        FI.reset()
+        JFI.reset()
+
+
 @pytest.mark.parametrize("text,words", [
     ('[input]\ntype = "carrier-pigeon"\n', "Invalid input type: "
      "carrier-pigeon"),
@@ -349,7 +450,11 @@ _NEW_MODULES = ("encoders.ltsv", "decoders.dns", "tpu.dns",
                 "utils.recvmmsg", "utils.inotify", "utils.retry",
                 "utils.resp", "utils.rotating_file", "utils.snappy",
                 "utils.kafka_wire", "inputs.redis_input",
-                "outputs.tls_output", "outputs.kafka_output")
+                "outputs.tls_output", "outputs.kafka_output",
+                "utils.bounded_queue", "utils.faultinject", "tpu.breaker",
+                "tenancy", "tenancy.registry", "tenancy.admission",
+                "tenancy.fairqueue", "tenancy.templates",
+                "tpu.encode_passthrough")
 
 
 def test_import_rule():
